@@ -1,0 +1,91 @@
+"""Truncated complex SVD of the MPS bond update, and its eigh switch.
+
+Counterpart of the JAX package's `ops/cplx.py` `svd_trunc`. There the
+engine's complex numbers were split (re, im) pairs because the TPU had no
+complex dtype; here they are native complex64/complex128 tensors, so only
+the SVD contract is left in this module.
+
+The SVD comes from the top eigenpairs of the Gram matrix theta^H theta,
+through one of two eigensolvers, chosen by the explicit `eigh` argument:
+
+  "kernels"  (the default) the three eigensolver kernels of
+             ops/eigh_kernels.py: tridiagonalize -> tridiagonal eigensolver
+             -> back-transform. On a CUDA tensor these are hand-written CUDA
+             kernels; on a CPU tensor their plain PyTorch versions.
+  "native"   torch.linalg.eigh on the complex Gram, taken in complex128.
+
+`verification_eigh()` makes "native" the default inside its block: one-shot
+verification re-simulations must not share the failure modes of the sweep
+path they verify (the JAX package pins them to its `embed` eigh for the same
+reason).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from . import eigh_kernels
+
+EIGH_MODES = ("kernels", "native")
+_default_eigh = "kernels"
+
+
+def default_eigh() -> str:
+    return _default_eigh
+
+
+@contextlib.contextmanager
+def verification_eigh():
+    """Select eigh="native" for every svd_trunc that does not name one."""
+    global _default_eigh
+    prev = _default_eigh
+    _default_eigh = "native"
+    try:
+        yield
+    finally:
+        _default_eigh = prev
+
+
+def eigh_top(h: torch.Tensor, keep: int, eigh: str = None):
+    """Top-`keep` eigenpairs of Hermitian h: (w (keep,) descending,
+    V (m, keep) eigenvector columns)."""
+    eigh = eigh or _default_eigh
+    if eigh == "kernels":
+        return eigh_kernels.eigh_top_kernels(h, keep)
+    if eigh == "native":
+        # in complex128: the single-precision LAPACK driver fails to
+        # converge on Grams with a large exactly-degenerate null space
+        w, v = torch.linalg.eigh(h.to(torch.complex128))  # ascending
+        return (w.flip(0)[:keep].to(h.real.dtype),
+                v.flip(1)[:, :keep].to(h.dtype))
+    raise ValueError(f"eigh must be one of {EIGH_MODES}, got {eigh!r}")
+
+
+def svd_trunc(theta: torch.Tensor, chi_keep: int, threshold: float,
+              eigh: str = None):
+    """Truncated SVD of complex theta (m, n): top chi_keep singular values.
+
+    Returns (U (m, chi_keep), s (chi_keep,), Vh (chi_keep, n)), singular
+    values descending; values at or below `threshold` are zeroed (Aer's
+    matrix_product_state_truncation_threshold semantics).
+
+    The singular values are the column norms ||theta v_i|| rather than the
+    square roots of the Gram eigenvalues: on rank-deficient input the Gram's
+    noise eigenvalues can be arbitrarily small while v_i still overlaps the
+    true support, and dividing by their square root manufactures huge U
+    columns. Columns below 8 eps max(s) are unresolvable Gram-noise
+    directions and are zeroed even when threshold == 0."""
+    h = theta.mH @ theta
+    _, v = eigh_top(h, chi_keep, eigh)
+    u = theta @ v  # columns theta v_i, of norm s_i
+    s = torch.sqrt((u.real * u.real + u.imag * u.imag).sum(dim=0))
+    floor = 8.0 * torch.finfo(s.dtype).eps * s.max()
+    keep = (s > threshold) & (s > floor)
+    s_k = torch.where(keep, s, torch.zeros_like(s))
+    inv_s = torch.where(keep, 1.0 / torch.clamp(s, min=1e-30),
+                        torch.zeros_like(s))
+    u = u * inv_s
+    vh = v.mH * keep[:, None]
+    return u, s_k, vh

@@ -1,0 +1,123 @@
+"""Build and load the package's CUDA kernels (csrc/*.cu) as one shared
+library with a plain C interface, bound through ctypes.
+
+The library is compiled with nvcc for sm_90a at the first kernel launch of a
+process, into `_build/` beside the package (a directory git ignores), under a
+file name keyed by a hash of the sources, so an edited source is never served
+by a stale binary. Importing this module builds nothing and needs no nvcc.
+
+Every launcher in the library takes device pointers and the CUDA stream as
+`void*`, launches on that stream without synchronising, and returns the
+`cudaError_t` of the launch (0 on success); `check` turns a nonzero code into
+an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("env_chain.cu", "eigh_tridiag.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# launcher name -> argument types (pointers and the stream as void*)
+_SIGNATURES = {
+    "env_chain_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "tridiag_launch": (_P, _P, _P, _P, _P, _I, _P),
+    "teig_launch": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "backtransform_launch": (_P, _P, _P, _P, _I, _I, _P),
+}
+
+_lib = None
+build_seconds = None  # wall time of this process's nvcc run, if it built
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        digest.update((CSRC / name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libadaptaqc_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if this source state has no library yet."""
+    global build_seconds
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: concurrent builders never see half a file
+    build_seconds = time.perf_counter() - t0
+    return path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        handle.adaptaqc_error_string.argtypes = [ctypes.c_int]
+        handle.adaptaqc_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(rc: int, kernel: str) -> None:
+    if rc != 0:
+        msg = lib().adaptaqc_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc} "
+                           f"({msg})")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of the tensor's device, as an address."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, name: str, dtype, shape) -> None:
+    """Kernel argument check: a contiguous CUDA tensor of exact dtype/shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype} (the CUDA "
+                        f"kernels are complex64/float32 only)")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

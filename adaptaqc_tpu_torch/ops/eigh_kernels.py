@@ -1,0 +1,346 @@
+"""The three eigensolver kernels of the bond truncation (K2-K4), their plain
+PyTorch versions, and their wrappers.
+
+Counterpart of the JAX package's `ops/pallas_eigh.py`. `svd_trunc` needs the
+top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
+
+  tridiag        h = Q T Q^H, T real symmetric tridiagonal (zhetd2 semantics:
+                 beta = -sign(Re alpha) |x|, tau = 1 - beta^ alpha^, scale-
+                 invariant reflector v = [0.., 1, x^ / (alpha^ - beta^)]);
+  teig           all eigenpairs of T: 30 rounds of Sturm bisection (one lane
+                 per eigenvalue, descending), ulp-scaled separation of
+                 coincident shifts, two rounds of partial-pivoted LU inverse
+                 iteration from the fixed right-hand side b0, then CGS2
+                 across the columns;
+  backtransform  out = H_0 H_1 ... H_{m-2} z with H_k = I - tau_k v_k v_k^H.
+
+Each wrapper runs the plain version for a tensor on the CPU and launches the
+CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device; it raises
+for anything the kernel does not take (complex128/float64, m > 128, a
+non-contiguous tensor). There is no fallback from the kernel to the plain
+version. Each wrapper counts its launches in `<wrapper>.launches`.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+
+MAX_M = 128  # one block holds the m x m complex work matrix in shared memory
+_B0_SEED = 181818
+
+
+def _teig_constants(dtype: torch.dtype):
+    """(bisection rounds, relative eps, pivmin floor) for a real dtype.
+
+    float32 keeps the JAX kernel's constants (30 rounds, 1.2e-7, 1e-35).
+    float64 scales them to its mantissa: 60 rounds, 2.3e-16 (its machine
+    epsilon rounded up as 1.2e-7 is float32's), floor 1e-300."""
+    if dtype == torch.float32:
+        return 30, 1.2e-7, 1e-35
+    if dtype == torch.float64:
+        return 60, 2.3e-16, 1e-300
+    raise TypeError(f"teig: unsupported dtype {dtype}")
+
+
+@functools.lru_cache(maxsize=32)
+def _b0_np(m: int) -> np.ndarray:
+    """Fixed inverse-iteration right-hand side: the JAX package's array
+    (numpy default_rng(181818).normal, rounded to float32)."""
+    return np.random.default_rng(_B0_SEED).normal(size=(m, m)).astype(
+        np.float32)
+
+
+_B0_CACHE = {}
+
+
+def teig_b0(m: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """b0 on the device, uploaded once per (m, dtype, device)."""
+    key = (m, dtype, str(device))
+    t = _B0_CACHE.get(key)
+    if t is None:
+        t = torch.from_numpy(_b0_np(m)).to(device=device, dtype=dtype)
+        _B0_CACHE[key] = t
+    return t
+
+
+# ------------------------------------------------------------------ plain
+
+def tridiag_plain(h: torch.Tensor):
+    """Householder tridiagonalization of a Hermitian h (m, m).
+
+    Returns (vrows (m, m) complex with row k = v_k, tau (m,) complex,
+    d (m,) real, e (m,) real); entries m-1 of tau and e are zero."""
+    m = h.shape[-1]
+    a = h.clone()
+    rdt = a.real.dtype
+    dev = a.device
+    vrows = torch.zeros_like(a)
+    tau = torch.zeros(m, dtype=a.dtype, device=dev)
+    e = torch.zeros(m, dtype=rdt, device=dev)
+    one = torch.ones((), dtype=rdt, device=dev)
+    zero = torch.zeros((), dtype=rdt, device=dev)
+    for k in range(m - 1):
+        col = a[:, k]
+        alpha = col[k + 1]
+        x = col[k + 2:]
+        xnorm2 = (x.real * x.real + x.imag * x.imag).sum()
+        nrm = torch.sqrt(alpha.real * alpha.real + alpha.imag * alpha.imag
+                         + xnorm2)
+        active = nrm > 0
+        inv = torch.where(active, one / torch.where(active, nrm, one), zero)
+        ahr = alpha.real * inv
+        ahi = alpha.imag * inv
+        bh = torch.where(ahr >= 0, -one, one)
+        beta = torch.where(active, bh * nrm, zero)
+        tau_k = torch.complex(torch.where(active, 1.0 - ahr * bh, zero),
+                              torch.where(active, -ahi * bh, zero))
+        dr = ahr - bh
+        di = ahi
+        sdn = torch.where(active, dr * dr + di * di, one)
+        v = torch.zeros(m, dtype=a.dtype, device=dev)
+        v[k + 1] = 1.0
+        v[k + 2:] = torch.complex((x.real * dr + x.imag * di) * inv / sdn,
+                                  (x.imag * dr - x.real * di) * inv / sdn)
+        u = a @ v
+        s = torch.vdot(v, u)
+        t2 = tau_k.conj() * s * 0.5
+        w = tau_k * (u - t2 * v)
+        a = a - torch.outer(v, w.conj()) - torch.outer(w, v.conj())
+        vrows[k] = v
+        tau[k] = tau_k
+        e[k] = beta
+    d = a.diagonal().real.clone()
+    return vrows, tau, d, e
+
+
+def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
+    """All eigenpairs of the real symmetric tridiagonal (d, e[:m-1]).
+
+    Returns (w (m,) descending, z (m, m) with column j the eigenvector of
+    w[j]). Vectorised over the m eigenvalue lanes."""
+    m = d.shape[0]
+    dt = d.dtype
+    dev = d.device
+    rounds, eps_rel, piv_floor = _teig_constants(dt)
+    if b0 is None:
+        b0 = teig_b0(m, dt, dev)
+    e_row = e.clone()
+    e_row[m - 1] = 0.0
+    zero1 = torch.zeros(1, dtype=dt, device=dev)
+    e_left = torch.cat([zero1, e_row[:-1]])
+    radius = e_row.abs() + e_left.abs()
+    lo0 = (d - radius).min()
+    hi0 = (d + radius).max()
+    scale = torch.clamp(torch.maximum(lo0.abs(), hi0.abs()), min=1e-30)
+    pivmin = torch.clamp((eps_rel * scale) ** 2, min=piv_floor)
+    neg_piv = -pivmin
+    e2 = e_row * e_row
+    lane = torch.arange(m, device=dev)
+    target = (m - 1 - lane).to(dt)
+
+    # Sturm bisection: lane j converges onto the j-th largest eigenvalue.
+    # Step i is q = (d_i - mid) - e_{i-1}^2 / q (addcdiv rounds exactly so),
+    # with |q| < pivmin replaced by -pivmin; the count is of negative q.
+    # A round first runs without the guard; only if some |q| fell below
+    # pivmin (the guard would have fired) is it rerun with the guard, so
+    # the result is that of the guarded recurrence either way.
+    los = lo0.expand(m).clone()
+    his = hi0.expand(m).clone()
+    e2_rows = e2.unbind(0)
+
+    def sturm(dm, guarded):
+        q = dm[0]
+        qs = []
+        for i in range(m):
+            if i:
+                q = torch.addcdiv(dm[i], e2_rows[i - 1], q, value=-1.0)
+            if guarded:
+                q = torch.where(q.abs() < pivmin, neg_piv, q)
+            qs.append(q)
+        return torch.stack(qs)
+
+    for _ in range(rounds):
+        mid = 0.5 * (los + his)
+        dm = (d[:, None] - mid[None, :]).unbind(0)
+        qs = sturm(dm, False)
+        if bool((qs.abs() < pivmin).any()):
+            qs = sturm(dm, True)
+        cnt = (qs < 0).sum(dim=0).to(dt)
+        above = cnt > target
+        los = torch.where(above, los, mid)
+        his = torch.where(above, mid, his)
+    w = 0.5 * (los + his)
+
+    # lam[j] = min_{l<=j} (w[l] - (j-l) eps): coincident shifts split by ulps
+    eps = eps_rel * scale
+    gap = (lane[None, :] - lane[:, None]).to(dt)  # [l, j] = j - l
+    sep = torch.where(gap >= 0, w[:, None] - gap * eps, hi0 + scale)
+    lam = sep.min(dim=0).values
+
+    def guard(v):
+        return torch.where(v.abs() < pivmin,
+                           torch.where(v >= 0, pivmin, neg_piv), v)
+
+    # partial-pivoted LU of (T - lam I), one factorisation per lane
+    e_rows = e_row.unbind(0)
+    d_lam = (d[:, None] - lam[None, :]).unbind(0)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    du, u1, u2, mrow, swp = [], [], [], [], []
+    a_i = d_lam[0]
+    s1_i = e_rows[0]
+    for i in range(m - 1):
+        a_next = d_lam[i + 1]
+        s1_next = e_rows[i + 1]
+        r2 = e_rows[i]
+        swap = r2.abs() > a_i.abs()
+        top0 = guard(torch.where(swap, r2, a_i))
+        top1 = torch.where(swap, a_next, s1_i)
+        top2 = torch.where(swap, s1_next, zero)
+        bot0 = torch.where(swap, a_i, r2)
+        bot1 = torch.where(swap, s1_i, a_next)
+        bot2 = torch.where(swap, zero, s1_next)
+        mlt = bot0 / top0
+        du.append(top0)
+        u1.append(top1)
+        u2.append(top2)
+        mrow.append(mlt)
+        swp.append(swap)
+        a_i = bot1 - mlt * top1
+        s1_i = bot2 - mlt * top2
+    du.append(guard(a_i))
+
+    # two rounds of inverse iteration from b0 (rows of the iterate as a list)
+    rows = list(b0.unbind(0))
+    for _ in range(2):
+        for i in range(m - 1):
+            bi, bi1 = rows[i], rows[i + 1]
+            bt = torch.where(swp[i], bi1, bi)
+            rows[i] = bt
+            rows[i + 1] = torch.where(swp[i], bi, bi1) - mrow[i] * bt
+        rows[m - 1] = rows[m - 1] / du[m - 1]
+        rows[m - 2] = (rows[m - 2] - u1[m - 2] * rows[m - 1]) / du[m - 2]
+        for i in range(m - 3, -1, -1):
+            rows[i] = (rows[i] - u1[i] * rows[i + 1]
+                       - u2[i] * rows[i + 2]) / du[i]
+        bb = torch.stack(rows)
+        # scale by the max-abs first: a nearly singular shift leaves
+        # |x| ~ 1/pivmin^2, whose square overflows float32
+        amax = bb.abs().max(dim=0).values
+        bb = bb / torch.where(amax > 0, amax, torch.ones_like(amax))
+        nrm2 = (bb * bb).sum(dim=0)
+        bb = bb * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
+        rows = list(bb.unbind(0))
+
+    # CGS2 across columns (descending order keeps clusters contiguous)
+    for j in range(1, m):
+        prev = bb[:, :j]
+        v = bb[:, j]
+        for _ in range(2):
+            v = v - prev @ (prev.T @ v)
+        nrm2 = (v * v).sum()
+        bb[:, j] = v * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
+    return w, bb
+
+
+def backtransform_plain(vrows: torch.Tensor, tau: torch.Tensor,
+                        z: torch.Tensor, keep: int) -> torch.Tensor:
+    """Q z[:, :keep] for Q = H_0 ... H_{m-2}: (m, keep) complex."""
+    m = vrows.shape[0]
+    out = z[:, :keep].to(vrows.dtype)
+    for k in range(m - 2, -1, -1):
+        v = vrows[k]
+        y = v.conj() @ out  # (keep,)
+        out = out - torch.outer(tau[k] * v, y)
+    return out
+
+
+# --------------------------------------------------------------- wrappers
+
+def _check_m(m: int, name: str):
+    if m < 2 or m > MAX_M:
+        raise ValueError(f"{name}: the CUDA kernel takes 2 <= m <= {MAX_M}, "
+                         f"got m={m}")
+
+
+def tridiag(h: torch.Tensor):
+    """Kernel K2 (replaces pallas_eigh._tridiag_kernel). h must already be
+    Hermitian (the caller symmetrises it). Same outputs as tridiag_plain."""
+    if h.device.type == "cpu":
+        return tridiag_plain(h)
+    m = h.shape[-1]
+    _check_m(m, "tridiag")
+    cuda_lib.require(h, "tridiag h", torch.complex64, (m, m))
+    dev = h.device
+    vrows = torch.empty((m, m), dtype=torch.complex64, device=dev)
+    tau = torch.empty(m, dtype=torch.complex64, device=dev)
+    d = torch.empty(m, dtype=torch.float32, device=dev)
+    e = torch.empty(m, dtype=torch.float32, device=dev)
+    rc = cuda_lib.lib().tridiag_launch(
+        h.data_ptr(), vrows.data_ptr(), tau.data_ptr(), d.data_ptr(),
+        e.data_ptr(), m, cuda_lib.stream_of(h))
+    cuda_lib.check(rc, "tridiag")
+    tridiag.launches += 1
+    return vrows, tau, d, e
+
+
+def teig(d: torch.Tensor, e: torch.Tensor):
+    """Kernel K3 (replaces pallas_eigh._teig_kernel). Same outputs as
+    teig_plain: (w (m,) descending, z (m, m) eigenvector columns)."""
+    if d.device.type == "cpu":
+        return teig_plain(d, e)
+    m = d.shape[0]
+    _check_m(m, "teig")
+    cuda_lib.require(d, "teig d", torch.float32, (m,))
+    cuda_lib.require(e, "teig e", torch.float32, (m,))
+    dev = d.device
+    b0 = teig_b0(m, torch.float32, dev)
+    w = torch.empty(m, dtype=torch.float32, device=dev)
+    z = torch.empty((m, m), dtype=torch.float32, device=dev)
+    scratch = torch.empty((5, m, m), dtype=torch.float32, device=dev)
+    rc = cuda_lib.lib().teig_launch(
+        d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
+        z.data_ptr(), scratch.data_ptr(), m, cuda_lib.stream_of(d))
+    cuda_lib.check(rc, "teig")
+    teig.launches += 1
+    return w, z
+
+
+def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
+                  keep: int) -> torch.Tensor:
+    """Kernel K4 (replaces pallas_eigh._backtransform_kernel): the first
+    `keep` columns of z lifted to the complex basis, (m, keep)."""
+    if vrows.device.type == "cpu":
+        return backtransform_plain(vrows, tau, z, keep)
+    m = vrows.shape[0]
+    _check_m(m, "backtransform")
+    if not 1 <= keep <= m:
+        raise ValueError(f"backtransform: keep={keep} outside [1, {m}]")
+    cuda_lib.require(vrows, "backtransform vrows", torch.complex64, (m, m))
+    cuda_lib.require(tau, "backtransform tau", torch.complex64, (m,))
+    cuda_lib.require(z, "backtransform z", torch.float32, (m, m))
+    out = torch.empty((m, keep), dtype=torch.complex64, device=vrows.device)
+    rc = cuda_lib.lib().backtransform_launch(
+        vrows.data_ptr(), tau.data_ptr(), z.data_ptr(), out.data_ptr(), m,
+        keep, cuda_lib.stream_of(vrows))
+    cuda_lib.check(rc, "backtransform")
+    backtransform.launches += 1
+    return out
+
+
+tridiag.launches = 0
+teig.launches = 0
+backtransform.launches = 0
+
+
+def eigh_top_kernels(h: torch.Tensor, keep: int):
+    """Top-`keep` eigenpairs of Hermitian h through K2 -> K3 -> K4.
+    Returns (w (keep,) descending, V (m, keep) eigenvector columns)."""
+    hh = (h + h.mH) * 0.5
+    vrows, tau, d, e = tridiag(hh.contiguous())
+    w, z = teig(d, e)
+    return w[:keep], backtransform(vrows, tau, z, keep)

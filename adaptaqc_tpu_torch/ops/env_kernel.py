@@ -1,0 +1,87 @@
+"""The environment-chain kernel of the sweep probes (K1), its plain PyTorch
+version, and its wrapper.
+
+Counterpart of the JAX package's `ops/pallas_env.py`. A Rotosolve /
+Rotoselect probe on site q needs the 2x2 local overlap matrix
+
+    C[i, j] = <R| (|i><j| at site q) |L>
+
+from the B-form site tensors of the bra R and the ket L (n, 2, chi, chi):
+
+  forward   e' = sum_p A_p^H e B_p           over sites 0 .. q-1
+  backward  f' = sum_p conj(A_p) f B_p^T     over sites n-1 .. q+1
+  combine   C[i, j] = sum conj(A_i[a, x]) e[a, b] B_j[b, y] f[x, y]  at q
+
+with A = R's and B = L's tensors and both chains starting from |0><0| on the
+(padded) boundary bond. The wrapper runs the plain version for tensors on the
+CPU and launches the CUDA kernel (csrc/env_chain.cu) for tensors on a CUDA
+device, raising for anything the kernel does not take (complex128,
+chi > 64, a non-contiguous tensor). Launches are counted in
+`env_chain.launches`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+MAX_CHI = 64  # five padded chi x chi complex tiles of shared memory per block
+
+
+def boundary_env(chi: int, dtype, device) -> torch.Tensor:
+    """|0><0| on the padded boundary bond: where every chain starts."""
+    e0 = torch.zeros((chi, chi), dtype=dtype, device=device)
+    e0[0, 0] = 1.0
+    return e0
+
+
+def forward_step(e, a, b):
+    """e' = sum_p A_p^H e B_p for site tensors a, b (2, chi, chi)."""
+    return torch.einsum("pax,pay->xy", a.conj(), e @ b)
+
+
+def backward_step(f, a, b):
+    """f' = sum_p conj(A_p) f B_p^T."""
+    return torch.einsum("pxa,pay->xy", a.conj(), f @ b.transpose(-1, -2))
+
+
+def env_chain_plain(br: torch.Tensor, bl: torch.Tensor, q: int):
+    """C (2, 2) complex, as above, in plain PyTorch."""
+    n, _, chi, _ = br.shape
+    e0 = boundary_env(chi, br.dtype, br.device)
+    e = e0
+    for i in range(q):
+        e = forward_step(e, br[i], bl[i])
+    f = e0
+    for i in range(n - 1, q, -1):
+        f = backward_step(f, br[i], bl[i])
+    h = (e @ bl[q]) @ f.transpose(-1, -2)  # H_j[a, x] = (e B_j f^T)[a, x]
+    return torch.einsum("iax,jax->ij", br[q].conj(), h)
+
+
+def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
+    """Kernel K1 (replaces pallas_env._env_kernel): C (2, 2) complex."""
+    if br.device.type == "cpu":
+        return env_chain_plain(br, bl, q)
+    n, _, chi, _ = br.shape
+    if chi > MAX_CHI:
+        raise ValueError(f"env_chain: the CUDA kernel takes chi <= {MAX_CHI}, "
+                         f"got chi={chi}")
+    if not 0 <= q < n:
+        raise ValueError(f"env_chain: site q={q} outside [0, {n})")
+    cuda_lib.require(br, "env_chain bra", torch.complex64, (n, 2, chi, chi))
+    cuda_lib.require(bl, "env_chain ket", torch.complex64, (n, 2, chi, chi))
+    if bl.device != br.device:
+        raise ValueError("env_chain: bra and ket on different devices")
+    snaps = torch.empty((2, chi, chi), dtype=torch.complex64, device=br.device)
+    out = torch.empty((2, 2), dtype=torch.complex64, device=br.device)
+    rc = cuda_lib.lib().env_chain_launch(
+        br.data_ptr(), bl.data_ptr(), snaps.data_ptr(), out.data_ptr(), n,
+        chi, int(q), cuda_lib.stream_of(br))
+    cuda_lib.check(rc, "env_chain")
+    env_chain.launches += 1
+    return out
+
+
+env_chain.launches = 0

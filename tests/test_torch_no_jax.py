@@ -1,0 +1,42 @@
+"""The port stands alone: every module of adaptaqc_tpu_torch imports with
+JAX made unimportable, and importing builds no kernel and needs no nvcc."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SCRIPT = r"""
+import importlib, os, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["adaptaqc_tpu"] = None  # nor may the JAX package be reached
+os.environ["PATH"] = ""            # no nvcc (or any tool) on the path
+import adaptaqc_tpu_torch
+names = []
+for mod in pkgutil.walk_packages(adaptaqc_tpu_torch.__path__,
+                                 "adaptaqc_tpu_torch."):
+    importlib.import_module(mod.name)
+    names.append(mod.name)
+from adaptaqc_tpu_torch.ops import cuda_lib
+assert cuda_lib._lib is None, "a kernel library was loaded at import"
+assert cuda_lib.build_seconds is None, "nvcc ran at import"
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+assert not any(m.startswith("triton") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_public_entry_points():
+    import adaptaqc_tpu_torch as port
+    for name in ("AdaptCompiler", "AdaptConfig", "mps_backend_with_args"):
+        assert hasattr(port, name)
