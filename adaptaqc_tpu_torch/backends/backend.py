@@ -1,10 +1,11 @@
-"""Backend layer: the AQCBackend contract and the MPS engine adapter.
+"""Backend layer: the AQCBackend contract and the engine adapters.
 
-Counterpart of the JAX package's `backends/backend.py` (AQCBackend,
-MPSBackend, mps_backend_with_args). A backend holds no simulator of its own
-to call out to: it evaluates tapes against a cached engine prefix state, so
-a cost query after the prefix is one engine call. The statevector and
-sampling backends are not ported yet (ROADMAP).
+Counterpart of the JAX package's `backends/backend.py`: SVBackend (the
+statevector engine), MPSBackend (the MPS engine), SamplingBackend (shot
+estimates drawn from the statevector engine, the "QASM" backend) and
+mps_backend_with_args. A backend holds no simulator of its own to call out
+to: it evaluates tapes against a cached engine prefix state, so a cost query
+after the prefix is one engine call.
 
 Every engine state lives on the backend's explicit `device`, in its `dtype`
 (complex64 by default; complex128 for float64 parity work on the CPU).
@@ -22,7 +23,7 @@ import torch
 from .. import config
 from ..circuits.circuit import Circuit
 from ..circuits.tape import Tape, compile_tape
-from . import mps_core
+from . import mps_core, sv_core
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +49,83 @@ class AQCBackend(ABC):
     @abstractmethod
     def measure_qubit_expectation_values(self, compiler):
         ...
+
+
+class SVBackend(AQCBackend):
+    """Statevector cost engine (AerSVBackend analogue): the flat (2**n,)
+    state of backends/sv_core.py.
+
+    :param device: torch device of every engine state ("cpu", "cuda", ...).
+    :param dtype: complex dtype of the engine (complex64 by default).
+    """
+
+    engine_name = "sv"
+
+    def __init__(self, device="cpu", dtype: torch.dtype = None):
+        self.device = torch.device(device)
+        self.dtype = dtype or config.DEFAULT_DTYPE
+
+    # ------------------------------------------------------- engine plumbing
+    def initial_state(self, circuit: Circuit, n: int):
+        """Engine state for the leading state-injection instruction, if
+        any, else |0...0>."""
+        if circuit.data and circuit.data[0].name == "set_statevector":
+            return sv_core.state_from_vector(circuit.data[0].payload,
+                                             self.dtype, self.device)
+        if circuit.data and circuit.data[0].name == "set_mps":
+            raise ValueError("SV backend cannot consume an MPS target")
+        return sv_core.zero_state(n, self.dtype, self.device)
+
+    def run_tape(self, state, tape: Tape):
+        return sv_core.apply_tape(state, tape.kinds, tape.q0, tape.q1,
+                                  tape.angles)
+
+    def run_tape_adjoint(self, state, tape: Tape):
+        return sv_core.apply_tape_adjoint(state, tape.kinds, tape.q0,
+                                          tape.q1, tape.angles)
+
+    def state_of(self, compiler):
+        return compiler._current_state()
+
+    def sweep_engine(self):
+        return sv_core.sweep_engine()
+
+    def zero_ref(self, compiler):
+        return sv_core.zero_state(compiler.full_circuit.num_qubits,
+                                  self.dtype, self.device)
+
+    # ----------------------------------------------------------- cost layer
+    def evaluate_global_cost(self, compiler):
+        """1 - |<0|psi>|^2 (aer_sv_backend.py:28-30), one device sync."""
+        if compiler.soften_global_cost:
+            raise NotImplementedError(
+                "soften_global_cost is not ported yet (ROADMAP.md)")
+        return float(sv_core.global_cost(self.state_of(compiler)))
+
+    def evaluate_local_cost(self, compiler):
+        e_vals = self.measure_qubit_expectation_values(compiler)
+        return float(0.5 * (1 - np.mean(e_vals)))
+
+    def evaluate_circuit(self, compiler):
+        return self.state_of(compiler)
+
+    def measure_qubit_expectation_values(self, compiler):
+        """<Z_q> of every qubit (one device sync)."""
+        state = self.state_of(compiler)
+        return sv_core.z_expectations(
+            state, compiler.full_circuit.num_qubits).cpu().numpy().tolist()
+
+    # -------------------------------------------------------- analysis layer
+    def all_pair_rdms(self, state, pairs):
+        """Host (4, 4) RDMs of the pairs, computed on the device and read
+        back together (one sync)."""
+        return list(sv_core.all_pair_rdms(state, pairs).cpu().numpy())
+
+    def two_qubit_rdm(self, circuit_or_compiler, q1, q2, state=None):
+        if state is None:
+            state = self.state_of(circuit_or_compiler)
+        lo, hi = min(q1, q2), max(q1, q2)
+        return sv_core.rdm2(state, lo, hi).cpu().numpy()
 
 
 class MPSBackend(AQCBackend):
@@ -144,6 +222,19 @@ class MPSBackend(AQCBackend):
         state = self.state_of(compiler)
         return mps_core.z_expectations(state).cpu().numpy().tolist()
 
+    # -------------------------------------------------------- analysis layer
+    def all_pair_rdms(self, state, pairs):
+        """Host (4, 4) RDMs of the pairs (lower qubit as the low bit), read
+        off one device-side (n, n, 4, 4) sweep."""
+        rhos = mps_core.all_pair_rdms(state).cpu().numpy()
+        return [rhos[min(a, b), max(a, b)]
+                for a, b in np.asarray(pairs).reshape(-1, 2).tolist()]
+
+    def two_qubit_rdm(self, circuit_or_compiler, q1, q2, state=None):
+        if state is None:
+            state = self.state_of(circuit_or_compiler)
+        return self.all_pair_rdms(state, [(q1, q2)])[0]
+
     def mps_from_compiler_target(self, circuit: Circuit, start_state=None):
         """Simulate a target circuit into an engine MPS (the reference's
         mps_from_circuit precompute)."""
@@ -162,3 +253,152 @@ def mps_backend_with_args(mps_truncation_threshold=DEFAULT_TRUNCATION_THRESHOLD,
     """mps_sim_with_args analogue (aer_mps_backend.py:27-42)."""
     return MPSBackend(mps_truncation_threshold, max_chi, mps_log_data,
                       device=device, dtype=dtype)
+
+
+class SamplingBackend(AQCBackend):
+    """Shot-based cost estimates: counts drawn from the statevector
+    engine's |psi|^2 (QiskitSamplingBackend analogue, the "QASM" backend).
+
+    :param shots: shots of every estimate.
+    :param seed: seeds both generators: the torch.Generator of the draws on
+        the device, and `host_rng` (numpy) for tomography and noise
+        trajectories.
+    :param device: torch device of the statevector engine and the draws.
+    :param dtype: complex dtype of the statevector engine.
+    """
+
+    engine_name = "sampling"
+
+    def __init__(self, shots: int = 8192, seed: int = 0, device="cpu",
+                 dtype: torch.dtype = None):
+        self.shots = shots
+        self._sv = SVBackend(device, dtype)
+        self.device = self._sv.device
+        self.dtype = self._sv.dtype
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.host_rng = np.random.default_rng(seed)
+
+    # engine plumbing delegates to the statevector engine
+    def initial_state(self, circuit, n):
+        return self._sv.initial_state(circuit, n)
+
+    def run_tape(self, state, tape):
+        return self._sv.run_tape(state, tape)
+
+    def run_tape_adjoint(self, state, tape):
+        return self._sv.run_tape_adjoint(state, tape)
+
+    def state_of(self, compiler):
+        return compiler._current_state()
+
+    def sweep_engine(self):
+        return None  # shot-based costs have no closed-form probe
+
+    def zero_ref(self, compiler):
+        return self._sv.zero_ref(compiler)
+
+    # --------------------------------------------------------------- draws
+    def sample_state(self, state, shots: int, n: int):
+        """Counts {bitstring: count} of `shots` draws from |state|^2, qubit
+        0 as the rightmost character (qiskit's order).
+
+        The draws are made on the state's device by inverse CDF: uniform
+        numbers from this backend's generator, searched in the float64
+        cumulative sum of |psi|^2. Only the `shots` indices come back to
+        the host. (torch.multinomial takes at most 2**24 categories.)"""
+        cdf = torch.cumsum(sv_core.probabilities(state).to(torch.float64), 0)
+        u = torch.rand(shots, generator=self.generator, dtype=torch.float64,
+                       device=state.device) * cdf[-1]
+        draws = torch.searchsorted(cdf, u, right=True).clamp_(
+            max=cdf.numel() - 1)
+        vals, cnts = np.unique(draws.cpu().numpy(), return_counts=True)
+        return {format(int(v), f"0{n}b"): int(c) for v, c in zip(vals, cnts)}
+
+    def noisy_counts(self, circuit: Circuit, noise_model, shots: int,
+                     num_trajectories: int = 8):
+        """Counts of a circuit under a thermal-relaxation noise model: the
+        shots are split across Monte-Carlo Kraus trajectories, each
+        simulated exactly on the host in float64
+        (circuits/running.simulate_noise_trajectory, drawing from
+        `host_rng`), then sampled on the device."""
+        from ..circuits.running import simulate_noise_trajectory
+        per_traj = [shots // num_trajectories] * num_trajectories
+        per_traj[0] += shots - sum(per_traj)
+        merged = {}
+        for traj_shots in per_traj:
+            if traj_shots == 0:
+                continue
+            sv = simulate_noise_trajectory(circuit, noise_model,
+                                           self.host_rng)
+            state = torch.as_tensor(sv, dtype=self.dtype, device=self.device)
+            for key, c in self.sample_state(state, traj_shots,
+                                            circuit.num_qubits).items():
+                merged[key] = merged.get(key, 0) + c
+        return merged
+
+    def counts(self, compiler, shots: Optional[int] = None,
+               num_trajectories: int = 8):
+        """Sampled counts of the compiler's full circuit; with a noise
+        model in its execute_kwargs, under that model."""
+        from ..circuits.operations import make_quantum_only_circuit
+        shots = shots or self.shots
+        execute_kwargs = getattr(compiler, "execute_kwargs", None) or {}
+        noise_model = execute_kwargs.get("noise_model")
+        if noise_model is not None:
+            return self.noisy_counts(
+                make_quantum_only_circuit(compiler.full_circuit), noise_model,
+                shots, num_trajectories)
+        return self.sample_state(self.state_of(compiler), shots,
+                                 compiler.full_circuit.num_qubits)
+
+    # ----------------------------------------------------------- cost layer
+    def evaluate_global_cost(self, compiler):
+        if compiler.soften_global_cost:
+            raise NotImplementedError(
+                "soften_global_cost is currently only implemented for "
+                "MPSBackend")
+        counts = self.counts(compiler)
+        zero = "0" * compiler.full_circuit.num_qubits
+        return 1.0 - counts.get(zero, 0) / sum(counts.values())
+
+    def evaluate_local_cost(self, compiler):
+        evals = self.measure_qubit_expectation_values(compiler)
+        return float(0.5 * (1 - np.mean(evals)))
+
+    def evaluate_circuit(self, compiler):
+        return self.counts(compiler)
+
+    def measure_qubit_expectation_values(self, compiler):
+        counts = self.counts(compiler)
+        n = compiler.full_circuit.num_qubits
+        evals = np.zeros(n)
+        total = sum(counts.values())
+        for bitstring, c in counts.items():
+            for q in range(n):
+                evals[q] += (1 if bitstring[n - 1 - q] == "0" else -1) * c
+        return list(evals / total)
+
+    # -------------------------------------------------------- analysis layer
+    def all_pair_rdms(self, state, pairs):
+        """Shot-based tomography RDMs: the exact per-pair RDMs fix the
+        outcome distributions of the 9 Pauli settings, and multinomial
+        draws from those (host_rng) stand for running the measurement
+        circuits (entanglement_measures.sample_tomography_rdm)."""
+        from ..utils.entanglement_measures import sample_tomography_rdm
+        exact = self._sv.all_pair_rdms(state, pairs)
+        return [sample_tomography_rdm(rho, self.shots, self.host_rng)
+                for rho in exact]
+
+    def two_qubit_rdm(self, circuit_or_compiler, q1, q2, state=None):
+        from ..utils.entanglement_measures import sample_tomography_rdm
+        if state is None:
+            state = self.state_of(circuit_or_compiler)
+        exact = self._sv.two_qubit_rdm(None, q1, q2, state=state)
+        return sample_tomography_rdm(exact, self.shots, self.host_rng)
+
+
+# default backends (python_default_backends.py:17-19), on the CPU
+SV_SIM = SVBackend()
+MPS_SIM = MPSBackend()
+QASM_SIM = SamplingBackend()

@@ -167,18 +167,9 @@ def apply_gate(state: MPS, kind: int, q0: int, q1: int, u4: torch.Tensor,
     return _apply_1q_at(state, u4[:2, :2], q0)
 
 
-def tape_u4(state: MPS, kinds, angles) -> torch.Tensor:
-    """(G, 4, 4) matrices of host tape arrays, built on the state's device."""
-    dev = state.device
-    k = torch.as_tensor(np.asarray(kinds), dtype=torch.long, device=dev)
-    a = torch.as_tensor(np.asarray(angles),
-                        dtype=config.real_dtype(state.dtype), device=dev)
-    return sv_core.build_u4(k, a, state.dtype)
-
-
 def apply_tape(state: MPS, kinds, q0s, q1s, angles, threshold,
                eigh: str = None) -> MPS:
-    u4s = tape_u4(state, kinds, angles)
+    u4s = sv_core.tape_u4(state, kinds, angles)
     for i, (k, a, b) in enumerate(zip(np.asarray(kinds).tolist(),
                                       np.asarray(q0s).tolist(),
                                       np.asarray(q1s).tolist())):
@@ -189,7 +180,7 @@ def apply_tape(state: MPS, kinds, q0s, q1s, angles, threshold,
 def apply_tape_adjoint(state: MPS, kinds, q0s, q1s, angles, threshold,
                        eigh: str = None) -> MPS:
     """Apply the adjoint of a tape: gates reversed, each as its dagger."""
-    u4s = tape_u4(state, kinds, angles).mH
+    u4s = sv_core.tape_u4(state, kinds, angles).mH
     entries = list(zip(np.asarray(kinds).tolist(), np.asarray(q0s).tolist(),
                        np.asarray(q1s).tolist()))
     for i in range(len(entries) - 1, -1, -1):
@@ -243,6 +234,32 @@ def _local_overlap_dispatch(r_state: MPS, l_state: MPS, q: int):
     """local_overlap_matrix through the env-chain kernel wrapper (the CUDA
     kernel on a CUDA device, its plain version on the CPU)."""
     return env_chain(r_state.b.contiguous(), l_state.b.contiguous(), q)
+
+
+def all_pair_rdms(state: MPS) -> torch.Tensor:
+    """rho(i, j) of every site pair: a complex (n, n, 4, 4) tensor whose
+    entry [i, j], valid for j > i (zero elsewhere), is the two-site RDM with
+    qubit i as the low bit of the basis index.
+
+    One left-anchored open-leg tensor T_i per site i, all i at once as a
+    batch; a walk over j emits rho(i, j) for every i < j and carries T_i
+    through site j. O(n^2 chi^3) in n steps."""
+    n = state.n
+    bs = state.b
+    bc = bs.conj()
+    lam2 = (state.lam[:-1] ** 2).to(bs.dtype)
+    # T[i, p, p', a, b] = sum_c lam2[i][c] B_i[p][c, a] conj(B_i[p'][c, b])
+    t = torch.einsum("ic,ipca,iqcb->ipqab", lam2, bs, bc)
+    sites = torch.arange(n, device=bs.device)
+    rhos = []
+    for j in range(n):
+        valid = (sites < j)[:, None, None, None, None]
+        rho = torch.einsum("ipqab,rac,sbc->irpsq", t, bs[j], bc[j])
+        rhos.append(torch.where(valid, rho, torch.zeros_like(rho))
+                    .reshape(n, 4, 4))
+        t_new = torch.einsum("ipqab,rax,rby->ipqxy", t, bs[j], bc[j])
+        t = torch.where(valid, t_new, t)
+    return torch.stack(rhos, dim=1)
 
 
 # -------------------------------------------------- host conversion utilities

@@ -1,15 +1,19 @@
 """AdaptCompiler: the ADAPT-AQC adaptive structure-learning loop.
 
-Port of the JAX package's `compilers/adapt_compiler.py` for the MPS compile
-path: grow the ansatz one two-qubit block at a time on the pair the
-general_gradient heuristic picks, optimise the new block with Rotoselect,
-re-optimise a trailing window with Rotosolve, absorb frozen layers into the
-cached MPS prefix, and stop on the reference's termination criteria, the
-sufficient-cost stop verified by an exact re-simulation.
+Port of the JAX package's `compilers/adapt_compiler.py`: grow the ansatz one
+two-qubit block at a time on the pair one of six heuristics picks (ISL
+entanglement, expectation, basic, random, general_gradient, brickwall),
+optimise the new block with Rotoselect, re-optimise a trailing window with
+Rotosolve, and stop on the reference's termination criteria. On an MPS
+backend, frozen layers are absorbed into the cached MPS prefix and the
+sufficient-cost stop is verified by an exact re-simulation; on a
+statevector backend the result carries the exact dense overlap.
 
-Not ported yet (ROADMAP.md): the ISL, expectation, basic, random and
-brickwall heuristics, checkpoints, profiling, compile_with_chi_schedule,
-the initial single-qubit layer and the final BOBYQA minimisation.
+With no backend argument, as in the JAX package, the compile runs on
+SVBackend() (on the CPU) with the ISL heuristic. Not ported yet
+(ROADMAP.md): checkpoints, compile_in_parts, compile_with_chi_schedule,
+profiling, the final BOBYQA minimisation, the softened cost and the
+local-cost global polish.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ import logging
 import timeit
 
 import numpy as np
+import torch
 
 from ..backends import mps_core, sv_core
-from ..backends.backend import AQCBackend
+from ..backends.backend import AQCBackend, SamplingBackend, SVBackend
 from ..circuits import operations as co
 from ..circuits import qasm
 from ..circuits.circuit import Circuit
@@ -32,9 +37,13 @@ from ..utils import ansatzes as ans
 from ..utils import constants as vconstants
 from ..utils import gradients as gr
 from ..utils.constants import CMAP_FULL, generate_coupling_map
+from ..utils.entanglement_measures import (
+    EM_OBSERVABLE_CONCURRENCE_LOWER_BOUND, EM_TOMOGRAPHY_CONCURRENCE,
+    measure_concurrence_lower_bound, measure_from_rdm)
 from .adapt_config import AdaptConfig
 from .adapt_result import AdaptResult
-from .approximate_compiler import ApproximateCompiler, _wall_deadline_passed
+from .approximate_compiler import (ApproximateCompiler, _wall_deadline_passed,
+                                   calculate_overlap_between_circuits)
 
 logger = logging.getLogger(__name__)
 
@@ -43,35 +52,43 @@ class AdaptCompiler(ApproximateCompiler):
     """Structure-learning compiler: incrementally builds a circuit with the
     same action on |0> as the target (adapt_compiler.py:48-53)."""
 
-    def __init__(self, target, backend: AQCBackend, execute_kwargs=None,
+    def __init__(self, target, entanglement_measure=EM_TOMOGRAPHY_CONCURRENCE,
+                 backend: AQCBackend = None, execute_kwargs=None,
                  coupling_map=None, adapt_config: AdaptConfig = None,
-                 custom_layer_2q_gate=None, save_circuit_history=False,
-                 starting_circuit=None, use_roto_algos=True,
-                 use_rotoselect=True, rotosolve_fraction=1.0,
-                 optimise_local_cost=False, soften_global_cost=False,
-                 start_variant=0):
+                 general_initial_state=False, custom_layer_2q_gate=None,
+                 save_circuit_history=False, starting_circuit=None,
+                 use_roto_algos=True, use_rotoselect=True,
+                 use_advanced_transpilation=False, rotosolve_fraction=1.0,
+                 perform_final_minimisation=False, optimise_local_cost=False,
+                 soften_global_cost=False, debug_log_full_ansatz=False,
+                 initial_single_qubit_layer=False, start_variant=0):
+        if not use_roto_algos or perform_final_minimisation:
+            raise NotImplementedError(
+                "only the Rotoselect/Rotosolve optimisers are ported "
+                "(no BOBYQA yet, ROADMAP.md)")
+        if soften_global_cost:
+            raise NotImplementedError(
+                "soften_global_cost is not ported yet (ROADMAP.md)")
+        backend = backend if backend is not None else SVBackend()
         super().__init__(target=target, backend=backend,
                          execute_kwargs=execute_kwargs,
+                         general_initial_state=general_initial_state,
                          starting_circuit=starting_circuit,
                          optimise_local_cost=optimise_local_cost,
-                         soften_global_cost=soften_global_cost,
                          rotosolve_fraction=rotosolve_fraction,
                          start_variant=start_variant)
         self.save_circuit_history = save_circuit_history
+        self.entanglement_measure_method = entanglement_measure
         self.adapt_config = (adapt_config if adapt_config is not None
                              else AdaptConfig())
-        if self.adapt_config.method != "general_gradient":
-            raise NotImplementedError(
-                f"pair heuristic {self.adapt_config.method!r} is not ported "
-                "yet; use method='general_gradient' (ROADMAP.md)")
-        if not use_roto_algos:
-            raise NotImplementedError(
-                "only the Rotoselect/Rotosolve optimisers are ported")
         if coupling_map is None:
             coupling_map = generate_coupling_map(self.total_num_qubits,
                                                  CMAP_FULL, False, False)
+        # custom layer gates may have interdependent gates: no cleanup
+        self.remove_unnecessary_gates_during_adapt = custom_layer_2q_gate is None
         self.use_roto_algos = use_roto_algos
         self.use_rotoselect = use_rotoselect
+        self.use_advanced_transpilation = use_advanced_transpilation
         if not self.use_rotoselect and (
                 custom_layer_2q_gate is None
                 or co.are_circuits_identical(custom_layer_2q_gate,
@@ -81,35 +98,55 @@ class AdaptCompiler(ApproximateCompiler):
             logger.warning("Rotoselect is necessary for convergence of "
                            "chosen ansatz")
         self.layer_2q_gate = self.construct_layer_2q_gate(custom_layer_2q_gate)
-        self.coupling_map = co.remove_permutations_from_coupling_map(
-            coupling_map)
+        # avoid re-picking the same (unordered) pair repeatedly
+        self.coupling_map = [
+            (q1, q2) for (q1, q2) in
+            co.remove_permutations_from_coupling_map(coupling_map)
+            if q1 in self.qubit_subset_to_compile
+            and q2 in self.qubit_subset_to_compile]
         self.qubit_pair_history = []
+        self.bad_qubit_pairs = []
         self.pair_selection_method_history = []
+        self.entanglement_measures_history = []
+        self.e_val_history = []
         self.general_gradient_history = []
         self.time_taken = None
+        self.debug_log_full_ansatz = debug_log_full_ansatz
+        self.initial_single_qubit_layer = initial_single_qubit_layer
         self.phase_timings = {"pair_selection": 0.0,
                               "layer_optimisation": 0.0,
                               "window_rotosolve": 0.0, "absorption": 0.0,
                               "verification": 0.0}
-        # gates absorbed into the MPS prefix still belong to the solution
-        self.layers_saved_to_mps = Circuit(self.full_circuit.num_qubits)
+        if self.is_mps_backend:
+            # gates absorbed into the MPS prefix still belong to the solution
+            self.layers_saved_to_mps = Circuit(self.full_circuit.num_qubits)
         self.layers_as_gates = []
         self._advance_hint = None
         self._absorption_bias = 0.0
         self._layers_since_verify = 0
-        self.generators, self.degeneracies = \
-            gr.get_generators_and_degeneracies(self.layer_2q_gate,
-                                               use_rotoselect, inverse=True)
-        self.inverse_zero_ansatz = gr.zero_ansatz_inverse(self.layer_2q_gate)
-        self._gradient_ops = gr.prepare_gradient_ops(self.inverse_zero_ansatz,
-                                                     self.generators)
+
+        if self.adapt_config.method == "general_gradient":
+            if not self.is_mps_backend:
+                raise ValueError("general_gradient method is only implemented "
+                                 "for the MPS backend")
+            self.generators, self.degeneracies = \
+                gr.get_generators_and_degeneracies(self.layer_2q_gate,
+                                                   use_rotoselect,
+                                                   inverse=True)
+            self.inverse_zero_ansatz = gr.zero_ansatz_inverse(
+                self.layer_2q_gate)
+            self._gradient_ops = gr.prepare_gradient_ops(
+                self.inverse_zero_ansatz, self.generators)
 
     # ------------------------------------------------------------ layer gate
     def construct_layer_2q_gate(self, custom_layer_2q_gate) -> Circuit:
-        """Default: thinly-dressed CNOT (adapt_compiler.py:224-239)."""
+        """Default: thinly-dressed CNOT, two of them for a general initial
+        state (adapt_compiler.py:224-239)."""
         if custom_layer_2q_gate is None:
             qc = Circuit(2)
             co.add_dressed_cnot(qc, 0, 1, True)
+            if self.general_initial_state:
+                co.add_dressed_cnot(qc, 0, 1, True, v1=False, v2=False)
             return qc
         qc = custom_layer_2q_gate.copy()
         for instr in qc.data:
@@ -130,11 +167,14 @@ class AdaptCompiler(ApproximateCompiler):
         logger.info("ADAPT-AQC started")
         self.time_taken = 0
         self.cost_evaluation_counter = 0
-        self.global_cost = None
+        self.global_cost, self.local_cost = None, None
         self.global_cost_history = []
+        if self.optimise_local_cost:
+            self.local_cost_history = []
         self.circuit_history = []
         self.cnot_depth_history = []
         self.g_range = self.variational_circuit_range
+        self.original_lhs_gate_count = self.lhs_gate_count
         self.layer_times = []
         self.initial_ansatz_already_successful = False
         if initial_ansatz is not None:
@@ -145,20 +185,36 @@ class AdaptCompiler(ApproximateCompiler):
                 break
             logger.info(f"global cost entering layer: {self.global_cost}")
             t_layer = timeit.default_timer()
-            self.global_cost = self._add_layer(layer_count)
+            if self.optimise_local_cost:
+                self.local_cost = self._add_layer(layer_count)
+                self.global_cost = self.backend.evaluate_global_cost(self)
+                self.local_cost_history.append(self.local_cost)
+            else:
+                self.global_cost = self._add_layer(layer_count)
             self.layer_times.append(timeit.default_timer() - t_layer)
             self.global_cost_history.append(self.global_cost)
             self.record_cnot_depth()
+            self._log_full_ansatz()
+
+            # the MPS path keeps the gate count constant for its caches
+            if (self.remove_unnecessary_gates_during_adapt
+                    and not self.is_mps_backend):
+                remove_unnecessary_gates_from_circuit(
+                    self.full_circuit, False, False, gate_range=self.g_range())
+                self._invalidate_current()
+
+            gates = self.ref_circuit_as_gates
             num_2q_gates, _ = co.find_num_gates(
-                circuit=self.ref_circuit_as_gates,
-                gate_range=self.g_range(self.ref_circuit_as_gates))
+                circuit=gates, gate_range=self.g_range(gates))
             if self.save_circuit_history:
-                snapshot = co.make_quantum_only_circuit(
-                    self.ref_circuit_as_gates)
-                snapshot = co.extract_inner_circuit(snapshot,
-                                                    (1, len(snapshot.data)))
+                snapshot = co.make_quantum_only_circuit(gates)
+                if snapshot.data and snapshot.data[0].name in (
+                        "set_mps", "set_statevector"):
+                    snapshot = co.extract_inner_circuit(
+                        snapshot, (1, len(snapshot.data)))
                 self.circuit_history.append(qasm.dumps(snapshot))
 
+            # cinl may be float (callers pass math.inf to disable the check)
             cinl = self.adapt_config.cost_improvement_num_layers
             cit = self.adapt_config.cost_improvement_tol
             if len(self.global_cost_history) >= cinl and has_stopped_improving(
@@ -191,10 +247,13 @@ class AdaptCompiler(ApproximateCompiler):
                 self.compiling_finished = True
                 break
 
-        # swap in the pure-gate representation for the final cleanup
-        self.full_circuit = self.ref_circuit_as_gates
-        self.lhs_gate_count = 1  # the set_mps target instruction
-        self._invalidate_prefix()
+        if self.is_mps_backend:
+            # swap in the pure-gate representation for the final cleanup
+            self.full_circuit = self.ref_circuit_as_gates
+            self.lhs_gate_count = 1  # the set_mps target instruction
+            self._invalidate_prefix()
+        else:
+            self.lhs_gate_count = self.original_lhs_gate_count
         remove_unnecessary_gates_from_circuit(self.full_circuit, True, True,
                                               gate_range=self.g_range())
         self._invalidate_current()
@@ -208,33 +267,42 @@ class AdaptCompiler(ApproximateCompiler):
             final_global_cost = self.backend.evaluate_global_cost(self)
         logger.info(f"Final global cost: {final_global_cost}")
         self.global_cost_history.append(final_global_cost)
-        state = self.backend.state_of(self)
-        mps_truncated_weight = self.backend.truncated_weight(state)
-        noise_floor = 1e4 * float(np.finfo(
-            state.lam.cpu().numpy().dtype).eps)
-        if mps_truncated_weight > noise_floor:
-            logger.warning(
-                "MPS truncation discarded relative Schmidt weight "
-                f"{mps_truncated_weight:.3e} during this compile: "
-                f"max_chi={self.backend.max_chi} or the truncation "
-                "threshold is binding; overlaps may be inaccurate.")
+        mps_truncated_weight = None
+        if self.is_mps_backend:
+            state = self.backend.state_of(self)
+            mps_truncated_weight = self.backend.truncated_weight(state)
+            noise_floor = 1e4 * torch.finfo(state.lam.dtype).eps
+            if mps_truncated_weight > noise_floor:
+                logger.warning(
+                    "MPS truncation discarded relative Schmidt weight "
+                    f"{mps_truncated_weight:.3e} during this compile: "
+                    f"max_chi={self.backend.max_chi} or the truncation "
+                    "threshold is binding; overlaps may be inaccurate.")
         compiled_circuit = self.get_compiled_circuit()
         num_2q_gates, num_1q_gates = co.find_num_gates(compiled_circuit)
         self.cnot_depth_history.append(
             compiled_circuit.multi_qubit_gate_depth())
 
+        exact_overlap = "Not computable without SV backend"
+        if self.is_statevector_backend:
+            exact_overlap = calculate_overlap_between_circuits(
+                self.circuit_to_compile,
+                co.make_quantum_only_circuit(compiled_circuit),
+                device=self.backend.device, dtype=self.backend.dtype)
+
         result = AdaptResult(
             circuit=compiled_circuit,
             overlap=1 - final_global_cost,
-            exact_overlap="Not computable without SV backend",
+            exact_overlap=exact_overlap,
             num_1q_gates=num_1q_gates,
             num_2q_gates=num_2q_gates,
             cnot_depth_history=self.cnot_depth_history,
             global_cost_history=self.global_cost_history,
-            local_cost_history=None,
+            local_cost_history=(self.local_cost_history
+                                if self.optimise_local_cost else None),
             circuit_history=self.circuit_history,
-            entanglement_measures_history=[],
-            e_val_history=[],
+            entanglement_measures_history=self.entanglement_measures_history,
+            e_val_history=self.e_val_history,
             qubit_pair_history=self.qubit_pair_history,
             method_history=self.pair_selection_method_history,
             time_taken=timeit.default_timer() - start_time,
@@ -243,6 +311,7 @@ class AdaptCompiler(ApproximateCompiler):
             circuit_qasm=qasm.dumps(co.make_quantum_only_circuit(
                 compiled_circuit)),
         )
+        # how much Schmidt weight the MPS engine dropped (None off MPS)
         result.mps_truncated_weight = mps_truncated_weight
         result.phase_timings = dict(self.phase_timings)
         result.layer_times = list(self.layer_times)  # wall s per layer
@@ -252,8 +321,11 @@ class AdaptCompiler(ApproximateCompiler):
     # --------------------------------------------------------- MPS reference
     @property
     def ref_circuit_as_gates(self) -> Circuit:
-        """Pure-gate view of the full circuit: absorbed layers re-expanded
-        after the set_mps target instruction (adapt_compiler.py:708-715)."""
+        """Pure-gate view of the full circuit: on the MPS backend, absorbed
+        layers re-expanded after the set_mps target instruction
+        (adapt_compiler.py:708-715); elsewhere the full circuit itself."""
+        if not self.is_mps_backend:
+            return self.full_circuit
         qc = Circuit(self.full_circuit.num_qubits,
                      self.full_circuit.num_clbits)
         qc.data.append(self._target_instruction.copy())
@@ -283,23 +355,35 @@ class AdaptCompiler(ApproximateCompiler):
         if optimise_initial_ansatz:
             cost = self.minimizer.minimize_cost(
                 algorithm_kind=vconstants.ALG_ROTOSOLVE, tol=1e-3,
-                stop_val=self.adapt_config.sufficient_cost,
+                stop_val=0 if self.optimise_local_cost
+                else self.adapt_config.sufficient_cost,
                 indexes_to_modify=self.variational_circuit_range())
         else:
             cost = self.evaluate_cost()
-        self.global_cost = cost
+        self.global_cost = (self.backend.evaluate_global_cost(self)
+                            if self.optimise_local_cost else cost)
         if self.global_cost < self.adapt_config.sufficient_cost:
             self.initial_ansatz_already_successful = True
-        gates_absorbed = self._absorb_n_gates_into_mps(len(initial_ansatz.data))
-        co.add_to_circuit(self.layers_saved_to_mps, gates_absorbed)
+        if self.is_mps_backend:
+            gates_absorbed = self._absorb_n_gates_into_mps(
+                len(initial_ansatz.data))
+            co.add_to_circuit(self.layers_saved_to_mps, gates_absorbed)
+        else:
+            self.lhs_gate_count = self.variational_circuit_range()[1]
 
     # ------------------------------------------------------------- add layer
     def _add_layer(self, index):
         """adapt_compiler.py:585-689."""
         ansatz_start_index = self.variational_circuit_range()[0]
-        layer_indexes = self._add_entangling_layer(index)
-        stop_val = self.adapt_config.sufficient_cost
-        alg = (vconstants.ALG_ROTOSELECT if self.use_rotoselect
+        isql_layer = self.initial_single_qubit_layer and index == 0
+        if isql_layer:
+            layer_indexes = self._add_rotation_to_all_qubits()
+        else:
+            layer_indexes = self._add_entangling_layer(index)
+        stop_val = (0 if self.optimise_local_cost
+                    else self.adapt_config.sufficient_cost)
+        alg = (vconstants.ALG_ROTOSELECT
+               if self.use_rotoselect or isql_layer
                else vconstants.ALG_ROTOSOLVE)
         t0 = timeit.default_timer()
         cost = self.minimizer.minimize_cost(
@@ -308,8 +392,18 @@ class AdaptCompiler(ApproximateCompiler):
         self.phase_timings["layer_optimisation"] += timeit.default_timer() - t0
         freq = self.adapt_config.rotosolve_frequency
         if freq != 0 and index > 0 and index % freq == 0:
+            window_cap = (self.adapt_config.local_window_layers
+                          if self.optimise_local_cost else None)
             multi_indexes = self._calculate_multi_layer_optimisation_indices(
-                ansatz_start_index)
+                ansatz_start_index, max_layers=window_cap)
+            if self.use_advanced_transpilation:
+                from ..circuits.peephole import advanced_circuit_transpilation
+                variational = co.extract_inner_circuit(
+                    self.full_circuit, self.variational_circuit_range())
+                advanced_circuit_transpilation(variational, self.coupling_map)
+                co.replace_inner_circuit(self.full_circuit, variational,
+                                         self.variational_circuit_range())
+                self._invalidate_current()
             t0 = timeit.default_timer()
             cost = self.minimizer.minimize_cost(
                 algorithm_kind=vconstants.ALG_ROTOSOLVE,
@@ -318,15 +412,19 @@ class AdaptCompiler(ApproximateCompiler):
             self.phase_timings["window_rotosolve"] += \
                 timeit.default_timer() - t0
 
-        t0 = timeit.default_timer()
-        self.layers_as_gates.append(index)
-        num_to_absorb = self._calculate_num_layers_to_absorb(index)
-        if num_to_absorb > 0:
-            num_gates = len(self.layer_2q_gate.data) * num_to_absorb
-            gates_absorbed = self._absorb_n_gates_into_mps(num_gates)
-            co.add_to_circuit(self.layers_saved_to_mps, gates_absorbed)
-            del self.layers_as_gates[:num_to_absorb]
-        self.phase_timings["absorption"] += timeit.default_timer() - t0
+        if self.is_mps_backend:
+            t0 = timeit.default_timer()
+            self.layers_as_gates.append(index)
+            num_to_absorb = self._calculate_num_layers_to_absorb(index)
+            if num_to_absorb > 0:
+                includes_isql = (self.layers_as_gates[0] == 0
+                                 and self.initial_single_qubit_layer)
+                num_gates = self._get_num_gates_to_cache(
+                    n=num_to_absorb, includes_isql=includes_isql)
+                gates_absorbed = self._absorb_n_gates_into_mps(num_gates)
+                co.add_to_circuit(self.layers_saved_to_mps, gates_absorbed)
+                del self.layers_as_gates[:num_to_absorb]
+            self.phase_timings["absorption"] += timeit.default_timer() - t0
         return cost
 
     def _calculate_num_layers_to_absorb(self, index):
@@ -340,13 +438,26 @@ class AdaptCompiler(ApproximateCompiler):
                             - self.adapt_config.max_layers_to_modify + 1)
         return len([i for i in self.layers_as_gates if i < lowest_index])
 
-    def _calculate_multi_layer_optimisation_indices(self, ansatz_start_index):
-        """adapt_compiler.py:717-741."""
+    def _calculate_multi_layer_optimisation_indices(self, ansatz_start_index,
+                                                    max_layers=None):
+        """adapt_compiler.py:717-741; `max_layers` overrides
+        max_layers_to_modify (the local-cost window)."""
+        if max_layers is None:
+            max_layers = self.adapt_config.max_layers_to_modify
+        isql = int(self.initial_single_qubit_layer)
+        num_isql_gates = self.full_circuit.num_qubits * isql
         start = max(ansatz_start_index,
                     self.variational_circuit_range()[1]
-                    - len(self.layer_2q_gate.data)
-                    * self.adapt_config.max_layers_to_modify)
+                    - len(self.layer_2q_gate.data) * (max_layers - isql)
+                    - num_isql_gates)
+        first_layer_end = ansatz_start_index + num_isql_gates
+        if ansatz_start_index < start < first_layer_end:
+            start = first_layer_end
         return (start, self.variational_circuit_range()[1])
+
+    def _get_num_gates_to_cache(self, n, includes_isql=False):
+        return (len(self.layer_2q_gate.data) * (n - int(includes_isql))
+                + self.full_circuit.num_qubits * int(includes_isql))
 
     def _add_entangling_layer(self, index):
         """adapt_compiler.py:743-759."""
@@ -363,6 +474,24 @@ class AdaptCompiler(ApproximateCompiler):
         end = self.variational_circuit_range()[1]
         return (end - len(self.layer_2q_gate.data), end)
 
+    def _add_rotation_to_all_qubits(self):
+        """initial_single_qubit_layer: an ry on every qubit as layer 0
+        (adapt_compiler.py:761-773)."""
+        n = self.full_circuit.num_qubits
+        first_layer = Circuit(n)
+        first_layer.ry(0, range(n))
+        insert_at = self.variational_circuit_range()[1]
+        self._stash_advance_hint(insert_at)
+        co.add_to_circuit(self.full_circuit, first_layer, insert_at)
+        self._invalidate_current()
+        self.entanglement_measures_history.append([None])
+        self.e_val_history.append(None)
+        self.general_gradient_history.append(None)
+        self.qubit_pair_history.append((None, None))
+        self.pair_selection_method_history.append(None)
+        end = self.variational_circuit_range()[1]
+        return (end - n, end)
+
     # ---------------------------------------------------- verified stopping
     # how close (in units of sufficient_cost) the in-loop estimate must be
     # before periodic verification starts, and layers between checks
@@ -370,7 +499,9 @@ class AdaptCompiler(ApproximateCompiler):
     _VERIFY_EVERY = 20
 
     def _verification_applies(self) -> bool:
-        return not self.optimise_local_cost and not self.soften_global_cost
+        """The chi-capped MPS cost is an estimate; elsewhere the in-loop
+        cost is the true cost."""
+        return self.is_mps_backend and not self.optimise_local_cost
 
     def _should_verify_threshold(self) -> bool:
         """The chi-capped in-loop cost is a biased estimate of the true
@@ -393,6 +524,8 @@ class AdaptCompiler(ApproximateCompiler):
         cleaned ansatz, re-simulated from the original target at twice the
         working chi, clears the threshold; otherwise remember the estimate's
         bias."""
+        if not self._verification_applies():
+            return True
         exact = self._true_cost_of_cleaned_circuit()
         self.cost_evaluation_counter += 1
         self._layers_since_verify = 0
@@ -460,13 +593,114 @@ class AdaptCompiler(ApproximateCompiler):
 
     # --------------------------------------------------------- pair selection
     def _find_appropriate_qubit_pair(self):
-        gradients = self._get_all_qubit_pair_gradients()
-        self.general_gradient_history.append(gradients)
-        self.pair_selection_method_history.append("general_gradient")
+        """Heuristic dispatch (adapt_compiler.py:775-830)."""
+        method = self.adapt_config.method
+        if method == "random":
+            self.pair_selection_method_history.append("random")
+            return self.coupling_map[np.random.randint(len(self.coupling_map))]
+        if method == "basic":
+            self.pair_selection_method_history.append("basic")
+            priorities = self._get_all_qubit_pair_reuse_priorities(1)
+            return self.coupling_map[int(np.argmax(priorities))]
+        if method == "expectation":
+            return self._find_best_expectation_qubit_pair()
+        if method == "ISL":
+            ems = self._get_all_qubit_pair_entanglement_measures()
+            self.entanglement_measures_history.append(ems)
+            return self._find_best_entanglement_qubit_pair(ems)
+        if method == "general_gradient":
+            gradients = self._get_all_qubit_pair_gradients()
+            self.general_gradient_history.append(gradients)
+            self.pair_selection_method_history.append("general_gradient")
+            priorities = self._get_all_qubit_pair_reuse_priorities(
+                self.adapt_config.reuse_exponent)
+            combined = np.multiply(gradients, priorities)
+            return self.coupling_map[int(np.argmax(combined))]
+        if method == "brickwall":
+            return self._next_brickwall_pair()
+        raise ValueError(
+            f"Invalid compiling method {method}. Method must be one of ISL, "
+            "expectation, random, basic, general_gradient, brickwall")
+
+    def _next_brickwall_pair(self):
+        """adapt_compiler.py:803-825."""
+        n = self.full_circuit.num_qubits
+        if n < 2:
+            raise ValueError("Cannot pick a pair if there are fewer than two "
+                             "qubits")
+        if (len(self.qubit_pair_history) == 0 or n == 2
+                or self.qubit_pair_history[-1][0] is None):
+            return (0, 1)
+        prev = self.qubit_pair_history[-1]
+        nxt = (prev[0] + 2, prev[1] + 2)
+        n_odd = n % 2
+        if nxt == (n, n + 1):
+            return (1 - n_odd, 2 - n_odd)
+        if nxt == (n - 1, n):
+            return (0 + n_odd, 1 + n_odd)
+        return nxt
+
+    def _find_best_entanglement_qubit_pair(self, entanglement_measures):
+        """ISL: the most entangled pair not marked bad, or the expectation
+        heuristic when every pair is below the threshold
+        (adapt_compiler.py:858-921). A pair whose entanglement did not drop
+        after its layer is marked bad for bad_qubit_pair_memory layers."""
         priorities = self._get_all_qubit_pair_reuse_priorities(
             self.adapt_config.reuse_exponent)
-        combined = np.multiply(gradients, priorities)
+        memory = self.adapt_config.bad_qubit_pair_memory
+        if len(self.entanglement_measures_history) >= 2 + int(
+                self.initial_single_qubit_layer):
+            prev_index = self.coupling_map.index(self.qubit_pair_history[-1])
+            pre_em = self.entanglement_measures_history[-2][prev_index]
+            post_em = self.entanglement_measures_history[-1][prev_index]
+            if post_em >= pre_em:
+                self.bad_qubit_pairs.append(self.coupling_map[prev_index])
+            if len(self.bad_qubit_pairs) > memory:
+                del self.bad_qubit_pairs[0]
+        filtered = [em * pr for em, pr in zip(entanglement_measures,
+                                              priorities)]
+        for qp in set(self.bad_qubit_pairs):
+            if qp in self.qubit_pair_history[-memory:]:
+                filtered[self.coupling_map.index(qp)] = -1
+        if max(filtered) <= self.adapt_config.entanglement_threshold:
+            logger.info("every non-bad pair is below the entanglement "
+                        "threshold; falling back to the expectation "
+                        "heuristic")
+            return self._find_best_expectation_qubit_pair()
+        self.pair_selection_method_history.append("ISL")
+        self.e_val_history.append(None)
+        return self.coupling_map[int(np.argmax(filtered))]
+
+    def _find_best_expectation_qubit_pair(self):
+        """The pair whose qubits are nearest |1> by <Z>, times the reuse
+        priority (adapt_compiler.py:923-953)."""
+        priorities = self._get_all_qubit_pair_reuse_priorities(
+            self.adapt_config.reuse_exponent)
+        e_vals = self.backend.measure_qubit_expectation_values(self)
+        self.e_val_history.append(e_vals)
+        # map <Z> + <Z> in [-2, 2] to a priority favouring qubits near |1>
+        combined = [(2 - (e_vals[c] + e_vals[t])) * p
+                    for (c, t), p in zip(self.coupling_map, priorities)]
+        self.pair_selection_method_history.append("expectation")
         return self.coupling_map[int(np.argmax(combined))]
+
+    def _get_all_qubit_pair_entanglement_measures(self):
+        """One RDM per coupling-map pair, computed together on the device
+        (adapt_compiler.py:955-976). For the sampling backend with the
+        observable method, the two-copy Bell-measurement protocol runs per
+        pair instead (entanglement_measures.py:138-256)."""
+        if (self.entanglement_measure_method
+                == EM_OBSERVABLE_CONCURRENCE_LOWER_BOUND
+                and isinstance(self.backend, SamplingBackend)):
+            qc = co.make_quantum_only_circuit(self.full_circuit)
+            return [measure_concurrence_lower_bound(
+                        qc, a, b, self.backend,
+                        execute_kwargs=self.execute_kwargs)
+                    for a, b in self.coupling_map]
+        state = self.backend.state_of(self)
+        rhos = self.backend.all_pair_rdms(state, self.coupling_map)
+        return [measure_from_rdm(self.entanglement_measure_method, rho)
+                for rho in rhos]
 
     def _get_all_qubit_pair_gradients(self):
         """Batched pair-gradient scoring (adapt_compiler.py:839-856 +
@@ -497,6 +731,7 @@ class AdaptCompiler(ApproximateCompiler):
                 state, compile_tape(self.full_circuit, rng))
         return state
 
+    # -------------------------------------------------------- reuse priority
     def _get_all_qubit_pair_reuse_priorities(self, k):
         """adapt_compiler.py:984-998."""
         if not len(self.qubit_pair_history):
@@ -516,9 +751,14 @@ class AdaptCompiler(ApproximateCompiler):
                 return index
         return np.inf
 
+    def _is_last_pair(self, qubit_pair) -> bool:
+        return (len(self.qubit_pair_history)
+                > int(self.initial_single_qubit_layer)
+                and qubit_pair == self.qubit_pair_history[-1])
+
     def _get_qubit_reuse_priority(self, qubit_pair, k):
         """adapt_compiler.py:1006-1035."""
-        if self.qubit_pair_history and qubit_pair == self.qubit_pair_history[-1]:
+        if self._is_last_pair(qubit_pair):
             return -1
         if k == 0:
             return 1
@@ -529,7 +769,7 @@ class AdaptCompiler(ApproximateCompiler):
 
     def _get_pair_reuse_priority(self, qubit_pair, k):
         """adapt_compiler.py:1037-1065."""
-        if self.qubit_pair_history and qubit_pair == self.qubit_pair_history[-1]:
+        if self._is_last_pair(qubit_pair):
             return -1
         if k == 0:
             return 1
@@ -562,8 +802,28 @@ class AdaptCompiler(ApproximateCompiler):
         self._current_cache = current
         return gates_absorbed
 
+    def _log_full_ansatz(self):
+        """debug_log_full_ansatz: the current ansatz as QASM at debug level
+        after every layer (adapt_compiler.py:508-534)."""
+        if not self.debug_log_full_ansatz:
+            return
+        if self.is_mps_backend:
+            src = self.ref_circuit_as_gates
+            rng = (1, len(src.data))
+        else:
+            src = self.full_circuit
+            rng = self.g_range()
+        ansatz = co.extract_inner_circuit(src, rng)
+        logger.debug("current full ansatz:\n%s",
+                     qasm.dumps(co.make_quantum_only_circuit(ansatz)))
+
     def record_cnot_depth(self):
         """adapt_compiler.py:1147-1163."""
-        ref = self.ref_circuit_as_gates
-        ansatz = co.extract_inner_circuit(ref, (1, len(ref.data)))
+        if self.is_mps_backend:
+            ref = self.ref_circuit_as_gates
+            ansatz = co.extract_inner_circuit(ref, (1, len(ref.data)))
+        else:
+            ansatz = co.extract_inner_circuit(
+                self.full_circuit, (self.original_lhs_gate_count,
+                                    self.variational_circuit_range()[1]))
         self.cnot_depth_history.append(ansatz.multi_qubit_gate_depth())

@@ -1,13 +1,14 @@
 """ApproximateCompiler: full-circuit construction, state caches, cost layer
 and solution extraction.
 
-Port of the JAX package's `compilers/approximate_compiler.py`, MPS path
-only. The full circuit is the reference's (:435-512):
-|0> -> [target U] -> (variational V^dag grows here) -> [starting_circuit^-1];
-the cost is the probability of returning to |0...0>. The target is simulated
-once into an engine MPS; every cost query applies the variational tape to
-that cached prefix. compile_in_parts and the statevector / sampling
-backends are not ported yet (ROADMAP.md).
+Port of the JAX package's `compilers/approximate_compiler.py`. The full
+circuit is the reference's (:435-512):
+|0> -> [initial_state] -> [target U] -> (variational V^dag grows here)
+-> [initial_state^-1] -> [starting_circuit^-1]; the cost is the probability
+of returning to |0...0>. The target prefix is simulated once into an engine
+state (statevector or MPS) on the backend's device and cached; every cost
+query applies the variational tape to that cached prefix. compile_in_parts
+is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import os
 import time
 from abc import ABC, abstractmethod
 
-from ..backends import mps_core
-from ..backends.backend import AQCBackend, MPSBackend
+from ..backends import mps_core, sv_core
+from ..backends.backend import (QASM_SIM, AQCBackend, MPSBackend,
+                                SamplingBackend, SVBackend)
 from ..circuits import operations as co
 from ..circuits.circuit import Circuit, unroll_to_basis_gates
 from ..circuits.tape import compile_tape
@@ -45,31 +47,44 @@ def _wall_deadline_passed() -> bool:
     return time.time() >= deadline
 
 
+def is_statevector_backend(backend) -> bool:
+    return isinstance(backend, SVBackend)
+
+
 class ApproximateCompiler(ABC):
     """Variational compiler base (approximate_compiler.py:64)."""
 
-    def __init__(self, target, backend: AQCBackend, execute_kwargs=None,
-                 starting_circuit=None, optimise_local_cost=False,
-                 soften_global_cost=False, rotosolve_fraction=1.0,
-                 start_variant=0):
-        if not isinstance(backend, MPSBackend):
-            raise NotImplementedError(
-                "only MPSBackend is ported yet (ROADMAP.md)")
+    def __init__(self, target, backend: AQCBackend = None,
+                 execute_kwargs=None, initial_state=None, qubit_subset=None,
+                 general_initial_state=False, starting_circuit=None,
+                 optimise_local_cost=False, soften_global_cost=False,
+                 rotosolve_fraction=1.0, start_variant=0):
         self.target = target
         self.start_variant = int(start_variant)
         self.original_circuit_classical_ops = None
         self.gate_circuit_to_compile = None
-        self.backend = backend
-        self.is_statevector_backend = False
-        self.is_mps_backend = True
+        self.backend = backend if backend is not None else QASM_SIM
+        self.is_statevector_backend = is_statevector_backend(self.backend)
+        self.is_mps_backend = isinstance(self.backend, MPSBackend)
+        if mps_core.check_mps(self.target) and not self.is_mps_backend:
+            raise ValueError("MPS backend must be used when target is an MPS")
         self.circuit_to_compile = self.prepare_circuit()
-        self.execute_kwargs = dict(execute_kwargs or {})
-        self.total_num_qubits = self.circuit_to_compile.num_qubits
-        self.qubit_subset_to_compile = list(range(self.total_num_qubits))
-        self.general_initial_state = False
+        self.execute_kwargs = self.parse_default_execute_kwargs(
+            execute_kwargs)
+        self.initial_state_circuit = co.initial_state_to_circuit(
+            initial_state)
+        self.total_num_qubits = self.calculate_total_num_qubits()
+        self.qubit_subset_to_compile = (
+            qubit_subset if qubit_subset
+            else list(range(self.total_num_qubits)))
+        self.general_initial_state = general_initial_state
         self.starting_circuit = self.prepare_starting_circuit(starting_circuit)
         self.optimise_local_cost = optimise_local_cost
         self.soften_global_cost = soften_global_cost
+
+        if initial_state is not None and general_initial_state:
+            raise ValueError("Can't compile for general initial state when "
+                             "specific initial state is provided")
 
         (self.full_circuit, self.lhs_gate_count,
          self.rhs_gate_count) = self._prepare_full_circuit()
@@ -86,7 +101,10 @@ class ApproximateCompiler(ABC):
 
     # --------------------------------------------------------- construction
     def prepare_circuit(self) -> Circuit:
-        """Target -> a set_mps circuit holding the target's engine MPS."""
+        """Target -> circuit to compile (approximate_compiler.py:165-217):
+        an MPS target, or on an MPS backend the target simulated into an
+        engine MPS, becomes one set_mps instruction; otherwise the target's
+        gates, unrolled."""
         if mps_core.check_mps(self.target):
             n = (self.target.n if isinstance(self.target, mps_core.MPS)
                  else len(self.target[0]))
@@ -98,6 +116,8 @@ class ApproximateCompiler(ABC):
             target_copy)
         prepared = unroll_to_basis_gates(target_copy)
         self.gate_circuit_to_compile = prepared
+        if not self.is_mps_backend:
+            return prepared
         logger.info("Pre-computing target circuit as MPS")
         qc = Circuit(prepared.num_qubits)
         qc.set_mps(self.backend.mps_from_compiler_target(prepared))
@@ -112,13 +132,56 @@ class ApproximateCompiler(ABC):
         raise ValueError("starting_circuit must be a Circuit, None, or the "
                          "string 'tenpy_product_state'")
 
+    def parse_default_execute_kwargs(self, execute_kwargs):
+        """Shots default to 8192 on a sampling backend (which takes the
+        value) and to 1 elsewhere."""
+        kwargs = {} if execute_kwargs is None else dict(execute_kwargs)
+        sampling = isinstance(self.backend, SamplingBackend)
+        if "shots" not in kwargs:
+            kwargs["shots"] = 8192 if sampling else 1
+        if "optimization_level" not in kwargs:
+            kwargs["optimization_level"] = 0
+        if sampling:
+            self.backend.shots = kwargs["shots"]
+        return kwargs
+
+    def calculate_total_num_qubits(self):
+        if self.initial_state_circuit is None:
+            return self.circuit_to_compile.num_qubits
+        return self.initial_state_circuit.num_qubits
+
     def _prepare_full_circuit(self):
-        qc = Circuit(self.total_num_qubits)
+        """approximate_compiler.py:435-512."""
+        total_qubits = (2 * self.total_num_qubits if self.general_initial_state
+                        else self.total_num_qubits)
+        qc = Circuit(total_qubits)
+        if self.initial_state_circuit is not None:
+            co.add_to_circuit(qc,
+                              unroll_to_basis_gates(self.initial_state_circuit))
+        elif self.general_initial_state:
+            for qubit in range(self.total_num_qubits):
+                qc.h(qubit)
+                qc.cx(qubit, qubit + self.total_num_qubits)
+
         co.add_to_circuit(qc, self.circuit_to_compile,
                           qubit_subset=self.qubit_subset_to_compile)
         lhs_gate_count = len(qc.data)
+
+        if self.initial_state_circuit is not None:
+            isc = unroll_to_basis_gates(self.initial_state_circuit)
+            co.add_to_circuit(qc, isc.inverse())
         if self.starting_circuit is not None:
             co.add_to_circuit(qc, self.starting_circuit.inverse())
+        elif self.general_initial_state:
+            for qubit in range(self.total_num_qubits - 1, -1, -1):
+                qc.cx(qubit, qubit + self.total_num_qubits)
+                qc.h(qubit)
+
+        if isinstance(self.backend, SamplingBackend):
+            # measures are implicit: the sampling backend samples the final
+            # state directly (the reference appends measure gates, :502-508)
+            qc.num_clbits = 1 if self.optimise_local_cost else total_qubits
+
         rhs_gate_count = len(qc.data) - lhs_gate_count
         return qc, lhs_gate_count, rhs_gate_count
 
@@ -191,3 +254,68 @@ class ApproximateCompiler(ABC):
             co.add_classical_operations(final,
                                         self.original_circuit_classical_ops)
         return final
+
+
+# Above this, a dense 2^n statevector no longer fits and overlaps switch to
+# the MPS engine (the reference's dense-only helper, full_circuit.py:413-438,
+# cannot evaluate 50-qubit results).
+DENSE_OVERLAP_MAX_QUBITS = 26
+
+
+def calculate_overlap_between_circuits(circuit1: Circuit, circuit2: Circuit,
+                                       initial_state=None, qubit_subset=None,
+                                       mps_chi: int = 64, device="cpu",
+                                       dtype=None):
+    """|<psi1|psi2>|^2 (full_circuit.py:413-438), on `device` in `dtype`:
+    dense statevectors up to DENSE_OVERLAP_MAX_QUBITS, MPS contraction at
+    bond cap `mps_chi` beyond (normalised by both norms: chi well above the
+    true rank drifts float32 chains in scale). One device sync."""
+    initial_state_circuit = co.initial_state_to_circuit(initial_state)
+    if initial_state_circuit is None:
+        total = circuit1.num_qubits
+    else:
+        total = initial_state_circuit.num_qubits
+    subset = qubit_subset if qubit_subset else list(range(total))
+    kw = dict(dtype=dtype, device=device)
+
+    def build(circ):
+        qc = Circuit(total)
+        if initial_state_circuit is not None:
+            co.add_to_circuit(qc, initial_state_circuit)
+        co.add_to_circuit(qc, co.make_quantum_only_circuit(circ),
+                          qubit_subset=subset)
+        return qc
+
+    def run_dense(qc):
+        start = 0
+        if qc.data and qc.data[0].name == "set_statevector":
+            state = sv_core.state_from_vector(qc.data[0].payload, **kw)
+            start = 1
+        else:
+            state = sv_core.zero_state(total, **kw)
+        tape = compile_tape(qc, (start, len(qc.data)))
+        return sv_core.apply_tape(state, tape.kinds, tape.q0, tape.q1,
+                                  tape.angles)
+
+    def run_mps(qc):
+        start = 0
+        if qc.data and qc.data[0].name == "set_mps":
+            state = mps_core.from_qiskit_mps(qc.data[0].payload, mps_chi, **kw)
+            start = 1
+        else:
+            state = mps_core.zero_mps(total, mps_chi, **kw)
+        tape = compile_tape(qc, (start, len(qc.data)))
+        return mps_core.apply_tape(state, tape.kinds, tape.q0, tape.q1,
+                                   tape.angles, 1e-16)
+
+    if total <= DENSE_OVERLAP_MAX_QUBITS:
+        ov = sv_core.overlap(run_dense(build(circuit1)),
+                             run_dense(build(circuit2)))
+        return float(ov.real ** 2 + ov.imag ** 2)
+    m1 = run_mps(build(circuit1))
+    m2 = run_mps(build(circuit2))
+    n1 = mps_core.mps_dot(m1, m1).real
+    n2 = mps_core.mps_dot(m2, m2).real
+    ov = mps_core.mps_dot(m1, m2)
+    return float((ov.real ** 2 + ov.imag ** 2)
+                 / (n1 * n2).clamp(min=1e-30))

@@ -1,21 +1,34 @@
 """CostMinimiser: angle optimisation over the variational range.
 
-Counterpart of the JAX package's `optim/minimiser.py`, device-sweep branch
-only: Rotosolve / Rotoselect run as O(G) sweeps (optim/sweeps.py) over the
-backend's engine. The host probe loop, the full-cost (local / softened)
-sweep and the generic optimisers (scipy, BOBYQA) are not ported yet; asking
-for them raises NotImplementedError (ROADMAP.md).
+Counterpart of the JAX package's `optim/minimiser.py`. Rotosolve /
+Rotoselect dispatch in the JAX package's order (minimiser.py:89-99):
+
+ - the O(G) device sweep (optim/sweeps.py) over the backend's engine, for
+   the global cost on a backend with a sweep engine;
+ - the local/softened full-cost sweep, which is not ported yet: the
+   minimiser raises NotImplementedError where the JAX package would take
+   it (ROADMAP.md);
+ - otherwise the host probe loop, which reproduces the reference's
+   per-gate 3-point probing against `evaluate_cost` (each probe one full
+   cost evaluation): backends with no sweep engine (sampling) and
+   parameterised ('#'/'@' labelled) circuits.
+
+The generic optimisers (scipy, BOBYQA) and the subsampled device sweep
+(rotosolve_fraction < 1 with Rotosolve) are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import logging
+import random
+from typing import Optional, Tuple
 
 import numpy as np
 
+from ..circuits import operations as co
 from ..circuits.tape import compile_tape, select_mask, writeback_angles
 from ..utils import constants as vconstants
-from .sinusoidal import has_stopped_improving
+from .sinusoidal import has_stopped_improving, minimum_of_sinusoidal
 from . import sweeps
 
 logger = logging.getLogger(__name__)
@@ -55,14 +68,19 @@ class CostMinimiser:
         if algorithm_kind in (vconstants.ALG_ROTOSOLVE,
                               vconstants.ALG_ROTOSELECT):
             rotoselect = algorithm_kind == vconstants.ALG_ROTOSELECT
-            if self._can_fast_sweep() and (self.rotosolve_fraction >= 1.0
-                                           or rotoselect):
+            if self._can_fast_sweep():
+                if self.rotosolve_fraction < 1.0 and not rotoselect:
+                    raise NotImplementedError(
+                        "the subsampled device sweep (rotosolve_fraction "
+                        "< 1) is not ported yet (ROADMAP.md)")
                 return self._roto_device(rotoselect, max_cycles, stop_val,
                                          tol, indexes_to_modify)
-            raise NotImplementedError(
-                "only the device sweep of the global cost is ported "
-                "(no local/softened cost, parameterised labels or "
-                "rotosolve_fraction < 1 yet; see ROADMAP.md)")
+            if self._takes_full_sweep(rotoselect):
+                raise NotImplementedError(
+                    "the local/softened full-cost sweep is not ported yet "
+                    "(ROADMAP.md)")
+            return self._roto_host(rotoselect, max_cycles, stop_val, tol,
+                                   indexes_to_modify)
         raise NotImplementedError(
             f"optimiser {algorithm_kind!r} is not ported yet (ROADMAP.md)")
 
@@ -76,18 +94,34 @@ class CostMinimiser:
             f"(device/numeric fault guard)")
         return float(cost0)
 
+    def _has_parameterised_labels(self) -> bool:
+        rng = self.variational_circuit_range()
+        for i in range(rng[0], len(self.full_circuit.data)):
+            lbl = self.full_circuit.data[i].label
+            if lbl is not None and ("#" in lbl or "@" in lbl):
+                return True
+        return False
+
     def _can_fast_sweep(self) -> bool:
         comp = self.compiler
         if comp.optimise_local_cost or comp.soften_global_cost:
             return False
         if comp.backend.sweep_engine() is None:
             return False
-        rng = self.variational_circuit_range()
-        for i in range(rng[0], len(self.full_circuit.data)):
-            lbl = self.full_circuit.data[i].label
-            if lbl is not None and ("#" in lbl or "@" in lbl):
-                return False
-        return True
+        return not self._has_parameterised_labels()
+
+    def _takes_full_sweep(self, rotoselect) -> bool:
+        """Where the JAX package runs its full-cost device sweep
+        (minimiser.py:136-155): a local or softened cost on a backend with
+        a sweep engine."""
+        comp = self.compiler
+        if not (comp.optimise_local_cost or comp.soften_global_cost):
+            return False
+        if not (self.rotosolve_fraction >= 1.0 or rotoselect):
+            return False
+        if comp.backend.sweep_engine() is None:
+            return False
+        return not self._has_parameterised_labels()
 
     def _roto_device(self, rotoselect, max_cycles, stop_val, tol,
                      indexes_to_modify):
@@ -167,3 +201,91 @@ class CostMinimiser:
         comp._current_cache = final_state
         logger.info(f"{alg_name} finished with cost {cost}")
         return float(cost)
+
+    # ------------------------------------------------------- host probe loop
+    def _roto_host(self, rotoselect, max_cycles, stop_val, tol,
+                   indexes_to_modify):
+        """Cycles of per-gate coordinate descent on full cost evaluations
+        (cost_minimiser.py:90-105)."""
+        alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
+        cost_history = []
+        cost = self.cost_finder()
+        cycles = 0
+        logger.info(f"Starting {alg_name} (host loop)")
+        while cost > stop_val and cycles < max_cycles:
+            cost = self._reduce_cost(rotoselect, indexes_to_modify)
+            cycles += 1
+            cost_history.append(cost)
+            if len(cost_history) > 3 and has_stopped_improving(
+                    cost_history[-3:], tol):
+                break
+        logger.info(f"{alg_name} finished with cost {cost}")
+        return cost
+
+    def _reduce_cost(self, change_1q_gate_kind=False,
+                     indexes_to_modify: Optional[Tuple[int, int]] = None):
+        """One cycle over the gates (cost_minimiser.py:267-316)."""
+        cost = 1
+        var_range = self.variational_circuit_range()
+        if indexes_to_modify is None:
+            indexes_to_modify = var_range
+        else:
+            indexes_to_modify = (max(indexes_to_modify[0], var_range[0]),
+                                 min(indexes_to_modify[1], var_range[1]))
+
+        if self.rotosolve_fraction < 1.0 and not change_1q_gate_kind:
+            idx_list = co.find_rotation_indices(
+                self.full_circuit, list(range(*indexes_to_modify)))
+            num = int(np.ceil(self.rotosolve_fraction * len(idx_list)))
+            sample = sorted(random.sample(idx_list, num))
+        else:
+            sample = list(range(*indexes_to_modify))
+
+        for index in sample:
+            instr = self.full_circuit.data[index]
+            if change_1q_gate_kind and instr.is_supported_1q_gate():
+                cost = self.replace_with_best_1q_gate(index)
+            elif instr.is_supported_1q_gate():
+                angle, cost = self.find_best_angle(
+                    index, instr.base_label if instr.label is None
+                    or "#" not in instr.label else instr.label)
+                co.replace_1q_gate(self.full_circuit, index,
+                                   instr.label or instr.name, angle)
+                self.compiler._invalidate_current()
+        return cost
+
+    def replace_with_best_1q_gate(self, gate_index):
+        """Rotoselect on one gate: the best of rx, ry and rz at its best
+        angle (cost_minimiser.py:318-342)."""
+        co.replace_1q_gate(self.full_circuit, gate_index, "rx", 0)
+        self.compiler._invalidate_current()
+        cost_identity = self.cost_finder()
+        best_name, best_angle, best_cost = None, None, 1
+        for gate_name in ("rx", "ry", "rz"):
+            angle, cost = self.find_best_angle(gate_index, gate_name,
+                                               cost_identity)
+            if cost < best_cost:
+                best_name, best_angle, best_cost = gate_name, angle, cost
+        co.replace_1q_gate(self.full_circuit, gate_index, best_name,
+                           best_angle)
+        self.compiler._invalidate_current()
+        return best_cost
+
+    def find_best_angle(self, gate_index, gate_name, cost_for_identity=None):
+        """Rotosolve on one gate: the cost at 0 and +-pi/2 fixes the
+        sinusoid, whose minimum is closed-form (cost_minimiser.py:344-368).
+        The gate is restored before returning."""
+        original = self.full_circuit.data[gate_index]
+        costs = []
+        angles_to_run = [0, np.pi / 2, -np.pi / 2]
+        if cost_for_identity is not None:
+            costs.append(cost_for_identity)
+            angles_to_run.remove(0)
+        for theta in angles_to_run:
+            co.replace_1q_gate(self.full_circuit, gate_index, gate_name, theta)
+            self.compiler._invalidate_current()
+            costs.append(self.cost_finder())
+        theta_min, cost_min = minimum_of_sinusoidal(*costs)
+        self.full_circuit.data[gate_index] = original
+        self.compiler._invalidate_current()
+        return theta_min, cost_min

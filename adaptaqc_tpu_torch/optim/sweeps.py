@@ -184,7 +184,11 @@ def default_block_len(padded_len: int, state_bytes: int = None,
 
 
 def state_nbytes(state) -> int:
-    """Total bytes of one engine state."""
+    """Total bytes of one engine state: a statevector tensor, or a tuple of
+    tensors (an MPS). Iterating a tensor would walk its elements one by
+    one."""
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
     return sum(t.numel() * t.element_size() for t in state)
 
 

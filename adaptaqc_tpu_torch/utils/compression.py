@@ -112,13 +112,14 @@ def product_state_to_circuit(amps: np.ndarray, variant: int = 0) -> Circuit:
 
 
 def best_product_state_circuit(compiler) -> Circuit:
-    """starting_circuit='tenpy_product_state' entry point (MPS backend)."""
+    """starting_circuit='tenpy_product_state' entry point. On a backend
+    other than MPSBackend, the target is simulated into an MPS by a
+    default MPSBackend on the same device and dtype."""
     from ..backends.backend import MPSBackend
-    if not isinstance(compiler.backend, MPSBackend):
-        raise NotImplementedError(
-            "the product-state start is ported for MPSBackend only")
-    target = compiler.backend.mps_from_compiler_target(
-        compiler.circuit_to_compile)
+    backend = compiler.backend
+    if not isinstance(backend, MPSBackend):
+        backend = MPSBackend(device=backend.device, dtype=backend.dtype)
+    target = backend.mps_from_compiler_target(compiler.circuit_to_compile)
     amps = best_product_state(target)
     return product_state_to_circuit(amps,
                                     getattr(compiler, "start_variant", 0))

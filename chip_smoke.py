@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
-(sm_90a) and runs five phases, each printing one line that starts with its
+(sm_90a) and runs eight phases, each printing lines that start with its
 name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
@@ -19,6 +19,18 @@ name; any failure exits non-zero:
             full compile at n=10 to overlap > 0.99
   sweep     one Rotoselect sweep at bench.py's shape (n=50, chi=64, a
             window of 12 dressed-CNOT layers): ms/sweep and evals/s
+  sv        the statevector engine: a 20-qubit circuit of every gate kind
+            on the card (complex64) against the CPU (complex128); each op's
+            time and bandwidth at n=26; one Rotoselect sweep at n=26 on the
+            sweep phase's workload; AdaptCompiler(target,
+            backend=SVBackend(device="cuda")) with the default ISL config on
+            that target, 4 layers; full compiles of the README example and a
+            random 4-qubit state to overlap > 0.99
+  sampling  the JAX package's sampling compile (2 qubits, bound 0.85) and
+            the README example on SamplingBackend(device="cuda"); 65,536
+            draws from the n=26 target state against its exact <Z>
+  isl_mps   ISL on MPSBackend(max_chi=32, device="cuda") on the slice's
+            50-qubit target, 2 layers, with every kernel's launch count
 
 The second-to-last line is one JSON object with a record per kernel, the
 line before it the card's name and power limit from nvidia-smi, and the
@@ -60,6 +72,12 @@ TOL_RESID = 2e-4        # eigen-residual / scale
 TOL_T64 = 2e-6          # teig eigenvalues vs float64 eigh of T, / scale
 TOL_S64 = 5e-4          # svd_trunc kept s and action vs float64 SVD
 TOL_HAZARD = 1e-3       # kernels vs native overlap, deep re-simulation
+TOL_SV_REL = 1e-4       # statevector engine, card complex64 vs CPU
+                        # complex128, / max|reference|
+TOL_EXACT = 1e-4        # |exact_overlap - overlap| of a statevector compile
+SV_N = 26               # DENSE_OVERLAP_MAX_QUBITS: the JAX package's limit
+                        # for a dense state
+HBM_GBS = 3350.0        # H100 SXM device memory, GB/s (published peak)
 
 
 class SmokeFailure(Exception):
@@ -145,7 +163,7 @@ def _gram_cases(m, rng):
     return cases
 
 
-def phase_kernels(torch, ek, envk, cplx):
+def phase_kernels(torch, ek, envk, cplx, card):
     dev = torch.device("cuda")
     rng = np.random.default_rng(2026)
     rec = {k: {"max_abs_err": None, "ms": None, "plain_ms": None}
@@ -179,7 +197,7 @@ def phase_kernels(torch, ek, envk, cplx):
         ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), 20, torch)
         pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 3, torch)
         print(f"kernels: env_chain n=50 chi={chi} q=25 kernel {ms:.4f} ms "
-              f"plain {pms:.4f} ms", flush=True)
+              f"plain {pms:.4f} ms on {card}", flush=True)
         if chi == 32:
             rec["env_chain"]["ms"], rec["env_chain"]["plain_ms"] = ms, pms
 
@@ -274,7 +292,8 @@ def phase_kernels(torch, ek, envk, cplx):
                 parts.append(f"{kname} kernel {ms:.4f} ms plain {pms:.4f} ms")
                 if m == 64:
                     rec[kname]["ms"], rec[kname]["plain_ms"] = ms, pms
-            print(f"kernels: m={m} " + "; ".join(parts), flush=True)
+            print(f"kernels: m={m} " + "; ".join(parts) + f" on {card}",
+                  flush=True)
 
     # K3 and the whole eigensolver chain against float64 truth on 7-decade
     # spectra: the kernel's eigenvalues of T against float64 eigh of the
@@ -326,7 +345,7 @@ def phase_kernels(torch, ek, envk, cplx):
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_hazard(torch, mps_core, Circuit, compile_tape):
+def phase_hazard(torch, mps_core, Circuit, compile_tape, card):
     """(C^dag C)|0> at n = 50, chi = 64 for a deep random two-qubit chain
     C; |<0|psi>|^2 / <psi|psi> under both eigensolvers."""
     n, chi, layers = 50, 64, 8
@@ -357,8 +376,8 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape):
           f"kernels {out['kernels'][0]:.8f} native {out['native'][0]:.8f} "
           f"|diff| {diff:.2e} < {TOL_HAZARD}; discarded weight kernels "
           f"{out['kernels'][1]:.3e} native {out['native'][1]:.3e}; wall "
-          f"kernels {out['kernels'][2]:.2f} s native {out['native'][2]:.2f} s",
-          flush=True)
+          f"kernels {out['kernels'][2]:.2f} s native {out['native'][2]:.2f} s"
+          f" on {card}", flush=True)
     check(diff < TOL_HAZARD, f"kernels vs native overlap differ by {diff}")
     check(out["kernels"][0] > 0.5, "deep re-simulation collapsed")
 
@@ -388,7 +407,7 @@ def _compile(torch, port, n, max_layers, seed=1):
     return result, setup, time.perf_counter() - t0, qmps
 
 
-def phase_slice(torch, port, counted):
+def phase_slice(torch, port, counted, card):
     for fn in counted.values():
         fn.launches = 0
     result, setup, wall, _ = _compile(torch, port, 50, 4)
@@ -402,7 +421,7 @@ def phase_slice(torch, port, counted):
           f"evaluations, phases "
           + json.dumps({k: round(v, 3) for k, v in
                         result.phase_timings.items()})
-          + f", launches {json.dumps(launches)}", flush=True)
+          + f", launches {json.dumps(launches)} on {card}", flush=True)
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
     check(np.isfinite(result.overlap) and 0.0 <= result.overlap <= 1.0 + 1e-6,
@@ -430,7 +449,7 @@ def phase_slice(torch, port, counted):
           f"(independent re-simulation {check_ov:.6f}) in "
           f"{len(result.qubit_pair_history)} layers, {wall:.2f} s, "
           f"{result.cost_evaluations} cost evaluations, "
-          f"{result.num_2q_gates} two-qubit gates", flush=True)
+          f"{result.num_2q_gates} two-qubit gates on {card}", flush=True)
     check(result.overlap > 0.99, f"n=10 compile overlap {result.overlap}")
     check(abs(check_ov - result.overlap) < 1e-3,
           f"n=10 independent overlap {check_ov} vs {result.overlap}")
@@ -438,12 +457,10 @@ def phase_slice(torch, port, counted):
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card):
-    """bench.py's workload: a 3-layer random-entangling 50-qubit target at
-    chi = 64 and a window of 12 dressed-CNOT layers, one Rotoselect sweep."""
-    n, chi, window = 50, 64, 12
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
+def bench_workload(Circuit, n, window, seed=0):
+    """bench.py's circuits: a 3-layer random-entangling target and a window
+    of `window` dressed-CNOT layers on random adjacent pairs."""
+    rng = np.random.default_rng(seed)
     target = Circuit(n)
     for q in range(n):
         target.ry(float(rng.uniform(-3, 3)), q)
@@ -452,10 +469,6 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card):
             target.cx(q, q + 1)
         for q in range(n):
             target.rz(float(rng.uniform(-3, 3)), q)
-    tt = compile_tape(target)
-    prefix = mps_core.apply_tape(mps_core.zero_mps(n, chi, torch.complex64,
-                                                   dev),
-                                 tt.kinds, tt.q0, tt.q1, tt.angles, 1e-16)
     ansatz = Circuit(n)
     for _ in range(window):
         a = int(rng.integers(n - 1))
@@ -464,6 +477,19 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card):
         ansatz.cx(a, a + 1)
         ansatz.rz(0.1, a)
         ansatz.rz(0.1, a + 1)
+    return target, ansatz
+
+
+def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card):
+    """bench.py's workload: a 3-layer random-entangling 50-qubit target at
+    chi = 64 and a window of 12 dressed-CNOT layers, one Rotoselect sweep."""
+    n, chi, window = 50, 64, 12
+    dev = torch.device("cuda")
+    target, ansatz = bench_workload(Circuit, n, window)
+    tt = compile_tape(target)
+    prefix = mps_core.apply_tape(mps_core.zero_mps(n, chi, torch.complex64,
+                                                   dev),
+                                 tt.kinds, tt.q0, tt.q1, tt.angles, 1e-16)
     at = compile_tape(ansatz)
     engine = mps_core.sweep_engine(1e-16)
     ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
@@ -483,6 +509,329 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card):
           f"host syncs/sweep, final |<0|psi>|^2 {ov2:.3e} on {card}",
           flush=True)
     check(np.isfinite(cost) and np.isfinite(ms), "sweep produced no number")
+
+
+# ---------------------------------------------------------------- phase 6
+def random_tape(n, depth, rng):
+    """Tape arrays of `depth` random gates: every kind (CXR included), on
+    random ordered pairs, so both qubit orders and non-adjacent pairs
+    occur."""
+    from adaptaqc_tpu_torch.circuits import gates as G
+    from adaptaqc_tpu_torch.circuits.tape import CXR
+    kinds = rng.choice(list(range(G.RX, G.N_KINDS)) + [CXR], size=depth)
+    pairs = np.array([rng.choice(n, 2, replace=False) for _ in range(depth)])
+    return (kinds.astype(np.int32), pairs[:, 0].astype(np.int32),
+            pairs[:, 1].astype(np.int32), rng.uniform(-np.pi, np.pi, depth))
+
+
+def _rel(out, ref):
+    out, ref = out.cpu().to(ref.dtype), ref.cpu()
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def sv_engine_check(torch, sv_core, dev, n):
+    """One random circuit of every gate kind on `dev` in complex64 against
+    the CPU in complex128: the state, <Z>, the probe's local overlap matrix
+    and the RDMs of a linear map, each / max|reference|."""
+    rng = np.random.default_rng(11)
+    tape = random_tape(n, 300, rng)
+    more = random_tape(n, 4, rng)
+    v = rng.normal(size=2 ** n) + 1j * rng.normal(size=2 ** n)
+    worst = {}
+    states = {}
+    for name, d, dt in (("card", dev, torch.complex64),
+                        ("cpu", "cpu", torch.complex128)):
+        st = sv_core.apply_tape(sv_core.state_from_vector(v, dt, d), *tape)
+        states[name] = (st, sv_core.apply_tape(st, *more))
+    (a, a2), (b, b2) = states["card"], states["cpu"]
+    worst["state"] = _rel(a, b)
+    worst["z"] = _rel(sv_core.z_expectations(a), sv_core.z_expectations(b))
+    worst["local_overlap"] = max(
+        _rel(sv_core.local_overlap_matrix(a2, a, q),
+             sv_core.local_overlap_matrix(b2, b, q))
+        for q in (0, 1, 4, 5, n // 2, n - 1))
+    pairs = [(q, q + 1) for q in range(n - 1)]
+    worst["rdms"] = _rel(sv_core.all_pair_rdms(a, pairs),
+                         sv_core.all_pair_rdms(b, pairs))
+    check(a.device.type == dev.type, "engine state left the card")
+    for k, v in worst.items():
+        check(v < TOL_SV_REL, f"sv engine {k} rel {v}")
+    return worst
+
+
+def sweep_op_model(tape, bl, is_two_qubit, t):
+    """One sweep's gate applies and probes (optim/sweeps._sweep's passes:
+    the checkpoints, each block's right states, the forward pass) priced
+    at the per-qubit op times `t`: (counts, ms by op)."""
+    kinds, q0 = list(tape.kinds), list(tape.q0)
+    nb = len(kinds) // bl
+    idx = (list(range(bl, len(kinds)))
+           + [b * bl + j for b in range(nb) for j in range(1, bl)]
+           + list(range(len(kinds))))
+    live = [i for i in idx if kinds[i] != 0]
+    two = [i for i in live if is_two_qubit(kinds[i])]
+    one = [i for i in live if not is_two_qubit(kinds[i])]
+    probes = [i for i in range(len(kinds)) if tape.trainable[i]]
+    counts = {"apply_1q": len(one), "apply_2q": len(two),
+              "probe": len(probes)}
+    ms = {"apply_1q": sum(t["apply_1q"][q0[i]] for i in one),
+          "apply_2q": sum(t["apply_2q_adjacent"][q0[i]] for i in two),
+          "probe": sum(t["probe"][q0[i]] for i in probes)}
+    return counts, ms
+
+
+def sv_op_times(torch, sv_core, st, n, card):
+    """Each statevector op of the sweep and the pair scoring at n qubits,
+    on every qubit (CUDA events): ms, and GB/s against the bytes it must
+    move (an apply reads and writes the state, a probe reads two states,
+    an RDM and <Z> read one). Returns {op: {qubit: ms}}."""
+    nbytes = st.numel() * st.element_size()
+    u2 = torch.eye(2, dtype=st.dtype, device=st.device)
+    u4 = torch.eye(4, dtype=st.dtype, device=st.device)
+    t = {"apply_1q": {q: cuda_ms(lambda: sv_core.apply_u2(st, u2, q), 10,
+                                 torch) for q in range(n)},
+         "apply_2q_adjacent": {q: cuda_ms(
+             lambda: sv_core.apply_u4(st, u4, q, q + 1), 10, torch)
+             for q in range(n - 1)},
+         "apply_2q_apart": {(a, b): cuda_ms(
+             lambda: sv_core.apply_u4(st, u4, a, b), 5, torch)
+             for a, b in ((0, 9), (3, n - 6), (n // 2, n // 2 + 3))},
+         "probe": {q: cuda_ms(lambda: sv_core.local_overlap_matrix(st, st, q),
+                              10, torch) for q in range(n)},
+         "rdm2": {(a, b): cuda_ms(lambda: sv_core.rdm2(st, a, b), 5, torch)
+                  for a, b in ((n // 2 - 1, n // 2), (3, n - 6), (0, n - 1))},
+         "z_expectations": {0: cuda_ms(lambda: sv_core.z_expectations(st), 3,
+                                       torch)}}
+    moved = {"apply_1q": 2, "apply_2q_adjacent": 2, "apply_2q_apart": 2,
+             "probe": 2, "rdm2": 1, "z_expectations": 1}
+    parts = []
+    for k, by_q in t.items():
+        v = np.array(list(by_q.values()))
+        gbs = moved[k] * nbytes / (v.mean() * 1e-3) / 1e9
+        parts.append(f"{k} mean {v.mean():.4f} max {v.max():.4f} ms, "
+                     f"{gbs:.0f} GB/s at the mean ({gbs / HBM_GBS:.2f} of "
+                     "peak)")
+    print(f"sv: ops at n={n} ({nbytes / 2**20:.0f} MiB state) over every "
+          "qubit: " + "; ".join(parts) + f" on {card}", flush=True)
+    return t
+
+
+def phase_sv(torch, port, card, dev="cuda", n_engine=20, n=SV_N):
+    """The statevector engine and the default compile path on the card.
+    Returns the n-qubit target state (for the sampling phase)."""
+    from adaptaqc_tpu_torch.backends import sv_core
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.circuits.operations import \
+        create_random_initial_state_circuit
+    from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.optim import sweeps
+    dev = torch.device(dev)
+    worst = sv_engine_check(torch, sv_core, dev, n_engine)
+    print(f"sv: engine n={n_engine} card complex64 vs cpu complex128, 304 "
+          "gates of every kind (both orders, non-adjacent pairs): "
+          + ", ".join(f"{k} rel {v:.2e}" for k, v in worst.items())
+          + f" < {TOL_SV_REL}", flush=True)
+
+    # the sweep phase's workload at n qubits
+    target, ansatz = bench_workload(Circuit, n, 12)
+    tt, at = compile_tape(target), compile_tape(ansatz)
+    prefix = sv_core.apply_tape(sv_core.zero_state(n, torch.complex64, dev),
+                                tt.kinds, tt.q0, tt.q1, tt.angles)
+    times = sv_op_times(torch, sv_core, prefix, n, card)
+    ref = sv_core.zero_state(n, torch.complex64, dev)
+    engine = sv_core.sweep_engine()
+    bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
+    args = (engine, bl, True, prefix, ref, at.kinds, at.q0, at.q1, at.angles,
+            at.trainable)
+    torch.cuda.reset_peak_memory_stats()
+    _, syncs = count_syncs(torch, lambda: sweeps.sweep(*args))  # warm-up
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, _, cost, state, evals, ov2 = sweeps.sweep(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, model = sweep_op_model(at, bl, sv_core.is_two_qubit, times)
+    print(f"sv: sweep n={n} {at.length} entries padded to {at.padded_length}"
+          f", block {bl}: {ms:.2f} ms/sweep, {evals / (ms / 1e3):.1f} evals/s"
+          f", {syncs} host syncs/sweep, peak {peak:.2f} GiB, final "
+          f"|<0|psi>|^2 {ov2:.3e}; op model "
+          + " + ".join(f"{counts[k]} {k} {v:.1f} ms" for k, v in model.items())
+          + f" = {sum(model.values()):.1f} ms on {card}", flush=True)
+    check(np.isfinite(cost) and np.isfinite(ms), "sv sweep produced no number")
+    check(state.device.type == dev.type, "sv sweep state left the card")
+    del state, args
+
+    # the default compile path at n qubits: ISL, full map, default layer
+    config = port.AdaptConfig(max_layers=4)
+    t0 = time.perf_counter()
+    compiler = port.AdaptCompiler(target, backend=port.SVBackend(device=dev),
+                                  adapt_config=config)
+    result = compiler.compile()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(compiler._prefix_state().device.type == dev.type
+          and compiler._current_state().device.type == dev.type,
+          "sv slice cached state is not on the card")
+    costs = ", ".join(f"{c:.6f}" for c in result.global_cost_history)
+    ltimes = ", ".join(f"{x:.2f}" for x in result.layer_times)
+    print(f"sv: slice n={n} ISL {len(compiler.coupling_map)} pairs, "
+          f"{len(result.qubit_pair_history)} layers, pairs "
+          f"{result.qubit_pair_history}, methods {result.method_history}, "
+          f"per-layer cost [{costs}] (last = final), per-layer wall s "
+          f"[{ltimes}], total {wall:.2f} s, {result.cost_evaluations} cost "
+          f"evaluations, exact overlap {result.exact_overlap:.6e} vs "
+          f"{result.overlap:.6e}, phases "
+          + json.dumps({k: round(v, 3) for k, v in
+                        result.phase_timings.items()}) + f" on {card}",
+          flush=True)
+    check(np.isfinite(result.overlap) and 0 <= result.overlap <= 1 + 1e-6,
+          f"sv slice overlap {result.overlap}")
+    check(abs(result.exact_overlap - result.overlap) < TOL_EXACT,
+          "sv slice exact overlap disagrees")
+    check(result.num_2q_gates > 0, "sv slice produced no two-qubit gates")
+    del compiler
+
+    for name, qc in (("README", readme_circuit(Circuit)),
+                     ("random 4-qubit", create_random_initial_state_circuit(
+                         4, seed=0))):
+        t0 = time.perf_counter()
+        result = port.AdaptCompiler(
+            qc, backend=port.SVBackend(device=dev)).compile()
+        wall = time.perf_counter() - t0
+        print(f"sv: {name} full compile: overlap {result.overlap:.6f} exact "
+              f"{result.exact_overlap:.6f} in {len(result.qubit_pair_history)}"
+              f" layers, {wall:.2f} s, {result.num_2q_gates} two-qubit gates"
+              f" on {card}", flush=True)
+        check(result.overlap > 0.99, f"{name} compile overlap "
+                                     f"{result.overlap}")
+        check(abs(result.exact_overlap - result.overlap) < TOL_EXACT,
+              f"{name} exact overlap {result.exact_overlap}")
+    return prefix
+
+
+def readme_circuit(Circuit):
+    """examples/readme_example.py's target."""
+    qc = Circuit(3)
+    qc.rx(1.23, 0)
+    qc.cx(0, 1)
+    qc.ry(2.5, 1)
+    qc.rx(-1.6, 2)
+    qc.ccx(2, 1, 0)
+    return qc
+
+
+# ---------------------------------------------------------------- phase 7
+def sampling_target(Circuit):
+    """tests/test_adapt_compiler.py test_sampling_backend's target: the
+    repo's random_circuit(2, 6, default_rng(13))."""
+    rng = np.random.default_rng(13)
+    qc = Circuit(2)
+    for _ in range(6):
+        kind = rng.choice(["rx", "ry", "rz", "cx", "h"])
+        if kind == "cx":
+            a, b = rng.choice(2, 2, replace=False)
+            qc.cx(int(a), int(b))
+        elif kind == "h":
+            qc.h(int(rng.integers(2)))
+        else:
+            getattr(qc, kind)(float(rng.uniform(-np.pi, np.pi)),
+                              int(rng.integers(2)))
+    return qc
+
+
+def phase_sampling(torch, port, target_state, card, dev="cuda"):
+    from adaptaqc_tpu_torch.backends import sv_core
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.circuits.operations import \
+        make_quantum_only_circuit
+    from adaptaqc_tpu_torch.compilers.approximate_compiler import \
+        calculate_overlap_between_circuits
+    dev = torch.device(dev)
+    for name, qc, cfg, bound in (
+            ("sampling case", sampling_target(Circuit),
+             port.AdaptConfig(sufficient_cost=0.05, max_layers=10), 0.85),
+            ("README", readme_circuit(Circuit), None, None)):
+        backend = port.SamplingBackend(shots=4096, seed=0, device=dev)
+        t0 = time.perf_counter()
+        compiler = port.AdaptCompiler(qc, backend=backend, adapt_config=cfg)
+        result = compiler.compile()
+        wall = time.perf_counter() - t0
+        check(compiler._current_state().device.type == dev.type,
+              "sampling state is not on the card")
+        exact = calculate_overlap_between_circuits(
+            qc, make_quantum_only_circuit(result.circuit), device=dev)
+        print(f"sampling: {name} compile, {backend.shots} shots a cost: "
+              f"overlap {result.overlap:.4f}, exact {exact:.6f}"
+              + (f" > {bound}" if bound else "")
+              + f" in {len(result.qubit_pair_history)} layers, "
+              f"{result.cost_evaluations} cost evaluations, {wall:.2f} s on "
+              f"{card}", flush=True)
+        check(np.isfinite(exact) and 0 <= exact <= 1 + 1e-6,
+              f"{name} exact overlap {exact}")
+        if bound:
+            check(exact > bound, f"{name} exact overlap {exact} <= {bound}")
+
+    n = sv_core.num_qubits(target_state)
+    shots = 65536
+    draws = [port.SamplingBackend(seed=0, device=dev).sample_state(
+        target_state, shots, n) for _ in range(2)]
+    check(draws[0] == draws[1], "the same seed gave different counts")
+    keys = np.array([int(k, 2) for k in draws[0]], dtype=np.int64)
+    cnts = np.array(list(draws[0].values()), dtype=np.float64)
+    z_counts = np.array([np.sum(cnts * (1 - 2 * ((keys >> q) & 1)))
+                         for q in range(n)]) / shots
+    z_exact = sv_core.z_expectations(target_state).cpu().numpy()
+    err = float(np.abs(z_counts - z_exact).max())
+    sampler = port.SamplingBackend(seed=1, device=dev)
+    sampler.sample_state(target_state, 8192, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        sampler.sample_state(target_state, 8192, n)
+    draw_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"sampling: n={n} {shots} draws: max |<Z>_counts - <Z>_exact| "
+          f"{err:.4f} < {5 / np.sqrt(shots):.4f}, same seed repeats its "
+          f"counts; {draw_ms:.2f} ms per 8192-shot draw on {card}",
+          flush=True)
+    check(err < 5 / np.sqrt(shots), f"sampled <Z> off by {err}")
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_isl_mps(torch, port, counted, card, dev="cuda", n=50):
+    """ISL on the MPS engine at the slice's n=50 target: its RDMs come from
+    mps_core.all_pair_rdms, its sweeps run all four kernels."""
+    from adaptaqc_tpu_torch.utils.constants import (CMAP_LINEAR,
+                                                    generate_coupling_map)
+    from adaptaqc_tpu_torch.utils.targets import random_target
+    dev = torch.device(dev)
+    qmps = random_target(1, n=n, device=dev)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    compiler = port.AdaptCompiler(
+        qmps, backend=port.MPSBackend(truncation_threshold=1e-8, max_chi=32,
+                                      device=dev),
+        adapt_config=port.AdaptConfig(max_layers=2),
+        coupling_map=generate_coupling_map(n, CMAP_LINEAR))
+    result = compiler.compile()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"isl_mps: n={n} chi=32 ISL, pairs {result.qubit_pair_history}, "
+          f"methods {result.method_history}, per-layer cost "
+          f"[{', '.join(f'{c:.6f}' for c in result.global_cost_history)}] "
+          f"(last = verified final), {wall:.2f} s, phases "
+          + json.dumps({k: round(v, 3) for k, v in
+                        result.phase_timings.items()})
+          + f", launches {json.dumps(launches)} on {card}", flush=True)
+    check("ISL" in result.method_history, "isl_mps never picked by ISL")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched by ISL on MPSBackend")
+    check(np.isfinite(result.overlap), "isl_mps overlap is not finite")
+    return launches
 
 
 def main():
@@ -506,10 +855,14 @@ def main():
     counted = {"env_chain": envk.env_chain, "tridiag": ek.tridiag,
                "teig": ek.teig, "backtransform": ek.backtransform}
     phase_device(torch, cuda_lib)
-    rec = phase_kernels(torch, ek, envk, cplx)
-    phase_hazard(torch, mps_core, Circuit, compile_tape)
-    launches = phase_slice(torch, port, counted)
+    rec = phase_kernels(torch, ek, envk, cplx, card)
+    phase_hazard(torch, mps_core, Circuit, compile_tape, card)
+    launches = phase_slice(torch, port, counted, card)
     phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)
+    target_state = phase_sv(torch, port, card)
+    phase_sampling(torch, port, target_state, card)
+    del target_state
+    phase_isl_mps(torch, port, counted, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

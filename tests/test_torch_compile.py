@@ -144,8 +144,15 @@ def test_adapt_compile_slice_matches_jax():
 
 
 def test_unported_paths_raise():
+    """The softened cost, BOBYQA and the local-cost full sweep are not
+    ported: asking for them raises instead of taking another path."""
     qmps = random_target(1, n=4, dtype=C128)
     backend = mps_backend_with_args(max_chi=4, dtype=C128)
     with pytest.raises(NotImplementedError):
-        AdaptCompiler(qmps, backend=backend,
-                      adapt_config=AdaptConfig(method="ISL"))
+        AdaptCompiler(qmps, backend=backend, soften_global_cost=True)
+    with pytest.raises(NotImplementedError):
+        AdaptCompiler(qmps, backend=backend, perform_final_minimisation=True)
+    comp = AdaptCompiler(qmps, backend=backend, optimise_local_cost=True,
+                         adapt_config=AdaptConfig(method="basic"))
+    with pytest.raises(NotImplementedError):
+        comp.compile()
