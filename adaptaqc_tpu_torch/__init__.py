@@ -6,7 +6,8 @@ the reference. The port covers the statevector, MPS and sampling backends,
 general_gradient pair heuristics, the Rotoselect/Rotosolve sweep and host
 probe loop, and the chi=1 product-state start. `AdaptCompiler(target)` with
 no backend runs, as in the JAX package, on `SVBackend()` with ISL. Engine
-state lives in native complex tensors on an explicit device; the four TPU
+state lives in native complex tensors on the backend's device, the CUDA
+card unless the caller passes `device="cpu"`; the four TPU
 kernels of the MPS path are CUDA C++ kernels for sm_90a (csrc/), built with
 nvcc at their first launch. On a CPU tensor every kernel wrapper runs its
 plain PyTorch version instead.

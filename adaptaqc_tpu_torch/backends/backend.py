@@ -7,8 +7,11 @@ mps_backend_with_args. A backend holds no simulator of its own to call out
 to: it evaluates tapes against a cached engine prefix state, so a cost query
 after the prefix is one engine call.
 
-Every engine state lives on the backend's explicit `device`, in its `dtype`
-(complex64 by default; complex128 for float64 parity work on the CPU).
+Every engine state lives on the backend's `device`, in its `dtype`
+(complex64 by default; complex128 for float64 parity work on the CPU). The
+device is the CUDA card unless the caller passes `device="cpu"`; building a
+backend touches no device, and without a card the first engine state raises
+(there is no fallback to the CPU).
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ class SVBackend(AQCBackend):
 
     engine_name = "sv"
 
-    def __init__(self, device="cpu", dtype: torch.dtype = None):
+    def __init__(self, device="cuda", dtype: torch.dtype = None):
         self.device = torch.device(device)
         self.dtype = dtype or config.DEFAULT_DTYPE
 
@@ -147,7 +150,7 @@ class MPSBackend(AQCBackend):
 
     def __init__(self, truncation_threshold: float = DEFAULT_TRUNCATION_THRESHOLD,
                  max_chi: Optional[int] = None, mps_log_data: bool = False,
-                 device="cpu", dtype: torch.dtype = None):
+                 device="cuda", dtype: torch.dtype = None):
         self.truncation_threshold = float(truncation_threshold)
         self.max_chi = max_chi
         self.mps_log_data = mps_log_data
@@ -248,7 +251,7 @@ class MPSBackend(AQCBackend):
 
 
 def mps_backend_with_args(mps_truncation_threshold=DEFAULT_TRUNCATION_THRESHOLD,
-                          max_chi=None, mps_log_data=False, device="cpu",
+                          max_chi=None, mps_log_data=False, device="cuda",
                           dtype=None, **_ignored) -> MPSBackend:
     """mps_sim_with_args analogue (aer_mps_backend.py:27-42)."""
     return MPSBackend(mps_truncation_threshold, max_chi, mps_log_data,
@@ -269,14 +272,14 @@ class SamplingBackend(AQCBackend):
 
     engine_name = "sampling"
 
-    def __init__(self, shots: int = 8192, seed: int = 0, device="cpu",
+    def __init__(self, shots: int = 8192, seed: int = 0, device="cuda",
                  dtype: torch.dtype = None):
         self.shots = shots
         self._sv = SVBackend(device, dtype)
         self.device = self._sv.device
         self.dtype = self._sv.dtype
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.seed = seed
+        self._generator = None
         self.host_rng = np.random.default_rng(seed)
 
     # engine plumbing delegates to the statevector engine
@@ -299,6 +302,16 @@ class SamplingBackend(AQCBackend):
         return self._sv.zero_ref(compiler)
 
     # --------------------------------------------------------------- draws
+    @property
+    def generator(self) -> torch.Generator:
+        """The draws' torch.Generator on the backend's device, seeded with
+        `seed`; made at first use, so that building a backend (the module
+        singleton QASM_SIM included) touches no device."""
+        if self._generator is None:
+            self._generator = torch.Generator(device=self.device)
+            self._generator.manual_seed(self.seed)
+        return self._generator
+
     def sample_state(self, state, shots: int, n: int):
         """Counts {bitstring: count} of `shots` draws from |state|^2, qubit
         0 as the rightmost character (qiskit's order).
@@ -398,7 +411,7 @@ class SamplingBackend(AQCBackend):
         return sample_tomography_rdm(exact, self.shots, self.host_rng)
 
 
-# default backends (python_default_backends.py:17-19), on the CPU
+# default backends (python_default_backends.py:17-19), on the card
 SV_SIM = SVBackend()
 MPS_SIM = MPSBackend()
 QASM_SIM = SamplingBackend()

@@ -10,7 +10,7 @@ sufficient-cost stop is verified by an exact re-simulation; on a
 statevector backend the result carries the exact dense overlap.
 
 With no backend argument, as in the JAX package, the compile runs on
-SVBackend() (on the CPU) with the ISL heuristic. Not ported yet
+SVBackend() (on the CUDA card) with the ISL heuristic. Not ported yet
 (ROADMAP.md): checkpoints, compile_in_parts, compile_with_chi_schedule,
 profiling, the final BOBYQA minimisation, the softened cost and the
 local-cost global polish.

@@ -264,7 +264,7 @@ DENSE_OVERLAP_MAX_QUBITS = 26
 
 def calculate_overlap_between_circuits(circuit1: Circuit, circuit2: Circuit,
                                        initial_state=None, qubit_subset=None,
-                                       mps_chi: int = 64, device="cpu",
+                                       mps_chi: int = 64, device="cuda",
                                        dtype=None):
     """|<psi1|psi2>|^2 (full_circuit.py:413-438), on `device` in `dtype`:
     dense statevectors up to DENSE_OVERLAP_MAX_QUBITS, MPS contraction at

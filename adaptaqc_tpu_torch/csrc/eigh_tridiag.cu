@@ -17,10 +17,38 @@
 //     lives in dynamic shared memory for the m-1 reflector steps; the
 //     matrix-vector product is warp-per-row (conflict-free rows, shuffle
 //     reductions) and the rank-2 update touches each element once.
-//   teig: one block, one thread per eigenvalue for bisection, LU and the
-//     two inverse-iteration solves (no cross-thread traffic at all); the
-//     m x m iterate sits in shared memory (64 KB) for the CGS2 pass, the
-//     LU factors in global scratch laid out lane-fastest (coalesced).
+//   teig: one block of 16 warps. What bounded its first port (one thread
+//     per eigenvalue, 4 warps) was the CGS2: 127 columns one after another,
+//     each two serial 128-long dots a thread and five block barriers, 0.89
+//     of its cycles at m = 128 (clock64() stamps). Now:
+//     - multisection: the 512/m threads of an eigenvalue lane (4 at
+//       m = 128, 8 at m = 64) count at every point the next k rounds of
+//       bisection can visit, so 30 rounds take 15 (10) dependent Sturm
+//       sweeps, and the eigenvalues equal the plain version's bit for bit;
+//     - inverse iteration: one thread per lane as before, now all in
+//       shared memory (the first port's global LU scratch put a load's
+//       latency into every step of the dependent solves): the forward
+//       sweep recomputes the LU as it eliminates, only du, u1 and a swap
+//       bit a step are kept for the backward solve, u2 is recomputed from
+//       e, and both recurrences carry their last values in registers;
+//     - blocked CGS2 (BCGS2): panels of 16 columns, copied to a buffer of
+//       16-byte rows; two block passes W = Q^T P, P -= Q W against all
+//       earlier columns on every warp (register-tiled: 2 columns x 4
+//       panel columns, or a row x 4, a thread), then CGS2 inside the panel
+//       on one warp with the panel in registers and shuffle reductions:
+//       six block barriers a panel instead of five a column. The iterate
+//       sits in shared memory with an odd row stride (m + 1), so walking a
+//       row and walking a column are both conflict-free;
+//     - every division goes through div_rn: a zero dividend (most of the
+//       e of a sweep's Grams are exact zeros) gets its signed-zero
+//       quotient without the division's slow path.
+//     What bounds it now: the dependent Sturm and solve recurrences, issue-
+//     bound on the division sequence (0.34 of its cycles in the bisection,
+//     0.19 in the inverse iteration at m = 128), and the in-panel CGS2,
+//     whose columns each wait on a few shuffle reductions.
+//     Its eigenvectors round differently from the plain column-by-column
+//     CGS2 (equal to TOL_VEC on separated spectra; inside a degenerate
+//     cluster they may rotate, and its projector is what is fixed).
 //   backtransform: one warp per output column, the column held in
 //     registers (4 values a lane), reflectors read through L1/L2.
 // The Sturm recurrence, the LU and the solves use round-to-nearest
@@ -29,6 +57,7 @@
 // version (ops/eigh_kernels.py).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -152,6 +181,24 @@ __global__ void tridiag_kernel(const float2* __restrict__ h,
 }
 
 // ---------------------------------------------------------------- teig
+constexpr int kTeigThreads = 512;  // 16 warps
+constexpr int kPanel = 16;         // columns of one CGS2 panel
+constexpr int kBisectRounds = 30;  // the plain version's float32 rounds
+static_assert(kBisectRounds % 2 == 0, "quadrisection takes rounds in pairs");
+static_assert(kTeigThreads >= 4 * kMaxM, "four threads an eigenvalue lane");
+
+// teig's dynamic shared memory, in floats: d, e, e2, w and the iterate (m
+// rows of m + 1), then from a 16-byte boundary the LU factors du, u1 and
+// the swap bits (4 words a lane), whose space the CGS2 reuses for the panel
+// projections W and the panel itself (m x kPanel each).
+__host__ __device__ inline int teig_lu_offset(int m) {
+  return (4 * m + m * (m + 1) + 3) & ~3;
+}
+__host__ __device__ inline int teig_smem_floats(int m) {
+  const int lu = 2 * m * m + 4 * m, panel = 2 * m * kPanel;
+  return teig_lu_offset(m) + (lu > panel ? lu : panel);
+}
+
 __device__ __forceinline__ float guard(float x, float pivmin) {
   return (fabsf(x) < pivmin) ? ((x >= 0.f) ? pivmin : -pivmin) : x;
 }
@@ -160,29 +207,71 @@ __device__ __forceinline__ float rsqrt_rn(float x) {
   return __frcp_rn(__fsqrt_rn(x));
 }
 
-__global__ void teig_kernel(const float* __restrict__ d_in,
-                            const float* __restrict__ e_in,
-                            const float* __restrict__ b0,
-                            float* __restrict__ w_out,
-                            float* __restrict__ z_out,
-                            float* __restrict__ scratch, int m) {
-  extern __shared__ float fsm[];
-  float* d = fsm;        // m
-  float* e = d + m;      // m, e[m-1] = 0
-  float* e2 = e + m;     // m, e * e
-  float* w = e2 + m;     // m
-  float* v = w + m;      // m, CGS work column
-  float* ov = v + m;     // m, CGS overlaps
-  float* bb = ov + m;    // m * m, bb[i * m + j], column j = lane j
-  __shared__ float red[33];
+// a / b rounded to nearest, as __fdiv_rn, but a zero dividend never takes
+// the division's slow special-case path: its quotient is the signed zero
+// of IEEE division, selected without a branch. The bond Grams of a sweep
+// are block-diagonal to a large degree (three quarters of the off-diagonal
+// e of bench.py's sweep are exact zeros), and their zero divisions made
+// the bisection 2.6x slower.
+__device__ __forceinline__ float div_rn(float a, float b) {
+  const float q = __fdiv_rn(a == 0.f ? 1.f : a, b);
+  return a == 0.f
+             ? __int_as_float((__float_as_int(a) ^ __float_as_int(b)) &
+                              0x80000000)
+             : q;
+}
+
+// Sturm count: the number of negative pivots of T - x I (guarded as the
+// plain version guards them).
+__device__ __forceinline__ int sturm_count(const float* d, const float* e2,
+                                           int m, float x, float pivmin) {
+  float q = __fsub_rn(d[0], x);
+  if (fabsf(q) < pivmin) q = -pivmin;
+  int cnt = (q < 0.f) ? 1 : 0;
+  for (int i = 1; i < m; ++i) {
+    q = __fsub_rn(__fsub_rn(d[i], x), div_rn(e2[i - 1], q));
+    if (fabsf(q) < pivmin) q = -pivmin;
+    cnt += (q < 0.f) ? 1 : 0;
+  }
+  return cnt;
+}
+
+__device__ __forceinline__ float mid_rn(float a, float b) {
+  return __fmul_rn(0.5f, __fadd_rn(a, b));
+}
+
+// The point that bisection from [lo, hi] visits at heap node h (h >= 1:
+// each bit below the leading one, from the top, takes the upper half if
+// set), computed by the same chain of midpoints.
+__device__ __forceinline__ float tree_point(float lo, float hi, int h) {
+  for (int bit = 30 - __clz(h); bit >= 0; --bit) {
+    const float md = mid_rn(lo, hi);
+    if ((h >> bit) & 1) lo = md; else hi = md;
+  }
+  return mid_rn(lo, hi);
+}
+
+__global__ void __launch_bounds__(kTeigThreads, 1)
+    teig_kernel(const float* __restrict__ d_in, const float* __restrict__ e_in,
+                const float* __restrict__ b0, float* __restrict__ w_out,
+                float* __restrict__ z_out, int m) {
+  extern __shared__ __align__(16) float fsm[];
+  const int ld = m + 1;  // odd row stride: row and column walks both
+                         // fall in distinct banks
+  float* d = fsm;                // m
+  float* e = d + m;              // m, e[m-1] = 0
+  float* e2 = e + m;             // m, e * e
+  float* w = e2 + m;             // m
+  float* bb = w + m;             // (m, ld): bb[i * ld + j], column j = lane j
+  float* du = fsm + teig_lu_offset(m);  // (m, m) LU pivots, lane-fastest
+  float* u1 = du + m * m;        // (m, m) first superdiagonal of U
+  uint32_t* swb = reinterpret_cast<uint32_t*>(u1 + m * m);  // (4, m) swaps
+  float* W = du;                 // (m, kPanel) panel projections and
+  float* pan = W + m * kPanel;   // (m, kPanel) the panel: both reuse the LU
+                                 // space once the iteration is done
   __shared__ float sc[4];
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  float* du = scratch;
-  float* u1 = du + m * m;
-  float* u2 = u1 + m * m;
-  float* mr = u2 + m * m;
-  float* sw = mr + m * m;
+  const int lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < m; i += nt) {
     d[i] = d_in[i];
@@ -190,15 +279,16 @@ __global__ void teig_kernel(const float* __restrict__ d_in,
     e[i] = ei;
     e2[i] = __fmul_rn(ei, ei);
   }
-  for (int idx = tid; idx < m * m; idx += nt) bb[idx] = b0[idx];
-  __syncthreads();
+  for (int idx = tid; idx < m * m; idx += nt)
+    bb[(idx / m) * ld + idx % m] = b0[idx];
   if (tid == 0) {
     float lo0 = __int_as_float(0x7f800000), hi0 = -__int_as_float(0x7f800000);
     for (int i = 0; i < m; ++i) {
-      const float el = (i > 0) ? e[i - 1] : 0.f;
-      const float rad = __fadd_rn(fabsf(e[i]), fabsf(el));
-      lo0 = fminf(lo0, __fsub_rn(d[i], rad));
-      hi0 = fmaxf(hi0, __fadd_rn(d[i], rad));
+      const float el = (i > 0) ? e_in[i - 1] : 0.f;
+      const float ei = (i < m - 1) ? e_in[i] : 0.f;
+      const float rad = __fadd_rn(fabsf(ei), fabsf(el));
+      lo0 = fminf(lo0, __fsub_rn(d_in[i], rad));
+      hi0 = fmaxf(hi0, __fadd_rn(d_in[i], rad));
     }
     const float scale = fmaxf(fmaxf(fabsf(lo0), fabsf(hi0)), 1e-30f);
     const float p = __fmul_rn(1.2e-7f, scale);
@@ -209,121 +299,220 @@ __global__ void teig_kernel(const float* __restrict__ d_in,
   }
   __syncthreads();
   const float lo0 = sc[0], hi0 = sc[1], scale = sc[2], pivmin = sc[3];
-  const int j = tid;
 
-  // Sturm bisection: lane j converges onto the j-th largest eigenvalue
-  if (j < m) {
-    float lo = lo0, hi = hi0;
+  // Sturm multisection: the tl threads of an eigenvalue lane (tl = 2^k, as
+  // many as the block holds, at most a warp) count at the 2^k - 1 points
+  // that the next k rounds of bisection can visit (thread 0 of the lane
+  // repeats the first), then every thread walks the k rounds. The
+  // intervals, and so w, equal the plain version's bit for bit: each point
+  // is the same chain of midpoints.
+  {
+    int tl = 32;
+    while (tl * m > nt) tl >>= 1;
+    const int k = 31 - __clz(tl);
+    const int jl = tid / tl, sub = tid % tl;
+    const int j = min(jl, m - 1);
+    const int base = lane & ~(tl - 1);
     const float target = (float)(m - 1 - j);
-    for (int r = 0; r < 30; ++r) {
-      const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-      float q = __fsub_rn(d[0], mid);
-      if (fabsf(q) < pivmin) q = -pivmin;
-      int cnt = (q < 0.f) ? 1 : 0;
-      for (int i = 1; i < m; ++i) {
-        q = __fsub_rn(__fsub_rn(d[i], mid), __fdiv_rn(e2[i - 1], q));
-        if (fabsf(q) < pivmin) q = -pivmin;
-        cnt += (q < 0.f) ? 1 : 0;
+    float lo = lo0, hi = hi0;
+    for (int r = 0; r < kBisectRounds; r += k) {
+      const int kk = min(k, kBisectRounds - r);
+      const float x = (sub >= 1 && sub < (1 << kk)) ? tree_point(lo, hi, sub)
+                                                    : mid_rn(lo, hi);
+      const int cnt = sturm_count(d, e2, m, x, pivmin);
+      int node = 1;
+      for (int l = 0; l < kk; ++l) {
+        const int cn = __shfl_sync(0xffffffffu, cnt, base + node);
+        const float mid = mid_rn(lo, hi);
+        if ((float)cn > target) {
+          hi = mid;
+          node = 2 * node;
+        } else {
+          lo = mid;
+          node = 2 * node + 1;
+        }
       }
-      if ((float)cnt > target) hi = mid; else lo = mid;
     }
-    w[j] = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    if (sub == 0 && jl < m) w[j] = mid_rn(lo, hi);
   }
   __syncthreads();
 
+  const int j = tid;
   if (j < m) {
     // shift lam_j = min_{l<=j} (w_l - (j-l) eps): coincident shifts split
     const float eps = __fmul_rn(1.2e-7f, scale);
     float lam = __fadd_rn(hi0, scale);
     for (int l = 0; l <= j; ++l)
       lam = fminf(lam, __fsub_rn(w[l], __fmul_rn((float)(j - l), eps)));
-    // partial-pivoted LU of (T - lam I), one factorisation per lane
-    float a_i = __fsub_rn(d[0], lam), s1_i = e[0];
-    for (int i = 0; i < m - 1; ++i) {
-      const float a_next = __fsub_rn(d[i + 1], lam);
-      const float s1_next = e[i + 1];
-      const float r2 = e[i];
-      const bool swap = fabsf(r2) > fabsf(a_i);
-      const float top0 = guard(swap ? r2 : a_i, pivmin);
-      const float top1 = swap ? a_next : s1_i;
-      const float top2 = swap ? s1_next : 0.f;
-      const float bot0 = swap ? a_i : r2;
-      const float bot1 = swap ? s1_i : a_next;
-      const float bot2 = swap ? 0.f : s1_next;
-      const float mlt = __fdiv_rn(bot0, top0);
-      du[i * m + j] = top0;
-      u1[i * m + j] = top1;
-      u2[i * m + j] = top2;
-      mr[i * m + j] = mlt;
-      sw[i * m + j] = swap ? 1.f : 0.f;
-      a_i = __fsub_rn(bot1, __fmul_rn(mlt, top1));
-      s1_i = __fsub_rn(bot2, __fmul_rn(mlt, top2));
-    }
-    du[(m - 1) * m + j] = guard(a_i, pivmin);
-    // two rounds of inverse iteration on column j of bb
+    // two rounds of inverse iteration on column j of bb. The forward sweep
+    // runs the partial-pivoted LU of (T - lam I) and eliminates as it goes
+    // (the LU is recomputed each round: only du, u1 and the swap bits are
+    // kept, in shared memory, for the backward solve; u2 = swap ? e[i+1] :
+    // 0 is recomputed); both recurrences carry their last values in
+    // registers.
     for (int rep = 0; rep < 2; ++rep) {
+      float a_i = __fsub_rn(d[0], lam), s1_i = e[0];
+      float carry = bb[j];
+      uint32_t bits = 0;
       for (int i = 0; i < m - 1; ++i) {
-        const float mlt = mr[i * m + j];
-        const bool s = sw[i * m + j] > 0.5f;
-        const float bi = bb[i * m + j], bi1 = bb[(i + 1) * m + j];
-        const float bt = s ? bi1 : bi;
-        const float bo = s ? bi : bi1;
-        bb[i * m + j] = bt;
-        bb[(i + 1) * m + j] = __fsub_rn(bo, __fmul_rn(mlt, bt));
+        const float a_next = __fsub_rn(d[i + 1], lam);
+        const float s1_next = e[i + 1];
+        const float r2 = e[i];
+        const bool swap = fabsf(r2) > fabsf(a_i);
+        const float top0 = guard(swap ? r2 : a_i, pivmin);
+        const float top1 = swap ? a_next : s1_i;
+        const float top2 = swap ? s1_next : 0.f;
+        const float bot0 = swap ? a_i : r2;
+        const float bot1 = swap ? s1_i : a_next;
+        const float bot2 = swap ? 0.f : s1_next;
+        const float mlt = div_rn(bot0, top0);
+        du[i * m + j] = top0;
+        u1[i * m + j] = top1;
+        bits |= (swap ? 1u : 0u) << (i & 31);
+        if ((i & 31) == 31 || i == m - 2) {
+          swb[(i >> 5) * m + j] = bits;
+          bits = 0;
+        }
+        a_i = __fsub_rn(bot1, __fmul_rn(mlt, top1));
+        s1_i = __fsub_rn(bot2, __fmul_rn(mlt, top2));
+        const float bi1 = bb[(i + 1) * ld + j];
+        const float bt = swap ? bi1 : carry;
+        const float bo = swap ? carry : bi1;
+        bb[i * ld + j] = bt;
+        carry = __fsub_rn(bo, __fmul_rn(mlt, bt));
       }
-      const float xn = __fdiv_rn(bb[(m - 1) * m + j], du[(m - 1) * m + j]);
-      bb[(m - 1) * m + j] = xn;
-      bb[(m - 2) * m + j] = __fdiv_rn(
-          __fsub_rn(bb[(m - 2) * m + j], __fmul_rn(u1[(m - 2) * m + j], xn)),
+      du[(m - 1) * m + j] = guard(a_i, pivmin);
+      float x2 = div_rn(carry, du[(m - 1) * m + j]);
+      bb[(m - 1) * ld + j] = x2;
+      float x1 = div_rn(
+          __fsub_rn(bb[(m - 2) * ld + j], __fmul_rn(u1[(m - 2) * m + j], x2)),
           du[(m - 2) * m + j]);
+      bb[(m - 2) * ld + j] = x1;
       for (int i = m - 3; i >= 0; --i) {
+        const bool sw = (swb[(i >> 5) * m + j] >> (i & 31)) & 1u;
+        const float u2 = sw ? e[i + 1] : 0.f;
         const float t = __fsub_rn(
-            __fsub_rn(bb[i * m + j], __fmul_rn(u1[i * m + j], bb[(i + 1) * m + j])),
-            __fmul_rn(u2[i * m + j], bb[(i + 2) * m + j]));
-        bb[i * m + j] = __fdiv_rn(t, du[i * m + j]);
+            __fsub_rn(bb[i * ld + j], __fmul_rn(u1[i * m + j], x1)),
+            __fmul_rn(u2, x2));
+        const float xi = div_rn(t, du[i * m + j]);
+        bb[i * ld + j] = xi;
+        x2 = x1;
+        x1 = xi;
       }
       // scale by the max-abs first: a nearly singular shift leaves
       // |x| ~ 1/pivmin^2, whose square overflows float32
       float amax = 0.f;
-      for (int i = 0; i < m; ++i) amax = fmaxf(amax, fabsf(bb[i * m + j]));
+      for (int i = 0; i < m; ++i) amax = fmaxf(amax, fabsf(bb[i * ld + j]));
       if (amax > 0.f)
-        for (int i = 0; i < m; ++i) bb[i * m + j] = __fdiv_rn(bb[i * m + j], amax);
+        for (int i = 0; i < m; ++i)
+          bb[i * ld + j] = div_rn(bb[i * ld + j], amax);
       float nrm2 = 0.f;
       for (int i = 0; i < m; ++i)
-        nrm2 = __fadd_rn(nrm2, __fmul_rn(bb[i * m + j], bb[i * m + j]));
+        nrm2 = __fadd_rn(nrm2, __fmul_rn(bb[i * ld + j], bb[i * ld + j]));
       const float s = rsqrt_rn(fmaxf(nrm2, 1e-30f));
-      for (int i = 0; i < m; ++i) bb[i * m + j] = __fmul_rn(bb[i * m + j], s);
+      for (int i = 0; i < m; ++i) bb[i * ld + j] = __fmul_rn(bb[i * ld + j], s);
     }
   }
   __syncthreads();
 
-  // CGS2 across columns (descending order keeps clusters contiguous)
-  for (int jj = 1; jj < m; ++jj) {
-    for (int i = tid; i < m; i += nt) v[i] = bb[i * m + jj];
+  // Blocked CGS2 across columns (descending order keeps clusters
+  // contiguous), kPanel columns a panel: two block passes W = Q^T P,
+  // P -= Q W against every earlier column on all 16 warps, then CGS2 inside
+  // the panel on one warp, in registers, with shuffle reductions and no
+  // block barrier. Column 0 keeps its iterate, as in the plain version.
+  float4* pan4 = reinterpret_cast<float4*>(pan);
+  const float4* W4 = reinterpret_cast<const float4*>(W);
+  for (int c0 = 0; c0 < m; c0 += kPanel) {
+    const int pw = min(kPanel, m - c0);
+    // the panel, zero-padded to kPanel columns, 16-byte rows
+    for (int idx = tid; idx < m * kPanel; idx += nt) {
+      const int i = idx / kPanel, p = idx % kPanel;
+      pan[idx] = (p < pw) ? bb[i * ld + c0 + p] : 0.f;
+    }
     __syncthreads();
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int c = tid; c < jj; c += nt) {
-        float s = 0.f;
-        for (int i = 0; i < m; ++i) s += bb[i * m + c] * v[i];
-        ov[c] = s;
+    for (int pass = 0; c0 > 0 && pass < 2; ++pass) {
+      // W[c][:] = Q[:, c]^T P for two columns c a thread
+      const int half = (c0 + 1) / 2;
+      for (int idx = tid; idx < half * (kPanel / 4); idx += nt) {
+        const int ca = idx % half, pg = idx / half;
+        const int cb = min(ca + half, c0 - 1);
+        float4 wa = make_float4(0.f, 0.f, 0.f, 0.f), wb = wa;
+        for (int i = 0; i < m; ++i) {
+          const float qa = bb[i * ld + ca], qb = bb[i * ld + cb];
+          const float4 pv = pan4[i * (kPanel / 4) + pg];
+          wa.x = fmaf(qa, pv.x, wa.x); wa.y = fmaf(qa, pv.y, wa.y);
+          wa.z = fmaf(qa, pv.z, wa.z); wa.w = fmaf(qa, pv.w, wa.w);
+          wb.x = fmaf(qb, pv.x, wb.x); wb.y = fmaf(qb, pv.y, wb.y);
+          wb.z = fmaf(qb, pv.z, wb.z); wb.w = fmaf(qb, pv.w, wb.w);
+        }
+        reinterpret_cast<float4*>(W)[ca * (kPanel / 4) + pg] = wa;
+        if (ca + half < c0)
+          reinterpret_cast<float4*>(W)[cb * (kPanel / 4) + pg] = wb;
       }
       __syncthreads();
-      for (int i = warp; i < m; i += nw) {
-        float s = 0.f;
-        for (int c = lane; c < jj; c += 32) s += bb[i * m + c] * ov[c];
-        s = warp_sum(s);
-        if (lane == 0) v[i] -= s;
+      // P -= Q W
+      for (int idx = tid; idx < m * (kPanel / 4); idx += nt) {
+        const int i = idx % m, pg = idx / m;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int c = 0; c < c0; ++c) {
+          const float qv = bb[i * ld + c];
+          const float4 wv = W4[c * (kPanel / 4) + pg];
+          acc.x = fmaf(qv, wv.x, acc.x); acc.y = fmaf(qv, wv.y, acc.y);
+          acc.z = fmaf(qv, wv.z, acc.z); acc.w = fmaf(qv, wv.w, acc.w);
+        }
+        float4 pv = pan4[i * (kPanel / 4) + pg];
+        pv.x -= acc.x; pv.y -= acc.y; pv.z -= acc.z; pv.w -= acc.w;
+        pan4[i * (kPanel / 4) + pg] = pv;
       }
       __syncthreads();
     }
-    float part = 0.f;
-    for (int i = tid; i < m; i += nt) part += v[i] * v[i];
-    const float nrm2 = block_sum(part, red);
-    const float s = rsqrt_rn(fmaxf(nrm2, 1e-30f));
-    for (int i = tid; i < m; i += nt) bb[i * m + jj] = v[i] * s;
+    if (warp == 0) {
+      constexpr int kRows = kMaxM / 32;
+      float r[kRows][kPanel];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+#pragma unroll
+        for (int p = 0; p < kPanel; ++p) {
+          const int i = lane + 32 * k;
+          r[k][p] = (i < m) ? pan[i * kPanel + p] : 0.f;
+        }
+#pragma unroll
+      for (int p = 0; p < kPanel; ++p) {
+        if (p >= pw || c0 + p == 0) continue;
+        for (int pass = 0; pass < 2; ++pass) {
+          float dots[kPanel];
+#pragma unroll
+          for (int qq = 0; qq < p; ++qq) {
+            float s = 0.f;
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) s = fmaf(r[k][qq], r[k][p], s);
+            dots[qq] = warp_sum(s);
+          }
+#pragma unroll
+          for (int qq = 0; qq < p; ++qq)
+#pragma unroll
+            for (int k = 0; k < kRows; ++k)
+              r[k][p] = fmaf(-dots[qq], r[k][qq], r[k][p]);
+        }
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) s = fmaf(r[k][p], r[k][p], s);
+        const float scl = rsqrt_rn(fmaxf(warp_sum(s), 1e-30f));
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) r[k][p] *= scl;
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k)
+#pragma unroll
+        for (int p = 0; p < kPanel; ++p) {
+          const int i = lane + 32 * k;
+          if (i < m && p < pw) bb[i * ld + c0 + p] = r[k][p];
+        }
+    }
     __syncthreads();
   }
-  for (int idx = tid; idx < m * m; idx += nt) z_out[idx] = bb[idx];
+  for (int idx = tid; idx < m * m; idx += nt)
+    z_out[idx] = bb[(idx / m) * ld + idx % m];
   for (int i = tid; i < m; i += nt) w_out[i] = w[i];
 }
 
@@ -393,14 +582,14 @@ int tridiag_launch(const void* h, void* vrows, void* tau, void* d, void* e,
 }
 
 int teig_launch(const void* d, const void* e, const void* b0, void* w, void* z,
-                void* scratch, int m, void* stream) {
+                int m, void* stream) {
   if (m < 2 || m > kMaxM) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(m * m + 6 * m) * sizeof(float);
+  const size_t smem = (size_t)teig_smem_floats(m) * sizeof(float);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       teig_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  teig_kernel<<<1, kMaxM, smem, (cudaStream_t)stream>>>(
+  teig_kernel<<<1, kTeigThreads, smem, (cudaStream_t)stream>>>(
       (const float*)d, (const float*)e, (const float*)b0, (float*)w,
-      (float*)z, (float*)scratch, m);
+      (float*)z, m);
   return (int)cudaGetLastError();
 }
 

@@ -34,9 +34,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # launcher name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
-    "env_chain_launch": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "env_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "env_chain_cluster_size": (_I,),
     "tridiag_launch": (_P, _P, _P, _P, _P, _I, _P),
-    "teig_launch": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "teig_launch": (_P, _P, _P, _P, _P, _I, _P),
     "backtransform_launch": (_P, _P, _P, _P, _I, _I, _P),
 }
 

@@ -289,8 +289,9 @@ def tridiag(h: torch.Tensor):
 
 
 def teig(d: torch.Tensor, e: torch.Tensor):
-    """Kernel K3 (replaces pallas_eigh._teig_kernel). Same outputs as
-    teig_plain: (w (m,) descending, z (m, m) eigenvector columns)."""
+    """Kernel K3 (replaces pallas_eigh._teig_kernel). The outputs of
+    teig_plain: (w (m,) descending, z (m, m) eigenvector columns); w bit
+    for bit, z to rounding (the kernel orthogonalises in panels, BCGS2)."""
     if d.device.type == "cpu":
         return teig_plain(d, e)
     m = d.shape[0]
@@ -301,10 +302,9 @@ def teig(d: torch.Tensor, e: torch.Tensor):
     b0 = teig_b0(m, torch.float32, dev)
     w = torch.empty(m, dtype=torch.float32, device=dev)
     z = torch.empty((m, m), dtype=torch.float32, device=dev)
-    scratch = torch.empty((5, m, m), dtype=torch.float32, device=dev)
     rc = cuda_lib.lib().teig_launch(
         d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
-        z.data_ptr(), scratch.data_ptr(), m, cuda_lib.stream_of(d))
+        z.data_ptr(), m, cuda_lib.stream_of(d))
     cuda_lib.check(rc, "teig")
     teig.launches += 1
     return w, z

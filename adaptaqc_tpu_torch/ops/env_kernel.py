@@ -16,8 +16,10 @@ with A = R's and B = L's tensors and both chains starting from |0><0| on the
 (padded) boundary bond. The wrapper runs the plain version for tensors on the
 CPU and launches the CUDA kernel (csrc/env_chain.cu) for tensors on a CUDA
 device, raising for anything the kernel does not take (complex128,
-chi > 64, a non-contiguous tensor). Launches are counted in
-`env_chain.launches`.
+chi > 64, a non-contiguous or misaligned tensor). The kernel runs each chain
+on a thread-block cluster and combines in whichever cluster finishes last,
+chosen through a counter that the wrapper keeps per device and stream.
+Launches are counted in `env_chain.launches`.
 """
 
 from __future__ import annotations
@@ -26,7 +28,20 @@ import torch
 
 from . import cuda_lib
 
-MAX_CHI = 64  # five padded chi x chi complex tiles of shared memory per block
+MAX_CHI = 64  # a CTA holds both B_p of a site and two chi x chi partials
+
+_COUNTERS = {}  # (device, stream) -> the kernel's combine counter (int32)
+
+
+def _counter(device, stream: int) -> torch.Tensor:
+    """A zeroed int32 that the kernel leaves at zero: one per stream, so
+    launches that share one are ordered."""
+    key = (str(device), stream)
+    t = _COUNTERS.get(key)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=device)
+        _COUNTERS[key] = t
+    return t
 
 
 def boundary_env(chi: int, dtype, device) -> torch.Tensor:
@@ -60,6 +75,15 @@ def env_chain_plain(br: torch.Tensor, bl: torch.Tensor, q: int):
     return torch.einsum("iax,jax->ij", br[q].conj(), h)
 
 
+def cluster_size(chi: int) -> int:
+    """CTAs a chain the kernel runs on at this chi (8, or 16 where the card
+    takes two such clusters at once; never more than chi)."""
+    cs = cuda_lib.lib().env_chain_cluster_size(int(chi))
+    if cs == 0:
+        raise RuntimeError(f"env_chain: no cluster size can launch chi={chi}")
+    return cs
+
+
 def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
     """Kernel K1 (replaces pallas_env._env_kernel): C (2, 2) complex."""
     if br.device.type == "cpu":
@@ -74,11 +98,15 @@ def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
     cuda_lib.require(bl, "env_chain ket", torch.complex64, (n, 2, chi, chi))
     if bl.device != br.device:
         raise ValueError("env_chain: bra and ket on different devices")
+    if (br.data_ptr() | bl.data_ptr()) % 16:
+        raise ValueError("env_chain: site stacks must be 16-byte aligned")
+    stream = cuda_lib.stream_of(br)
     snaps = torch.empty((2, chi, chi), dtype=torch.complex64, device=br.device)
     out = torch.empty((2, 2), dtype=torch.complex64, device=br.device)
     rc = cuda_lib.lib().env_chain_launch(
-        br.data_ptr(), bl.data_ptr(), snaps.data_ptr(), out.data_ptr(), n,
-        chi, int(q), cuda_lib.stream_of(br))
+        br.data_ptr(), bl.data_ptr(), snaps.data_ptr(),
+        _counter(br.device, stream).data_ptr(), out.data_ptr(), n, chi,
+        int(q), stream)
     cuda_lib.check(rc, "env_chain")
     env_chain.launches += 1
     return out

@@ -8,8 +8,13 @@ name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
   kernels   every kernel against its plain PyTorch version on the card at
-            the main path's shapes, with both times; the eigensolver also
-            against float64 on a 7-decade spectrum
+            the main path's shapes (K1 at chi 2/24/32/64 and q 0/1/17/25/
+            48/49; K3's eigenvectors also against float64: orthogonality,
+            residual, degenerate-cluster projectors), with its time, its
+            bound (kernel_bound), the plain version's time and, where one
+            PyTorch call computes the same function, that call's time; K1
+            at q = 0/25/49 and over the sweep's 48 probe sites; the
+            eigensolver also against float64 on a 7-decade spectrum
   hazard    a deep two-qubit-chain re-simulation at n=50, chi=64 under
             eigh="kernels" and eigh="native": overlaps agree to 1e-3
   slice     AdaptCompiler on the synthetic 50-qubit random-MPS target
@@ -24,7 +29,8 @@ name; any failure exits non-zero:
             time and bandwidth at n=26; one Rotoselect sweep at n=26 on the
             sweep phase's workload; AdaptCompiler(target,
             backend=SVBackend(device="cuda")) with the default ISL config on
-            that target, 4 layers; full compiles of the README example and a
+            that target, 4 layers; full compiles of the README example (with
+            no backend argument: the default SVBackend on the card) and a
             random 4-qubit state to overlap > 0.99
   sampling  the JAX package's sampling compile (2 qubits, bound 0.85) and
             the README example on SamplingBackend(device="cuda"); 65,536
@@ -32,10 +38,12 @@ name; any failure exits non-zero:
   isl_mps   ISL on MPSBackend(max_chi=32, device="cuda") on the slice's
             50-qubit target, 2 layers, with every kernel's launch count
 
-The second-to-last line is one JSON object with a record per kernel, the
-line before it the card's name and power limit from nvidia-smi, and the
-last line {"ok": true, "device": {...}}. Without a CUDA card, or without
-the package beside this script, it exits non-zero and prints no result.
+The third-to-last line is one JSON object with a record per kernel (its
+launches on the slice, its times at the slice's shapes, bound and library
+call), the line before the last the card's name and power limit from
+nvidia-smi, and the last line {"ok": true, "device": {...}}. Without a
+CUDA card, or without the package beside this script, it exits non-zero
+and prints no result.
 """
 
 import json
@@ -78,6 +86,52 @@ TOL_EXACT = 1e-4        # |exact_overlap - overlap| of a statevector compile
 SV_N = 26               # DENSE_OVERLAP_MAX_QUBITS: the JAX package's limit
                         # for a dense state
 HBM_GBS = 3350.0        # H100 SXM device memory, GB/s (published peak)
+FP32_TFLOPS = 67.0      # H100 SXM fp32 outside the tensor cores (published
+                        # peak); the port computes in exact float32, so no
+                        # TF32 or bf16 rate applies
+
+
+def kernel_bound(name, n=None, chi=None, m=None, keep=None):
+    """(bound_ms, bound_by, flops, bytes) of one launch of kernel `name`:
+    the larger of its operations over FP32_TFLOPS and its bytes (each
+    input read once, each output written once) over HBM_GBS.
+
+      env_chain      n sites of (2, chi, chi) complex64 for bra and ket;
+                     n-1 chain steps of 2 x 2 complex chi^3 products
+                     (32 chi^3 flops each) and the combine at site q (two
+                     chi^3 products per ket index, 32 chi^3, and four
+                     chi^2 dots, 32 chi^2): the same for every q
+      tridiag        m x m complex64 in; v (m x m complex), tau, d, e out;
+                     zhetrd's 16/3 m^3 flops
+      teig           d, e (m float32) and b0 (m x m) in, w and z out; 30
+                     bisection rounds of m lanes x m Sturm steps (3 ops),
+                     the LU (6 m^2) and two inverse-iteration rounds (12
+                     m^2 with the normalisation), and CGS2: two passes of
+                     a dot and an update over j earlier columns of m
+                     (8 j m flops for column j, 4 m^3 in all)
+      backtransform  m-1 reflectors (m x m complex64 and tau) and the keep
+                     columns of z (float32) in, (m, keep) complex64 out;
+                     reflector k touches m-k-1 rows of each column with a
+                     dot and an update: 16 (m-k-1) keep flops, 8 m^2 keep
+                     in all"""
+    if name == "env_chain":
+        flops = 32 * chi ** 3 * (n - 1) + 32 * chi ** 3 + 32 * chi ** 2
+        nbytes = 2 * n * 2 * chi * chi * 8 + 4 * 8
+    elif name == "tridiag":
+        flops = 16 * m ** 3 / 3
+        nbytes = m * m * 8 + m * m * 8 + m * 8 + 2 * m * 4
+    elif name == "teig":
+        flops = 30 * m * m * 3 + 6 * m * m + 2 * 12 * m * m + 4 * m ** 3
+        nbytes = 2 * m * 4 + m * m * 4 + m * 4 + m * m * 4
+    elif name == "backtransform":
+        flops = 8 * m * m * keep
+        nbytes = m * m * 8 + m * 8 + m * keep * 4 + m * keep * 8
+    else:
+        raise ValueError(f"no bound for kernel {name}")
+    t_ops = flops / (FP32_TFLOPS * 1e12) * 1e3
+    t_bytes = nbytes / (HBM_GBS * 1e9) * 1e3
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), by, flops, nbytes
 
 
 class SmokeFailure(Exception):
@@ -163,29 +217,103 @@ def _gram_cases(m, rng):
     return cases
 
 
-def phase_kernels(torch, ek, envk, cplx, card):
-    dev = torch.device("cuda")
+def sweep_probe_sites(Circuit, compile_tape):
+    """The site of every probe of phase_sweep's tape, in sweep order."""
+    _, ansatz = bench_workload(Circuit, 50, 12)
+    at = compile_tape(ansatz)
+    return [int(q) for q in np.asarray(at.q0)[np.asarray(at.trainable)]]
+
+
+def env_inputs(torch, n, chi, dev):
+    """Bra and ket site stacks (n, 2, chi, chi) from a seed: a ket close to
+    the bra keeps C of order one over 50 sites, as the probes of a
+    converging sweep see it (independent random tensors make the chains
+    decay to ~1e-11)."""
+    g = torch.Generator(device="cpu").manual_seed(chi)
+    scale = (2.0 * chi) ** -0.5
+    br = torch.randn(n, 2, chi, chi, generator=g,
+                     dtype=torch.complex64) * scale
+    bl = br + 0.1 * scale * torch.randn(n, 2, chi, chi, generator=g,
+                                        dtype=torch.complex64)
+    return br.to(dev), bl.to(dev)
+
+
+def ormqr_inputs(torch, vrows, tau, z, keep):
+    """K4's function as one torch.ormqr call: Q = H_0 ... H_{m-2} acts as
+    the identity on row 0, and on rows 1.. as the product of m-1
+    reflectors stored in geqrf layout (column k holds v_k[1:], whose
+    leading entry is v_k[k+1] = 1). Returns (a, tau, other) such that
+    out[1:] = ormqr(a, tau, other) and out[0] = z[0, :keep]."""
+    m = vrows.shape[0]
+    a = vrows[: m - 1, 1:].transpose(0, 1).contiguous()
+    other = z[1:, :keep].to(torch.complex64).contiguous()
+    return a, tau[: m - 1].contiguous(), other
+
+
+def teig_vector_errors(d, e, w, z, zp):
+    """The eigenvectors z of teig (kernel) on the tridiagonal (d, e),
+    measured in float64 on the host:
+      z        max |z - zp| after each column's sign is matched to the
+               plain version's zp (meaningful where w is well separated)
+      ortho    max |z^T z - I|
+      resid    max_j ||T z_j - w_j z_j|| / max|w|
+      cluster  max |Z_c Z_c^T - V_c V_c^T| over the degenerate clusters c
+               of the float64 spectrum (eigenvalues equal to 1e-9 of the
+               scale, at least 1e-2 of the scale from every other one),
+               V from float64 eigh of T: an eigenspace's projector is
+               fixed even where its vectors may rotate."""
+    d64 = d.double().cpu().numpy()
+    e64 = e.double().cpu().numpy()[:-1]
+    t = np.diag(d64) + np.diag(e64, 1) + np.diag(e64, -1)
+    zz = z.double().cpu().numpy()
+    wk = w.double().cpu().numpy()
+    zr = zp.double().cpu().numpy()
+    sign = np.where(np.sum(zz * zr, axis=0) < 0, -1.0, 1.0)
+    m = len(d64)
+    w64, v64 = np.linalg.eigh(t)
+    w64, v64 = w64[::-1], v64[:, ::-1]
+    scale = max(np.abs(w64).max(), 1e-30)
+    out = {"z": float(np.abs(zz * sign - zr).max()),
+           "ortho": float(np.abs(zz.T @ zz - np.eye(m)).max()),
+           "resid": float(np.linalg.norm(t @ zz - zz * wk, axis=0).max()
+                          / scale),
+           "cluster": 0.0}
+    starts = [0] + [i for i in range(1, m)
+                    if w64[i - 1] - w64[i] > 1e-9 * scale] + [m]
+    for a, b in zip(starts[:-1], starts[1:]):
+        gap_lo = w64[a - 1] - w64[a] if a > 0 else np.inf
+        gap_hi = w64[b - 1] - w64[b] if b < m else np.inf
+        if b - a < 2 or min(gap_lo, gap_hi) < 1e-2 * scale:
+            continue
+        pk = zz[:, a:b] @ zz[:, a:b].T
+        pt = v64[:, a:b] @ v64[:, a:b].T
+        out["cluster"] = max(out["cluster"], float(np.abs(pk - pt).max()))
+    return out
+
+
+def bound_fields(name, **shape):
+    ms, by, _, _ = kernel_bound(name, **shape)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def phase_kernels(torch, ek, envk, cplx, card, probe_sites, dev="cuda"):
+    dev = torch.device(dev)
     rng = np.random.default_rng(2026)
-    rec = {k: {"max_abs_err": None, "ms": None, "plain_ms": None}
+    rec = {k: {"max_abs_err": None, "ms": None, "plain_ms": None,
+               "bound_ms": None, "bound_by": None, "library_call": None,
+               "library_ms": None}
            for k in KERNELS}
     worst = {"env_chain": 0.0, "tridiag": 0.0, "tridiag_factors": 0.0,
-             "teig": 0.0,
+             "teig": 0.0, "teig_z": 0.0, "teig_ortho": 0.0,
+             "teig_resid": 0.0, "teig_cluster": 0.0,
              "backtransform": 0.0, "chain_w": 0.0, "ortho": 0.0,
              "resid": 0.0}
-    # K1: n = 50 chains at chi 32 (the compile) and 64 (bench.py's sweep)
-    for chi in (32, 64):
-        n = 50
-        g = torch.Generator(device="cpu").manual_seed(chi)
-        scale = (2.0 * chi) ** -0.5
-        # a ket close to the bra keeps C of order one over 50 sites, as the
-        # probes of a converging sweep see it (independent random tensors
-        # make the chains decay to ~1e-11)
-        br = torch.randn(n, 2, chi, chi, generator=g,
-                         dtype=torch.complex64) * scale
-        bl = br + 0.1 * scale * torch.randn(n, 2, chi, chi, generator=g,
-                                            dtype=torch.complex64)
-        br, bl = br.to(dev), bl.to(dev)
-        for q in (0, 17, 49):
+    # K1: n = 50 chains at every width the contract takes a ragged slab
+    # at, and at chi 32 (the compile) and 64 (bench.py's sweep)
+    n = 50
+    for chi in (2, 24, 32, 64):
+        br, bl = env_inputs(torch, n, chi, dev)
+        for q in (0, 1, 17, 25, 48, 49):
             c = envk.env_chain(br, bl, q)
             cp = envk.env_chain_plain(br, bl, q)
             err = float((c - cp).abs().max())
@@ -194,12 +322,24 @@ def phase_kernels(torch, ek, envk, cplx, card):
             check(rel < TOL_ENV_REL, f"env_chain chi={chi} q={q} rel {rel}")
             if chi == 32 and q == 17:
                 rec["env_chain"]["max_abs_err"] = err
-        ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), 20, torch)
+        if chi < 32:
+            continue
+        by_q = {q: cuda_ms(lambda: envk.env_chain(br, bl, q), 20, torch)
+                for q in (0, 25, 49)}
+        site_ms = [cuda_ms(lambda: envk.env_chain(br, bl, q), 5, torch)
+                   for q in probe_sites]
         pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 3, torch)
-        print(f"kernels: env_chain n=50 chi={chi} q=25 kernel {ms:.4f} ms "
-              f"plain {pms:.4f} ms on {card}", flush=True)
+        bound = bound_fields("env_chain", n=n, chi=chi)
+        print(f"kernels: env_chain n={n} chi={chi} clusters of "
+              f"{envk.cluster_size(chi)} CTAs, kernel "
+              + ", ".join(f"q={q} {t:.4f} ms" for q, t in by_q.items())
+              + f", mean over the sweep's {len(site_ms)} probe sites "
+              f"{np.mean(site_ms):.4f} ms; plain q=25 {pms:.4f} ms; bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no library"
+              f" call on {card}", flush=True)
         if chi == 32:
-            rec["env_chain"]["ms"], rec["env_chain"]["plain_ms"] = ms, pms
+            rec["env_chain"].update(ms=by_q[25], plain_ms=pms,
+                                    shape="n=50, chi=32, q=25", **bound)
 
     # K2-K4 on every spectrum class, m = 4 .. 128
     for m in (4, 16, 64, 128):
@@ -237,10 +377,17 @@ def phase_kernels(torch, ek, envk, cplx, card):
             wp, zp = ek.teig_plain(dp, ep)
             wscale = max(float(wp.abs().max()), 1e-30)
             err_w = float((w - wp).abs().max()) / wscale
-            err_z = float((z - zp).abs().max())
             worst["teig"] = max(worst["teig"], err_w)
-            check(err_w < TOL_TEIG_W_REL and err_z < TOL_VEC,
-                  f"teig m={m} {name}: w {err_w} z {err_z}")
+            check(err_w < TOL_TEIG_W_REL, f"teig m={m} {name}: w {err_w}")
+            tv = teig_vector_errors(dp, ep, w, z, zp)
+            err_z = tv["z"] if name == "rand" else 0.0
+            for k in ("ortho", "resid", "cluster"):
+                worst["teig_" + k] = max(worst["teig_" + k], tv[k])
+            worst["teig_z"] = max(worst["teig_z"], err_z)
+            check(err_z < TOL_VEC and tv["ortho"] < TOL_ORTHO
+                  and tv["resid"] < TOL_RESID and tv["cluster"] < TOL_VEC,
+                  f"teig m={m} {name}: z vs plain {err_z}, " + ", ".join(
+                      f"{k} {v}" for k, v in tv.items()))
             keep = m // 2
             o = ek.backtransform(vp, taup, zp, keep)
             op = ek.backtransform_plain(vp, taup, zp, keep)
@@ -268,7 +415,7 @@ def phase_kernels(torch, ek, envk, cplx, card):
                     float((d - dp).abs().max()), float((e - ep).abs().max()),
                     float((tau - taup).abs().max()))
                 rec["teig"]["max_abs_err"] = max(
-                    float((w - wp).abs().max()), err_z)
+                    float((w - wp).abs().max()), tv["z"])
                 rec["backtransform"]["max_abs_err"] = err_b
         if m in (64, 128):
             th = _gram_cases(m, rng)["rand"]
@@ -276,24 +423,47 @@ def phase_kernels(torch, ek, envk, cplx, card):
             hh = ((t.mH @ t + (t.mH @ t).mH) * 0.5).contiguous()
             vp, taup, dp, ep = ek.tridiag_plain(hh)
             wp, zp = ek.teig_plain(dp, ep)
+            keep = m // 2
+            # the library calls that compute the same functions (timed
+            # here only; the port never calls them): eigh of the dense T,
+            # and ormqr of the reflectors in geqrf layout, checked first
+            tdense = (torch.diag(dp) + torch.diag(ep[:-1], 1)
+                      + torch.diag(ep[:-1], -1)).contiguous()
+            oa, otau, oz = ormqr_inputs(torch, vp, taup, zp, keep)
+            lib_bt = torch.ormqr(oa, otau, oz)
+            ref_bt = ek.backtransform_plain(vp, taup, zp, keep)
+            check(float((lib_bt - ref_bt[1:]).abs().max()) < TOL_BT,
+                  f"torch.ormqr does not compute backtransform at m={m}")
             times = {
                 "tridiag": (lambda: ek.tridiag(hh),
-                            lambda: ek.tridiag_plain(hh)),
+                            lambda: ek.tridiag_plain(hh), None, None),
                 "teig": (lambda: ek.teig(dp, ep),
-                         lambda: ek.teig_plain(dp, ep)),
+                         lambda: ek.teig_plain(dp, ep),
+                         "torch.linalg.eigh(T) of the dense float32 T",
+                         lambda: torch.linalg.eigh(tdense)),
                 "backtransform": (
-                    lambda: ek.backtransform(vp, taup, zp, m // 2),
-                    lambda: ek.backtransform_plain(vp, taup, zp, m // 2)),
+                    lambda: ek.backtransform(vp, taup, zp, keep),
+                    lambda: ek.backtransform_plain(vp, taup, zp, keep),
+                    "torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
+                    lambda: torch.ormqr(oa, otau, oz)),
             }
             parts = []
-            for kname, (kfn, pfn) in times.items():
+            for kname, (kfn, pfn, lname, lfn) in times.items():
                 ms = cuda_ms(kfn, 20, torch)
                 pms = cuda_ms(pfn, 2, torch)
-                parts.append(f"{kname} kernel {ms:.4f} ms plain {pms:.4f} ms")
+                lms = cuda_ms(lfn, 20, torch) if lfn else None
+                bound = bound_fields(kname, m=m, keep=keep)
+                parts.append(
+                    f"{kname} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                    f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
+                    + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
                 if m == 64:
-                    rec[kname]["ms"], rec[kname]["plain_ms"] = ms, pms
-            print(f"kernels: m={m} " + "; ".join(parts) + f" on {card}",
-                  flush=True)
+                    rec[kname].update(ms=ms, plain_ms=pms, library_call=lname,
+                                      library_ms=lms, shape=f"m={m}", **bound)
+            native_ms = cuda_ms(lambda: torch.linalg.eigh(hh), 20, torch)
+            print(f"kernels: m={m} " + "; ".join(parts) + "; the whole "
+                  f"K2-K4 chain's yardstick torch.linalg.eigh(H) complex "
+                  f"{native_ms:.4f} ms on {card}", flush=True)
 
     # K3 and the whole eigensolver chain against float64 truth on 7-decade
     # spectra: the kernel's eigenvalues of T against float64 eigh of the
@@ -334,7 +504,11 @@ def phase_kernels(torch, ek, envk, cplx, card):
           f"tridiag QTQ^H {worst['tridiag']:.2e} < {TOL_TRIDIAG_REL}, "
           f"factors {worst['tridiag_factors']:.2e} < {TOL_TRIDIAG_FACTORS}, "
           f"teig w "
-          f"rel {worst['teig']:.2e} < {TOL_TEIG_W_REL}, backtransform "
+          f"rel {worst['teig']:.2e} < {TOL_TEIG_W_REL}, z up to sign on rand "
+          f"{worst['teig_z']:.2e} < {TOL_VEC}, z vs float64 ortho "
+          f"{worst['teig_ortho']:.2e} < {TOL_ORTHO} resid "
+          f"{worst['teig_resid']:.2e} < {TOL_RESID} cluster projector "
+          f"{worst['teig_cluster']:.2e} < {TOL_VEC}, backtransform "
           f"{worst['backtransform']:.2e} < {TOL_BT}; chain vs float64: w "
           f"{worst['chain_w']:.2e} < {TOL_CHAIN_W}, ortho {worst['ortho']:.2e}"
           f" < {TOL_ORTHO}, resid {worst['resid']:.2e} < {TOL_RESID}; "
@@ -698,8 +872,12 @@ def phase_sv(torch, port, card, dev="cuda", n_engine=20, n=SV_N):
                      ("random 4-qubit", create_random_initial_state_circuit(
                          4, seed=0))):
         t0 = time.perf_counter()
-        result = port.AdaptCompiler(
-            qc, backend=port.SVBackend(device=dev)).compile()
+        # the README target takes the default path: no backend argument
+        compiler = (port.AdaptCompiler(qc) if name == "README" else
+                    port.AdaptCompiler(qc, backend=port.SVBackend(device=dev)))
+        check(compiler.backend.device.type == dev.type,
+              f"{name} compile's backend is not on the card")
+        result = compiler.compile()
         wall = time.perf_counter() - t0
         print(f"sv: {name} full compile: overlap {result.overlap:.6f} exact "
               f"{result.exact_overlap:.6f} in {len(result.qubit_pair_history)}"
@@ -855,7 +1033,8 @@ def main():
     counted = {"env_chain": envk.env_chain, "tridiag": ek.tridiag,
                "teig": ek.teig, "backtransform": ek.backtransform}
     phase_device(torch, cuda_lib)
-    rec = phase_kernels(torch, ek, envk, cplx, card)
+    rec = phase_kernels(torch, ek, envk, cplx, card,
+                        sweep_probe_sites(Circuit, compile_tape))
     phase_hazard(torch, mps_core, Circuit, compile_tape, card)
     launches = phase_slice(torch, port, counted, card)
     phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)

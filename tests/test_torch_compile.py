@@ -77,7 +77,7 @@ def test_general_gradients_match_jax():
         gradients.zero_ansatz_inverse(t_layer), t_gens)
     assert t_degs == degs
     tback = mps_backend_with_args(mps_truncation_threshold=1e-8, max_chi=chi,
-                                  dtype=C128)
+                                  dtype=C128, device="cpu")
     out = gradients.general_grad_of_pairs_device(tst, t_start, t_ops, t_degs,
                                                  cmap, tback, n)
     np.testing.assert_allclose(out, ref, atol=1e-8)
@@ -122,7 +122,7 @@ def test_adapt_compile_slice_matches_jax():
     tc = AdaptCompiler(
         random_target(1, n=n, dtype=C128),
         backend=mps_backend_with_args(mps_truncation_threshold=1e-8,
-                                      max_chi=4, dtype=C128),
+                                      max_chi=4, dtype=C128, device="cpu"),
         adapt_config=_config(AdaptConfig), coupling_map=cmap,
         custom_layer_2q_gate=identity_resolvable(),
         starting_circuit="tenpy_product_state")
@@ -147,7 +147,7 @@ def test_unported_paths_raise():
     """The softened cost, BOBYQA and the local-cost full sweep are not
     ported: asking for them raises instead of taking another path."""
     qmps = random_target(1, n=4, dtype=C128)
-    backend = mps_backend_with_args(max_chi=4, dtype=C128)
+    backend = mps_backend_with_args(max_chi=4, dtype=C128, device="cpu")
     with pytest.raises(NotImplementedError):
         AdaptCompiler(qmps, backend=backend, soften_global_cost=True)
     with pytest.raises(NotImplementedError):

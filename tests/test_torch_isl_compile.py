@@ -27,7 +27,7 @@ C128 = torch.complex128
 
 
 def _sv():
-    return port.SVBackend(dtype=C128)
+    return port.SVBackend(dtype=C128, device="cpu")
 
 
 def _readme(pkg):
@@ -47,9 +47,11 @@ def _dense(qc, n):
 
 
 def test_default_compiler_is_statevector_isl():
+    """With no backend the compile runs on SVBackend() with ISL, on the
+    card: building the compiler touches no device."""
     comp = port.AdaptCompiler(_readme(port))
     assert isinstance(comp.backend, port.SVBackend)
-    assert comp.backend.device == torch.device("cpu")
+    assert comp.backend.device == torch.device("cuda")
     assert comp.adapt_config.method == "ISL"
     assert len(comp.coupling_map) == 3
 
@@ -166,12 +168,13 @@ def test_isl_on_mps_backend():
     qc_t, qc_j = _random_target(port, n, 5), _random_target(jport, n, 5)
     pairs = [(0, 1), (3, 2), (1, 4)]
     jb = jport.MPSBackend(max_chi=chi)
-    tb = port.MPSBackend(max_chi=chi, dtype=C128)
+    tb = port.MPSBackend(max_chi=chi, dtype=C128, device="cpu")
     ref = jb.all_pair_rdms(jb.mps_from_compiler_target(qc_j), pairs)
     out = tb.all_pair_rdms(tb.mps_from_compiler_target(qc_t), pairs)
     np.testing.assert_allclose(np.stack(out), np.stack(ref), atol=1e-10)
-    res = port.AdaptCompiler(_readme(port),
-                             backend=port.MPSBackend(dtype=C128)).compile()
+    res = port.AdaptCompiler(
+        _readme(port),
+        backend=port.MPSBackend(dtype=C128, device="cpu")).compile()
     assert set(res.method_history) <= {"ISL", "expectation"}
     assert "ISL" in res.method_history
     assert res.overlap > 0.99
@@ -195,7 +198,7 @@ def test_verification_applies_only_on_mps():
     estimate, as in the JAX package (adapt_compiler.py:832-834)."""
     sv = port.AdaptCompiler(_readme(port), backend=_sv())
     mps = port.AdaptCompiler(_readme(port),
-                             backend=port.MPSBackend(dtype=C128))
+                             backend=port.MPSBackend(dtype=C128, device="cpu"))
     assert not sv._verification_applies()
     assert mps._verification_applies()
     assert sv._sufficient_cost_verified()
@@ -206,13 +209,15 @@ def test_overlap_between_circuits_matches_jax(monkeypatch):
     lowered to 2 for the second case): 1e-10 against the JAX package."""
     a_t, b_t = _random_target(port, 4, 1), _random_target(port, 4, 2)
     a_j, b_j = _random_target(jport, 4, 1), _random_target(jport, 4, 2)
-    dense = approx.calculate_overlap_between_circuits(a_t, b_t, dtype=C128)
+    dense = approx.calculate_overlap_between_circuits(a_t, b_t, dtype=C128,
+                                                   device="cpu")
     ref = japprox.calculate_overlap_between_circuits(a_j, b_j)
     assert abs(dense - ref) < 1e-10
     monkeypatch.setattr(approx, "DENSE_OVERLAP_MAX_QUBITS", 2)
     monkeypatch.setattr(japprox, "DENSE_OVERLAP_MAX_QUBITS", 2)
     via_mps = approx.calculate_overlap_between_circuits(a_t, b_t, mps_chi=4,
-                                                        dtype=C128)
+                                                        dtype=C128,
+                                                        device="cpu")
     ref_mps = japprox.calculate_overlap_between_circuits(a_j, b_j,
                                                          mps_chi=4)
     assert abs(via_mps - ref_mps) < 1e-10

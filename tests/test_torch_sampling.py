@@ -103,9 +103,8 @@ def _state(n, rng):
 
 def test_sampler_repeats_its_counts_and_puts_qubit_0_rightmost():
     st = _state(5, np.random.default_rng(2))
-    a = SamplingBackend(seed=3, dtype=C128).sample_state(st, 1000, 5)
-    b = SamplingBackend(seed=3, dtype=C128).sample_state(st, 1000, 5)
-    c = SamplingBackend(seed=4, dtype=C128).sample_state(st, 1000, 5)
+    a, b, c = (SamplingBackend(seed=s, dtype=C128, device="cpu").sample_state(
+        st, 1000, 5) for s in (3, 3, 4))
     assert a == b and a != c
     assert sum(a.values()) == 1000
     qc = Circuit(3)
@@ -113,7 +112,8 @@ def test_sampler_repeats_its_counts_and_puts_qubit_0_rightmost():
     tape = compile_tape(qc)
     one = sv_core.apply_tape(sv_core.zero_state(3, C128), tape.kinds,
                              tape.q0, tape.q1, tape.angles)
-    assert SamplingBackend(dtype=C128).sample_state(one, 50, 3) == {"001": 50}
+    sampler = SamplingBackend(dtype=C128, device="cpu")
+    assert sampler.sample_state(one, 50, 3) == {"001": 50}
 
 
 def test_sampler_distribution():
@@ -122,7 +122,8 @@ def test_sampler_distribution():
     standard deviation about 0.001)."""
     n, shots = 4, 65536
     st = _state(n, np.random.default_rng(5))
-    counts = SamplingBackend(seed=0, dtype=C128).sample_state(st, shots, n)
+    counts = SamplingBackend(seed=0, dtype=C128, device="cpu").sample_state(
+        st, shots, n)
     p = sv_core.probabilities(st).numpy()
     q = np.zeros(2 ** n)
     for key, c in counts.items():
@@ -137,7 +138,7 @@ def _compilers(n=3, seed=4):
     jt = j_random_circuit(n, 12, rng)
     tt = random_circuit(n, 12, np.random.default_rng(seed))
     jc = JAdaptCompiler(jt, backend=JSVBackend())
-    tc = AdaptCompiler(tt, backend=SVBackend(dtype=C128))
+    tc = AdaptCompiler(tt, backend=SVBackend(dtype=C128, device="cpu"))
     for comp, layer, add in ((jc, jans.thinly_dressed_cnot(), jadd),
                              (tc, ans.thinly_dressed_cnot(), add_to_circuit)):
         for instr in layer.data:
@@ -173,7 +174,7 @@ def test_sampling_backend_takes_the_host_loop():
     """No sweep engine: Rotoselect runs the host probe loop, each probe a
     shot-based cost."""
     qc = random_circuit(2, 6, np.random.default_rng(13))
-    backend = SamplingBackend(shots=256, dtype=C128)
+    backend = SamplingBackend(shots=256, dtype=C128, device="cpu")
     comp = AdaptCompiler(qc, backend=backend, execute_kwargs={"shots": 128},
                          adapt_config=AdaptConfig(max_layers=1))
     assert comp.backend.sweep_engine() is None
@@ -191,7 +192,7 @@ def test_sampling_compile_reaches_the_jax_bound():
     test_sampling_backend): 4096 shots, sufficient_cost 0.05, at most 10
     layers; the exact overlap of the result exceeds 0.85."""
     qc = random_circuit(2, 6, np.random.default_rng(13))
-    comp = AdaptCompiler(qc, backend=SamplingBackend(shots=4096),
+    comp = AdaptCompiler(qc, backend=SamplingBackend(shots=4096, device="cpu"),
                          adapt_config=AdaptConfig(sufficient_cost=0.05,
                                                   max_layers=10))
     res = comp.compile()
@@ -213,18 +214,20 @@ def test_run_circuit_and_pauli_expectation_match_jax():
     jqc = j_random_circuit(3, 10, rng)
     tqc = random_circuit(3, 10, np.random.default_rng(6))
     sv = running.run_circuit_without_transpilation(
-        tqc, SVBackend(dtype=C128), return_statevector=True)
+        tqc, SVBackend(dtype=C128, device="cpu"), return_statevector=True)
     ref = jrunning.run_circuit_without_transpilation(
         jqc, JSVBackend(), return_statevector=True)
     np.testing.assert_allclose(sv, ref, atol=TOL)
     c1 = running.run_circuit_without_transpilation(
-        tqc, SamplingBackend(seed=1), execute_kwargs={"shots": 500})
+        tqc, SamplingBackend(seed=1, device="cpu"),
+        execute_kwargs={"shots": 500})
     c2 = running.run_circuit_without_transpilation(
-        tqc, SamplingBackend(seed=1), execute_kwargs={"shots": 500})
+        tqc, SamplingBackend(seed=1, device="cpu"),
+        execute_kwargs={"shots": 500})
     assert c1 == c2 and sum(c1.values()) == 500
     op = {"XZI": 0.5, "IYY": -0.3, "ZZZ": 0.2, "III": 0.1}
     out = pauli_ops.expectation_value_of_pauli_operator(
-        tqc, op, SVBackend(dtype=C128))
+        tqc, op, SVBackend(dtype=C128, device="cpu"))
     ref = jpauli.expectation_value_of_pauli_operator(jqc, op, JSVBackend())
     assert abs(out - ref) < 1e-9
 
@@ -235,8 +238,8 @@ def test_concurrence_lower_bound_protocol_matches_jax():
     jqc = j_random_circuit(3, 10, rng)
     tqc = random_circuit(3, 10, np.random.default_rng(7))
     for a, b in [(0, 1), (0, 2)]:
-        out = em.measure_concurrence_lower_bound(tqc, a, b,
-                                                 SVBackend(dtype=C128))
+        out = em.measure_concurrence_lower_bound(
+            tqc, a, b, SVBackend(dtype=C128, device="cpu"))
         ref = jem.measure_concurrence_lower_bound(jqc, a, b, JSVBackend())
         assert abs(out - ref) < 1e-10
 
@@ -252,7 +255,8 @@ def test_circuit_tomography_runs_under_the_noise_model():
     """Deviation from the JAX package, which measures the noiseless state
     whatever the noise model: the 9 tomography circuits of a Bell pair run
     under strong amplitude damping lose most of its concurrence."""
-    backend = SamplingBackend(shots=4096, seed=0, dtype=C128)
+    backend = SamplingBackend(shots=4096, seed=0, dtype=C128,
+                              device="cpu")
     clean = em.perform_quantum_tomography(_bell(), 0, 1, backend)
     noise = running.create_noisemodel(1e-4, 1e-4, log_fidelities=False)
     noisy = em.perform_quantum_tomography(
@@ -267,9 +271,10 @@ def test_sampling_rdms_are_simulated_tomography_of_the_exact_rdms():
     backend's exact RDMs."""
     st = _state(3, np.random.default_rng(8))
     pairs = [(0, 1), (1, 2)]
-    out = SamplingBackend(shots=1024, seed=9, dtype=C128).all_pair_rdms(
+    out = SamplingBackend(shots=1024, seed=9, dtype=C128,
+                          device="cpu").all_pair_rdms(
         st, pairs)
-    exact = SVBackend(dtype=C128).all_pair_rdms(st, pairs)
+    exact = SVBackend(dtype=C128, device="cpu").all_pair_rdms(st, pairs)
     rng = np.random.default_rng(9)
     for o, e in zip(out, exact):
         np.testing.assert_allclose(o, em.sample_tomography_rdm(e, 1024, rng),

@@ -1,0 +1,115 @@
+"""bench.py's MPS sweep for an older tree and this one, in turns, on one
+CUDA card; then one profiled sweep of this tree.
+
+    python3 tools/sweep_ab.py --parent DIR
+
+DIR is an unpacked older tree (for example `git archive` of the parent
+commit). Each run is its own process, which builds that tree's kernels and
+times chip_smoke.phase_sweep twice; the order is parent, this tree, this
+tree, parent, so drift on the card shows in both. The profile sums each
+kernel's device time over one sweep (torch.profiler) and sets it beside the
+same sweep's unprofiled wall time.
+"""
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def sweep_args(tree):
+    import torch
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.backends import mps_core
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.optim import sweeps
+    n, chi, dev = 50, 64, torch.device("cuda")
+    target, ansatz = cs.bench_workload(Circuit, n, 12)
+    tt, at = compile_tape(target), compile_tape(ansatz)
+    prefix = mps_core.apply_tape(
+        mps_core.zero_mps(n, chi, torch.complex64, dev), tt.kinds, tt.q0,
+        tt.q1, tt.angles, 1e-16)
+    ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
+    bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
+    return sweeps, (mps_core.sweep_engine(1e-16), bl, True, prefix, ref,
+                    at.kinds, at.q0, at.q1, at.angles, at.trainable)
+
+
+def run_one(tree):
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.backends import mps_core
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.optim import sweeps
+    card = cs.gpu_line()
+    for _ in range(2):
+        cs.phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)
+
+
+def profile():
+    sys.path.insert(0, ROOT)
+    import torch
+    from torch.profiler import ProfilerActivity
+    import chip_smoke as cs
+    sweeps, args = sweep_args(ROOT)
+    for _ in range(2):
+        sweeps.sweep(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweeps.sweep(*args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        sweeps.sweep(*args)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total", 0)
+        if dt and not ev.key.startswith("aten::"):
+            rows.append((dt / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    print(f"profile: one sweep: {total:.2f} ms of kernel time, unprofiled "
+          f"wall {wall:.2f} ms, busy {total / wall:.3f} on {cs.gpu_line()}",
+          flush=True)
+    for ms, count, key in rows[:12]:
+        print(f"profile: {ms:9.3f} ms {count:5d} launches  {key[:80]}",
+              flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True)
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:
+        return run_one(args.one)
+    if args.profile:
+        return profile()
+    parent = os.path.abspath(args.parent)
+    for tag, tree in (("parent", parent), ("this tree", ROOT),
+                      ("this tree", ROOT), ("parent", parent)):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--parent", parent, "--one", tree],
+                             capture_output=True, text=True)
+        for line in out.stdout.splitlines():
+            if line.startswith("sweep:"):
+                print(f"ab {tag}: {line}", flush=True)
+        if out.returncode:
+            print(f"ab {tag} failed: {out.stderr[-2000:]}", flush=True)
+            return 1
+    return subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--parent", parent, "--profile"]).returncode
+
+
+if __name__ == "__main__":
+    sys.exit(main())
