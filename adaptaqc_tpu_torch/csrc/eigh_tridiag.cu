@@ -13,10 +13,26 @@
 // each a few block-wide barriers, and the Sturm bisection is 30 x m
 // dependent divisions per lane. The designs therefore keep everything on
 // chip and spend no launches inside the loops:
-//   tridiag: one block; the whole m x m work matrix (128 KB at m = 128)
-//     lives in dynamic shared memory for the m-1 reflector steps; the
-//     matrix-vector product is warp-per-row (conflict-free rows, shuffle
-//     reductions) and the rank-2 update touches each element once.
+//   tridiag: one block of 1024 threads. Its first port (256 threads, the
+//     m x m work matrix in shared memory) paid about 14 block barriers a
+//     step, a thread-0 section for the reflector's scalars, a warp a row
+//     with two shuffle trees for the matrix-vector product, and the
+//     product and update over the whole matrix through shared memory.
+//     Now the matrix lives in registers (16 entries a thread, 128 KB in
+//     all at m = 128): the product and the rank-2 update touch only the
+//     trailing block and read nothing from shared memory but broadcast
+//     vectors; the scalars are formed by one group of four warps; a step
+//     takes three block barriers. A step whose column is exactly zero
+//     (the sweep's Grams have many: their right-bond padding leaves whole
+//     rows and columns of H zero, and the residue of their rank-deficient
+//     trailing blocks reaches zero) is an exact no-op: a run of them is
+//     found by one scan of every column and costs no step at all.
+//     Registers, not shared memory: with the matrix in shared memory the
+//     product and update are bound by its bandwidth (the trailing block
+//     read or written three times a step). What bounds it now: the rank-2
+//     update, rounded as written (no FMA) so that A stays exactly
+//     Hermitian, about half of its cycles at m = 128, and the latency of
+//     a step's chain (three barriers and group 0's reduction of s).
 //   teig: one block of 16 warps. What bounded its first port (one thread
 //     per eigenvalue, 4 warps) was the CGS2: 127 columns one after another,
 //     each two serial 128-long dots a thread and five block barriers, 0.89
@@ -49,8 +65,14 @@
 //     Its eigenvectors round differently from the plain column-by-column
 //     CGS2 (equal to TOL_VEC on separated spectra; inside a degenerate
 //     cluster they may rotate, and its projector is what is fixed).
-//   backtransform: one warp per output column, the column held in
-//     registers (4 values a lane), reflectors read through L1/L2.
+//   backtransform: its first port was a warp a column walking the m-1
+//     reflectors one after another, each a read of v_k through L1/L2 and
+//     two shuffle trees. Now a CTA of 512 threads takes 8 columns; the
+//     active reflectors (tau != 0) are copied once, transposed, into
+//     shared memory by cp.async, grouped into compact-WY panels of 16 and
+//     applied as small products in shared memory, three barriers a panel;
+//     inactive reflectors (the identity) are dropped, so whole panels of
+//     them go.
 // The Sturm recurrence, the LU and the solves use round-to-nearest
 // intrinsics so that no multiply-add is contracted into an FMA: they
 // compute the same operations, in the same order, as the plain PyTorch
@@ -63,121 +85,288 @@
 
 namespace {
 
-using adaptaqc::block_sum;
+using adaptaqc::cp_async8;
+using adaptaqc::cp_async_commit;
+using adaptaqc::cp_async_wait;
 using adaptaqc::warp_sum;
 
 constexpr int kMaxM = 128;
 
-// ------------------------------------------------------------- tridiag
-__global__ void tridiag_kernel(const float2* __restrict__ h,
-                               float2* __restrict__ vrows,
-                               float2* __restrict__ tau_out,
-                               float* __restrict__ d_out,
-                               float* __restrict__ e_out, int m) {
-  extern __shared__ float2 smem[];
-  float2* A = smem;     // m * m, row-major
-  float2* v = A + m * m;  // reflector v_k
-  float2* u = v + m;      // u = A v, then w
-  __shared__ float red[33];
-  __shared__ float sc[6];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+// ------------------------------------------------------------- complex
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// acc += a b
+__device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
+  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
+  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
+}
+// acc += conj(a) b
+__device__ __forceinline__ void cfma_conj(float2& acc, float2 a, float2 b) {
+  acc.x = fmaf(a.x, b.x, fmaf(a.y, b.y, acc.x));
+  acc.y = fmaf(a.x, b.y, fmaf(-a.y, b.x, acc.y));
+}
 
-  for (int idx = tid; idx < m * m; idx += nt) {
-    A[idx] = h[idx];
-    vrows[idx] = make_float2(0.f, 0.f);
+// ------------------------------------------------------------- tridiag
+constexpr int kTriThreads = 1024;
+constexpr int kTriGroups = kTriThreads / kMaxM;  // 8 row groups
+// A thread holds kRows rows (tridiag_kernel's template parameter): 4, 8
+// or 16, the fewest that cover m (kTriGroups * kRows >= m). The row loops
+// are unrolled (the rows live in registers), and a step's time grows with
+// their length even where the rows are idle: the same arithmetic at m = 64
+// takes about two thirds of the time with 8 rows a thread as with 16, and
+// at m = 32 with 4 rows about half (tools/eigh_variants.py).
+
+// Below this, a column's sum of squares may have lost bits to gradual
+// underflow (FLT_MIN / FLT_EPSILON): its norm is then taken scaled.
+constexpr float kTinySquares = 0x1p-103f;
+
+__device__ __forceinline__ void group0_sync() {  // the 128 threads of g = 0
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kMaxM) : "memory");
+}
+
+// Row r of the rows that row group g holds: the rows are dealt out
+// cyclically, so that the trailing block stays spread over all eight
+// groups to the last steps.
+__device__ __forceinline__ int tri_row(int g, int r) {
+  return g + kTriGroups * r;
+}
+
+// Sum of |A[j][c]|^2 over this thread's rows j > c (its column c), in one
+// fixed order: the same function serves every place a column's squares
+// are summed, so a column's partials are the same wherever they are taken.
+template <int kRows>
+__device__ __forceinline__ float column_squares(const float2 (&a)[kRows],
+                                                int g, int c, int m) {
+  float ss = 0.f;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = tri_row(g, r);
+    if (j > c && j < m) ss = fmaf(a[r].x, a[r].x, fmaf(a[r].y, a[r].y, ss));
   }
-  for (int i = tid; i < m; i += nt) {
-    tau_out[i] = make_float2(0.f, 0.f);
-    e_out[i] = 0.f;
+  return ss;
+}
+
+// ||column k below the diagonal|| for a column whose sum of squares is
+// tiny: scaled by its largest component, so that the reflector built from
+// it stays unitary (the same value in every warp: xor-butterfly
+// reductions).
+__device__ __noinline__ float scaled_norm(const float2* col, int k, int m,
+                                          int lane) {
+  float amax = 0.f;
+  for (int j = k + 1 + lane; j < m; j += 32)
+    amax = fmaxf(amax, fmaxf(fabsf(col[j].x), fabsf(col[j].y)));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float inv = 1.f / amax;
+  float part = 0.f;
+  for (int j = k + 1 + lane; j < m; j += 32) {
+    const float cx = col[j].x * inv, cy = col[j].y * inv;
+    part += cx * cx + cy * cy;
+  }
+  return amax * sqrtf(warp_sum(part));
+}
+
+// One CTA of 1024 threads; the matrix lives in registers: thread (g, li)
+// holds column li of rows g, g+8, .., g+8(kRows-1). Shared memory carries
+// only vectors. A step k:
+//   top: ss = |alpha|^2 + |x|^2 of column k, summed from the eight row
+//     groups' partials (every thread the same sum). Zero: the step and
+//     every following step whose column is exactly zero are inactive
+//     (tau = e = 0, v = e_{k+1}: the plain version's update subtracts
+//     exact zeros there), found at once by a scan of every column's
+//     squares;
+//   1. thread (g, i) sums conj(A[j][i]) c_j over its rows j > k+1 (c =
+//      column k, which its owners left in shared memory); the row group
+//      of k+1 leaves row k+1; group 0 forms the reflector's scalars
+//      (barrier);
+//   2. group 0 forms u_i = A[i][k+1] + gam y_i, s = v^H u (four warps, a
+//      named barrier) and w_i (barrier);
+//   3. every thread updates its entries of the trailing block; the
+//      owners of column k+1 leave it, and its partial squares, for the
+//      next step (barrier).
+// Only the trailing block is touched: rows and columns <= k are final.
+template <int kRows>
+__global__ void __launch_bounds__(kTriThreads, 1)
+    tridiag_kernel(const float2* __restrict__ h, float2* __restrict__ vrows,
+                   float2* __restrict__ tau_out, float* __restrict__ d_out,
+                   float* __restrict__ e_out, int m) {
+  __shared__ float2 C[kMaxM];              // column k of A
+  __shared__ float2 R1[kMaxM];             // row k+1 of A
+  __shared__ float2 P[kTriGroups][kMaxM];  // the row groups' partial y
+  __shared__ float2 V[kMaxM], W[kMaxM];    // v and w by row
+  __shared__ float SS[kTriGroups][kMaxM];  // partial squares of a column
+  __shared__ float2 S4[kMaxM / 32];        // group 0's warp shares of s
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int li = tid & (kMaxM - 1), g = tid / kMaxM;
+
+  // h is exactly Hermitian (the caller symmetrises it: (h + h^H) / 2 is,
+  // bit for bit), and so A stays from here on
+  float2 a[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = tri_row(g, r);
+    a[r] = (j < m && li < m) ? h[j * m + li] : make_float2(0.f, 0.f);
+  }
+  if (tid < m) vrows[(m - 1) * m + tid] = make_float2(0.f, 0.f);
+  if (tid == 0) {
+    tau_out[m - 1] = make_float2(0.f, 0.f);
+    e_out[m - 1] = 0.f;
+  }
+  if (li == 0) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) C[tri_row(g, r)] = a[r];
+    SS[g][0] = column_squares(a, g, 0, m);
   }
   __syncthreads();
 
-  for (int k = 0; k < m - 1; ++k) {
-    float part = 0.f;
-    for (int j = k + 2 + tid; j < m; j += nt) {
-      const float2 c = A[j * m + k];
-      part += c.x * c.x + c.y * c.y;
+  int k = 0;
+  while (k < m - 1) {
+    float ss = 0.f;
+#pragma unroll
+    for (int x = 0; x < kTriGroups; ++x) ss += SS[x][k];
+    if (!(ss > 0.f)) {
+      // inactive from k on: find the next column with a nonzero square
+      __syncthreads();  // every thread has read SS[.][k]
+      if (li < m) SS[g][li] = column_squares(a, g, li, m);
+      __syncthreads();
+      int next = m - 1;
+      for (int base = k; base < m - 1; base += 32) {
+        const int c = base + lane;
+        float t = 0.f;
+        if (c < m - 1)
+#pragma unroll
+          for (int x = 0; x < kTriGroups; ++x) t += SS[x][c];
+        const unsigned mask = __ballot_sync(0xffffffffu, t > 0.f);
+        if (mask) {
+          next = base + __ffs(mask) - 1;
+          break;
+        }
+      }
+      for (int idx = tid; idx < (next - k) * m; idx += kTriThreads) {
+        const int row = k + idx / m, col = idx % m;
+        vrows[row * m + col] = make_float2(col == row + 1 ? 1.f : 0.f, 0.f);
+      }
+      for (int x = k + tid; x < next; x += kTriThreads) {
+        tau_out[x] = make_float2(0.f, 0.f);
+        e_out[x] = 0.f;
+      }
+      if (next < m - 1 && li == next) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) C[tri_row(g, r)] = a[r];
+      }
+      __syncthreads();
+      k = next;
+      continue;
     }
-    const float xnorm2 = block_sum(part, red);
-    if (tid == 0) {
-      const float2 alpha = A[(k + 1) * m + k];
-      const float nrm = sqrtf(alpha.x * alpha.x + alpha.y * alpha.y + xnorm2);
-      const bool active = nrm > 0.f;
-      const float inv = active ? 1.f / nrm : 0.f;
+    const int k1 = k + 1;
+    const bool own = li > k && li < m;
+
+    // 1. y_i over this row group, and row k+1; group 0 forms the
+    // reflector's scalars first
+    float nrm = 0.f, tr = 0.f, ti = 0.f, bh = 0.f;
+    float2 gam = make_float2(0.f, 0.f);
+    if (g == 0) {
+      const float2 alpha = C[k1];
+      nrm = ss < kTinySquares ? scaled_norm(C, k, m, lane) : sqrtf(ss);
+      const float inv = 1.f / nrm;
       const float ahr = alpha.x * inv, ahi = alpha.y * inv;
-      const float bh = (ahr >= 0.f) ? -1.f : 1.f;
-      const float beta = active ? bh * nrm : 0.f;
-      const float tr = active ? 1.f - ahr * bh : 0.f;
-      const float ti = active ? -ahi * bh : 0.f;
+      bh = (ahr >= 0.f) ? -1.f : 1.f;
+      tr = 1.f - ahr * bh;
+      ti = -ahi * bh;
       const float dr = ahr - bh, di = ahi;
-      const float sdn = active ? dr * dr + di * di : 1.f;
-      sc[0] = inv; sc[1] = dr; sc[2] = di; sc[3] = sdn; sc[4] = tr; sc[5] = ti;
-      tau_out[k] = make_float2(tr, ti);
-      e_out[k] = beta;
+      const float gs = inv / (dr * dr + di * di);
+      gam = make_float2(dr * gs, -di * gs);  // v_j = gam c_j
     }
-    __syncthreads();
-    const float inv = sc[0], dr = sc[1], di = sc[2], sdn = sc[3];
-    const float tr = sc[4], ti = sc[5];
-    for (int j = tid; j < m; j += nt) {
-      float2 vj = make_float2(0.f, 0.f);
-      if (j == k + 1) {
-        vj = make_float2(1.f, 0.f);
-      } else if (j > k + 1) {
-        const float2 c = A[j * m + k];
-        vj = make_float2((c.x * dr + c.y * di) * inv / sdn,
-                         (c.y * dr - c.x * di) * inv / sdn);
+    if (own) {
+      float2 q = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int j = tri_row(g, r);
+        if (j > k1 && j < m) cfma_conj(q, a[r], C[j]);  // uniform in a warp
       }
-      v[j] = vj;
-      vrows[k * m + j] = vj;
-    }
-    __syncthreads();
-    // u = A v (v is zero on indices <= k)
-    for (int i = warp; i < m; i += nw) {
-      float ur = 0.f, ui = 0.f;
-      for (int j = k + 1 + lane; j < m; j += 32) {
-        const float2 a = A[i * m + j], vj = v[j];
-        ur += a.x * vj.x - a.y * vj.y;
-        ui += a.x * vj.y + a.y * vj.x;
-      }
-      ur = warp_sum(ur);
-      ui = warp_sum(ui);
-      if (lane == 0) u[i] = make_float2(ur, ui);
-    }
-    __syncthreads();
-    // s = v^H u
-    float sr = 0.f, si = 0.f;
-    for (int j = k + 1 + tid; j < m; j += nt) {
-      const float2 vj = v[j], uj = u[j];
-      sr += vj.x * uj.x + vj.y * uj.y;
-      si += vj.x * uj.y - vj.y * uj.x;
-    }
-    const float s_r = block_sum(sr, red);
-    const float s_i = block_sum(si, red);
-    // w = tau (u - (conj(tau) s / 2) v), written over u
-    const float t2r = (tr * s_r + ti * s_i) * 0.5f;
-    const float t2i = (tr * s_i - ti * s_r) * 0.5f;
-    for (int j = tid; j < m; j += nt) {
-      const float2 uj = u[j], vj = v[j];
-      const float pr = uj.x - (t2r * vj.x - t2i * vj.y);
-      const float pi = uj.y - (t2r * vj.y + t2i * vj.x);
-      u[j] = make_float2(tr * pr - ti * pi, tr * pi + ti * pr);
-    }
-    __syncthreads();
-    // A <- A - v w^H - w v^H
-    for (int i = warp; i < m; i += nw) {
-      const float2 vi = v[i], wi = u[i];
-      for (int j = lane; j < m; j += 32) {
-        const float2 vj = v[j], wj = u[j];
-        float2 a = A[i * m + j];
-        a.x -= (vi.x * wj.x + vi.y * wj.y) + (wi.x * vj.x + wi.y * vj.y);
-        a.y -= (vi.y * wj.x - vi.x * wj.y) + (wi.y * vj.x - wi.x * vj.y);
-        A[i * m + j] = a;
+      P[g][li] = q;
+      if (k1 % kTriGroups == g) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (tri_row(g, r) == k1) R1[li] = a[r];
       }
     }
     __syncthreads();
+
+    // 2. the reflector, u = A v, s = v^H u, w = tau (u - (conj(tau) s/2) v)
+    if (g == 0) {
+      float2 share = make_float2(0.f, 0.f), vi = share, u = share;
+      if (own) {
+        vi = (li == k1) ? make_float2(1.f, 0.f) : cmul(gam, C[li]);
+        float2 y = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int x = 0; x < kTriGroups; ++x) {
+          y.x += P[x][li].x;
+          y.y += P[x][li].y;
+        }
+        const float2 gy = cmul(gam, y);
+        u = make_float2(R1[li].x + gy.x, -R1[li].y + gy.y);  // A[i][k+1]
+        cfma_conj(share, vi, u);
+      }
+      share.x = warp_sum(share.x);
+      share.y = warp_sum(share.y);
+      if (lane == 0) S4[warp] = share;
+      group0_sync();
+      float2 s = S4[0];
+#pragma unroll
+      for (int x = 1; x < kMaxM / 32; ++x) {
+        s.x += S4[x].x;
+        s.y += S4[x].y;
+      }
+      if (own) {
+        const float t2r = (tr * s.x + ti * s.y) * 0.5f;
+        const float t2i = (tr * s.y - ti * s.x) * 0.5f;
+        const float pr = u.x - (t2r * vi.x - t2i * vi.y);
+        const float pi = u.y - (t2r * vi.y + t2i * vi.x);
+        V[li] = vi;
+        W[li] = make_float2(tr * pr - ti * pi, tr * pi + ti * pr);
+      }
+      if (li < m) vrows[k * m + li] = (li <= k) ? make_float2(0.f, 0.f) : vi;
+      if (li == k1) {
+        tau_out[k] = make_float2(tr, ti);
+        e_out[k] = bh * nrm;
+      }
+    }
+    __syncthreads();
+
+    // 3. A[j][i] -= v_j conj(w_i) + w_j conj(v_i) on the trailing block,
+    // rounded as written (no contraction): the thread that holds A[i][j]
+    // gets exactly the conjugate, so A stays exactly Hermitian
+    if (own) {
+      const float2 vb = V[li], wb = W[li];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int j = tri_row(g, r);
+        if (j > k && j < m) {  // uniform in a warp
+          const float2 va = V[j], wa = W[j];
+          const float re = __fadd_rn(
+              __fadd_rn(__fmul_rn(va.x, wb.x), __fmul_rn(va.y, wb.y)),
+              __fadd_rn(__fmul_rn(wa.x, vb.x), __fmul_rn(wa.y, vb.y)));
+          const float im = __fadd_rn(
+              __fsub_rn(__fmul_rn(va.y, wb.x), __fmul_rn(va.x, wb.y)),
+              __fsub_rn(__fmul_rn(wa.y, vb.x), __fmul_rn(wa.x, vb.y)));
+          a[r] = make_float2(__fsub_rn(a[r].x, re), __fsub_rn(a[r].y, im));
+        }
+      }
+      if (li == k1) {  // the next step's column
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) C[tri_row(g, r)] = a[r];
+        SS[g][k1] = column_squares(a, g, k1, m);
+      }
+    }
+    __syncthreads();
+    k = k1;
   }
-  for (int i = tid; i < m; i += nt) d_out[i] = A[i * m + i].x;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    if (tri_row(g, r) == li && li < m) d_out[li] = a[r].x;
 }
 
 // ---------------------------------------------------------------- teig
@@ -517,52 +706,192 @@ __global__ void __launch_bounds__(kTeigThreads, 1)
 }
 
 // ------------------------------------------------------- backtransform
-// out[:, c] = H_0 H_1 ... H_{m-2} z[:, c]; one warp per column c.
-__global__ void backtransform_kernel(const float2* __restrict__ vrows,
-                                     const float2* __restrict__ tau,
-                                     const float* __restrict__ z,
-                                     float2* __restrict__ out, int m,
-                                     int keep) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (c >= keep) return;  // uniform per warp
-  float2 x[kMaxM / 32];
-#pragma unroll
-  for (int r = 0; r < kMaxM / 32; ++r) {
-    const int i = lane + 32 * r;
-    x[r] = make_float2(i < m ? z[i * m + c] : 0.f, 0.f);
+constexpr int kBtThreads = 512;
+constexpr int kBtCols = 8;    // output columns of one CTA
+constexpr int kBtPanel = 16;  // reflectors of one compact-WY panel
+constexpr int kBtSplit = kBtThreads / (kBtPanel * kBtCols);  // 4 row phases
+constexpr int kBtGSplit = kBtThreads / (kBtPanel * kBtPanel);  // 2 for G
+constexpr int kBtMaxPanels = (kMaxM - 1 + kBtPanel - 1) / kBtPanel;
+constexpr int kBtBlock = kBtPanel * kBtPanel;  // one panel's G or T
+static_assert(kBtSplit * kBtPanel * kBtCols == kBtThreads, "Y tiling");
+static_assert(kBtGSplit * kBtBlock == kBtThreads, "G tiling");
+
+// The row stride of the transposed reflectors: odd, so that a warp walking
+// a row or a column of them hits distinct banks.
+__host__ __device__ inline int bt_ldv(int m) { return (m - 1) | 1; }
+// backtransform's dynamic shared memory, in float2: the active reflectors
+// transposed (m rows of bt_ldv), the CTA's columns of z (m x kBtCols),
+// kBtGSplit partial V^H V blocks a panel (the first becomes T), the
+// panel's kBtSplit partial V^H Z and its T V^H Z (kBtPanel x kBtCols).
+__host__ __device__ inline int bt_smem_float2(int m) {
+  return m * bt_ldv(m) + m * kBtCols + kBtGSplit * kBtMaxPanels * kBtBlock +
+         (kBtSplit + 1) * kBtPanel * kBtCols;
+}
+
+// out[:, c0:c0+8] = H_0 H_1 ... H_{m-2} z[:, c0:c0+8], one CTA of 512
+// threads for 8 columns (8 CTAs at keep = 64). Reflectors with tau == 0
+// are the identity and are dropped: the active ones (in order) are grouped
+// into panels of 16, P = H_a ... H_b = I - V T V^H with the zlarft
+// recurrence T[i][i] = tau_i, T[:i, i] = -tau_i T[:i, :i] (V[:, :i]^H v_i),
+// and the panels are applied last first: Y = V^H Z, W = T Y, Z -= V W
+// (three barriers a panel). Every T is built before the first panel is
+// applied, a warp a panel. A dot over rows is split between the threads
+// that take every kBtSplit-th (kBtGSplit-th) row.
+__global__ void __launch_bounds__(kBtThreads)
+    backtransform_kernel(const float2* __restrict__ vrows,
+                         const float2* __restrict__ tau,
+                         const float* __restrict__ z,
+                         float2* __restrict__ out, int m, int keep) {
+  extern __shared__ __align__(16) float2 bsm[];
+  const int ldv = bt_ldv(m);
+  float2* Vt = bsm;                   // Vt[r * ldv + s] = v_{act[s]}[r]
+  float2* Z = Vt + m * ldv;           // (m, kBtCols)
+  float2* G = Z + m * kBtCols;        // (kBtGSplit, kBtMaxPanels, kBtBlock)
+  float2* Y = G + kBtGSplit * kBtMaxPanels * kBtBlock;  // (split, 16, 8)
+  float2* Wp = Y + kBtSplit * kBtPanel * kBtCols;       // (16, 8)
+  float2* T = G;                      // T of panel p over the first G
+  __shared__ int act[kMaxM];
+  __shared__ float2 tau_s[kMaxM];
+  __shared__ int na_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kBtThreads / 32;
+  const int c0 = blockIdx.x * kBtCols;
+  const int cw = min(kBtCols, keep - c0);
+
+  // the active reflectors, in order (a warp ballot a 32 of them)
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < m - 1; base += 32) {
+      const int k = base + lane;
+      const float2 t = (k < m - 1) ? tau[k] : make_float2(0.f, 0.f);
+      const bool on = t.x != 0.f || t.y != 0.f;
+      const unsigned mask = __ballot_sync(0xffffffffu, on);
+      if (on) {
+        const int pos = count + __popc(mask & ((1u << lane) - 1u));
+        act[pos] = k;
+        tau_s[pos] = t;
+      }
+      count += __popc(mask);
+    }
+    if (lane == 0) na_s = count;
   }
-  for (int k = m - 2; k >= 0; --k) {
-    const float2* vk = vrows + (size_t)k * m;
-    float yr = 0.f, yi = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxM / 32; ++r) {
-      const int i = lane + 32 * r;
-      if (i < m) {
-        const float2 vv = vk[i];
-        yr += vv.x * x[r].x + vv.y * x[r].y;
-        yi += vv.x * x[r].y - vv.y * x[r].x;
+  for (int idx = tid; idx < m * kBtCols; idx += kBtThreads) {
+    const int r = idx / kBtCols, c = idx % kBtCols;
+    Z[idx] = make_float2(c < cw ? z[r * m + c0 + c] : 0.f, 0.f);
+  }
+  __syncthreads();
+  const int na = na_s;
+  // their lower trapezoids (v_k is zero above row k+1), transposed, by
+  // cp.async, a warp a reflector; the zeros above are stored, not copied
+  for (int sl = warp; sl < na; sl += kWarps) {
+    const int k = act[sl];
+    const float2* src = vrows + (size_t)k * m;
+    for (int r = lane; r < m; r += 32) {
+      if (r > k)
+        cp_async8(Vt + r * ldv + sl, src + r);
+      else
+        Vt[r * ldv + sl] = make_float2(0.f, 0.f);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int npan = (na + kBtPanel - 1) / kBtPanel;
+  // G = V^H V of every panel, strictly upper part: thread (h, i, j) sums
+  // the rows r = h mod kBtGSplit
+  {
+    const int h = tid / kBtBlock, gi = (tid / kBtPanel) % kBtPanel,
+              gj = tid % kBtPanel;
+    for (int p = 0; p < npan; ++p) {
+      const int s0 = p * kBtPanel, pn = min(kBtPanel, na - s0);
+      if (gi < gj && gj < pn) {
+        float2 gsum = make_float2(0.f, 0.f);
+        for (int r = act[s0 + gi] + 1 + h; r < m; r += kBtGSplit)
+          cfma_conj(gsum, Vt[r * ldv + s0 + gi], Vt[r * ldv + s0 + gj]);
+        G[(h * kBtMaxPanels + p) * kBtBlock + gi * kBtPanel + gj] = gsum;
       }
     }
-    yr = warp_sum(yr);
-    yi = warp_sum(yi);
-    const float2 t = tau[k];
+  }
+  __syncthreads();
+  // T of every panel, a warp a panel; lane l holds row l
+  for (int p = warp; p < npan; p += kWarps) {
+    const int s0 = p * kBtPanel, pn = min(kBtPanel, na - s0);
+    float2* Tp = T + p * kBtBlock;
+    float2 trow[kBtPanel];
 #pragma unroll
-    for (int r = 0; r < kMaxM / 32; ++r) {
-      const int i = lane + 32 * r;
-      if (i < m) {
-        const float2 vv = vk[i];
-        const float cvr = t.x * vv.x - t.y * vv.y;
-        const float cvi = t.x * vv.y + t.y * vv.x;
-        x[r].x -= cvr * yr - cvi * yi;
-        x[r].y -= cvr * yi + cvi * yr;
+    for (int i = 0; i < kBtPanel; ++i) {
+      if (i < pn) {
+        const float2 ti = tau_s[s0 + i];
+        float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < i; ++q) {
+          float2 gq = Tp[q * kBtPanel + i];
+#pragma unroll
+          for (int x = 1; x < kBtGSplit; ++x) {
+            const float2 gx = G[(x * kBtMaxPanels + p) * kBtBlock +
+                                q * kBtPanel + i];
+            gq = make_float2(gq.x + gx.x, gq.y + gx.y);
+          }
+          if (q >= lane) cfma(acc, trow[q], gq);
+        }
+        const float2 ta = cmul(ti, acc);
+        trow[i] = (lane < i) ? make_float2(-ta.x, -ta.y)
+                             : (lane == i ? ti : make_float2(0.f, 0.f));
+        __syncwarp();  // column i of G is read by every lane
+        if (lane < kBtPanel) Tp[lane * kBtPanel + i] = trow[i];
+        __syncwarp();
       }
     }
   }
+  __syncthreads();
+
+  const int h = tid / (kBtPanel * kBtCols);
+  const int pi = (tid / kBtCols) % kBtPanel, pc = tid % kBtCols;
+  for (int p = npan - 1; p >= 0; --p) {
+    const int s0 = p * kBtPanel, pn = min(kBtPanel, na - s0);
+    const float2* Tp = T + p * kBtBlock;
+    if (pi < pn) {  // Y = V^H Z, in kBtSplit partial sums
+      float2 y = make_float2(0.f, 0.f);
+      for (int r = act[s0 + pi] + 1 + h; r < m; r += kBtSplit)
+        cfma_conj(y, Vt[r * ldv + s0 + pi], Z[r * kBtCols + pc]);
+      Y[(h * kBtPanel + pi) * kBtCols + pc] = y;
+    }
+    __syncthreads();
+    if (h == 0 && pi < pn) {  // W = T Y
+      float2 w = make_float2(0.f, 0.f);
+      for (int i = pi; i < pn; ++i) {
+        float2 y = Y[i * kBtCols + pc];
 #pragma unroll
-  for (int r = 0; r < kMaxM / 32; ++r) {
-    const int i = lane + 32 * r;
-    if (i < m) out[i * keep + c] = x[r];
+        for (int x = 1; x < kBtSplit; ++x) {
+          const float2 yx = Y[(x * kBtPanel + i) * kBtCols + pc];
+          y = make_float2(y.x + yx.x, y.y + yx.y);
+        }
+        cfma(w, Tp[pi * kBtPanel + i], y);
+      }
+      Wp[pi * kBtCols + pc] = w;
+    }
+    __syncthreads();
+    {  // Z -= V W below the panel's first reflector
+      float2 wc[kBtPanel];
+#pragma unroll
+      for (int i = 0; i < kBtPanel; ++i)
+        wc[i] = (i < pn) ? Wp[i * kBtCols + pc] : make_float2(0.f, 0.f);
+      for (int r = act[s0] + 1 + tid / kBtCols; r < m;
+           r += kBtThreads / kBtCols) {
+        float2 acc = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < kBtPanel; ++i)
+          if (i < pn) cfma(acc, Vt[r * ldv + s0 + i], wc[i]);
+        float2& x = Z[r * kBtCols + pc];
+        x = make_float2(x.x - acc.x, x.y - acc.y);
+      }
+    }
+    __syncthreads();
+  }
+  for (int idx = tid; idx < m * kBtCols; idx += kBtThreads) {
+    const int r = idx / kBtCols, c = idx % kBtCols;
+    if (c < cw) out[r * keep + c0 + c] = Z[idx];
   }
 }
 
@@ -573,11 +902,16 @@ extern "C" {
 int tridiag_launch(const void* h, void* vrows, void* tau, void* d, void* e,
                    int m, void* stream) {
   if (m < 2 || m > kMaxM) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(m * m + 2 * m) * sizeof(float2);
-  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      tridiag_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  tridiag_kernel<<<1, 256, smem, (cudaStream_t)stream>>>(
-      (const float2*)h, (float2*)vrows, (float2*)tau, (float*)d, (float*)e, m);
+  const float2* hh = (const float2*)h;
+  float2 *v = (float2*)vrows, *t = (float2*)tau;
+  float *dd = (float*)d, *ee = (float*)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m <= kTriGroups * 4)
+    tridiag_kernel<4><<<1, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m);
+  else if (m <= kTriGroups * 8)
+    tridiag_kernel<8><<<1, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m);
+  else
+    tridiag_kernel<16><<<1, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m);
   return (int)cudaGetLastError();
 }
 
@@ -597,9 +931,12 @@ int backtransform_launch(const void* vrows, const void* tau, const void* z,
                          void* out, int m, int keep, void* stream) {
   if (m < 2 || m > kMaxM || keep < 1 || keep > m)
     return (int)cudaErrorInvalidValue;
-  const int warps = 4;
-  const int blocks = (keep + warps - 1) / warps;
-  backtransform_kernel<<<blocks, 32 * warps, 0, (cudaStream_t)stream>>>(
+  const size_t smem = (size_t)bt_smem_float2(m) * sizeof(float2);
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      backtransform_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem));
+  const int blocks = (keep + kBtCols - 1) / kBtCols;
+  backtransform_kernel<<<blocks, kBtThreads, smem, (cudaStream_t)stream>>>(
       (const float2*)vrows, (const float2*)tau, (const float*)z,
       (float2*)out, m, keep);
   return (int)cudaGetLastError();

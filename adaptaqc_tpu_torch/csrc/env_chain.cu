@@ -75,6 +75,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 using adaptaqc::block_sum;
+using adaptaqc::bulk_load;
+using adaptaqc::cp_async8;
+using adaptaqc::cp_async_commit;
+using adaptaqc::cp_async_wait;
+using adaptaqc::mbar_init;
+using adaptaqc::mbar_wait;
 
 constexpr int kThreads = 256;
 constexpr int kMaxChi = 64;
@@ -113,62 +119,6 @@ __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
 __device__ __forceinline__ void cfma_conj(float2& acc, float2 a, float2 b) {
   acc.x = fmaf(a.x, b.x, fmaf(a.y, b.y, acc.x));
   acc.y = fmaf(a.x, b.y, fmaf(-a.y, b.x, acc.y));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One thread: bulk-copy `bytes` (a multiple of 16) from global to this
-// CTA's shared memory; completion is counted on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // out_p[a][y] = sum_b L_p[a][b] R_p(b, y) for p = 0, 1, a < rows, y < c;

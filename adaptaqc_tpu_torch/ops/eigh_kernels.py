@@ -7,6 +7,12 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
   tridiag        h = Q T Q^H, T real symmetric tridiagonal (zhetd2 semantics:
                  beta = -sign(Re alpha) |x|, tau = 1 - beta^ alpha^, scale-
                  invariant reflector v = [0.., 1, x^ / (alpha^ - beta^)]);
+                 a step whose column is exactly zero (|alpha|^2 + |x|^2 ==
+                 0) is the identity: tau = e = 0, v = e_{k+1}. One
+                 deviation from the JAX kernel: where that sum of squares
+                 falls below tiny / eps (gradual underflow; the residue
+                 columns of a rank-deficient Gram reach it) the norm is
+                 taken scaled, so the reflector stays unitary;
   teig           all eigenpairs of T: 30 rounds of Sturm bisection (one lane
                  per eigenvalue, descending), ulp-scaled separation of
                  coincident shifts, two rounds of partial-pivoted LU inverse
@@ -84,14 +90,23 @@ def tridiag_plain(h: torch.Tensor):
     e = torch.zeros(m, dtype=rdt, device=dev)
     one = torch.ones((), dtype=rdt, device=dev)
     zero = torch.zeros((), dtype=rdt, device=dev)
+    fi = torch.finfo(rdt)
+    tiny_squares = fi.tiny / fi.eps
     for k in range(m - 1):
         col = a[:, k]
         alpha = col[k + 1]
         x = col[k + 2:]
         xnorm2 = (x.real * x.real + x.imag * x.imag).sum()
-        nrm = torch.sqrt(alpha.real * alpha.real + alpha.imag * alpha.imag
-                         + xnorm2)
-        active = nrm > 0
+        ss = alpha.real * alpha.real + alpha.imag * alpha.imag + xnorm2
+        # a sum of squares this small may have lost bits to gradual
+        # underflow, and a reflector normalised by it is not unitary: take
+        # the norm scaled by the column's largest component instead
+        tail = torch.view_as_real(col[k + 1:]).abs()
+        amax = tail.max()
+        sc = tail * torch.where(amax > 0, one / amax, zero)
+        nrm = torch.where(ss < tiny_squares,
+                          amax * torch.sqrt((sc * sc).sum()), torch.sqrt(ss))
+        active = ss > 0
         inv = torch.where(active, one / torch.where(active, nrm, one), zero)
         ahr = alpha.real * inv
         ahi = alpha.imag * inv

@@ -33,8 +33,9 @@ def random_target_circuit(seed: int, n: int = 50) -> Circuit:
 
 
 def random_target(seed: int, n: int = 50, chi: int = 2,
-                  dtype: torch.dtype = None, device="cpu"):
-    """Qiskit-format random MPS (list of (G0, G1), list of lambdas)."""
+                  dtype: torch.dtype = None, device="cuda"):
+    """Qiskit-format random MPS (list of (G0, G1), list of lambdas), built
+    on `device` (the card unless the caller asks for the CPU)."""
     tape = compile_tape(random_target_circuit(seed, n))
     state = mps_core.apply_tape(mps_core.zero_mps(n, chi, dtype, device),
                                 tape.kinds, tape.q0, tape.q1, tape.angles,

@@ -13,8 +13,12 @@ name; any failure exits non-zero:
             residual, degenerate-cluster projectors), with its time, its
             bound (kernel_bound), the plain version's time and, where one
             PyTorch call computes the same function, that call's time; K1
-            at q = 0/25/49 and over the sweep's 48 probe sites; the
-            eigensolver also against float64 on a 7-decade spectrum
+            at q = 0/25/49 and over the sweep's 48 probe sites; K2 and K4
+            also on the 24 Grams (and their reflectors) that one sweep
+            gives them, with the count of exactly inactive K2 steps (every
+            step inactive in the plain version must be inactive in the
+            kernel); the eigensolver also against float64 on a 7-decade
+            spectrum
   hazard    a deep two-qubit-chain re-simulation at n=50, chi=64 under
             eigh="kernels" and eigh="native": overlaps agree to 1e-3
   slice     AdaptCompiler on the synthetic 50-qubit random-MPS target
@@ -91,7 +95,7 @@ FP32_TFLOPS = 67.0      # H100 SXM fp32 outside the tensor cores (published
                         # TF32 or bf16 rate applies
 
 
-def kernel_bound(name, n=None, chi=None, m=None, keep=None):
+def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None):
     """(bound_ms, bound_by, flops, bytes) of one launch of kernel `name`:
     the larger of its operations over FP32_TFLOPS and its bytes (each
     input read once, each output written once) over HBM_GBS.
@@ -113,18 +117,24 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None):
                      columns of z (float32) in, (m, keep) complex64 out;
                      reflector k touches m-k-1 rows of each column with a
                      dot and an update: 16 (m-k-1) keep flops, 8 m^2 keep
-                     in all"""
+                     in all
+    `active` (tridiag, backtransform): the steps k whose reflector is not
+    the identity, where the data leaves some out (an inactive step costs
+    neither kernel any work); tridiag's step k is a product and a rank-2
+    update of the trailing (m-k-1)^2 block, 16 (m-k-1)^2 flops."""
     if name == "env_chain":
         flops = 32 * chi ** 3 * (n - 1) + 32 * chi ** 3 + 32 * chi ** 2
         nbytes = 2 * n * 2 * chi * chi * 8 + 4 * 8
     elif name == "tridiag":
-        flops = 16 * m ** 3 / 3
+        flops = (16 * m ** 3 / 3 if active is None
+                 else sum(16 * (m - k - 1) ** 2 for k in active))
         nbytes = m * m * 8 + m * m * 8 + m * 8 + 2 * m * 4
     elif name == "teig":
         flops = 30 * m * m * 3 + 6 * m * m + 2 * 12 * m * m + 4 * m ** 3
         nbytes = 2 * m * 4 + m * m * 4 + m * 4 + m * m * 4
     elif name == "backtransform":
-        flops = 8 * m * m * keep
+        flops = (8 * m * m * keep if active is None
+                 else sum(16 * (m - k - 1) * keep for k in active))
         nbytes = m * m * 8 + m * 8 + m * keep * 4 + m * keep * 8
     else:
         raise ValueError(f"no bound for kernel {name}")
@@ -224,6 +234,40 @@ def sweep_probe_sites(Circuit, compile_tape):
     return [int(q) for q in np.asarray(at.q0)[np.asarray(at.trainable)]]
 
 
+def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape):
+    """The arguments of every tridiag, teig and backtransform launch of one
+    sweep at phase_sweep's shape (n=50, chi=64): {name: [args, ...]}, in
+    launch order, cloned as they were passed."""
+    n, chi, dev = 50, 64, torch.device("cuda")
+    target, ansatz = bench_workload(Circuit, n, 12)
+    tt, at = compile_tape(target), compile_tape(ansatz)
+    prefix = mps_core.apply_tape(
+        mps_core.zero_mps(n, chi, torch.complex64, dev), tt.kinds, tt.q0,
+        tt.q1, tt.angles, 1e-16)
+    ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
+    bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
+    seen = {"tridiag": [], "teig": [], "backtransform": []}
+    kernels = {name: getattr(ek, name) for name in seen}
+
+    def recorder(name):
+        def record(*args):
+            seen[name].append(tuple(a.clone() if hasattr(a, "clone") else a
+                                    for a in args))
+            return kernels[name](*args)
+        record.launches = 0  # a wrapper counts on its module-level name
+        return record
+    try:
+        for name in seen:
+            setattr(ek, name, recorder(name))
+        sweeps.sweep(mps_core.sweep_engine(1e-16), bl, True, prefix, ref,
+                     at.kinds, at.q0, at.q1, at.angles, at.trainable)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in kernels.items():
+            setattr(ek, name, fn)
+    return seen
+
+
 def env_inputs(torch, n, chi, dev):
     """Bra and ket site stacks (n, 2, chi, chi) from a seed: a ket close to
     the bra keeps C of order one over 50 sites, as the probes of a
@@ -291,12 +335,82 @@ def teig_vector_errors(d, e, w, z, zp):
     return out
 
 
+def zeros_equal(e, tau, ep, taup, what):
+    """K2's exactly inactive steps: wherever the plain version's e_k and
+    tau_k are 0 the kernel's are exactly 0 too, and the kernel's e and tau
+    are 0 at the same steps. Returns the kernel's count of inactive steps.
+    (The kernel may find more: a residue column that its rounding drives
+    to exact zero, where the plain version's stays at rounding level.)"""
+    ek_, tk = e[:-1] == 0, tau[:-1] == 0
+    check(bool((ek_ == tk).all()), f"{what}: e and tau zeros differ")
+    plain = (ep[:-1] == 0) & (taup[:-1] == 0)
+    check(bool((ek_ | ~plain).all()),
+          f"{what}: {int((plain & ~ek_).sum())} steps inactive in the plain "
+          "version are active in the kernel")
+    return int(ek_.sum())
+
+
+def sweep_eigh_check(torch, ek, inputs, rec, card):
+    """K2 and K4 on the inputs one sweep gives them (n=50, chi=64: 24 Grams
+    at m=128 and their reflectors), against their plain versions at the
+    tolerances of the class loop, with their mean time on those inputs and
+    the count of exactly inactive steps; the bound counts the active ones."""
+    grams = [a[0] for a in inputs["tridiag"]]
+    bts = inputs["backtransform"]
+    inactive, worst_t, worst_b, bound2, bound4 = 0, 0.0, 0.0, [], []
+    for hh in grams:
+        m = hh.shape[0]
+        v, tau, d, e = ek.tridiag(hh)
+        _, taup, _, ep = ek.tridiag_plain(hh)
+        inactive += zeros_equal(e, tau, ep, taup, "tridiag on a sweep Gram")
+        q = ek.backtransform_plain(
+            v.to(torch.complex128), tau.to(torch.complex128),
+            torch.eye(m, dtype=torch.float64, device=hh.device), m)
+        d64, e64 = d.double(), e[:-1].double()
+        tm = torch.diag(d64) + torch.diag(e64, 1) + torch.diag(e64, -1)
+        h64 = hh.to(torch.complex128)
+        err = max(float((q @ q.mH - torch.eye(m, device=hh.device))
+                        .abs().max()),
+                  float((q @ tm.to(q.dtype) @ q.mH - h64).abs().max())
+                  / max(float(h64.abs().max()), 1e-30))
+        worst_t = max(worst_t, err)
+        check(err < TOL_TRIDIAG_REL, f"tridiag on a sweep Gram: rel {err}")
+        act = [k for k in range(m - 1) if e[k] != 0]
+        bound2.append(kernel_bound("tridiag", m=m, active=act)[0])
+    for vr, ta, z, keep in bts:
+        o = ek.backtransform(vr, ta, z, keep)
+        err = float((o - ek.backtransform_plain(vr, ta, z, keep)).abs().max())
+        worst_b = max(worst_b, err)
+        check(err < TOL_BT, f"backtransform on a sweep input: {err}")
+        m = vr.shape[0]
+        act = [k for k in range(m - 1) if ta[k] != 0]
+        bound4.append(kernel_bound("backtransform", m=m, keep=keep,
+                                   active=act)[0])
+    ms2 = float(np.mean([cuda_ms(lambda: ek.tridiag(hh), 10, torch)
+                         for hh in grams]))
+    ms4 = float(np.mean([cuda_ms(lambda: ek.backtransform(*a), 10, torch)
+                         for a in bts]))
+    steps = sum(h.shape[0] - 1 for h in grams)
+    rec["tridiag"]["ms_sweep_inputs"] = ms2
+    rec["backtransform"]["ms_sweep_inputs"] = ms4
+    print(f"kernels: the sweep's own inputs (n=50, chi=64): {len(grams)} "
+          f"Grams, {inactive} of {steps} tridiag steps exactly inactive "
+          f"(zeros of e and tau equal, and every plain-inactive step "
+          f"inactive); tridiag mean {ms2:.4f} ms (bound on the active steps "
+          f"{np.mean(bound2):.5f}), Q T Q^H {worst_t:.2e} < {TOL_TRIDIAG_REL};"
+          f" backtransform ({len(bts)} launches, keep "
+          f"{sorted({a[3] for a in bts})}) mean {ms4:.4f} ms (bound "
+          f"{np.mean(bound4):.5f}), vs plain {worst_b:.2e} < {TOL_BT} on "
+          f"{card}", flush=True)
+
+
 def bound_fields(name, **shape):
     ms, by, _, _ = kernel_bound(name, **shape)
     return {"bound_ms": ms, "bound_by": by}
 
 
-def phase_kernels(torch, ek, envk, cplx, card, probe_sites, dev="cuda"):
+def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
+                  sweep_inputs=None, dev="cuda"):
     dev = torch.device(dev)
     rng = np.random.default_rng(2026)
     rec = {k: {"max_abs_err": None, "ms": None, "plain_ms": None,
@@ -365,6 +479,7 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites, dev="cuda"):
             worst["tridiag"] = max(worst["tridiag"], err_t)
             check(err_t < TOL_TRIDIAG_REL,
                   f"tridiag m={m} {name}: rel {err_t}")
+            zeros_equal(e, tau, ep, taup, f"tridiag m={m} {name}")
             if name == "rand":
                 err_f = max(float((d - dp).abs().max()) / hscale,
                             float((e - ep).abs().max()) / hscale,
@@ -464,6 +579,9 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites, dev="cuda"):
             print(f"kernels: m={m} " + "; ".join(parts) + "; the whole "
                   f"K2-K4 chain's yardstick torch.linalg.eigh(H) complex "
                   f"{native_ms:.4f} ms on {card}", flush=True)
+
+    if sweep_inputs is not None:
+        sweep_eigh_check(torch, ek, sweep_inputs, rec, card)
 
     # K3 and the whole eigensolver chain against float64 truth on 7-decade
     # spectra: the kernel's eigenvalues of T against float64 eigh of the
@@ -1034,7 +1152,9 @@ def main():
                "teig": ek.teig, "backtransform": ek.backtransform}
     phase_device(torch, cuda_lib)
     rec = phase_kernels(torch, ek, envk, cplx, card,
-                        sweep_probe_sites(Circuit, compile_tape))
+                        sweep_probe_sites(Circuit, compile_tape),
+                        sweep_eigh_inputs(torch, ek, mps_core, sweeps,
+                                          Circuit, compile_tape))
     phase_hazard(torch, mps_core, Circuit, compile_tape, card)
     launches = phase_slice(torch, port, counted, card)
     phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)

@@ -57,6 +57,44 @@ def test_kernel_bound_matches_hand_counts(name, shape, flops, nbytes):
     assert by == ("operations" if t_ops >= t_bytes else "bytes")
 
 
+@pytest.mark.parametrize("name,shape,flops", [
+    # active steps k = 0, 3 of m = 8: trailing blocks of 7 and 4
+    ("tridiag", dict(m=8), 16 * 7 ** 2 + 16 * 4 ** 2),
+    ("backtransform", dict(m=8, keep=4), 16 * 7 * 4 + 16 * 4 * 4),
+])
+def test_kernel_bound_counts_only_the_active_steps(name, shape, flops):
+    """Where the data leaves steps out (tau = 0), the bound counts the
+    work of the active ones; the bytes are unchanged."""
+    _, _, f, b = chip_smoke.kernel_bound(name, active=[0, 3], **shape)
+    assert f == flops
+    assert b == chip_smoke.kernel_bound(name, **shape)[3]
+    assert chip_smoke.kernel_bound(name, active=[], **shape)[1] == "bytes"
+
+
+def _factors(e, tau):
+    return (torch.tensor(e + [0.0]),
+            torch.tensor([complex(t) for t in tau] + [0j],
+                         dtype=torch.complex64))
+
+
+@pytest.mark.parametrize("kernel,plain,ok", [
+    # the kernel finds every plain-inactive step and one more
+    (([0.0, 1.0, 0.0], [0, 1, 0]), ([0.0, 1.0, 2.0], [0, 1, 1]), True),
+    # a plain-inactive step active in the kernel
+    (([1.0, 1.0, 0.0], [1, 1, 0]), ([0.0, 1.0, 0.0], [0, 1, 0]), False),
+    # e and tau zeros at different steps
+    (([0.0, 1.0, 1.0], [1, 1, 1]), ([1.0, 1.0, 1.0], [1, 1, 1]), False),
+])
+def test_zeros_equal_holds_the_kernels_inactive_steps(kernel, plain, ok):
+    e, tau = _factors(*kernel)
+    ep, taup = _factors(*plain)
+    if ok:
+        assert chip_smoke.zeros_equal(e, tau, ep, taup, "case") == 2
+    else:
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.zeros_equal(e, tau, ep, taup, "case")
+
+
 def test_env_chain_bound_at_the_sweep_shape():
     """n = 50, chi = 64: about 419 MFLOP, about 6.3 us at the fp32 peak,
     bound by operations (the 6.55 MB of sites alone take about 2 us)."""

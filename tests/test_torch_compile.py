@@ -49,7 +49,7 @@ def _target_pair(n, chi):
 
 def test_random_target_matches_jax():
     qmps_j = j_random_target(3, n=6)
-    qmps_t = random_target(3, n=6, dtype=C128)
+    qmps_t = random_target(3, n=6, dtype=C128, device="cpu")
     a = mps_core.from_qiskit_mps(qmps_j, 2, dtype=C128)
     b = mps_core.from_qiskit_mps(qmps_t, 2, dtype=C128)
     assert abs(abs(complex(mps_core.mps_dot(a, b))) - 1.0) < 1e-10
@@ -120,7 +120,7 @@ def test_adapt_compile_slice_matches_jax():
         custom_layer_2q_gate=j_ir(), starting_circuit="tenpy_product_state")
     jres = jc.compile()
     tc = AdaptCompiler(
-        random_target(1, n=n, dtype=C128),
+        random_target(1, n=n, dtype=C128, device="cpu"),
         backend=mps_backend_with_args(mps_truncation_threshold=1e-8,
                                       max_chi=4, dtype=C128, device="cpu"),
         adapt_config=_config(AdaptConfig), coupling_map=cmap,
@@ -146,7 +146,7 @@ def test_adapt_compile_slice_matches_jax():
 def test_unported_paths_raise():
     """The softened cost, BOBYQA and the local-cost full sweep are not
     ported: asking for them raises instead of taking another path."""
-    qmps = random_target(1, n=4, dtype=C128)
+    qmps = random_target(1, n=4, dtype=C128, device="cpu")
     backend = mps_backend_with_args(max_chi=4, dtype=C128, device="cpu")
     with pytest.raises(NotImplementedError):
         AdaptCompiler(qmps, backend=backend, soften_global_cost=True)

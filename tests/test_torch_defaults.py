@@ -44,6 +44,21 @@ def test_overlap_helper_defaults_to_the_card():
     assert sig.parameters["device"].default == "cuda"
 
 
+def test_random_target_defaults_to_the_card():
+    """The synthetic random-MPS target is simulated on the card unless the
+    caller asks for the CPU; without a card the default raises. Either way
+    it comes back in the Qiskit format, on the host."""
+    from adaptaqc_tpu_torch.utils import targets
+    sig = inspect.signature(targets.random_target)
+    assert sig.parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            targets.random_target(2, n=3)
+    gams, lams = targets.random_target(2, n=3, dtype=C128, device="cpu")
+    assert len(gams) == 3 and len(lams) == 2
+    assert isinstance(gams[0][0], np.ndarray)
+
+
 def test_building_a_sampler_makes_no_generator():
     """The draws' generator is made at first use: building the backend,
     as importing the package builds QASM_SIM, creates none."""

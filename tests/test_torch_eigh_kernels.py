@@ -74,6 +74,124 @@ def test_tridiag_plain_matches_pallas_interpret(n):
     assert np.abs(q @ t @ q.conj().T - hh).max() / np.abs(hh).max() < 1e-5
 
 
+def _padded_gram(m, r, seed):
+    """The Gram theta^H theta of a rank-r theta (m x m, m = 2 chi) with the
+    zero pattern of mps_core's two-qubit apply: a column (q, b) of theta is
+    zero where the right-bond index b >= r, for both physical indices q."""
+    rng = np.random.default_rng(seed)
+    chi = m // 2
+    x = rng.standard_normal((m, r)) + 1j * rng.standard_normal((m, r))
+    y = (rng.standard_normal((r, 2, chi))
+         + 1j * rng.standard_normal((r, 2, chi)))
+    y[:, :, r:] = 0.0
+    th = x @ y.reshape(r, m)
+    th = th / np.linalg.norm(th)
+    return th.conj().T @ th
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("m", [16, 32])
+def test_tridiag_plain_skips_inactive_steps_as_pallas(m, r):
+    """On a padded Gram, wherever the Pallas kernel's e_k and tau_k are 0
+    (the column below the diagonal is exactly zero), the port's are exactly
+    0 and vrows[k] is e_{k+1}: the step is an exact no-op. d and e agree to
+    1e-5 of the scale everywhere; tau where the step's column is above the
+    rounding noise of the rank-deficient trailing block (a reflector built
+    from residue is arbitrary in both)."""
+    hre, him = _hermitized_f32(_padded_gram(m, r, seed=m + r))
+    _, _, _, _, packed = pallas_eigh._tridiag_call(
+        jnp.asarray(hre, jnp.float32), jnp.asarray(him, jnp.float32), True)
+    packed = np.asarray(packed)
+    vrows, tau, d, e = ek.tridiag(torch.tensor(hre + 1j * him,
+                                               dtype=torch.complex64))
+    e_j = packed[2, : m - 1]
+    tau_j = (packed[0] + 1j * packed[1])[: m - 1]
+    inactive = np.nonzero((e_j == 0) & (tau_j == 0))[0]
+    assert len(inactive) >= m // 2 - r  # every step past the bond's support
+    eye = torch.eye(m, dtype=torch.complex64)
+    for k in inactive:
+        assert e[k] == 0 and tau[k] == 0
+        assert torch.equal(vrows[k], eye[k + 1])
+    scale = np.abs(packed[3]).max()
+    assert np.abs(d.numpy() - packed[3]).max() / scale < 1e-5
+    assert np.abs(e.numpy()[: m - 1] - e_j).max() / scale < 1e-5
+    data = np.abs(e_j) > 1e-3 * scale
+    assert data.sum() >= 1
+    assert np.abs(tau.numpy()[: m - 1] - tau_j)[data].max() < 1e-5
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e-21])
+def test_tridiag_plain_reflectors_stay_unitary_on_tiny_columns(scale):
+    """Columns whose sum of squares underflows into subnormals (the
+    residue of a rank-deficient Gram decays there) still give unitary
+    reflectors and Q T Q^H = H: the norm is taken scaled below tiny/eps."""
+    n = 16
+    h = torch.tensor(_case("rand", n, seed=5) * scale, dtype=torch.complex64)
+    h = (h + h.mH) * 0.5
+    vrows, tau, d, e = ek.tridiag(h)
+    q = ek.backtransform_plain(vrows.to(torch.complex128),
+                               tau.to(torch.complex128),
+                               torch.eye(n, dtype=torch.float64), n)
+    assert float((q @ q.mH - torch.eye(n)).abs().max()) < 1e-5
+    t = (torch.diag(d.double()) + torch.diag(e[:-1].double(), 1)
+         + torch.diag(e[:-1].double(), -1)).to(q.dtype)
+    h64 = h.to(torch.complex128)
+    assert float((q @ t @ q.mH - h64).abs().max() / h64.abs().max()) < 1e-5
+
+
+def _backtransform_panels(vrows, tau, z, keep, nb=16):
+    """The panel order of the backtransform kernel, in torch: the reflectors
+    with tau != 0 (an inactive one is the identity), in order, grouped into
+    compact-WY panels of nb, P = H_a ... H_b = I - V T V^H with
+    T[i, i] = tau_i, T[:i, i] = -tau_i T[:i, :i] (V[:, :i]^H v_i); panels
+    applied last first: Y = V^H Z, W = T Y, Z -= V W."""
+    m = vrows.shape[0]
+    active = [k for k in range(m - 1) if tau[k] != 0]
+    out = z[:, :keep].to(vrows.dtype).clone()
+    panels = [active[i:i + nb] for i in range(0, len(active), nb)]
+    for idx in reversed(panels):
+        v = vrows[idx].T  # (m, pn)
+        g = v.conj().T @ v
+        pn = len(idx)
+        t = torch.zeros((pn, pn), dtype=vrows.dtype)
+        for i in range(pn):
+            t[i, i] = tau[idx[i]]
+            t[:i, i] = -tau[idx[i]] * (t[:i, :i] @ g[:i, i])
+        out = out - v @ (t @ (v.conj().T @ out))
+    return out
+
+
+def _bt_inputs(m, dtype, seed):
+    """Reflectors of a padded Gram's tridiagonalization (a run of inactive
+    steps at the end), with a further run of 16 zeroed, and orthonormal z."""
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    h = torch.tensor(_padded_gram(m, max(1, m // 8), seed), dtype=dtype)
+    vrows, tau, _, _ = ek.tridiag_plain((h + h.mH) * 0.5)
+    if m >= 32:  # an all-inactive panel in the middle of active ones
+        tau = tau.clone()
+        tau[2:18] = 0
+    rng = np.random.default_rng(seed)
+    z = np.linalg.qr(rng.standard_normal((m, m)))[0]
+    return vrows, tau, torch.tensor(z, dtype=rdt)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.complex64, 1e-5),
+                                       (torch.complex128, 1e-12)])
+@pytest.mark.parametrize("keep", ["one", "half", "all"])
+@pytest.mark.parametrize("m", [8, 16, 64])
+def test_backtransform_panel_order_matches_plain(m, keep, dtype, tol):
+    """Compact-WY panels of 16 over the active reflectors give
+    backtransform_plain's Q z[:, :keep]: 1e-5 in complex64, 1e-12 in
+    complex128."""
+    vrows, tau, z = _bt_inputs(m, dtype, seed=m)
+    assert int((tau[: m - 1] == 0).sum()) >= 1
+    kp = {"one": 1, "half": m // 2, "all": m}[keep]
+    ref = ek.backtransform_plain(vrows, tau, z, kp)
+    out = _backtransform_panels(vrows, tau, z, kp)
+    assert out.shape == (m, kp)
+    assert float((out - ref).abs().max()) < tol
+
+
 @pytest.mark.parametrize("case", ["rand", "spec7", "flat", "lowrank",
                                   "decoupled"])
 @pytest.mark.parametrize("n", [4, 16, 32])

@@ -1,11 +1,21 @@
-"""Where the cycles of the two redesigned kernels go, on one CUDA card.
+"""Where the cycles of the redesigned kernels go, on one CUDA card.
 
     python3 tools/stage_clocks.py [--parent DIR]
+                                  [--kernels tridiag,teig,env_chain]
 
 Builds instrumented copies of the kernel sources (clock64() stamps taken by
 thread 0 at each stage boundary) into tools/_build/, a git-ignored
-directory, and prints:
+directory, and prints (--kernels picks the reports; all by default):
 
+  tridiag   cycles a launch by stage (norm and the scans that skip
+            inactive runs, matrix-vector product, reflector with s and w,
+            rank-2 update; the first port's: norm with reflector and v,
+            product, s and w, update), active and inactive
+            steps, load cycles and the kernel's time, at m = 64 and 128 on
+            a random Gram and on the 24 Grams that one bench.py sweep
+            (n=50, chi=64) feeds it; with the backtransform kernel's time on
+            random reflectors and on the sweep's own inputs. With --parent,
+            in the order parent, this tree, this tree, parent.
   teig      cycles per stage (bisection, shift, inverse iteration, CGS2) at
             m = 64 and 128 on a random Gram's tridiagonal, and on the 24
             tridiagonals that one bench.py sweep (n=50, chi=64) feeds it;
@@ -34,6 +44,12 @@ BUILD = os.path.join(ROOT, "tools", "_build")
 sys.path.insert(0, ROOT)
 
 STAMP = "  if (threadIdx.x == 0) g_stamp[{k}] = clock64();\n"
+# a clock read that the compiler keeps in order with the memory operations
+# (and so the barriers) around it
+STAMP_CLOCK = ("__device__ __forceinline__ long long stamp_clock() {\n"
+               "  long long t;\n"
+               "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t) :: "
+               "\"memory\");\n  return t;\n}\n")
 # stage boundaries of teig: (text the stamp goes before, stage it ends)
 TEIG_MARKS = [
     ("  // Sturm multisection", None),
@@ -91,16 +107,85 @@ ENV_MARKS += [
 ]
 ENV_LABELS = ["B wait", "step 1", "step 2", "cluster barrier", "sum"]
 
+# tridiag: thread 0 stores a clock stamp a stage boundary of every step
+# (g_steps[k]: the top, the start of the product, after each of the three
+# barriers; an inactive run stores its length, negated, and its end), and
+# the host sums them by stage
+TRI_LABELS = ["norm and skip scans", "matrix-vector product",
+              "reflector, s and w", "rank-2 update"]
+
+
+def _step_stamp(slot):
+    return (f"    if (tid == 0) g_steps[k][{slot}] = stamp_clock();\n")
+
+
+TRI_OUT = ("  if (tid == 0) {\n"
+           "    g_stamp[6] = t_loop - t_start;\n"
+           "    g_stamp[7] = stamp_clock() - t_loop;\n"
+           "  }\n")
+TRI_DECL = "  const long long t_loop = stamp_clock();\n"
+# the redesigned kernel (a step: the norm and the skip scan, the product,
+# the reflector with s and w, the update; an inactive run counts its
+# steps and puts its scan under the first stage)
+TRI_MARKS = [
+    ("  const int li = tid & (kMaxM - 1), g = tid / kMaxM;\n",
+     "  const int li = tid & (kMaxM - 1), g = tid / kMaxM;\n"
+     "  const long long t_start = stamp_clock();\n"),
+    ("  int k = 0;\n  while (k < m - 1) {\n",
+     TRI_DECL + "  int k = 0;\n  while (k < m - 1) {\n" + _step_stamp(0)),
+    ("      __syncthreads();\n      k = next;\n      continue;",
+     "      __syncthreads();\n"
+     "      if (tid == 0) {\n        g_steps[k][1] = k - next;\n"
+     "        g_steps[k][4] = stamp_clock();\n      }\n"
+     "      k = next;\n      continue;"),
+    ("    // 1. y_i over this row group",
+     _step_stamp(1) + "    // 1. y_i over this row group"),
+    ("    // 2. the reflector, u = A v",
+     _step_stamp(2) + "    // 2. the reflector, u = A v"),
+    ("    // 3. A[j][i] -= ", _step_stamp(3) + "    // 3. A[j][i] -= "),
+    ("    __syncthreads();\n    k = k1;\n  }\n",
+     "    __syncthreads();\n" + _step_stamp(4) + "    k = k1;\n  }\n"
+     + TRI_OUT),
+]
+# the first port's kernel (norm, thread-0 scalars and v; product; s and w;
+# update; every step active)
+TRI_LABELS_FIRST = ["norm, reflector and v", "matrix-vector product",
+                    "s and w", "rank-2 update"]
+TRI_MARKS_FIRST = [
+    ("  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;\n",
+     "  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;\n"
+     "  const long long t_start = stamp_clock();\n"),
+    ("  for (int k = 0; k < m - 1; ++k) {\n    float part = 0.f;",
+     TRI_DECL + "  for (int k = 0; k < m - 1; ++k) {\n" + _step_stamp(0)
+     + "    float part = 0.f;"),
+    ("    // u = A v (v is zero on indices <= k)",
+     _step_stamp(1) + "    // u = A v (v is zero on indices <= k)"),
+    ("    // s = v^H u", _step_stamp(2) + "    // s = v^H u"),
+    ("    // A <- A - v w^H - w v^H",
+     _step_stamp(3) + "    // A <- A - v w^H - w v^H"),
+    ("    __syncthreads();\n  }\n  for (int i = tid; i < m; i += nt) d_out",
+     "    __syncthreads();\n" + _step_stamp(4) + "  }\n" + TRI_OUT
+     + "  for (int i = tid; i < m; i += nt) d_out"),
+]
+
 
 def build(src, tag, edits):
     """Compile `src` with `edits` (text replacements) and a stamp array."""
     text = open(src).read()
     text = text.replace("namespace {", "__device__ long long g_stamp[16];\n"
-                        "namespace {", 1)
+                        "__device__ long long g_steps[128][5];\n"
+                        + STAMP_CLOCK + "namespace {", 1)
     for old, new in edits:
         if old not in text:
             raise RuntimeError(f"{tag}: marker not found: {old!r}")
         text = text.replace(old, new, 1)
+    text += ("\nextern \"C\" int read_steps(long long* out) {\n"
+             "  return (int)cudaMemcpyFromSymbol(out, g_steps, "
+             "sizeof(g_steps));\n}\n"
+             "extern \"C\" int clear_steps() {\n"
+             "  static long long zero[128][5];\n"
+             "  return (int)cudaMemcpyToSymbol(g_steps, zero, sizeof(zero));\n"
+             "}\n")
     text += ("\nextern \"C\" int read_stamps(long long* out) {\n"
              "  return (int)cudaMemcpyFromSymbol(out, g_stamp, "
              "16 * sizeof(long long));\n}\n")
@@ -117,6 +202,27 @@ def build(src, tag, edits):
     return lib
 
 
+def step_stages(lib):
+    """K2's per-step stamps of the last launch, summed by stage: (cycles of
+    the four stages, active steps, inactive steps, cycles outside them)."""
+    out = (ctypes.c_longlong * (128 * 5))()
+    if lib.read_steps(out) != 0:
+        raise RuntimeError("reading the step stamps failed")
+    st = np.array(out[:], dtype=np.float64).reshape(128, 5)
+    cyc, n_act, n_in, covered = np.zeros(4), 0, 0, 0.0
+    for row in st:
+        if row[0] == 0:
+            continue
+        if row[1] < 0:  # an inactive run
+            n_in += int(-row[1])
+            cyc[0] += row[4] - row[0]
+        else:
+            n_act += 1
+            cyc += np.diff(row)
+        covered += row[4] - row[0]
+    return cyc, n_act, n_in, covered
+
+
 def stamps(lib):
     out = (ctypes.c_longlong * 16)()
     if lib.read_stamps(out) != 0:
@@ -131,46 +237,30 @@ def teig_marks(src):
                    for k, (old, _) in enumerate(marks)]
 
 
-def sweep_tridiagonals():
-    """The (d, e) of every teig launch of one bench.py sweep."""
+def sweep_inputs():
+    """The arguments of every eigensolver kernel launch of one bench.py
+    sweep (n=50, chi=64): chip_smoke.sweep_eigh_inputs."""
     import chip_smoke as cs
     from adaptaqc_tpu_torch.backends import mps_core
     from adaptaqc_tpu_torch.circuits.circuit import Circuit
     from adaptaqc_tpu_torch.circuits.tape import compile_tape
     from adaptaqc_tpu_torch.ops import eigh_kernels as ek
     from adaptaqc_tpu_torch.optim import sweeps
-    seen = []
-    kernel = ek.teig
-
-    def record(d, e):
-        seen.append((d.clone(), e.clone()))
-        return kernel(d, e)
-    record.launches = 0  # the wrapper counts on its module's name
-    n, chi, dev = 50, 64, torch.device("cuda")
-    target, ansatz = cs.bench_workload(Circuit, n, 12)
-    tt, at = compile_tape(target), compile_tape(ansatz)
-    prefix = mps_core.apply_tape(
-        mps_core.zero_mps(n, chi, torch.complex64, dev), tt.kinds, tt.q0,
-        tt.q1, tt.angles, 1e-16)
-    ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
-    bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
-    ek.teig = record
-    try:
-        sweeps.sweep(mps_core.sweep_engine(1e-16), bl, True, prefix, ref,
-                     at.kinds, at.q0, at.q1, at.angles, at.trainable)
-        torch.cuda.synchronize()
-    finally:
-        ek.teig = kernel
-    return seen
+    return cs.sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit,
+                                compile_tape)
 
 
-def random_tridiagonal(m):
+def random_gram(m):
     import chip_smoke as cs
-    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
     th = cs._gram_cases(m, np.random.default_rng(2026))["rand"]
     t = torch.tensor(th, dtype=torch.complex64, device="cuda")
     h = t.mH @ t
-    _, _, d, e = ek.tridiag_plain(((h + h.mH) * 0.5).contiguous())
+    return ((h + h.mH) * 0.5).contiguous()
+
+
+def random_tridiagonal(m):
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    _, _, d, e = ek.tridiag_plain(random_gram(m))
     return d, e
 
 
@@ -222,6 +312,102 @@ def report_teig(tag, src, sweep_inputs, edits=()):
               + f"; max |w - w_plain| {wdiff:.1e}", flush=True)
 
 
+def tridiag_runner(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tridiag_launch.argtypes = [P] * 5 + [I, P]
+
+    def run(h):
+        m = h.shape[0]
+        out = (torch.empty((m, m), dtype=torch.complex64, device=h.device),
+               torch.empty(m, dtype=torch.complex64, device=h.device),
+               torch.empty(m, device=h.device),
+               torch.empty(m, device=h.device))
+        rc = lib.tridiag_launch(h.data_ptr(), *(t.data_ptr() for t in out), m,
+                                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"tridiag launch failed: {rc}")
+        return out
+    return run
+
+
+def backtransform_runner(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.backtransform_launch.argtypes = [P] * 4 + [I, I, P]
+
+    def run(vrows, tau, z, keep):
+        m = vrows.shape[0]
+        out = torch.empty((m, keep), dtype=torch.complex64, device=z.device)
+        rc = lib.backtransform_launch(
+            vrows.data_ptr(), tau.data_ptr(), z.data_ptr(), out.data_ptr(), m,
+            keep, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"backtransform launch failed: {rc}")
+        return out
+    return run
+
+
+def build_tridiag(tag, src):
+    """An instrumented build of `src` and its K2 stage labels."""
+    marks, labels = ((TRI_MARKS, TRI_LABELS)
+                     if "kTriThreads" in open(src).read()
+                     else (TRI_MARKS_FIRST, TRI_LABELS_FIRST))
+    lib = build(src, f"tridiag_{tag}", marks)
+    lib.clear_steps.argtypes = []
+    lib.read_steps.argtypes = [ctypes.c_void_p]
+    return lib, labels
+
+
+def report_tridiag(tag, lib, labels, inputs):
+    """K2's cycles by stage and its time (CUDA events, on this instrumented
+    build), and K4's time, on random Grams and on the sweep's own inputs."""
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    run, bt = tridiag_runner(lib), backtransform_runner(lib)
+    cases = [(f"random m={m}", [random_gram(m)]) for m in (64, 128)]
+    cases.append((f"sweep's {len(inputs['tridiag'])} m=128",
+                  [a[0] for a in inputs["tridiag"]]))
+    for label, grams in cases:
+        cyc, n_act, n_in, load, loop, covered = np.zeros(4), 0, 0, 0, 0, 0
+        for h in grams:
+            lib.clear_steps()
+            run(h)
+            torch.cuda.synchronize()
+            c, a, i, cov = step_stages(lib)
+            st = stamps(lib)
+            cyc += c
+            n_act += a
+            n_in += i
+            covered += cov
+            load += st[6]
+            loop += st[7]
+        cnt = len(grams)
+        cyc, n_act, n_in = cyc / cnt, n_act / cnt, n_in / cnt
+        load, loop, covered = load / cnt, loop / cnt, covered / cnt
+        ms = np.mean([cs.cuda_ms(lambda: run(h), 10, torch) for h in grams])
+        ddiff = max(float((run(h)[2] - ek.tridiag_plain(h)[2]).abs().max())
+                    for h in grams[:4])
+        print(f"tridiag {tag} on {label}: {ms:.4f} ms; {n_act:.1f} active "
+              f"and {n_in:.1f} inactive steps; load {load:.0f} cycles, loop "
+              f"{loop:.0f}: "
+              + ", ".join(f"{lab} {c:.0f} ({c / max(loop, 1):.3f})"
+                          for lab, c in zip(labels, cyc))
+              + f", between steps {loop - covered:.0f}; "
+              f"{cyc.sum() / max(n_act, 1):.0f} cycles an active step; max "
+              f"|d - d_plain| {ddiff:.1e}", flush=True)
+    for m in (64, 128):
+        vp, taup, dp, ep = ek.tridiag_plain(random_gram(m))
+        _, zp = ek.teig_plain(dp, ep)
+        ms = cs.cuda_ms(lambda: bt(vp, taup, zp, m // 2), 20, torch)
+        print(f"backtransform {tag} on random m={m} keep={m // 2}: "
+              f"{ms:.4f} ms", flush=True)
+    sweep = inputs["backtransform"]
+    ms = np.mean([cs.cuda_ms(lambda: bt(*a), 10, torch) for a in sweep])
+    err = max(float((bt(*a) - ek.backtransform_plain(*a)).abs().max())
+              for a in sweep)
+    print(f"backtransform {tag} on the sweep's {len(sweep)} inputs: "
+          f"{ms:.4f} ms, max |out - plain| {err:.1e}", flush=True)
+
+
 def report_env():
     import chip_smoke as cs
     src = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc", "env_chain.cu")
@@ -261,21 +447,35 @@ def report_env():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked older tree to compare")
+    ap.add_argument("--kernels", default="tridiag,teig,env_chain",
+                    help="which reports, comma-separated (tridiag also "
+                    "times backtransform)")
     args = ap.parse_args()
+    which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("stage_clocks: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
     print(f"stage_clocks: on {cs.gpu_line()}", flush=True)
     src = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc", "eigh_tridiag.cu")
-    inputs = sweep_tridiagonals()
-    if args.parent:
-        report_teig("parent", os.path.join(
-            args.parent, "adaptaqc_tpu_torch", "csrc", "eigh_tridiag.cu"),
-            inputs)
-    report_teig("plain_division", src, inputs, [PLAIN_DIV])
-    report_teig("this_tree", src, inputs)
-    report_env()
+    inputs = sweep_inputs()
+    parent = (os.path.join(args.parent, "adaptaqc_tpu_torch", "csrc",
+                           "eigh_tridiag.cu") if args.parent else None)
+    if "tridiag" in which:
+        trees = {"this_tree": build_tridiag("this_tree", src)}
+        if parent:
+            trees["parent"] = build_tridiag("parent", parent)
+        for tag in ("parent", "this_tree", "this_tree", "parent"):
+            if tag in trees:
+                report_tridiag(tag, *trees[tag], inputs)
+    if "teig" in which:
+        teig_in = [a[:2] for a in inputs["teig"]]
+        if parent:
+            report_teig("parent", parent, teig_in)
+        report_teig("plain_division", src, teig_in, [PLAIN_DIV])
+        report_teig("this_tree", src, teig_in)
+    if "env_chain" in which:
+        report_env()
     return 0
 
 

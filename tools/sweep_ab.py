@@ -1,14 +1,15 @@
 """bench.py's MPS sweep for an older tree and this one, in turns, on one
-CUDA card; then one profiled sweep of this tree.
+CUDA card; then one profiled sweep of each.
 
     python3 tools/sweep_ab.py --parent DIR
 
 DIR is an unpacked older tree (for example `git archive` of the parent
 commit). Each run is its own process, which builds that tree's kernels and
-times chip_smoke.phase_sweep twice; the order is parent, this tree, this
-tree, parent, so drift on the card shows in both. The profile sums each
-kernel's device time over one sweep (torch.profiler) and sets it beside the
-same sweep's unprofiled wall time.
+times chip_smoke.phase_sweep REPS times (each prints the mean of three
+sweeps); the order is parent, this tree, this tree, parent, so
+drift on the card shows in both. The profile, in a process of its own for
+each tree, sums each kernel's device time over one sweep (torch.profiler)
+and sets it beside the same sweep's unprofiled wall time.
 """
 
 import argparse
@@ -18,6 +19,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPS = 3  # phase_sweep calls a process: the host time varies a lot
 
 
 def sweep_args(tree):
@@ -49,16 +51,17 @@ def run_one(tree):
     from adaptaqc_tpu_torch.circuits.tape import compile_tape
     from adaptaqc_tpu_torch.optim import sweeps
     card = cs.gpu_line()
-    for _ in range(2):
+    for _ in range(REPS):
         cs.phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)
 
 
-def profile():
-    sys.path.insert(0, ROOT)
+def profile(tree, tag):
+    sys.path.insert(0, tree)
+    os.chdir(tree)
     import torch
     from torch.profiler import ProfilerActivity
     import chip_smoke as cs
-    sweeps, args = sweep_args(ROOT)
+    sweeps, args = sweep_args(tree)
     for _ in range(2):
         sweeps.sweep(*args)
     torch.cuda.synchronize()
@@ -77,11 +80,12 @@ def profile():
             rows.append((dt / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile: one sweep: {total:.2f} ms of kernel time, unprofiled "
-          f"wall {wall:.2f} ms, busy {total / wall:.3f} on {cs.gpu_line()}",
+    print(f"profile {tag}: one sweep: {total:.2f} ms of kernel time, "
+          f"unprofiled wall {wall:.2f} ms, busy {total / wall:.3f} on "
+          f"{cs.gpu_line()}",
           flush=True)
     for ms, count, key in rows[:12]:
-        print(f"profile: {ms:9.3f} ms {count:5d} launches  {key[:80]}",
+        print(f"profile {tag}: {ms:9.3f} ms {count:5d} launches  {key[:70]}",
               flush=True)
 
 
@@ -89,13 +93,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--one", help=argparse.SUPPRESS)
-    ap.add_argument("--profile", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--profile", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         return run_one(args.one)
-    if args.profile:
-        return profile()
     parent = os.path.abspath(args.parent)
+    if args.profile:
+        return profile(*((parent, "parent") if args.profile == "parent"
+                         else (ROOT, "this tree")))
     for tag, tree in (("parent", parent), ("this tree", ROOT),
                       ("this tree", ROOT), ("parent", parent)):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -107,8 +112,12 @@ def main():
         if out.returncode:
             print(f"ab {tag} failed: {out.stderr[-2000:]}", flush=True)
             return 1
-    return subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--parent", parent, "--profile"]).returncode
+    for which in ("parent", "this"):
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--parent", parent, "--profile", which]).returncode
+        if rc:
+            return rc
+    return 0
 
 
 if __name__ == "__main__":
