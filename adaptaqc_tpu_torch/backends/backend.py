@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's `backends/backend.py`: SVBackend (the
 statevector engine), MPSBackend (the MPS engine), SamplingBackend (shot
-estimates drawn from the statevector engine, the "QASM" backend) and
+estimates drawn from the statevector engine, the "QASM" backend),
+CenterMPSBackend (the independent center-gauge MPS engine) and
 mps_backend_with_args. A backend holds no simulator of its own to call out
 to: it evaluates tapes against a cached engine prefix state, so a cost query
 after the prefix is one engine call.
@@ -26,7 +27,7 @@ import torch
 from .. import config
 from ..circuits.circuit import Circuit
 from ..circuits.tape import Tape, compile_tape
-from . import mps_core, sv_core
+from . import center_mps, mps_core, sv_core
 
 logger = logging.getLogger(__name__)
 
@@ -52,6 +53,16 @@ class AQCBackend(ABC):
     @abstractmethod
     def measure_qubit_expectation_values(self, compiler):
         ...
+
+
+def softening_alpha(compiler) -> float:
+    """The softened global cost's penalty weight, |previous cost -
+    sufficient cost| (aer_mps_backend.py:49-70). The cost history exists
+    once compile() has started; before it, this is a first evaluation
+    (previous cost 1)."""
+    history = getattr(compiler, "global_cost_history", [])
+    previous_cost = history[-1] if history else 1
+    return abs(previous_cost - compiler.adapt_config.sufficient_cost)
 
 
 class SVBackend(AQCBackend):
@@ -99,11 +110,15 @@ class SVBackend(AQCBackend):
 
     # ----------------------------------------------------------- cost layer
     def evaluate_global_cost(self, compiler):
-        """1 - |<0|psi>|^2 (aer_sv_backend.py:28-30), one device sync."""
-        if compiler.soften_global_cost:
-            raise NotImplementedError(
-                "soften_global_cost is not ported yet (ROADMAP.md)")
-        return float(sv_core.global_cost(self.state_of(compiler)))
+        """1 - |<0|psi>|^2 (aer_sv_backend.py:28-30), one device sync;
+        softened, less alpha times the Hamming-1 overlap sum (the
+        reference raises here; a statevector gives the terms directly, and
+        the full-cost sweep optimises them on this engine)."""
+        state = self.state_of(compiler)
+        if not compiler.soften_global_cost:
+            return float(sv_core.global_cost(state))
+        g, _, h1 = sv_core.full_cost_terms(state, self.zero_ref(compiler))
+        return float(g) - softening_alpha(compiler) * float(h1)
 
     def evaluate_local_cost(self, compiler):
         e_vals = self.measure_qubit_expectation_values(compiler)
@@ -208,11 +223,13 @@ class MPSBackend(AQCBackend):
     def evaluate_global_cost(self, compiler):
         """1 - |<0|psi>|^2 / <psi|psi> (aer_mps_backend.py:49-57 on the
         normalised state: long float32 chains drift in scale, not
-        direction)."""
-        if compiler.soften_global_cost:
-            raise NotImplementedError(
-                "soften_global_cost is not ported yet (ROADMAP.md)")
-        return float(mps_core.global_cost_normalized(self.state_of(compiler)))
+        direction); softened, less alpha times the normalised Hamming-1
+        overlap sum."""
+        state = self.state_of(compiler)
+        if not compiler.soften_global_cost:
+            return float(mps_core.global_cost_normalized(state))
+        cost, h1_sum = mps_core.softened_cost_terms(state)
+        return float(cost) - softening_alpha(compiler) * float(h1_sum)
 
     def evaluate_local_cost(self, compiler):
         evals = self.measure_qubit_expectation_values(compiler)
@@ -411,7 +428,116 @@ class SamplingBackend(AQCBackend):
         return sample_tomography_rdm(exact, self.shots, self.host_rng)
 
 
-# default backends (python_default_backends.py:17-19), on the card
+class CenterMPSBackend(AQCBackend):
+    """The independent second MPS engine behind the backend contract: the
+    ITensorBackend analogue (itensor_backend.py:17-62), there to
+    cross-check the primary MPS engine with an algorithmically independent
+    one. `center_mps.py` is a mixed-canonical (orthogonality-center) engine
+    that shares no gauge convention or update algebra with `mps_core.py`.
+
+    Against itensor_backend.py:
+      - the constructor takes (chi, cutoff) as :18 does (there chi=10_000,
+        cutoff=1e-14); fixed tensor shapes need a finite chi, so the default
+        is DEFAULT_MAX_CHI;
+      - evaluate_global_cost is 1 - the overlap with zero of the normalised
+        state (:34-42) and raises for soften_global_cost as :35-38 does;
+      - evaluate_circuit returns the engine state (:47-59);
+      - the reference raises for the local cost and expectation values
+        (:44-45, :61-62); here both work, and so does ISL pair selection
+        through all_pair_rdms;
+      - it has a sweep engine, so costs are optimised by the device sweeps
+        rather than by one re-simulation a query.
+
+    :param device: torch device of every engine state ("cuda" unless the
+        caller asks for the CPU).
+    :param dtype: complex dtype of the engine (complex64 by default).
+    """
+
+    engine_name = "center_mps"
+
+    def __init__(self, chi: Optional[int] = None, cutoff: float = 1e-14,
+                 device="cuda", dtype: torch.dtype = None):
+        self.chi = chi
+        self.cutoff = float(cutoff)
+        self.device = torch.device(device)
+        self.dtype = dtype or config.DEFAULT_DTYPE
+
+    def chi_for(self, n: int) -> int:
+        cap = self.chi or DEFAULT_MAX_CHI
+        return int(min(cap, max(2, 2 ** ((n + 1) // 2))))
+
+    # ------------------------------------------------------- engine plumbing
+    def initial_state(self, circuit: Circuit, n: int):
+        chi = self.chi_for(n)
+        kw = dict(dtype=self.dtype, device=self.device)
+        if circuit.data and circuit.data[0].name == "set_mps":
+            raise ValueError(
+                "CenterMPSBackend takes gate-circuit targets (the reference "
+                "ITensorBackend likewise prepares its own target MPS)")
+        if circuit.data and circuit.data[0].name == "set_statevector":
+            return center_mps.from_bform(
+                mps_core.from_dense(circuit.data[0].payload, chi, **kw))
+        return center_mps.zero_cmps(n, chi, **kw)
+
+    def run_tape(self, state, tape: Tape):
+        return center_mps.apply_tape(state, tape.kinds, tape.q0, tape.q1,
+                                     tape.angles, self.cutoff)
+
+    def run_tape_adjoint(self, state, tape: Tape):
+        return center_mps.apply_tape_adjoint(state, tape.kinds, tape.q0,
+                                             tape.q1, tape.angles,
+                                             self.cutoff)
+
+    def state_of(self, compiler):
+        return compiler._current_state()
+
+    def sweep_engine(self):
+        return center_mps.sweep_engine(self.cutoff)
+
+    def zero_ref(self, compiler):
+        n = compiler.full_circuit.num_qubits
+        return center_mps.zero_cmps(n, self.chi_for(n), self.dtype,
+                                    self.device)
+
+    @staticmethod
+    def truncated_weight(state) -> float:
+        return float(state.trunc)
+
+    # ----------------------------------------------------------- cost layer
+    def evaluate_global_cost(self, compiler):
+        if compiler.soften_global_cost:
+            raise NotImplementedError(
+                "soften_global_cost is currently only implemented for "
+                "MPSBackend")  # itensor_backend.py:35-38
+        return float(center_mps.global_cost_normalized(
+            self.state_of(compiler)))
+
+    def evaluate_local_cost(self, compiler):
+        evals = self.measure_qubit_expectation_values(compiler)
+        return float(0.5 * (1 - np.mean(evals)))
+
+    def evaluate_circuit(self, compiler):
+        return self.state_of(compiler)
+
+    def measure_qubit_expectation_values(self, compiler):
+        return center_mps.z_expectations(
+            self.state_of(compiler)).cpu().numpy().tolist()
+
+    # -------------------------------------------------------- analysis layer
+    def all_pair_rdms(self, state, pairs):
+        rhos = center_mps.all_pair_rdms(state).cpu().numpy()
+        return [rhos[min(a, b), max(a, b)]
+                for a, b in np.asarray(pairs).reshape(-1, 2).tolist()]
+
+    def two_qubit_rdm(self, circuit_or_compiler, q1, q2, state=None):
+        if state is None:
+            state = self.state_of(circuit_or_compiler)
+        return self.all_pair_rdms(state, [(q1, q2)])[0]
+
+
+# default backends (python_default_backends.py:17-19; CENTER_MPS_SIM is the
+# ITENSOR_SIM analogue, julia_default_backends.py:13), on the card
 SV_SIM = SVBackend()
 MPS_SIM = MPSBackend()
 QASM_SIM = SamplingBackend()
+CENTER_MPS_SIM = CenterMPSBackend()

@@ -11,6 +11,13 @@ Counterpart of the JAX package's `backends/mps_core.py`. The state is an
 with a fixed, padded bond dimension chi; amplitude(bits) =
 (prod_i B_i[b_i])[0, 0], little-endian (site i = qubit i).
 
+A state may carry one leading batch dimension P on all three tensors (b
+(P, n, 2, chi, chi), lam (P, n + 1, chi), trunc (P,)): the probe states of
+one gate of the full-cost sweep (optim/sweeps.py), which the JAX package
+maps its engine over. Gate application, <a|b> and the cost terms take such
+a batch as they take one state; a two-qubit apply then truncates all P
+bonds through one call of each eigensolver kernel.
+
 The JAX engine traced every gate with lax.cond / dynamic slices; here the
 tape is host data, so gate kind and site are plain Python values and every
 branch is a Python `if`. Gate matrices are built on the device
@@ -43,7 +50,12 @@ class MPS(NamedTuple):
 
     @property
     def n(self) -> int:
-        return self.b.shape[0]
+        return self.b.shape[-4]
+
+    @property
+    def batch(self) -> tuple:
+        """() for one state, (P,) for a batch of probe states."""
+        return tuple(self.b.shape[:-4])
 
     @property
     def chi(self) -> int:
@@ -103,41 +115,71 @@ def mps_to_numpy(state: MPS):
 
 # ------------------------------------------------------------ gate application
 
+def _site(state: MPS, k: int) -> torch.Tensor:
+    return state.b[..., k, :, :, :]
+
+
+def _expand(state: MPS, lead) -> MPS:
+    """One state seen as a batch of shape `lead` (views, no copy)."""
+    return MPS(state.b.expand(*lead, *state.b.shape),
+               state.lam.expand(*lead, *state.lam.shape),
+               state.trunc.expand(*lead))
+
+
 def _apply_1q_at(state: MPS, u2: torch.Tensor, q: int) -> MPS:
+    """u2 (2, 2) on site q of a state or of every state of a batch; u2
+    (P, 2, 2) applies gate p to state p, or to P copies of one state (the
+    probes of one gate): one einsum either way."""
+    new = torch.einsum("...pq,...qab->...pab", u2, _site(state, q))
+    lead = tuple(new.shape[:-3])
+    if lead != state.batch:
+        state = _expand(state, lead)
     b = state.b.clone()
-    b[q] = torch.einsum("pq,qab->pab", u2, state.b[q])
+    b[..., q, :, :, :] = new
     return MPS(b, state.lam, state.trunc)
+
+
+def apply_1q_layer(state: MPS, u2s: torch.Tensor) -> MPS:
+    """u2s[i] (n, 2, 2) applied at site i, every site of a state (or of
+    every state of a batch) in one einsum."""
+    return MPS(torch.einsum("ipq,...iqab->...ipab", u2s, state.b), state.lam,
+               state.trunc)
 
 
 def _apply_2q_adjacent(state: MPS, u4: torch.Tensor, k: int, threshold,
                        eigh: str = None) -> MPS:
-    """Apply the 4x4 u4 (r = 2*p_right + p_left) on sites (k, k+1).
+    """Apply the 4x4 u4 (r = 2*p_right + p_left) on sites (k, k+1) of a
+    state, or of every state of a batch.
 
-    Hastings update: no bond weight is ever divided by —
+    Hastings update: no bond weight is ever divided by --
       theta~ = B_l B_r;  theta = diag(lam_l) theta~ = U S V^H
       B_r' = V^H;  B_l' = theta~ V / ||S||."""
     chi = state.chi
-    theta_t = torch.einsum("pac,qcb->apqb", state.b[k], state.b[k + 1])
-    theta_t = torch.einsum("qpsr,arsb->apqb", u4.reshape(2, 2, 2, 2), theta_t)
-    theta = theta_t * state.lam[k][:, None, None, None]
-    m = theta.reshape(chi * 2, 2 * chi)
+    lead = state.batch
+    theta_t = torch.einsum("...pac,...qcb->...apqb", _site(state, k),
+                           _site(state, k + 1))
+    theta_t = torch.einsum("qpsr,...arsb->...apqb", u4.reshape(2, 2, 2, 2),
+                           theta_t)
+    theta = theta_t * state.lam[..., k, :][..., :, None, None, None]
+    m = theta.reshape(lead + (chi * 2, 2 * chi))
     # floor the user threshold at the working precision's noise scale
     eff_threshold = max(float(threshold),
                         0.1 * config.lambda_eps(state.dtype))
     _, s, vh = cplx.svd_trunc(m, chi, eff_threshold, eigh)
-    kept = (s * s).sum()
+    kept = (s * s).sum(-1)
     snorm = torch.clamp(torch.sqrt(kept), min=1e-30)
-    total = (m.real * m.real + m.imag * m.imag).sum()
+    total = (m.real * m.real + m.imag * m.imag).sum((-2, -1))
     discarded = (torch.clamp(total - kept, min=0.0)
                  / torch.clamp(total, min=1e-30))
-    br_new = vh.reshape(chi, 2, chi).permute(1, 0, 2)
-    bl_flat = theta_t.reshape(chi * 2, 2 * chi) @ vh.mH
-    bl_new = bl_flat.reshape(chi, 2, chi).permute(1, 0, 2) / snorm
+    br_new = vh.reshape(lead + (chi, 2, chi)).transpose(-3, -2)
+    bl_flat = cplx._matmul(theta_t.reshape(lead + (chi * 2, 2 * chi)), vh.mH)
+    bl_new = (bl_flat.reshape(lead + (chi, 2, chi)).transpose(-3, -2)
+              / snorm[..., None, None, None])
     b = state.b.clone()
-    b[k] = bl_new
-    b[k + 1] = br_new
+    b[..., k, :, :, :] = bl_new
+    b[..., k + 1, :, :, :] = br_new
     lam = state.lam.clone()
-    lam[k + 1] = s / snorm
+    lam[..., k + 1, :] = s / snorm[..., None]
     return MPS(b, lam, state.trunc + discarded)
 
 
@@ -159,12 +201,14 @@ def _apply_2q_routed(state: MPS, u4, q0: int, q1: int, threshold,
 
 def apply_gate(state: MPS, kind: int, q0: int, q1: int, u4: torch.Tensor,
                threshold, eigh: str = None) -> MPS:
-    """Apply one tape entry whose 4x4 matrix is u4 (kind only steers)."""
+    """Apply one tape entry whose 4x4 matrix is u4 (kind only steers) to a
+    state or to every state of a batch. A one-qubit entry also takes u4
+    (P, 4, 4): gate p on state p (or on P copies of one state)."""
     if kind == G.NOP:
         return state
     if sv_core.is_two_qubit(kind):
         return _apply_2q_routed(state, u4, q0, q1, threshold, eigh)
-    return _apply_1q_at(state, u4[:2, :2], q0)
+    return _apply_1q_at(state, u4[..., :2, :2], q0)
 
 
 def apply_tape(state: MPS, kinds, q0s, q1s, angles, threshold,
@@ -192,20 +236,50 @@ def apply_tape_adjoint(state: MPS, kinds, q0s, q1s, angles, threshold,
 # ---------------------------------------------------------------- observables
 
 def mps_dot(a: MPS, b: MPS) -> torch.Tensor:
-    """<a|b> (complex 0-dim tensor) by transfer-matrix contraction."""
+    """<a|b> by transfer-matrix contraction: a complex 0-dim tensor, or
+    (P,) where either state is a batch."""
     e = boundary_env(a.chi, a.dtype, a.device)
     for i in range(a.n):
-        e = forward_step(e, a.b[i], b.b[i])
-    return e[0, 0]
+        e = forward_step(e, _site(a, i), _site(b, i))
+    return e[..., 0, 0]
+
+
+def _boundary_vec(state: MPS) -> torch.Tensor:
+    """e_0 on the padded boundary bond (a row of the shared boundary
+    environment: read-only)."""
+    return boundary_env(state.chi, state.dtype, state.device)[0]
+
+
+def amplitude(state: MPS, bits) -> torch.Tensor:
+    """<bits|state> for n bit values (little-endian: site i = qubit i):
+    the chain of the B_i[bits[i]] matrices."""
+    v = _boundary_vec(state)
+    for i, bit in enumerate(np.asarray(bits).tolist()):
+        v = (v.unsqueeze(-2) @ state.b[..., i, int(bit), :, :]).squeeze(-2)
+    return v[..., 0]
 
 
 def overlap_with_zero(state: MPS) -> torch.Tensor:
     """<0...0|state>: chain of the B_i[0] matrices."""
-    v = torch.zeros(state.chi, dtype=state.dtype, device=state.device)
-    v[0] = 1.0
-    for i in range(state.n):
-        v = v @ state.b[i, 0]
-    return v[0]
+    return amplitude(state, [0] * state.n)
+
+
+def hamming1_overlaps(state: MPS) -> torch.Tensor:
+    """|<e_i|state>|^2 for the n basis states of Hamming weight 1,
+    e_i = 2^i, from prefix and suffix products of the B[0] matrices
+    (aer_mps_backend.py:88-93): real (n,), or (P, n) for a batch."""
+    n = state.n
+    b0 = state.b[..., 0, :, :]  # (..., n, chi, chi)
+    v = _boundary_vec(state)
+    pre = [v.expand(state.batch + (state.chi,))]
+    for i in range(n - 1):
+        pre.append((pre[-1].unsqueeze(-2) @ b0[..., i, :, :]).squeeze(-2))
+    suf = [pre[0]]
+    for i in range(n - 1, 0, -1):
+        suf.append((b0[..., i, :, :] @ suf[-1].unsqueeze(-1)).squeeze(-1))
+    amps = torch.einsum("...ia,...iab,...ib->...i", torch.stack(pre, -2),
+                        state.b[..., 1, :, :], torch.stack(suf[::-1], -2))
+    return _abs2(amps)
 
 
 def _abs2(z: torch.Tensor) -> torch.Tensor:
@@ -218,11 +292,33 @@ def global_cost_normalized(state: MPS) -> torch.Tensor:
     return 1.0 - _abs2(overlap_with_zero(state)) / nrm2
 
 
+def softened_cost_terms(state: MPS):
+    """(normalised global cost, normalised sum of Hamming-1 overlaps): the
+    softening penalty shares the <psi|psi> normalisation, or the softened
+    cost would not be scale-invariant."""
+    nrm2 = torch.clamp(mps_dot(state, state).real, min=1e-30)
+    cost = 1.0 - _abs2(overlap_with_zero(state)) / nrm2
+    return cost, hamming1_overlaps(state).sum(-1) / nrm2
+
+
 def z_expectations(state: MPS) -> torch.Tensor:
     """<Z_i> per site, self-normalised per site."""
-    lam2 = state.lam[:-1] ** 2
-    w = torch.einsum("ia,ipab->ip", lam2, _abs2(state.b))
-    return (w[:, 0] - w[:, 1]) / torch.clamp(w[:, 0] + w[:, 1], min=1e-30)
+    lam2 = state.lam[..., :-1, :] ** 2
+    w = torch.einsum("...ia,...ipab->...ip", lam2, _abs2(state.b))
+    return ((w[..., 0] - w[..., 1])
+            / torch.clamp(w[..., 0] + w[..., 1], min=1e-30))
+
+
+def full_cost_terms(state: MPS, ref: MPS):
+    """(global cost against ref, local cost, Hamming-1 overlap sum) of one
+    state or of every state of a batch: the probe costs of the full-cost
+    sweep. As the backend's cost layer has them: the normalised global
+    cost, the local cost 0.5 (1 - mean <Z_q>), and the Hamming-1 sum under
+    the same <psi|psi> normalisation."""
+    nrm2 = torch.clamp(mps_dot(state, state).real, min=1e-30)
+    g = 1.0 - _abs2(mps_dot(ref, state)) / nrm2
+    loc = 0.5 * (1.0 - z_expectations(state).mean(-1))
+    return g, loc, hamming1_overlaps(state).sum(-1) / nrm2
 
 
 def local_overlap_matrix(r_state: MPS, l_state: MPS, q: int) -> torch.Tensor:
@@ -381,6 +477,36 @@ def pad_chi(state: MPS, new_chi: int) -> MPS:
     return MPS(b, lam, state.trunc)
 
 
+def regauge(state: MPS, new_chi: int) -> MPS:
+    """An MPS in another padded bond dimension, on the same device and in
+    the same dtype. Growing is pad_chi's exact zero-padding. Shrinking
+    keeps the new_chi largest Schmidt values of every bond (the greedy
+    per-bond truncation of a capped two-qubit apply) through the Qiskit
+    format on the host; from_qiskit_mps renormalises. Serves
+    compile_with_chi_schedule, whose stages work at different chi on one
+    engine-MPS target."""
+    if new_chi == state.chi:
+        return state
+    if new_chi > state.chi:
+        return pad_chi(state, new_chi)
+    gams, lams = to_qiskit_mps(state)
+    cut_gams, cut_lams = [], []
+    keep_l = np.array([0])  # bond 0 is the trivial left edge
+    for i in range(state.n):
+        if i < state.n - 1:
+            lam = np.asarray(lams[i])
+            keep_r = np.sort(np.argsort(-lam)[:new_chi])
+            cut_lams.append(lam[keep_r])
+        else:
+            keep_r = np.array([0])
+        g0, g1 = gams[i]
+        cut_gams.append((np.asarray(g0)[np.ix_(keep_l, keep_r)],
+                         np.asarray(g1)[np.ix_(keep_l, keep_r)]))
+        keep_l = keep_r
+    return from_qiskit_mps((cut_gams, cut_lams), new_chi, state.dtype,
+                           state.device)
+
+
 def check_mps(obj) -> bool:
     """True for an engine MPS or a Qiskit-format MPS tuple."""
     if isinstance(obj, MPS):
@@ -394,16 +520,17 @@ def check_mps(obj) -> bool:
 # ------------------------------------------------------------------ sweep
 
 def sweep_engine(threshold: float, eigh: str = None):
-    """The SweepEngine of this engine (optim/sweeps.py): gate appliers, the
-    probe's local overlap (through the env-chain kernel wrapper) and
-    <a|b>."""
+    """The SweepEngine of this engine (optim/sweeps.py): the gate applier
+    (a state or a batch of probe states), the probe's local overlap
+    (through the env-chain kernel wrapper), <a|b> and the full-cost
+    sweep's cost terms."""
     from ..optim.sweeps import SweepEngine
 
     def apply(state, kind, q0, q1, u4):
         return apply_gate(state, kind, q0, q1, u4, threshold, eigh)
 
     return SweepEngine(f"mps[{threshold}]", apply, _local_overlap_dispatch,
-                       mps_dot)
+                       mps_dot, full_cost_terms, apply_1q_layer)
 
 
 # ------------------------------------------------------ pair-gradient overlaps
@@ -455,3 +582,31 @@ def pair_op_overlaps(bra: MPS, ket: MPS, ops_a: torch.Tensor,
     w = torch.where(desc[:, None, None, None, None],
                     w.permute(0, 3, 4, 1, 2), w)
     return torch.einsum("kmuv,kmwz,puvwz->kp", ops_b, ops_a, w)
+
+
+def batched_op_overlaps(bra: MPS, ket: MPS, ops_a: torch.Tensor,
+                        ops_b: torch.Tensor, pairs):
+    """pair_op_overlaps' contract by plain chains: for every operator k and
+    Schmidt term m one n-site transfer chain with A inserted at site
+    pairs[p, 1] and B at pairs[p, 0], all pairs at once; summed over m.
+    ops_a/ops_b complex (K, M, 2, 2); returns (K, P) complex. O(K M n):
+    the independent check of pair_op_overlaps."""
+    pairs = np.asarray(pairs)
+    dev = bra.device
+    k_n, m_n = ops_a.shape[0], ops_a.shape[1]
+    p_n = pairs.shape[0]
+    c_sites = torch.as_tensor(pairs[:, 0], device=dev)
+    t_sites = torch.as_tensor(pairs[:, 1], device=dev)
+    eye = torch.eye(2, dtype=bra.dtype, device=dev)
+    e0 = boundary_env(bra.chi, bra.dtype, dev).expand(p_n, -1, -1)
+    bb = bra.b.conj()
+    vals = []
+    for a_op, b_op in zip(ops_a.reshape(-1, 2, 2), ops_b.reshape(-1, 2, 2)):
+        e = e0
+        for i in range(bra.n):
+            is_c = (c_sites == i).to(bra.dtype)[:, None, None]
+            is_t = (t_sites == i).to(bra.dtype)[:, None, None]
+            o = eye + is_c * (b_op - eye) + is_t * (a_op - eye)  # (P, 2, 2)
+            e = torch.einsum("qax,lqp,lab,pby->lxy", bb[i], o, e, ket.b[i])
+        vals.append(e[:, 0, 0])
+    return torch.stack(vals).reshape(k_n, m_n, p_n).sum(dim=1)

@@ -25,6 +25,11 @@ matrix product on a view of the flat state, with no gather and no copy:
 Pairs that no window holds fall back to einsum (applies) or a permuted
 copy (RDMs). Updates are functional: the sweep keeps earlier states, so an
 apply never writes into its input.
+
+A state may carry one leading batch dimension, (P, 2**n): the probe states
+of one gate of the full-cost sweep (optim/sweeps.py). The batch index is the
+slowest, so every view above folds it into its outer dimension and one gate
+is applied to all P states by the same single product.
 """
 
 from __future__ import annotations
@@ -111,8 +116,9 @@ def two_qubit_mask(kinds: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------- states
 
 def num_qubits(state: torch.Tensor) -> int:
-    n = state.numel().bit_length() - 1
-    if state.dim() != 1 or state.numel() != 1 << n:
+    """Qubits of a flat state (2**n,) or of a batch of them (P, 2**n)."""
+    n = state.shape[-1].bit_length() - 1
+    if state.dim() not in (1, 2) or state.shape[-1] != 1 << n:
         raise ValueError(f"not a flat statevector: shape {tuple(state.shape)}")
     return n
 
@@ -183,16 +189,29 @@ def _window(n: int, lo: int, hi: int):
 def _window_product(state: torch.Tensor, m: torch.Tensor, p: int,
                     w: int) -> torch.Tensor:
     """m (2**w, 2**w) applied to the window bits: one product over the
-    (X, 2**w, 2**p) view."""
+    (X, 2**w, 2**p) view (a batch of states folds into X). m (P, 2**w,
+    2**w) applies matrix i to state i, or to P copies of one state."""
+    if m.dim() == 3:
+        size = state.shape[-1]
+        st = state.expand(m.shape[0], size)
+        if p == 0:
+            return (st.reshape(m.shape[0], -1, 1 << w) @ m.mT).reshape(-1, size)
+        return torch.matmul(m[:, None], st.reshape(m.shape[0], -1, 1 << w,
+                                                   1 << p)).reshape(-1, size)
     if p == 0:
-        return (state.view(-1, 1 << w) @ m.T).reshape(-1)
-    return torch.matmul(m, state.view(-1, 1 << w, 1 << p)).reshape(-1)
+        return (state.view(-1, 1 << w) @ m.T).reshape(state.shape)
+    return torch.matmul(m, state.view(-1, 1 << w, 1 << p)).reshape(state.shape)
 
 
 def apply_u2(state: torch.Tensor, u2: torch.Tensor, q: int) -> torch.Tensor:
-    """A 2x2 gate on qubit q."""
+    """A 2x2 gate on qubit q; u2 (P, 2, 2) applies gate i to state i of a
+    batch, or to P copies of one state (the probes of one gate)."""
     p, w = _window(num_qubits(state), q, q)
-    return _window_product(state, _embed(u2, w, [q - p]), p, w)
+    if u2.dim() == 3:
+        m = torch.stack([_embed(u, w, [q - p]) for u in u2])
+    else:
+        m = _embed(u2, w, [q - p])
+    return _window_product(state, m, p, w)
 
 
 def apply_u4(state: torch.Tensor, u4: torch.Tensor, q0: int,
@@ -209,17 +228,19 @@ def apply_u4(state: torch.Tensor, u4: torch.Tensor, q0: int,
                             .reshape(4, 4))
     out = torch.einsum("abcd,xcydz->xaybz", u.reshape(2, 2, 2, 2),
                        _pair_view(state, lo, hi))
-    return out.reshape(-1)
+    return out.reshape(state.shape)
 
 
 def apply_gate(state: torch.Tensor, kind: int, q0: int, q1: int,
                u4: torch.Tensor) -> torch.Tensor:
-    """Apply one tape entry whose 4x4 matrix is u4 (kind only steers)."""
+    """Apply one tape entry whose 4x4 matrix is u4 (kind only steers) to a
+    state or to every state of a batch; a one-qubit entry also takes u4
+    (P, 4, 4), one gate a state."""
     if kind == G.NOP:
         return state
     if is_two_qubit(kind):
         return apply_u4(state, u4, q0, q1)
-    return apply_u2(state, u4[:2, :2], q0)
+    return apply_u2(state, u4[..., :2, :2], q0)
 
 
 def apply_tape(state: torch.Tensor, kinds, q0s, q1s, angles) -> torch.Tensor:
@@ -246,8 +267,10 @@ def apply_tape_adjoint(state: torch.Tensor, kinds, q0s, q1s,
 # ------------------------------------------------------------- observables
 
 def overlap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """<a|b> (complex 0-dim tensor)."""
-    return torch.vdot(a, b)
+    """<a|b>: a complex 0-dim tensor, or (P,) where either is a batch."""
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.vdot(a, b)
+    return (a.conj() * b).sum(-1)
 
 
 def _abs2(z: torch.Tensor) -> torch.Tensor:
@@ -268,11 +291,25 @@ def z_expectations(state: torch.Tensor, n: int = None) -> torch.Tensor:
     marginal of qubit q is a sum over the (X, 2, Z) view."""
     n = num_qubits(state) if n is None else n
     probs = probabilities(state)
+    lead = tuple(probs.shape[:-1])
     out = []
     for q in range(n):
-        m = probs.view(-1, 2, 1 << q).sum(dim=(0, 2))
-        out.append(m[0] - m[1])
-    return torch.stack(out)
+        m = probs.view(lead + (-1, 2, 1 << q)).sum(dim=(-3, -1))
+        out.append(m[..., 0] - m[..., 1])
+    return torch.stack(out, dim=-1)
+
+
+def full_cost_terms(state: torch.Tensor, ref: torch.Tensor):
+    """(global cost against ref, local cost, Hamming-1 overlap sum) of one
+    state or of every state of a batch: the probe costs of the full-cost
+    sweep, as the backend's cost layer has them: 1 - |<ref|psi>|^2,
+    0.5 (1 - mean <Z_q>), and the sum of |<e_i|psi>|^2 over the n basis
+    states of Hamming weight 1."""
+    n = num_qubits(state)
+    g = 1.0 - _abs2(overlap(ref, state))
+    loc = 0.5 * (1.0 - z_expectations(state, n).mean(-1))
+    ones = torch.as_tensor(2 ** np.arange(n), device=state.device)
+    return g, loc, probabilities(state)[..., ones].sum(-1)
 
 
 def _gram_window(n: int, lo: int, hi: int):
@@ -367,7 +404,9 @@ def all_pair_rdms(state: torch.Tensor, pairs) -> torch.Tensor:
 # ------------------------------------------------------------------ sweep
 
 def sweep_engine():
-    """The SweepEngine of this engine (optim/sweeps.py): gate applier, the
-    probe's local overlap matrix and <a|b>."""
+    """The SweepEngine of this engine (optim/sweeps.py): gate applier (a
+    state or a batch of probe states), the probe's local overlap matrix,
+    <a|b> and the full-cost sweep's cost terms."""
     from ..optim.sweeps import SweepEngine
-    return SweepEngine("sv", apply_gate, local_overlap_matrix, overlap)
+    return SweepEngine("sv", apply_gate, local_overlap_matrix, overlap,
+                       full_cost_terms)

@@ -10,22 +10,32 @@ sufficient-cost stop is verified by an exact re-simulation; on a
 statevector backend the result carries the exact dense overlap.
 
 With no backend argument, as in the JAX package, the compile runs on
-SVBackend() (on the CUDA card) with the ISL heuristic. Not ported yet
-(ROADMAP.md): checkpoints, compile_in_parts, compile_with_chi_schedule,
-profiling, the final BOBYQA minimisation, the softened cost and the
-local-cost global polish.
+SVBackend() (on the CUDA card) with the ISL heuristic. Under
+optimise_local_cost the layers are trained on the local cost by the
+full-cost sweep over a capped window, with a periodic global-cost polish by
+the O(G) sweep (the hybrid schedule); soften_global_cost trains on the
+softened global cost the same way. compile_with_chi_schedule escalates the
+working bond dimension over warm-started stages; compile() can write
+checkpoints and a loaded checkpoint resumes. Not ported yet (ROADMAP.md):
+profiling, the BOBYQA optimiser (use_roto_algos=False) and the final BOBYQA
+minimisation.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import pickle
+import time
 import timeit
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..backends import mps_core, sv_core
-from ..backends.backend import AQCBackend, SamplingBackend, SVBackend
+from ..backends.backend import (AQCBackend, MPSBackend, SamplingBackend,
+                                SVBackend)
 from ..circuits import operations as co
 from ..circuits import qasm
 from ..circuits.circuit import Circuit
@@ -62,19 +72,21 @@ class AdaptCompiler(ApproximateCompiler):
                  perform_final_minimisation=False, optimise_local_cost=False,
                  soften_global_cost=False, debug_log_full_ansatz=False,
                  initial_single_qubit_layer=False, start_variant=0):
-        if not use_roto_algos or perform_final_minimisation:
+        if not use_roto_algos:
             raise NotImplementedError(
-                "only the Rotoselect/Rotosolve optimisers are ported "
-                "(no BOBYQA yet, ROADMAP.md)")
-        if soften_global_cost:
+                "use_roto_algos=False (the BOBYQA optimiser) is not ported "
+                "yet (ROADMAP.md)")
+        if perform_final_minimisation:
             raise NotImplementedError(
-                "soften_global_cost is not ported yet (ROADMAP.md)")
+                "perform_final_minimisation (the final BOBYQA minimisation) "
+                "is not ported yet (ROADMAP.md)")
         backend = backend if backend is not None else SVBackend()
         super().__init__(target=target, backend=backend,
                          execute_kwargs=execute_kwargs,
                          general_initial_state=general_initial_state,
                          starting_circuit=starting_circuit,
                          optimise_local_cost=optimise_local_cost,
+                         soften_global_cost=soften_global_cost,
                          rotosolve_fraction=rotosolve_fraction,
                          start_variant=start_variant)
         self.save_circuit_history = save_circuit_history
@@ -116,11 +128,13 @@ class AdaptCompiler(ApproximateCompiler):
         self.phase_timings = {"pair_selection": 0.0,
                               "layer_optimisation": 0.0,
                               "window_rotosolve": 0.0, "absorption": 0.0,
-                              "verification": 0.0}
+                              "global_polish": 0.0, "verification": 0.0}
         if self.is_mps_backend:
             # gates absorbed into the MPS prefix still belong to the solution
             self.layers_saved_to_mps = Circuit(self.full_circuit.num_qubits)
         self.layers_as_gates = []
+        self.resume_from_layer = None
+        self.prev_checkpoint_time_taken = None
         self._advance_hint = None
         self._absorption_bias = 0.0
         self._layers_since_verify = 0
@@ -137,6 +151,179 @@ class AdaptCompiler(ApproximateCompiler):
                 self.layer_2q_gate)
             self._gradient_ops = gr.prepare_gradient_ops(
                 self.inverse_zero_ansatz, self.generators)
+
+        if self.soften_global_cost and self.optimise_local_cost:
+            raise ValueError("soften_global_cost must be False when "
+                             "optimising local cost")
+
+        # construction arguments kept for the clones of compile_in_parts
+        # and compile_with_chi_schedule. starting_circuit is left out (the
+        # carried solution rides through compile(initial_ansatz=...)), and
+        # so is the backend (the checkpoint codec stores it by its
+        # constructor arguments)
+        self._ctor_kwargs = dict(
+            entanglement_measure=entanglement_measure,
+            execute_kwargs=execute_kwargs, coupling_map=coupling_map,
+            adapt_config=adapt_config,
+            general_initial_state=general_initial_state,
+            custom_layer_2q_gate=custom_layer_2q_gate,
+            save_circuit_history=save_circuit_history,
+            use_roto_algos=use_roto_algos, use_rotoselect=use_rotoselect,
+            use_advanced_transpilation=use_advanced_transpilation,
+            rotosolve_fraction=rotosolve_fraction,
+            perform_final_minimisation=perform_final_minimisation,
+            optimise_local_cost=optimise_local_cost,
+            soften_global_cost=soften_global_cost,
+            debug_log_full_ansatz=debug_log_full_ansatz,
+            initial_single_qubit_layer=initial_single_qubit_layer,
+            start_variant=start_variant)
+
+    def _clone_with_target(self, target, backend=None, starting_circuit=None):
+        """A fresh AdaptCompiler with the same construction arguments and a
+        new target (a gate circuit or an engine MPS), on this compiler's
+        backend unless another is given."""
+        return AdaptCompiler(target, backend=backend or self.backend,
+                             starting_circuit=starting_circuit,
+                             **self._ctor_kwargs)
+
+    # --------------------------------------------------------- chi schedule
+    def _check_schedule_fits_kernels(self, chis):
+        """On a CUDA device the eigensolver and env-chain kernels take a
+        bounded bond dimension (their plain versions on the CPU do not):
+        refuse a schedule whose stages exceed it before its first stage,
+        not hours into it."""
+        if self.backend.device.type != "cuda":
+            return
+        from ..ops import eigh_kernels, env_kernel
+        n = self.full_circuit.num_qubits
+        cap = min(env_kernel.MAX_CHI, eigh_kernels.MAX_M // 2)
+        for chi in chis:
+            working = min(int(chi), max(2, 2 ** ((n + 1) // 2)))
+            if working > cap:
+                raise ValueError(
+                    f"compile_with_chi_schedule: stage chi={chi} works at "
+                    f"bond dimension {working}, above what the CUDA kernels "
+                    f"take (chi <= {cap}: env_chain chi <= "
+                    f"{env_kernel.MAX_CHI}, eigensolver m = 2 chi <= "
+                    f"{eigh_kernels.MAX_M}); on device {self.backend.device} "
+                    f"the schedule must stay at or below chi={cap}")
+
+    def compile_with_chi_schedule(self, chis=(32, 64, 128),
+                                  initial_ansatz=None):
+        """Escalating working-precision compile.
+
+        A fixed bond-dimension cap makes the in-loop cost inexact while the
+        partially built ansatz entangles above it. This compiles at
+        chis[0] and, while the verified sufficient-cost stop has not fired,
+        compiles again at each higher chi, warm-started from the previous
+        stage's solution: the cheap stages build most of the layers, the
+        last only descends the remaining error of the estimate. Stage
+        backends are MPSBackends of this backend's threshold, device and
+        dtype.
+
+        Returns the last stage's AdaptResult with `cost_evaluations` and
+        `time_taken` summed over the stages (the between-stage
+        `_overlap_at_chi` walls included), an `independent_overlap` of the
+        returned solution against the original target at the schedule's
+        last chi, and `chi_schedule`, the stages' (chi, overlap) pairs."""
+        if not isinstance(self.backend, MPSBackend):
+            raise ValueError("compile_with_chi_schedule requires an "
+                             "MPSBackend (chi is its working precision)")
+        if not chis:
+            raise ValueError("chis must be a non-empty ascending sequence")
+        self._check_schedule_fits_kernels(chis)
+        sufficient = self.adapt_config.sufficient_cost
+        carried = initial_ansatz
+        stages, total_evals, total_time, result = [], 0, 0.0, None
+        independent = None
+        for i, chi in enumerate(chis):
+            if i == 0 and chi == self.backend.max_chi:
+                stage_compiler = self
+            else:
+                backend = MPSBackend(
+                    self.backend.truncation_threshold, int(chi),
+                    self.backend.mps_log_data, device=self.backend.device,
+                    dtype=self.backend.dtype)
+                # an engine-MPS target is pinned to its padded chi by
+                # MPSBackend.initial_state: bring it to this stage's
+                stage_target = self.target
+                if isinstance(stage_target, mps_core.MPS):
+                    stage_target = mps_core.regauge(
+                        stage_target, backend.chi_for(stage_target.n))
+                # the user's starting circuit only matters while there is
+                # no carried ansatz (stage 1 without a warm start)
+                stage_compiler = self._clone_with_target(
+                    stage_target, backend=backend,
+                    starting_circuit=(self.starting_circuit
+                                      if carried is None else None))
+            result = stage_compiler.compile(initial_ansatz=carried)
+            total_evals += result.cost_evaluations
+            total_time += result.time_taken
+            stages.append((int(chi), result.overlap))
+            logger.info("chi-schedule stage %d/%d (chi=%d): overlap %.6f",
+                        i + 1, len(chis), chi, result.overlap)
+            carried = result.circuit
+            independent = None
+            if _wall_deadline_passed() and i < len(chis) - 1:
+                logger.warning("ADAPTAQC_WALL_DEADLINE reached; not "
+                               "escalating past chi=%d", chi)
+                break
+            if 1.0 - result.overlap <= sufficient and i < len(chis) - 1:
+                # a gate-circuit target is itself simulated at the stage's
+                # chi, so a stage at a binding cap can converge against a
+                # truncated target: stop escalating only once the solution
+                # clears the threshold against the original target at the
+                # schedule's last chi
+                t0 = time.perf_counter()
+                independent = self._overlap_at_chi(result.circuit, chis[-1])
+                total_time += time.perf_counter() - t0
+                result.independent_overlap = independent
+                if 1.0 - independent <= sufficient:
+                    logger.info("chi-schedule: stage %d solution clears the "
+                                "threshold at chi=%d (overlap %.6f); "
+                                "stopping early", i + 1, chis[-1],
+                                independent)
+                    break
+        if independent is None:
+            t0 = time.perf_counter()
+            independent = self._overlap_at_chi(result.circuit, chis[-1])
+            total_time += time.perf_counter() - t0
+            result.independent_overlap = independent
+        result.cost_evaluations = total_evals
+        result.time_taken = total_time
+        result.chi_schedule = stages
+        return result
+
+    def _overlap_at_chi(self, qc, chi: int) -> float:
+        """|<target|qc|0>|^2 with both sides re-simulated from the original
+        target at bond dimension chi on the native eigensolver, normalised
+        by both norms: independent of what the working chi did to the
+        in-loop target."""
+        n = qc.num_qubits
+        chi = int(min(chi, 2 ** ((n + 1) // 2)))
+        thr = self.backend.truncation_threshold
+        kw = dict(dtype=self.backend.dtype, device=self.backend.device)
+
+        def simulate(circuit):
+            tape = compile_tape(co.make_quantum_only_circuit(circuit))
+            return mps_core.apply_tape(
+                mps_core.zero_mps(n, chi, **kw), tape.kinds, tape.q0,
+                tape.q1, tape.angles, thr)
+
+        with cplx.verification_eigh():
+            if isinstance(self.target, mps_core.MPS):
+                target = (mps_core.pad_chi(self.target, chi)
+                          if chi > self.target.chi else self.target)
+            elif mps_core.check_mps(self.target):
+                target = mps_core.from_qiskit_mps(self.target, chi, **kw)
+            else:
+                target = simulate(self.target)
+            state = simulate(qc)
+            nrm2 = float(mps_core.mps_dot(state, state).real)
+            tnrm2 = float(mps_core.mps_dot(target, target).real)
+            ov = mps_core.mps_dot(target, state)
+            return (float(ov.real ** 2 + ov.imag ** 2)
+                    / max(nrm2 * tnrm2, 1e-30))
 
     # ------------------------------------------------------------ layer gate
     def construct_layer_2q_gate(self, custom_layer_2q_gate) -> Circuit:
@@ -161,26 +348,55 @@ class AdaptCompiler(ApproximateCompiler):
 
     # -------------------------------------------------------------- compile
     def compile(self, initial_ansatz: Circuit = None,
-                optimise_initial_ansatz=True) -> AdaptResult:
-        """Main adaptive loop (adapt_compiler.py:246-482)."""
+                optimise_initial_ansatz=True, checkpoint_every=0,
+                checkpoint_dir="checkpoint/", delete_prev_chkpt=False,
+                freeze_prev_layers=False) -> AdaptResult:
+        """Main adaptive loop (adapt_compiler.py:246-482). With
+        checkpoint_every > 0 the compiler is pickled into checkpoint_dir
+        every that many layers and at the end; a loaded checkpoint resumes
+        at its next layer (freeze_prev_layers then freezes what it had)."""
         start_time = timeit.default_timer()
-        logger.info("ADAPT-AQC started")
-        self.time_taken = 0
-        self.cost_evaluation_counter = 0
-        self.global_cost, self.local_cost = None, None
-        self.global_cost_history = []
-        if self.optimise_local_cost:
-            self.local_cost_history = []
-        self.circuit_history = []
-        self.cnot_depth_history = []
-        self.g_range = self.variational_circuit_range
-        self.original_lhs_gate_count = self.lhs_gate_count
-        self.layer_times = []
-        self.initial_ansatz_already_successful = False
-        if initial_ansatz is not None:
-            self._add_initial_ansatz(initial_ansatz, optimise_initial_ansatz)
+        if self.resume_from_layer is None:
+            start_point = 0
+            logger.info("ADAPT-AQC started")
+            self.time_taken = 0
+            self.cost_evaluation_counter = 0
+            self.global_cost, self.local_cost = None, None
+            self.global_cost_history = []
+            if self.optimise_local_cost:
+                self.local_cost_history = []
+            self.circuit_history = []
+            self.cnot_depth_history = []
+            self.g_range = self.variational_circuit_range
+            self.original_lhs_gate_count = self.lhs_gate_count
+            self.layer_times = []
+            if freeze_prev_layers:
+                logger.warning("freeze_prev_layers only applies when "
+                               "resuming from a checkpoint")
+            self.initial_ansatz_already_successful = False
+            if initial_ansatz is not None:
+                self._add_initial_ansatz(initial_ansatz,
+                                         optimise_initial_ansatz)
+        else:
+            start_point = self.resume_from_layer
+            self.time_taken = self.prev_checkpoint_time_taken
+            logger.info(f"ADAPT-AQC resuming from layer: {start_point}")
+            if initial_ansatz is not None:
+                logger.warning("An initial ansatz will be ignored when "
+                               "resuming recompilation from a checkpoint")
+            if freeze_prev_layers:
+                if self.is_mps_backend:
+                    num_gates = (len(self.full_circuit.data)
+                                 - self.rhs_gate_count - self.lhs_gate_count)
+                    gates_absorbed = self._absorb_n_gates_into_mps(num_gates)
+                    co.add_to_circuit(self.layers_saved_to_mps,
+                                      gates_absorbed)
+                else:
+                    self.lhs_gate_count = self.variational_circuit_range()[1]
+        if checkpoint_every > 0:
+            Path(checkpoint_dir).mkdir(parents=True, exist_ok=True)
 
-        for layer_count in range(self.adapt_config.max_layers):
+        for layer_count in range(start_point, self.adapt_config.max_layers):
             if self.initial_ansatz_already_successful:
                 break
             logger.info(f"global cost entering layer: {self.global_cost}")
@@ -246,6 +462,9 @@ class AdaptCompiler(ApproximateCompiler):
                                "with the best-so-far ansatz")
                 self.compiling_finished = True
                 break
+            if checkpoint_every > 0 and layer_count % checkpoint_every == 0:
+                self.checkpoint(checkpoint_every, checkpoint_dir,
+                                delete_prev_chkpt, layer_count, start_time)
 
         if self.is_mps_backend:
             # swap in the pure-gate representation for the final cleanup
@@ -258,7 +477,12 @@ class AdaptCompiler(ApproximateCompiler):
                                               gate_range=self.g_range())
         self._invalidate_current()
 
-        if self._verification_applies():
+        # the final cost is 1 - |<solution|target>|^2, never softened
+        if self.soften_global_cost:
+            self.soften_global_cost = False
+            final_global_cost = self.backend.evaluate_global_cost(self)
+            self.soften_global_cost = True
+        elif self._verification_applies():
             # the true cost: the working-chi re-simulation both over-reads
             # (absorbed prefix) and under-reads (states it cannot hold)
             final_global_cost = self._true_cost_of_gate_circuit(
@@ -278,6 +502,10 @@ class AdaptCompiler(ApproximateCompiler):
                     f"{mps_truncated_weight:.3e} during this compile: "
                     f"max_chi={self.backend.max_chi} or the truncation "
                     "threshold is binding; overlaps may be inaccurate.")
+        if checkpoint_every > 0:
+            self.checkpoint(checkpoint_every, checkpoint_dir,
+                            delete_prev_chkpt,
+                            len(self.qubit_pair_history) - 1, start_time)
         compiled_circuit = self.get_compiled_circuit()
         num_2q_gates, num_1q_gates = co.find_num_gates(compiled_circuit)
         self.cnot_depth_history.append(
@@ -305,7 +533,8 @@ class AdaptCompiler(ApproximateCompiler):
             e_val_history=self.e_val_history,
             qubit_pair_history=self.qubit_pair_history,
             method_history=self.pair_selection_method_history,
-            time_taken=timeit.default_timer() - start_time,
+            time_taken=self.time_taken + (timeit.default_timer()
+                                          - start_time),
             cost_evaluations=self.cost_evaluation_counter,
             coupling_map=self.coupling_map,
             circuit_qasm=qasm.dumps(co.make_quantum_only_circuit(
@@ -340,6 +569,32 @@ class AdaptCompiler(ApproximateCompiler):
         if not hasattr(self, "_orig_target_instr"):
             self._orig_target_instr = self.circuit_to_compile.data[0].copy()
         return self._orig_target_instr
+
+    # ------------------------------------------------------------ checkpoint
+    def checkpoint(self, checkpoint_every, checkpoint_dir, delete_prev_chkpt,
+                   layer_count, start_time):
+        """Pickle the whole compiler as <layer_count>.pkl
+        (adapt_compiler.py:484-506); io/checkpoint.py makes it picklable."""
+        self.resume_from_layer = layer_count + 1
+        current = timeit.default_timer() - start_time
+        self.prev_checkpoint_time_taken = self.time_taken + current
+        with open(os.path.join(checkpoint_dir, f"{layer_count}.pkl"),
+                  "wb") as f:
+            pickle.dump(self, f)
+        if delete_prev_chkpt:
+            try:
+                os.remove(os.path.join(
+                    checkpoint_dir, f"{layer_count - checkpoint_every}.pkl"))
+            except FileNotFoundError:
+                pass
+
+    def __getstate__(self):
+        from ..io.checkpoint import encode_compiler_state
+        return encode_compiler_state(self)
+
+    def __setstate__(self, state):
+        from ..io.checkpoint import decode_compiler_state
+        decode_compiler_state(self, state)
 
     # -------------------------------------------------------- initial ansatz
     def _add_initial_ansatz(self, initial_ansatz, optimise_initial_ansatz):
@@ -410,6 +665,27 @@ class AdaptCompiler(ApproximateCompiler):
                 tol=self.adapt_config.rotosolve_tol, stop_val=stop_val,
                 indexes_to_modify=multi_indexes)
             self.phase_timings["window_rotosolve"] += \
+                timeit.default_timer() - t0
+        gpf = self.adapt_config.global_polish_frequency
+        if (self.optimise_local_cost and gpf and index > 0
+                and index % gpf == 0
+                # only the device overlap sweep optimises the global cost
+                # under force_global; without it minimize_cost would fall
+                # through to the local probe loop and polish the wrong cost
+                and self.minimizer._can_fast_sweep(force_global=True)):
+            # the hybrid schedule: the local cost gives a trainable signal
+            # layer by layer at large n, and a periodic global-cost
+            # Rotosolve over the full max_layers_to_modify window (the O(G)
+            # sweep) consolidates toward the overlap itself
+            full_indexes = self._calculate_multi_layer_optimisation_indices(
+                ansatz_start_index)
+            t0 = timeit.default_timer()
+            self.minimizer.minimize_cost(
+                algorithm_kind=vconstants.ALG_ROTOSOLVE,
+                tol=self.adapt_config.rotosolve_tol,
+                stop_val=self.adapt_config.sufficient_cost,
+                indexes_to_modify=full_indexes, force_global=True)
+            self.phase_timings["global_polish"] += \
                 timeit.default_timer() - t0
 
         if self.is_mps_backend:
@@ -501,7 +777,8 @@ class AdaptCompiler(ApproximateCompiler):
     def _verification_applies(self) -> bool:
         """The chi-capped MPS cost is an estimate; elsewhere the in-loop
         cost is the true cost."""
-        return self.is_mps_backend and not self.optimise_local_cost
+        return (self.is_mps_backend and not self.optimise_local_cost
+                and not self.soften_global_cost)
 
     def _should_verify_threshold(self) -> bool:
         """The chi-capped in-loop cost is a biased estimate of the true

@@ -8,7 +8,8 @@ circuit is the reference's (:435-512):
 of returning to |0...0>. The target prefix is simulated once into an engine
 state (statevector or MPS) on the backend's device and cached; every cost
 query applies the variational tape to that cached prefix. compile_in_parts
-is not ported yet (ROADMAP.md).
+compiles the target's depth blocks as a ladder, each part warm-started from
+the one before.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+import timeit
 from abc import ABC, abstractmethod
 
 from ..backends import mps_core, sv_core
@@ -23,6 +25,7 @@ from ..backends.backend import (QASM_SIM, AQCBackend, MPSBackend,
                                 SamplingBackend, SVBackend)
 from ..circuits import operations as co
 from ..circuits.circuit import Circuit, unroll_to_basis_gates
+from ..circuits.division import vertically_divide_circuit
 from ..circuits.tape import compile_tape
 from ..optim.minimiser import CostMinimiser
 
@@ -45,6 +48,20 @@ def _wall_deadline_passed() -> bool:
                        "number of epoch seconds")
         return False
     return time.time() >= deadline
+
+
+class CompileInPartsResult:
+    def __init__(self, circuit, overlap, individual_results, time_taken):
+        """
+        :param circuit: Resulting circuit.
+        :param overlap: 1 - final_global_cost.
+        :param individual_results: Result objects of each sub-compilation.
+        :param time_taken: Total time taken.
+        """
+        self.circuit = circuit
+        self.overlap = overlap
+        self.individual_results = individual_results
+        self.time_taken = time_taken
 
 
 def is_statevector_backend(backend) -> bool:
@@ -226,6 +243,13 @@ class ApproximateCompiler(ABC):
             circuit = self.full_circuit
         return self.lhs_gate_count, len(circuit.data) - self.rhs_gate_count
 
+    def ansatz_range(self):
+        return self.lhs_gate_count, len(self.full_circuit.data)
+
+    def _starting_circuit_range(self):
+        end = len(self.full_circuit.data)
+        return end - self.rhs_gate_count, end
+
     def evaluate_cost(self):
         self.cost_evaluation_counter += 1
         if self.optimise_local_cost:
@@ -254,6 +278,120 @@ class ApproximateCompiler(ABC):
             co.add_classical_operations(final,
                                         self.original_circuit_classical_ops)
         return final
+
+    def compile_in_parts(self, max_depth_per_block=10, initial_ansatz=None,
+                         start_part=0, part_callback=None,
+                         reoptimise_carried="auto") -> CompileInPartsResult:
+        """Ladder compilation (approximate_compiler.py:321-331): part k
+        approximately compiles the first k depth blocks of the target,
+        warm-started from part k-1's solution. The cumulative block prefix
+        is simulated incrementally into the engine target state, and each
+        part is a fresh compile of that prefix (on this compiler's backend,
+        so on its device and in its dtype) with the carried solution passed
+        as initial_ansatz.
+
+        start_part=k resumes a ladder: blocks 0..k-1 are not compiled (their
+        gates still extend the target prefix) and part k starts from
+        initial_ansatz, the saved solution of an earlier run's part k-1.
+        part_callback(i, result, circuit) fires after each part, so that a
+        caller can save the carried solution.
+
+        reoptimise_carried: both engines freeze the carried ansatz right
+        after it is added, so only its one whole-range Rotosolve can move
+        carried angles, and at large n that pass chases a chi-capped
+        estimate and can destroy the fidelity part k-1 had.
+          "never"   carried angles stay; the new layers learn the new block.
+          "always"  the whole-range re-optimisation.
+          "auto"    (default) freeze first; if the part's verified overlap
+                    misses the sufficient threshold, compile that part once
+                    more with the whole-range re-optimisation and keep the
+                    better result."""
+        logger.info("Started partial recompilation")
+        start_time = timeit.default_timer()
+        # the gate-level target is divided: on an MPS backend
+        # circuit_to_compile is the set_mps wrapper, which has no depth
+        gate_target = self.gate_circuit_to_compile
+        if gate_target is None:
+            raise ValueError(
+                "compile_in_parts needs a gate-level target circuit; an MPS "
+                "target has no depth structure to divide into blocks")
+        all_subcircuits = vertically_divide_circuit(
+            gate_target.copy(), max_depth_per_block)
+        logger.info(f"Circuit was split into {len(all_subcircuits)} parts to "
+                    "compile sequentially")
+        if not 0 <= start_part < len(all_subcircuits):
+            raise ValueError(
+                f"start_part {start_part} out of range for "
+                f"{len(all_subcircuits)}-part division")
+        if start_part > 0 and initial_ansatz is None:
+            raise ValueError("resuming at start_part > 0 requires the "
+                             "previous run's carried solution as "
+                             "initial_ansatz")
+
+        prefix = Circuit(gate_target.num_qubits)  # cumulative gate prefix
+        prefix_state = None  # the target MPS, extended block by block
+        last_compiled = None
+        individual_results = []
+        for i, subcircuit in enumerate(all_subcircuits):
+            co.add_to_circuit(prefix, subcircuit.copy())
+            if self.is_mps_backend:
+                prefix_state = self.backend.mps_from_compiler_target(
+                    subcircuit, start_state=prefix_state)
+                part_target = prefix_state
+            else:
+                part_target = prefix.copy()
+            if i < start_part:
+                continue  # resumed: an earlier run compiled this block
+            warm_start = last_compiled
+            if warm_start is None:
+                warm_start = (initial_ansatz if initial_ansatz is not None
+                              else self.starting_circuit)
+            carried = warm_start is not None and i > 0
+            freeze_first = carried and reoptimise_carried in ("auto", "never")
+            result = self._clone_with_target(part_target).compile(
+                initial_ansatz=warm_start,
+                optimise_initial_ansatz=not freeze_first)
+            if (freeze_first and reoptimise_carried == "auto"
+                    and result.overlap < self._part_overlap_target()
+                    and not _wall_deadline_passed()):
+                logger.info(
+                    f"part {i}: frozen-carried attempt ended at verified "
+                    f"overlap {result.overlap:.4f} < target; widening to a "
+                    f"whole-range re-optimisation of the carried ansatz")
+                retry = self._clone_with_target(part_target).compile(
+                    initial_ansatz=warm_start, optimise_initial_ansatz=True)
+                if retry.overlap > result.overlap:
+                    result = retry
+            last_compiled = result.circuit
+            result.circuit = None
+            individual_results.append(result)
+            logger.info(f"Completed {100 * (i + 1) / len(all_subcircuits)}% "
+                        "of recompilation")
+            if part_callback is not None:
+                part_callback(i, result, last_compiled)
+
+        return CompileInPartsResult(
+            circuit=last_compiled,
+            overlap=calculate_overlap_between_circuits(
+                last_compiled, gate_target, self.initial_state_circuit,
+                self.qubit_subset_to_compile, device=self.backend.device,
+                dtype=self.backend.dtype),
+            individual_results=individual_results,
+            time_taken=timeit.default_timer() - start_time)
+
+    def _clone_with_target(self, target):
+        """A fresh compiler of the same configuration for one ladder part;
+        a subclass keeps its construction arguments to implement this."""
+        raise NotImplementedError(
+            "compile_in_parts requires the compiler to implement "
+            "_clone_with_target")
+
+    def _part_overlap_target(self) -> float:
+        """The verified overlap a ladder part must reach before "auto"
+        skips the carried ansatz's re-optimisation (1 - sufficient_cost for
+        ADAPT compilers, 0.99 otherwise)."""
+        cfg = getattr(self, "adapt_config", None)
+        return 1.0 - (cfg.sufficient_cost if cfg is not None else 1e-2)
 
 
 # Above this, a dense 2^n statevector no longer fits and overlaps switch to

@@ -5,7 +5,15 @@
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
-// <= 128, complex64 (float2).
+// <= 128, complex64 (float2), or a batch of P of them in one launch: the
+// full-cost sweep applies every gate to its 3 or 7 probe states at once (the
+// JAX package maps its kernels over the probes, which adds a grid dimension
+// to each pallas_call). Every kernel indexes its matrix by a grid axis
+// (tridiag and teig: one CTA a matrix; backtransform: its column panels on
+// grid x, the matrix on grid y) and nothing is shared across the batch but
+// teig's read-only right-hand side b0, so each matrix gets exactly the
+// result of a launch of its own: its own active steps, its own dropped
+// reflectors.
 //
 // What bounds them on this card: all three are latency bound, not FLOP or
 // byte bound. The work is O(m^3) = 2M complex MACs at m = 128, but the
@@ -191,7 +199,15 @@ template <int kRows>
 __global__ void __launch_bounds__(kTriThreads, 1)
     tridiag_kernel(const float2* __restrict__ h, float2* __restrict__ vrows,
                    float2* __restrict__ tau_out, float* __restrict__ d_out,
-                   float* __restrict__ e_out, int m) {
+                   float* __restrict__ e_out, int m, long long h_stride) {
+  {  // this CTA's matrix of the batch; the outputs are contiguous in it
+    const size_t b = blockIdx.x;
+    h += b * (size_t)h_stride;
+    vrows += b * (size_t)m * m;
+    tau_out += b * m;
+    d_out += b * m;
+    e_out += b * m;
+  }
   __shared__ float2 C[kMaxM];              // column k of A
   __shared__ float2 R1[kMaxM];             // row k+1 of A
   __shared__ float2 P[kTriGroups][kMaxM];  // the row groups' partial y
@@ -443,7 +459,15 @@ __device__ __forceinline__ float tree_point(float lo, float hi, int h) {
 __global__ void __launch_bounds__(kTeigThreads, 1)
     teig_kernel(const float* __restrict__ d_in, const float* __restrict__ e_in,
                 const float* __restrict__ b0, float* __restrict__ w_out,
-                float* __restrict__ z_out, int m) {
+                float* __restrict__ z_out, int m, long long d_stride,
+                long long e_stride) {
+  {  // this CTA's matrix of the batch (b0 is shared, read-only)
+    const size_t b = blockIdx.x;
+    d_in += b * (size_t)d_stride;
+    e_in += b * (size_t)e_stride;
+    w_out += b * m;
+    z_out += b * (size_t)m * m;
+  }
   extern __shared__ __align__(16) float fsm[];
   const int ld = m + 1;  // odd row stride: row and column walks both
                          // fall in distinct banks
@@ -729,7 +753,7 @@ __host__ __device__ inline int bt_smem_float2(int m) {
 }
 
 // out[:, c0:c0+8] = H_0 H_1 ... H_{m-2} z[:, c0:c0+8], one CTA of 512
-// threads for 8 columns (8 CTAs at keep = 64). Reflectors with tau == 0
+// threads for 8 columns of one matrix (8 CTAs a matrix at keep = 64). Reflectors with tau == 0
 // are the identity and are dropped: the active ones (in order) are grouped
 // into panels of 16, P = H_a ... H_b = I - V T V^H with the zlarft
 // recurrence T[i][i] = tau_i, T[:i, i] = -tau_i T[:i, :i] (V[:, :i]^H v_i),
@@ -741,7 +765,16 @@ __global__ void __launch_bounds__(kBtThreads)
     backtransform_kernel(const float2* __restrict__ vrows,
                          const float2* __restrict__ tau,
                          const float* __restrict__ z,
-                         float2* __restrict__ out, int m, int keep) {
+                         float2* __restrict__ out, int m, int keep,
+                         long long v_stride, long long tau_stride,
+                         long long z_stride) {
+  {  // grid y: this CTA's matrix of the batch
+    const size_t b = blockIdx.y;
+    vrows += b * (size_t)v_stride;
+    tau += b * (size_t)tau_stride;
+    z += b * (size_t)z_stride;
+    out += b * (size_t)m * keep;
+  }
   extern __shared__ __align__(16) float2 bsm[];
   const int ldv = bt_ldv(m);
   float2* Vt = bsm;                   // Vt[r * ldv + s] = v_{act[s]}[r]
@@ -899,48 +932,66 @@ __global__ void __launch_bounds__(kBtThreads)
 
 extern "C" {
 
+// Every launcher takes a batch of `batch` matrices: the strides (in
+// elements) between the matrices of each input; the outputs are contiguous
+// in the batch. batch = 1 is the single-matrix launch.
+constexpr int kMaxBatch = 65535;  // backtransform's grid y
+
 int tridiag_launch(const void* h, void* vrows, void* tau, void* d, void* e,
-                   int m, void* stream) {
-  if (m < 2 || m > kMaxM) return (int)cudaErrorInvalidValue;
+                   int m, int batch, long long h_stride, void* stream) {
+  if (m < 2 || m > kMaxM || batch < 1 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
   const float2* hh = (const float2*)h;
   float2 *v = (float2*)vrows, *t = (float2*)tau;
   float *dd = (float*)d, *ee = (float*)e;
   cudaStream_t st = (cudaStream_t)stream;
   if (m <= kTriGroups * 4)
-    tridiag_kernel<4><<<1, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m);
+    tridiag_kernel<4><<<batch, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m,
+                                                     h_stride);
   else if (m <= kTriGroups * 8)
-    tridiag_kernel<8><<<1, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m);
+    tridiag_kernel<8><<<batch, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m,
+                                                     h_stride);
   else
-    tridiag_kernel<16><<<1, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m);
+    tridiag_kernel<16><<<batch, kTriThreads, 0, st>>>(hh, v, t, dd, ee, m,
+                                                      h_stride);
   return (int)cudaGetLastError();
 }
 
 int teig_launch(const void* d, const void* e, const void* b0, void* w, void* z,
-                int m, void* stream) {
-  if (m < 2 || m > kMaxM) return (int)cudaErrorInvalidValue;
+                int m, int batch, long long d_stride, long long e_stride,
+                void* stream) {
+  if (m < 2 || m > kMaxM || batch < 1 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)teig_smem_floats(m) * sizeof(float);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       teig_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  teig_kernel<<<1, kTeigThreads, smem, (cudaStream_t)stream>>>(
+  teig_kernel<<<batch, kTeigThreads, smem, (cudaStream_t)stream>>>(
       (const float*)d, (const float*)e, (const float*)b0, (float*)w,
-      (float*)z, m);
+      (float*)z, m, d_stride, e_stride);
   return (int)cudaGetLastError();
 }
 
 int backtransform_launch(const void* vrows, const void* tau, const void* z,
-                         void* out, int m, int keep, void* stream) {
-  if (m < 2 || m > kMaxM || keep < 1 || keep > m)
+                         void* out, int m, int keep, int batch,
+                         long long v_stride, long long tau_stride,
+                         long long z_stride, void* stream) {
+  if (m < 2 || m > kMaxM || keep < 1 || keep > m || batch < 1 ||
+      batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)bt_smem_float2(m) * sizeof(float2);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       backtransform_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem));
-  const int blocks = (keep + kBtCols - 1) / kBtCols;
-  backtransform_kernel<<<blocks, kBtThreads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid((keep + kBtCols - 1) / kBtCols, batch);
+  backtransform_kernel<<<grid, kBtThreads, smem, (cudaStream_t)stream>>>(
       (const float2*)vrows, (const float2*)tau, (const float*)z,
-      (float2*)out, m, keep);
+      (float2*)out, m, keep, v_stride, tau_stride, z_stride);
   return (int)cudaGetLastError();
 }
+
+// Marks a library whose eigensolver launchers take the batch arguments
+// (tools that also load builds of older sources look for it).
+int eigh_batched_launchers() { return 1; }
 
 const char* adaptaqc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

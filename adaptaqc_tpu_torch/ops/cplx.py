@@ -50,7 +50,8 @@ def verification_eigh():
 
 def eigh_top(h: torch.Tensor, keep: int, eigh: str = None):
     """Top-`keep` eigenpairs of Hermitian h: (w (keep,) descending,
-    V (m, keep) eigenvector columns)."""
+    V (m, keep) eigenvector columns); h may carry leading batch dimensions
+    (one, under "kernels")."""
     eigh = eigh or _default_eigh
     if eigh == "kernels":
         return eigh_kernels.eigh_top_kernels(h, keep)
@@ -58,9 +59,20 @@ def eigh_top(h: torch.Tensor, keep: int, eigh: str = None):
         # in complex128: the single-precision LAPACK driver fails to
         # converge on Grams with a large exactly-degenerate null space
         w, v = torch.linalg.eigh(h.to(torch.complex128))  # ascending
-        return (w.flip(0)[:keep].to(h.real.dtype),
-                v.flip(1)[:, :keep].to(h.dtype))
+        return (w.flip(-1)[..., :keep].to(h.real.dtype),
+                v.flip(-1)[..., :keep].to(h.dtype))
     raise ValueError(f"eigh must be one of {EIGH_MODES}, got {eigh!r}")
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b. For a batch on the CPU the product is taken matrix by matrix:
+    the CPU's batched product rounds differently from its single product,
+    and a batch of probe states must reproduce separate calls bit for bit
+    there (the tests hold it to that). On a CUDA device it is one batched
+    product."""
+    if a.dim() > 2 and a.device.type == "cpu":
+        return torch.stack([x @ y for x, y in zip(a, b)])
+    return a @ b
 
 
 def svd_trunc(theta: torch.Tensor, chi_keep: int, threshold: float,
@@ -76,16 +88,21 @@ def svd_trunc(theta: torch.Tensor, chi_keep: int, threshold: float,
     noise eigenvalues can be arbitrarily small while v_i still overlaps the
     true support, and dividing by their square root manufactures huge U
     columns. Columns below 8 eps max(s) are unresolvable Gram-noise
-    directions and are zeroed even when threshold == 0."""
-    h = theta.mH @ theta
+    directions and are zeroed even when threshold == 0.
+
+    theta may carry a leading batch dimension (P, m, n): the probe states of
+    one gate of the full-cost sweep. Every matrix is truncated on its own
+    (its own noise floor and keep mask), through one eigensolver call."""
+    h = _matmul(theta.mH, theta)
     _, v = eigh_top(h, chi_keep, eigh)
-    u = theta @ v  # columns theta v_i, of norm s_i
-    s = torch.sqrt((u.real * u.real + u.imag * u.imag).sum(dim=0))
-    floor = 8.0 * torch.finfo(s.dtype).eps * s.max()
+    u = _matmul(theta, v)  # columns theta v_i, of norm s_i
+    s = torch.sqrt((u.real * u.real + u.imag * u.imag).sum(dim=-2))
+    floor = 8.0 * torch.finfo(s.dtype).eps * s.max(dim=-1,
+                                                   keepdim=True).values
     keep = (s > threshold) & (s > floor)
     s_k = torch.where(keep, s, torch.zeros_like(s))
     inv_s = torch.where(keep, 1.0 / torch.clamp(s, min=1e-30),
                         torch.zeros_like(s))
-    u = u * inv_s
-    vh = v.mH * keep[:, None]
+    u = u * inv_s[..., None, :]
+    vh = v.mH * keep[..., :, None]
     return u, s_k, vh

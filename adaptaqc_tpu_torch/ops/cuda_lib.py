@@ -32,13 +32,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong  # a stride between the matrices of a batch, in elements
 # launcher name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "env_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_cluster_size": (_I,),
-    "tridiag_launch": (_P, _P, _P, _P, _P, _I, _P),
-    "teig_launch": (_P, _P, _P, _P, _P, _I, _P),
-    "backtransform_launch": (_P, _P, _P, _P, _I, _I, _P),
+    "tridiag_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "teig_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+    "backtransform_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P),
 }
 
 _lib = None

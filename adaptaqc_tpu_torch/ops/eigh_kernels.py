@@ -24,7 +24,16 @@ Each wrapper runs the plain version for a tensor on the CPU and launches the
 CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device; it raises
 for anything the kernel does not take (complex128/float64, m > 128, a
 non-contiguous tensor). There is no fallback from the kernel to the plain
-version. Each wrapper counts its launches in `<wrapper>.launches`.
+version. Each wrapper counts its launches in `<wrapper>.launches`, and those
+of them that took a batch (P > 1 matrices in one launch) in
+`<wrapper>.batched_launches`.
+
+Every function here also takes one leading batch dimension P (h of shape
+(P, m, m), d of (P, m), ...): the full-cost sweep applies each gate to its
+probe states at once. A wrapper launches once for the whole batch (one CTA,
+or one column of CTAs, a matrix; nothing is shared across the batch, so each
+matrix gets the result of its own launch, bit for bit); a plain version
+loops over the batch.
 """
 
 from __future__ import annotations
@@ -76,11 +85,23 @@ def teig_b0(m: int, dtype: torch.dtype, device) -> torch.Tensor:
 
 # ------------------------------------------------------------------ plain
 
+def _over_batch(fn, *tensors):
+    """fn on every matrix of a batch (the leading dimension of each tensor),
+    its outputs stacked."""
+    outs = [fn(*args) for args in zip(*tensors)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def tridiag_plain(h: torch.Tensor):
-    """Householder tridiagonalization of a Hermitian h (m, m).
+    """Householder tridiagonalization of a Hermitian h (m, m), or of every
+    matrix of a batch (P, m, m).
 
     Returns (vrows (m, m) complex with row k = v_k, tau (m,) complex,
     d (m,) real, e (m,) real); entries m-1 of tau and e are zero."""
+    if h.dim() == 3:
+        return _over_batch(tridiag_plain, h)
     m = h.shape[-1]
     a = h.clone()
     rdt = a.real.dtype
@@ -137,7 +158,10 @@ def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
     """All eigenpairs of the real symmetric tridiagonal (d, e[:m-1]).
 
     Returns (w (m,) descending, z (m, m) with column j the eigenvector of
-    w[j]). Vectorised over the m eigenvalue lanes."""
+    w[j]). Vectorised over the m eigenvalue lanes. d and e may carry a
+    leading batch dimension (b0 is shared)."""
+    if d.dim() == 2:
+        return _over_batch(lambda dd, ee: teig_plain(dd, ee, b0), d, e)
     m = d.shape[0]
     dt = d.dtype
     dev = d.device
@@ -264,7 +288,12 @@ def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
 
 def backtransform_plain(vrows: torch.Tensor, tau: torch.Tensor,
                         z: torch.Tensor, keep: int) -> torch.Tensor:
-    """Q z[:, :keep] for Q = H_0 ... H_{m-2}: (m, keep) complex."""
+    """Q z[:, :keep] for Q = H_0 ... H_{m-2}: (m, keep) complex (with a
+    leading batch dimension on vrows, tau and z: for every matrix)."""
+    if vrows.dim() == 3:
+        return _over_batch(
+            lambda v, t, zz: backtransform_plain(v, t, zz, keep), vrows, tau,
+            z)
     m = vrows.shape[0]
     out = z[:, :keep].to(vrows.dtype)
     for k in range(m - 2, -1, -1):
@@ -282,80 +311,103 @@ def _check_m(m: int, name: str):
                          f"got m={m}")
 
 
+def _batch_of(t: torch.Tensor, core_dims: int, name: str):
+    """(lead, P): the leading shape () or (P,) of a tensor whose matrix or
+    vector takes the last `core_dims` dimensions, and the batch size."""
+    lead = tuple(t.shape[:-core_dims])
+    if len(lead) > 1:
+        raise ValueError(f"{name}: at most one batch dimension, got shape "
+                         f"{tuple(t.shape)}")
+    return lead, (lead[0] if lead else 1)
+
+
 def tridiag(h: torch.Tensor):
-    """Kernel K2 (replaces pallas_eigh._tridiag_kernel). h must already be
-    Hermitian (the caller symmetrises it). Same outputs as tridiag_plain."""
+    """Kernel K2 (replaces pallas_eigh._tridiag_kernel). h (m, m) or
+    (P, m, m) must already be Hermitian (the caller symmetrises it). Same
+    outputs as tridiag_plain; one launch whatever P."""
     if h.device.type == "cpu":
         return tridiag_plain(h)
     m = h.shape[-1]
     _check_m(m, "tridiag")
-    cuda_lib.require(h, "tridiag h", torch.complex64, (m, m))
+    lead, p = _batch_of(h, 2, "tridiag")
+    cuda_lib.require(h, "tridiag h", torch.complex64, lead + (m, m))
     dev = h.device
-    vrows = torch.empty((m, m), dtype=torch.complex64, device=dev)
-    tau = torch.empty(m, dtype=torch.complex64, device=dev)
-    d = torch.empty(m, dtype=torch.float32, device=dev)
-    e = torch.empty(m, dtype=torch.float32, device=dev)
+    vrows = torch.empty(lead + (m, m), dtype=torch.complex64, device=dev)
+    tau = torch.empty(lead + (m,), dtype=torch.complex64, device=dev)
+    d = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
+    e = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
     rc = cuda_lib.lib().tridiag_launch(
         h.data_ptr(), vrows.data_ptr(), tau.data_ptr(), d.data_ptr(),
-        e.data_ptr(), m, cuda_lib.stream_of(h))
+        e.data_ptr(), m, p, m * m, cuda_lib.stream_of(h))
     cuda_lib.check(rc, "tridiag")
     tridiag.launches += 1
+    tridiag.batched_launches += p > 1
     return vrows, tau, d, e
 
 
 def teig(d: torch.Tensor, e: torch.Tensor):
     """Kernel K3 (replaces pallas_eigh._teig_kernel). The outputs of
-    teig_plain: (w (m,) descending, z (m, m) eigenvector columns); w bit
-    for bit, z to rounding (the kernel orthogonalises in panels, BCGS2)."""
+    teig_plain: (w (m,) descending, z (m, m) eigenvector columns), with the
+    leading batch dimension of d and e if they have one; w bit for bit, z
+    to rounding (the kernel orthogonalises in panels, BCGS2)."""
     if d.device.type == "cpu":
         return teig_plain(d, e)
-    m = d.shape[0]
+    m = d.shape[-1]
     _check_m(m, "teig")
-    cuda_lib.require(d, "teig d", torch.float32, (m,))
-    cuda_lib.require(e, "teig e", torch.float32, (m,))
+    lead, p = _batch_of(d, 1, "teig")
+    cuda_lib.require(d, "teig d", torch.float32, lead + (m,))
+    cuda_lib.require(e, "teig e", torch.float32, lead + (m,))
     dev = d.device
     b0 = teig_b0(m, torch.float32, dev)
-    w = torch.empty(m, dtype=torch.float32, device=dev)
-    z = torch.empty((m, m), dtype=torch.float32, device=dev)
+    w = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
+    z = torch.empty(lead + (m, m), dtype=torch.float32, device=dev)
     rc = cuda_lib.lib().teig_launch(
         d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
-        z.data_ptr(), m, cuda_lib.stream_of(d))
+        z.data_ptr(), m, p, m, m, cuda_lib.stream_of(d))
     cuda_lib.check(rc, "teig")
     teig.launches += 1
+    teig.batched_launches += p > 1
     return w, z
 
 
 def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
                   keep: int) -> torch.Tensor:
     """Kernel K4 (replaces pallas_eigh._backtransform_kernel): the first
-    `keep` columns of z lifted to the complex basis, (m, keep)."""
+    `keep` columns of z lifted to the complex basis, (m, keep), or
+    (P, m, keep) for a batch. Each matrix drops its own inactive reflectors
+    inside the kernel: the wrapper reads nothing back."""
     if vrows.device.type == "cpu":
         return backtransform_plain(vrows, tau, z, keep)
-    m = vrows.shape[0]
+    m = vrows.shape[-1]
     _check_m(m, "backtransform")
     if not 1 <= keep <= m:
         raise ValueError(f"backtransform: keep={keep} outside [1, {m}]")
-    cuda_lib.require(vrows, "backtransform vrows", torch.complex64, (m, m))
-    cuda_lib.require(tau, "backtransform tau", torch.complex64, (m,))
-    cuda_lib.require(z, "backtransform z", torch.float32, (m, m))
-    out = torch.empty((m, keep), dtype=torch.complex64, device=vrows.device)
+    lead, p = _batch_of(vrows, 2, "backtransform")
+    cuda_lib.require(vrows, "backtransform vrows", torch.complex64,
+                     lead + (m, m))
+    cuda_lib.require(tau, "backtransform tau", torch.complex64, lead + (m,))
+    cuda_lib.require(z, "backtransform z", torch.float32, lead + (m, m))
+    out = torch.empty(lead + (m, keep), dtype=torch.complex64,
+                      device=vrows.device)
     rc = cuda_lib.lib().backtransform_launch(
         vrows.data_ptr(), tau.data_ptr(), z.data_ptr(), out.data_ptr(), m,
-        keep, cuda_lib.stream_of(vrows))
+        keep, p, m * m, m, m * m, cuda_lib.stream_of(vrows))
     cuda_lib.check(rc, "backtransform")
     backtransform.launches += 1
+    backtransform.batched_launches += p > 1
     return out
 
 
-tridiag.launches = 0
-teig.launches = 0
-backtransform.launches = 0
+for _fn in (tridiag, teig, backtransform):
+    _fn.launches = 0
+    _fn.batched_launches = 0
 
 
 def eigh_top_kernels(h: torch.Tensor, keep: int):
-    """Top-`keep` eigenpairs of Hermitian h through K2 -> K3 -> K4.
-    Returns (w (keep,) descending, V (m, keep) eigenvector columns)."""
+    """Top-`keep` eigenpairs of Hermitian h (m, m) or (P, m, m) through
+    K2 -> K3 -> K4: three launches whatever P. Returns (w (keep,)
+    descending, V (m, keep) eigenvector columns), batched as h is."""
     hh = (h + h.mH) * 0.5
     vrows, tau, d, e = tridiag(hh.contiguous())
     w, z = teig(d, e)
-    return w[:keep], backtransform(vrows, tau, z, keep)
+    return w[..., :keep], backtransform(vrows, tau, z, keep)

@@ -44,16 +44,28 @@ def _counter(device, stream: int) -> torch.Tensor:
     return t
 
 
+_BOUNDARY = {}  # (chi, dtype, device) -> the shared boundary environment
+
+
 def boundary_env(chi: int, dtype, device) -> torch.Tensor:
-    """|0><0| on the padded boundary bond: where every chain starts."""
-    e0 = torch.zeros((chi, chi), dtype=dtype, device=device)
-    e0[0, 0] = 1.0
+    """|0><0| on the padded boundary bond: where every chain starts. One
+    shared tensor per (chi, dtype, device), which no caller may write into:
+    setting its one element costs a host-to-device copy, a synchronisation
+    that the full-cost sweep would pay three times a probed gate."""
+    key = (chi, dtype, str(device))
+    e0 = _BOUNDARY.get(key)
+    if e0 is None:
+        e0 = torch.zeros((chi, chi), dtype=dtype, device=device)
+        e0[0, 0] = 1.0
+        _BOUNDARY[key] = e0
     return e0
 
 
 def forward_step(e, a, b):
-    """e' = sum_p A_p^H e B_p for site tensors a, b (2, chi, chi)."""
-    return torch.einsum("pax,pay->xy", a.conj(), e @ b)
+    """e' = sum_p A_p^H e B_p for site tensors a, b (2, chi, chi); any of
+    the three may carry leading batch dimensions, which broadcast."""
+    return torch.einsum("...pax,...pay->...xy", a.conj(),
+                        e.unsqueeze(-3) @ b)
 
 
 def backward_step(f, a, b):

@@ -1,18 +1,29 @@
 """ctypes bindings for the native circuit-runtime kernels (native/circkit.cpp).
 
-Loads (building on first use if needed) libcirckit.so and exposes the
-peephole simplifier and depth kernels over flat gate arrays. Falls back
-cleanly when the toolchain or library is unavailable, or when a circuit
-contains constructs outside the flat-gate ABI (parameterised labels,
+Builds (at first use) and loads the package's own copy of the library and
+exposes the peephole simplifier and depth kernels over flat gate arrays.
+Falls back cleanly when the toolchain or library is unavailable, or when a
+circuit contains constructs outside the flat-gate ABI (parameterised labels,
 measures, state-injection instructions).
+
+The library is compiled with g++ into `_build/` beside the package (a
+directory git ignores), under a name keyed by a hash of the source and the
+flags. Several processes may want it at once (test workers): the build runs
+under a file lock, to a temporary name, and is moved into place by one atomic
+rename, so no process ever loads half a file. A failed attempt is not latched
+for the life of the process: it is tried again after `_RETRY_SECONDS`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import logging
 import os
 import subprocess
+import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -22,34 +33,64 @@ from ..circuits.circuit import Circuit, Instruction
 
 logger = logging.getLogger(__name__)
 
-_LIB: Optional[ctypes.CDLL] = None
-_LIB_TRIED = False
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCE = _PKG.parent / "native" / "circkit.cpp"
+_BUILD_DIR = _PKG / "_build"
+# no -march=native: the build directory may travel with a copy of the tree
+# to a machine with another CPU
+_CXXFLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+_RETRY_SECONDS = 10.0
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
+_LIB: Optional[ctypes.CDLL] = None
+_failed_at: Optional[float] = None  # time.monotonic() of the last failure
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(_SOURCE.read_bytes())
+    digest.update(" ".join(_CXXFLAGS).encode())
+    return _BUILD_DIR / f"libcirckit_{digest.hexdigest()[:16]}.so"
+
+
+def _build() -> Path:
+    """Compile the library if this source state has none yet."""
+    path = library_path()
+    if path.exists():
+        return path
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "circkit.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not path.exists():  # another process may have built it
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                subprocess.run(
+                    [os.environ.get("CXX", "g++"), *_CXXFLAGS, "-o", str(tmp),
+                     str(_SOURCE)],
+                    check=True, capture_output=True, timeout=120)
+                os.replace(tmp, path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return path
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _LIB_TRIED
-    if _LIB_TRIED:
+    global _LIB, _failed_at
+    if _LIB is not None:
         return _LIB
-    _LIB_TRIED = True
     if os.environ.get("ADAPTAQC_TPU_NO_NATIVE"):
         return None
-    path = os.path.abspath(os.path.join(_NATIVE_DIR, "libcirckit.so"))
-    if not os.path.exists(path):
-        try:
-            subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                           check=True, capture_output=True, timeout=120)
-        except Exception as e:  # no toolchain / read-only install
-            logger.debug(f"native circkit build unavailable: {e}")
-            return None
+    if (_failed_at is not None
+            and time.monotonic() - _failed_at < _RETRY_SECONDS):
+        return None
     try:
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(str(_build()))
         lib.ck_peephole.restype = ctypes.c_int
         lib.ck_multi_qubit_gate_depth.restype = ctypes.c_int
-        _LIB = lib
-    except OSError as e:
-        logger.debug(f"native circkit load failed: {e}")
+    except Exception as e:  # no toolchain, read-only install, failed load
+        logger.debug(f"native circkit unavailable: {e}")
+        _failed_at = time.monotonic()
+        return None
+    _LIB = lib
+    _failed_at = None
     return _LIB
 
 

@@ -4,17 +4,19 @@ Counterpart of the JAX package's `optim/minimiser.py`. Rotosolve /
 Rotoselect dispatch in the JAX package's order (minimiser.py:89-99):
 
  - the O(G) device sweep (optim/sweeps.py) over the backend's engine, for
-   the global cost on a backend with a sweep engine;
- - the local/softened full-cost sweep, which is not ported yet: the
-   minimiser raises NotImplementedError where the JAX package would take
-   it (ROADMAP.md);
+   the global cost on a backend with a sweep engine (also under a local or
+   softened cost when the caller passes force_global: the hybrid
+   schedule's global polish);
+ - the full-cost device sweep (sweeps.sweep_full_chunked_until_converged)
+   for the local and the softened cost on an engine with cost_terms;
  - otherwise the host probe loop, which reproduces the reference's
    per-gate 3-point probing against `evaluate_cost` (each probe one full
    cost evaluation): backends with no sweep engine (sampling) and
    parameterised ('#'/'@' labelled) circuits.
 
-The generic optimisers (scipy, BOBYQA) and the subsampled device sweep
-(rotosolve_fraction < 1 with Rotosolve) are not ported yet and raise.
+The generic optimisers (scipy, nlopt, BOBYQA) and the subsampled device
+sweep (rotosolve_fraction < 1 with Rotosolve) are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..backends.backend import softening_alpha
 from ..circuits import operations as co
 from ..circuits.tape import compile_tape, select_mask, writeback_angles
 from ..utils import constants as vconstants
@@ -64,21 +67,25 @@ class CostMinimiser:
     def minimize_cost(self, algorithm_kind=vconstants.ALG_ROTOSOLVE,
                       algorithm_identifier=None, max_cycles=1000,
                       stop_val=-np.inf, tol=1e-10, indexes_to_modify=None,
-                      alg_kwargs=None):
+                      alg_kwargs=None, force_global=False):
+        """force_global=True optimises the plain global overlap cost even
+        when the compiler is in local or softened mode: the hybrid
+        schedule's periodic consolidation pass (the compiler's global
+        polish)."""
         if algorithm_kind in (vconstants.ALG_ROTOSOLVE,
                               vconstants.ALG_ROTOSELECT):
             rotoselect = algorithm_kind == vconstants.ALG_ROTOSELECT
-            if self._can_fast_sweep():
+            if self._can_fast_sweep(force_global=force_global):
                 if self.rotosolve_fraction < 1.0 and not rotoselect:
                     raise NotImplementedError(
                         "the subsampled device sweep (rotosolve_fraction "
                         "< 1) is not ported yet (ROADMAP.md)")
                 return self._roto_device(rotoselect, max_cycles, stop_val,
                                          tol, indexes_to_modify)
-            if self._takes_full_sweep(rotoselect):
-                raise NotImplementedError(
-                    "the local/softened full-cost sweep is not ported yet "
-                    "(ROADMAP.md)")
+            if self._can_full_sweep(rotoselect):
+                return self._roto_device_full(rotoselect, max_cycles,
+                                              stop_val, tol,
+                                              indexes_to_modify)
             return self._roto_host(rotoselect, max_cycles, stop_val, tol,
                                    indexes_to_modify)
         raise NotImplementedError(
@@ -102,41 +109,61 @@ class CostMinimiser:
                 return True
         return False
 
-    def _can_fast_sweep(self) -> bool:
+    def _can_fast_sweep(self, force_global=False) -> bool:
         comp = self.compiler
-        if comp.optimise_local_cost or comp.soften_global_cost:
+        if ((comp.optimise_local_cost or comp.soften_global_cost)
+                and not force_global):
             return False
         if comp.backend.sweep_engine() is None:
             return False
         return not self._has_parameterised_labels()
 
-    def _takes_full_sweep(self, rotoselect) -> bool:
-        """Where the JAX package runs its full-cost device sweep
-        (minimiser.py:136-155): a local or softened cost on a backend with
-        a sweep engine."""
+    def _can_full_sweep(self, rotoselect) -> bool:
+        """The device path of the local and the softened cost: their probe
+        cost is not one overlap, so the O(G) environment sweep does not
+        apply, but the reference's full-simulation probes
+        (cost_minimiser.py:267-368) run as batches on the engine
+        (sweeps.sweep_full_chunk). Subsampled Rotosolve cycles stay on the
+        host path."""
         comp = self.compiler
         if not (comp.optimise_local_cost or comp.soften_global_cost):
             return False
         if not (self.rotosolve_fraction >= 1.0 or rotoselect):
             return False
-        if comp.backend.sweep_engine() is None:
+        engine = comp.backend.sweep_engine()
+        if engine is None or engine.cost_terms is None:
             return False
         return not self._has_parameterised_labels()
 
-    def _roto_device(self, rotoselect, max_cycles, stop_val, tol,
-                     indexes_to_modify):
+    def _cost_weights(self):
+        """(w_global, w_local, alpha) of the full-cost sweep, as the
+        backend's cost layer has them: the local cost under
+        optimise_local_cost (aer_mps_backend.py:72-74), else the global
+        cost with the softening penalty alpha = |previous cost - sufficient
+        cost| (:49-70; constant within one minimize_cost call, since the
+        cost history only grows between layers)."""
         comp = self.compiler
-        alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
+        if comp.optimise_local_cost:
+            return (0.0, 1.0, 0.0)
+        alpha = 0.0
+        if comp.soften_global_cost:
+            alpha = softening_alpha(comp)
+        return (1.0, 0.0, float(alpha))
+
+    def _sweep_tape(self, indexes_to_modify):
+        """What both device sweeps start from: (prefix state, tape, its
+        range in full_circuit, select mask). Gates left of the modify
+        window are fixed for the whole call: the prefix is advanced past
+        them once (or taken from the compiler's advance hint, the state up
+        to the window peeled from its full-state cache); the tape covers
+        the window and the fixed gates behind it."""
+        comp = self.compiler
         var_range = self.variational_circuit_range()
         if indexes_to_modify is None:
             indexes_to_modify = var_range
         else:
             indexes_to_modify = (max(indexes_to_modify[0], var_range[0]),
                                  min(indexes_to_modify[1], var_range[1]))
-
-        # gates left of the modify window are fixed for the whole call:
-        # advance the prefix past them once (or take the compiler's advance
-        # hint, the state up to the window peeled from its full-state cache)
         prefix = comp._prefix_state()
         tape_start = var_range[0]
         hint = getattr(comp, "_advance_hint", None)
@@ -149,13 +176,40 @@ class CostMinimiser:
                                         (tape_start, indexes_to_modify[0]))
                 prefix = comp.backend.run_tape(prefix, pre_tape)
             tape_start = indexes_to_modify[0]
-
-        # the tape covers the modify window and the fixed gates after it
         tape_range = (tape_start, len(self.full_circuit.data))
         tape = compile_tape(self.full_circuit, tape_range)
         base_indices = [i - tape_range[0] for i in range(*indexes_to_modify)]
-        mask = select_mask(tape, base_indices)
+        return prefix, tape, tape_range, select_mask(tape, base_indices)
 
+    def _roto_device_full(self, rotoselect, max_cycles, stop_val, tol,
+                          indexes_to_modify):
+        comp = self.compiler
+        alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
+        prefix, tape, tape_range, mask = self._sweep_tape(indexes_to_modify)
+        logger.info(f"Starting {alg_name} (full-cost device path)")
+        # the full-state cache, when valid, is prefix + tape at the input
+        # angles: it spares the probe-free pass that gives the initial cost
+        (kinds, angles, cost, cycles, evals, final_state,
+         cost0) = sweeps.sweep_full_chunked_until_converged(
+            comp.backend.sweep_engine(), rotoselect, int(max_cycles), prefix,
+            comp.backend.zero_ref(comp), tape.kinds, tape.q0, tape.q1,
+            tape.angles, mask, stop_val, tol, self._cost_weights(),
+            init_state=comp._current_cache)
+        comp.cost_evaluation_counter += int(evals)
+        logger.info(f"{alg_name} ran {cycles} full-cost cycles on device")
+        if _sweep_went_backwards(cost, cost0):
+            return self._reject_sweep(alg_name, cost, cost0)
+        writeback_angles(self.full_circuit, tape_range, tape, kinds, angles)
+        comp._invalidate_current()
+        comp._current_cache = final_state
+        logger.info(f"{alg_name} finished with cost {cost}")
+        return float(cost)
+
+    def _roto_device(self, rotoselect, max_cycles, stop_val, tol,
+                     indexes_to_modify):
+        comp = self.compiler
+        alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
+        prefix, tape, tape_range, mask = self._sweep_tape(indexes_to_modify)
         ref = comp.backend.zero_ref(comp)
         engine = comp.backend.sweep_engine()
         bl = sweeps.default_block_len(tape.padded_length,

@@ -1,7 +1,9 @@
-"""Rotosolve / Rotoselect sweep over an engine.
+"""Rotosolve / Rotoselect sweeps over an engine.
 
-Counterpart of the JAX package's `optim/sweeps.py` (sweep,
-sweep_until_converged, sweep_n_cycles). A sweep over a tape of G gates costs
+Counterpart of the JAX package's `optim/sweeps.py`: the O(G) overlap sweep
+(sweep, sweep_until_converged, sweep_n_cycles) and, below it, the full-cost
+sweep of the local and softened costs (sweep_full_chunk and its loops). The
+overlap sweep over a tape of G gates costs
 O(G) gate applies instead of the O(G^2) of re-simulating the circuit per
 probe:
 
@@ -33,7 +35,7 @@ import torch
 from .. import config
 from ..backends import sv_core
 from ..circuits import gates as G
-from .sinusoidal import minimum_of_sinusoidal_dev
+from .sinusoidal import has_stopped_improving, minimum_of_sinusoidal_dev
 
 # cost evaluations one probe stands for (cost_minimiser.py:318-342)
 ROTOSELECT_EVALS = 7  # 1 identity + 2 per axis
@@ -49,6 +51,15 @@ class SweepEngine(NamedTuple):
     local_overlap: Callable[..., Any]
     # (a, b) -> complex 0-dim tensor <a|b>
     overlap: Callable[..., Any]
+    # optional (state, ref) -> (global cost, local cost, Hamming-1 sum), each
+    # real 0-dim, or (P,) for a batch of probe states: the probe costs of
+    # the full-cost sweep. An engine with cost_terms also takes a batch of
+    # states in `apply`, and a batch of one-qubit matrices (P, 4, 4) there.
+    cost_terms: Any = None
+    # optional (state, u2s (n, 2, 2)) -> state: u2s[i] applied at site i,
+    # every site in one call. With it the full-cost sweep applies a run of
+    # one-qubit gates as one operation (identities elsewhere).
+    apply_1q_layer: Any = None
 
 
 def _abs2(z):
@@ -184,12 +195,14 @@ def default_block_len(padded_len: int, state_bytes: int = None,
 
 
 def state_nbytes(state) -> int:
-    """Total bytes of one engine state: a statevector tensor, or a tuple of
-    tensors (an MPS). Iterating a tensor would walk its elements one by
+    """Total bytes of one engine state: a statevector tensor, or the
+    tensors of a tuple (an MPS; a center-gauge state also carries its
+    center, an int). Iterating a tensor would walk its elements one by
     one."""
     if isinstance(state, torch.Tensor):
         return state.numel() * state.element_size()
-    return sum(t.numel() * t.element_size() for t in state)
+    return sum(t.numel() * t.element_size() for t in state
+               if isinstance(t, torch.Tensor))
 
 
 def _stopped_improving(hist3, rel_tol) -> bool:
@@ -272,3 +285,258 @@ def sweep_n_cycles(engine: SweepEngine, block_len: int, rotoselect: bool,
         evals += ev
     cost = float("nan") if ov2_t is None else 1.0 - float(ov2_t)
     return kd.cpu().numpy().astype(np.int32), ad.cpu().numpy(), cost, evals
+
+
+# ------------------------------------------------------- full-cost sweep
+# The local cost and the softened global cost are not one overlap, so no
+# 2x2 local matrix gives their probes: every probe is a re-simulation of
+# the rest of the circuit. For trainable gate k the 3 (Rotosolve) or 7
+# (Rotoselect) probe states start as one batch from the left state, every
+# gate behind k is applied to the whole batch at once (a run of one-qubit
+# gates as one operation, where the engine can), and the costs of the batch
+# come from engine.cost_terms. A cycle is O(G^2 / 2) batched applies.
+# cost = w_global * global + w_local * local - alpha * hamming1
+# (w_local = 1 for optimise_local_cost; alpha = |previous cost -
+# sufficient cost| for soften_global_cost).
+
+_SELECT_KINDS = (G.RX, G.RX, G.RX, G.RY, G.RY, G.RZ, G.RZ)
+_SELECT_ANGLES = (0.0, np.pi / 2, -np.pi / 2, np.pi / 2, -np.pi / 2,
+                  np.pi / 2, -np.pi / 2)
+_SOLVE_ANGLES = (0.0, np.pi / 2, -np.pi / 2)
+
+# bytes the probe batch of one gate may take: above it the probes go
+# through the suffix in blocks (a 26-qubit statevector is 512 MiB a probe;
+# an MPS batch is a few megabytes and never splits)
+PROBE_MEMORY_BUDGET = int(4e9)
+
+# what the full-cost sweep did since these were last set to 0 (plain host
+# counts; a batched apply is one engine.apply on a batch of probe states)
+full_sweep_counts = {"calls": 0, "cycles": 0, "probed_gates": 0,
+                     "batched_applies": 0, "batched_2q_applies": 0}
+
+
+_PROBE_CONSTANTS = {}  # (device, dtype) -> the probes' kinds and angles
+
+
+def _probe_specs(rotoselect: bool, kind, angles):
+    """(probe kinds, probe angles) of one gate, on the device of `angles`:
+    Rotosolve probes the gate's own axis at {0, +pi/2, -pi/2}; Rotoselect
+    the identity (rx 0) and +-pi/2 on each axis, the reference's 7
+    evaluations (cost_minimiser.py:318-342). The constants are uploaded
+    once per device (an upload synchronises)."""
+    dev, dt = angles.device, angles.dtype
+    consts = _PROBE_CONSTANTS.get((str(dev), dt))
+    if consts is None:
+        consts = (torch.tensor(_SELECT_KINDS, dtype=torch.long, device=dev),
+                  torch.tensor(_SELECT_ANGLES, dtype=dt, device=dev),
+                  torch.tensor(_SOLVE_ANGLES, dtype=dt, device=dev))
+        _PROBE_CONSTANTS[(str(dev), dt)] = consts
+    if rotoselect:
+        return consts[0], consts[1]
+    return kind.reshape(1).expand(3), consts[2]
+
+
+def full_cost_of(engine: SweepEngine, ref_state, weights, state):
+    """The weighted probe cost of a state (a real 0-dim tensor), or of
+    every state of a batch ((P,))."""
+    g, loc, h1 = engine.cost_terms(state, ref_state)
+    return weights[0] * g + weights[1] * loc - weights[2] * h1
+
+
+def _suffix_plans(engine, struct, q0s, u_all, lo, n_sites):
+    """plans[j], for lo < j <= G: the operations that apply tape entries
+    j .. G-1 at their current values, as a linked list (op, rest) ending in
+    None. An op is ("gate", index), or, on an engine with apply_1q_layer,
+    ("run", u2s): a run of consecutive one-qubit entries as one (n, 2, 2)
+    stack (gates on different sites commute; gates on one site are
+    multiplied; the identity elsewhere). The entries behind a probed gate
+    keep their start-of-cycle values until the cycle reaches them, so the
+    plans are built once a call, back to front, each sharing its tail with
+    the next. Sites are indexed by host ints only: an index tensor made
+    from a list would be an upload, and a synchronisation, per operation."""
+    gp = len(struct)
+    plans = [None] * (gp + 1)
+    eye = None
+    for j in range(gp - 1, lo, -1):
+        k, rest = struct[j], plans[j + 1]
+        if k == G.NOP:
+            plans[j] = rest
+        elif sv_core.is_two_qubit(k) or engine.apply_1q_layer is None:
+            plans[j] = (("gate", j), rest)
+        else:
+            if rest is not None and rest[0][0] == "run":  # extend that run
+                stack, rest = rest[0][1].clone(), rest[1]
+            else:
+                if eye is None:
+                    eye = torch.eye(2, dtype=u_all.dtype,
+                                    device=u_all.device).repeat(n_sites, 1, 1)
+                stack = eye.clone()
+            q = q0s[j]
+            stack[q] = stack[q] @ u_all[j][:2, :2]  # entry j acts first
+            plans[j] = (("run", stack), rest)
+    return plans
+
+
+def _probe_costs(engine, l_state, ref_state, struct, q0s, q1s, u_all, i,
+                 probe_u4, weights, plan):
+    """Costs (P,) of the P probe gates at tape entry i: each applied to
+    l_state, then every entry behind i at its current value (`plan`)."""
+    per_state = max(state_nbytes(l_state), 1)
+    block = max(1, PROBE_MEMORY_BUDGET // (3 * per_state))
+    costs = []
+    for lo in range(0, probe_u4.shape[0], block):
+        probes = engine.apply(l_state, struct[i], q0s[i], q1s[i],
+                              probe_u4[lo:lo + block])
+        node = plan
+        while node is not None:
+            op, node = node
+            full_sweep_counts["batched_applies"] += 1
+            if op[0] == "run":
+                probes = engine.apply_1q_layer(probes, op[1])
+                continue
+            j = op[1]
+            probes = engine.apply(probes, struct[j], q0s[j], q1s[j],
+                                  u_all[j])
+            if sv_core.is_two_qubit(struct[j]):
+                full_sweep_counts["batched_2q_applies"] += 1
+        costs.append(full_cost_of(engine, ref_state, weights, probes))
+    return costs[0] if len(costs) == 1 else torch.cat(costs)
+
+
+def _full_chunk(engine, rotoselect, lo, hi, l_state, ref_state, struct, q0s,
+                q1s, kinds, angles, select, weights):
+    """Entries lo .. hi-1 of one full-cost cycle on device tensors (kinds
+    and angles are updated in place). Returns (l_state, n_evals). No host
+    synchronisation: the probe's choice is made and applied on the device."""
+    dtype = l_state.dtype
+    u_all = sv_core.build_u4(kinds, angles, dtype)
+    plans = _suffix_plans(engine, struct, q0s, u_all, lo,
+                          getattr(l_state, "n", None))
+    evals = 0
+    for i in range(lo, min(hi, len(struct))):
+        k = struct[i]
+        if k == G.NOP:
+            continue
+        u = u_all[i]
+        if select[i]:
+            pk, pa = _probe_specs(rotoselect, kinds[i], angles)
+            costs = _probe_costs(engine, l_state, ref_state, struct, q0s,
+                                 q1s, u_all, i,
+                                 sv_core.build_u4(pk, pa, dtype), weights,
+                                 plans[i + 1])
+            if rotoselect:
+                thetas, mins = minimum_of_sinusoidal_dev(
+                    costs[0].expand(3), costs[1::2], costs[2::2])
+                best = torch.argmin(mins).reshape(1)
+                kinds[i] = G.RX + best[0]
+                angles[i] = thetas.gather(0, best)[0]
+            else:
+                angles[i] = minimum_of_sinusoidal_dev(costs[0], costs[1],
+                                                      costs[2])[0]
+            u = sv_core.build_u4(kinds[i:i + 1], angles[i:i + 1], dtype)[0]
+            u_all[i] = u
+            evals += costs.shape[0]
+            full_sweep_counts["probed_gates"] += 1
+        l_state = engine.apply(l_state, k, q0s[i], q1s[i], u)
+    return l_state, evals
+
+
+def _host_tape(kd, ad):
+    return kd.cpu().numpy().astype(np.int32), ad.cpu().numpy()
+
+
+def _own_device_tape(state, kinds, angles):
+    """_device_tape as tensors of the caller's own: _full_chunk writes
+    into them, and as_tensor may share a host array's memory."""
+    kd, ad = _device_tape(state, kinds, angles)
+    return kd.clone(), ad.clone()
+
+
+def sweep_full_chunk(engine: SweepEngine, rotoselect: bool, chunk_len: int,
+                     k_start: int, l_state_in, ref_state, kinds, q0s, q1s,
+                     angles, select, weights):
+    """Entries k_start .. k_start+chunk_len-1 of one full-cost cycle (host
+    arrays in; entries past the tape's end are ignored). l_state_in is the
+    state in front of entry k_start. Returns (kinds, angles, l_state_out,
+    n_evals). A cycle may be driven in chunks, carrying the left state and
+    the tape between calls: the result is that of one whole-tape call."""
+    struct, q0l, q1l, sel = _host_structure(kinds, q0s, q1s, select)
+    kd, ad = _own_device_tape(l_state_in, kinds, angles)
+    l_state, evals = _full_chunk(engine, rotoselect, int(k_start),
+                                 int(k_start) + int(chunk_len), l_state_in,
+                                 ref_state, struct, q0l, q1l, kd, ad, sel,
+                                 weights)
+    return (*_host_tape(kd, ad), l_state, evals)
+
+
+def sweep_full(engine: SweepEngine, rotoselect: bool, prefix_state, ref_state,
+               kinds, q0s, q1s, angles, select, weights):
+    """One whole-tape full-cost Rotosolve/Rotoselect cycle; `weights` =
+    (w_global, w_local, alpha). Returns (new_kinds, new_angles, final_cost,
+    final_state, n_evals)."""
+    ks, angs, l_state, evals = sweep_full_chunk(
+        engine, rotoselect, len(np.asarray(kinds)), 0, prefix_state,
+        ref_state, kinds, q0s, q1s, angles, select, weights)
+    cost = float(full_cost_of(engine, ref_state, weights, l_state))
+    return ks, angs, cost, l_state, evals
+
+
+def sweep_full_chunked_until_converged(engine: SweepEngine, rotoselect: bool,
+                                       max_cycles: int, prefix_state,
+                                       ref_state, kinds, q0s, q1s, angles,
+                                       select, stop_val, tol, weights,
+                                       init_state=None, chunk: int = None):
+    """Full-cost cycles until converged, the reference's host loop
+    (cost_minimiser.py:90-105): stop at cost <= stop_val, at the cycle
+    budget, or when a 3-cycle window of the cost history has stopped
+    improving by `tol` (after 3 cycles). The local and softened costs do
+    not saturate at 1 as a tiny overlap does, so no overlap^2 history is
+    kept. The device is read once a cycle (the cycle's cost).
+
+    `init_state`: the engine state of prefix + tape at the input angles
+    when the caller holds it (the compiler's full-state cache); None has it
+    computed here by a probe-free pass over the tape. `chunk`: entries a
+    call of the inner loop (the whole tape by default; any value gives the
+    same result).
+
+    Returns (kinds, angles, final_cost, cycles, evals, final_state, cost0);
+    cost0 is the cost at the input angles (the minimiser's backwards
+    guard)."""
+    full_sweep_counts["calls"] += 1
+    struct, q0l, q1l, sel = _host_structure(kinds, q0s, q1s, select)
+    kd, ad = _own_device_tape(prefix_state, kinds, angles)
+    gp = len(struct)
+    chunk = gp if chunk is None else max(1, int(chunk))
+    if init_state is None:
+        init_state = apply_all(engine, prefix_state, kinds, q0s, q1s, angles)
+    cost0 = float(full_cost_of(engine, ref_state, weights, init_state))
+    hist = [float("inf")] * 3
+    evals, cycles, cost, final_state = 0, 0, None, None
+    for cycle in range(int(max_cycles)):
+        l_state = prefix_state
+        for k0 in range(0, gp, chunk):
+            l_state, ev = _full_chunk(engine, rotoselect, k0, k0 + chunk,
+                                      l_state, ref_state, struct, q0l, q1l,
+                                      kd, ad, sel, weights)
+            evals += ev
+        final_state = l_state
+        cost = float(full_cost_of(engine, ref_state, weights, l_state))
+        cycles = cycle + 1
+        full_sweep_counts["cycles"] += 1
+        hist = [hist[1], hist[2], cost]
+        if cost <= float(stop_val):
+            break
+        if cycles > 3 and has_stopped_improving(hist, float(tol)):
+            break
+    return (*_host_tape(kd, ad), cost, cycles, evals, final_state, cost0)
+
+
+def sweep_full_until_converged(engine: SweepEngine, rotoselect: bool,
+                               max_cycles: int, prefix_state, ref_state,
+                               kinds, q0s, q1s, angles, select, stop_val,
+                               tol, weights, init_state=None):
+    """sweep_full_chunked_until_converged without its cost0: (kinds,
+    angles, final_cost, cycles, evals, final_state)."""
+    return sweep_full_chunked_until_converged(
+        engine, rotoselect, max_cycles, prefix_state, ref_state, kinds, q0s,
+        q1s, angles, select, stop_val, tol, weights, init_state)[:6]

@@ -1,9 +1,10 @@
 """Drive the PyTorch port (adaptaqc_tpu_torch) once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only kernels,spin,...]
 
-Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
-(sm_90a) and runs eight phases, each printing lines that start with its
+(`--only` runs the named phases alone, for work on one of them; the whole
+run, with no arguments, is the one that prints the result lines.) Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
+(sm_90a) and runs ten phases, each printing lines that start with its
 name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
@@ -18,7 +19,12 @@ name; any failure exits non-zero:
             gives them, with the count of exactly inactive K2 steps (every
             step inactive in the plain version must be inactive in the
             kernel); the eigensolver also against float64 on a 7-decade
-            spectrum
+            spectrum; K2-K4 launched once for a batch of P = 7 and P = 3
+            Grams at m = 32/64/128 (every spectrum class, and the probe
+            batches one full-cost sweep gives them): each matrix against
+            the plain version and, bit for bit, against the P = 1 launch of
+            the same matrix, with times for P = 1/3/7; K2-K4 on the
+            center-gauge engine's inputs (m = chi from its center moves)
   hazard    a deep two-qubit-chain re-simulation at n=50, chi=64 under
             eigh="kernels" and eigh="native": overlaps agree to 1e-3
   slice     AdaptCompiler on the synthetic 50-qubit random-MPS target
@@ -41,10 +47,24 @@ name; any failure exits non-zero:
             draws from the n=26 target state against its exact <Z>
   isl_mps   ISL on MPSBackend(max_chi=32, device="cuda") on the slice's
             50-qubit target, 2 layers, with every kernel's launch count
+  spin      the spin-chain compile (benchmarks/spin_chain.py: n=50, XXZ
+            Trotter from the Neel state, brickwall, identity_resolvable
+            layers, chi=32) under optimise_local_cost, cut to a few layers:
+            the full-cost sweep's batched launches of K2-K4 (one a batched
+            two-qubit apply), the global polish through K1, the
+            center-gauge verifier and the staggered magnetisation; one
+            full-cost cycle over a 16-layer window, timed; the same compile
+            at n=10 to its stop on MPSBackend and on CenterMPSBackend
+  ladder    compile_in_parts (one Trotter step a part) and
+            compile_with_chi_schedule(chis=(32, 64)) on that target, cut
+            the same way; a checkpoint written mid-compile on the card,
+            loaded (also onto the CPU) and resumed to the straight run's
+            pair history
 
 The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
-call), the line before the last the card's name and power limit from
+call) and per batched kernel shape (its batched launches on the spin
+phase), the line before the last the card's name and power limit from
 nvidia-smi, and the last line {"ok": true, "device": {...}}. Without a
 CUDA card, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -95,8 +115,10 @@ FP32_TFLOPS = 67.0      # H100 SXM fp32 outside the tensor cores (published
                         # TF32 or bf16 rate applies
 
 
-def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None):
-    """(bound_ms, bound_by, flops, bytes) of one launch of kernel `name`:
+def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None,
+                 batch=1):
+    """(bound_ms, bound_by, flops, bytes) of one launch of kernel `name` (on
+    `batch` matrices: that many times the work of one):
     the larger of its operations over FP32_TFLOPS and its bytes (each
     input read once, each output written once) over HBM_GBS.
 
@@ -138,6 +160,7 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None):
         nbytes = m * m * 8 + m * 8 + m * keep * 4 + m * keep * 8
     else:
         raise ValueError(f"no bound for kernel {name}")
+    flops, nbytes = flops * batch, nbytes * batch
     t_ops = flops / (FP32_TFLOPS * 1e12) * 1e3
     t_bytes = nbytes / (HBM_GBS * 1e9) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
@@ -246,6 +269,15 @@ def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape):
         tt.q1, tt.angles, 1e-16)
     ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
     bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
+    return record_eigh_inputs(torch, ek, lambda: sweeps.sweep(
+        mps_core.sweep_engine(1e-16), bl, True, prefix, ref, at.kinds,
+        at.q0, at.q1, at.angles, at.trainable))
+
+
+def record_eigh_inputs(torch, ek, fn):
+    """Run fn() with recorders around ek.tridiag, teig and backtransform:
+    {name: [args, ...]} of every launch, in launch order, cloned as they
+    were passed."""
     seen = {"tridiag": [], "teig": [], "backtransform": []}
     kernels = {name: getattr(ek, name) for name in seen}
 
@@ -255,16 +287,16 @@ def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape):
                                     for a in args))
             return kernels[name](*args)
         record.launches = 0  # a wrapper counts on its module-level name
+        record.batched_launches = 0
         return record
     try:
         for name in seen:
             setattr(ek, name, recorder(name))
-        sweeps.sweep(mps_core.sweep_engine(1e-16), bl, True, prefix, ref,
-                     at.kinds, at.q0, at.q1, at.angles, at.trainable)
+        fn()
         torch.cuda.synchronize()
     finally:
-        for name, fn in kernels.items():
-            setattr(ek, name, fn)
+        for name, fn_ in kernels.items():
+            setattr(ek, name, fn_)
     return seen
 
 
@@ -363,16 +395,7 @@ def sweep_eigh_check(torch, ek, inputs, rec, card):
         v, tau, d, e = ek.tridiag(hh)
         _, taup, _, ep = ek.tridiag_plain(hh)
         inactive += zeros_equal(e, tau, ep, taup, "tridiag on a sweep Gram")
-        q = ek.backtransform_plain(
-            v.to(torch.complex128), tau.to(torch.complex128),
-            torch.eye(m, dtype=torch.float64, device=hh.device), m)
-        d64, e64 = d.double(), e[:-1].double()
-        tm = torch.diag(d64) + torch.diag(e64, 1) + torch.diag(e64, -1)
-        h64 = hh.to(torch.complex128)
-        err = max(float((q @ q.mH - torch.eye(m, device=hh.device))
-                        .abs().max()),
-                  float((q @ tm.to(q.dtype) @ q.mH - h64).abs().max())
-                  / max(float(h64.abs().max()), 1e-30))
+        err = tridiag_residual(torch, ek, v, tau, d, e, hh)
         worst_t = max(worst_t, err)
         check(err < TOL_TRIDIAG_REL, f"tridiag on a sweep Gram: rel {err}")
         act = [k for k in range(m - 1) if e[k] != 0]
@@ -404,13 +427,214 @@ def sweep_eigh_check(torch, ek, inputs, rec, card):
           f"{card}", flush=True)
 
 
+def tridiag_residual(torch, ek, v, tau, d, e, hh):
+    """How far K2's own factorisation of one matrix is from exact, in
+    float64: max of |Q Q^H - I| and |Q T Q^H - H| / max|H|."""
+    m = hh.shape[-1]
+    dev = hh.device
+    q = ek.backtransform_plain(
+        v.to(torch.complex128), tau.to(torch.complex128),
+        torch.eye(m, dtype=torch.float64, device=dev), m)
+    d64, e64 = d.double(), e[:-1].double()
+    tm = torch.diag(d64) + torch.diag(e64, 1) + torch.diag(e64, -1)
+    h64 = hh.to(torch.complex128)
+    return max(float((q @ q.mH - torch.eye(m, device=dev)).abs().max()),
+               float((q @ tm.to(q.dtype) @ q.mH - h64).abs().max())
+               / max(float(h64.abs().max()), 1e-30))
+
+
+def batch_against_singles(torch, ek, h, keep, what, worst):
+    """K2 -> K3 -> K4 launched once on the batch h (P, m, m): every matrix
+    must equal, bit for bit, the P = 1 launches on it, and agree with the
+    plain versions at the tolerances of the unbatched checks (K2's own
+    factorisation; K3's eigenvalues, orthogonality and residual on the
+    kernel's (d, e); K4 on the kernel's reflectors). Returns the batched
+    outputs."""
+    v, tau, d, e = ek.tridiag(h)
+    w, z = ek.teig(d, e)
+    o = ek.backtransform(v, tau, z, keep)
+    for i in range(h.shape[0]):
+        one2 = ek.tridiag(h[i].contiguous())
+        one3 = ek.teig(one2[2], one2[3])
+        one4 = ek.backtransform(one2[0], one2[1], one3[1], keep)
+        same = all(torch.equal(a[i], b) for a, b in zip(
+            (v, tau, d, e, w, z, o), (*one2, *one3, one4)))
+        check(same, f"{what}: matrix {i} of the batch differs from its "
+                    "P = 1 launch")
+        err_t = tridiag_residual(torch, ek, v[i], tau[i], d[i], e[i], h[i])
+        wp, zp = ek.teig_plain(d[i], e[i])
+        err_w = float((w[i] - wp).abs().max()) / max(float(wp.abs().max()),
+                                                     1e-30)
+        tv = teig_vector_errors(d[i], e[i], w[i], z[i], zp)
+        err_b = float((o[i] - ek.backtransform_plain(v[i], tau[i], z[i],
+                                                     keep)).abs().max())
+        check(err_t < TOL_TRIDIAG_REL and err_w < TOL_TEIG_W_REL
+              and tv["ortho"] < TOL_ORTHO and tv["resid"] < TOL_RESID
+              and tv["cluster"] < TOL_VEC and err_b < TOL_BT,
+              f"{what}: matrix {i}: tridiag {err_t}, teig w {err_w} "
+              f"{tv}, backtransform {err_b}")
+        for k, val in (("tridiag", err_t), ("teig", err_w),
+                       ("teig_ortho", tv["ortho"]),
+                       ("teig_resid", tv["resid"]), ("backtransform", err_b)):
+            worst[k] = max(worst.get(k, 0.0), val)
+    return v, tau, d, e, w, z, o
+
+
+def _sym_gram(torch, th, dev):
+    t = torch.tensor(th, dtype=torch.complex64, device=dev)
+    h = t.mH @ t
+    return ((h + h.mH) * 0.5).contiguous()
+
+
+def batched_kernel_check(torch, ek, card, dev, probe_inputs=None):
+    """K2-K4 over a batch in one launch, as the full-cost sweep launches
+    them: P = 7 (Rotoselect's probes) and P = 3 (Rotosolve's), m = 32, 64,
+    128, on the spectrum classes (and a copy of `rand` perturbed at 1e-3:
+    the probe states of one gate give Grams that are close, not equal) and
+    on probe batches recorded from a full-cost sweep; then times for
+    P = 1, 3, 7 beside the bound of P matrices' work. Returns the records
+    of the batched shapes of the spin phase (chi = 32: m = 64)."""
+    rng = np.random.default_rng(77)
+    worst, n_checked = {}, 0
+    for m in (32, 64, 128):
+        cases = _gram_cases(m, rng)
+        near = cases["rand"] + 1e-3 * (rng.standard_normal((m, m)) + 1j
+                                       * rng.standard_normal((m, m))) / m
+        grams = {k: _sym_gram(torch, th, dev) for k, th in cases.items()}
+        grams["near"] = _sym_gram(torch, near / np.linalg.norm(near), dev)
+        for names in (list(grams), ["rand", "lowrank", "bell"]):
+            h = torch.stack([grams[k] for k in names])
+            batch_against_singles(torch, ek, h, m // 2,
+                                  f"batched m={m} P={len(names)}", worst)
+            n_checked += len(names)
+    n_probe = 0
+    if probe_inputs is not None:
+        batches = [a[0] for a in probe_inputs["tridiag"] if a[0].dim() == 3]
+        check(batches, "the full-cost sweep gave K2 no batch")
+        for h in batches[:4] + batches[-4:]:
+            batch_against_singles(torch, ek, h, h.shape[-1] // 2,
+                                  f"probe batch P={h.shape[0]}", worst)
+            n_probe += h.shape[0]
+    print(f"kernels: batched launches: {n_checked} matrices of the spectrum "
+          f"classes in batches of 7 and 3 at m=32/64/128 and {n_probe} of "
+          f"recorded probe batches each equal their P=1 launch bit for bit "
+          f"and agree with the plain versions (worst: tridiag QTQ^H "
+          f"{worst['tridiag']:.2e} < {TOL_TRIDIAG_REL}, teig w "
+          f"{worst['teig']:.2e} < {TOL_TEIG_W_REL} ortho "
+          f"{worst['teig_ortho']:.2e} < {TOL_ORTHO} resid "
+          f"{worst['teig_resid']:.2e} < {TOL_RESID}, backtransform "
+          f"{worst['backtransform']:.2e} < {TOL_BT})", flush=True)
+
+    rec, ms_p3 = {}, {}
+    for m in (32, 64, 128):
+        keep = m // 2
+        row = []
+        for p in (1, 3, 7):
+            h = torch.stack([_sym_gram(
+                torch, _gram_cases(m, rng)["rand"], dev) for _ in range(p)])
+            v, tau, d, e = ek.tridiag(h)
+            w, z = ek.teig(d, e)
+            tdense = (torch.diag_embed(d) + torch.diag_embed(e[:, :-1], 1)
+                      + torch.diag_embed(e[:, :-1], -1)).contiguous()
+            oa = v[:, : m - 1, 1:].transpose(1, 2).contiguous()
+            otau = tau[:, : m - 1].contiguous()
+            oz = z[:, 1:, :keep].to(torch.complex64).contiguous()
+            calls = {
+                "tridiag": (lambda: ek.tridiag(h),
+                            lambda: ek.tridiag_plain(h), None),
+                "teig": (lambda: ek.teig(d, e), lambda: ek.teig_plain(d, e),
+                         lambda: torch.linalg.eigh(tdense)),
+                "backtransform": (
+                    lambda: ek.backtransform(v, tau, z, keep),
+                    lambda: ek.backtransform_plain(v, tau, z, keep),
+                    lambda: torch.ormqr(oa, otau, oz)),
+            }
+            for kname, (kfn, pfn, lfn) in calls.items():
+                ms = cuda_ms(kfn, 20, torch)
+                bound = bound_fields(kname, m=m, keep=keep, batch=p)
+                row.append(f"{kname} P={p} {ms:.4f} ms (bound "
+                           f"{bound['bound_ms']:.5f})")
+                if m == 64 and p == 3:
+                    ms_p3[kname] = ms
+                if m == 64 and p == 7:
+                    lib = {"tridiag": None, "teig":
+                           "torch.linalg.eigh of the (7, m, m) dense T",
+                           "backtransform":
+                           "torch.ormqr on the batch of 7"}[kname]
+                    rec[f"{kname}[batched]"] = dict(
+                        ms=ms, plain_ms=cuda_ms(pfn, 1, torch),
+                        library_call=lib,
+                        library_ms=cuda_ms(lfn, 20, torch) if lfn else None,
+                        shape="P=7, m=64", max_abs_err=None,
+                        ms_p3=ms_p3[kname], **bound)
+        print(f"kernels: batched m={m}: " + "; ".join(row) + f" on {card}",
+              flush=True)
+    rec["tridiag[batched]"]["max_abs_err"] = worst["tridiag"]
+    rec["teig[batched]"]["max_abs_err"] = worst["teig"]
+    rec["backtransform[batched]"]["max_abs_err"] = worst["backtransform"]
+    for kname in ("tridiag", "teig", "backtransform"):
+        r = rec[f"{kname}[batched]"]
+        print(f"kernels: {kname} P=7 m=64: kernel {r['ms']:.4f} ms (P=3 "
+              f"{r['ms_p3']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+              + (f"{r['library_call']} {r['library_ms']:.4f} ms"
+                 if r["library_ms"] is not None else "no library call")
+              + f" on {card}", flush=True)
+    return rec
+
+
+def center_kernel_check(torch, ek, inputs, card):
+    """K2-K4 on what the center-gauge engine gives them (one Trotter step
+    at n=50, chi=32: its center moves decompose a (2 chi, chi) matrix, a
+    Gram of m = chi, beside the m = 2 chi of its two-qubit applies):
+    against the plain versions at the tolerances of the class loop, with
+    the mean time by m."""
+    by_m = {}
+    for idx, args in enumerate(inputs["tridiag"]):
+        by_m.setdefault(args[0].shape[-1], []).append(idx)
+    check(set(by_m) == {32, 64}, f"center engine Grams of m {sorted(by_m)}")
+    parts = []
+    for m, idxs in sorted(by_m.items()):
+        worst_t = worst_w = worst_b = 0.0
+        for idx in idxs[:4] + idxs[-4:]:
+            hh = inputs["tridiag"][idx][0]
+            v, tau, d, e = ek.tridiag(hh)
+            worst_t = max(worst_t, tridiag_residual(torch, ek, v, tau, d, e,
+                                                    hh))
+            dd, ee = inputs["teig"][idx]
+            w, z = ek.teig(dd, ee)
+            wp, _ = ek.teig_plain(dd, ee)
+            worst_w = max(worst_w, float((w - wp).abs().max())
+                          / max(float(wp.abs().max()), 1e-30))
+            bt = inputs["backtransform"][idx]
+            worst_b = max(worst_b, float(
+                (ek.backtransform(*bt) - ek.backtransform_plain(*bt))
+                .abs().max()))
+        check(worst_t < TOL_TRIDIAG_REL and worst_w < TOL_TEIG_W_REL
+              and worst_b < TOL_BT,
+              f"center engine inputs m={m}: tridiag {worst_t}, teig w "
+              f"{worst_w}, backtransform {worst_b}")
+        ms = {name: float(np.mean([cuda_ms(
+            lambda: getattr(ek, name)(*inputs[name][i]), 5, torch)
+            for i in idxs[:8]])) for name in inputs}
+        parts.append(
+            f"m={m} ({len(idxs)} Grams, keep "
+            f"{sorted({inputs['backtransform'][i][3] for i in idxs})}): "
+            f"tridiag {ms['tridiag']:.4f} ms QTQ^H {worst_t:.2e}, teig "
+            f"{ms['teig']:.4f} ms w {worst_w:.2e}, backtransform "
+            f"{ms['backtransform']:.4f} ms {worst_b:.2e}")
+    print("kernels: the center-gauge engine's inputs (one Trotter step, "
+          "n=50, chi=32): " + "; ".join(parts) + f" on {card}", flush=True)
+
+
 def bound_fields(name, **shape):
     ms, by, _, _ = kernel_bound(name, **shape)
     return {"bound_ms": ms, "bound_by": by}
 
 
 def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
-                  sweep_inputs=None, dev="cuda"):
+                  sweep_inputs=None, probe_inputs=None, center_inputs=None,
+                  dev="cuda"):
     dev = torch.device(dev)
     rng = np.random.default_rng(2026)
     rec = {k: {"max_abs_err": None, "ms": None, "plain_ms": None,
@@ -466,16 +690,8 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
             # the kernel's own factorisation: Q unitary, Q T Q^H = H (a
             # reflector's sign is a free choice where Re(alpha) ~ 0, so
             # factors are compared with the plain version's only on "rand")
-            q = ek.backtransform_plain(
-                v.to(torch.complex128), tau.to(torch.complex128),
-                torch.eye(m, dtype=torch.float64, device=dev), m)
-            d64, e64 = d.double(), e[:-1].double()
-            tm = torch.diag(d64) + torch.diag(e64, 1) + torch.diag(e64, -1)
-            h64 = hh.to(torch.complex128)
-            hscale = max(float(h64.abs().max()), 1e-30)
-            err_t = max(float((q @ q.mH - torch.eye(m, device=dev)).abs().max()),
-                        float((q @ tm.to(q.dtype) @ q.mH - h64).abs().max())
-                        / hscale)
+            hscale = max(float(hh.abs().max()), 1e-30)
+            err_t = tridiag_residual(torch, ek, v, tau, d, e, hh)
             worst["tridiag"] = max(worst["tridiag"], err_t)
             check(err_t < TOL_TRIDIAG_REL,
                   f"tridiag m={m} {name}: rel {err_t}")
@@ -582,6 +798,9 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
 
     if sweep_inputs is not None:
         sweep_eigh_check(torch, ek, sweep_inputs, rec, card)
+    rec.update(batched_kernel_check(torch, ek, card, dev, probe_inputs))
+    if center_inputs is not None:
+        center_kernel_check(torch, ek, center_inputs, card)
 
     # K3 and the whole eigensolver chain against float64 truth on 7-decade
     # spectra: the kernel's eigenvalues of T against float64 eigh of the
@@ -1130,6 +1349,362 @@ def phase_isl_mps(torch, port, counted, card, dev="cuda", n=50):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+SPIN = dict(steps=3, dt=0.25, delta=1.5, h=1.0)  # benchmarks/spin_chain.py
+
+
+def spin_compiler(port, n, dev, max_layers, polish_frequency=10, steps=None,
+                  local=True, backend=None, chi=32, sufficient=1e-2):
+    """benchmarks/spin_chain.py's compiler: XXZ first-order Trotter from the
+    Neel state, brickwall, identity_resolvable layers, linear map, the Neel
+    preparation as the starting circuit, mps_backend_with_args(1e-8,
+    max_chi=32), sufficient_cost 1e-2, local window 16. Returns (compiler,
+    target)."""
+    from adaptaqc_tpu_torch.circuits import operations as co
+    from adaptaqc_tpu_torch.utils.ansatzes import identity_resolvable
+    from adaptaqc_tpu_torch.utils.constants import (CMAP_LINEAR,
+                                                    generate_coupling_map)
+    from adaptaqc_tpu_torch.utils.targets import (neel_circuit,
+                                                  trotter_circuit)
+    prep = neel_circuit(n)
+    target = prep.copy()
+    co.add_to_circuit(target, trotter_circuit(
+        n, steps or SPIN["steps"], SPIN["dt"], delta=SPIN["delta"],
+        h=SPIN["h"]))
+    config = port.AdaptConfig(
+        method="brickwall", cost_improvement_num_layers=1000,
+        sufficient_cost=sufficient, max_layers=max_layers,
+        local_window_layers=16, global_polish_frequency=polish_frequency)
+    if backend is None:
+        backend = port.mps_backend_with_args(mps_truncation_threshold=1e-8,
+                                             max_chi=chi, device=dev)
+    compiler = port.AdaptCompiler(
+        target, backend=backend, adapt_config=config,
+        coupling_map=generate_coupling_map(n, CMAP_LINEAR),
+        custom_layer_2q_gate=identity_resolvable(), starting_circuit=prep,
+        optimise_local_cost=local)
+    return compiler, target
+
+
+def spin_probe_inputs(torch, port, ek, dev="cuda", n=50):
+    """What K2-K4 are given by the first layer of the spin-chain compile
+    (its Rotoselect: batches of 7 probe states)."""
+    compiler, _ = spin_compiler(port, n, torch.device(dev), 1)
+    return record_eigh_inputs(torch, ek, compiler.compile)
+
+
+def center_engine_inputs(torch, ek, dev="cuda", n=50, chi=32):
+    """What K2-K4 are given by the center-gauge engine on one Trotter step
+    at n=50, chi=32; also that state under eigh="kernels" against
+    eigh="native" (overlap to TOL_HAZARD)."""
+    from adaptaqc_tpu_torch.backends import center_mps
+    from adaptaqc_tpu_torch.circuits import operations as co
+    from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.utils.targets import (neel_circuit,
+                                                  trotter_circuit)
+    qc = neel_circuit(n)
+    co.add_to_circuit(qc, trotter_circuit(n, 1, SPIN["dt"],
+                                          delta=SPIN["delta"], h=SPIN["h"]))
+    tape = compile_tape(qc)
+    states = {}
+
+    def run(eigh):
+        states[eigh] = center_mps.apply_tape(
+            center_mps.zero_cmps(n, chi, torch.complex64, dev),
+            tape.kinds, tape.q0, tape.q1, tape.angles, 1e-8, eigh=eigh)
+    inputs = record_eigh_inputs(torch, ek, lambda: run("kernels"))
+    run("native")
+    a, b = states["kernels"], states["native"]
+    ov = abs(complex(center_mps.cmps_dot(a, b))) ** 2 / (
+        float(center_mps.norm_sq(a)) * float(center_mps.norm_sq(b)))
+    check(abs(ov - 1.0) < TOL_HAZARD,
+          f"center engine under kernels vs native: overlap {ov}")
+    return inputs
+
+
+def full_cost_workload(torch, mps_core, layers=16, dev="cuda", n=50,
+                       chi=32):
+    """The arguments of sweeps.sweep_full_chunked_until_converged for one
+    full-cost Rotosolve cycle (P = 3) at the spin-chain compile's size over
+    a full local window: `layers` identity_resolvable blocks (small random
+    angles from a seed) on brickwall pairs behind the n-qubit target at
+    bond dimension chi, then the Neel preparation's inverse. Returns
+    (args, probed gates, tape entries)."""
+    from adaptaqc_tpu_torch.circuits import operations as co
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.utils.ansatzes import identity_resolvable
+    from adaptaqc_tpu_torch.utils.targets import (neel_circuit,
+                                                  trotter_circuit)
+    dev = torch.device(dev)
+    rng = np.random.default_rng(5)
+    target = neel_circuit(n)
+    co.add_to_circuit(target, trotter_circuit(n, SPIN["steps"], SPIN["dt"],
+                                              delta=SPIN["delta"],
+                                              h=SPIN["h"]))
+    tt = compile_tape(target)
+    prefix = mps_core.apply_tape(
+        mps_core.zero_mps(n, chi, torch.complex64, dev), tt.kinds, tt.q0,
+        tt.q1, tt.angles, 1e-8)
+    window = Circuit(n)
+    for layer in range(layers):
+        block = identity_resolvable()
+        for instr in block.data:
+            if instr.params:
+                instr.params = (float(rng.uniform(-0.3, 0.3)),)
+        q = (2 * layer) % (n - 1)
+        co.add_to_circuit(window, block, qubit_subset=[q, q + 1])
+    n_train = len(window.data)
+    co.add_to_circuit(window, neel_circuit(n).inverse())
+    wt = compile_tape(window)
+    mask = np.zeros(wt.padded_length, dtype=bool)
+    mask[:n_train] = np.asarray(wt.trainable)[:n_train]
+    engine = mps_core.sweep_engine(1e-8)
+    ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
+    args = (engine, False, 1, prefix, ref, wt.kinds, wt.q0, wt.q1, wt.angles,
+            mask, -np.inf, 1e-3, (0.0, 1.0, 0.0))
+    return args, int(mask.sum()), wt.length
+
+
+def full_cost_cycle(torch, port, mps_core, sweeps, ek, card, layers=16,
+                    dev="cuda", n=50, chi=32):
+    """One full-cost cycle on full_cost_workload: its wall, batched
+    applies, launches and host syncs."""
+    args, probed, entries = full_cost_workload(torch, mps_core, layers, dev,
+                                               n, chi)
+    counted = (ek.tridiag, ek.teig, ek.backtransform)
+    for fn in counted:
+        fn.launches = fn.batched_launches = 0
+    for k in sweeps.full_sweep_counts:
+        sweeps.full_sweep_counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, syncs = count_syncs(
+        torch, lambda: sweeps.sweep_full_chunked_until_converged(*args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = dict(sweeps.full_sweep_counts)
+    launches = {fn.__name__: (fn.launches, fn.batched_launches)
+                for fn in counted}
+    print(f"spin: one full-cost Rotosolve cycle, n={n} chi={chi}, a window "
+          f"of {layers} layers ({probed} probed gates of "
+          f"{entries} tape entries): {wall:.2f} s, "
+          f"{c['batched_applies']} batched applies "
+          f"({c['batched_2q_applies']} two-qubit), launches (all, batched) "
+          f"{json.dumps(launches)}, {syncs} host syncs, local cost "
+          f"{out[6]:.6f} -> {out[2]:.6f} on {card}", flush=True)
+    check(c["probed_gates"] == probed, "not every gate was probed")
+    for name, (_, batched) in launches.items():
+        check(batched == c["batched_2q_applies"],
+              f"{name}: {batched} batched launches for "
+              f"{c['batched_2q_applies']} batched two-qubit applies")
+    check(np.isfinite(out[2]) and out[2] <= out[6] + 1e-4,
+          f"the cycle raised the local cost: {out[6]} -> {out[2]}")
+    # the tape's uploads (twice: the initial state's pass and the cycle),
+    # the initial and the final cost, the tape's two read-backs: none a
+    # probed gate or an apply
+    check(syncs <= 10, f"{syncs} host syncs in one full-cost cycle")
+
+
+def phase_spin(torch, port, counted, card, max_layers=6, small_layers=60,
+               dev="cuda", n=50, n_small=10, small_seconds=60.0):
+    from adaptaqc_tpu_torch.backends import mps_core
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    from adaptaqc_tpu_torch.optim import sweeps
+    from adaptaqc_tpu_torch.utils.targets import staggered_magnetisation
+    from adaptaqc_tpu_torch.utils.verification import cross_engine_overlap
+    dev = torch.device(dev)
+    # the polish frequency of the benchmark is 10 layers; lowered until at
+    # least one polish falls inside the cut
+    polish = 10
+    while polish >= max_layers and polish > 1:
+        polish //= 2
+    eigh = (ek.tridiag, ek.teig, ek.backtransform)
+    for fn in counted.values():
+        fn.launches = 0
+    for fn in eigh:
+        fn.batched_launches = 0
+    for k in sweeps.full_sweep_counts:
+        sweeps.full_sweep_counts[k] = 0
+    t0 = time.perf_counter()
+    compiler, target = spin_compiler(port, n, dev, max_layers, polish)
+    setup = time.perf_counter() - t0
+    result = compiler.compile()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    batched = {fn.__name__: fn.batched_launches for fn in eigh}
+    c = dict(sweeps.full_sweep_counts)
+    local = result.local_cost_history
+    t1 = time.perf_counter()
+    engine_ov = cross_engine_overlap(target, result.circuit, chi=64,
+                                     device=dev)
+    sm_sol = staggered_magnetisation(result.circuit, chi=64, device=dev)
+    sm_raw = staggered_magnetisation(target, chi=64, device=dev)
+    verify = time.perf_counter() - t1
+    print(f"spin: n={n} chi=32 XXZ Trotter (3 steps, dt 0.25) from the Neel "
+          f"state, brickwall, local cost, {len(local)} layers (cut), global "
+          f"polish every {polish} layers (the benchmark's 10, lowered to "
+          f"fit the cut): local cost ["
+          + ", ".join(f"{x:.6f}" for x in local) + "], global cost ["
+          + ", ".join(f"{x:.6f}" for x in result.global_cost_history)
+          + f"], per-layer wall s ["
+          + ", ".join(f"{x:.2f}" for x in result.layer_times)
+          + f"], setup {setup:.2f} s, total {wall:.2f} s, phases "
+          + json.dumps({k: round(v, 3) for k, v in
+                        result.phase_timings.items()})
+          + f", full-cost sweep {json.dumps(c)}, launches "
+          f"{json.dumps(launches)} of which batched {json.dumps(batched)}; "
+          f"overlap {result.overlap:.3e}, center-gauge engine at chi=64 "
+          f"{engine_ov:.3e}; staggered magnetisation solution {sm_sol:.4f} "
+          f"target {sm_raw:.4f} ({verify:.2f} s) on {card}", flush=True)
+    check(c["calls"] > 0 and c["cycles"] > 0,
+          "the local-cost compile never took the full-cost sweep")
+    check(all(b <= a + 1e-6 for a, b in zip(local, local[1:])),
+          f"the local cost rose from one layer to the next: {local}")
+    check(result.phase_timings["global_polish"] > 0 and
+          launches["env_chain"] > 0,
+          "the global polish did not run through the env-chain kernel")
+    for name, v in batched.items():
+        check(v == c["batched_2q_applies"] and v > 0,
+              f"{name}: {v} batched launches for {c['batched_2q_applies']} "
+              "batched two-qubit applies")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched by the spin compile")
+    check(abs(engine_ov - result.overlap) < TOL_HAZARD,
+          f"center-gauge overlap {engine_ov} vs the compile's "
+          f"{result.overlap}")
+    check(np.isfinite(sm_sol) and -1.0 <= sm_sol <= 1.0,
+          f"staggered magnetisation {sm_sol}")
+
+    full_cost_cycle(torch, port, mps_core, sweeps, ek, card, dev=dev, n=n)
+
+    # the same compile at n=10 (2 Trotter steps) to its stop, on both MPS
+    # engines: the sufficient-cost stop, or the compiler's own wall
+    # deadline (ADAPTAQC_WALL_DEADLINE: it stops with the best ansatz so
+    # far), set so that the phase fits the run; its overlap against the
+    # center-gauge verifier
+    import os
+    for name, backend in (
+            ("MPSBackend", None),
+            ("CenterMPSBackend", port.CenterMPSBackend(chi=32, cutoff=1e-8,
+                                                       device=dev))):
+        t0 = time.perf_counter()
+        compiler, target = spin_compiler(port, n_small, dev, small_layers,
+                                         steps=2, backend=backend)
+        os.environ["ADAPTAQC_WALL_DEADLINE"] = str(time.time()
+                                                   + small_seconds)
+        try:
+            result = compiler.compile()
+        finally:
+            del os.environ["ADAPTAQC_WALL_DEADLINE"]
+        wall = time.perf_counter() - t0
+        ov = cross_engine_overlap(target, result.circuit, chi=32, device=dev)
+        loc = result.local_cost_history
+        print(f"spin: n={n_small} (2 steps) local-cost compile on {name}: "
+              f"{len(loc)} layers ("
+              + ("stopped at the sufficient cost" if
+                 result.global_cost_history[-2] < 1e-2 else
+                 f"stopped by its {small_seconds:.0f} s wall deadline")
+              + f"), local cost {loc[0]:.4f} -> {loc[-1]:.4f}, global cost "
+              f"{result.global_cost_history[0]:.4f} -> "
+              f"{result.global_cost_history[-1]:.4f}, "
+              f"overlap {result.overlap:.6f} (center-gauge verifier "
+              f"{ov:.6f}), {result.cost_evaluations} cost evaluations, "
+              f"{wall:.2f} s on {card}", flush=True)
+        check(compiler._current_state().device.type == dev.type,
+              f"{name} state is not on the card")
+        check(abs(ov - result.overlap) < TOL_HAZARD,
+              f"{name} n=10: verifier {ov} vs {result.overlap}")
+        check(all(b <= a + 1e-6 for a, b in zip(loc, loc[1:])) and
+              loc[-1] < 0.75 * loc[0] and
+              result.overlap > 1 - result.global_cost_history[0],
+              f"{name} n=10 compile made no headway: local {loc}, overlap "
+              f"{result.overlap}")
+    return batched
+
+
+# --------------------------------------------------------------- phase 10
+def phase_ladder(torch, port, card, max_layers=2, dev="cuda", n=50):
+    import tempfile
+    from adaptaqc_tpu_torch.io import checkpoint
+    from adaptaqc_tpu_torch.utils.targets import trotter_circuit
+    dev = torch.device(dev)
+    # compile_in_parts: one Trotter step a part (2 steps: two parts)
+    compiler, _ = spin_compiler(port, n, dev, max_layers, steps=2,
+                                local=False)
+    depth = trotter_circuit(n, 1, SPIN["dt"], delta=SPIN["delta"],
+                            h=SPIN["h"]).depth()
+    fired = []
+    t0 = time.perf_counter()
+    parts = compiler.compile_in_parts(
+        max_depth_per_block=depth,
+        part_callback=lambda i, r, c: fired.append((i, r.overlap, len(c))))
+    wall = time.perf_counter() - t0
+    print(f"ladder: compile_in_parts n={n} chi=32, blocks of depth {depth} "
+          f"(one Trotter step), {len(parts.individual_results)} parts of "
+          f"{max_layers} layers (cut): part overlaps "
+          f"{[f'{r.overlap:.3e}' for r in parts.individual_results]}, "
+          f"callback fired for parts {[f[0] for f in fired]}, final overlap "
+          f"{parts.overlap:.3e}, {wall:.2f} s on {card}", flush=True)
+    check(len(parts.individual_results) >= 2, "the ladder had one part")
+    check([f[0] for f in fired] == list(range(len(fired))) and
+          len(fired) == len(parts.individual_results),
+          "part_callback did not fire for every part")
+    check(np.isfinite(parts.overlap) and 0 <= parts.overlap <= 1 + 1e-6,
+          f"ladder overlap {parts.overlap}")
+
+    # compile_with_chi_schedule(chis=(32, 64)) on the 3-step target
+    compiler, _ = spin_compiler(port, n, dev, max_layers, local=False)
+    t0 = time.perf_counter()
+    result = compiler.compile_with_chi_schedule(chis=(32, 64))
+    wall = time.perf_counter() - t0
+    print(f"ladder: compile_with_chi_schedule(chis=(32, 64)) n={n}, "
+          f"{max_layers} layers a stage (cut): chi_schedule "
+          f"{[(c, f'{o:.3e}') for c, o in result.chi_schedule]}, "
+          f"independent overlap at chi=64 {result.independent_overlap:.3e}, "
+          f"{result.cost_evaluations} cost evaluations, {wall:.2f} s on "
+          f"{card}", flush=True)
+    check([c for c, _ in result.chi_schedule] == [32, 64],
+          f"chi schedule stages {result.chi_schedule}")
+    check(np.isfinite(result.independent_overlap),
+          "no independent overlap on the schedule's result")
+    if dev.type == "cuda":
+        try:
+            compiler.compile_with_chi_schedule(chis=(32, 64, 128))
+        except ValueError as exc:
+            check("chi <= 64" in str(exc), f"the refusal names no cap: {exc}")
+        else:
+            check(False, "a stage above the kernels' caps was not refused")
+
+    # a checkpoint written mid-compile on the card, loaded, resumed
+    straight, _ = spin_compiler(port, n, dev, 3, local=False)
+    want = straight.compile()
+    with tempfile.TemporaryDirectory() as d:
+        writer, _ = spin_compiler(port, n, dev, 3, local=False)
+        writer.compile(checkpoint_every=1, checkpoint_dir=d)
+        on_cpu = checkpoint.load(f"{d}/1.pkl", device="cpu")
+        check(on_cpu.backend.device.type == "cpu" and
+              on_cpu.full_circuit.data[0].payload.device.type == "cpu",
+              "the checkpoint did not load onto the CPU")
+        resumed = checkpoint.load(f"{d}/1.pkl")
+    check(resumed.resume_from_layer == 2 and
+          resumed.backend.device.type == dev.type and
+          resumed.full_circuit.data[0].payload.device.type == dev.type,
+          "the checkpoint did not come back to the card")
+    got = resumed.compile()
+    diff = max(abs(a - b) for a, b in zip(got.global_cost_history,
+                                          want.global_cost_history))
+    print(f"ladder: checkpoint at layer 1 of 3 on the card, loaded on the "
+          f"CPU and back on the card, resumed: pairs "
+          f"{got.qubit_pair_history} (straight run "
+          f"{want.qubit_pair_history}), max cost difference {diff:.2e} on "
+          f"{card}", flush=True)
+    check(got.qubit_pair_history == want.qubit_pair_history,
+          "the resumed run's pair history differs from the straight run's")
+    check(diff < 1e-3, f"resumed costs differ by {diff}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1150,30 +1725,77 @@ def main():
     card = gpu_line()
     counted = {"env_chain": envk.env_chain, "tridiag": ek.tridiag,
                "teig": ek.teig, "backtransform": ek.backtransform}
-    phase_device(torch, cuda_lib)
-    rec = phase_kernels(torch, ek, envk, cplx, card,
-                        sweep_probe_sites(Circuit, compile_tape),
-                        sweep_eigh_inputs(torch, ek, mps_core, sweeps,
-                                          Circuit, compile_tape))
-    phase_hazard(torch, mps_core, Circuit, compile_tape, card)
-    launches = phase_slice(torch, port, counted, card)
-    phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)
-    target_state = phase_sv(torch, port, card)
-    phase_sampling(torch, port, target_state, card)
-    del target_state
-    phase_isl_mps(torch, port, counted, card)
+    only = parse_only(sys.argv[1:])
 
+    def wanted(name):
+        return only is None or name in only
+
+    phase_device(torch, cuda_lib)
+    rec = launches = batched = None
+    if wanted("kernels"):
+        rec = phase_kernels(torch, ek, envk, cplx, card,
+                            sweep_probe_sites(Circuit, compile_tape),
+                            sweep_eigh_inputs(torch, ek, mps_core, sweeps,
+                                              Circuit, compile_tape),
+                            spin_probe_inputs(torch, port, ek),
+                            center_engine_inputs(torch, ek))
+    if wanted("hazard"):
+        phase_hazard(torch, mps_core, Circuit, compile_tape, card)
+    if wanted("slice"):
+        launches = phase_slice(torch, port, counted, card)
+    if wanted("sweep"):
+        phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)
+    if wanted("sv") or wanted("sampling"):
+        target_state = phase_sv(torch, port, card)
+        if wanted("sampling"):
+            phase_sampling(torch, port, target_state, card)
+        del target_state
+    if wanted("isl_mps"):
+        phase_isl_mps(torch, port, counted, card)
+    if wanted("spin"):
+        batched = phase_spin(torch, port, counted, card)
+    if wanted("ladder"):
+        phase_ladder(torch, port, card)
+
+    if only is not None:
+        # some phases only: no result lines (the full run prints them)
+        print(f"chip_smoke: phases {sorted(only)} passed on {card}")
+        return 0
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[name],
                             **rec[name]))
+    for name, count in batched.items():  # the batched shapes: spin phase
+        source, replaces = KERNELS[name]
+        kernels.append(dict(name=f"{name}[batched]", route="cuda",
+                            source=source, replaces=replaces, launches=count,
+                            **rec[f"{name}[batched]"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+PHASES = ("kernels", "hazard", "slice", "sweep", "sv", "sampling", "isl_mps",
+          "spin", "ladder")
+
+
+def parse_only(argv):
+    """`--only a,b`: run the device phase and these phases alone (no result
+    lines: those belong to the whole run, which takes no arguments)."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--only":
+        raise SystemExit("usage: python3 chip_smoke.py [--only "
+                         + ",".join(PHASES) + "]")
+    only = set(argv[1].split(","))
+    if not only <= set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(only - set(PHASES))}; "
+                         f"choose from {PHASES}")
+    return only
 
 
 if __name__ == "__main__":

@@ -144,15 +144,22 @@ def test_adapt_compile_slice_matches_jax():
 
 
 def test_unported_paths_raise():
-    """The softened cost, BOBYQA and the local-cost full sweep are not
-    ported: asking for them raises instead of taking another path."""
+    """What is not ported raises by name instead of taking another path
+    (the final BOBYQA minimisation, the BOBYQA optimiser); the softened
+    cost and the local-cost full sweep, which once raised too, now run."""
     qmps = random_target(1, n=4, dtype=C128, device="cpu")
     backend = mps_backend_with_args(max_chi=4, dtype=C128, device="cpu")
-    with pytest.raises(NotImplementedError):
-        AdaptCompiler(qmps, backend=backend, soften_global_cost=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="perform_final"):
         AdaptCompiler(qmps, backend=backend, perform_final_minimisation=True)
+    with pytest.raises(NotImplementedError, match="use_roto_algos"):
+        AdaptCompiler(qmps, backend=backend, use_roto_algos=False)
+    soft = AdaptCompiler(qmps, backend=backend, soften_global_cost=True,
+                         adapt_config=AdaptConfig(method="basic",
+                                                  max_layers=2))
+    assert np.isfinite(soft.compile().overlap)
     comp = AdaptCompiler(qmps, backend=backend, optimise_local_cost=True,
-                         adapt_config=AdaptConfig(method="basic"))
-    with pytest.raises(NotImplementedError):
-        comp.compile()
+                         adapt_config=AdaptConfig(method="basic",
+                                                  max_layers=2))
+    result = comp.compile()
+    assert len(result.local_cost_history) == 2
+    assert np.isfinite(result.overlap)

@@ -27,6 +27,8 @@ BUILDERS = {
     "MPSBackend": lambda: port.MPSBackend(),
     "SamplingBackend": lambda: port.SamplingBackend(),
     "mps_backend_with_args": lambda: port.mps_backend_with_args(),
+    "CenterMPSBackend": lambda: port.CenterMPSBackend(),
+    "CENTER_MPS_SIM": lambda: port.CENTER_MPS_SIM,
     "SV_SIM": lambda: port.SV_SIM,
     "MPS_SIM": lambda: port.MPS_SIM,
     "QASM_SIM": lambda: port.QASM_SIM,
@@ -89,7 +91,7 @@ def test_cpu_backends_still_compute():
 
 
 @pytest.mark.parametrize("name", ["SVBackend", "MPSBackend",
-                                  "SamplingBackend"])
+                                  "SamplingBackend", "CenterMPSBackend"])
 def test_engine_state_on_the_card_raises_without_cuda(name):
     """On a torch without CUDA the first engine state of a default backend
     raises; nothing falls back to the CPU. With a card it lies there."""
@@ -107,3 +109,111 @@ def test_default_sampler_draws_raise_without_cuda():
     else:
         with pytest.raises(RuntimeError):
             backend_mod.SamplingBackend().generator
+
+
+def test_verifier_and_spin_chain_helpers_default_to_the_card():
+    """cross_engine_overlap, staggered_magnetisation and zero_cmps simulate
+    on the card unless the caller asks for the CPU; without a card the
+    defaults raise, and on the CPU they compute."""
+    from adaptaqc_tpu_torch.backends import center_mps
+    from adaptaqc_tpu_torch.utils import targets, verification
+    for fn in (verification.cross_engine_overlap,
+               targets.staggered_magnetisation, center_mps.zero_cmps):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    qc = targets.neel_circuit(4)
+    from adaptaqc_tpu_torch.circuits import operations as co
+    co.add_to_circuit(qc, targets.trotter_circuit(4, 1, 0.25))
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            verification.cross_engine_overlap(qc, qc, chi=4)
+        with pytest.raises((AssertionError, RuntimeError)):
+            targets.staggered_magnetisation(qc, chi=4)
+    assert abs(verification.cross_engine_overlap(
+        qc, qc, chi=4, device="cpu", dtype=C128) - 1.0) < 1e-10
+    sm0 = targets.staggered_magnetisation(targets.neel_circuit(4), chi=4,
+                                          dtype=C128, device="cpu")
+    assert abs(sm0 - 1.0) < 1e-12  # the Neel state itself
+    sm = targets.staggered_magnetisation(qc, chi=4, dtype=C128, device="cpu")
+    assert -1.0 <= sm < 1.0
+
+
+def test_spin_chain_targets_match_the_jax_benchmark():
+    """trotter_circuit, neel_circuit and staggered_magnetisation are copies
+    of benchmarks/spin_chain.py's: the same gates (angles to 1e-12) and the
+    same observable (1e-8) for the same arguments."""
+    import importlib.util
+    import logging
+    spec = importlib.util.spec_from_file_location(
+        "spin_chain_bench", os.path.join(ROOT, "benchmarks", "spin_chain.py"))
+    bench = importlib.util.module_from_spec(spec)
+    sys.path.insert(0, os.path.join(ROOT, "benchmarks"))
+    handlers = list(logging.root.handlers)
+    try:
+        spec.loader.exec_module(bench)
+    finally:
+        sys.path.remove(os.path.join(ROOT, "benchmarks"))
+        # the benchmark script configures logging when imported: undo it
+        logging.root.handlers[:] = handlers
+        logging.getLogger("adaptaqc_tpu").setLevel(logging.NOTSET)
+    from adaptaqc_tpu_torch.circuits import operations as co
+    from adaptaqc_tpu_torch.utils import targets
+    n = 6
+    jt, tt = bench.trotter_circuit(n, 2, 0.25), targets.trotter_circuit(
+        n, 2, 0.25)
+    assert len(jt.data) == len(tt.data)
+    for a, b in zip(jt.data, tt.data):
+        assert a.name == b.name and tuple(a.qubits) == tuple(b.qubits)
+        np.testing.assert_allclose(a.params, b.params, atol=1e-12)
+    assert [i.qubits for i in bench.neel_circuit(n).data] == [
+        i.qubits for i in targets.neel_circuit(n).data]
+    jfull = bench.neel_circuit(n)
+    from adaptaqc_tpu.circuits import operations as jco
+    jco.add_to_circuit(jfull, jt)
+    tfull = targets.neel_circuit(n)
+    co.add_to_circuit(tfull, tt)
+    assert abs(bench.staggered_magnetisation(jfull, chi=8)
+               - targets.staggered_magnetisation(tfull, chi=8, dtype=C128,
+                                                 device="cpu")) < 1e-8
+
+
+def _schedule_compiler():
+    qc = Circuit(14)
+    for q in range(14):
+        qc.ry(0.3 + 0.1 * q, q)
+    for q in range(13):
+        qc.cx(q, q + 1)
+    return port.AdaptCompiler(
+        qc, backend=port.MPSBackend(max_chi=32, device="cpu", dtype=C128),
+        adapt_config=port.AdaptConfig(method="brickwall", max_layers=1),
+        coupling_map=[(q, q + 1) for q in range(13)])
+
+
+def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
+        monkeypatch):
+    """On a CUDA device a stage whose working chi the kernels do not take
+    (chi > 64: env_chain's cap, and m = 2 chi > 128) stops the schedule
+    before its first stage, with a message that names the cap; a schedule
+    inside the caps is let through."""
+    compiler = _schedule_compiler()
+    compiler.backend.device = torch.device("cuda")
+    compiled = []
+    monkeypatch.setattr(port.AdaptCompiler, "compile",
+                        lambda self, **kw: compiled.append(self) or 1 / 0)
+    with pytest.raises(ValueError, match=r"chi <= 64.*m = 2 chi <= 128"):
+        compiler.compile_with_chi_schedule(chis=(32, 64, 128))
+    assert compiled == []
+    with pytest.raises(ZeroDivisionError):  # (32, 64) reaches stage 1
+        compiler.compile_with_chi_schedule(chis=(32, 64))
+    assert len(compiled) == 1
+
+
+def test_chi_schedule_past_the_kernel_caps_runs_on_the_cpu():
+    """The plain versions have no cap: on device="cpu" the README's
+    (32, 64, 128) schedule runs (here at n = 14, where the working chi
+    stops at 2**7 = 128, cut to one layer a stage, native eigensolver)."""
+    from adaptaqc_tpu_torch.ops import cplx
+    with cplx.verification_eigh():
+        result = _schedule_compiler().compile_with_chi_schedule(
+            chis=(32, 64, 128))
+    assert [c for c, _ in result.chi_schedule] == [32, 64, 128]
+    assert 0.0 <= result.independent_overlap <= 1.0 + 1e-9

@@ -38,5 +38,20 @@ def test_port_imports_without_jax_and_builds_nothing():
 
 def test_public_entry_points():
     import adaptaqc_tpu_torch as port
-    for name in ("AdaptCompiler", "AdaptConfig", "mps_backend_with_args"):
+    for name in ("AdaptCompiler", "AdaptConfig", "mps_backend_with_args",
+                 "CenterMPSBackend", "CENTER_MPS_SIM", "CompileInPartsResult",
+                 "ApproximateCompiler"):
         assert hasattr(port, name)
+
+
+def test_new_modules_are_among_those_imported_without_jax():
+    """The spin-chain slice's modules are found by the walk above (it
+    imports every module of the package)."""
+    import pkgutil
+
+    import adaptaqc_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        adaptaqc_tpu_torch.__path__, "adaptaqc_tpu_torch.")}
+    for mod in ("backends.center_mps", "utils.verification",
+                "io.checkpoint", "utils.targets", "ops.native"):
+        assert f"adaptaqc_tpu_torch.{mod}" in names

@@ -264,10 +264,21 @@ def random_tridiagonal(m):
     return d, e
 
 
+def _batch_args(lib, *strides):
+    """The launchers' batch arguments (one matrix, its strides), for a
+    build whose launchers take them; none for a build of an older source."""
+    if not hasattr(lib, "eigh_batched_launchers"):
+        return [], []
+    L = ctypes.c_longlong
+    return [ctypes.c_int] + [L] * len(strides), [1, *strides]
+
+
 def teig_runner(lib, first_port):
     from adaptaqc_tpu_torch.ops import eigh_kernels as ek
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.teig_launch.argtypes = [P] * (6 if first_port else 5) + [I, P]
+    btypes, _ = _batch_args(lib, 0, 0)
+    lib.teig_launch.argtypes = ([P] * (6 if first_port else 5) + [I] + btypes
+                                + [P])
 
     def run(d, e):
         m = d.shape[0]
@@ -279,8 +290,8 @@ def teig_runner(lib, first_port):
         if first_port:
             scratch = torch.empty(5 * m * m, device=d.device)
             ptrs.append(scratch.data_ptr())
-        rc = lib.teig_launch(*ptrs, m, torch.cuda.current_stream()
-                             .cuda_stream)
+        rc = lib.teig_launch(*ptrs, m, *_batch_args(lib, m, m)[1],
+                             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"teig launch failed: {rc}")
         return w, z
@@ -314,7 +325,8 @@ def report_teig(tag, src, sweep_inputs, edits=()):
 
 def tridiag_runner(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tridiag_launch.argtypes = [P] * 5 + [I, P]
+    lib.tridiag_launch.argtypes = ([P] * 5 + [I] + _batch_args(lib, 0)[0]
+                                   + [P])
 
     def run(h):
         m = h.shape[0]
@@ -323,6 +335,7 @@ def tridiag_runner(lib):
                torch.empty(m, device=h.device),
                torch.empty(m, device=h.device))
         rc = lib.tridiag_launch(h.data_ptr(), *(t.data_ptr() for t in out), m,
+                                *_batch_args(lib, m * m)[1],
                                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"tridiag launch failed: {rc}")
@@ -332,14 +345,16 @@ def tridiag_runner(lib):
 
 def backtransform_runner(lib):
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.backtransform_launch.argtypes = [P] * 4 + [I, I, P]
+    lib.backtransform_launch.argtypes = ([P] * 4 + [I, I]
+                                         + _batch_args(lib, 0, 0, 0)[0] + [P])
 
     def run(vrows, tau, z, keep):
         m = vrows.shape[0]
         out = torch.empty((m, keep), dtype=torch.complex64, device=z.device)
         rc = lib.backtransform_launch(
             vrows.data_ptr(), tau.data_ptr(), z.data_ptr(), out.data_ptr(), m,
-            keep, torch.cuda.current_stream().cuda_stream)
+            keep, *_batch_args(lib, m * m, m, m * m)[1],
+            torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"backtransform launch failed: {rc}")
         return out
