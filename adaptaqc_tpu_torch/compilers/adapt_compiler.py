@@ -16,9 +16,10 @@ full-cost sweep over a capped window, with a periodic global-cost polish by
 the O(G) sweep (the hybrid schedule); soften_global_cost trains on the
 softened global cost the same way. compile_with_chi_schedule escalates the
 working bond dimension over warm-started stages; compile() can write
-checkpoints and a loaded checkpoint resumes. Not ported yet (ROADMAP.md):
-profiling, the BOBYQA optimiser (use_roto_algos=False) and the final BOBYQA
-minimisation.
+checkpoints and a loaded checkpoint resumes. With use_roto_algos=False each
+layer is optimised by BOBYQA over all variational angles instead of the
+Rotoselect/Rotosolve sweeps, and perform_final_minimisation runs one more
+BOBYQA over the whole solution before the final cleanup (optim/minimiser.py).
 """
 
 from __future__ import annotations
@@ -72,14 +73,6 @@ class AdaptCompiler(ApproximateCompiler):
                  perform_final_minimisation=False, optimise_local_cost=False,
                  soften_global_cost=False, debug_log_full_ansatz=False,
                  initial_single_qubit_layer=False, start_variant=0):
-        if not use_roto_algos:
-            raise NotImplementedError(
-                "use_roto_algos=False (the BOBYQA optimiser) is not ported "
-                "yet (ROADMAP.md)")
-        if perform_final_minimisation:
-            raise NotImplementedError(
-                "perform_final_minimisation (the final BOBYQA minimisation) "
-                "is not ported yet (ROADMAP.md)")
         backend = backend if backend is not None else SVBackend()
         super().__init__(target=target, backend=backend,
                          execute_kwargs=execute_kwargs,
@@ -99,6 +92,7 @@ class AdaptCompiler(ApproximateCompiler):
         # custom layer gates may have interdependent gates: no cleanup
         self.remove_unnecessary_gates_during_adapt = custom_layer_2q_gate is None
         self.use_roto_algos = use_roto_algos
+        self.perform_final_minimisation = perform_final_minimisation
         self.use_rotoselect = use_rotoselect
         self.use_advanced_transpilation = use_advanced_transpilation
         if not self.use_rotoselect and (
@@ -189,24 +183,27 @@ class AdaptCompiler(ApproximateCompiler):
     # --------------------------------------------------------- chi schedule
     def _check_schedule_fits_kernels(self, chis):
         """On a CUDA device the eigensolver and env-chain kernels take a
-        bounded bond dimension (their plain versions on the CPU do not):
-        refuse a schedule whose stages exceed it before its first stage,
-        not hours into it."""
+        bounded bond dimension (ops/dispatch.py; their plain versions on the
+        CPU do not), and a call above it raises: refuse a schedule whose
+        stages exceed it before its first stage, not hours into it."""
         if self.backend.device.type != "cuda":
             return
-        from ..ops import eigh_kernels, env_kernel
+        from ..ops import dispatch
+        dt = self.backend.dtype
+        env_hi = dispatch.REACH["env"][dt][1]
+        eigh_hi = dispatch.REACH["eigh"][dt][1]
+        cap = min(env_hi, eigh_hi // 2)
         n = self.full_circuit.num_qubits
-        cap = min(env_kernel.MAX_CHI, eigh_kernels.MAX_M // 2)
         for chi in chis:
             working = min(int(chi), max(2, 2 ** ((n + 1) // 2)))
             if working > cap:
                 raise ValueError(
                     f"compile_with_chi_schedule: stage chi={chi} works at "
                     f"bond dimension {working}, above what the CUDA kernels "
-                    f"take (chi <= {cap}: env_chain chi <= "
-                    f"{env_kernel.MAX_CHI}, eigensolver m = 2 chi <= "
-                    f"{eigh_kernels.MAX_M}); on device {self.backend.device} "
-                    f"the schedule must stay at or below chi={cap}")
+                    f"take in {dt} (chi <= {cap}: env_chain chi <= "
+                    f"{env_hi}, eigensolver m = 2 chi <= {eigh_hi}); on "
+                    f"device {self.backend.device} the schedule must stay "
+                    f"at or below chi={cap}")
 
     def compile_with_chi_schedule(self, chis=(32, 64, 128),
                                   initial_ansatz=None):
@@ -466,6 +463,11 @@ class AdaptCompiler(ApproximateCompiler):
                 self.checkpoint(checkpoint_every, checkpoint_dir,
                                 delete_prev_chkpt, layer_count, start_time)
 
+        if self.perform_final_minimisation:
+            self.minimizer.minimize_cost(
+                algorithm_kind=vconstants.ALG_PYBOBYQA,
+                alg_kwargs={"seek_global_minimum": False})
+
         if self.is_mps_backend:
             # swap in the pure-gate representation for the final cleanup
             self.full_circuit = self.ref_circuit_as_gates
@@ -607,12 +609,16 @@ class AdaptCompiler(ApproximateCompiler):
                           co.circuit_by_inverting_circuit(initial_ansatz),
                           self.variational_circuit_range()[1])
         self._invalidate_current()
-        if optimise_initial_ansatz:
+        if optimise_initial_ansatz and self.use_roto_algos:
             cost = self.minimizer.minimize_cost(
                 algorithm_kind=vconstants.ALG_ROTOSOLVE, tol=1e-3,
                 stop_val=0 if self.optimise_local_cost
                 else self.adapt_config.sufficient_cost,
                 indexes_to_modify=self.variational_circuit_range())
+        elif optimise_initial_ansatz:
+            cost = self.minimizer.minimize_cost(
+                algorithm_kind=vconstants.ALG_PYBOBYQA,
+                alg_kwargs={"seek_global_minimum": True})
         else:
             cost = self.evaluate_cost()
         self.global_cost = (self.backend.evaluate_global_cost(self)
@@ -635,6 +641,38 @@ class AdaptCompiler(ApproximateCompiler):
             layer_indexes = self._add_rotation_to_all_qubits()
         else:
             layer_indexes = self._add_entangling_layer(index)
+        if self.use_roto_algos:
+            cost = self._roto_layer(index, isql_layer, layer_indexes,
+                                    ansatz_start_index)
+        else:
+            t0 = timeit.default_timer()
+            cost = self.minimizer.minimize_cost(
+                algorithm_kind=vconstants.ALG_PYBOBYQA,
+                alg_kwargs={"seek_global_minimum": True})
+            self.phase_timings["layer_optimisation"] += \
+                timeit.default_timer() - t0
+
+        if self.is_mps_backend:
+            t0 = timeit.default_timer()
+            self.layers_as_gates.append(index)
+            num_to_absorb = self._calculate_num_layers_to_absorb(index)
+            if num_to_absorb > 0:
+                includes_isql = (self.layers_as_gates[0] == 0
+                                 and self.initial_single_qubit_layer)
+                num_gates = self._get_num_gates_to_cache(
+                    n=num_to_absorb, includes_isql=includes_isql)
+                gates_absorbed = self._absorb_n_gates_into_mps(num_gates)
+                co.add_to_circuit(self.layers_saved_to_mps, gates_absorbed)
+                del self.layers_as_gates[:num_to_absorb]
+            self.phase_timings["absorption"] += timeit.default_timer() - t0
+        return cost
+
+    def _roto_layer(self, index, isql_layer, layer_indexes,
+                    ansatz_start_index):
+        """The new layer's Rotoselect (Rotosolve where asked), the periodic
+        Rotosolve over the trailing window and, under the local cost, the
+        periodic global polish (adapt_compiler.py:668-729). Returns the
+        cost."""
         stop_val = (0 if self.optimise_local_cost
                     else self.adapt_config.sufficient_cost)
         alg = (vconstants.ALG_ROTOSELECT
@@ -687,20 +725,6 @@ class AdaptCompiler(ApproximateCompiler):
                 indexes_to_modify=full_indexes, force_global=True)
             self.phase_timings["global_polish"] += \
                 timeit.default_timer() - t0
-
-        if self.is_mps_backend:
-            t0 = timeit.default_timer()
-            self.layers_as_gates.append(index)
-            num_to_absorb = self._calculate_num_layers_to_absorb(index)
-            if num_to_absorb > 0:
-                includes_isql = (self.layers_as_gates[0] == 0
-                                 and self.initial_single_qubit_layer)
-                num_gates = self._get_num_gates_to_cache(
-                    n=num_to_absorb, includes_isql=includes_isql)
-                gates_absorbed = self._absorb_n_gates_into_mps(num_gates)
-                co.add_to_circuit(self.layers_saved_to_mps, gates_absorbed)
-                del self.layers_as_gates[:num_to_absorb]
-            self.phase_timings["absorption"] += timeit.default_timer() - t0
         return cost
 
     def _calculate_num_layers_to_absorb(self, index):

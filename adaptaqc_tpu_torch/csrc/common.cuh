@@ -1,5 +1,5 @@
 // Shared device helpers for the package's kernels: complex64 as float2
-// (PyTorch's interleaved layout), warp and block reductions, and the
+// and complex128 as double2 (PyTorch's interleaved layouts), warp and block reductions, and the
 // asynchronous copies into shared memory (mbarrier bulk copies, cp.async)
 // that env_chain.cu and eigh_tridiag.cu share.
 #pragma once
@@ -56,6 +56,22 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// One complex element (float2 or double2) by cp.async.
+__device__ __forceinline__ void cp_async_elem(float2* dst, const float2* src) {
+  cp_async8(dst, src);
+}
+__device__ __forceinline__ void cp_async_elem(double2* dst,
+                                              const double2* src) {
+  cp_async16(dst, src);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -65,15 +81,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// (float or double)
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
 // Sum of `v` over the whole block; every thread must call it and gets the
-// result. `red` is shared scratch of at least 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// result. `red` is shared scratch of at least 33 values.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* red) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nw = (blockDim.x + 31) >> 5;
@@ -82,7 +101,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    float t = (lane < nw) ? red[lane] : 0.f;
+    T t = (lane < nw) ? red[lane] : T(0);
     t = warp_sum(t);
     if (lane == 0) red[32] = t;
   }

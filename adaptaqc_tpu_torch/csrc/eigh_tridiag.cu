@@ -4,6 +4,9 @@
 //   tridiag_kernel        <- _tridiag_kernel       (pallas_eigh.py:56)
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
+// and, for 128 < m <= 560, their wide variants (tridiag_wide_kernel,
+// teig_wide_kernel, backtransform_wide_kernel, at the end of this file),
+// whose double instantiations serve complex128 at every m up to 504.
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
 // <= 128, complex64 (float2), or a batch of P of them in one launch: the
 // full-cost sweep applies every gate to its 3 or 7 probe states at once (the
@@ -93,12 +96,18 @@
 
 namespace {
 
+using adaptaqc::block_sum;
 using adaptaqc::cp_async8;
 using adaptaqc::cp_async_commit;
 using adaptaqc::cp_async_wait;
 using adaptaqc::warp_sum;
 
-constexpr int kMaxM = 128;
+constexpr int kMaxM = 128;  // the register, shared-memory designs below;
+                            // the wide variants at the end take m up to 560
+// Every launcher takes a batch of `batch` matrices: the strides (in
+// elements) between the matrices of each input; the outputs are contiguous
+// in the batch. batch = 1 is the single-matrix launch.
+constexpr int kMaxBatch = 65535;  // backtransform's grid y
 
 // ------------------------------------------------------------- complex
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -113,6 +122,64 @@ __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
 __device__ __forceinline__ void cfma_conj(float2& acc, float2 a, float2 b) {
   acc.x = fmaf(a.x, b.x, fmaf(a.y, b.y, acc.x));
   acc.y = fmaf(a.x, b.y, fmaf(-a.y, b.x, acc.y));
+}
+// the same three in complex128 (the wide variants' double instantiation)
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ void cfma(double2& acc, double2 a, double2 b) {
+  acc.x = fma(a.x, b.x, fma(-a.y, b.y, acc.x));
+  acc.y = fma(a.x, b.y, fma(a.y, b.x, acc.y));
+}
+__device__ __forceinline__ void cfma_conj(double2& acc, double2 a, double2 b) {
+  acc.x = fma(a.x, b.x, fma(a.y, b.y, acc.x));
+  acc.y = fma(a.x, b.y, fma(-a.y, b.x, acc.y));
+}
+
+// ---------------------------------------------- float / double overloads
+// The round-to-nearest intrinsics and the math functions by real type, so
+// that one template body serves complex64 and complex128.
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_(double x) { return fabs(x); }
+__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float2 make_c(float x, float y) {
+  return make_float2(x, y);
+}
+__device__ __forceinline__ double2 make_c(double x, double y) {
+  return make_double2(x, y);
 }
 
 // ------------------------------------------------------------- tridiag
@@ -159,21 +226,24 @@ __device__ __forceinline__ float column_squares(const float2 (&a)[kRows],
 // tiny: scaled by its largest component, so that the reflector built from
 // it stays unitary (the same value in every warp: xor-butterfly
 // reductions).
-__device__ __noinline__ float scaled_norm(const float2* col, int k, int m,
-                                          int lane) {
-  float amax = 0.f;
+// (V: float2 or double2, the norm in its real type.)
+template <typename V>
+__device__ __noinline__ auto scaled_norm(const V* col, int k, int m, int lane)
+    -> decltype(V::x) {
+  using T = decltype(V::x);
+  T amax = 0;
   for (int j = k + 1 + lane; j < m; j += 32)
-    amax = fmaxf(amax, fmaxf(fabsf(col[j].x), fabsf(col[j].y)));
+    amax = max_(amax, max_(abs_(col[j].x), abs_(col[j].y)));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float inv = 1.f / amax;
-  float part = 0.f;
+    amax = max_(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const T inv = T(1) / amax;
+  T part = 0;
   for (int j = k + 1 + lane; j < m; j += 32) {
-    const float cx = col[j].x * inv, cy = col[j].y * inv;
+    const T cx = col[j].x * inv, cy = col[j].y * inv;
     part += cx * cx + cy * cy;
   }
-  return amax * sqrtf(warp_sum(part));
+  return amax * sqrt_(warp_sum(part));
 }
 
 // One CTA of 1024 threads; the matrix lives in registers: thread (g, li)
@@ -404,12 +474,16 @@ __host__ __device__ inline int teig_smem_floats(int m) {
   return teig_lu_offset(m) + (lu > panel ? lu : panel);
 }
 
-__device__ __forceinline__ float guard(float x, float pivmin) {
-  return (fabsf(x) < pivmin) ? ((x >= 0.f) ? pivmin : -pivmin) : x;
+template <typename T>
+__device__ __forceinline__ T guard(T x, T pivmin) {
+  return (abs_(x) < pivmin) ? ((x >= T(0)) ? pivmin : -pivmin) : x;
 }
 
 __device__ __forceinline__ float rsqrt_rn(float x) {
   return __frcp_rn(__fsqrt_rn(x));
+}
+__device__ __forceinline__ double rsqrt_rn(double x) {
+  return __drcp_rn(__dsqrt_rn(x));
 }
 
 // a / b rounded to nearest, as __fdiv_rn, but a zero dividend never takes
@@ -425,32 +499,42 @@ __device__ __forceinline__ float div_rn(float a, float b) {
                               0x80000000)
              : q;
 }
+__device__ __forceinline__ double div_rn(double a, double b) {
+  const double q = __ddiv_rn(a == 0.0 ? 1.0 : a, b);
+  return a == 0.0 ? __longlong_as_double(
+                        (__double_as_longlong(a) ^ __double_as_longlong(b)) &
+                        (long long)0x8000000000000000ULL)
+                  : q;
+}
 
 // Sturm count: the number of negative pivots of T - x I (guarded as the
 // plain version guards them).
-__device__ __forceinline__ int sturm_count(const float* d, const float* e2,
-                                           int m, float x, float pivmin) {
-  float q = __fsub_rn(d[0], x);
-  if (fabsf(q) < pivmin) q = -pivmin;
-  int cnt = (q < 0.f) ? 1 : 0;
+template <typename T>
+__device__ __forceinline__ int sturm_count(const T* d, const T* e2, int m,
+                                           T x, T pivmin) {
+  T q = sub_rn(d[0], x);
+  if (abs_(q) < pivmin) q = -pivmin;
+  int cnt = (q < T(0)) ? 1 : 0;
   for (int i = 1; i < m; ++i) {
-    q = __fsub_rn(__fsub_rn(d[i], x), div_rn(e2[i - 1], q));
-    if (fabsf(q) < pivmin) q = -pivmin;
-    cnt += (q < 0.f) ? 1 : 0;
+    q = sub_rn(sub_rn(d[i], x), div_rn(e2[i - 1], q));
+    if (abs_(q) < pivmin) q = -pivmin;
+    cnt += (q < T(0)) ? 1 : 0;
   }
   return cnt;
 }
 
-__device__ __forceinline__ float mid_rn(float a, float b) {
-  return __fmul_rn(0.5f, __fadd_rn(a, b));
+template <typename T>
+__device__ __forceinline__ T mid_rn(T a, T b) {
+  return mul_rn(T(0.5), add_rn(a, b));
 }
 
 // The point that bisection from [lo, hi] visits at heap node h (h >= 1:
 // each bit below the leading one, from the top, takes the upper half if
 // set), computed by the same chain of midpoints.
-__device__ __forceinline__ float tree_point(float lo, float hi, int h) {
+template <typename T>
+__device__ __forceinline__ T tree_point(T lo, T hi, int h) {
   for (int bit = 30 - __clz(h); bit >= 0; --bit) {
-    const float md = mid_rn(lo, hi);
+    const T md = mid_rn(lo, hi);
     if ((h >> bit) & 1) lo = md; else hi = md;
   }
   return mid_rn(lo, hi);
@@ -928,14 +1012,689 @@ __global__ void __launch_bounds__(kBtThreads)
   }
 }
 
+// ------------------------------------------------------ the wide variants
+// For 128 < m <= kWideMaxM (the JAX kernels' own reach, pallas_eigh.py's
+// `supported`: 10 m^2 float32 words in 12 MiB of VMEM). At m = 256 one
+// complex64 matrix is 512 KB, more than an SM's registers (256 KB) or
+// shared memory (227 KB), so the designs above do not stretch. These keep
+// one CTA a matrix (a batch still costs one matrix's time) and keep every
+// m x m working set in global memory, where it stays L2-resident (0.5 MB a
+// matrix at m = 256 against 50 MB of L2); shared memory holds only the
+// current column, vectors or panel. What bounds them: the L2 traffic of
+// one SM, since every step streams its trailing block (K2) or its panel's
+// columns (K3, K4) through it, and the barriers of m sequential steps.
+// They are the simple first design: a cluster design (the trailing block
+// split by rows over several CTAs, exchanged through distributed shared
+// memory, as env_chain does) is the faster later one. The properties of
+// the m <= 128 kernels carry over: the scaled norm of a tiny column, the
+// exactly inactive step, eigenvalues equal to the plain version's bit for
+// bit, and a batch equal to its P = 1 launches (fixed reduction orders,
+// nothing shared across the batch but b0).
+//
+// They are templates on the real type T. float serves complex64 for
+// 128 < m <= kWideMaxM; double serves complex128 at every m, 2 <= m <=
+// kWideMaxM64 (backtransform's panel of m double2 rows bounds it in shared
+// memory). In double the constants are the plain version's float64 ones
+// (ops/eigh_kernels.py _teig_constants: 60 bisection rounds, eps 2.3e-16,
+// pivmin floor 1e-300) and the tiny-column threshold is DBL_MIN /
+// DBL_EPSILON, as the plain version's finfo(float64).tiny / eps.
+constexpr int kWideMaxM = 560;
+constexpr int kWideMaxM64 = 504;
+constexpr int kWideThreads = 1024;
+
+template <typename T>
+struct Real;
+template <>
+struct Real<float> {
+  using C = float2;
+  static constexpr int kRounds = kBisectRounds;
+  static constexpr float kEps = 1.2e-7f;       // teig's relative eps
+  static constexpr float kPivFloor = 1e-35f;   // its pivmin floor
+  static constexpr float kFloor = 1e-30f;      // its scale and norm floors
+  static constexpr float kTiny = kTinySquares;
+};
+template <>
+struct Real<double> {
+  using C = double2;
+  static constexpr int kRounds = 60;
+  static constexpr double kEps = 2.3e-16;
+  static constexpr double kPivFloor = 1e-300;
+  static constexpr double kFloor = 1e-30;
+  static constexpr double kTiny = 0x1p-970;
+};
+
+// Four reals of a 16-byte aligned row (one vector load in float, two in
+// double).
+template <typename T>
+struct alignas(16) Quad {
+  T x, y, z, w;
+};
+
+template <typename V>
+__device__ __forceinline__ V warp_sum2(V v) {
+  return make_c(warp_sum(v.x), warp_sum(v.y));
+}
+
+// Householder tridiagonalization as tridiag_kernel computes it, step by
+// step: A (exactly Hermitian, both triangles kept) in `work`; a step reads
+// row k (column k is its conjugate), forms the reflector in warp 0, u = A v
+// a warp a row (coalesced rows), s = v^H u and w by block reductions, and
+// the rank-2 update over the trailing block rounded as written, so that A
+// stays exactly Hermitian; six block barriers a step. A step whose column
+// is exactly zero costs one read of its row.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    tridiag_wide_kernel(const typename Real<T>::C* __restrict__ h,
+                        typename Real<T>::C* work,
+                        typename Real<T>::C* __restrict__ vrows,
+                        typename Real<T>::C* __restrict__ tau_out,
+                        T* __restrict__ d_out, T* __restrict__ e_out, int m,
+                        long long h_stride) {
+  using V = typename Real<T>::C;
+  {
+    const size_t b = blockIdx.x;
+    h += b * (size_t)h_stride;
+    work += b * (size_t)m * m;
+    vrows += b * (size_t)m * m;
+    tau_out += b * m;
+    d_out += b * m;
+    e_out += b * m;
+  }
+  __shared__ V C[kWideMaxM];  // column k of A
+  __shared__ V Vv[kWideMaxM], U[kWideMaxM], W[kWideMaxM];
+  __shared__ T red[33];
+  __shared__ T scal[5];  // gam (2), tau (2)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kWideThreads / 32;
+  const T zero = 0, one = 1;
+
+  for (int idx = tid; idx < m * m; idx += kWideThreads) work[idx] = h[idx];
+  if (tid < m) vrows[(size_t)(m - 1) * m + tid] = make_c(zero, zero);
+  if (tid == 0) {
+    tau_out[m - 1] = make_c(zero, zero);
+    e_out[m - 1] = zero;
+  }
+  __syncthreads();
+
+  for (int k = 0; k < m - 1; ++k) {
+    const int k1 = k + 1;
+    T part = zero;
+    for (int j = k1 + tid; j < m; j += kWideThreads) {
+      const V r = work[(size_t)k * m + j];
+      const V c = make_c(r.x, -r.y);  // A[j][k] = conj(A[k][j])
+      C[j] = c;
+      part = fma_(c.x, c.x, fma_(c.y, c.y, part));
+    }
+    const T ss = block_sum(part, red);
+    if (!(ss > zero)) {  // inactive: tau = e = 0, v = e_{k+1}
+      for (int j = tid; j < m; j += kWideThreads)
+        vrows[(size_t)k * m + j] = make_c(j == k1 ? one : zero, zero);
+      if (tid == 0) {
+        tau_out[k] = make_c(zero, zero);
+        e_out[k] = zero;
+      }
+      continue;
+    }
+    if (warp == 0) {
+      const T nrm = ss < Real<T>::kTiny ? scaled_norm(C, k, m, lane)
+                                        : sqrt_(ss);
+      if (lane == 0) {
+        const V alpha = C[k1];
+        const T inv = one / nrm;
+        const T ahr = alpha.x * inv, ahi = alpha.y * inv;
+        const T bh = (ahr >= zero) ? -one : one;
+        const T tr = one - ahr * bh, ti = -ahi * bh;
+        const T dr = ahr - bh, di = ahi;
+        const T gs = inv / (dr * dr + di * di);
+        scal[0] = dr * gs;
+        scal[1] = -di * gs;
+        scal[2] = tr;
+        scal[3] = ti;
+        tau_out[k] = make_c(tr, ti);
+        e_out[k] = bh * nrm;
+      }
+    }
+    __syncthreads();
+    const V gam = make_c(scal[0], scal[1]);
+    const T tr = scal[2], ti = scal[3];
+    for (int j = tid; j < m; j += kWideThreads) {
+      const V vj = (j <= k) ? make_c(zero, zero)
+                   : (j == k1 ? make_c(one, zero) : cmul(gam, C[j]));
+      Vv[j] = vj;
+      vrows[(size_t)k * m + j] = vj;
+    }
+    __syncthreads();
+    // u = A v over the trailing block, a warp a row
+    for (int i = k1 + warp; i < m; i += kWarps) {
+      const V* row = work + (size_t)i * m;
+      V acc = make_c(zero, zero);
+      for (int j = k1 + lane; j < m; j += 32) cfma(acc, row[j], Vv[j]);
+      acc = warp_sum2(acc);
+      if (lane == 0) U[i] = acc;
+    }
+    __syncthreads();
+    V sp = make_c(zero, zero);
+    for (int j = k1 + tid; j < m; j += kWideThreads)
+      cfma_conj(sp, Vv[j], U[j]);
+    const T sx = block_sum(sp.x, red);
+    const T sy = block_sum(sp.y, red);
+    const T t2r = (tr * sx + ti * sy) * T(0.5);
+    const T t2i = (tr * sy - ti * sx) * T(0.5);
+    for (int j = k1 + tid; j < m; j += kWideThreads) {
+      const V u = U[j], vi = Vv[j];
+      const T pr = u.x - (t2r * vi.x - t2i * vi.y);
+      const T pi = u.y - (t2r * vi.y + t2i * vi.x);
+      W[j] = make_c(tr * pr - ti * pi, tr * pi + ti * pr);
+    }
+    __syncthreads();
+    // A[j][i] -= v_j conj(w_i) + w_j conj(v_i), rounded as written: the
+    // update of A[i][j] is exactly the conjugate
+    const int t = m - k1;
+    for (int idx = tid; idx < t * t; idx += kWideThreads) {
+      const int j = k1 + idx / t, i = k1 + idx % t;
+      const V va = Vv[j], wa = W[j], vb = Vv[i], wb = W[i];
+      const T re = add_rn(add_rn(mul_rn(va.x, wb.x), mul_rn(va.y, wb.y)),
+                          add_rn(mul_rn(wa.x, vb.x), mul_rn(wa.y, vb.y)));
+      const T im = add_rn(sub_rn(mul_rn(va.y, wb.x), mul_rn(va.x, wb.y)),
+                          sub_rn(mul_rn(wa.y, vb.x), mul_rn(wa.x, vb.y)));
+      V& a = work[(size_t)j * m + i];
+      a = make_c(sub_rn(a.x, re), sub_rn(a.y, im));
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < m; i += kWideThreads)
+    d_out[i] = work[(size_t)i * m + i].x;
+}
+
+// teig's global scratch a matrix, in reals: the LU factors du and u1
+// (m x m each, lane-fastest) and the swap bits (one word per 32 steps a
+// lane, in a real's slot).
+__host__ __device__ inline long long teig_wide_scratch_reals(int m) {
+  return 2LL * m * m + (long long)((m + 31) / 32) * m;
+}
+// its dynamic shared memory, in reals: d, e, e2, w, then the CGS2 panel
+// and its projections W (m x kPanel each, 16-byte rows).
+__host__ __device__ inline int teig_wide_smem_reals(int m) {
+  return 4 * m + 2 * m * kPanel;
+}
+
+// teig_kernel's algorithm with the iterate in its own output z (row stride
+// m) and the LU in global scratch: the same multisection (w bit for bit),
+// the same inverse iteration a thread a lane, and BCGS2 by panels of 16
+// columns whose two projection passes read the earlier columns from z;
+// the CGS2 inside a panel runs on the whole block in shared memory (a
+// warp a dot, a thread a row for the update).
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    teig_wide_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
+                     const T* __restrict__ b0, T* __restrict__ w_out,
+                     T* z_out, T* scratch, int m, long long d_stride,
+                     long long e_stride) {
+  {
+    const size_t b = blockIdx.x;
+    d_in += b * (size_t)d_stride;
+    e_in += b * (size_t)e_stride;
+    w_out += b * m;
+    z_out += b * (size_t)m * m;
+    scratch += b * (size_t)teig_wide_scratch_reals(m);
+  }
+  extern __shared__ __align__(16) unsigned char wsm_raw[];
+  T* d = reinterpret_cast<T*>(wsm_raw);
+  T* e = d + m;
+  T* e2 = e + m;
+  T* w = e2 + m;
+  T* pan = w + m;              // (m, kPanel) the panel
+  T* W = pan + m * kPanel;     // (m, kPanel) its projections
+  T* bb = z_out;               // the iterate, bb[i * m + j]
+  T* du = scratch;             // (m, m) LU pivots, lane-fastest
+  T* u1 = du + (size_t)m * m;
+  uint32_t* swb = reinterpret_cast<uint32_t*>(u1 + (size_t)m * m);
+  __shared__ T sc[4];
+  __shared__ T red[33];
+  __shared__ T dots[kPanel];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const T zero = 0;
+
+  for (int i = tid; i < m; i += nt) {
+    d[i] = d_in[i];
+    const T ei = (i < m - 1) ? e_in[i] : zero;
+    e[i] = ei;
+    e2[i] = mul_rn(ei, ei);
+  }
+  for (int idx = tid; idx < m * m; idx += nt) bb[idx] = b0[idx];
+  if (tid == 0) {
+    T lo0 = T(INFINITY), hi0 = -T(INFINITY);
+    for (int i = 0; i < m; ++i) {
+      const T el = (i > 0) ? e_in[i - 1] : zero;
+      const T ei = (i < m - 1) ? e_in[i] : zero;
+      const T rad = add_rn(abs_(ei), abs_(el));
+      lo0 = min_(lo0, sub_rn(d_in[i], rad));
+      hi0 = max_(hi0, add_rn(d_in[i], rad));
+    }
+    const T scale = max_(max_(abs_(lo0), abs_(hi0)), Real<T>::kFloor);
+    const T p = mul_rn(Real<T>::kEps, scale);
+    sc[0] = lo0;
+    sc[1] = hi0;
+    sc[2] = scale;
+    sc[3] = max_(Real<T>::kPivFloor, mul_rn(p, p));
+  }
+  __syncthreads();
+  const T lo0 = sc[0], hi0 = sc[1], scale = sc[2], pivmin = sc[3];
+
+  // multisection as in teig_kernel, at least two threads a lane, the lanes
+  // in passes of nt / tl where the block does not hold them all
+  {
+    int tl = 32;
+    while (tl > 2 && tl * m > nt) tl >>= 1;
+    const int k = 31 - __clz(tl);
+    const int sub = tid % tl;
+    const int base = lane & ~(tl - 1);
+    for (int j0 = 0; j0 < m; j0 += nt / tl) {
+      const int jl = j0 + tid / tl;
+      const int j = min(jl, m - 1);
+      const T target = (T)(m - 1 - j);
+      T lo = lo0, hi = hi0;
+      for (int r = 0; r < Real<T>::kRounds; r += k) {
+        const int kk = min(k, Real<T>::kRounds - r);
+        const T x = (sub >= 1 && sub < (1 << kk)) ? tree_point(lo, hi, sub)
+                                                  : mid_rn(lo, hi);
+        const int cnt = sturm_count(d, e2, m, x, pivmin);
+        int node = 1;
+        for (int l = 0; l < kk; ++l) {
+          const int cn = __shfl_sync(0xffffffffu, cnt, base + node);
+          const T mid = mid_rn(lo, hi);
+          if ((T)cn > target) {
+            hi = mid;
+            node = 2 * node;
+          } else {
+            lo = mid;
+            node = 2 * node + 1;
+          }
+        }
+      }
+      if (sub == 0 && jl < m) w[j] = mid_rn(lo, hi);
+    }
+  }
+  __syncthreads();
+
+  for (int j = tid; j < m; j += nt) {
+    const T eps = mul_rn(Real<T>::kEps, scale);
+    T lam = add_rn(hi0, scale);
+    for (int l = 0; l <= j; ++l)
+      lam = min_(lam, sub_rn(w[l], mul_rn((T)(j - l), eps)));
+    for (int rep = 0; rep < 2; ++rep) {
+      T a_i = sub_rn(d[0], lam), s1_i = e[0];
+      T carry = bb[j];
+      uint32_t bits = 0;
+      for (int i = 0; i < m - 1; ++i) {
+        const T a_next = sub_rn(d[i + 1], lam);
+        const T s1_next = e[i + 1];
+        const T r2 = e[i];
+        const bool swap = abs_(r2) > abs_(a_i);
+        const T top0 = guard(swap ? r2 : a_i, pivmin);
+        const T top1 = swap ? a_next : s1_i;
+        const T top2 = swap ? s1_next : zero;
+        const T bot0 = swap ? a_i : r2;
+        const T bot1 = swap ? s1_i : a_next;
+        const T bot2 = swap ? zero : s1_next;
+        const T mlt = div_rn(bot0, top0);
+        du[(size_t)i * m + j] = top0;
+        u1[(size_t)i * m + j] = top1;
+        bits |= (swap ? 1u : 0u) << (i & 31);
+        if ((i & 31) == 31 || i == m - 2) {
+          swb[(size_t)(i >> 5) * m + j] = bits;
+          bits = 0;
+        }
+        a_i = sub_rn(bot1, mul_rn(mlt, top1));
+        s1_i = sub_rn(bot2, mul_rn(mlt, top2));
+        const T bi1 = bb[(size_t)(i + 1) * m + j];
+        const T bt = swap ? bi1 : carry;
+        const T bo = swap ? carry : bi1;
+        bb[(size_t)i * m + j] = bt;
+        carry = sub_rn(bo, mul_rn(mlt, bt));
+      }
+      const T dlast = guard(a_i, pivmin);
+      du[(size_t)(m - 1) * m + j] = dlast;
+      T x2 = div_rn(carry, dlast);
+      bb[(size_t)(m - 1) * m + j] = x2;
+      T x1 = div_rn(sub_rn(bb[(size_t)(m - 2) * m + j],
+                           mul_rn(u1[(size_t)(m - 2) * m + j], x2)),
+                    du[(size_t)(m - 2) * m + j]);
+      bb[(size_t)(m - 2) * m + j] = x1;
+      for (int i = m - 3; i >= 0; --i) {
+        const bool sw = (swb[(size_t)(i >> 5) * m + j] >> (i & 31)) & 1u;
+        const T u2 = sw ? e[i + 1] : zero;
+        const T t = sub_rn(
+            sub_rn(bb[(size_t)i * m + j], mul_rn(u1[(size_t)i * m + j], x1)),
+            mul_rn(u2, x2));
+        const T xi = div_rn(t, du[(size_t)i * m + j]);
+        bb[(size_t)i * m + j] = xi;
+        x2 = x1;
+        x1 = xi;
+      }
+      T amax = zero;
+      for (int i = 0; i < m; ++i) amax = max_(amax, abs_(bb[(size_t)i * m + j]));
+      if (amax > zero)
+        for (int i = 0; i < m; ++i)
+          bb[(size_t)i * m + j] = div_rn(bb[(size_t)i * m + j], amax);
+      T nrm2 = zero;
+      for (int i = 0; i < m; ++i)
+        nrm2 = add_rn(nrm2, mul_rn(bb[(size_t)i * m + j],
+                                   bb[(size_t)i * m + j]));
+      const T s = rsqrt_rn(max_(nrm2, Real<T>::kFloor));
+      for (int i = 0; i < m; ++i)
+        bb[(size_t)i * m + j] = mul_rn(bb[(size_t)i * m + j], s);
+    }
+  }
+  __syncthreads();
+
+  // BCGS2: W = Q^T P, P -= Q W twice against the earlier columns (Q read
+  // from z), then CGS2 inside the panel; column 0 keeps its iterate
+  using Q4 = Quad<T>;
+  Q4* pan4 = reinterpret_cast<Q4*>(pan);
+  Q4* W4 = reinterpret_cast<Q4*>(W);
+  for (int c0 = 0; c0 < m; c0 += kPanel) {
+    const int pw = min(kPanel, m - c0);
+    for (int idx = tid; idx < m * kPanel; idx += nt) {
+      const int i = idx / kPanel, p = idx % kPanel;
+      pan[idx] = (p < pw) ? bb[(size_t)i * m + c0 + p] : zero;
+    }
+    __syncthreads();
+    for (int pass = 0; c0 > 0 && pass < 2; ++pass) {
+      for (int idx = tid; idx < c0 * (kPanel / 4); idx += nt) {
+        const int c = idx % c0, pg = idx / c0;
+        Q4 acc = {zero, zero, zero, zero};
+        for (int i = 0; i < m; ++i) {
+          const T q = bb[(size_t)i * m + c];
+          const Q4 pv = pan4[i * (kPanel / 4) + pg];
+          acc.x = fma_(q, pv.x, acc.x); acc.y = fma_(q, pv.y, acc.y);
+          acc.z = fma_(q, pv.z, acc.z); acc.w = fma_(q, pv.w, acc.w);
+        }
+        W4[c * (kPanel / 4) + pg] = acc;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < m * (kPanel / 4); idx += nt) {
+        const int i = idx / (kPanel / 4), pg = idx % (kPanel / 4);
+        const T* qrow = bb + (size_t)i * m;
+        Q4 acc = {zero, zero, zero, zero};
+        for (int c = 0; c < c0; ++c) {
+          const T q = qrow[c];
+          const Q4 wv = W4[c * (kPanel / 4) + pg];
+          acc.x = fma_(q, wv.x, acc.x); acc.y = fma_(q, wv.y, acc.y);
+          acc.z = fma_(q, wv.z, acc.z); acc.w = fma_(q, wv.w, acc.w);
+        }
+        Q4 pv = pan4[i * (kPanel / 4) + pg];
+        pv.x -= acc.x; pv.y -= acc.y; pv.z -= acc.z; pv.w -= acc.w;
+        pan4[i * (kPanel / 4) + pg] = pv;
+      }
+      __syncthreads();
+    }
+    for (int p = 0; p < pw; ++p) {
+      if (c0 + p == 0) continue;
+      for (int pass = 0; pass < 2; ++pass) {
+        if (warp < p) {  // dots[q] = P[:, q] . P[:, p], a warp each
+          T s = zero;
+          for (int i = lane; i < m; i += 32)
+            s = fma_(pan[i * kPanel + warp], pan[i * kPanel + p], s);
+          s = warp_sum(s);
+          if (lane == 0) dots[warp] = s;
+        }
+        __syncthreads();
+        for (int i = tid; i < m; i += nt) {
+          T r = pan[i * kPanel + p];
+          for (int q = 0; q < p; ++q)
+            r = fma_(-dots[q], pan[i * kPanel + q], r);
+          pan[i * kPanel + p] = r;
+        }
+        __syncthreads();
+      }
+      T s = zero;
+      for (int i = tid; i < m; i += nt)
+        s = fma_(pan[i * kPanel + p], pan[i * kPanel + p], s);
+      const T scl = rsqrt_rn(max_(block_sum(s, red), Real<T>::kFloor));
+      for (int i = tid; i < m; i += nt) pan[i * kPanel + p] *= scl;
+      __syncthreads();
+    }
+    for (int idx = tid; idx < m * kPanel; idx += nt) {
+      const int i = idx / kPanel, p = idx % kPanel;
+      if (p < pw) bb[(size_t)i * m + c0 + p] = pan[idx];
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < m; i += nt) w_out[i] = w[i];
+}
+
+// The row stride of a wide panel of transposed reflectors: odd.
+constexpr int kBtLdp = kBtPanel + 1;
+// backtransform_wide_kernel's dynamic shared memory: the active list (m
+// ints, to a 16-byte boundary), then in complex elements of T its taus,
+// the CTA's columns of z, one panel of reflectors (m rows of kBtLdp), its
+// kBtGSplit partial V^H V blocks (the first becomes T), the partial V^H Z
+// and T V^H Z.
+__host__ __device__ inline int bt_wide_act_bytes(int m) {
+  return (4 * m + 15) & ~15;
+}
+template <typename T>
+__host__ __device__ inline int bt_wide_smem_bytes(int m) {
+  return bt_wide_act_bytes(m) +
+         (int)(2 * sizeof(T)) *
+             (m + m * kBtCols + m * kBtLdp + kBtGSplit * kBtBlock +
+              (kBtSplit + 1) * kBtPanel * kBtCols);
+}
+
+// backtransform_kernel's compact-WY panels, with the reflectors read from
+// global memory one panel at a time (the last first) instead of all of
+// them held in shared memory: per panel, its reflectors are loaded
+// transposed, G = V^H V and T are formed, and Y = V^H Z, W = T Y,
+// Z -= V W follow as before.
+template <typename T>
+__global__ void __launch_bounds__(kBtThreads)
+    backtransform_wide_kernel(const typename Real<T>::C* __restrict__ vrows,
+                              const typename Real<T>::C* __restrict__ tau,
+                              const T* __restrict__ z,
+                              typename Real<T>::C* __restrict__ out, int m,
+                              int keep, long long v_stride,
+                              long long tau_stride, long long z_stride) {
+  using V = typename Real<T>::C;
+  {
+    const size_t b = blockIdx.y;
+    vrows += b * (size_t)v_stride;
+    tau += b * (size_t)tau_stride;
+    z += b * (size_t)z_stride;
+    out += b * (size_t)m * keep;
+  }
+  extern __shared__ __align__(16) unsigned char bsm_raw[];
+  int* act = reinterpret_cast<int*>(bsm_raw);       // m
+  V* tau_s = reinterpret_cast<V*>(bsm_raw + bt_wide_act_bytes(m));  // m
+  V* Z = tau_s + m;                                 // (m, kBtCols)
+  V* Vt = Z + m * kBtCols;                          // (m, kBtLdp)
+  V* G = Vt + m * kBtLdp;                           // (kBtGSplit, kBtBlock)
+  V* Y = G + kBtGSplit * kBtBlock;                  // (split, 16, 8)
+  V* Wp = Y + kBtSplit * kBtPanel * kBtCols;        // (16, 8)
+  V* Tm = G;
+  __shared__ int na_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kBtThreads / 32;
+  const int c0 = blockIdx.x * kBtCols;
+  const int cw = min(kBtCols, keep - c0);
+  const T zero = 0;
+  const V czero = make_c(zero, zero);
+
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < m - 1; base += 32) {
+      const int k = base + lane;
+      const V t = (k < m - 1) ? tau[k] : czero;
+      const bool on = t.x != zero || t.y != zero;
+      const unsigned mask = __ballot_sync(0xffffffffu, on);
+      if (on) {
+        const int pos = count + __popc(mask & ((1u << lane) - 1u));
+        act[pos] = k;
+        tau_s[pos] = t;
+      }
+      count += __popc(mask);
+    }
+    if (lane == 0) na_s = count;
+  }
+  for (int idx = tid; idx < m * kBtCols; idx += kBtThreads) {
+    const int r = idx / kBtCols, c = idx % kBtCols;
+    Z[idx] = make_c(c < cw ? z[(size_t)r * m + c0 + c] : zero, zero);
+  }
+  __syncthreads();
+  const int na = na_s;
+  const int npan = (na + kBtPanel - 1) / kBtPanel;
+  const int h = tid / (kBtPanel * kBtCols);
+  const int pi = (tid / kBtCols) % kBtPanel, pc = tid % kBtCols;
+  for (int p = npan - 1; p >= 0; --p) {
+    const int s0 = p * kBtPanel, pn = min(kBtPanel, na - s0);
+    // the panel's reflectors, transposed; zeros above row k+1
+    for (int sl = warp; sl < kBtPanel; sl += kWarps) {
+      const int k = sl < pn ? act[s0 + sl] : m;
+      const V* src = vrows + (size_t)(sl < pn ? k : 0) * m;
+      for (int r = lane; r < m; r += 32)
+        Vt[r * kBtLdp + sl] = r > k ? src[r] : czero;
+    }
+    __syncthreads();
+    {  // G = V^H V, strictly upper, kBtGSplit partial sums
+      const int gh = tid / kBtBlock, gi = (tid / kBtPanel) % kBtPanel,
+                gj = tid % kBtPanel;
+      if (gi < gj && gj < pn) {
+        V gsum = czero;
+        for (int r = act[s0 + gi] + 1 + gh; r < m; r += kBtGSplit)
+          cfma_conj(gsum, Vt[r * kBtLdp + gi], Vt[r * kBtLdp + gj]);
+        G[gh * kBtBlock + gi * kBtPanel + gj] = gsum;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {  // T by the zlarft recurrence; lane l holds row l
+      V trow[kBtPanel];
+#pragma unroll
+      for (int i = 0; i < kBtPanel; ++i) {
+        if (i < pn) {
+          const V ti = tau_s[s0 + i];
+          V acc = czero;
+#pragma unroll
+          for (int q = 0; q < i; ++q) {
+            V gq = Tm[q * kBtPanel + i];
+#pragma unroll
+            for (int x = 1; x < kBtGSplit; ++x) {
+              const V gx = G[x * kBtBlock + q * kBtPanel + i];
+              gq = make_c(gq.x + gx.x, gq.y + gx.y);
+            }
+            if (q >= lane) cfma(acc, trow[q], gq);
+          }
+          const V ta = cmul(ti, acc);
+          trow[i] = (lane < i) ? make_c(-ta.x, -ta.y)
+                               : (lane == i ? ti : czero);
+          __syncwarp();
+          if (lane < kBtPanel) Tm[lane * kBtPanel + i] = trow[i];
+          __syncwarp();
+        }
+      }
+    }
+    __syncthreads();
+    if (pi < pn) {  // Y = V^H Z
+      V y = czero;
+      for (int r = act[s0 + pi] + 1 + h; r < m; r += kBtSplit)
+        cfma_conj(y, Vt[r * kBtLdp + pi], Z[r * kBtCols + pc]);
+      Y[(h * kBtPanel + pi) * kBtCols + pc] = y;
+    }
+    __syncthreads();
+    if (h == 0 && pi < pn) {  // W = T Y
+      V wv = czero;
+      for (int i = pi; i < pn; ++i) {
+        V y = Y[i * kBtCols + pc];
+#pragma unroll
+        for (int x = 1; x < kBtSplit; ++x) {
+          const V yx = Y[(x * kBtPanel + i) * kBtCols + pc];
+          y = make_c(y.x + yx.x, y.y + yx.y);
+        }
+        cfma(wv, Tm[pi * kBtPanel + i], y);
+      }
+      Wp[pi * kBtCols + pc] = wv;
+    }
+    __syncthreads();
+    {  // Z -= V W below the panel's first reflector
+      V wc[kBtPanel];
+#pragma unroll
+      for (int i = 0; i < kBtPanel; ++i)
+        wc[i] = (i < pn) ? Wp[i * kBtCols + pc] : czero;
+      for (int r = act[s0] + 1 + tid / kBtCols; r < m;
+           r += kBtThreads / kBtCols) {
+        V acc = czero;
+#pragma unroll
+        for (int i = 0; i < kBtPanel; ++i)
+          if (i < pn) cfma(acc, Vt[r * kBtLdp + i], wc[i]);
+        V& x = Z[r * kBtCols + pc];
+        x = make_c(x.x - acc.x, x.y - acc.y);
+      }
+    }
+    __syncthreads();
+  }
+  for (int idx = tid; idx < m * kBtCols; idx += kBtThreads) {
+    const int r = idx / kBtCols, c = idx % kBtCols;
+    if (c < cw) out[(size_t)r * keep + c0 + c] = Z[idx];
+  }
+}
+
+// The wide variants' launches for real type T: m in [lo, hi], batch
+// matrices; `work` (tridiag: batch x m x m complex) and `scratch` (teig:
+// batch x teig_wide_scratch_reals(m) reals) are the caller's, as every
+// output.
+template <typename T>
+int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
+                     void* d, void* e, int m, int batch, long long h_stride,
+                     void* stream, int lo, int hi) {
+  using V = typename Real<T>::C;
+  if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  tridiag_wide_kernel<T><<<batch, kWideThreads, 0, (cudaStream_t)stream>>>(
+      (const V*)h, (V*)work, (V*)vrows, (V*)tau, (T*)d, (T*)e, m, h_stride);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
+                  void* z, void* scratch, int m, int batch,
+                  long long d_stride, long long e_stride, void* stream,
+                  int lo, int hi) {
+  if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)teig_wide_smem_reals(m) * sizeof(T);
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      teig_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem));
+  teig_wide_kernel<T><<<batch, kWideThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)d, (const T*)e, (const T*)b0, (T*)w, (T*)z, (T*)scratch, m,
+      d_stride, e_stride);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backtransform_wide_run(const void* vrows, const void* tau, const void* z,
+                           void* out, int m, int keep, int batch,
+                           long long v_stride, long long tau_stride,
+                           long long z_stride, void* stream, int lo, int hi) {
+  using V = typename Real<T>::C;
+  if (m < lo || m > hi || keep < 1 || keep > m || batch < 1 ||
+      batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)bt_wide_smem_bytes<T>(m);
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      backtransform_wide_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  const dim3 grid((keep + kBtCols - 1) / kBtCols, batch);
+  backtransform_wide_kernel<T>
+      <<<grid, kBtThreads, smem, (cudaStream_t)stream>>>(
+          (const V*)vrows, (const V*)tau, (const T*)z, (V*)out, m, keep,
+          v_stride, tau_stride, z_stride);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
-
-// Every launcher takes a batch of `batch` matrices: the strides (in
-// elements) between the matrices of each input; the outputs are contiguous
-// in the batch. batch = 1 is the single-matrix launch.
-constexpr int kMaxBatch = 65535;  // backtransform's grid y
 
 int tridiag_launch(const void* h, void* vrows, void* tau, void* d, void* e,
                    int m, int batch, long long h_stride, void* stream) {
@@ -987,6 +1746,57 @@ int backtransform_launch(const void* vrows, const void* tau, const void* z,
       (const float2*)vrows, (const float2*)tau, (const float*)z,
       (float2*)out, m, keep, v_stride, tau_stride, z_stride);
   return (int)cudaGetLastError();
+}
+
+// The wide variants in complex64 (128 < m <= 560).
+int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
+                        void* d, void* e, int m, int batch,
+                        long long h_stride, void* stream) {
+  return tridiag_wide_run<float>(h, work, vrows, tau, d, e, m, batch,
+                                 h_stride, stream, kMaxM + 1, kWideMaxM);
+}
+
+long long teig_wide_scratch(int m) { return teig_wide_scratch_reals(m); }
+
+int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
+                     void* z, void* scratch, int m, int batch,
+                     long long d_stride, long long e_stride, void* stream) {
+  return teig_wide_run<float>(d, e, b0, w, z, scratch, m, batch, d_stride,
+                              e_stride, stream, kMaxM + 1, kWideMaxM);
+}
+
+int backtransform_wide_launch(const void* vrows, const void* tau,
+                              const void* z, void* out, int m, int keep,
+                              int batch, long long v_stride,
+                              long long tau_stride, long long z_stride,
+                              void* stream) {
+  return backtransform_wide_run<float>(vrows, tau, z, out, m, keep, batch,
+                                       v_stride, tau_stride, z_stride, stream,
+                                       kMaxM + 1, kWideMaxM);
+}
+
+// The same kernels in complex128 / float64, at every m (2 <= m <= 504).
+int tridiag_f64_launch(const void* h, void* work, void* vrows, void* tau,
+                       void* d, void* e, int m, int batch, long long h_stride,
+                       void* stream) {
+  return tridiag_wide_run<double>(h, work, vrows, tau, d, e, m, batch,
+                                  h_stride, stream, 2, kWideMaxM64);
+}
+
+int teig_f64_launch(const void* d, const void* e, const void* b0, void* w,
+                    void* z, void* scratch, int m, int batch,
+                    long long d_stride, long long e_stride, void* stream) {
+  return teig_wide_run<double>(d, e, b0, w, z, scratch, m, batch, d_stride,
+                               e_stride, stream, 2, kWideMaxM64);
+}
+
+int backtransform_f64_launch(const void* vrows, const void* tau, const void* z,
+                             void* out, int m, int keep, int batch,
+                             long long v_stride, long long tau_stride,
+                             long long z_stride, void* stream) {
+  return backtransform_wide_run<double>(vrows, tau, z, out, m, keep, batch,
+                                        v_stride, tau_stride, z_stride,
+                                        stream, 2, kWideMaxM64);
 }
 
 // Marks a library whose eigensolver launchers take the batch arguments

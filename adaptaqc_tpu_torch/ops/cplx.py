@@ -11,7 +11,9 @@ through one of two eigensolvers, chosen by the explicit `eigh` argument:
   "kernels"  (the default) the three eigensolver kernels of
              ops/eigh_kernels.py: tridiagonalize -> tridiagonal eigensolver
              -> back-transform. On a CUDA tensor these are hand-written CUDA
-             kernels; on a CPU tensor their plain PyTorch versions.
+             kernels (complex64 and complex128; a call above their reach
+             raises, ops/dispatch.py); on a CPU tensor their plain PyTorch
+             versions.
   "native"   torch.linalg.eigh on the complex Gram, taken in complex128.
 
 `verification_eigh()` makes "native" the default inside its block: one-shot

@@ -4,7 +4,8 @@ library with a plain C interface, bound through ctypes.
 The library is compiled with nvcc for sm_90a at the first kernel launch of a
 process, into `_build/` beside the package (a directory git ignores), under a
 file name keyed by a hash of the sources, so an edited source is never served
-by a stale binary. Importing this module builds nothing and needs no nvcc.
+by a stale binary: one nvcc process a source, all started together, then one
+link. Importing this module builds nothing and needs no nvcc.
 
 Every launcher in the library takes device pointers and the CUDA stream as
 `void*`, launches on that stream without synchronising, and returns the
@@ -36,11 +37,22 @@ _L = ctypes.c_longlong  # a stride between the matrices of a batch, in elements
 # launcher name -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "env_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "env_chain_cluster_size": (_I,),
+    "env_chain_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "env_chain_cluster_size": (_I, _I),
     "tridiag_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "backtransform_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P),
+    "tridiag_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "teig_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+    "backtransform_wide_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                                  _P),
+    "tridiag_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "teig_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+    "backtransform_f64_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                                 _P),
 }
+_RESTYPES = {"teig_wide_scratch": ((_I,), ctypes.c_longlong),
+             "env_chain_f64_partials": ((_I,), ctypes.c_longlong)}
 
 _lib = None
 build_seconds = None  # wall time of this process's nvcc run, if it built
@@ -72,12 +84,29 @@ def build() -> Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    nvcc = _nvcc()
+    objs = [path.with_suffix(f".{os.getpid()}.{name}.o") for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj),
+                               str(CSRC / name)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for name, obj in zip(SOURCES, objs)]
+    errors = []
+    for name, proc in zip(SOURCES, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name} ({proc.returncode}):\n{err}")
+    if not errors:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            errors.append(f"link ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
     os.replace(tmp, path)  # atomic: concurrent builders never see half a file
     build_seconds = time.perf_counter() - t0
     return path
@@ -92,6 +121,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        for name, (argtypes, restype) in _RESTYPES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
         handle.adaptaqc_error_string.argtypes = [ctypes.c_int]
         handle.adaptaqc_error_string.restype = ctypes.c_char_p
         _lib = handle
@@ -116,8 +149,7 @@ def require(t, name: str, dtype, shape) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype} (the CUDA "
-                        f"kernels are complex64/float32 only)")
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")

@@ -1,0 +1,55 @@
+"""Whether a kernel wrapper launches its CUDA kernel: one rule of (op,
+device type, dtype, size), decided before anything is launched.
+
+  CPU                                  -> False: the wrapper runs its plain
+                                          PyTorch version
+  CUDA, a dtype and size within REACH  -> True: the wrapper launches the
+                                          kernel
+  CUDA, anything else                  -> raises (TypeError for the dtype,
+                                          ValueError for the size)
+
+Any device but the CPU is held to the card's rule; the wrapper then
+refuses a tensor that is not on a CUDA device.
+
+There is no other route on the card: a call that no kernel takes is
+refused, not sent to plain or library code. The size is the bond dimension
+chi for the env chain (op "env", K1) and the Gram's m = 2 chi (or chi, from
+the center-gauge engine's moves) for the eigensolver (op "eigh", K2-K4).
+Counterpart of the JAX package's `supported()` gates (ops/pallas_env.py:36,
+ops/pallas_eigh.py:37), which send what its TPU kernels do not take down
+its XLA path instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# op -> complex dtype -> (smallest, largest) size its kernels take
+REACH = {
+    # csrc/env_chain.cu: complex64 narrow to chi 64, wide to 128; complex128
+    # in its double instantiation, partials through global memory
+    "env": {torch.complex64: (1, 128), torch.complex128: (1, 128)},
+    # csrc/eigh_tridiag.cu: complex64 to m 128, the wide variants to 560
+    # (the JAX kernels' own reach); complex128 in the wide variants' double
+    # instantiation, to m 504 (backtransform's panel in shared memory)
+    "eigh": {torch.complex64: (2, 560), torch.complex128: (2, 504)},
+}
+
+
+def use_kernel(op: str, device_type: str, dtype: torch.dtype,
+               size: int) -> bool:
+    """True where the call launches the kernel, False where it runs the
+    plain version (a CPU tensor); raises for a call on the card that no
+    kernel takes. `dtype` is the complex dtype of the call (teig's real
+    input maps to its complex counterpart)."""
+    reach = REACH[op]
+    if device_type == "cpu":
+        return False
+    if dtype not in reach:
+        raise TypeError(f"{op}: the CUDA kernels take "
+                        f"{sorted(map(str, reach))}, got {dtype}")
+    lo, hi = reach[dtype]
+    if not lo <= size <= hi:
+        raise ValueError(f"{op}: the CUDA kernels take {lo} <= size <= {hi} "
+                         f"in {dtype}, got {size}")
+    return True

@@ -21,12 +21,17 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
   backtransform  out = H_0 H_1 ... H_{m-2} z with H_k = I - tau_k v_k v_k^H.
 
 Each wrapper runs the plain version for a tensor on the CPU and launches the
-CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device; it raises
-for anything the kernel does not take (complex128/float64, m > 128, a
-non-contiguous tensor). There is no fallback from the kernel to the plain
-version. Each wrapper counts its launches in `<wrapper>.launches`, and those
-of them that took a batch (P > 1 matrices in one launch) in
-`<wrapper>.batched_launches`.
+CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device
+(ops/dispatch.py): in complex64 for m <= 128 the register and shared-memory
+designs, for 128 < m <= 560 their wide variants (working sets in global
+memory), chosen by m alone; in complex128 / float64 the wide variants'
+double instantiation, for every m <= 504. It raises for anything the
+kernels do not take (m above the cap of its dtype, another dtype, a
+non-contiguous tensor). There is no fallback from a kernel to the plain
+version. Each wrapper counts its launches in `<wrapper>.launches`, those of
+them that took a batch (P > 1 matrices in one launch) in
+`<wrapper>.batched_launches`, those of the complex64 wide variant in
+`<wrapper>.wide_launches` and those in double in `<wrapper>.f64_launches`.
 
 Every function here also takes one leading batch dimension P (h of shape
 (P, m, m), d of (P, m), ...): the full-cost sweep applies each gate to its
@@ -43,9 +48,10 @@ import functools
 import numpy as np
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, dispatch
 
-MAX_M = 128  # one block holds the m x m complex work matrix in shared memory
+NARROW_MAX_M = 128  # the register and shared-memory designs; above it the
+                    # wide variants
 _B0_SEED = 181818
 
 
@@ -305,12 +311,6 @@ def backtransform_plain(vrows: torch.Tensor, tau: torch.Tensor,
 
 # --------------------------------------------------------------- wrappers
 
-def _check_m(m: int, name: str):
-    if m < 2 or m > MAX_M:
-        raise ValueError(f"{name}: the CUDA kernel takes 2 <= m <= {MAX_M}, "
-                         f"got m={m}")
-
-
 def _batch_of(t: torch.Tensor, core_dims: int, name: str):
     """(lead, P): the leading shape () or (P,) of a tensor whose matrix or
     vector takes the last `core_dims` dimensions, and the batch size."""
@@ -321,27 +321,42 @@ def _batch_of(t: torch.Tensor, core_dims: int, name: str):
     return lead, (lead[0] if lead else 1)
 
 
+def _count(fn, p: int, m: int, f64: bool):
+    fn.launches += 1
+    fn.batched_launches += p > 1
+    fn.wide_launches += not f64 and m > NARROW_MAX_M
+    fn.f64_launches += f64
+
+
 def tridiag(h: torch.Tensor):
     """Kernel K2 (replaces pallas_eigh._tridiag_kernel). h (m, m) or
     (P, m, m) must already be Hermitian (the caller symmetrises it). Same
     outputs as tridiag_plain; one launch whatever P."""
-    if h.device.type == "cpu":
-        return tridiag_plain(h)
     m = h.shape[-1]
-    _check_m(m, "tridiag")
+    if not dispatch.use_kernel("eigh", h.device.type, h.dtype, m):
+        return tridiag_plain(h)
     lead, p = _batch_of(h, 2, "tridiag")
-    cuda_lib.require(h, "tridiag h", torch.complex64, lead + (m, m))
+    cuda_lib.require(h, "tridiag h", h.dtype, lead + (m, m))
     dev = h.device
-    vrows = torch.empty(lead + (m, m), dtype=torch.complex64, device=dev)
-    tau = torch.empty(lead + (m,), dtype=torch.complex64, device=dev)
-    d = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
-    e = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
-    rc = cuda_lib.lib().tridiag_launch(
-        h.data_ptr(), vrows.data_ptr(), tau.data_ptr(), d.data_ptr(),
-        e.data_ptr(), m, p, m * m, cuda_lib.stream_of(h))
+    f64 = h.dtype == torch.complex128
+    rdt = torch.float64 if f64 else torch.float32
+    vrows = torch.empty(lead + (m, m), dtype=h.dtype, device=dev)
+    tau = torch.empty(lead + (m,), dtype=h.dtype, device=dev)
+    d = torch.empty(lead + (m,), dtype=rdt, device=dev)
+    e = torch.empty(lead + (m,), dtype=rdt, device=dev)
+    lib = cuda_lib.lib()
+    if f64 or m > NARROW_MAX_M:
+        work = torch.empty_like(vrows)  # the wide variant's working matrix
+        launch = lib.tridiag_f64_launch if f64 else lib.tridiag_wide_launch
+        rc = launch(h.data_ptr(), work.data_ptr(), vrows.data_ptr(),
+                    tau.data_ptr(), d.data_ptr(), e.data_ptr(), m, p, m * m,
+                    cuda_lib.stream_of(h))
+    else:
+        rc = lib.tridiag_launch(
+            h.data_ptr(), vrows.data_ptr(), tau.data_ptr(), d.data_ptr(),
+            e.data_ptr(), m, p, m * m, cuda_lib.stream_of(h))
     cuda_lib.check(rc, "tridiag")
-    tridiag.launches += 1
-    tridiag.batched_launches += p > 1
+    _count(tridiag, p, m, f64)
     return vrows, tau, d, e
 
 
@@ -350,23 +365,35 @@ def teig(d: torch.Tensor, e: torch.Tensor):
     teig_plain: (w (m,) descending, z (m, m) eigenvector columns), with the
     leading batch dimension of d and e if they have one; w bit for bit, z
     to rounding (the kernel orthogonalises in panels, BCGS2)."""
-    if d.device.type == "cpu":
-        return teig_plain(d, e)
     m = d.shape[-1]
-    _check_m(m, "teig")
+    if not dispatch.use_kernel("eigh", d.device.type,
+                               torch.promote_types(d.dtype, torch.complex64),
+                               m):
+        return teig_plain(d, e)
     lead, p = _batch_of(d, 1, "teig")
-    cuda_lib.require(d, "teig d", torch.float32, lead + (m,))
-    cuda_lib.require(e, "teig e", torch.float32, lead + (m,))
+    rdt = d.dtype
+    cuda_lib.require(d, "teig d", rdt, lead + (m,))
+    cuda_lib.require(e, "teig e", rdt, lead + (m,))
     dev = d.device
-    b0 = teig_b0(m, torch.float32, dev)
-    w = torch.empty(lead + (m,), dtype=torch.float32, device=dev)
-    z = torch.empty(lead + (m, m), dtype=torch.float32, device=dev)
-    rc = cuda_lib.lib().teig_launch(
-        d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
-        z.data_ptr(), m, p, m, m, cuda_lib.stream_of(d))
+    f64 = rdt == torch.float64
+    lib = cuda_lib.lib()
+    b0 = teig_b0(m, rdt, dev)
+    w = torch.empty(lead + (m,), dtype=rdt, device=dev)
+    z = torch.empty(lead + (m, m), dtype=rdt, device=dev)
+    if f64 or m > NARROW_MAX_M:
+        # the wide variant's LU factors and swap bits
+        scratch = torch.empty((p, lib.teig_wide_scratch(m)), dtype=rdt,
+                              device=dev)
+        launch = lib.teig_f64_launch if f64 else lib.teig_wide_launch
+        rc = launch(d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
+                    z.data_ptr(), scratch.data_ptr(), m, p, m, m,
+                    cuda_lib.stream_of(d))
+    else:
+        rc = lib.teig_launch(
+            d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
+            z.data_ptr(), m, p, m, m, cuda_lib.stream_of(d))
     cuda_lib.check(rc, "teig")
-    teig.launches += 1
-    teig.batched_launches += p > 1
+    _count(teig, p, m, f64)
     return w, z
 
 
@@ -376,31 +403,37 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
     `keep` columns of z lifted to the complex basis, (m, keep), or
     (P, m, keep) for a batch. Each matrix drops its own inactive reflectors
     inside the kernel: the wrapper reads nothing back."""
-    if vrows.device.type == "cpu":
-        return backtransform_plain(vrows, tau, z, keep)
     m = vrows.shape[-1]
-    _check_m(m, "backtransform")
+    if not dispatch.use_kernel("eigh", vrows.device.type, vrows.dtype, m):
+        return backtransform_plain(vrows, tau, z, keep)
     if not 1 <= keep <= m:
         raise ValueError(f"backtransform: keep={keep} outside [1, {m}]")
     lead, p = _batch_of(vrows, 2, "backtransform")
-    cuda_lib.require(vrows, "backtransform vrows", torch.complex64,
+    f64 = vrows.dtype == torch.complex128
+    cuda_lib.require(vrows, "backtransform vrows", vrows.dtype,
                      lead + (m, m))
-    cuda_lib.require(tau, "backtransform tau", torch.complex64, lead + (m,))
-    cuda_lib.require(z, "backtransform z", torch.float32, lead + (m, m))
-    out = torch.empty(lead + (m, keep), dtype=torch.complex64,
+    cuda_lib.require(tau, "backtransform tau", vrows.dtype, lead + (m,))
+    cuda_lib.require(z, "backtransform z",
+                     torch.float64 if f64 else torch.float32, lead + (m, m))
+    out = torch.empty(lead + (m, keep), dtype=vrows.dtype,
                       device=vrows.device)
-    rc = cuda_lib.lib().backtransform_launch(
-        vrows.data_ptr(), tau.data_ptr(), z.data_ptr(), out.data_ptr(), m,
-        keep, p, m * m, m, m * m, cuda_lib.stream_of(vrows))
+    lib = cuda_lib.lib()
+    launch = (lib.backtransform_f64_launch if f64
+              else lib.backtransform_wide_launch if m > NARROW_MAX_M
+              else lib.backtransform_launch)
+    rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
+                out.data_ptr(), m, keep, p, m * m, m, m * m,
+                cuda_lib.stream_of(vrows))
     cuda_lib.check(rc, "backtransform")
-    backtransform.launches += 1
-    backtransform.batched_launches += p > 1
+    _count(backtransform, p, m, f64)
     return out
 
 
 for _fn in (tridiag, teig, backtransform):
     _fn.launches = 0
     _fn.batched_launches = 0
+    _fn.wide_launches = 0
+    _fn.f64_launches = 0
 
 
 def eigh_top_kernels(h: torch.Tensor, keep: int):

@@ -15,20 +15,25 @@ from the B-form site tensors of the bra R and the ket L (n, 2, chi, chi):
 with A = R's and B = L's tensors and both chains starting from |0><0| on the
 (padded) boundary bond. The wrapper runs the plain version for tensors on the
 CPU and launches the CUDA kernel (csrc/env_chain.cu) for tensors on a CUDA
-device, raising for anything the kernel does not take (complex128,
-chi > 64, a non-contiguous or misaligned tensor). The kernel runs each chain
-on a thread-block cluster and combines in whichever cluster finishes last,
-chosen through a counter that the wrapper keeps per device and stream.
-Launches are counted in `env_chain.launches`.
+device (ops/dispatch.py), raising for anything the kernel does not take
+(chi > 128, another dtype, a non-contiguous or misaligned tensor). The
+kernel runs each chain on a thread-block cluster and combines in whichever
+cluster finishes last, chosen through a counter that the wrapper keeps per
+device and stream; complex64 above chi = 64 takes its wide variant, and
+complex128 its double instantiation at every chi. Launches are counted in
+`env_chain.launches`, those of the complex64 wide variant also in
+`env_chain.wide_launches` and those in complex128 in
+`env_chain.f64_launches`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, dispatch
 
-MAX_CHI = 64  # a CTA holds both B_p of a site and two chi x chi partials
+NARROW_MAX_CHI = 64  # the narrow variant holds both B_p of a site and two
+                     # chi x chi partials in a CTA's shared memory
 
 _COUNTERS = {}  # (device, stream) -> the kernel's combine counter (int32)
 
@@ -87,10 +92,11 @@ def env_chain_plain(br: torch.Tensor, bl: torch.Tensor, q: int):
     return torch.einsum("iax,jax->ij", br[q].conj(), h)
 
 
-def cluster_size(chi: int) -> int:
+def cluster_size(chi: int, f64: bool = False) -> int:
     """CTAs a chain the kernel runs on at this chi (8, or 16 where the card
-    takes two such clusters at once; never more than chi)."""
-    cs = cuda_lib.lib().env_chain_cluster_size(int(chi))
+    takes two such clusters at once; never more than chi), in complex64 or
+    (f64) complex128."""
+    cs = cuda_lib.lib().env_chain_cluster_size(int(chi), int(f64))
     if cs == 0:
         raise RuntimeError(f"env_chain: no cluster size can launch chi={chi}")
     return cs
@@ -98,30 +104,45 @@ def cluster_size(chi: int) -> int:
 
 def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
     """Kernel K1 (replaces pallas_env._env_kernel): C (2, 2) complex."""
-    if br.device.type == "cpu":
-        return env_chain_plain(br, bl, q)
     n, _, chi, _ = br.shape
-    if chi > MAX_CHI:
-        raise ValueError(f"env_chain: the CUDA kernel takes chi <= {MAX_CHI}, "
-                         f"got chi={chi}")
+    if not dispatch.use_kernel("env", br.device.type, br.dtype, chi):
+        return env_chain_plain(br, bl, q)
     if not 0 <= q < n:
         raise ValueError(f"env_chain: site q={q} outside [0, {n})")
-    cuda_lib.require(br, "env_chain bra", torch.complex64, (n, 2, chi, chi))
-    cuda_lib.require(bl, "env_chain ket", torch.complex64, (n, 2, chi, chi))
+    dt = br.dtype
+    cuda_lib.require(br, "env_chain bra", dt, (n, 2, chi, chi))
+    cuda_lib.require(bl, "env_chain ket", dt, (n, 2, chi, chi))
     if bl.device != br.device:
         raise ValueError("env_chain: bra and ket on different devices")
     if (br.data_ptr() | bl.data_ptr()) % 16:
         raise ValueError("env_chain: site stacks must be 16-byte aligned")
+    f64 = dt == torch.complex128
+    lib = cuda_lib.lib()
     stream = cuda_lib.stream_of(br)
-    snaps = torch.empty((2, chi, chi), dtype=torch.complex64, device=br.device)
-    out = torch.empty((2, 2), dtype=torch.complex64, device=br.device)
-    rc = cuda_lib.lib().env_chain_launch(
-        br.data_ptr(), bl.data_ptr(), snaps.data_ptr(),
-        _counter(br.device, stream).data_ptr(), out.data_ptr(), n, chi,
-        int(q), stream)
+    counter = _counter(br.device, stream).data_ptr()
+    snaps = torch.empty((2, chi, chi), dtype=dt, device=br.device)
+    out = torch.empty((2, 2), dtype=dt, device=br.device)
+    if f64:
+        count = lib.env_chain_f64_partials(chi)
+        if count == 0:
+            raise RuntimeError(f"env_chain: no cluster size can launch "
+                               f"chi={chi} in complex128")
+        partials = torch.empty(count, dtype=dt, device=br.device)
+        rc = lib.env_chain_f64_launch(
+            br.data_ptr(), bl.data_ptr(), snaps.data_ptr(),
+            partials.data_ptr(), counter, out.data_ptr(), n, chi, int(q),
+            stream)
+    else:
+        rc = lib.env_chain_launch(
+            br.data_ptr(), bl.data_ptr(), snaps.data_ptr(), counter,
+            out.data_ptr(), n, chi, int(q), stream)
     cuda_lib.check(rc, "env_chain")
     env_chain.launches += 1
+    env_chain.wide_launches += not f64 and chi > NARROW_MAX_CHI
+    env_chain.f64_launches += f64
     return out
 
 
 env_chain.launches = 0
+env_chain.wide_launches = 0
+env_chain.f64_launches = 0

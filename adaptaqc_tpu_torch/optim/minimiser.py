@@ -14,9 +14,16 @@ Rotoselect dispatch in the JAX package's order (minimiser.py:89-99):
    cost evaluation): backends with no sweep engine (sampling) and
    parameterised ('#'/'@' labelled) circuits.
 
-The generic optimisers (scipy, nlopt, BOBYQA) and the subsampled device
-sweep (rotosolve_fraction < 1 with Rotosolve) are not ported yet and raise
-NotImplementedError.
+Under Rotosolve with rotosolve_fraction < 1 the O(G) device sweep runs one
+cycle at a time, each over a fresh random subsample of the window's
+rotation gates (the stdlib `random` module, as in the JAX package).
+
+The generic optimisers run on the host over all variational angles, each
+evaluation a full cost: scipy.optimize.minimize; nlopt, where installed;
+and BOBYQA, pybobyqa where installed, else the package's own optim/bobyqa.py
+(neither nlopt nor pybobyqa is a dependency: without nlopt an "LN_BOBYQA"
+or None identifier runs the own BOBYQA too, logged, and any other raises as
+the JAX package does).
 """
 
 from __future__ import annotations
@@ -26,12 +33,14 @@ import random
 from typing import Optional, Tuple
 
 import numpy as np
+from scipy.optimize import minimize
 
 from ..backends.backend import softening_alpha
 from ..circuits import operations as co
 from ..circuits.tape import compile_tape, select_mask, writeback_angles
 from ..utils import constants as vconstants
-from .sinusoidal import has_stopped_improving, minimum_of_sinusoidal
+from .sinusoidal import (derivative_of_sinusoidal, has_stopped_improving,
+                         minimum_of_sinusoidal)
 from . import sweeps
 
 logger = logging.getLogger(__name__)
@@ -72,14 +81,15 @@ class CostMinimiser:
         when the compiler is in local or softened mode: the hybrid
         schedule's periodic consolidation pass (the compiler's global
         polish)."""
+        if alg_kwargs is None:
+            alg_kwargs = {}
         if algorithm_kind in (vconstants.ALG_ROTOSOLVE,
                               vconstants.ALG_ROTOSELECT):
             rotoselect = algorithm_kind == vconstants.ALG_ROTOSELECT
             if self._can_fast_sweep(force_global=force_global):
                 if self.rotosolve_fraction < 1.0 and not rotoselect:
-                    raise NotImplementedError(
-                        "the subsampled device sweep (rotosolve_fraction "
-                        "< 1) is not ported yet (ROADMAP.md)")
+                    return self._roto_device_sampled(
+                        max_cycles, stop_val, tol, indexes_to_modify)
                 return self._roto_device(rotoselect, max_cycles, stop_val,
                                          tol, indexes_to_modify)
             if self._can_full_sweep(rotoselect):
@@ -88,8 +98,13 @@ class CostMinimiser:
                                               indexes_to_modify)
             return self._roto_host(rotoselect, max_cycles, stop_val, tol,
                                    indexes_to_modify)
-        raise NotImplementedError(
-            f"optimiser {algorithm_kind!r} is not ported yet (ROADMAP.md)")
+        if algorithm_kind == vconstants.ALG_SCIPY:
+            return self._scipy_minimize(algorithm_identifier, tol, alg_kwargs)
+        if algorithm_kind == vconstants.ALG_NLOPT:
+            return self._nlopt_minimize(algorithm_identifier, stop_val, tol)
+        if algorithm_kind == vconstants.ALG_PYBOBYQA:
+            return self._pybobyqa_minimize(alg_kwargs)
+        raise ValueError(f"Invalid algorithm kind {algorithm_kind}")
 
     def _reject_sweep(self, alg_name: str, cost: float, cost0: float) -> float:
         """Restore-on-fail: discard the sweep (no angle write-back, so the
@@ -151,8 +166,9 @@ class CostMinimiser:
         return (1.0, 0.0, float(alpha))
 
     def _sweep_tape(self, indexes_to_modify):
-        """What both device sweeps start from: (prefix state, tape, its
-        range in full_circuit, select mask). Gates left of the modify
+        """What the device sweeps start from: (prefix state, tape, its
+        range in full_circuit, select mask, the window's tape-relative
+        instruction indices). Gates left of the modify
         window are fixed for the whole call: the prefix is advanced past
         them once (or taken from the compiler's advance hint, the state up
         to the window peeled from its full-state cache); the tape covers
@@ -179,13 +195,15 @@ class CostMinimiser:
         tape_range = (tape_start, len(self.full_circuit.data))
         tape = compile_tape(self.full_circuit, tape_range)
         base_indices = [i - tape_range[0] for i in range(*indexes_to_modify)]
-        return prefix, tape, tape_range, select_mask(tape, base_indices)
+        return (prefix, tape, tape_range, select_mask(tape, base_indices),
+                base_indices)
 
     def _roto_device_full(self, rotoselect, max_cycles, stop_val, tol,
                           indexes_to_modify):
         comp = self.compiler
         alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
-        prefix, tape, tape_range, mask = self._sweep_tape(indexes_to_modify)
+        prefix, tape, tape_range, mask, _ = self._sweep_tape(
+            indexes_to_modify)
         logger.info(f"Starting {alg_name} (full-cost device path)")
         # the full-state cache, when valid, is prefix + tape at the input
         # angles: it spares the probe-free pass that gives the initial cost
@@ -209,7 +227,8 @@ class CostMinimiser:
                      indexes_to_modify):
         comp = self.compiler
         alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
-        prefix, tape, tape_range, mask = self._sweep_tape(indexes_to_modify)
+        prefix, tape, tape_range, mask, _ = self._sweep_tape(
+            indexes_to_modify)
         ref = comp.backend.zero_ref(comp)
         engine = comp.backend.sweep_engine()
         bl = sweeps.default_block_len(tape.padded_length,
@@ -255,6 +274,58 @@ class CostMinimiser:
         comp._current_cache = final_state
         logger.info(f"{alg_name} finished with cost {cost}")
         return float(cost)
+
+    def _roto_device_sampled(self, max_cycles, stop_val, tol,
+                             indexes_to_modify):
+        """Rotosolve under rotosolve_fraction < 1: one O(G) device sweep a
+        cycle, each over its own random subsample of the window's rotation
+        gates (_cycle_mask), stopped by the host loop's rule. As in the JAX
+        package there is no backwards guard on this path."""
+        comp = self.compiler
+        prefix, tape, tape_range, full_mask, base_indices = \
+            self._sweep_tape(indexes_to_modify)
+        ref = comp.backend.zero_ref(comp)
+        engine = comp.backend.sweep_engine()
+        bl = sweeps.default_block_len(tape.padded_length,
+                                      sweeps.state_nbytes(prefix))
+        logger.info("Starting ROTOSOLVE (subsampled, on device)")
+        kinds, angles = tape.kinds, tape.angles
+        final_state = None
+        cost = self.cost_finder()
+        cycles = 0
+        cost_history = []
+        while cost > stop_val and cycles < max_cycles:
+            mask = self._cycle_mask(tape, full_mask, base_indices, False)
+            kinds, angles, cost, final_state, evals, _ = sweeps.sweep(
+                engine, bl, False, prefix, ref, kinds, tape.q0, tape.q1,
+                angles, mask)
+            comp.cost_evaluation_counter += int(evals)
+            cycles += 1
+            logger.info(f"ROTOSOLVE cycle: {cycles}")
+            cost_history.append(cost)
+            if len(cost_history) > 3 and has_stopped_improving(
+                    cost_history[-3:], tol):
+                break
+        writeback_angles(self.full_circuit, tape_range, tape, kinds, angles)
+        comp._invalidate_current()
+        if final_state is not None:
+            comp._current_cache = final_state
+        logger.info(f"ROTOSOLVE finished with cost {cost}")
+        return float(cost)
+
+    def _cycle_mask(self, tape, full_mask, base_indices, rotoselect):
+        """One cycle's subsample under rotosolve_fraction (the JAX
+        package's minimiser.py:398-407, cost_minimiser.py:293-302): the
+        window's rotation gates, ceil(fraction x count) of them drawn by
+        random.sample."""
+        if self.rotosolve_fraction >= 1.0 or rotoselect:
+            return full_mask
+        rotation_local = [i for i in base_indices
+                          if tape.data_index_map[i][1] == 1
+                          and tape.trainable[tape.data_index_map[i][0]]]
+        num = int(np.ceil(self.rotosolve_fraction * len(rotation_local)))
+        sample = random.sample(rotation_local, num)
+        return select_mask(tape, sorted(sample))
 
     # ------------------------------------------------------- host probe loop
     def _roto_host(self, rotoselect, max_cycles, stop_val, tol,
@@ -343,3 +414,169 @@ class CostMinimiser:
         self.full_circuit.data[gate_index] = original
         self.compiler._invalidate_current()
         return theta_min, cost_min
+
+    # ----------------------------------------------------- generic optimisers
+    def _find_cost_with_angles(self, angles, grad=None):
+        co.update_angles_in_circuit(self.full_circuit, angles,
+                                    self.variational_circuit_range())
+        self.compiler._invalidate_current()
+        if grad is not None and np.size(grad) > 0:
+            self._update_gradient_of_circuit(grad)
+        return self.cost_finder()
+
+    def _scipy_minimize(self, method, tol, alg_kwargs):
+        initial = co.find_angles_in_circuit(self.full_circuit,
+                                            self.variational_circuit_range())
+        if len(initial) == 0:
+            return self.cost_finder()
+        result = minimize(fun=self._find_cost_with_angles, method=method,
+                          x0=initial, tol=tol, **alg_kwargs)
+        co.update_angles_in_circuit(self.full_circuit, result["x"],
+                                    self.variational_circuit_range())
+        self.compiler._invalidate_current()
+        return result["fun"]
+
+    def _nlopt_minimize(self, algorithm_identifier, stop_val, tol):
+        """cost_minimiser.py:108-142. Without the nlopt package an
+        identifier naming BOBYQA ("LN_BOBYQA", "bobyqa" or None) runs the
+        package's own BOBYQA, logged; any other raises, as the JAX package
+        does."""
+        try:
+            import nlopt
+        except ModuleNotFoundError:
+            if algorithm_identifier in (None, "LN_BOBYQA", "bobyqa"):
+                logger.info("nlopt not installed: running the native BOBYQA "
+                            "implementation (optim.bobyqa) for "
+                            f"identifier={algorithm_identifier!r}")
+                kw = {"rhoend": max(tol, 1e-10)}
+                if np.isfinite(stop_val):
+                    kw["stopval"] = stop_val
+                return self._pybobyqa_minimize(kw)
+            logger.error("NLOPT not installed and identifier "
+                         f"{algorithm_identifier!r} has no native equivalent")
+            raise
+        initial = co.find_angles_in_circuit(self.full_circuit,
+                                            self.variational_circuit_range())
+        if len(initial) == 0:
+            return self.cost_finder()
+        opt = nlopt.opt(algorithm_identifier, len(initial))
+        opt.set_upper_bounds([np.pi] * len(initial))
+        opt.set_lower_bounds([-np.pi] * len(initial))
+        opt.set_stopval(stop_val)
+        opt.set_ftol_rel(tol)
+        opt.set_xtol_abs(1e-10)
+        opt.set_min_objective(self._find_cost_with_angles)
+        final = opt.optimize(initial)
+        co.update_angles_in_circuit(self.full_circuit, final,
+                                    self.variational_circuit_range())
+        self.compiler._invalidate_current()
+        return opt.last_optimum_value()
+
+    def _pybobyqa_minimize(self, alg_kwargs):
+        """cost_minimiser.py:160-193: BOBYQA over all variational angles
+        with [-pi, pi] bounds and objfun_has_noise; on an exception the
+        angles are restored and their cost returned. pybobyqa where
+        installed, else optim/bobyqa.py (the same algorithm), logged."""
+        initial = co.find_angles_in_circuit(self.full_circuit,
+                                            self.variational_circuit_range())
+        if len(initial) == 0:
+            return self.cost_finder()
+        alg_kwargs = dict(alg_kwargs)
+        try:
+            import pybobyqa
+            solve = pybobyqa.solve
+            alg_kwargs.pop("stopval", None)  # the own BOBYQA's option only
+        except ModuleNotFoundError:
+            logger.info("pybobyqa not installed: using the native BOBYQA "
+                        "implementation (optim.bobyqa)")
+            from . import bobyqa
+            solve = bobyqa.solve
+        bounds = ([-np.pi] * len(initial), [np.pi] * len(initial))
+        try:
+            result = solve(self._find_cost_with_angles, initial,
+                           bounds=bounds, objfun_has_noise=True,
+                           print_progress=False, do_logging=False,
+                           **alg_kwargs)
+            co.update_angles_in_circuit(self.full_circuit, result.x,
+                                        self.variational_circuit_range())
+            self.compiler._invalidate_current()
+            return result.f
+        except Exception as e:  # restore and report (cost_minimiser.py:188)
+            logger.error(f"BOBYQA failed with exception: {e}")
+            co.update_angles_in_circuit(self.full_circuit, initial,
+                                        self.variational_circuit_range())
+            self.compiler._invalidate_current()
+            return self.cost_finder()
+
+    # --------------------------------------------------- local-minimum escape
+    def try_escaping_periodic_local_minimum(self, gap_between_minima,
+                                            first_minima_loc, penalty_amp=0.1):
+        """Sinusoidal-penalty escape (cost_minimiser.py:197-248): up to five
+        Nelder-Mead runs on the cost plus a periodic penalty, the first at
+        the penalty's own period, then at random multiples of it (numpy's
+        global generator), until the cost falls below where it started."""
+        initial_cost = self.cost_finder()
+        initial_angles = co.find_angles_in_circuit(
+            self.full_circuit, self.variational_circuit_range())
+        num_attempts = 5
+        stochastic_param = 1
+
+        def cost_with_penalty(angles, grad=None):
+            cost = self._find_cost_with_angles(angles, grad)
+            penalty = penalty_amp * np.cos(
+                np.pi + ((cost - first_minima_loc) * 2 * np.pi
+                         * (1 / gap_between_minima) * stochastic_param))
+            return cost + penalty
+
+        actual_cost = initial_cost
+        for i in range(num_attempts):
+            res = minimize(cost_with_penalty, initial_angles,
+                           method="Nelder-Mead")
+            co.update_angles_in_circuit(self.full_circuit, res.x,
+                                        self.variational_circuit_range())
+            self.compiler._invalidate_current()
+            actual_cost = self.cost_finder()
+            logger.debug(f"{i}th attempt to escape minima: initial cost = "
+                         f"{initial_cost}, final cost with penalty = "
+                         f"{res.fun}, actual final cost = {actual_cost}")
+            stochastic_param = np.random.random() * 10
+            if actual_cost < initial_cost:
+                break
+        return actual_cost
+
+    def _update_gradient_of_circuit(self, grad, method="parameter_shift"):
+        """The gradient of the cost in every variational angle, written into
+        grad (cost_minimiser.py:370-418): by the parameter shift (two cost
+        evaluations an angle) or, for any other method, from the sinusoid
+        through 0 and +-pi/2."""
+        angles = co.find_angles_in_circuit(self.full_circuit)
+        angle_index = 0
+        for gate_index in range(*self.variational_circuit_range()):
+            instr = self.full_circuit.data[gate_index]
+            if not instr.is_supported_1q_gate():
+                continue
+            label = instr.label or instr.name
+            current = angles[angle_index]
+            if method == "parameter_shift":
+                r = 0.5
+                shift = np.pi / (4 * r)
+                co.replace_1q_gate(self.full_circuit, gate_index, label,
+                                   current + shift)
+                self.compiler._invalidate_current()
+                vp = self.cost_finder()
+                co.replace_1q_gate(self.full_circuit, gate_index, label,
+                                   current - shift)
+                self.compiler._invalidate_current()
+                vm = self.cost_finder()
+                grad[angle_index] = r * (vp - vm)
+            else:
+                vals = []
+                for theta in (0, np.pi / 2, -np.pi / 2):
+                    co.replace_1q_gate(self.full_circuit, gate_index, label,
+                                       theta)
+                    self.compiler._invalidate_current()
+                    vals.append(self.cost_finder())
+                grad[angle_index] = derivative_of_sinusoidal(current, *vals)
+            co.replace_1q_gate(self.full_circuit, gate_index, label, current)
+            self.compiler._invalidate_current()
+            angle_index += 1

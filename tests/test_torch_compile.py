@@ -143,16 +143,27 @@ def test_adapt_compile_slice_matches_jax():
     assert abs(ov - tres.overlap) < 1e-6
 
 
-def test_unported_paths_raise():
-    """What is not ported raises by name instead of taking another path
-    (the final BOBYQA minimisation, the BOBYQA optimiser); the softened
-    cost and the local-cost full sweep, which once raised too, now run."""
+def test_bobyqa_final_minimisation_softened_and_local_paths_run():
+    """Every compile option the JAX package runs runs here too, on the MPS
+    path: BOBYQA layers (use_roto_algos=False) and the final BOBYQA
+    minimisation, which once raised NotImplementedError, end with a finite
+    overlap that the final minimisation does not lower; the softened cost
+    and the local-cost full sweep, which once raised too, also run."""
+    from adaptaqc_tpu_torch.ops import cplx
     qmps = random_target(1, n=4, dtype=C128, device="cpu")
     backend = mps_backend_with_args(max_chi=4, dtype=C128, device="cpu")
-    with pytest.raises(NotImplementedError, match="perform_final"):
-        AdaptCompiler(qmps, backend=backend, perform_final_minimisation=True)
-    with pytest.raises(NotImplementedError, match="use_roto_algos"):
-        AdaptCompiler(qmps, backend=backend, use_roto_algos=False)
+    overlaps = {}
+    for kw in ({"use_roto_algos": False}, {"perform_final_minimisation": False},
+               {"perform_final_minimisation": True}):
+        comp = AdaptCompiler(qmps, backend=backend,
+                             adapt_config=AdaptConfig(method="basic",
+                                                      max_layers=2), **kw)
+        with cplx.verification_eigh():
+            result = comp.compile()
+        assert np.isfinite(result.overlap) and 0 <= result.overlap <= 1 + 1e-9
+        overlaps[tuple(kw.items())] = result.overlap
+    assert (overlaps[(("perform_final_minimisation", True),)]
+            >= overlaps[(("perform_final_minimisation", False),)] - 1e-9)
     soft = AdaptCompiler(qmps, backend=backend, soften_global_cost=True,
                          adapt_config=AdaptConfig(method="basic",
                                                   max_layers=2))

@@ -176,35 +176,46 @@ def test_spin_chain_targets_match_the_jax_benchmark():
                                                  device="cpu")) < 1e-8
 
 
-def _schedule_compiler():
-    qc = Circuit(14)
-    for q in range(14):
+def _schedule_compiler(n=14):
+    qc = Circuit(n)
+    for q in range(n):
         qc.ry(0.3 + 0.1 * q, q)
-    for q in range(13):
+    for q in range(n - 1):
         qc.cx(q, q + 1)
     return port.AdaptCompiler(
         qc, backend=port.MPSBackend(max_chi=32, device="cpu", dtype=C128),
         adapt_config=port.AdaptConfig(method="brickwall", max_layers=1),
-        coupling_map=[(q, q + 1) for q in range(13)])
+        coupling_map=[(q, q + 1) for q in range(n - 1)])
 
 
 def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
         monkeypatch):
-    """On a CUDA device a stage whose working chi the kernels do not take
-    (chi > 64: env_chain's cap, and m = 2 chi > 128) stops the schedule
-    before its first stage, with a message that names the cap; a schedule
-    inside the caps is let through."""
-    compiler = _schedule_compiler()
-    compiler.backend.device = torch.device("cuda")
+    """On a CUDA device the kernels take chi <= 128 (env_chain, complex64
+    and complex128) and m = 2 chi <= 560 (504 in complex128: the
+    eigensolver), and a call above a cap raises (ops/dispatch.py). A stage
+    whose working chi exceeds the cap stops the schedule before its first
+    stage, with a message that names the cap; the README's (32, 64, 128)
+    schedule is let through, as is any schedule at n = 14, where the
+    working chi stops at 2**7 = 128."""
     compiled = []
     monkeypatch.setattr(port.AdaptCompiler, "compile",
                         lambda self, **kw: compiled.append(self) or 1 / 0)
-    with pytest.raises(ValueError, match=r"chi <= 64.*m = 2 chi <= 128"):
-        compiler.compile_with_chi_schedule(chis=(32, 64, 128))
-    assert compiled == []
-    with pytest.raises(ZeroDivisionError):  # (32, 64) reaches stage 1
-        compiler.compile_with_chi_schedule(chis=(32, 64))
-    assert len(compiled) == 1
+    compiler = _schedule_compiler()
+    compiler.backend.device = torch.device("cuda")
+    for chis in ((32, 64, 128), (32, 64), (32, 512)):
+        with pytest.raises(ZeroDivisionError):  # stage 1 is reached
+            compiler.compile_with_chi_schedule(chis=chis)
+    assert len(compiled) == 3
+    for dt in (torch.complex64, C128):
+        wide = _schedule_compiler(n=20)
+        wide.backend.device = torch.device("cuda")
+        wide.backend.dtype = dt
+        with pytest.raises(ValueError, match=r"chi <= 128.*env_chain chi "
+                                             r"<= 128, eigensolver m = 2 chi"):
+            wide.compile_with_chi_schedule(chis=(32, 256))
+        with pytest.raises(ZeroDivisionError):
+            wide.compile_with_chi_schedule(chis=(32, 64, 128))
+    assert len(compiled) == 5
 
 
 def test_chi_schedule_past_the_kernel_caps_runs_on_the_cpu():

@@ -164,10 +164,21 @@ def test_compile_in_parts_pair_history_matches_jax():
     for rt, rj in zip(out["torch"].individual_results,
                       out["jax"].individual_results):
         assert rt.qubit_pair_history == rj.qubit_pair_history
-        # the two packages' O(G) sweeps stop after other numbers of
-        # cycles, so the parts' overlaps agree only to the sweeps' tolerance
-        assert abs(rt.overlap - rj.overlap) < 5e-3
-    assert abs(out["torch"].overlap - out["jax"].overlap) < 5e-3
+    # part 0 is the same trajectory: its sweeps run the same cycles
+    first_t = out["torch"].individual_results[0]
+    first_j = out["jax"].individual_results[0]
+    assert first_t.cost_evaluations == first_j.cost_evaluations
+    assert abs(first_t.overlap - first_j.overlap) < 1e-10
+    # part 0 ends with Rotoselect ties: gates that act on |0> up to a phase,
+    # where rx(0) and rz(pi) give one cost and the last bit of rounding picks
+    # (rz in the JAX package, rx here). The carried solutions then differ by
+    # phase gates that no longer commute with part 1's new layers, so part 1
+    # follows another trajectory (its sweeps stop after other cycle counts:
+    # 1108 against 2704 evaluations) to overlaps 1.2e-3 apart
+    for rt, rj in zip(out["torch"].individual_results[1:],
+                      out["jax"].individual_results[1:]):
+        assert abs(rt.overlap - rj.overlap) < 2e-3
+    assert abs(out["torch"].overlap - out["jax"].overlap) < 2e-3
 
 
 def _bell_pairs(cls):

@@ -72,22 +72,29 @@ PLAIN_DIV = ("  const float q = __fdiv_rn(a == 0.f ? 1.f : a, b);\n"
              "  return __fdiv_rn(a, b);\n  const float q = 0.f;\n"
              "  return a == 0.f\n")
 ENV_MARKS = [
+    # (the wide variants have no B wait: their step 1 is counted in step 2)
     ("  for (int step = 0; step < count; ++step) {",
      "  long long acc_t[5] = {0, 0, 0, 0, 0};\n"
-     "  for (int step = 0; step < count; ++step) {"),
+     "  for (int step = 0; step < count; ++step) {\n"
+     "    long long tA = clock64(), tB = tA, tC = tA;"),
     ("    mbar_wait(&bar, step & 1);",
-     "    const long long tA = clock64();\n    mbar_wait(&bar, step & 1);\n"
-     "    const long long tB = clock64();"),
-    ("    cp_async_wait<1>();  // this thread's copies of A (this site) landed\n"
-     "    __syncthreads();",
-     "    cp_async_wait<1>();\n    __syncthreads();\n"
-     "    const long long tC = clock64();"),
+     "    tA = clock64();\n    mbar_wait(&bar, step & 1);\n"
+     "    tB = clock64();"),
+    ("      cp_async_wait<1>();  // this thread's copies of A (this site) "
+     "landed\n      __syncthreads();",
+     "      cp_async_wait<1>();\n      __syncthreads();\n"
+     "      tC = clock64();"),
     ("    cluster.sync();\n    for (int idx = tid; idx < rows * c;",
      "    const long long tD = clock64();\n    cluster.sync();\n"
      "    const long long tE = clock64();\n"
      "    for (int idx = tid; idx < rows * c;"),
-    ("      E[idx] = acc;\n    }\n    __syncthreads();\n  }\n",
-     "      E[idx] = acc;\n    }\n    __syncthreads();\n"
+    ("      E[idx] = acc;\n    }\n"
+     "    // the wide variant's single receive buffer: every CTA has summed it\n"
+     "    // before any CTA stores the next site's partials into it\n"
+     "    if (kWide)\n      cluster.sync();\n    else\n      __syncthreads();\n"
+     "  }\n",
+     "      E[idx] = acc;\n    }\n"
+     "    if (kWide)\n      cluster.sync();\n    else\n      __syncthreads();\n"
      "    const long long tF = clock64();\n"
      "    acc_t[0] += tB - tA; acc_t[1] += tC - tB; acc_t[2] += tD - tC;\n"
      "    acc_t[3] += tE - tD; acc_t[4] += tF - tE;\n  }\n"
@@ -98,9 +105,9 @@ ENV_MARKS = [
 ENV_MARKS += [
     # the cluster size is the kernel's own choice; this copy takes it from
     # set_cluster (0: the kernel's choice)
-    ("  const int cs = pick_cluster(chi, &err);",
+    ("  const int cs = pick_cluster(chi, f64, &err);",
      "  const int cs = g_cluster ? (g_cluster < chi ? g_cluster : chi)\n"
-     "                           : pick_cluster(chi, &err);"),
+     "                           : pick_cluster(chi, f64, &err);"),
     ("namespace cg = cooperative_groups;",
      "namespace cg = cooperative_groups;\nstatic int g_cluster = 0;\n"
      "extern \"C\" void set_cluster(int c) { g_cluster = c; }"),
