@@ -5,15 +5,16 @@
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
 // and, for 128 < m <= 560, their wide variants (tridiag_wide_kernel,
-// teig_wide_kernel, backtransform_wide_kernel, at the end of this file),
+// teig_cluster_kernel, backtransform_wide_kernel, at the end of this file),
 // whose double instantiations serve complex128 at every m up to 504.
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
 // <= 128, complex64 (float2), or a batch of P of them in one launch: the
 // full-cost sweep applies every gate to its 3 or 7 probe states at once (the
 // JAX package maps its kernels over the probes, which adds a grid dimension
 // to each pallas_call). Every kernel indexes its matrix by a grid axis
-// (tridiag and teig: one CTA a matrix; backtransform: its column panels on
-// grid x, the matrix on grid y) and nothing is shared across the batch but
+// (tridiag and teig: one CTA a matrix, the wide teig one cluster a matrix;
+// backtransform: its column panels on grid x, the matrix on grid y) and
+// nothing is shared across the batch but
 // teig's read-only right-hand side b0, so each matrix gets exactly the
 // result of a launch of its own: its own active steps, its own dropped
 // reflectors.
@@ -89,10 +90,15 @@
 // compute the same operations, in the same order, as the plain PyTorch
 // version (ops/eigh_kernels.py).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1016,16 +1022,18 @@ __global__ void __launch_bounds__(kBtThreads)
 // For 128 < m <= kWideMaxM (the JAX kernels' own reach, pallas_eigh.py's
 // `supported`: 10 m^2 float32 words in 12 MiB of VMEM). At m = 256 one
 // complex64 matrix is 512 KB, more than an SM's registers (256 KB) or
-// shared memory (227 KB), so the designs above do not stretch. These keep
-// one CTA a matrix (a batch still costs one matrix's time) and keep every
-// m x m working set in global memory, where it stays L2-resident (0.5 MB a
-// matrix at m = 256 against 50 MB of L2); shared memory holds only the
-// current column, vectors or panel. What bounds them: the L2 traffic of
-// one SM, since every step streams its trailing block (K2) or its panel's
-// columns (K3, K4) through it, and the barriers of m sequential steps.
-// They are the simple first design: a cluster design (the trailing block
-// split by rows over several CTAs, exchanged through distributed shared
-// memory, as env_chain does) is the faster later one. The properties of
+// shared memory (227 KB), so the designs above do not stretch. K2 and K4
+// keep one CTA a matrix (a batch still costs one matrix's time) and keep
+// every m x m working set in global memory, where it stays L2-resident
+// (0.5 MB a matrix at m = 256 against 50 MB of L2); shared memory holds
+// only the current column, vectors or panel. What bounds them: the L2
+// traffic of one SM, since every step streams its trailing block (K2) or
+// its panel's columns (K4) through it, and the barriers of m sequential
+// steps. They are the simple first design: a cluster design (the trailing
+// block split by rows over several CTAs, exchanged through distributed
+// shared memory, as env_chain does) is the faster later one. K3 has it
+// (teig_cluster_kernel: a matrix's eigenvalue lanes, and their columns of
+// the iterate, spread over a cluster of up to 16 CTAs). The properties of
 // the m <= 128 kernels carry over: the scaled norm of a tiny column, the
 // exactly inactive step, eigenvalues equal to the plain version's bit for
 // bit, and a batch equal to its P = 1 launches (fixed reduction orders,
@@ -1206,71 +1214,279 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     d_out[i] = work[(size_t)i * m + i].x;
 }
 
-// teig's global scratch a matrix, in reals: the LU factors du and u1
-// (m x m each, lane-fastest) and the swap bits (one word per 32 steps a
-// lane, in a real's slot).
-__host__ __device__ inline long long teig_wide_scratch_reals(int m) {
-  return 2LL * m * m + (long long)((m + 31) / 32) * m;
-}
-// its dynamic shared memory, in reals: d, e, e2, w, then the CGS2 panel
-// and its projections W (m x kPanel each, 16-byte rows).
-__host__ __device__ inline int teig_wide_smem_reals(int m) {
-  return 4 * m + 2 * m * kPanel;
+// K3's wide variant: teig_kernel's algorithm on a thread-block cluster of G
+// CTAs a matrix (G = ceil(m / 32), at most 16; 8 where 16 does not fit),
+// for complex64 at 128 < m <= 560 and complex128 at every m <= 504. One CTA
+// a matrix (the first design) ran every stage on one SM: the multisection
+// with two threads a lane at m = 512 (30 dependent Sturm sweeps), the
+// inverse iteration's LU and iterate in global memory (a round trip
+// through L1/L2 in every step of the dependent solves), and the BCGS2 over
+// one SM's L2 bandwidth with about six block barriers a column. Here:
+//   - CTA r owns the eigenvalue lanes [r L, r L + L) (L = 32, or 16 at
+//     m <= 16; a multiple of the CGS2 panel, so that each panel lies in one
+//     CTA) and keeps their columns of the iterate in its shared memory
+//     (m rows of L + 1 reals: walking a row and walking a column are both
+//     conflict-free);
+//   - multisection as in teig_kernel with 16 threads a lane (k = 4: 8
+//     sweeps for the 30 float rounds, 15 for the 60 double ones), w equal
+//     to the plain version's bit for bit;
+//   - the shifts read every earlier eigenvalue: each CTA pulls the other
+//     ranks' w through distributed shared memory after one cluster
+//     barrier;
+//   - inverse iteration a thread a lane, as before, with the LU factors du,
+//     u1 and the swap bits in shared memory where they fit (complex64 to
+//     m = 512, complex128 to m = 256), else in a global scratch; either way
+//     the backward solve reads them, and the iterate, a few steps ahead in
+//     a register ring (their addresses do not depend on the recurrence), so
+//     no load waits on the chain;
+//   - BCGS2 by panels of 16 columns in order, each inside its owner CTA.
+//     Each CTA first publishes its columns to z (L2). Each of the two
+//     passes: every CTA that holds earlier columns Q_r pulls the panel P
+//     from z, forms W_r = Q_r^T P and its partial Y_r = Q_r W_r from its
+//     own shared memory (cluster barrier); CTA s sums the partials of its
+//     slice of rows from the other CTAs' shared memory, ranks in order,
+//     and subtracts them from P in z (cluster barrier). So a batch, and a
+//     rerun, equals its P = 1 launch bit for bit. Pulling P from the
+//     owner's shared memory instead made its SM serve every CTA at once,
+//     and the other CTAs' pulls held the owner at the barrier after them
+//     for most of a panel's time at m = 504. Then the owner copies the panel
+//     back and runs the CGS2 inside it on four warps (cgs2_panel): three
+//     128-thread named barriers a column, the 16 dots of a pass summed at
+//     once, no branch between the loads. Four cluster barriers a panel
+//     (five on an owner's first);
+//   - every division goes through div_rn, the recurrences through the
+//     round-to-nearest intrinsics; b0 is shared, read-only, by the batch.
+// A batch of P matrices is P clusters on grid x.
+constexpr int kClThreads = 512;     // 16 warps a CTA
+constexpr int kClMaxCluster = 16;
+constexpr int kClLaneThreads = 16;  // multisection threads an eigenvalue
+constexpr int kClCgsWarps = 4;      // the in-panel CGS2's warps
+constexpr int kClCgsRows = (kWideMaxM + 32 * kClCgsWarps - 1) /
+                           (32 * kClCgsWarps);  // its rows a thread
+static_assert(kPanel == 16, "the panel's row is four 4-real quads");
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// The LU factors of one CTA's lanes, in reals: du and u1 (m x L each,
+// lane-fastest) and the swap bits (one word per 32 steps a lane, counted
+// as a real each).
+__host__ __device__ inline int cl_lu_reals(int m, int L) {
+  return 2 * m * L + ((m + 31) / 32) * L;
 }
 
-// teig_kernel's algorithm with the iterate in its own output z (row stride
-// m) and the LU in global scratch: the same multisection (w bit for bit),
-// the same inverse iteration a thread a lane, and BCGS2 by panels of 16
-// columns whose two projection passes read the earlier columns from z;
-// the CGS2 inside a panel runs on the whole block in shared memory (a
-// warp a dot, a thread a row for the update).
+// A CTA's dynamic shared memory, offsets in reals of T (16-byte aligned):
+// d, e, e2, w (m each), the iterate's columns (m rows of ldb = L + 1), the
+// projections W (L x kPanel), then one region holding the LU factors
+// (where they are in shared memory) during the inverse iteration and the
+// pulled panel, overwritten by the partial Q_r W_r, during the BCGS2.
+struct ClLayout {
+  int ldb, bb, W, X, total;
+};
 template <typename T>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    teig_wide_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
-                     const T* __restrict__ b0, T* __restrict__ w_out,
-                     T* z_out, T* scratch, int m, long long d_stride,
-                     long long e_stride) {
-  {
-    const size_t b = blockIdx.x;
-    d_in += b * (size_t)d_stride;
-    e_in += b * (size_t)e_stride;
-    w_out += b * m;
-    z_out += b * (size_t)m * m;
-    scratch += b * (size_t)teig_wide_scratch_reals(m);
+__host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem) {
+  ClLayout c;
+  c.ldb = L + 1;
+  c.bb = round4(4 * m);
+  c.W = round4(c.bb + m * c.ldb);
+  c.X = round4(c.W + L * kPanel);
+  const int words = ((m + 31) / 32) * L;
+  const int lu = 2 * m * L + (int)((words * 4 + sizeof(T) - 1) / sizeof(T));
+  const int py = m * kPanel;
+  c.total = c.X + (lu_smem && lu > py ? lu : py);
+  return c;
+}
+
+// The global LU scratch a matrix, in reals, for every plan (G L < m + 80).
+__host__ __device__ inline long long teig_wide_scratch_reals(int m) {
+  return (long long)(m + 80) * (2 * m + (m + 31) / 32);
+}
+
+// One level of transpose_sum16: lanes that differ in bit `kBit` swap the
+// halves of their first 2 kN sums, each keeping one half, summed.
+template <int kN, int kBit, typename T>
+__device__ __forceinline__ void halve_sums(T (&x)[kPanel], int lane) {
+  const bool up = lane & kBit;
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const T keep = up ? x[k + kN] : x[k];
+    const T send = up ? x[k] : x[k + kN];
+    x[k] = keep + __shfl_xor_sync(0xffffffffu, send, kBit);
   }
-  extern __shared__ __align__(16) unsigned char wsm_raw[];
-  T* d = reinterpret_cast<T*>(wsm_raw);
+}
+
+// The 16 sums of x[q] over a warp at once: each shuffle level halves the
+// set a lane carries (lane bit 4 keeps the upper or lower 8, bit 3 the
+// upper or lower 4 of those, ...), 16 shuffles in all where 16 warp_sums
+// take 80; lane 2q (and 2q + 1) ends with the sum of x[q] in x[0].
+template <typename T>
+__device__ __forceinline__ void transpose_sum16(T (&x)[kPanel], int lane) {
+  halve_sums<8, 16>(x, lane);
+  halve_sums<4, 8>(x, lane);
+  halve_sums<2, 4>(x, lane);
+  halve_sums<1, 2>(x, lane);
+  x[0] += __shfl_xor_sync(0xffffffffu, x[0], 1);
+}
+
+__device__ __forceinline__ void cgs_sync() {  // the in-panel CGS2's warps
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kClCgsWarps) : "memory");
+}
+
+// The in-panel CGS2 of columns [cl0, cl0 + pw) of the owner's iterate, on
+// its first kClCgsWarps warps: thread t holds rows t + 32 kClCgsWarps k
+// (k < kRows) of the current column in registers and reads only its own
+// rows of the earlier ones; a pass's 16 dots are summed over each warp at
+// once by transpose_sum16, then over the warps in a fixed order through
+// `red` (double-buffered: one barrier a reduction), by lane q of every
+// warp for dot q. No branch on p or on the rows: every thread reads all 16
+// panel columns of its rows (a row past m is row m - 1 with a zero
+// weight; columns past p take zero dots and drop out), so the loads of a
+// pass issue back to back instead of waiting one after another behind
+// branches (with a branch a column, the in-panel CGS2 took two to three
+// times as long; skipping the columns past p by fours behind a uniform
+// branch was slower again, except in double at m = 504); the update then
+// zeroes the rows past m.
+// Column 0 of the matrix keeps its iterate, as in the plain version.
+template <int kRows, typename T>
+__device__ __forceinline__ void cgs2_panel(T* bb, int ldb, int m, int c0,
+                                           int cl0, int pw,
+                                           T (*red)[kClCgsWarps][kPanel]) {
+  const int t = threadIdx.x, lane = t & 31, wp = t >> 5;
+  constexpr int kStride = 32 * kClCgsWarps;
+  const T zero = 0;
+  int row[kRows];
+  bool live[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int i = t + kStride * k;
+    live[k] = i < m;
+    row[k] = (live[k] ? i : m - 1) * ldb + cl0;
+  }
+  // the sum over the warps of red[b][.][lane & 15], in warp order
+  auto gather = [&](int b) {
+    T s = red[b][0][lane & 15];
+#pragma unroll
+    for (int w = 1; w < kClCgsWarps; ++w) s += red[b][w][lane & 15];
+    return s;
+  };
+  int buf = 0;
+  for (int p = 0; p < pw; ++p) {
+    if (c0 + p == 0) continue;
+    T v[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) v[k] = live[k] ? bb[row[k] + p] : zero;
+    for (int pass = 0; p > 0 && pass < 2; ++pass) {
+      T part[kPanel];
+#pragma unroll
+      for (int q = 0; q < kPanel; ++q) {
+        T s = zero;
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) s = fma_(bb[row[k] + q], v[k], s);
+        part[q] = s;
+      }
+      transpose_sum16(part, lane);
+      if ((lane & 1) == 0) red[buf][wp][lane >> 1] = part[0];
+      cgs_sync();
+      const T dots = gather(buf);
+      buf ^= 1;
+#pragma unroll
+      for (int q = 0; q < kPanel; ++q) {
+        const T dq = __shfl_sync(0xffffffffu, dots, q);
+        const T neg = q < p ? -dq : zero;
+#pragma unroll
+        for (int k = 0; k < kRows; ++k)
+          v[k] = fma_(neg, bb[row[k] + q], v[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) v[k] = live[k] ? v[k] : zero;
+    }
+    T s = zero;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) s = fma_(v[k], v[k], s);
+    s = warp_sum(s);
+    if (lane == 0) red[buf][wp][0] = s;
+    cgs_sync();
+    const T tot = __shfl_sync(0xffffffffu, gather(buf), 0);
+    buf ^= 1;
+    const T scl = rsqrt_rn(max_(tot, Real<T>::kFloor));
+#pragma unroll
+    for (int k = 0; k < kRows; ++k)
+      if (live[k]) bb[row[k] + p] = v[k] * scl;
+  }
+}
+
+// cgs2_panel with as many rows a thread as m needs.
+template <typename T>
+__device__ __forceinline__ void cgs2_panel_rows(
+    T* bb, int ldb, int m, int c0, int cl0, int pw,
+    T (*red)[kClCgsWarps][kPanel]) {
+  static_assert(kClCgsRows == 5, "one case a row count");
+  switch ((m + 32 * kClCgsWarps - 1) / (32 * kClCgsWarps)) {
+    case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
+    case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
+    case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
+    case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
+    default: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
+  }
+}
+
+// Grid: batch x G CTAs of kClThreads, clusters of G along x (cluster b is
+// matrix b). L: lanes a CTA; lu_smem: the LU factors in shared memory,
+// else in `scratch` (batch x G x cl_lu_reals(m, L) reals).
+template <typename T>
+__global__ void __launch_bounds__(kClThreads, 1)
+    teig_cluster_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
+                        const T* __restrict__ b0, T* __restrict__ w_out,
+                        T* __restrict__ z_out, T* __restrict__ scratch, int m,
+                        int L, int lu_smem, long long d_stride,
+                        long long e_stride) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const size_t b = blockIdx.x / G;
+  d_in += b * (size_t)d_stride;
+  e_in += b * (size_t)e_stride;
+  w_out += b * m;
+  z_out += b * (size_t)m * m;
+  const int j0 = rank * L;          // this CTA's first lane
+  const int nl = min(L, m - j0);    // and its number of lanes
+  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0);
+  const int ldb = lay.ldb;
+  extern __shared__ __align__(16) unsigned char csm_raw[];
+  T* sm = reinterpret_cast<T*>(csm_raw);
+  T* d = sm;
   T* e = d + m;
   T* e2 = e + m;
   T* w = e2 + m;
-  T* pan = w + m;              // (m, kPanel) the panel
-  T* W = pan + m * kPanel;     // (m, kPanel) its projections
-  T* bb = z_out;               // the iterate, bb[i * m + j]
-  T* du = scratch;             // (m, m) LU pivots, lane-fastest
-  T* u1 = du + (size_t)m * m;
-  uint32_t* swb = reinterpret_cast<uint32_t*>(u1 + (size_t)m * m);
+  T* bb = sm + lay.bb;  // bb[i * ldb + jl]: row i of lane j0 + jl
+  T* W = sm + lay.W;    // (L, kPanel)
+  T* PY = sm + lay.X;   // (m, kPanel) the pulled panel, then Q_r W_r
+  T* du = lu_smem ? sm + lay.X
+                  : scratch + (b * G + rank) * (size_t)cl_lu_reals(m, L);
+  T* u1 = du + (size_t)m * L;
+  uint32_t* swb = reinterpret_cast<uint32_t*>(u1 + (size_t)m * L);
   __shared__ T sc[4];
-  __shared__ T red[33];
-  __shared__ T dots[kPanel];
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  __shared__ T red[2][kClCgsWarps][kPanel];
+  const int tid = threadIdx.x, lane = tid & 31;
   const T zero = 0;
+  using Q4 = Quad<T>;
 
-  for (int i = tid; i < m; i += nt) {
+  for (int i = tid; i < m; i += kClThreads) {
     d[i] = d_in[i];
     const T ei = (i < m - 1) ? e_in[i] : zero;
     e[i] = ei;
     e2[i] = mul_rn(ei, ei);
   }
-  for (int idx = tid; idx < m * m; idx += nt) bb[idx] = b0[idx];
+  for (int idx = tid; idx < m * L; idx += kClThreads) {
+    const int i = idx / L, jl = idx - i * L;  // lanes past m: zero columns
+    bb[i * ldb + jl] = jl < nl ? b0[(size_t)i * m + j0 + jl] : zero;
+  }
+  __syncthreads();
   if (tid == 0) {
     T lo0 = T(INFINITY), hi0 = -T(INFINITY);
     for (int i = 0; i < m; ++i) {
-      const T el = (i > 0) ? e_in[i - 1] : zero;
-      const T ei = (i < m - 1) ? e_in[i] : zero;
-      const T rad = add_rn(abs_(ei), abs_(el));
-      lo0 = min_(lo0, sub_rn(d_in[i], rad));
-      hi0 = max_(hi0, add_rn(d_in[i], rad));
+      const T rad = add_rn(abs_(e[i]), abs_(i > 0 ? e[i - 1] : zero));
+      lo0 = min_(lo0, sub_rn(d[i], rad));
+      hi0 = max_(hi0, add_rn(d[i], rad));
     }
     const T scale = max_(max_(abs_(lo0), abs_(hi0)), Real<T>::kFloor);
     const T p = mul_rn(Real<T>::kEps, scale);
@@ -1282,17 +1498,17 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   __syncthreads();
   const T lo0 = sc[0], hi0 = sc[1], scale = sc[2], pivmin = sc[3];
 
-  // multisection as in teig_kernel, at least two threads a lane, the lanes
-  // in passes of nt / tl where the block does not hold them all
+  // Sturm multisection of this CTA's lanes, tl threads a lane
+  // (kClLaneThreads where the CTA holds them all at once, fewer past L = 32)
   {
-    int tl = 32;
-    while (tl > 2 && tl * m > nt) tl >>= 1;
+    int tl = kClLaneThreads;
+    while (tl > 2 && tl * L > kClThreads) tl >>= 1;
     const int k = 31 - __clz(tl);
     const int sub = tid % tl;
     const int base = lane & ~(tl - 1);
-    for (int j0 = 0; j0 < m; j0 += nt / tl) {
-      const int jl = j0 + tid / tl;
-      const int j = min(jl, m - 1);
+    for (int jb = 0; jb < nl; jb += kClThreads / tl) {
+      const int jl = jb + tid / tl;
+      const int j = j0 + min(jl, nl - 1);
       const T target = (T)(m - 1 - j);
       T lo = lo0, hi = hi0;
       for (int r = 0; r < Real<T>::kRounds; r += k) {
@@ -1313,19 +1529,32 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           }
         }
       }
-      if (sub == 0 && jl < m) w[j] = mid_rn(lo, hi);
+      if (sub == 0 && jl < nl) w[j] = mid_rn(lo, hi);
     }
+  }
+  // every rank's eigenvalues: pulled from their owners after one cluster
+  // barrier (which also makes sure every CTA of the cluster has started)
+  cluster.sync();
+  for (int l = tid; l < m; l += kClThreads) {
+    const int owner = l / L;
+    if (owner != rank) w[l] = cluster.map_shared_rank(w, owner)[l];
   }
   __syncthreads();
 
-  for (int j = tid; j < m; j += nt) {
+  if (tid < nl) {
+    const int jl = tid, j = j0 + jl;
+    // shift lam_j = min_{l<=j} (w_l - (j-l) eps): coincident shifts split
     const T eps = mul_rn(Real<T>::kEps, scale);
     T lam = add_rn(hi0, scale);
     for (int l = 0; l <= j; ++l)
       lam = min_(lam, sub_rn(w[l], mul_rn((T)(j - l), eps)));
+    // two rounds of inverse iteration on this lane's column, as in
+    // teig_kernel; the backward solve runs in chunks of kAhead steps, each
+    // loading the next chunk's factors and iterate rows before it solves
+    constexpr int kAhead = 4;
     for (int rep = 0; rep < 2; ++rep) {
       T a_i = sub_rn(d[0], lam), s1_i = e[0];
-      T carry = bb[j];
+      T carry = bb[jl];
       uint32_t bits = 0;
       for (int i = 0; i < m - 1; ++i) {
         const T a_next = sub_rn(d[i + 1], lam);
@@ -1339,130 +1568,198 @@ __global__ void __launch_bounds__(kWideThreads, 1)
         const T bot1 = swap ? s1_i : a_next;
         const T bot2 = swap ? zero : s1_next;
         const T mlt = div_rn(bot0, top0);
-        du[(size_t)i * m + j] = top0;
-        u1[(size_t)i * m + j] = top1;
+        du[(size_t)i * L + jl] = top0;
+        u1[(size_t)i * L + jl] = top1;
         bits |= (swap ? 1u : 0u) << (i & 31);
         if ((i & 31) == 31 || i == m - 2) {
-          swb[(size_t)(i >> 5) * m + j] = bits;
+          swb[(i >> 5) * L + jl] = bits;
           bits = 0;
         }
         a_i = sub_rn(bot1, mul_rn(mlt, top1));
         s1_i = sub_rn(bot2, mul_rn(mlt, top2));
-        const T bi1 = bb[(size_t)(i + 1) * m + j];
+        const T bi1 = bb[(i + 1) * ldb + jl];
         const T bt = swap ? bi1 : carry;
         const T bo = swap ? carry : bi1;
-        bb[(size_t)i * m + j] = bt;
+        bb[i * ldb + jl] = bt;
         carry = sub_rn(bo, mul_rn(mlt, bt));
       }
       const T dlast = guard(a_i, pivmin);
-      du[(size_t)(m - 1) * m + j] = dlast;
       T x2 = div_rn(carry, dlast);
-      bb[(size_t)(m - 1) * m + j] = x2;
-      T x1 = div_rn(sub_rn(bb[(size_t)(m - 2) * m + j],
-                           mul_rn(u1[(size_t)(m - 2) * m + j], x2)),
-                    du[(size_t)(m - 2) * m + j]);
-      bb[(size_t)(m - 2) * m + j] = x1;
-      for (int i = m - 3; i >= 0; --i) {
-        const bool sw = (swb[(size_t)(i >> 5) * m + j] >> (i & 31)) & 1u;
-        const T u2 = sw ? e[i + 1] : zero;
-        const T t = sub_rn(
-            sub_rn(bb[(size_t)i * m + j], mul_rn(u1[(size_t)i * m + j], x1)),
-            mul_rn(u2, x2));
-        const T xi = div_rn(t, du[(size_t)i * m + j]);
-        bb[(size_t)i * m + j] = xi;
-        x2 = x1;
-        x1 = xi;
+      bb[(m - 1) * ldb + jl] = x2;
+      T x1 = div_rn(sub_rn(bb[(m - 2) * ldb + jl],
+                           mul_rn(u1[(size_t)(m - 2) * L + jl], x2)),
+                    du[(size_t)(m - 2) * L + jl]);
+      bb[(m - 2) * ldb + jl] = x1;
+      // the factors and iterate row of step i, read a chunk ahead of the
+      // recurrence (past step 0 the reads repeat row 0, unused)
+      T c_du[kAhead], c_u1[kAhead], c_u2[kAhead], c_b[kAhead];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        const int i = max(m - 3 - k, 0);
+        c_du[k] = du[(size_t)i * L + jl];
+        c_u1[k] = u1[(size_t)i * L + jl];
+        c_u2[k] = ((swb[(i >> 5) * L + jl] >> (i & 31)) & 1u) ? e[i + 1]
+                                                             : zero;
+        c_b[k] = bb[i * ldb + jl];
       }
+      for (int i0 = m - 3; i0 >= 0; i0 -= kAhead) {
+        T n_du[kAhead], n_u1[kAhead], n_u2[kAhead], n_b[kAhead];
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+          const int i = max(i0 - kAhead - k, 0);
+          n_du[k] = du[(size_t)i * L + jl];
+          n_u1[k] = u1[(size_t)i * L + jl];
+          n_u2[k] = ((swb[(i >> 5) * L + jl] >> (i & 31)) & 1u) ? e[i + 1]
+                                                               : zero;
+          n_b[k] = bb[i * ldb + jl];
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+          if (i0 - k >= 0) {
+            const T t = sub_rn(sub_rn(c_b[k], mul_rn(c_u1[k], x1)),
+                               mul_rn(c_u2[k], x2));
+            const T xi = div_rn(t, c_du[k]);
+            bb[(i0 - k) * ldb + jl] = xi;
+            x2 = x1;
+            x1 = xi;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) {
+          c_du[k] = n_du[k];
+          c_u1[k] = n_u1[k];
+          c_u2[k] = n_u2[k];
+          c_b[k] = n_b[k];
+        }
+      }
+      // scale by the max-abs first: a nearly singular shift leaves
+      // |x| ~ 1/pivmin^2, whose square overflows
       T amax = zero;
-      for (int i = 0; i < m; ++i) amax = max_(amax, abs_(bb[(size_t)i * m + j]));
+      for (int i = 0; i < m; ++i) amax = max_(amax, abs_(bb[i * ldb + jl]));
       if (amax > zero)
         for (int i = 0; i < m; ++i)
-          bb[(size_t)i * m + j] = div_rn(bb[(size_t)i * m + j], amax);
+          bb[i * ldb + jl] = div_rn(bb[i * ldb + jl], amax);
       T nrm2 = zero;
       for (int i = 0; i < m; ++i)
-        nrm2 = add_rn(nrm2, mul_rn(bb[(size_t)i * m + j],
-                                   bb[(size_t)i * m + j]));
+        nrm2 = add_rn(nrm2, mul_rn(bb[i * ldb + jl], bb[i * ldb + jl]));
       const T s = rsqrt_rn(max_(nrm2, Real<T>::kFloor));
       for (int i = 0; i < m; ++i)
-        bb[(size_t)i * m + j] = mul_rn(bb[(size_t)i * m + j], s);
+        bb[i * ldb + jl] = mul_rn(bb[i * ldb + jl], s);
     }
   }
   __syncthreads();
 
-  // BCGS2: W = Q^T P, P -= Q W twice against the earlier columns (Q read
-  // from z), then CGS2 inside the panel; column 0 keeps its iterate
-  using Q4 = Quad<T>;
-  Q4* pan4 = reinterpret_cast<Q4*>(pan);
-  Q4* W4 = reinterpret_cast<Q4*>(W);
-  for (int c0 = 0; c0 < m; c0 += kPanel) {
-    const int pw = min(kPanel, m - c0);
-    for (int idx = tid; idx < m * kPanel; idx += nt) {
-      const int i = idx / kPanel, p = idx % kPanel;
-      pan[idx] = (p < pw) ? bb[(size_t)i * m + c0 + p] : zero;
-    }
-    __syncthreads();
-    for (int pass = 0; c0 > 0 && pass < 2; ++pass) {
-      for (int idx = tid; idx < c0 * (kPanel / 4); idx += nt) {
-        const int c = idx % c0, pg = idx / c0;
-        Q4 acc = {zero, zero, zero, zero};
-        for (int i = 0; i < m; ++i) {
-          const T q = bb[(size_t)i * m + c];
-          const Q4 pv = pan4[i * (kPanel / 4) + pg];
-          acc.x = fma_(q, pv.x, acc.x); acc.y = fma_(q, pv.y, acc.y);
-          acc.z = fma_(q, pv.z, acc.z); acc.w = fma_(q, pv.w, acc.w);
-        }
-        W4[c * (kPanel / 4) + pg] = acc;
-      }
-      __syncthreads();
-      for (int idx = tid; idx < m * (kPanel / 4); idx += nt) {
-        const int i = idx / (kPanel / 4), pg = idx % (kPanel / 4);
-        const T* qrow = bb + (size_t)i * m;
-        Q4 acc = {zero, zero, zero, zero};
-        for (int c = 0; c < c0; ++c) {
-          const T q = qrow[c];
-          const Q4 wv = W4[c * (kPanel / 4) + pg];
-          acc.x = fma_(q, wv.x, acc.x); acc.y = fma_(q, wv.y, acc.y);
-          acc.z = fma_(q, wv.z, acc.z); acc.w = fma_(q, wv.w, acc.w);
-        }
-        Q4 pv = pan4[i * (kPanel / 4) + pg];
-        pv.x -= acc.x; pv.y -= acc.y; pv.z -= acc.z; pv.w -= acc.w;
-        pan4[i * (kPanel / 4) + pg] = pv;
-      }
-      __syncthreads();
-    }
-    for (int p = 0; p < pw; ++p) {
-      if (c0 + p == 0) continue;
-      for (int pass = 0; pass < 2; ++pass) {
-        if (warp < p) {  // dots[q] = P[:, q] . P[:, p], a warp each
-          T s = zero;
-          for (int i = lane; i < m; i += 32)
-            s = fma_(pan[i * kPanel + warp], pan[i * kPanel + p], s);
-          s = warp_sum(s);
-          if (lane == 0) dots[warp] = s;
-        }
-        __syncthreads();
-        for (int i = tid; i < m; i += nt) {
-          T r = pan[i * kPanel + p];
-          for (int q = 0; q < p; ++q)
-            r = fma_(-dots[q], pan[i * kPanel + q], r);
-          pan[i * kPanel + p] = r;
-        }
-        __syncthreads();
-      }
-      T s = zero;
-      for (int i = tid; i < m; i += nt)
-        s = fma_(pan[i * kPanel + p], pan[i * kPanel + p], s);
-      const T scl = rsqrt_rn(max_(block_sum(s, red), Real<T>::kFloor));
-      for (int i = tid; i < m; i += nt) pan[i * kPanel + p] *= scl;
-      __syncthreads();
-    }
-    for (int idx = tid; idx < m * kPanel; idx += nt) {
-      const int i = idx / kPanel, p = idx % kPanel;
-      if (p < pw) bb[(size_t)i * m + c0 + p] = pan[idx];
-    }
-    __syncthreads();
+  // Distributed BCGS2 (see above). The panels move through z_out (L2),
+  // not through the owner's shared memory, which every CTA would read at
+  // once: each CTA first publishes its columns there; a pass pulls the
+  // panel from it, and CTA rank's reductions of rows [r0, r1) write the
+  // projected rows back to it; the owner copies the panel back before
+  // its CGS2. The cluster barriers order these global accesses too
+  // (release and acquire at cluster scope); reads bypass L1 (__ldcg).
+  for (int idx = tid; idx < m * nl; idx += kClThreads) {
+    const int i = idx / nl, jl = idx - i * nl;
+    z_out[(size_t)i * m + j0 + jl] = bb[i * ldb + jl];
   }
-  for (int i = tid; i < m; i += nt) w_out[i] = w[i];
+  __syncthreads();
+  const int R = (m + G - 1) / G;
+  const int r0 = min(m, rank * R), r1 = min(m, r0 + R);
+  Q4* PY4 = reinterpret_cast<Q4*>(PY);
+  const Q4* W4 = reinterpret_cast<const Q4*>(W);
+  for (int c0 = 0; c0 < m; c0 += kPanel) {
+    const int o = c0 / L, cl0 = c0 - o * L;
+    const int pw = min(kPanel, m - c0);
+    const int ncols = max(0, min(nl, c0 - j0));  // own columns before c0
+    const int nsrc = o + (cl0 > 0 ? 1 : 0);      // ranks that hold any
+    for (int pass = 0; c0 > 0 && pass < 2; ++pass) {
+      // the panel in z_out is current: after pass 0's exchange that takes
+      // a cluster barrier, and so does the first panel of each owner (its
+      // columns were published after its inverse iteration); the owner's
+      // later panels were published then too
+      if (pass > 0 || cl0 == 0)
+        cluster.sync();
+      else
+        __syncthreads();
+      if (ncols > 0) {
+        for (int idx = tid; idx < m * kPanel; idx += kClThreads) {
+          const int i = idx / kPanel, p = idx % kPanel;
+          PY[idx] = p < pw ? __ldcg(z_out + (size_t)i * m + c0 + p) : zero;
+        }
+        __syncthreads();
+        // W[c][p] = Q[:, c]^T P[:, p], four partial sums a thread
+        for (int idx = tid; idx < ncols * kPanel; idx += kClThreads) {
+          const int c = idx % ncols, p = idx / ncols;
+          T a0 = zero, a1 = zero, a2 = zero, a3 = zero;
+          int i = 0;
+          for (; i + 4 <= m; i += 4) {
+            a0 = fma_(bb[i * ldb + c], PY[i * kPanel + p], a0);
+            a1 = fma_(bb[(i + 1) * ldb + c], PY[(i + 1) * kPanel + p], a1);
+            a2 = fma_(bb[(i + 2) * ldb + c], PY[(i + 2) * kPanel + p], a2);
+            a3 = fma_(bb[(i + 3) * ldb + c], PY[(i + 3) * kPanel + p], a3);
+          }
+          for (; i < m; ++i) a0 = fma_(bb[i * ldb + c], PY[i * kPanel + p], a0);
+          W[c * kPanel + p] = (a0 + a1) + (a2 + a3);
+        }
+        __syncthreads();
+        // the partial Q_r W_r, over the pulled panel
+        for (int idx = tid; idx < m * (kPanel / 4); idx += kClThreads) {
+          const int i = idx % m, pg = idx / m;
+          Q4 acc = {zero, zero, zero, zero};
+          for (int c = 0; c < ncols; ++c) {
+            const T q = bb[i * ldb + c];
+            const Q4 wv = W4[c * (kPanel / 4) + pg];
+            acc.x = fma_(q, wv.x, acc.x); acc.y = fma_(q, wv.y, acc.y);
+            acc.z = fma_(q, wv.z, acc.z); acc.w = fma_(q, wv.w, acc.w);
+          }
+          PY4[i * (kPanel / 4) + pg] = acc;
+        }
+      }
+      cluster.sync();  // every partial is in place
+      // P -= the partials' sum, ranks in order, on this CTA's rows
+      for (int idx = tid; idx < (r1 - r0) * (kPanel / 4);
+           idx += kClThreads) {
+        const int i = r0 + idx / (kPanel / 4), pg = idx % (kPanel / 4);
+        Q4 acc = {zero, zero, zero, zero};
+        for (int s0 = 0; s0 < nsrc; s0 += 4) {
+          Q4 v[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (s0 + k < nsrc)
+              v[k] = reinterpret_cast<const Q4*>(cluster.map_shared_rank(
+                  PY, s0 + k))[i * (kPanel / 4) + pg];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (s0 + k < nsrc) {
+              acc.x += v[k].x; acc.y += v[k].y;
+              acc.z += v[k].z; acc.w += v[k].w;
+            }
+        }
+        T* row = z_out + (size_t)i * m + c0 + 4 * pg;
+        const T sub4[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (4 * pg + q < pw) row[q] = __ldcg(row + q) - sub4[q];
+      }
+    }
+    if (c0 > 0) cluster.sync();  // the panel in z_out is projected
+    if (rank == o) {
+      if (c0 > 0) {
+        for (int idx = tid; idx < m * pw; idx += kClThreads) {
+          const int i = idx / pw, p = idx - i * pw;
+          bb[i * ldb + cl0 + p] = __ldcg(z_out + (size_t)i * m + c0 + p);
+        }
+        __syncthreads();
+      }
+      if (tid < 32 * kClCgsWarps)
+        cgs2_panel_rows(bb, ldb, m, c0, cl0, pw, red);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < m * nl; idx += kClThreads) {
+    const int i = idx / nl, jl = idx - i * nl;
+    z_out[(size_t)i * m + j0 + jl] = bb[i * ldb + jl];
+  }
+  for (int jl = tid; jl < nl; jl += kClThreads) w_out[j0 + jl] = w[j0 + jl];
+  cluster.sync();  // no CTA leaves while another may read its memory
 }
 
 // The row stride of a wide panel of transposed reflectors: odd.
@@ -1654,6 +1951,84 @@ int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
   return (int)cudaGetLastError();
 }
 
+// K3's wide launch plan for m and real type T: the cluster size G, the
+// lanes a CTA L (a multiple of kPanel), whether the LU factors fit in
+// shared memory, and the dynamic shared memory a CTA. G = ceil(m / 32)
+// CTAs where that is at most 8 or a cluster of 16 fits on the card
+// (non-portable size, cudaOccupancyMaxActiveClusters), else 8 with longer
+// lanes. Returns a plan with G = 0 (and sets *err) if nothing launches.
+struct TeigPlan {
+  int G, L, lu_smem;
+  size_t smem;
+};
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int grid, int G,
+                                  size_t smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
+TeigPlan teig_plan(int m, cudaError_t* err) {
+  static TeigPlan cached[kWideMaxM + 1] = {};
+  if (cached[m].G) return cached[m];
+  const void* fn = (const void*)teig_cluster_kernel<T>;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (*err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
+      (*err = cudaFuncSetAttribute(
+           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return TeigPlan{};
+  const size_t budget = (size_t)optin - fa.sharedSizeBytes;
+  const int want = (m + 31) / 32;
+  for (int cap : {kClMaxCluster, 8}) {
+    const int g0 = want < cap ? want : cap;
+    int L = (((m + g0 - 1) / g0 + kPanel - 1) / kPanel) * kPanel;
+    L = L > kPanel ? L : kPanel;
+    TeigPlan pl;
+    pl.L = L;
+    pl.G = (m + L - 1) / L;
+    pl.lu_smem =
+        (size_t)cl_layout<T>(m, L, true).total * sizeof(T) <= budget;
+    pl.smem = (size_t)cl_layout<T>(m, L, pl.lu_smem).total * sizeof(T);
+    if (pl.smem > budget) continue;
+    if ((*err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)pl.smem)) != cudaSuccess)
+      return TeigPlan{};
+    if (pl.G <= 8) {
+      cached[m] = pl;
+      return pl;
+    }
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(attr, pl.G, pl.G, pl.smem, 0);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess &&
+        clusters >= 1) {
+      cached[m] = pl;
+      return pl;
+    }
+    cudaGetLastError();  // a refused query is not an error of the launch
+  }
+  *err = cudaErrorInvalidConfiguration;
+  return TeigPlan{};
+}
+
 template <typename T>
 int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
                   void* z, void* scratch, int m, int batch,
@@ -1661,13 +2036,20 @@ int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
                   int lo, int hi) {
   if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)teig_wide_smem_reals(m) * sizeof(T);
+  cudaError_t err = cudaSuccess;
+  const TeigPlan pl = teig_plan<T>(m, &err);
+  if (pl.G == 0) return (int)err;
+  const void* fn = (const void*)teig_cluster_kernel<T>;
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      teig_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem));
-  teig_wide_kernel<T><<<batch, kWideThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)d, (const T*)e, (const T*)b0, (T*)w, (T*)z, (T*)scratch, m,
-      d_stride, e_stride);
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem));
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(attr, batch * pl.G, pl.G, pl.smem,
+                                          (cudaStream_t)stream);
+  ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
+      &cfg, teig_cluster_kernel<T>, (const T*)d, (const T*)e, (const T*)b0,
+      (T*)w, (T*)z, (T*)scratch, m, pl.L, pl.lu_smem, d_stride, e_stride));
   return (int)cudaGetLastError();
 }
 
@@ -1757,6 +2139,15 @@ int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
 }
 
 long long teig_wide_scratch(int m) { return teig_wide_scratch_reals(m); }
+
+// The CTAs of the cluster that K3's wide variant runs a matrix on, at m in
+// float (f64 = 0, 128 < m <= 560) or double (2 <= m <= 504); 0 on error.
+int teig_cluster_size(int m, int f64) {
+  if (m < (f64 ? 2 : kMaxM + 1) || m > (f64 ? kWideMaxM64 : kWideMaxM))
+    return 0;
+  cudaError_t err = cudaSuccess;
+  return (f64 ? teig_plan<double>(m, &err) : teig_plan<float>(m, &err)).G;
+}
 
 int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
                      void* z, void* scratch, int m, int batch,

@@ -23,8 +23,9 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
 Each wrapper runs the plain version for a tensor on the CPU and launches the
 CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device
 (ops/dispatch.py): in complex64 for m <= 128 the register and shared-memory
-designs, for 128 < m <= 560 their wide variants (working sets in global
-memory), chosen by m alone; in complex128 / float64 the wide variants'
+designs, for 128 < m <= 560 their wide variants (K2 and K4 with working
+sets in global memory, K3 on a thread-block cluster of up to 16 CTAs a
+matrix), chosen by m alone; in complex128 / float64 the wide variants'
 double instantiation, for every m <= 504. It raises for anything the
 kernels do not take (m above the cap of its dtype, another dtype, a
 non-contiguous tensor). There is no fallback from a kernel to the plain
@@ -36,7 +37,7 @@ them that took a batch (P > 1 matrices in one launch) in
 Every function here also takes one leading batch dimension P (h of shape
 (P, m, m), d of (P, m), ...): the full-cost sweep applies each gate to its
 probe states at once. A wrapper launches once for the whole batch (one CTA,
-or one column of CTAs, a matrix; nothing is shared across the batch, so each
+one column of CTAs or one cluster a matrix; nothing is shared across the batch, so each
 matrix gets the result of its own launch, bit for bit); a plain version
 loops over the batch.
 """
@@ -160,29 +161,37 @@ def tridiag_plain(h: torch.Tensor):
     return vrows, tau, d, e
 
 
-def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
-    """All eigenpairs of the real symmetric tridiagonal (d, e[:m-1]).
-
-    Returns (w (m,) descending, z (m, m) with column j the eigenvector of
-    w[j]). Vectorised over the m eigenvalue lanes. d and e may carry a
-    leading batch dimension (b0 is shared)."""
-    if d.dim() == 2:
-        return _over_batch(lambda dd, ee: teig_plain(dd, ee, b0), d, e)
+def teig_bounds(d: torch.Tensor, e: torch.Tensor):
+    """(e_row, lo0, hi0, scale, pivmin) of the tridiagonal (d, e[:m-1]):
+    e with e[m-1] = 0, the Gershgorin interval that bisection starts from,
+    the spectrum's scale and the pivot floor of the Sturm and LU
+    recurrences."""
     m = d.shape[0]
     dt = d.dtype
-    dev = d.device
-    rounds, eps_rel, piv_floor = _teig_constants(dt)
-    if b0 is None:
-        b0 = teig_b0(m, dt, dev)
+    _, eps_rel, piv_floor = _teig_constants(dt)
     e_row = e.clone()
     e_row[m - 1] = 0.0
-    zero1 = torch.zeros(1, dtype=dt, device=dev)
+    zero1 = torch.zeros(1, dtype=dt, device=d.device)
     e_left = torch.cat([zero1, e_row[:-1]])
     radius = e_row.abs() + e_left.abs()
     lo0 = (d - radius).min()
     hi0 = (d + radius).max()
     scale = torch.clamp(torch.maximum(lo0.abs(), hi0.abs()), min=1e-30)
     pivmin = torch.clamp((eps_rel * scale) ** 2, min=piv_floor)
+    return e_row, lo0, hi0, scale, pivmin
+
+
+def teig_plain_iterates(d: torch.Tensor, e: torch.Tensor,
+                        b0: torch.Tensor = None):
+    """teig_plain up to its CGS2 (one matrix): (w (m,) descending, the
+    inverse-iteration iterate (m, m), column j normalised for w[j])."""
+    m = d.shape[0]
+    dt = d.dtype
+    dev = d.device
+    rounds, eps_rel, _ = _teig_constants(dt)
+    if b0 is None:
+        b0 = teig_b0(m, dt, dev)
+    e_row, lo0, hi0, scale, pivmin = teig_bounds(d, e)
     neg_piv = -pivmin
     e2 = e_row * e_row
     lane = torch.arange(m, device=dev)
@@ -280,8 +289,13 @@ def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
         nrm2 = (bb * bb).sum(dim=0)
         bb = bb * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
         rows = list(bb.unbind(0))
+    return w, bb
 
-    # CGS2 across columns (descending order keeps clusters contiguous)
+
+def cgs2_plain(bb: torch.Tensor) -> torch.Tensor:
+    """CGS2 across the columns of bb (m, m), in place, column by column
+    (descending order keeps clusters contiguous); column 0 is kept."""
+    m = bb.shape[1]
     for j in range(1, m):
         prev = bb[:, :j]
         v = bb[:, j]
@@ -289,7 +303,19 @@ def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
             v = v - prev @ (prev.T @ v)
         nrm2 = (v * v).sum()
         bb[:, j] = v * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
-    return w, bb
+    return bb
+
+
+def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
+    """All eigenpairs of the real symmetric tridiagonal (d, e[:m-1]).
+
+    Returns (w (m,) descending, z (m, m) with column j the eigenvector of
+    w[j]). Vectorised over the m eigenvalue lanes. d and e may carry a
+    leading batch dimension (b0 is shared)."""
+    if d.dim() == 2:
+        return _over_batch(lambda dd, ee: teig_plain(dd, ee, b0), d, e)
+    w, bb = teig_plain_iterates(d, e, b0)
+    return w, cgs2_plain(bb)
 
 
 def backtransform_plain(vrows: torch.Tensor, tau: torch.Tensor,
@@ -381,7 +407,8 @@ def teig(d: torch.Tensor, e: torch.Tensor):
     w = torch.empty(lead + (m,), dtype=rdt, device=dev)
     z = torch.empty(lead + (m, m), dtype=rdt, device=dev)
     if f64 or m > NARROW_MAX_M:
-        # the wide variant's LU factors and swap bits
+        # the wide variant's LU factors and swap bits, where they do not
+        # fit in its shared memory
         scratch = torch.empty((p, lib.teig_wide_scratch(m)), dtype=rdt,
                               device=dev)
         launch = lib.teig_f64_launch if f64 else lib.teig_wide_launch
@@ -395,6 +422,18 @@ def teig(d: torch.Tensor, e: torch.Tensor):
     cuda_lib.check(rc, "teig")
     _count(teig, p, m, f64)
     return w, z
+
+
+def teig_cluster_size(m: int, f64: bool = False) -> int:
+    """CTAs of the thread-block cluster on which K3's wide variant solves
+    one matrix of size m (complex64 above NARROW_MAX_M, or f64: complex128
+    at every m): ceil(m / 32), at most 16, or 8 where the card does not
+    take a cluster of 16."""
+    g = cuda_lib.lib().teig_cluster_size(int(m), int(f64))
+    if g == 0:
+        raise RuntimeError(f"teig: no cluster size can launch m={m}"
+                           + (" in complex128" if f64 else ""))
+    return g
 
 
 def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,

@@ -27,8 +27,10 @@ name; any failure exits non-zero:
             center-gauge engine's inputs (m = chi from its center moves);
             the wide variants: K1 at chi 96/128 and K2-K4 at m =
             192/256/512 to the same checks (a batch of 3 bit for bit
-            against its P = 1 launches), with the chain's yardstick
-            torch.linalg.eigh of the complex H
+            against its P = 1 launches, and of 7 at m = 256), with the
+            chain's yardstick torch.linalg.eigh of the complex H and K3's
+            cluster size; the complex128 instantiations (K3's w bit for
+            bit), timed at m = 64/256/504
   hazard    a deep two-qubit-chain re-simulation at n=50, chi=64 and
             chi=128 under eigh="kernels" and eigh="native": overlaps agree
             to 1e-3
@@ -160,7 +162,8 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None,
       tridiag        m x m complex64 in; v (m x m complex), tau, d, e out;
                      zhetrd's 16/3 m^3 flops
       teig           d, e (m float32) and b0 (m x m) in, w and z out; 30
-                     bisection rounds of m lanes x m Sturm steps (3 ops),
+                     bisection rounds (60 in float64) of m lanes x m Sturm
+                     steps (3 ops),
                      the LU (6 m^2) and two inverse-iteration rounds (12
                      m^2 with the normalisation), and CGS2: two passes of
                      a dot and an update over j earlier columns of m
@@ -182,7 +185,9 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None,
                  else sum(16 * (m - k - 1) ** 2 for k in active))
         nbytes = m * m * 8 + m * m * 8 + m * 8 + 2 * m * 4
     elif name == "teig":
-        flops = 30 * m * m * 3 + 6 * m * m + 2 * 12 * m * m + 4 * m ** 3
+        rounds = 60 if f64 else 30  # _teig_constants
+        flops = (rounds * m * m * 3 + 6 * m * m + 2 * 12 * m * m
+                 + 4 * m ** 3)
         nbytes = 2 * m * 4 + m * m * 4 + m * 4 + m * m * 4
     elif name == "backtransform":
         flops = (8 * m * m * keep if active is None
@@ -305,11 +310,12 @@ def sweep_probe_sites(Circuit, compile_tape):
     return [int(q) for q in np.asarray(at.q0)[np.asarray(at.trainable)]]
 
 
-def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape):
+def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape,
+                      chi=64):
     """The arguments of every tridiag, teig and backtransform launch of one
-    sweep at phase_sweep's shape (n=50, chi=64): {name: [args, ...]}, in
-    launch order, cloned as they were passed."""
-    n, chi, dev = 50, 64, torch.device("cuda")
+    sweep at phase_sweep's shape (n=50, chi=64, or the chi given):
+    {name: [args, ...]}, in launch order, cloned as they were passed."""
+    n, dev = 50, torch.device("cuda")
     target, ansatz = bench_workload(Circuit, n, 12)
     tt, at = compile_tape(target), compile_tape(ansatz)
     prefix = mps_core.apply_tape(
@@ -462,6 +468,11 @@ def sweep_eigh_check(torch, ek, inputs, rec, card):
                          for hh in grams]))
     ms4 = float(np.mean([cuda_ms(lambda: ek.backtransform(*a), 10, torch)
                          for a in bts]))
+    lib4 = []  # torch.ormqr on the same reflectors (timed only)
+    for vr, ta, z, keep in bts:
+        oa, otau, oz = ormqr_inputs(torch, vr, ta, z, keep)
+        lib4.append(cuda_ms(lambda: torch.ormqr(oa, otau, oz), 10, torch))
+    rec["backtransform"]["library_ms_sweep_inputs"] = float(np.mean(lib4))
     steps = sum(h.shape[0] - 1 for h in grams)
     rec["tridiag"]["ms_sweep_inputs"] = ms2
     rec["backtransform"]["ms_sweep_inputs"] = ms4
@@ -472,8 +483,8 @@ def sweep_eigh_check(torch, ek, inputs, rec, card):
           f"{np.mean(bound2):.5f}), Q T Q^H {worst_t:.2e} < {TOL_TRIDIAG_REL};"
           f" backtransform ({len(bts)} launches, keep "
           f"{sorted({a[3] for a in bts})}) mean {ms4:.4f} ms (bound "
-          f"{np.mean(bound4):.5f}), vs plain {worst_b:.2e} < {TOL_BT} on "
-          f"{card}", flush=True)
+          f"{np.mean(bound4):.5f}; torch.ormqr {np.mean(lib4):.4f} ms), vs "
+          f"plain {worst_b:.2e} < {TOL_BT} on {card}", flush=True)
 
 
 def tridiag_residual(torch, ek, v, tau, d, e, hh):
@@ -563,6 +574,14 @@ def batched_kernel_check(torch, ek, card, dev, probe_inputs=None):
         batch_against_singles(torch, ek, h, m // 2, f"batched m={m} P=3",
                               worst)
         n_checked += 3
+        if m == 256:  # 7 clusters of K3, more than the card runs at once
+            h = torch.stack([_sym_gram(torch, th, dev)
+                             for th in cases.values()]
+                            + [_sym_gram(torch, _gram_cases(m, rng)["rand"],
+                                         dev)])
+            batch_against_singles(torch, ek, h, m // 2,
+                                  f"batched m={m} P={h.shape[0]}", worst)
+            n_checked += h.shape[0]
     n_probe = 0
     if probe_inputs is not None:
         batches = [a[0] for a in probe_inputs["tridiag"] if a[0].dim() == 3]
@@ -572,8 +591,8 @@ def batched_kernel_check(torch, ek, card, dev, probe_inputs=None):
                                   f"probe batch P={h.shape[0]}", worst)
             n_probe += h.shape[0]
     print(f"kernels: batched launches: {n_checked} matrices of the spectrum "
-          f"classes in batches of 7 and 3 at m=32/64/128 and of 3 at m="
-          f"{'/'.join(map(str, WIDE_M))} and {n_probe} of "
+          f"classes in batches of 7 and 3 at m=32/64/128, of 3 at m="
+          f"{'/'.join(map(str, WIDE_M))} and of 7 at m=256, and {n_probe} of "
           f"recorded probe batches each equal their P=1 launch bit for bit "
           f"and agree with the plain versions (worst: tridiag QTQ^H "
           f"{worst['tridiag']:.2e} < {TOL_TRIDIAG_REL}, teig w "
@@ -674,12 +693,39 @@ def center_kernel_check(torch, ek, inputs, card):
         ms = {name: float(np.mean([cuda_ms(
             lambda: getattr(ek, name)(*inputs[name][i]), 5, torch)
             for i in idxs[:8]])) for name in inputs}
+        # the bounds (K2 and K4 on their active steps) and the library
+        # calls of the same functions, over the same eight inputs
+        bnd = {"tridiag": [], "teig": [], "backtransform": []}
+        lib = {"teig": [], "backtransform": []}
+        for i in idxs[:8]:
+            _, _, _, e2 = ek.tridiag(inputs["tridiag"][i][0])
+            bnd["tridiag"].append(kernel_bound(
+                "tridiag", m=m,
+                active=[k for k in range(m - 1) if e2[k] != 0])[0])
+            bnd["teig"].append(kernel_bound("teig", m=m)[0])
+            vr, ta, z, keep = inputs["backtransform"][i]
+            bnd["backtransform"].append(kernel_bound(
+                "backtransform", m=m, keep=keep,
+                active=[k for k in range(m - 1) if ta[k] != 0])[0])
+            dd, ee = inputs["teig"][i]
+            tdense = (torch.diag(dd) + torch.diag(ee[:-1], 1)
+                      + torch.diag(ee[:-1], -1)).contiguous()
+            lib["teig"].append(cuda_ms(lambda: torch.linalg.eigh(tdense), 5,
+                                       torch))
+            oa, otau, oz = ormqr_inputs(torch, vr, ta, z, keep)
+            lib["backtransform"].append(cuda_ms(
+                lambda: torch.ormqr(oa, otau, oz), 5, torch))
         parts.append(
             f"m={m} ({len(idxs)} Grams, keep "
             f"{sorted({inputs['backtransform'][i][3] for i in idxs})}): "
-            f"tridiag {ms['tridiag']:.4f} ms QTQ^H {worst_t:.2e}, teig "
-            f"{ms['teig']:.4f} ms w {worst_w:.2e}, backtransform "
-            f"{ms['backtransform']:.4f} ms {worst_b:.2e}")
+            f"tridiag {ms['tridiag']:.4f} ms (bound "
+            f"{np.mean(bnd['tridiag']):.5f}, no library call) QTQ^H "
+            f"{worst_t:.2e}, teig {ms['teig']:.4f} ms (bound "
+            f"{np.mean(bnd['teig']):.5f}, linalg.eigh(T) "
+            f"{np.mean(lib['teig']):.4f}) w {worst_w:.2e}, backtransform "
+            f"{ms['backtransform']:.4f} ms (bound "
+            f"{np.mean(bnd['backtransform']):.5f}, ormqr "
+            f"{np.mean(lib['backtransform']):.4f}) {worst_b:.2e}")
     print("kernels: the center-gauge engine's inputs (one Trotter step, "
           "n=50, chi=32): " + "; ".join(parts) + f" on {card}", flush=True)
 
@@ -691,9 +737,10 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
     m = 256 and 504 (their cap) on "rand" and "lowrank": K2's own Q T Q^H
     = H, K3's eigenvalues, orthogonality and residual, K4, and the chain
     against numpy float64 (TOL_F64); a batch of 3 bit for bit against its
-    P = 1 launches. Times at the shapes of the optim phase's complex128
-    compile (n=10, chi=32: K1 at q=5, K2-K4 at m=64) and at m=256, with
-    the bound at the fp64 peak and the library calls."""
+    P = 1 launches; K3's w bit for bit equal to the plain version's. Times
+    at the shapes of the optim phase's complex128 compile (n=10, chi=32: K1
+    at q=5, K2-K4 at m=64) and at m=256 and 504, with the bound at the fp64
+    peak and the library calls (every m in the record's `by_m`)."""
     rng = np.random.default_rng(64)
     c128 = torch.complex128
     worst = {"env": 0.0, "tridiag": 0.0, "teig": 0.0, "ortho": 0.0,
@@ -722,6 +769,8 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
             zeros_equal(e, tau, ep, taup, f"tridiag complex128 m={m} {name}")
             w, z = ek.teig(d, e)
             wp, zp = ek.teig_plain(d, e)
+            check(torch.equal(w, wp), f"teig complex128 m={m} {name}: w "
+                  "differs from the plain version's")
             worst["teig"] = max(worst["teig"], float((w - wp).abs().max())
                                 / max(float(wp.abs().max()), 1e-300))
             tv = teig_vector_errors(d, e, w, z, zp)
@@ -760,7 +809,7 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
     parts = [f"env_chain n=10 chi=32 ({envk.cluster_size(32, True)} CTAs a "
              f"cluster) {ms:.4f} ms plain {pms:.4f} ms bound "
              f"{bound['bound_ms']:.5f} ms ({bound['bound_by']})"]
-    for m in (64, 256):
+    for m in (64, 256, 504):
         th = _gram_cases(m, rng)["rand"]
         hh = _sym_gram(torch, th, dev).to(c128)
         vp, taup, dp, ep = ek.tridiag_plain(hh)
@@ -789,11 +838,17 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
             pms = cuda_ms(pfn, 1, torch)
             lms = cuda_ms(lfn, 10, torch) if lfn else None
             bound = bound_fields(kname, m=m, keep=keep, f64=True)
-            parts.append(f"m={m} {kname} {ms:.4f} ms plain {pms:.4f} ms "
+            ctas = (ek.teig_cluster_size(m, True) if kname == "teig"
+                    else None)
+            cl = f" (clusters of {ctas} CTAs)" if ctas else ""
+            parts.append(f"m={m} {kname}{cl} {ms:.4f} ms plain {pms:.4f} ms "
                          f"bound {bound['bound_ms']:.5f} ms "
                          f"({bound['bound_by']}) " + (
                              f"{lname} {lms:.4f} ms" if lfn
                              else "no library call"))
+            rec[f"{kname}[f64]"].setdefault("by_m", {})[m] = dict(
+                ms=ms, plain_ms=pms, library_ms=lms, cluster_ctas=ctas,
+                **bound)
             if m == 64:
                 rec[f"{kname}[f64]"].update(
                     ms=ms, plain_ms=pms, library_call=lname, library_ms=lms,
@@ -807,7 +862,7 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
           f"{worst['tridiag']:.2e}, teig w {worst['teig']:.2e} ortho "
           f"{worst['ortho']:.2e} resid {worst['resid']:.2e}, backtransform "
           f"{worst['bt']:.2e}, chain vs numpy {worst['chain']:.2e}, all < "
-          f"{TOL_F64}; batches of 3 at m=64/504 bit for bit); "
+          f"{TOL_F64}; w bit-equal; batches of 3 at m=64/504 bit for bit); "
           + "; ".join(parts) + f" on {card}", flush=True)
 
 
@@ -983,10 +1038,17 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                 pms = cuda_ms(pfn, 2, torch)
                 lms = cuda_ms(lfn, 20, torch) if lfn else None
                 bound = bound_fields(kname, m=m, keep=keep)
+                ctas = (ek.teig_cluster_size(m)
+                        if kname == "teig" and m > 128 else None)
+                cl = f" (clusters of {ctas} CTAs)" if ctas else ""
                 parts.append(
-                    f"{kname} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+                    f"{kname}{cl} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
                     f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
                     + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
+                if m > 128:
+                    rec[kname + "[wide]"].setdefault("by_m", {})[m] = dict(
+                        ms=ms, plain_ms=pms, library_ms=lms,
+                        cluster_ctas=ctas, **bound)
                 if m in (64, 256):
                     rec[kname + ("" if m == 64 else "[wide]")].update(
                         ms=ms, plain_ms=pms, library_call=lname,

@@ -155,3 +155,15 @@ def test_sweep_probe_sites():
     _, ansatz = chip_smoke.bench_workload(Circuit, 50, 12)
     assert len(sites) == 48 == int(np.sum(compile_tape(ansatz).trainable))
     assert all(0 <= q < 50 for q in sites)
+
+
+def test_teig_bound_counts_the_double_rounds():
+    """complex128 (the double instantiation): 60 bisection rounds, twice
+    the bytes, operations at the fp64 peak."""
+    m = 64
+    ms, by, f, b = chip_smoke.kernel_bound("teig", m=m, f64=True)
+    assert f == 60 * 3 * m ** 2 + 30 * m ** 2 + 4 * m ** 3
+    assert b == 2 * chip_smoke.kernel_bound("teig", m=m)[3]
+    t_ops = f / (chip_smoke.FP64_TFLOPS * 1e12) * 1e3
+    assert ms == pytest.approx(max(t_ops, b / BYTES * 1e3), rel=1e-12)
+    assert by == "operations"

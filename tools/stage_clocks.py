@@ -1,7 +1,7 @@
 """Where the cycles of the redesigned kernels go, on one CUDA card.
 
     python3 tools/stage_clocks.py [--parent DIR]
-                                  [--kernels tridiag,teig,env_chain]
+                                  [--kernels tridiag,teig,teig_wide,env_chain]
 
 Builds instrumented copies of the kernel sources (clock64() stamps taken by
 thread 0 at each stage boundary) into tools/_build/, a git-ignored
@@ -22,6 +22,16 @@ directory, and prints (--kernels picks the reports; all by default):
             with the kernel's time on both inputs, and the same for a build
             whose divisions are plain __fdiv_rn. With --parent DIR (an
             unpacked older tree) also the older kernel's split and times.
+  teig_wide the wide K3 (complex64 128 < m <= 560, complex128 every m):
+            cycles by stage (bisection, shift, inverse iteration, BCGS2
+            projections, in-panel CGS2; in the cluster design also the
+            cluster barriers and the exchanges of w and of the partial
+            projections), on the owner of each panel for the BCGS2, and
+            the kernel's time, in float32 at m = 256 and 512 and in float64
+            at m = 64, 256 and 504, on a random Gram's tridiagonal and on
+            the 24 tridiagonals of one chi=128 bench.py sweep (m = 256).
+            With --parent, in the order parent, this tree, this tree,
+            parent.
   env_chain cycles per site (B wait, step 1, step 2, cluster barrier, sum
             of received partials) on rank 0 of each chain's cluster at
             n = 50, chi = 32 and 64, clusters of 8 and 16 CTAs, q = 25.
@@ -191,6 +201,7 @@ def build(src, tag, edits):
              "sizeof(g_steps));\n}\n"
              "extern \"C\" int clear_steps() {\n"
              "  static long long zero[128][5];\n"
+             "  cudaMemcpyToSymbol(g_stamp, zero, 16 * sizeof(long long));\n"
              "  return (int)cudaMemcpyToSymbol(g_steps, zero, sizeof(zero));\n"
              "}\n")
     text += ("\nextern \"C\" int read_stamps(long long* out) {\n"
@@ -327,6 +338,234 @@ def report_teig(tag, src, sweep_inputs, edits=()):
         print(f"teig {tag} on {label}: {ms:.4f} ms, {cyc.sum():.0f} cycles: "
               + ", ".join(f"{lab} {c:.0f} ({c / cyc.sum():.3f})"
                           for (_, lab), c in zip(marks[1:], cyc))
+              + f"; max |w - w_plain| {wdiff:.1e}", flush=True)
+
+
+# The wide K3 (teig_wide_kernel<T>, one CTA a matrix; the design of PR 6):
+# stamps at its stage boundaries, the shift as the slowest lane's clock
+# (it runs inside the lane loop, with no block barrier around it), and
+# every CGS2 panel's start, projection end and end in g_steps[panel].
+def _mark(k):
+    return f"  if (threadIdx.x == 0) g_stamp[{k}] = stamp_clock();\n"
+
+
+def _panel_mark(k):
+    return (f"    if (tid == 0) g_steps[c0 / kPanel][{k}] = "
+            "stamp_clock();\n")
+
+
+TEIG_WIDE_ONE_CTA = [
+    ("  // multisection as in teig_kernel, at least two threads a lane",
+     _mark(0) + "  // multisection as in teig_kernel"),
+    ("  __syncthreads();\n\n  for (int j = tid; j < m; j += nt) {\n",
+     "  __syncthreads();\n" + _mark(1)
+     + "  for (int j = tid; j < m; j += nt) {\n"
+     "    const long long t_shift0 = stamp_clock();\n"),
+    ("    for (int rep = 0; rep < 2; ++rep) {\n      T a_i = sub_rn(d[0], lam)",
+     "    atomicMax((unsigned long long*)&g_stamp[15],\n"
+     "              (unsigned long long)(stamp_clock() - t_shift0));\n"
+     "    for (int rep = 0; rep < 2; ++rep) {\n      T a_i = sub_rn(d[0], lam)"),
+    ("  // BCGS2: W = Q^T P, P -= Q W twice", _mark(2) + "  // BCGS2:"),
+    ("  for (int c0 = 0; c0 < m; c0 += kPanel) {\n    const int pw = min(kPanel, "
+     "m - c0);\n    for (int idx = tid; idx < m * kPanel; idx += nt) {",
+     "  for (int c0 = 0; c0 < m; c0 += kPanel) {\n" + _panel_mark(0)
+     + "    const int pw = min(kPanel, m - c0);\n"
+     "    for (int idx = tid; idx < m * kPanel; idx += nt) {"),
+    ("    for (int p = 0; p < pw; ++p) {\n      if (c0 + p == 0) continue;",
+     _panel_mark(1) + "    for (int p = 0; p < pw; ++p) {\n"
+     "      if (c0 + p == 0) continue;"),
+    ("      if (p < pw) bb[(size_t)i * m + c0 + p] = pan[idx];\n    }\n"
+     "    __syncthreads();\n  }\n",
+     "      if (p < pw) bb[(size_t)i * m + c0 + p] = pan[idx];\n    }\n"
+     "    __syncthreads();\n" + _panel_mark(2) + "  }\n" + _mark(3)),
+]
+TEIG_WIDE_ONE_CTA_LABELS = ["bisection", "shift (slowest lane)",
+                            "inverse iteration", "BCGS2 projections",
+                            "in-panel CGS2"]
+
+
+def one_cta_stages(st, steps):
+    """The PR 6 kernel's cycles by stage, and its total."""
+    used = steps[steps[:, 0] != 0]
+    shift = st[15]
+    return ([st[1] - st[0], shift, st[2] - st[1] - shift,
+             float((used[:, 1] - used[:, 0]).sum()),
+             float((used[:, 2] - used[:, 1]).sum())], st[3] - st[0])
+
+
+# The cluster design (teig_cluster_kernel<T>): rank 0's stage boundaries,
+# the shift's slowest lane over the cluster, and for every BCGS2 panel the
+# owner's cycles in its projections (pulling the panel, W and Q W), its
+# cluster barriers, its exchange of partials and its in-panel CGS2 (with
+# the copy of the projected panel back into its shared memory), summed
+# over the panel's two passes by thread 0 of every CTA and stored by the
+# owner's (g_steps[panel][0..3], [4] = 1).
+def _cmark(k):
+    return (f"  if (threadIdx.x == 0 && rank == 0) g_stamp[{k}] = "
+            "stamp_clock();\n")
+
+
+def _lap(k, indent="      "):
+    return (f"{indent}if (tid == 0) {{\n{indent}  const long long t_ = "
+            f"stamp_clock();\n{indent}  acc_t[{k}] += t_ - t_prev;\n"
+            f"{indent}  t_prev = t_;\n{indent}}}\n")
+
+
+TEIG_CLUSTER_MARKS = [
+    ("  // Sturm multisection of this CTA's lanes",
+     _cmark(0) + "  // Sturm multisection of this CTA's lanes"),
+    ("  // every rank's eigenvalues: pulled from their owners",
+     _cmark(1) + "  // every rank's eigenvalues: pulled"),
+    ("  __syncthreads();\n\n  if (tid < nl) {\n",
+     "  __syncthreads();\n" + _cmark(2) + "  if (tid < nl) {\n"),
+    ("    T lam = add_rn(hi0, scale);\n",
+     "    const long long t_shift0 = stamp_clock();\n"
+     "    T lam = add_rn(hi0, scale);\n"),
+    ("    // two rounds of inverse iteration on this lane's column",
+     "    atomicMax((unsigned long long*)&g_stamp[15],\n"
+     "              (unsigned long long)(stamp_clock() - t_shift0));\n"
+     "    // two rounds of inverse iteration"),
+    ("  // Distributed BCGS2 (see above)", _cmark(3) + "  // Distributed"),
+    ("    const int o = c0 / L, cl0 = c0 - o * L;\n",
+     "    const int o = c0 / L, cl0 = c0 - o * L;\n"
+     "    long long t_prev = stamp_clock(), acc_t[4] = {0, 0, 0, 0};\n"),
+    ("      if (pass > 0 || cl0 == 0)\n        cluster.sync();\n      else\n"
+     "        __syncthreads();\n",
+     _lap(0) + "      if (pass > 0 || cl0 == 0)\n        cluster.sync();\n"
+     "      else\n        __syncthreads();\n" + _lap(1)),
+    ("      cluster.sync();  // every partial is in place\n",
+     _lap(0) + "      cluster.sync();\n" + _lap(1)),
+    ("          if (4 * pg + q < pw) row[q] = __ldcg(row + q) - sub4[q];\n"
+     "      }\n",
+     "          if (4 * pg + q < pw) row[q] = __ldcg(row + q) - sub4[q];\n"
+     "      }\n" + _lap(2)),
+    ("    if (c0 > 0) cluster.sync();  // the panel in z_out is projected\n",
+     "    if (c0 > 0) cluster.sync();\n" + _lap(1, "    ")),
+    ("        cgs2_panel_rows(bb, ldb, m, c0, cl0, pw, red);\n    }\n",
+     "        cgs2_panel_rows(bb, ldb, m, c0, cl0, pw, red);\n    }\n"
+     + _lap(3, "    ")
+     + "    if (tid == 0 && rank == o) {\n"
+     "      for (int k = 0; k < 4; ++k) g_steps[c0 / kPanel][k] = acc_t[k];\n"
+     "      g_steps[c0 / kPanel][4] = 1;\n    }\n"),
+    ("  __syncthreads();\n  for (int idx = tid; idx < m * nl; idx += kClThreads)"
+     " {\n    const int i = idx / nl, jl = idx - i * nl;\n    z_out",
+     "  __syncthreads();\n" + _cmark(4)
+     + "  for (int idx = tid; idx < m * nl; idx += kClThreads) {\n"
+     "    const int i = idx / nl, jl = idx - i * nl;\n    z_out"),
+    ("  cluster.sync();  // no CTA leaves while another may read its memory\n",
+     _cmark(5) + "  cluster.sync();\n"),
+]
+TEIG_CLUSTER_LABELS = ["bisection", "w exchange", "shift (slowest lane)",
+                       "inverse iteration", "BCGS2 projections",
+                       "BCGS2 cluster barriers", "partials exchange",
+                       "in-panel CGS2", "write-out"]
+
+
+def cluster_stages(st, steps):
+    """The cluster kernel's cycles by stage (the BCGS2 from the panels'
+    owners), and its total on rank 0."""
+    used = steps[steps[:, 4] != 0]
+    comp, bar, exch, cgs = used[:, :4].sum(axis=0)
+    shift = st[15]
+    return ([st[1] - st[0], st[2] - st[1], shift, st[3] - st[2] - shift,
+             comp, bar, exch, cgs, st[5] - st[4]], st[5] - st[0])
+
+
+def teig_wide_design(src):
+    """(edits, labels, stage function, cluster) for the wide K3 in `src`:
+    the cluster design of this tree or PR 6's one CTA a matrix."""
+    if "teig_cluster_kernel" in open(src).read():
+        return (TEIG_CLUSTER_MARKS, TEIG_CLUSTER_LABELS, cluster_stages,
+                True)
+    return (TEIG_WIDE_ONE_CTA, TEIG_WIDE_ONE_CTA_LABELS, one_cta_stages,
+            False)
+
+
+def teig_wide_runner(lib, f64):
+    """Launch the instrumented wide K3 (float32) or its double
+    instantiation on one matrix through the build's own launcher."""
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.teig_f64_launch if f64 else lib.teig_wide_launch
+    fn.argtypes = [P] * 6 + [I, I, L, L, P]
+    lib.teig_wide_scratch.argtypes = [I]
+    lib.teig_wide_scratch.restype = L
+    lib.clear_steps.argtypes = []
+    lib.read_steps.argtypes = [P]
+
+    def run(d, e):
+        m, dt, dev = d.shape[0], d.dtype, d.device
+        b0 = ek.teig_b0(m, dt, dev)
+        w = torch.empty(m, dtype=dt, device=dev)
+        z = torch.empty(m, m, dtype=dt, device=dev)
+        scratch = torch.empty(lib.teig_wide_scratch(m), dtype=dt, device=dev)
+        rc = fn(d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
+                z.data_ptr(), scratch.data_ptr(), m, 1, m, m,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"teig wide launch failed: {rc}")
+        return w, z
+    return run
+
+
+def random_tridiagonal64(m):
+    """A random complex128 Gram's tridiagonal (float64 d, e)."""
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    th = cs._gram_cases(m, np.random.default_rng(2026))["rand"]
+    t = torch.tensor(th, dtype=torch.complex128, device="cuda")
+    h = t.mH @ t
+    _, _, d, e = ek.tridiag_plain(((h + h.mH) * 0.5).contiguous())
+    return d, e
+
+
+def build_teig_wide(tag, src):
+    """An instrumented build of `src` and its wide K3 design."""
+    design = teig_wide_design(src)
+    return build(src, f"teig_wide_{tag}", design[0]), design
+
+
+def report_teig_wide(tag, lib, design, sweep128):
+    """The wide K3's cycles by stage and its time (CUDA events, on the
+    instrumented build) in float32 at m = 256 and 512 and in float64 at
+    m = 64, 256 and 504, on a random Gram's tridiagonal and (m = 256) on
+    the 24 tridiagonals of one chi=128 bench.py sweep."""
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    _, labels, stages, cluster = design
+    sweep64 = [(d.double(), e.double()) for d, e in sweep128]
+    cases = [(False, "random m=256", [random_tridiagonal(256)]),
+             (False, "random m=512", [random_tridiagonal(512)]),
+             (False, f"the chi=128 sweep's {len(sweep128)} m=256", sweep128),
+             (True, "random m=64", [random_tridiagonal64(64)]),
+             (True, "random m=256", [random_tridiagonal64(256)]),
+             (True, f"the chi=128 sweep's {len(sweep64)} m=256", sweep64),
+             (True, "random m=504", [random_tridiagonal64(504)])]
+    for f64, label, inputs in cases:
+        run = teig_wide_runner(lib, f64)
+        cyc, total = np.zeros(len(labels)), 0.0
+        for d, e in inputs:
+            lib.clear_steps()
+            run(d, e)
+            torch.cuda.synchronize()
+            out = (ctypes.c_longlong * (128 * 5))()
+            if lib.read_steps(out) != 0:
+                raise RuntimeError("reading the step stamps failed")
+            c, t = stages(stamps(lib), np.array(out[:], dtype=np.float64)
+                          .reshape(128, 5))
+            cyc += np.asarray(c, dtype=np.float64)
+            total += t
+        cyc, total = cyc / len(inputs), total / len(inputs)
+        ms = np.mean([cs.cuda_ms(lambda: run(d, e), 10, torch)
+                      for d, e in inputs])
+        d, e = inputs[0]
+        wdiff = float((run(d, e)[0] - ek.teig_plain(d, e)[0]).abs().max())
+        size = (f", clusters of {lib.teig_cluster_size(d.shape[0], int(f64))}"
+                " CTAs" if cluster else ", one CTA")
+        print(f"teig wide {tag} {'float64' if f64 else 'float32'} on {label}"
+              f"{size}: {ms:.4f} ms, {total:.0f} cycles: "
+              + ", ".join(f"{lab} {c:.0f} ({c / max(total, 1):.3f})"
+                          for lab, c in zip(labels, cyc))
               + f"; max |w - w_plain| {wdiff:.1e}", flush=True)
 
 
@@ -469,7 +708,7 @@ def report_env():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked older tree to compare")
-    ap.add_argument("--kernels", default="tridiag,teig,env_chain",
+    ap.add_argument("--kernels", default="tridiag,teig,teig_wide,env_chain",
                     help="which reports, comma-separated (tridiag also "
                     "times backtransform)")
     args = ap.parse_args()
@@ -480,7 +719,7 @@ def main():
     import chip_smoke as cs
     print(f"stage_clocks: on {cs.gpu_line()}", flush=True)
     src = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc", "eigh_tridiag.cu")
-    inputs = sweep_inputs()
+    inputs = sweep_inputs() if which & {"tridiag", "teig"} else None
     parent = (os.path.join(args.parent, "adaptaqc_tpu_torch", "csrc",
                            "eigh_tridiag.cu") if args.parent else None)
     if "tridiag" in which:
@@ -496,6 +735,22 @@ def main():
             report_teig("parent", parent, teig_in)
         report_teig("plain_division", src, teig_in, [PLAIN_DIV])
         report_teig("this_tree", src, teig_in)
+    if "teig_wide" in which:
+        import chip_smoke as cs
+        from adaptaqc_tpu_torch.backends import mps_core
+        from adaptaqc_tpu_torch.circuits.circuit import Circuit
+        from adaptaqc_tpu_torch.circuits.tape import compile_tape
+        from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+        from adaptaqc_tpu_torch.optim import sweeps
+        sweep128 = [a[:2] for a in cs.sweep_eigh_inputs(
+            torch, ek, mps_core, sweeps, Circuit, compile_tape,
+            chi=128)["teig"]]
+        trees = {"this_tree": build_teig_wide("this_tree", src)}
+        if parent:
+            trees["parent"] = build_teig_wide("parent", parent)
+        for tag in ("parent", "this_tree", "this_tree", "parent"):
+            if tag in trees:
+                report_teig_wide(tag, *trees[tag], sweep128)
     if "env_chain" in which:
         report_env()
     return 0

@@ -1,7 +1,7 @@
 """bench.py's MPS sweep for an older tree and this one, in turns, on one
 CUDA card; then one profiled sweep of each.
 
-    python3 tools/sweep_ab.py --parent DIR
+    python3 tools/sweep_ab.py --parent DIR [--chi 128]
 
 DIR is an unpacked older tree (for example `git archive` of the parent
 commit). Each run is its own process, which builds that tree's kernels and
@@ -9,7 +9,8 @@ times chip_smoke.phase_sweep REPS times (each prints the mean of three
 sweeps); the order is parent, this tree, this tree, parent, so
 drift on the card shows in both. The profile, in a process of its own for
 each tree, sums each kernel's device time over one sweep (torch.profiler)
-and sets it beside the same sweep's unprofiled wall time.
+and sets it beside the same sweep's unprofiled wall time. --chi sets the
+bond dimension (64, bench.py's, by default; 128 runs the wide variants).
 """
 
 import argparse
@@ -22,14 +23,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 3  # phase_sweep calls a process: the host time varies a lot
 
 
-def sweep_args(tree):
+def sweep_args(tree, chi):
     import torch
     import chip_smoke as cs
     from adaptaqc_tpu_torch.backends import mps_core
     from adaptaqc_tpu_torch.circuits.circuit import Circuit
     from adaptaqc_tpu_torch.circuits.tape import compile_tape
     from adaptaqc_tpu_torch.optim import sweeps
-    n, chi, dev = 50, 64, torch.device("cuda")
+    n, dev = 50, torch.device("cuda")
     target, ansatz = cs.bench_workload(Circuit, n, 12)
     tt, at = compile_tape(target), compile_tape(ansatz)
     prefix = mps_core.apply_tape(
@@ -41,7 +42,7 @@ def sweep_args(tree):
                     at.kinds, at.q0, at.q1, at.angles, at.trainable)
 
 
-def run_one(tree):
+def run_one(tree, chi):
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
@@ -49,19 +50,26 @@ def run_one(tree):
     from adaptaqc_tpu_torch.backends import mps_core
     from adaptaqc_tpu_torch.circuits.circuit import Circuit
     from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    from adaptaqc_tpu_torch.ops import env_kernel as envk
     from adaptaqc_tpu_torch.optim import sweeps
     card = cs.gpu_line()
     for _ in range(REPS):
-        cs.phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card)
+        if chi == 64:
+            cs.phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape,
+                           card)
+        else:
+            cs.phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape,
+                           card, chi=chi, ek=ek, envk=envk)
 
 
-def profile(tree, tag):
+def profile(tree, tag, chi):
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
     from torch.profiler import ProfilerActivity
     import chip_smoke as cs
-    sweeps, args = sweep_args(tree)
+    sweeps, args = sweep_args(tree, chi)
     for _ in range(2):
         sweeps.sweep(*args)
     torch.cuda.synchronize()
@@ -80,7 +88,7 @@ def profile(tree, tag):
             rows.append((dt / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile {tag}: one sweep: {total:.2f} ms of kernel time, "
+    print(f"profile {tag} chi={chi}: one sweep: {total:.2f} ms of kernel time, "
           f"unprofiled wall {wall:.2f} ms, busy {total / wall:.3f} on "
           f"{cs.gpu_line()}",
           flush=True)
@@ -92,19 +100,21 @@ def profile(tree, tag):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True)
+    ap.add_argument("--chi", type=int, default=64)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--profile", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        return run_one(args.one)
+        return run_one(args.one, args.chi)
     parent = os.path.abspath(args.parent)
     if args.profile:
         return profile(*((parent, "parent") if args.profile == "parent"
-                         else (ROOT, "this tree")))
+                         else (ROOT, "this tree")), args.chi)
     for tag, tree in (("parent", parent), ("this tree", ROOT),
                       ("this tree", ROOT), ("parent", parent)):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--parent", parent, "--one", tree],
+                              "--parent", parent, "--chi", str(args.chi),
+                              "--one", tree],
                              capture_output=True, text=True)
         for line in out.stdout.splitlines():
             if line.startswith("sweep:"):
@@ -114,7 +124,8 @@ def main():
             return 1
     for which in ("parent", "this"):
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--parent", parent, "--profile", which]).returncode
+                             "--parent", parent, "--chi", str(args.chi),
+                             "--profile", which]).returncode
         if rc:
             return rc
     return 0
