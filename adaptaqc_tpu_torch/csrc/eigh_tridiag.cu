@@ -4,7 +4,7 @@
 //   tridiag_kernel        <- _tridiag_kernel       (pallas_eigh.py:56)
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
-// and, for 128 < m <= 560, their wide variants (tridiag_wide_kernel,
+// and, for 128 < m <= 560, their wide variants (tridiag_cluster_kernel,
 // teig_cluster_kernel, backtransform_wide_kernel, at the end of this file),
 // whose double instantiations serve complex128 at every m up to 504.
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
@@ -12,7 +12,8 @@
 // full-cost sweep applies every gate to its 3 or 7 probe states at once (the
 // JAX package maps its kernels over the probes, which adds a grid dimension
 // to each pallas_call). Every kernel indexes its matrix by a grid axis
-// (tridiag and teig: one CTA a matrix, the wide teig one cluster a matrix;
+// (tridiag and teig: one CTA a matrix, their wide variants one cluster a
+// matrix;
 // backtransform: its column panels on grid x, the matrix on grid y) and
 // nothing is shared across the batch but
 // teig's read-only right-hand side b0, so each matrix gets exactly the
@@ -102,10 +103,11 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using adaptaqc::block_sum;
 using adaptaqc::cp_async8;
 using adaptaqc::cp_async_commit;
 using adaptaqc::cp_async_wait;
+using adaptaqc::mbar_init;
+using adaptaqc::mbar_wait;
 using adaptaqc::warp_sum;
 
 constexpr int kMaxM = 128;  // the register, shared-memory designs below;
@@ -1022,18 +1024,15 @@ __global__ void __launch_bounds__(kBtThreads)
 // For 128 < m <= kWideMaxM (the JAX kernels' own reach, pallas_eigh.py's
 // `supported`: 10 m^2 float32 words in 12 MiB of VMEM). At m = 256 one
 // complex64 matrix is 512 KB, more than an SM's registers (256 KB) or
-// shared memory (227 KB), so the designs above do not stretch. K2 and K4
-// keep one CTA a matrix (a batch still costs one matrix's time) and keep
-// every m x m working set in global memory, where it stays L2-resident
-// (0.5 MB a matrix at m = 256 against 50 MB of L2); shared memory holds
-// only the current column, vectors or panel. What bounds them: the L2
-// traffic of one SM, since every step streams its trailing block (K2) or
-// its panel's columns (K4) through it, and the barriers of m sequential
-// steps. They are the simple first design: a cluster design (the trailing
-// block split by rows over several CTAs, exchanged through distributed
-// shared memory, as env_chain does) is the faster later one. K3 has it
-// (teig_cluster_kernel: a matrix's eigenvalue lanes, and their columns of
-// the iterate, spread over a cluster of up to 16 CTAs). The properties of
+// shared memory (227 KB), so the designs above do not stretch. K4 keeps
+// one CTA a matrix (a batch still costs one matrix's time) and reads its
+// reflectors from global memory, where they stay L2-resident (0.5 MB a
+// matrix at m = 256 against 50 MB of L2), a panel at a time into shared
+// memory. K2 and K3 spread a matrix over a thread-block cluster of up to
+// 16 CTAs: K2 its rows (tridiag_cluster_kernel: the trailing block split
+// by rows, kept in the CTAs' shared memory, v and u exchanged through
+// distributed shared memory), K3 its eigenvalue lanes and their columns of
+// the iterate (teig_cluster_kernel). The properties of
 // the m <= 128 kernels carry over: the scaled norm of a tiny column, the
 // exactly inactive step, eigenvalues equal to the plain version's bit for
 // bit, and a batch equal to its P = 1 launches (fixed reduction orders,
@@ -1048,7 +1047,6 @@ __global__ void __launch_bounds__(kBtThreads)
 // DBL_EPSILON, as the plain version's finfo(float64).tiny / eps.
 constexpr int kWideMaxM = 560;
 constexpr int kWideMaxM64 = 504;
-constexpr int kWideThreads = 1024;
 
 template <typename T>
 struct Real;
@@ -1081,137 +1079,6 @@ struct alignas(16) Quad {
 template <typename V>
 __device__ __forceinline__ V warp_sum2(V v) {
   return make_c(warp_sum(v.x), warp_sum(v.y));
-}
-
-// Householder tridiagonalization as tridiag_kernel computes it, step by
-// step: A (exactly Hermitian, both triangles kept) in `work`; a step reads
-// row k (column k is its conjugate), forms the reflector in warp 0, u = A v
-// a warp a row (coalesced rows), s = v^H u and w by block reductions, and
-// the rank-2 update over the trailing block rounded as written, so that A
-// stays exactly Hermitian; six block barriers a step. A step whose column
-// is exactly zero costs one read of its row.
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads, 1)
-    tridiag_wide_kernel(const typename Real<T>::C* __restrict__ h,
-                        typename Real<T>::C* work,
-                        typename Real<T>::C* __restrict__ vrows,
-                        typename Real<T>::C* __restrict__ tau_out,
-                        T* __restrict__ d_out, T* __restrict__ e_out, int m,
-                        long long h_stride) {
-  using V = typename Real<T>::C;
-  {
-    const size_t b = blockIdx.x;
-    h += b * (size_t)h_stride;
-    work += b * (size_t)m * m;
-    vrows += b * (size_t)m * m;
-    tau_out += b * m;
-    d_out += b * m;
-    e_out += b * m;
-  }
-  __shared__ V C[kWideMaxM];  // column k of A
-  __shared__ V Vv[kWideMaxM], U[kWideMaxM], W[kWideMaxM];
-  __shared__ T red[33];
-  __shared__ T scal[5];  // gam (2), tau (2)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int kWarps = kWideThreads / 32;
-  const T zero = 0, one = 1;
-
-  for (int idx = tid; idx < m * m; idx += kWideThreads) work[idx] = h[idx];
-  if (tid < m) vrows[(size_t)(m - 1) * m + tid] = make_c(zero, zero);
-  if (tid == 0) {
-    tau_out[m - 1] = make_c(zero, zero);
-    e_out[m - 1] = zero;
-  }
-  __syncthreads();
-
-  for (int k = 0; k < m - 1; ++k) {
-    const int k1 = k + 1;
-    T part = zero;
-    for (int j = k1 + tid; j < m; j += kWideThreads) {
-      const V r = work[(size_t)k * m + j];
-      const V c = make_c(r.x, -r.y);  // A[j][k] = conj(A[k][j])
-      C[j] = c;
-      part = fma_(c.x, c.x, fma_(c.y, c.y, part));
-    }
-    const T ss = block_sum(part, red);
-    if (!(ss > zero)) {  // inactive: tau = e = 0, v = e_{k+1}
-      for (int j = tid; j < m; j += kWideThreads)
-        vrows[(size_t)k * m + j] = make_c(j == k1 ? one : zero, zero);
-      if (tid == 0) {
-        tau_out[k] = make_c(zero, zero);
-        e_out[k] = zero;
-      }
-      continue;
-    }
-    if (warp == 0) {
-      const T nrm = ss < Real<T>::kTiny ? scaled_norm(C, k, m, lane)
-                                        : sqrt_(ss);
-      if (lane == 0) {
-        const V alpha = C[k1];
-        const T inv = one / nrm;
-        const T ahr = alpha.x * inv, ahi = alpha.y * inv;
-        const T bh = (ahr >= zero) ? -one : one;
-        const T tr = one - ahr * bh, ti = -ahi * bh;
-        const T dr = ahr - bh, di = ahi;
-        const T gs = inv / (dr * dr + di * di);
-        scal[0] = dr * gs;
-        scal[1] = -di * gs;
-        scal[2] = tr;
-        scal[3] = ti;
-        tau_out[k] = make_c(tr, ti);
-        e_out[k] = bh * nrm;
-      }
-    }
-    __syncthreads();
-    const V gam = make_c(scal[0], scal[1]);
-    const T tr = scal[2], ti = scal[3];
-    for (int j = tid; j < m; j += kWideThreads) {
-      const V vj = (j <= k) ? make_c(zero, zero)
-                   : (j == k1 ? make_c(one, zero) : cmul(gam, C[j]));
-      Vv[j] = vj;
-      vrows[(size_t)k * m + j] = vj;
-    }
-    __syncthreads();
-    // u = A v over the trailing block, a warp a row
-    for (int i = k1 + warp; i < m; i += kWarps) {
-      const V* row = work + (size_t)i * m;
-      V acc = make_c(zero, zero);
-      for (int j = k1 + lane; j < m; j += 32) cfma(acc, row[j], Vv[j]);
-      acc = warp_sum2(acc);
-      if (lane == 0) U[i] = acc;
-    }
-    __syncthreads();
-    V sp = make_c(zero, zero);
-    for (int j = k1 + tid; j < m; j += kWideThreads)
-      cfma_conj(sp, Vv[j], U[j]);
-    const T sx = block_sum(sp.x, red);
-    const T sy = block_sum(sp.y, red);
-    const T t2r = (tr * sx + ti * sy) * T(0.5);
-    const T t2i = (tr * sy - ti * sx) * T(0.5);
-    for (int j = k1 + tid; j < m; j += kWideThreads) {
-      const V u = U[j], vi = Vv[j];
-      const T pr = u.x - (t2r * vi.x - t2i * vi.y);
-      const T pi = u.y - (t2r * vi.y + t2i * vi.x);
-      W[j] = make_c(tr * pr - ti * pi, tr * pi + ti * pr);
-    }
-    __syncthreads();
-    // A[j][i] -= v_j conj(w_i) + w_j conj(v_i), rounded as written: the
-    // update of A[i][j] is exactly the conjugate
-    const int t = m - k1;
-    for (int idx = tid; idx < t * t; idx += kWideThreads) {
-      const int j = k1 + idx / t, i = k1 + idx % t;
-      const V va = Vv[j], wa = W[j], vb = Vv[i], wb = W[i];
-      const T re = add_rn(add_rn(mul_rn(va.x, wb.x), mul_rn(va.y, wb.y)),
-                          add_rn(mul_rn(wa.x, vb.x), mul_rn(wa.y, vb.y)));
-      const T im = add_rn(sub_rn(mul_rn(va.y, wb.x), mul_rn(va.x, wb.y)),
-                          sub_rn(mul_rn(wa.y, vb.x), mul_rn(wa.x, vb.y)));
-      V& a = work[(size_t)j * m + i];
-      a = make_c(sub_rn(a.x, re), sub_rn(a.y, im));
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < m; i += kWideThreads)
-    d_out[i] = work[(size_t)i * m + i].x;
 }
 
 // K3's wide variant: teig_kernel's algorithm on a thread-block cluster of G
@@ -1762,6 +1629,404 @@ __global__ void __launch_bounds__(kClThreads, 1)
   cluster.sync();  // no CTA leaves while another may read its memory
 }
 
+// K2's wide variant: tridiag_kernel's Householder steps on a thread-block
+// cluster of G = ceil(m / 16) CTAs a matrix (at most 16; 8 where the card
+// refuses 16), for complex64 at 128 < m <= 560 and complex128 at every
+// m <= 504. One CTA a matrix (the first design) used one SM of 132, kept A
+// in global memory and streamed the trailing block through that SM's L1/L2
+// three times a step (the product u half its cycles, the update the other
+// half, tools/stage_clocks.py), divided per element in the rank-2 update,
+// and paid a step for every exactly inactive column. Here:
+//   - CTA r holds rows r, r + G, r + 2G, .. (dealt cyclically, as tri_row
+//     deals them over row groups, so that the trailing block stays spread
+//     over every CTA to the last steps), whole rows of m entries, in its
+//     shared memory: the first rs of its R = ceil(m / G) rows, all of them
+//     where they fit (complex64 at every m, complex128 to m = 438), the
+//     rest in the wrapper's `work` at their own row of the matrix; either
+//     way a row is reached through one pointer;
+//   - a warp a row: u_i = sum_j A[i][j] v_j with a shuffle reduction, and
+//     the rank-2 update over the row's trailing entries (coalesced, no
+//     integer division), rounded as written, so that A stays exactly
+//     Hermitian and each row, conjugated, is its column;
+//   - one all-to-all exchange a step. A step k begins when its message
+//     arrives: v, tau and whether the step is active, bulk-copied
+//     (cp.async.bulk, completing on each CTA's mbarrier) by the owner of
+//     row k from its shared memory into every CTA's. Every CTA forms u for
+//     its rows below k and stores each u_i into every CTA's copy of u; it
+//     then releases a per-CTA step counter in every CTA, and every warp
+//     acquires all G counters (cheaper than a cluster barrier, which
+//     would also wait for every thread of every CTA). Every
+//     warp sums s = v^H u over the rows in order (the same sum in every warp
+//     of every CTA, whatever G, so a batch and a rerun equal their P = 1
+//     launch bit for bit), forms w_j from u_j and v_j with round-to-nearest
+//     operations (the same bits wherever it is formed) and updates its rows,
+//     summing each row's squares right of the diagonal as it goes. The
+//     owner of row k + 1 updates that row first (it is its warp 0's first
+//     row) and at once sends the next message: the reflector (sum of
+//     squares, the scaled norm below the tiny threshold, the scalars, v) or
+//     "inactive" where the sum is zero;
+//   - inactive steps: a sum of rounded squares is zero exactly when each
+//     square is, so the per-row flags find exactly the steps whose column
+//     is zero, whatever the order of the sums. On an "inactive" message
+//     every CTA posts its first flagged row and one cluster barrier later
+//     the least of them is the next active step, whose owner sends its
+//     reflector; the run between is written as identity rows (tau = e = 0)
+//     by their rows' owners, with no step;
+//   - the buffers that a faster CTA may write while a slower one still
+//     reads them (v and u) are double-buffered by step; a CTA reaches a
+//     step's buffers only after every CTA has posted the last step's u,
+//     which each posts after it has read the buffers of the step before.
+//     A block barrier ends each step (a row's warp changes between steps);
+//   - the CTAs write d for their rows at the end, after which a last
+//     cluster barrier keeps every CTA's shared memory alive until no other
+//     CTA reads it.
+// A batch of P matrices is P clusters on grid x.
+constexpr int kTcMaxRows = 128;  // rows a CTA: its flags
+constexpr int kTcRowsPerCta = 16;  // G = ceil(m / 16), at most 16
+
+// tridiag_cluster_kernel's dynamic shared memory, in complex elements: the
+// rs rows a CTA keeps (m each), then from a 16-byte boundary the messages
+// (two buffers), u of every row (two buffers) and the CTA's own message
+// (m + 2 each, rounded to 16 bytes: entries m and m + 1 carry tau and the
+// active bit, and the bulk copy moves whole 16-byte units).
+__host__ __device__ inline int tc_vec_elems(int m) { return (m + 3) & ~1; }
+__host__ __device__ inline size_t tc_rows_elems(int m, int rs) {
+  return ((size_t)rs * m + 1) & ~(size_t)1;
+}
+__host__ __device__ inline size_t tc_smem_elems(int m, int rs) {
+  return tc_rows_elems(m, rs) + 5 * (size_t)tc_vec_elems(m);
+}
+
+// One thread: bulk-copy `bytes` (a multiple of 16) of this CTA's shared
+// memory at src into CTA `rank`'s shared memory at the address of dst in
+// this CTA, completing the bytes on that CTA's mbarrier at bar's address.
+__device__ __forceinline__ void bulk_push_remote(void* dst, int rank,
+                                                 const void* src,
+                                                 uint32_t bytes,
+                                                 uint64_t* bar) {
+  uint32_t rdst, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rdst) : "r"(adaptaqc::smem_addr(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(rbar) : "r"(adaptaqc::smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(rdst),
+      "r"(adaptaqc::smem_addr(src)), "r"(bytes), "r"(rbar)
+      : "memory");
+}
+
+// A store of v to CTA-shared memory of the cluster with release semantics
+// at cluster scope, and a load of this CTA's with acquire semantics.
+__device__ __forceinline__ void st_release_cluster(int* p, int v) {
+  asm volatile("st.release.cluster.s32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ int ld_acquire_cluster(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cluster.s32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// This thread's arrival on bar, expecting `bytes` more to complete.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(adaptaqc::smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// w_j = tau (u_j - (conj(tau) s / 2) v_j), rounded as written: every CTA
+// and warp that forms w_j gets the same bits.
+template <typename V, typename T>
+__device__ __forceinline__ V tc_w(V u, V v, T tr, T ti, T t2r, T t2i) {
+  const T pr = sub_rn(u.x, sub_rn(mul_rn(t2r, v.x), mul_rn(t2i, v.y)));
+  const T pi = sub_rn(u.y, add_rn(mul_rn(t2r, v.y), mul_rn(t2i, v.x)));
+  return make_c(sub_rn(mul_rn(tr, pr), mul_rn(ti, pi)),
+                add_rn(mul_rn(tr, pi), mul_rn(ti, pr)));
+}
+
+// Whether any square right of the diagonal of row i is nonzero (a warp).
+template <typename V>
+__device__ __forceinline__ bool tc_row_flag(const V* r, int i, int m,
+                                            int lane) {
+  using T = decltype(V::x);
+  bool nz = false;
+  for (int j = i + 1 + lane; j < m; j += 32) {
+    const V a = r[j];
+    nz |= mul_rn(a.x, a.x) > T(0) || mul_rn(a.y, a.y) > T(0);
+  }
+  return __any_sync(0xffffffffu, nz);
+}
+
+// Grid: batch x G CTAs of kClThreads, clusters of G along x (cluster b is
+// matrix b); rs: the rows a CTA keeps in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kClThreads, 1)
+    tridiag_cluster_kernel(const typename Real<T>::C* __restrict__ h,
+                           typename Real<T>::C* __restrict__ work,
+                           typename Real<T>::C* __restrict__ vrows,
+                           typename Real<T>::C* __restrict__ tau_out,
+                           T* __restrict__ d_out, T* __restrict__ e_out,
+                           int m, int rs, long long h_stride) {
+  using V = typename Real<T>::C;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  {
+    const size_t b = blockIdx.x / G;
+    h += b * (size_t)h_stride;
+    work += b * (size_t)m * m;
+    vrows += b * (size_t)m * m;
+    tau_out += b * m;
+    d_out += b * m;
+    e_out += b * m;
+  }
+  extern __shared__ __align__(16) unsigned char tsm_raw[];
+  const int mv = tc_vec_elems(m);
+  V* As = reinterpret_cast<V*>(tsm_raw);      // rs rows of m
+  V* Vv = As + tc_rows_elems(m, rs);          // v of a step, 2 buffers
+  V* U = Vv + 2 * mv;                         // u of every row, 2 buffers
+  V* Vc = U + 2 * mv;                         // this CTA's reflector
+  __shared__ int cand[kClMaxCluster];   // every CTA's first flagged row
+  __shared__ int uflag[kClMaxCluster];  // the steps whose u each CTA posted
+  __shared__ int flag[kTcMaxRows];
+  __shared__ T scal[3];                 // the reflector's tau and e
+  __shared__ __align__(8) uint64_t vbar;  // a step's message in Vv
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kClThreads / 32;
+  const int nr = (m - rank + G - 1) / G;  // rows rank + l G, l < nr
+  const T zero = 0, one = 1;
+  const V czero = make_c(zero, zero);
+  auto row = [&](int l) -> V* {
+    return l < rs ? As + (size_t)l * m : work + (size_t)(rank + l * G) * m;
+  };
+  // the first of this CTA's rows at or past i
+  auto first_row = [&](int i) { return i > rank ? (i - rank + G - 1) / G : 0; };
+  // a cluster barrier; a block barrier where the cluster is one CTA
+  auto csync = [&] {
+    if (G == 1)
+      __syncthreads();
+    else
+      cluster.sync();
+  };
+  // the message of step c: v (entries c + 1 .. m - 1), tau at m and at
+  // m + 1 whether the step is active, from a 16-byte aligned start
+  auto msg_start = [&](int c) { return (c + 1) & ~(int)(16 / sizeof(V) - 1); };
+  auto msg_bytes = [&](int c) {
+    return (uint32_t)(((m + 2 - msg_start(c)) * sizeof(V) + 15) & ~15u);
+  };
+  // one warp: Vc's message of step c bulk-copied into every CTA's buffer p1
+  auto send = [&](int c, int p1) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane < G) {
+      const int a = msg_start(c);
+      bulk_push_remote(Vv + (size_t)p1 * mv + a, lane, Vc + a, msg_bytes(c),
+                       &vbar);
+    }
+  };
+  // the sum of squares right of the diagonal, a lane's part of an entry
+  auto sq = [&](V a) { return add_rn(mul_rn(a.x, a.x), mul_rn(a.y, a.y)); };
+
+  // one warp: the reflector of row c (column c conjugated, ss its sum of
+  // squares, or negative: summed here) into Vc and scal, sent as step c's
+  // message into buffer p1
+  auto reflector = [&](int c, T ss, int p1) {
+    const V* r = row((c - rank) / G);
+    if (ss < zero) {
+      T part = zero;
+      for (int j = c + 1 + lane; j < m; j += 32) part = add_rn(part, sq(r[j]));
+      ss = warp_sum(part);
+    }
+    const T nrm = ss < Real<T>::kTiny ? scaled_norm(r, c, m, lane)
+                                      : sqrt_(ss);
+    const V alpha = r[c + 1];  // conj(A[c+1][c])
+    const T inv = one / nrm;
+    const T ahr = alpha.x * inv, ahi = -alpha.y * inv;
+    const T bh = (ahr >= zero) ? -one : one;
+    const T tr = one - ahr * bh, ti = -ahi * bh;
+    const T dr = ahr - bh, di = ahi;
+    const T gs = inv / (dr * dr + di * di);
+    const V gam = make_c(dr * gs, -di * gs);  // v_j = gam conj(A[c][j])
+    for (int j = c + 1 + lane; j < m; j += 32) {
+      const V a = r[j];
+      Vc[j] = j == c + 1 ? make_c(one, zero) : cmul(gam, make_c(a.x, -a.y));
+    }
+    if (lane == 0) {
+      Vc[m] = make_c(tr, ti);
+      Vc[m + 1] = make_c(one, zero);  // active
+      scal[0] = tr;
+      scal[1] = ti;
+      scal[2] = bh * nrm;
+    }
+    send(c, p1);
+  };
+  // the least flagged row past kp over the cluster (m - 1: none): each
+  // CTA posts its first (a scan of its flags), then a cluster barrier
+  auto next_active = [&](int kp) {
+    __syncthreads();
+    if (warp == 0) {
+      int c = m - 1;
+      for (int base = first_row(kp + 1); base < nr; base += 32) {
+        const int l = base + lane;
+        const unsigned mask = __ballot_sync(0xffffffffu, l < nr && flag[l]);
+        if (mask) {
+          c = rank + (base + __ffs(mask) - 1) * G;
+          break;
+        }
+      }
+      if (lane < G) cluster.map_shared_rank(cand, lane)[rank] = c;
+    }
+    csync();
+    return __reduce_min_sync(0xffffffffu, lane < G ? cand[lane] : m);
+  };
+  // identity rows, tau = e = 0, for this CTA's rows in [from, to)
+  auto identity = [&](int from, int to) {
+    for (int l = first_row(from) + warp; l < nr && rank + l * G < to;
+         l += kWarps) {
+      const int i = rank + l * G;
+      for (int j = lane; j < m; j += 32)
+        vrows[(size_t)i * m + j] = make_c(j == i + 1 ? one : zero, zero);
+      if (lane == 0) {
+        tau_out[i] = czero;
+        e_out[i] = zero;
+      }
+    }
+  };
+
+  if (tid == 0) mbar_init(&vbar);
+  if (tid < G) uflag[tid] = 0;
+  for (int l = warp; l < nr; l += kWarps) {
+    const V* src = h + (size_t)(rank + l * G) * m;
+    V* dst = row(l);
+    for (int j = lane; j < m; j += 32) dst[j] = src[j];
+  }
+  if (rank == (m - 1) % G) {
+    for (int j = tid; j < m; j += kClThreads)
+      vrows[(size_t)(m - 1) * m + j] = czero;
+    if (tid == 0) {
+      tau_out[m - 1] = czero;
+      e_out[m - 1] = zero;
+    }
+  }
+  __syncthreads();
+  for (int l = warp; l < nr; l += kWarps) {
+    const int i = rank + l * G;
+    const bool f = tc_row_flag(row(l), i, m, lane);
+    if (lane == 0) flag[l] = f;
+  }
+  cluster.sync();  // every CTA has started: remote stores may begin
+
+  int k = next_active(-1);
+  identity(0, k);
+  if (k < m - 1 && rank == k % G && warp == 0) reflector(k, -one, 0);
+  uint32_t vph = 0;  // vbar's phase
+  for (int it = 0; k < m - 1;) {
+    const int p = it & 1;
+    V* vk = Vv + (size_t)p * mv;
+    V* uk = U + (size_t)p * mv;
+    if (tid == 0) mbar_expect_tx(&vbar, msg_bytes(k));
+    mbar_wait(&vbar, vph);
+    vph ^= 1;
+    if (vk[m + 1].x == zero) {
+      // row k's owner found its column zero: the next active step is the
+      // least flagged row past k, whose owner forms and sends its
+      // reflector into the same buffer (every CTA has read this message)
+      const int kn = next_active(k);
+      identity(k, kn);
+      k = kn;
+      if (k < m - 1 && rank == k % G && warp == 0) reflector(k, -one, p);
+      continue;
+    }
+    const int k1 = k + 1;
+    if (rank == k % G) {
+      for (int j = tid; j < m; j += kClThreads)
+        vrows[(size_t)k * m + j] = j <= k ? czero : vk[j];
+      if (tid == 0) {
+        tau_out[k] = make_c(scal[0], scal[1]);
+        e_out[k] = scal[2];
+      }
+    }
+    const T tr = vk[m].x, ti = vk[m].y;
+    const int l0 = first_row(k1);
+    // u_i = sum_j A[i][j] v_j for this CTA's rows below k, posted to all
+    for (int l = l0 + warp; l < nr; l += kWarps) {
+      const V* r = row(l);
+      V acc = czero;
+#pragma unroll 4
+      for (int j = k1 + lane; j < m; j += 32) cfma(acc, r[j], vk[j]);
+      acc = warp_sum2(acc);
+      if (lane < G) cluster.map_shared_rank(uk, lane)[rank + l * G] = acc;
+    }
+    // every CTA's u: each CTA releases its post of step it to every CTA
+    // (uflag, after a block barrier), and every warp acquires all of them
+    __syncthreads();
+    if (tid < G)
+      st_release_cluster(cluster.map_shared_rank(uflag, tid) + rank, it + 1);
+    for (;;) {
+      const int f = lane < G ? ld_acquire_cluster(uflag + lane) : it + 1;
+      if (__all_sync(0xffffffffu, f > it)) break;
+    }
+    __syncwarp();
+    if (l0 + warp < nr) {
+      V sp = czero;  // s = v^H u, in row order
+#pragma unroll 4
+      for (int j = k1 + lane; j < m; j += 32) cfma_conj(sp, vk[j], uk[j]);
+      sp = warp_sum2(sp);
+      const T half = T(0.5);
+      const T t2r = mul_rn(add_rn(mul_rn(tr, sp.x), mul_rn(ti, sp.y)), half);
+      const T t2i = mul_rn(sub_rn(mul_rn(tr, sp.y), mul_rn(ti, sp.x)), half);
+      // A[i][j] -= v_i conj(w_j) + w_i conj(v_j) on the trailing entries,
+      // rounded as written: the update of A[j][i] is exactly the conjugate
+      for (int l = l0 + warp; l < nr; l += kWarps) {
+        const int i = rank + l * G;
+        V* r = row(l);
+        const V va = vk[i], wa = tc_w(uk[i], va, tr, ti, t2r, t2i);
+        T part = zero;  // the row's squares right of the diagonal
+#pragma unroll 4
+        for (int j = k1 + lane; j < m; j += 32) {
+          const V vb = vk[j], wb = tc_w(uk[j], vb, tr, ti, t2r, t2i);
+          const T re = add_rn(add_rn(mul_rn(va.x, wb.x), mul_rn(va.y, wb.y)),
+                              add_rn(mul_rn(wa.x, vb.x), mul_rn(wa.y, vb.y)));
+          const T im = add_rn(sub_rn(mul_rn(va.y, wb.x), mul_rn(va.x, wb.y)),
+                              sub_rn(mul_rn(wa.y, vb.x), mul_rn(wa.x, vb.y)));
+          const V a0 = r[j];
+          const V a = make_c(sub_rn(a0.x, re), sub_rn(a0.y, im));
+          r[j] = a;
+          if (j > i) part = add_rn(part, sq(a));
+        }
+        // zero exactly when every square is: the row's column is inactive
+        const T ss = warp_sum(part);
+        if (lane == 0) flag[l] = ss > zero;
+        // row k + 1 (warp 0's first row, where this CTA holds it) is
+        // the next step: its owner sends its message at once, ahead of
+        // its other rows, the reflector or "inactive"
+        if (l == l0 && i == k1 && k1 < m - 1) {
+          __syncwarp();  // the row's entries, written by other lanes
+          if (ss > zero) {
+            reflector(k1, ss, p ^ 1);
+          } else {
+            if (lane == 0) Vc[m + 1] = czero;
+            send(k1, p ^ 1);
+          }
+        }
+      }
+    }
+    // every row is updated before any warp reads it for the next step (a
+    // row's warp changes from one step to the next)
+    __syncthreads();
+    k = k1;
+    ++it;
+  }
+  for (int l = warp; l < nr; l += kWarps) {
+    const int i = rank + l * G;
+    if (lane == 0) d_out[i] = row(l)[i].x;
+  }
+  cluster.sync();  // no CTA leaves while another may read its memory
+}
+
 // The row stride of a wide panel of transposed reflectors: odd.
 constexpr int kBtLdp = kBtPanel + 1;
 // backtransform_wide_kernel's dynamic shared memory: the active list (m
@@ -1939,18 +2204,6 @@ __global__ void __launch_bounds__(kBtThreads)
 // matrices; `work` (tridiag: batch x m x m complex) and `scratch` (teig:
 // batch x teig_wide_scratch_reals(m) reals) are the caller's, as every
 // output.
-template <typename T>
-int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
-                     void* d, void* e, int m, int batch, long long h_stride,
-                     void* stream, int lo, int hi) {
-  using V = typename Real<T>::C;
-  if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
-    return (int)cudaErrorInvalidValue;
-  tridiag_wide_kernel<T><<<batch, kWideThreads, 0, (cudaStream_t)stream>>>(
-      (const V*)h, (V*)work, (V*)vrows, (V*)tau, (T*)d, (T*)e, m, h_stride);
-  return (int)cudaGetLastError();
-}
-
 // K3's wide launch plan for m and real type T: the cluster size G, the
 // lanes a CTA L (a multiple of kPanel), whether the LU factors fit in
 // shared memory, and the dynamic shared memory a CTA. G = ceil(m / 32)
@@ -2027,6 +2280,95 @@ TeigPlan teig_plan(int m, cudaError_t* err) {
   }
   *err = cudaErrorInvalidConfiguration;
   return TeigPlan{};
+}
+
+// K2's wide launch plan for m and real type T: the cluster size G, the
+// rows a CTA R = ceil(m / G) and how many of them it keeps in shared
+// memory (rs; rs < R is the route that keeps the rest in `work`), and the
+// dynamic shared memory a CTA. G = ceil(m / 16) CTAs where that is at most
+// 8 or a cluster of that size fits on the card (non-portable size,
+// cudaOccupancyMaxActiveClusters), else 8. Returns a plan with G = 0 (and
+// sets *err) if nothing launches.
+struct TridiagPlan {
+  int G, R, rs;
+  size_t smem;
+};
+
+template <typename T>
+TridiagPlan tridiag_plan(int m, cudaError_t* err) {
+  using V = typename Real<T>::C;
+  static TridiagPlan cached[kWideMaxM + 1] = {};
+  if (cached[m].G) return cached[m];
+  const void* fn = (const void*)tridiag_cluster_kernel<T>;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (*err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
+      (*err = cudaFuncSetAttribute(
+           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return TridiagPlan{};
+  const size_t budget = (size_t)optin - fa.sharedSizeBytes;
+  const int want = (m + kTcRowsPerCta - 1) / kTcRowsPerCta;
+  for (int cap : {kClMaxCluster, 8}) {
+    TridiagPlan pl;
+    pl.G = want < cap ? want : cap;
+    pl.R = (m + pl.G - 1) / pl.G;
+    if (pl.R > kTcMaxRows || tc_smem_elems(m, 0) * sizeof(V) > budget)
+      continue;
+    const size_t fit = (budget - tc_smem_elems(m, 0) * sizeof(V)) /
+                       ((size_t)m * sizeof(V));
+    pl.rs = fit < (size_t)pl.R ? (int)fit : pl.R;
+    while (pl.rs > 0 && tc_smem_elems(m, pl.rs) * sizeof(V) > budget)
+      --pl.rs;  // the rows' 16-byte rounding
+    pl.smem = tc_smem_elems(m, pl.rs) * sizeof(V);
+    if ((*err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)pl.smem)) != cudaSuccess)
+      return TridiagPlan{};
+    if (pl.G <= 8) {
+      cached[m] = pl;
+      return pl;
+    }
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(attr, pl.G, pl.G, pl.smem, 0);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess &&
+        clusters >= 1) {
+      cached[m] = pl;
+      return pl;
+    }
+    cudaGetLastError();  // a refused query is not an error of the launch
+  }
+  *err = cudaErrorInvalidConfiguration;
+  return TridiagPlan{};
+}
+
+template <typename T>
+int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
+                     void* d, void* e, int m, int batch, long long h_stride,
+                     void* stream, int lo, int hi) {
+  using V = typename Real<T>::C;
+  if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  const TridiagPlan pl = tridiag_plan<T>(m, &err);
+  if (pl.G == 0) return (int)err;
+  const void* fn = (const void*)tridiag_cluster_kernel<T>;
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem));
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = cluster_config(attr, batch * pl.G, pl.G, pl.smem,
+                                          (cudaStream_t)stream);
+  ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
+      &cfg, tridiag_cluster_kernel<T>, (const V*)h, (V*)work, (V*)vrows,
+      (V*)tau, (T*)d, (T*)e, m, pl.rs, h_stride));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -2136,6 +2478,25 @@ int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
                         long long h_stride, void* stream) {
   return tridiag_wide_run<float>(h, work, vrows, tau, d, e, m, batch,
                                  h_stride, stream, kMaxM + 1, kWideMaxM);
+}
+
+// K2's wide plan at m in float (f64 = 0, 128 < m <= 560) or double (2 <=
+// m <= 504): the CTAs of the cluster that runs a matrix, and the rows of
+// the R = ceil(m / G) a CTA holds that it keeps in shared memory (fewer
+// than R: the rest stay in `work`); 0 on error.
+int tridiag_cluster_size(int m, int f64) {
+  if (m < (f64 ? 2 : kMaxM + 1) || m > (f64 ? kWideMaxM64 : kWideMaxM))
+    return 0;
+  cudaError_t err = cudaSuccess;
+  return (f64 ? tridiag_plan<double>(m, &err) : tridiag_plan<float>(m, &err))
+      .G;
+}
+
+int tridiag_smem_rows(int m, int f64) {
+  if (tridiag_cluster_size(m, f64) == 0) return 0;
+  cudaError_t err = cudaSuccess;
+  return (f64 ? tridiag_plan<double>(m, &err) : tridiag_plan<float>(m, &err))
+      .rs;
 }
 
 long long teig_wide_scratch(int m) { return teig_wide_scratch_reals(m); }

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "tridiag_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "teig_cluster_size": (_I, _I),
+    "tridiag_cluster_size": (_I, _I),
+    "tridiag_smem_rows": (_I, _I),
     "backtransform_wide_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                                   _P),
     "tridiag_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),

@@ -23,10 +23,10 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
 Each wrapper runs the plain version for a tensor on the CPU and launches the
 CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device
 (ops/dispatch.py): in complex64 for m <= 128 the register and shared-memory
-designs, for 128 < m <= 560 their wide variants (K2 and K4 with working
-sets in global memory, K3 on a thread-block cluster of up to 16 CTAs a
-matrix), chosen by m alone; in complex128 / float64 the wide variants'
-double instantiation, for every m <= 504. It raises for anything the
+designs, for 128 < m <= 560 their wide variants (K2 and K3 on a
+thread-block cluster of up to 16 CTAs a matrix, K4 with its reflectors read
+from global memory), chosen by m alone; in complex128 / float64 the wide
+variants' double instantiation, for every m <= 504. It raises for anything the
 kernels do not take (m above the cap of its dtype, another dtype, a
 non-contiguous tensor). There is no fallback from a kernel to the plain
 version. Each wrapper counts its launches in `<wrapper>.launches`, those of
@@ -372,7 +372,9 @@ def tridiag(h: torch.Tensor):
     e = torch.empty(lead + (m,), dtype=rdt, device=dev)
     lib = cuda_lib.lib()
     if f64 or m > NARROW_MAX_M:
-        work = torch.empty_like(vrows)  # the wide variant's working matrix
+        # the wide variant's rows past its CTAs' shared memory (the
+        # "spill" route of tridiag_cluster_plan)
+        work = torch.empty_like(vrows)
         launch = lib.tridiag_f64_launch if f64 else lib.tridiag_wide_launch
         rc = launch(h.data_ptr(), work.data_ptr(), vrows.data_ptr(),
                     tau.data_ptr(), d.data_ptr(), e.data_ptr(), m, p, m * m,
@@ -434,6 +436,25 @@ def teig_cluster_size(m: int, f64: bool = False) -> int:
         raise RuntimeError(f"teig: no cluster size can launch m={m}"
                            + (" in complex128" if f64 else ""))
     return g
+
+
+def tridiag_cluster_plan(m: int, f64: bool = False) -> dict:
+    """How K2's wide variant runs one matrix of size m (complex64 above
+    NARROW_MAX_M, or f64: complex128 at every m): `ctas`, the CTAs of its
+    thread-block cluster (1 at m <= 64, else ceil(m / 16), at most 16, or 8
+    where the card does not take the larger cluster); `rows`, the rows a
+    CTA holds, ceil(m / ctas); `smem_rows`, how many of them it keeps in
+    shared memory; and `route`: "smem" where that is all of them, "spill"
+    where the rest stay in the wrapper's work matrix."""
+    lib = cuda_lib.lib()
+    g = lib.tridiag_cluster_size(int(m), int(f64))
+    if g == 0:
+        raise RuntimeError(f"tridiag: no cluster size can launch m={m}"
+                           + (" in complex128" if f64 else ""))
+    rows = -(-int(m) // g)
+    rs = lib.tridiag_smem_rows(int(m), int(f64))
+    return {"ctas": g, "rows": rows, "smem_rows": rs,
+            "route": "smem" if rs >= rows else "spill"}
 
 
 def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,

@@ -30,7 +30,12 @@ name; any failure exits non-zero:
             against its P = 1 launches, and of 7 at m = 256), with the
             chain's yardstick torch.linalg.eigh of the complex H and K3's
             cluster size; the complex128 instantiations (K3's w bit for
-            bit), timed at m = 64/256/504
+            bit), timed at m = 64/256/504 with torch.linalg.eigh(H); K2's
+            cluster kernel also at complex64 m = 560 and at the complex128
+            sizes on each side of its shared-memory fit, on the chi=128
+            sweep's Grams (inactive steps as the plain version's; time,
+            active steps, bound) and on the center-gauge inputs in
+            complex128, with its cluster size and route at every m
   hazard    a deep two-qubit-chain re-simulation at n=50, chi=64 and
             chi=128 under eigh="kernels" and eigh="native": overlaps agree
             to 1e-3
@@ -838,9 +843,12 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
             pms = cuda_ms(pfn, 1, torch)
             lms = cuda_ms(lfn, 10, torch) if lfn else None
             bound = bound_fields(kname, m=m, keep=keep, f64=True)
-            ctas = (ek.teig_cluster_size(m, True) if kname == "teig"
-                    else None)
-            cl = f" (clusters of {ctas} CTAs)" if ctas else ""
+            ctas = (ek.teig_cluster_size(m, True) if kname == "teig" else
+                    ek.tridiag_cluster_plan(m, True)["ctas"]
+                    if kname == "tridiag" else None)
+            cl = (f" ({tridiag_plan_text(ek, m, True)})"
+                  if kname == "tridiag" else
+                  f" (clusters of {ctas} CTAs)" if ctas else "")
             parts.append(f"m={m} {kname}{cl} {ms:.4f} ms plain {pms:.4f} ms "
                          f"bound {bound['bound_ms']:.5f} ms "
                          f"({bound['bound_by']}) " + (
@@ -849,10 +857,17 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
             rec[f"{kname}[f64]"].setdefault("by_m", {})[m] = dict(
                 ms=ms, plain_ms=pms, library_ms=lms, cluster_ctas=ctas,
                 **bound)
+            if kname == "tridiag":
+                rec["tridiag[f64]"]["by_m"][m]["route"] = (
+                    ek.tridiag_cluster_plan(m, True)["route"])
             if m == 64:
                 rec[f"{kname}[f64]"].update(
                     ms=ms, plain_ms=pms, library_call=lname, library_ms=lms,
                     shape="m=64, complex128", **bound)
+        native_ms = cuda_ms(lambda: torch.linalg.eigh(hh), 10, torch)
+        parts.append(f"m={m} the whole K2-K4 chain's yardstick "
+                     f"torch.linalg.eigh(H) complex128 {native_ms:.4f} ms")
+        rec["tridiag[f64]"]["by_m"][m]["eigh_h_ms"] = native_ms
     rec["tridiag[f64]"]["max_abs_err"] = worst["tridiag"]
     rec["teig[f64]"]["max_abs_err"] = worst["teig"]
     rec["backtransform[f64]"]["max_abs_err"] = worst["bt"]
@@ -866,6 +881,117 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
           + "; ".join(parts) + f" on {card}", flush=True)
 
 
+def tridiag_plan_text(ek, m, f64=False):
+    """K2's wide plan at m, as the kernels lines print it."""
+    pl = ek.tridiag_cluster_plan(m, f64)
+    return (f"clusters of {pl['ctas']} CTAs, {pl['smem_rows']} of "
+            f"{pl['rows']} rows a CTA in shared memory (route "
+            f"{pl['route']})")
+
+
+def tridiag_cluster_check(torch, ek, card, dev, rec, sweep128,
+                          center_inputs=None):
+    """K2's wide and complex128 kernel (tridiag_cluster_kernel) beyond the
+    class loop: Q T Q^H = H at complex64 m=560 and at the complex128 sizes
+    on each side of the fit of a CTA's rows in its shared memory (both
+    routes); the inactive steps against the plain version's on the chi=128
+    sweep's 24 Grams (complex64, and the first 8 in complex128) and on the
+    center-gauge engine's inputs in complex128; complex128 batches of 3
+    and 7 at m=256 bit for bit against their P=1 launches; and the
+    kernel's mean time on the chi=128 sweep's Grams with its active steps
+    and the bound on them."""
+    rng = np.random.default_rng(560)
+    c128 = torch.complex128
+    fit = max(m for m in range(2, 505)
+              if ek.tridiag_cluster_plan(m, True)["route"] == "smem")
+    worst = {False: 0.0, True: 0.0}
+    sizes = [(560, False), (fit, True)] + ([(fit + 1, True)]
+                                            if fit < 504 else [])
+    for m, f64 in sizes:
+        cases = _gram_cases(m, rng)
+        for name in ("rand", "lowrank", "bell"):
+            t = torch.tensor(cases[name], dtype=c128 if f64 else
+                             torch.complex64, device=dev)
+            h = t.mH @ t
+            hh = ((h + h.mH) * 0.5).contiguous()
+            v, tau, d, e = ek.tridiag(hh)
+            err = tridiag_residual(torch, ek, v, tau, d, e, hh)
+            worst[f64] = max(worst[f64], err)
+            check(err < (TOL_F64 if f64 else TOL_TRIDIAG_REL),
+                  f"tridiag m={m} {'complex128' if f64 else 'complex64'} "
+                  f"{name}: rel {err}")
+            _, taup, _, ep = ek.tridiag_plain(hh)
+            zeros_equal(e, tau, ep, taup, f"tridiag m={m} {name}")
+    plans = "; ".join(f"m={m} {'c128' if f64 else 'c64'} "
+                      + tridiag_plan_text(ek, m, f64) for m, f64 in sizes)
+    print(f"kernels: tridiag cluster kernel past the class loop: Q T Q^H "
+          f"complex64 {worst[False]:.2e} < {TOL_TRIDIAG_REL}, complex128 "
+          f"{worst[True]:.2e} < {TOL_F64} (the largest complex128 m whose "
+          f"rows fit in shared memory: {fit}); {plans} on {card}",
+          flush=True)
+
+    # the chi=128 sweep's Grams, and the center-gauge engine's in complex128
+    inactive, steps, act_n, bounds = {}, 0, [], []
+    for f64, grams in ((False, sweep128),
+                       (True, [g.to(c128) for g in sweep128[:8]])):
+        inactive[f64] = 0
+        for hh in grams:
+            v, tau, d, e = ek.tridiag(hh)
+            err = tridiag_residual(torch, ek, v, tau, d, e, hh)
+            check(err < (TOL_F64 if f64 else TOL_TRIDIAG_REL),
+                  f"tridiag on a chi=128 sweep Gram: rel {err}")
+            _, taup, _, ep = ek.tridiag_plain(hh)
+            inactive[f64] += zeros_equal(e, tau, ep, taup,
+                                         "tridiag on a chi=128 sweep Gram")
+            if not f64:
+                m = hh.shape[0]
+                steps += m - 1
+                act = [k for k in range(m - 1) if e[k] != 0]
+                act_n.append(len(act))
+                bounds.append(kernel_bound("tridiag", m=m, active=act)[0])
+    n_center = 0
+    if center_inputs is not None:
+        by_m = {}
+        for idx, args in enumerate(center_inputs["tridiag"]):
+            by_m.setdefault(args[0].shape[-1], []).append(idx)
+        for m, idxs in sorted(by_m.items()):
+            for idx in idxs[:4] + idxs[-4:]:
+                hh = center_inputs["tridiag"][idx][0].to(c128)
+                v, tau, d, e = ek.tridiag(hh)
+                err = tridiag_residual(torch, ek, v, tau, d, e, hh)
+                check(err < TOL_F64, f"tridiag complex128 on a center-gauge "
+                                     f"Gram m={m}: rel {err}")
+                _, taup, _, ep = ek.tridiag_plain(hh)
+                zeros_equal(e, tau, ep, taup,
+                            f"tridiag complex128 on a center-gauge Gram m={m}")
+                n_center += 1
+    ms = float(np.mean([cuda_ms(lambda: ek.tridiag(hh), 10, torch)
+                        for hh in sweep128]))
+    ms64 = float(np.mean([cuda_ms(lambda: ek.tridiag(hh.to(c128)), 10, torch)
+                          for hh in sweep128[:8]]))
+    rec["tridiag[wide]"]["sweep_chi128"] = dict(
+        grams=len(sweep128), ms=ms, active_steps=float(np.mean(act_n)),
+        steps=steps / len(sweep128), bound_ms=float(np.mean(bounds)),
+        ms_complex128_first8=ms64)
+    for p in (3, 7):  # complex128 batches at m=256
+        cases = _gram_cases(256, rng)
+        names = (["rand", "lowrank", "bell"] if p == 3 else list(cases))
+        grams = [_sym_gram(torch, cases[k], dev).to(c128) for k in names]
+        grams += [_sym_gram(torch, _gram_cases(256, rng)["rand"],
+                            dev).to(c128) for _ in range(p - len(grams))]
+        batch_against_singles(torch, ek, torch.stack(grams), 128,
+                              f"complex128 batched m=256 P={p}", {})
+    print(f"kernels: tridiag on the chi=128 sweep's {len(sweep128)} Grams "
+          f"(m=256, {tridiag_plan_text(ek, 256)}): {ms:.4f} ms a launch, "
+          f"{np.mean(act_n):.1f} of {steps / len(sweep128):.0f} steps "
+          f"active, bound on the active steps {np.mean(bounds):.5f} ms; in "
+          f"complex128 (first 8) {ms64:.4f} ms; inactive steps "
+          f"{inactive[False]} (complex64) and {inactive[True]} (complex128, "
+          f"first 8), every plain-inactive step inactive, and on {n_center} "
+          f"center-gauge Grams in complex128; complex128 batches of 3 and 7 "
+          f"at m=256 bit-equal to P=1 on {card}", flush=True)
+
+
 def bound_fields(name, **shape):
     ms, by, _, _ = kernel_bound(name, **shape)
     return {"bound_ms": ms, "bound_by": by}
@@ -873,7 +999,7 @@ def bound_fields(name, **shape):
 
 def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                   sweep_inputs=None, probe_inputs=None, center_inputs=None,
-                  dev="cuda"):
+                  dev="cuda", sweep128_inputs=None):
     dev = torch.device(dev)
     rng = np.random.default_rng(2026)
     rec = {k: {"max_abs_err": None, "ms": None, "plain_ms": None,
@@ -1038,9 +1164,12 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                 pms = cuda_ms(pfn, 2, torch)
                 lms = cuda_ms(lfn, 20, torch) if lfn else None
                 bound = bound_fields(kname, m=m, keep=keep)
-                ctas = (ek.teig_cluster_size(m)
-                        if kname == "teig" and m > 128 else None)
-                cl = f" (clusters of {ctas} CTAs)" if ctas else ""
+                ctas = (None if m <= 128 else ek.teig_cluster_size(m)
+                        if kname == "teig" else ek.tridiag_cluster_plan(m)[
+                            "ctas"] if kname == "tridiag" else None)
+                cl = (f" ({tridiag_plan_text(ek, m)})"
+                      if kname == "tridiag" and ctas else
+                      f" (clusters of {ctas} CTAs)" if ctas else "")
                 parts.append(
                     f"{kname}{cl} kernel {ms:.4f} ms plain {pms:.4f} ms bound "
                     f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
@@ -1049,11 +1178,16 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                     rec[kname + "[wide]"].setdefault("by_m", {})[m] = dict(
                         ms=ms, plain_ms=pms, library_ms=lms,
                         cluster_ctas=ctas, **bound)
+                    if kname == "tridiag":
+                        rec["tridiag[wide]"]["by_m"][m]["route"] = (
+                            ek.tridiag_cluster_plan(m)["route"])
                 if m in (64, 256):
                     rec[kname + ("" if m == 64 else "[wide]")].update(
                         ms=ms, plain_ms=pms, library_call=lname,
                         library_ms=lms, shape=f"m={m}", **bound)
             native_ms = cuda_ms(lambda: torch.linalg.eigh(hh), 20, torch)
+            if m > 128:
+                rec["tridiag[wide]"]["by_m"][m]["eigh_h_ms"] = native_ms
             print(f"kernels: m={m} " + "; ".join(parts) + "; the whole "
                   f"K2-K4 chain's yardstick torch.linalg.eigh(H) complex "
                   f"{native_ms:.4f} ms on {card}", flush=True)
@@ -1064,6 +1198,10 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
     if center_inputs is not None:
         center_kernel_check(torch, ek, center_inputs, card)
     f64_kernel_check(torch, ek, envk, card, dev, rec)
+    if sweep128_inputs is not None:
+        tridiag_cluster_check(torch, ek, card, dev, rec,
+                              [a[0] for a in sweep128_inputs["tridiag"]],
+                              center_inputs)
 
     # K3 and the whole eigensolver chain against float64 truth on 7-decade
     # spectra: the kernel's eigenvalues of T against float64 eigh of the
@@ -2153,7 +2291,10 @@ def main():
                             sweep_eigh_inputs(torch, ek, mps_core, sweeps,
                                               Circuit, compile_tape),
                             spin_probe_inputs(torch, port, ek),
-                            center_engine_inputs(torch, ek))
+                            center_engine_inputs(torch, ek),
+                            sweep128_inputs=sweep_eigh_inputs(
+                                torch, ek, mps_core, sweeps, Circuit,
+                                compile_tape, chi=128))
         done("kernels")
     if wanted("hazard"):
         for chi in (64, 128):

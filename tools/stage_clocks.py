@@ -1,7 +1,7 @@
 """Where the cycles of the redesigned kernels go, on one CUDA card.
 
-    python3 tools/stage_clocks.py [--parent DIR]
-                                  [--kernels tridiag,teig,teig_wide,env_chain]
+    python3 tools/stage_clocks.py [--parent DIR] [--kernels tridiag,teig,
+        teig_wide,tridiag_wide,backtransform_ormqr,env_chain]
 
 Builds instrumented copies of the kernel sources (clock64() stamps taken by
 thread 0 at each stage boundary) into tools/_build/, a git-ignored
@@ -32,6 +32,22 @@ directory, and prints (--kernels picks the reports; all by default):
             the 24 tridiagonals of one chi=128 bench.py sweep (m = 256).
             With --parent, in the order parent, this tree, this tree,
             parent.
+  tridiag_wide
+            the wide K2 (complex64 128 < m <= 560, complex128 every m):
+            cycles by stage of a step (PR 6's one CTA: row read and norm,
+            reflector, product u, s and w, rank-2 update, and the inactive
+            steps; the cluster design, rank 0's view: the posted rows and
+            inactive rows, the pull of v, the product u and its posts, the
+            two cluster barriers, the update, the next reflector), the load
+            and the loop, the active and inactive steps and the kernel's
+            time, in complex64 at m = 192, 256 and 512 and in complex128 at
+            m = 64, 256 and 504 on a random Gram, and on the 24 Grams of
+            one chi=128 bench.py sweep (m = 256) in both. With --parent, in
+            the order parent, this tree, this tree, parent; with
+            --variants, then this tree's kernel at other cluster sizes.
+  backtransform_ormqr
+            K4 against torch.ormqr on the same reflectors, complex64 m=512
+            and complex128 m=504: 20 pairs in turns, medians and spread.
   env_chain cycles per site (B wait, step 1, step 2, cluster barrier, sum
             of received partials) on rank 0 of each chain's cluster at
             n = 50, chi = 32 and 64, clusters of 8 and 16 CTAs, q = 25.
@@ -186,11 +202,13 @@ TRI_MARKS_FIRST = [
 ]
 
 
-def build(src, tag, edits):
-    """Compile `src` with `edits` (text replacements) and a stamp array."""
+def build(src, tag, edits, steps=(128, 5)):
+    """Compile `src` with `edits` (text replacements), a stamp array and a
+    per-step stamp array of `steps` (rows, slots)."""
     text = open(src).read()
     text = text.replace("namespace {", "__device__ long long g_stamp[16];\n"
-                        "__device__ long long g_steps[128][5];\n"
+                        f"__device__ long long g_steps[{steps[0]}]"
+                        f"[{steps[1]}];\n"
                         + STAMP_CLOCK + "namespace {", 1)
     for old, new in edits:
         if old not in text:
@@ -200,7 +218,7 @@ def build(src, tag, edits):
              "  return (int)cudaMemcpyFromSymbol(out, g_steps, "
              "sizeof(g_steps));\n}\n"
              "extern \"C\" int clear_steps() {\n"
-             "  static long long zero[128][5];\n"
+             f"  static long long zero[{steps[0]}][{steps[1]}];\n"
              "  cudaMemcpyToSymbol(g_stamp, zero, 16 * sizeof(long long));\n"
              "  return (int)cudaMemcpyToSymbol(g_steps, zero, sizeof(zero));\n"
              "}\n")
@@ -669,6 +687,250 @@ def report_tridiag(tag, lib, labels, inputs):
           f"{ms:.4f} ms, max |out - plain| {err:.1e}", flush=True)
 
 
+# The wide K2. Every step's stamps go to g_steps[k] (slot 8: 1 for an
+# active step, 2 for an inactive one of the one-CTA kernel), taken by
+# thread 0 (of rank 0 in the cluster design); g_stamp[6] and [7] hold the
+# load's and the step loop's cycles.
+TW_STEPS = (560, 9)  # K2's steps (m <= 560) and slots
+
+
+def _tw(slot, indent="    "):
+    return f"{indent}if (tid == 0) g_steps[k][{slot}] = stamp_clock();\n"
+
+
+TW_OUT = ("  if (tid == 0 && {cond}) {{\n"
+          "    g_stamp[6] = t_loop - t_start;\n"
+          "    g_stamp[7] = stamp_clock() - t_loop;\n  }}\n")
+# PR 6's kernel, one CTA of 1024 threads a matrix, A in global memory
+TW_ONE_CTA = [
+    ("  const T zero = 0, one = 1;\n\n  for (int idx = tid; idx < m * m; "
+     "idx += kWideThreads) work[idx] = h[idx];",
+     "  const T zero = 0, one = 1;\n  const long long t_start = stamp_clock();"
+     "\n  for (int idx = tid; idx < m * m; idx += kWideThreads) work[idx] = "
+     "h[idx];"),
+    ("  for (int k = 0; k < m - 1; ++k) {\n    const int k1 = k + 1;\n"
+     "    T part = zero;\n",
+     "  const long long t_loop = stamp_clock();\n"
+     "  for (int k = 0; k < m - 1; ++k) {\n    const int k1 = k + 1;\n"
+     "    T part = zero;\n" + _tw(0)),
+    ("    const T ss = block_sum(part, red);\n",
+     "    const T ss = block_sum(part, red);\n" + _tw(1)),
+    ("        e_out[k] = zero;\n      }\n      continue;",
+     "        e_out[k] = zero;\n      }\n"
+     "      if (tid == 0) {\n        g_steps[k][8] = 2;\n"
+     "        g_steps[k][6] = stamp_clock();\n      }\n      continue;"),
+    ("    __syncthreads();\n    const V gam = make_c(scal[0], scal[1]);",
+     "    __syncthreads();\n" + _tw(2)
+     + "    const V gam = make_c(scal[0], scal[1]);"),
+    ("    // u = A v over the trailing block, a warp a row",
+     _tw(3) + "    // u = A v over the trailing block, a warp a row"),
+    ("    __syncthreads();\n    V sp = make_c(zero, zero);",
+     "    __syncthreads();\n" + _tw(4) + "    V sp = make_c(zero, zero);"),
+    ("    // A[j][i] -= v_j conj(w_i) + w_j conj(v_i), rounded as written: the",
+     _tw(5) + "    // A[j][i] -= v_j conj(w_i) + w_j conj(v_i), rounded as "
+     "written: the"),
+    ("      a = make_c(sub_rn(a.x, re), sub_rn(a.y, im));\n    }\n"
+     "    __syncthreads();\n  }\n",
+     "      a = make_c(sub_rn(a.x, re), sub_rn(a.y, im));\n    }\n"
+     "    __syncthreads();\n" + _tw(6)
+     + "    if (tid == 0) g_steps[k][8] = 1;\n  }\n"
+     + TW_OUT.format(cond="true")),
+]
+TW_ONE_CTA_LABELS = ["row read and norm", "reflector", "v", "product u",
+                     "s and w", "rank-2 update"]
+
+
+def _tws(slot):
+    return f"    if (tid == 0) ts_[{slot}] = stamp_clock();\n"
+
+
+# the cluster design (tridiag_cluster_kernel<T>): rank 0's stages of an
+# active step
+TW_CLUSTER = [
+    ("  const V czero = make_c(zero, zero);\n  auto row = [&](int l)",
+     "  const V czero = make_c(zero, zero);\n"
+     "  const long long t_start = stamp_clock();\n  auto row = [&](int l)"),
+    ("  int k = next_active(-1);\n",
+     "  const long long t_loop = stamp_clock();\n  int k = next_active(-1);\n"),
+    ("  for (int it = 0; k < m - 1;) {\n    const int p = it & 1;\n",
+     "  for (int it = 0; k < m - 1;) {\n    const int p = it & 1;\n"
+     "    long long ts_[5];\n" + _tws(0)),
+    ("    const int k1 = k + 1;\n    if (rank == k % G) {\n",
+     _tws(1) + "    const int k1 = k + 1;\n    if (rank == k % G) {\n"),
+    ("    // every CTA's u: each CTA releases",
+     _tws(2) + "    // every CTA's u: each CTA releases"),
+    ("    __syncwarp();\n    if (l0 + warp < nr) {\n",
+     "    __syncwarp();\n" + _tws(3) + "    if (l0 + warp < nr) {\n"),
+    ("    __syncthreads();\n    k = k1;\n    ++it;\n  }\n",
+     "    __syncthreads();\n" + _tws(4) + "    if (tid == 0 && rank == 0) {\n"
+     "      for (int q = 0; q < 5; ++q) g_steps[k][q] = ts_[q];\n"
+     "      g_steps[k][8] = 1;\n    }\n"
+     "    k = k1;\n    ++it;\n  }\n" + TW_OUT.format(cond="rank == 0")),
+]
+TW_CLUSTER_LABELS = ["wait for the step's message",
+                     "vrows, product u and posts", "all-gather of u",
+                     "s, w, update and next message"]
+# other cluster sizes for this tree's kernel (--variants): G = ceil(m / 8)
+# or ceil(m / 32)
+TW_VARIANTS = {
+    "rows8": [("constexpr int kTcRowsPerCta = 16;",
+               "constexpr int kTcRowsPerCta = 8;")],
+    "rows32": [("constexpr int kTcRowsPerCta = 16;",
+                "constexpr int kTcRowsPerCta = 32;")],
+}
+
+
+def tridiag_wide_design(src):
+    """(edits, labels) for the wide K2 in `src`: the cluster design of
+    this tree or the one CTA a matrix of PR 6."""
+    if "tridiag_cluster_kernel" in open(src).read():
+        return TW_CLUSTER, TW_CLUSTER_LABELS
+    return TW_ONE_CTA, TW_ONE_CTA_LABELS
+
+
+def tridiag_wide_stages(steps, nlab):
+    """(cycles by stage, inactive-run cycles) summed over the steps."""
+    cyc, inactive = np.zeros(nlab), 0.0
+    for row in steps:
+        if row[8] == 1:
+            cyc += np.diff(row[:nlab + 1])
+        elif row[8] == 2:
+            inactive += row[6] - row[0]
+    return cyc, inactive
+
+
+def tridiag_wide_runner(lib, f64):
+    """Launch the instrumented wide K2 (complex64) or its double
+    instantiation on one matrix through the build's own launcher."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.tridiag_f64_launch if f64 else lib.tridiag_wide_launch
+    fn.argtypes = [P] * 6 + [I, I, L, P]
+
+    def run(h):
+        m, dev = h.shape[0], h.device
+        rdt = torch.float64 if f64 else torch.float32
+        work, vrows = torch.empty_like(h), torch.empty_like(h)
+        tau = torch.empty(m, dtype=h.dtype, device=dev)
+        d = torch.empty(m, dtype=rdt, device=dev)
+        e = torch.empty(m, dtype=rdt, device=dev)
+        rc = fn(h.data_ptr(), work.data_ptr(), vrows.data_ptr(),
+                tau.data_ptr(), d.data_ptr(), e.data_ptr(), m, 1, m * m,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"tridiag wide launch failed: {rc}")
+        return vrows, tau, d, e
+    return run
+
+
+def random_gram64(m):
+    """A random complex128 Gram, exactly Hermitian."""
+    import chip_smoke as cs
+    th = cs._gram_cases(m, np.random.default_rng(2026))["rand"]
+    t = torch.tensor(th, dtype=torch.complex128, device="cuda")
+    h = t.mH @ t
+    return ((h + h.mH) * 0.5).contiguous()
+
+
+def build_tridiag_wide(tag, src, extra=()):
+    edits, labels = tridiag_wide_design(src)
+    lib = build(src, f"tridiag_wide_{tag}", list(extra) + edits, TW_STEPS)
+    lib.clear_steps.argtypes = []
+    lib.read_steps.argtypes = [ctypes.c_void_p]
+    return lib, labels
+
+
+def report_tridiag_wide(tag, lib, labels, sweep128):
+    """The wide K2's cycles by stage (rank 0's view in the cluster design)
+    and its time (CUDA events, on the instrumented build), with its active
+    and inactive steps, in complex64 at m = 192, 256 and 512 and in
+    complex128 at m = 64, 256 and 504 on a random Gram, and on the 24
+    Grams of one chi=128 bench.py sweep (m = 256) in both."""
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    sweep64 = [h.to(torch.complex128) for h in sweep128]
+    cases = [(False, f"random m={m}", [random_gram(m)]) for m in
+             (192, 256, 512)]
+    cases.append((False, f"the chi=128 sweep's {len(sweep128)} m=256",
+                  sweep128))
+    cases += [(True, f"random m={m}", [random_gram64(m)]) for m in
+              (64, 256, 504)]
+    cases.append((True, f"the chi=128 sweep's {len(sweep64)} m=256",
+                  sweep64))
+    for f64, label, grams in cases:
+        run = tridiag_wide_runner(lib, f64)
+        cyc, inact_cyc, load, loop, n_act = np.zeros(len(labels)), 0.0, 0, 0, 0
+        for h in grams:
+            lib.clear_steps()
+            out = run(h)
+            torch.cuda.synchronize()
+            raw = (ctypes.c_longlong * (TW_STEPS[0] * TW_STEPS[1]))()
+            if lib.read_steps(raw) != 0:
+                raise RuntimeError("reading the step stamps failed")
+            c, ic = tridiag_wide_stages(
+                np.array(raw[:], dtype=np.float64).reshape(TW_STEPS),
+                len(labels))
+            st = stamps(lib)
+            cyc, inact_cyc = cyc + c, inact_cyc + ic
+            load, loop = load + st[6], loop + st[7]
+            n_act += int((out[3][:-1] != 0).sum())
+        cnt = len(grams)
+        cyc, inact_cyc, load, loop = (cyc / cnt, inact_cyc / cnt, load / cnt,
+                                      loop / cnt)
+        m = grams[0].shape[0]
+        act = n_act / cnt
+        ms = np.mean([cs.cuda_ms(lambda: run(h), 10, torch) for h in grams])
+        err = cs.tridiag_residual(torch, ek, *run(grams[0]), grams[0])
+        plan = ""
+        if hasattr(lib, "tridiag_cluster_size"):
+            g = lib.tridiag_cluster_size(m, int(f64))
+            rs = lib.tridiag_smem_rows(m, int(f64))
+            rows = -(-m // g)
+            plan = (f", clusters of {g} CTAs, {rs} of {rows} rows a CTA in "
+                    "shared memory")
+        else:
+            plan = ", one CTA"
+        print(f"tridiag wide {tag} {'complex128' if f64 else 'complex64'} on "
+              f"{label}{plan}: {ms:.4f} ms; {act:.1f} active and "
+              f"{m - 1 - act:.1f} inactive steps; load {load:.0f} cycles, "
+              f"loop {loop:.0f}: "
+              + ", ".join(f"{lab} {c:.0f} ({c / max(loop, 1):.3f})"
+                          for lab, c in zip(labels, cyc))
+              + (f", inactive steps {inact_cyc:.0f} "
+                 f"({inact_cyc / max(loop, 1):.3f})" if inact_cyc else "")
+              + f"; {cyc.sum() / max(act, 1):.0f} cycles an active step; "
+              f"Q T Q^H rel {err:.1e}", flush=True)
+
+
+def report_backtransform_ormqr(pairs=20):
+    """K4 (this tree's package build) against torch.ormqr on the same
+    reflectors at complex64 m=512 and complex128 m=504, keep = m/2: `pairs`
+    pairs timed in turns (each the mean of 10 calls, CUDA events); medians
+    and the spread (min, max) of each."""
+    import chip_smoke as cs
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    for m, dt in ((512, torch.complex64), (504, torch.complex128)):
+        h = random_gram(m) if dt == torch.complex64 else random_gram64(m)
+        vp, taup, dp, ep = ek.tridiag_plain(h)
+        _, zp = ek.teig_plain(dp, ep)
+        keep = m // 2
+        a = vp[: m - 1, 1:].transpose(0, 1).contiguous()
+        otau = taup[: m - 1].contiguous()
+        oz = zp[1:, :keep].to(dt).contiguous()
+        kern, lib = [], []
+        for _ in range(pairs):
+            kern.append(cs.cuda_ms(lambda: ek.backtransform(vp, taup, zp,
+                                                            keep), 10, torch))
+            lib.append(cs.cuda_ms(lambda: torch.ormqr(a, otau, oz), 10,
+                                  torch))
+        print(f"backtransform vs ormqr {dt} m={m} keep={keep}, {pairs} pairs "
+              f"in turns: kernel median {np.median(kern):.4f} ms (min "
+              f"{min(kern):.4f}, max {max(kern):.4f}), ormqr median "
+              f"{np.median(lib):.4f} ms (min {min(lib):.4f}, max "
+              f"{max(lib):.4f}); kernel faster in "
+              f"{sum(k < l for k, l in zip(kern, lib))} of {pairs} pairs",
+              flush=True)
+
+
 def report_env():
     import chip_smoke as cs
     src = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc", "env_chain.cu")
@@ -708,9 +970,13 @@ def report_env():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked older tree to compare")
-    ap.add_argument("--kernels", default="tridiag,teig,teig_wide,env_chain",
+    ap.add_argument("--kernels", default="tridiag,teig,teig_wide,"
+                    "tridiag_wide,backtransform_ormqr,env_chain",
                     help="which reports, comma-separated (tridiag also "
                     "times backtransform)")
+    ap.add_argument("--variants", action="store_true",
+                    help="tridiag_wide: also this tree's kernel at other "
+                    "cluster sizes (TW_VARIANTS)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -751,6 +1017,27 @@ def main():
         for tag in ("parent", "this_tree", "this_tree", "parent"):
             if tag in trees:
                 report_teig_wide(tag, *trees[tag], sweep128)
+    if "tridiag_wide" in which:
+        import chip_smoke as cs
+        from adaptaqc_tpu_torch.backends import mps_core
+        from adaptaqc_tpu_torch.circuits.circuit import Circuit
+        from adaptaqc_tpu_torch.circuits.tape import compile_tape
+        from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+        from adaptaqc_tpu_torch.optim import sweeps
+        sweep128 = [a[0] for a in cs.sweep_eigh_inputs(
+            torch, ek, mps_core, sweeps, Circuit, compile_tape,
+            chi=128)["tridiag"]]
+        trees = {"this_tree": build_tridiag_wide("this_tree", src)}
+        if parent:
+            trees["parent"] = build_tridiag_wide("parent", parent)
+        for tag in ("parent", "this_tree", "this_tree", "parent"):
+            if tag in trees:
+                report_tridiag_wide(tag, *trees[tag], sweep128)
+        for tag, extra in (TW_VARIANTS.items() if args.variants else ()):
+            report_tridiag_wide(tag, *build_tridiag_wide(tag, src, extra),
+                                sweep128)
+    if "backtransform_ormqr" in which:
+        report_backtransform_ormqr()
     if "env_chain" in which:
         report_env()
     return 0
