@@ -175,9 +175,10 @@ def _thermal_relax_step(psi: np.ndarray, n: int, q: int, gamma: float,
     return np.moveaxis(pm, 0, a)
 
 
-def _mps_to_statevector(payload) -> np.ndarray:
+def _mps_to_statevector(payload, device="cpu") -> np.ndarray:
     """Dense little-endian complex128 statevector of an engine MPS or a
-    Qiskit-format MPS (utilityfunctions.mps_to_statevector's contract)."""
+    Qiskit-format MPS (utilityfunctions.mps_to_statevector's contract); a
+    Qiskit-format MPS is loaded on `device` first."""
     import torch
     from ..backends import mps_core
     if not isinstance(payload, mps_core.MPS):
@@ -185,7 +186,8 @@ def _mps_to_statevector(payload) -> np.ndarray:
         chi = max([1] + [np.asarray(v).size for v in lams])
         chi = int(2 ** np.ceil(np.log2(max(chi, 2))))
         payload = mps_core.from_qiskit_mps(payload, chi,
-                                           dtype=torch.complex128)
+                                           dtype=torch.complex128,
+                                           device=device)
     return np.asarray(mps_core.to_dense(payload), dtype=np.complex128)
 
 

@@ -393,8 +393,11 @@ class AdaptCompiler(ApproximateCompiler):
         if checkpoint_every > 0:
             Path(checkpoint_dir).mkdir(parents=True, exist_ok=True)
 
+        # why the layer loop ended: "max_layers" unless a stop below says
+        self.stop_reason = "max_layers"
         for layer_count in range(start_point, self.adapt_config.max_layers):
             if self.initial_ansatz_already_successful:
+                self.stop_reason = "sufficient_cost"
                 break
             logger.info(f"global cost entering layer: {self.global_cost}")
             t_layer = timeit.default_timer()
@@ -434,6 +437,7 @@ class AdaptCompiler(ApproximateCompiler):
                     self.global_cost_history[-int(cinl):], cit):
                 logger.warning("cost plateaued across the improvement "
                                "window; stopping")
+                self.stop_reason = "plateau"
                 self.compiling_finished = True
                 break
             if self._should_verify_threshold():
@@ -444,6 +448,7 @@ class AdaptCompiler(ApproximateCompiler):
                 if verified:
                     logger.info("sufficient-cost threshold reached; "
                                 "ansatz accepted")
+                    self.stop_reason = "sufficient_cost"
                     self.compiling_finished = True
                     break
             elif num_2q_gates >= self.adapt_config.max_2q_gates:
@@ -452,11 +457,19 @@ class AdaptCompiler(ApproximateCompiler):
                 self.minimizer.minimize_cost(
                     algorithm_kind=vconstants.ALG_ROTOSOLVE, max_cycles=10,
                     tol=1e-5, stop_val=self.adapt_config.sufficient_cost)
+                self.stop_reason = "max_2q_gates"
                 self.compiling_finished = True
                 break
             if _wall_deadline_passed():
                 logger.warning("ADAPTAQC_WALL_DEADLINE reached; stopping "
                                "with the best-so-far ansatz")
+                self.stop_reason = "deadline"
+                if checkpoint_every > 0:
+                    # the checkpoint a later process resumes from: written
+                    # before the final cleanup below rewrites the circuit
+                    self.checkpoint(checkpoint_every, checkpoint_dir,
+                                    delete_prev_chkpt, layer_count,
+                                    start_time)
                 self.compiling_finished = True
                 break
             if checkpoint_every > 0 and layer_count % checkpoint_every == 0:
@@ -504,7 +517,7 @@ class AdaptCompiler(ApproximateCompiler):
                     f"{mps_truncated_weight:.3e} during this compile: "
                     f"max_chi={self.backend.max_chi} or the truncation "
                     "threshold is binding; overlaps may be inaccurate.")
-        if checkpoint_every > 0:
+        if checkpoint_every > 0 and self.stop_reason != "deadline":
             self.checkpoint(checkpoint_every, checkpoint_dir,
                             delete_prev_chkpt,
                             len(self.qubit_pair_history) - 1, start_time)
@@ -545,6 +558,7 @@ class AdaptCompiler(ApproximateCompiler):
         # how much Schmidt weight the MPS engine dropped (None off MPS)
         result.mps_truncated_weight = mps_truncated_weight
         result.phase_timings = dict(self.phase_timings)
+        result.stop_reason = self.stop_reason
         result.layer_times = list(self.layer_times)  # wall s per layer
         logger.info("ADAPT-AQC completed")
         return result

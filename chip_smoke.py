@@ -4,7 +4,7 @@
 
 (`--only` runs the named phases alone, for work on one of them; the whole
 run, with no arguments, is the one that prints the result lines.) Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
-(sm_90a) and runs eleven phases, each printing lines that start with its
+(sm_90a) and runs twelve phases, each printing lines that start with its
 name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
@@ -80,6 +80,14 @@ name; any failure exits non-zero:
             perform_final_minimisation=True), and Rotosolve layers
             subsampled by rotosolve_fraction=0.5; a complex128 MPS compile
             at n=10 on the card, which takes the counted non-kernel routes
+  workloads the scripts of adaptaqc_tpu_torch/workloads as a user runs
+            them, each its own process: random_mps at n=50 stopped by a
+            60 s deadline with its checkpoint, a second process resuming it
+            for 30 s (resumed at the checkpoint's layer, the first run's
+            pairs first), spin_chain at its defaults for 45 s alongside,
+            each launching every kernel; then bench_sweep's evals/s, the
+            readme, simple_sv and advanced_sv example twins to their
+            floors, and entry()'s cost against the CPU's
 
 The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
@@ -310,7 +318,8 @@ def _gram_cases(m, rng):
 
 def sweep_probe_sites(Circuit, compile_tape):
     """The site of every probe of phase_sweep's tape, in sweep order."""
-    _, ansatz = bench_workload(Circuit, 50, 12)
+    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
+    _, ansatz = bench_workload(50, 12)
     at = compile_tape(ansatz)
     return [int(q) for q in np.asarray(at.q0)[np.asarray(at.trainable)]]
 
@@ -320,8 +329,9 @@ def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape,
     """The arguments of every tridiag, teig and backtransform launch of one
     sweep at phase_sweep's shape (n=50, chi=64, or the chi given):
     {name: [args, ...]}, in launch order, cloned as they were passed."""
+    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     n, dev = 50, torch.device("cuda")
-    target, ansatz = bench_workload(Circuit, n, 12)
+    target, ansatz = bench_workload(n, 12)
     tt, at = compile_tape(target), compile_tape(ansatz)
     prefix = mps_core.apply_tape(
         mps_core.zero_mps(n, chi, torch.complex64, dev), tt.kinds, tt.q0,
@@ -1370,38 +1380,16 @@ def phase_slice(torch, port, counted, card):
 
 
 # ---------------------------------------------------------------- phase 5
-def bench_workload(Circuit, n, window, seed=0):
-    """bench.py's circuits: a 3-layer random-entangling target and a window
-    of `window` dressed-CNOT layers on random adjacent pairs."""
-    rng = np.random.default_rng(seed)
-    target = Circuit(n)
-    for q in range(n):
-        target.ry(float(rng.uniform(-3, 3)), q)
-    for layer in range(3):
-        for q in range(layer % 2, n - 1, 2):
-            target.cx(q, q + 1)
-        for q in range(n):
-            target.rz(float(rng.uniform(-3, 3)), q)
-    ansatz = Circuit(n)
-    for _ in range(window):
-        a = int(rng.integers(n - 1))
-        ansatz.rz(0.1, a)
-        ansatz.rz(0.1, a + 1)
-        ansatz.cx(a, a + 1)
-        ansatz.rz(0.1, a)
-        ansatz.rz(0.1, a + 1)
-    return target, ansatz
-
-
 def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
                 chi=64, ek=None, envk=None):
     """bench.py's workload: a 3-layer random-entangling 50-qubit target at
     bond dimension chi (64: bench.py's) and a window of 12 dressed-CNOT
     layers, one Rotoselect sweep; with ek and envk given, the wide variants'
     launches of the timed sweeps are printed too."""
+    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     n, window = 50, 12
     dev = torch.device("cuda")
-    target, ansatz = bench_workload(Circuit, n, window)
+    target, ansatz = bench_workload(n, window)
     tt = compile_tape(target)
     prefix = mps_core.apply_tape(mps_core.zero_mps(n, chi, torch.complex64,
                                                    dev),
@@ -1559,7 +1547,8 @@ def phase_sv(torch, port, card, dev="cuda", n_engine=20, n=SV_N):
           + f" < {TOL_SV_REL}", flush=True)
 
     # the sweep phase's workload at n qubits
-    target, ansatz = bench_workload(Circuit, n, 12)
+    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
+    target, ansatz = bench_workload(n, 12)
     tt, at = compile_tape(target), compile_tape(ansatz)
     prefix = sv_core.apply_tape(sv_core.zero_state(n, torch.complex64, dev),
                                 tt.kinds, tt.q0, tt.q1, tt.angles)
@@ -2250,6 +2239,174 @@ def phase_optim(torch, port, card, dev="cuda", n=50, n_small=10):
     return f64
 
 
+# --------------------------------------------------------------- phase 12
+RMPS_DEADLINES = (60, 30)  # s: the first run stops, the second resumes
+SPIN_DEADLINE = 45         # s
+EXAMPLE_FLOORS = {"readme_example": 0.98, "simple_sv_example": 0.98,
+                  "advanced_sv_example": 0.9}  # tests/test_examples.py
+TOL_ENTRY = 1e-5           # entry()'s cost, card complex64 vs CPU complex128
+
+
+def start_workload(module, args, workdir, name):
+    """`python3 -m adaptaqc_tpu_torch.workloads.<module> args` from the
+    checkout's root, its stderr to `workdir/name.log`: (process, log)."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    log = open(os.path.join(workdir, f"{name}.log"), "w")
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"adaptaqc_tpu_torch.workloads.{module}",
+         *args], cwd=root, env=env, stdout=subprocess.PIPE, stderr=log,
+        text=True)
+    return proc, log
+
+
+def workload_record(proc, log, name, timeout):
+    """The JSON record on the last line of the script's stdout."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if proc.returncode != 0:
+        with open(log.name) as f:
+            tail = f.read()[-3000:]
+        raise SmokeFailure(f"{name} exited {proc.returncode}:\n{tail}")
+    lines = out.strip().splitlines()
+    check(lines, f"{name} printed no record")
+    return json.loads(lines[-1])
+
+
+def workload_args(workdir, tag, deadline, dev):
+    import os
+    return ["--device", dev, "--deadline", str(deadline),
+            "--checkpoint-every", "2",
+            "--checkpoint-dir", os.path.join(workdir, f"{tag}_ck"),
+            "--results", os.path.join(workdir, f"{tag}.jsonl"),
+            "--circuits-dir", os.path.join(workdir, "circuits")]
+
+
+def record_line(tag, rec):
+    keys = ("overlap", "overlap_chi64_check", "independent_engine_overlap",
+            "layers", "num_2q_gates", "solution_2q_gates", "cnot_depth",
+            "solution_2q_depth", "cost_evaluations", "wall_seconds",
+            "wall_seconds_total", "evals_per_sec", "stopped",
+            "resumed_from_layer", "sm_raw", "sm_solution", "launches")
+    return f"workloads: {tag} " + json.dumps(
+        {k: rec[k] for k in keys if k in rec})
+
+
+def phase_workloads(torch, card, dev="cuda", n=50, spin_steps=3,
+                    sweep_shape=(50, 64)):
+    """The workload scripts as a user runs them, each in its own process: the n=50
+    random-MPS compile stopped by its deadline and resumed from its
+    checkpoint by a second process, and the spin-chain compile (alongside,
+    in a third); then bench_sweep, the three small example twins and
+    entry() in this process. (Smaller n, spin_steps and sweep_shape and
+    dev="cpu" rehearse it on the CPU.)"""
+    import contextlib
+    import io
+    import os
+    import re
+    import shutil
+    from adaptaqc_tpu_torch.workloads import _common, bench_sweep, entry
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "local", "chip_smoke_workloads")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    procs = []
+    try:
+        spin = start_workload("spin_chain", [
+            "--n", str(n), "--steps", str(spin_steps),
+            *workload_args(workdir, "spin", SPIN_DEADLINE, dev)],
+            workdir, "spin")
+        procs.append(spin[0])
+        rmps_args = ["1", "--n", str(n)]
+        first = start_workload("random_mps", rmps_args + workload_args(
+            workdir, "rmps", RMPS_DEADLINES[0], dev), workdir, "rmps1")
+        procs.append(first[0])
+        rec1 = workload_record(*first, "random_mps (first)", 600)
+        print(record_line(f"random_mps n={n} seed 1, first process", rec1),
+              flush=True)
+        newest = _common.newest_checkpoint(os.path.join(workdir, "rmps_ck"))
+        check(rec1["stopped"] == "deadline" and rec1["layers"] >= 2,
+              f"the first random-MPS run did not stop by its deadline "
+              f"after >= 2 layers: {rec1['stopped']}, {rec1['layers']}")
+        check(newest is not None, "the deadline stop left no checkpoint")
+        check(all(v > 0 for v in rec1["launches"].values()),
+              f"the random-MPS workload did not launch every kernel: "
+              f"{rec1['launches']}")
+        ck_layer = int(os.path.basename(newest)[:-4])
+        second = start_workload("random_mps", rmps_args + workload_args(
+            workdir, "rmps", RMPS_DEADLINES[1], dev), workdir, "rmps2")
+        procs.append(second[0])
+        rec2 = workload_record(*second, "random_mps (resumed)", 600)
+        print(record_line(f"random_mps n={n} seed 1, resumed from "
+                          f"{os.path.basename(newest)}", rec2), flush=True)
+        resumed = rec2["resumed_from_layer"]
+        check(resumed == ck_layer + 1 == rec1["layers"],
+              f"resumed at layer {resumed}, checkpoint {newest}, first run "
+              f"{rec1['layers']} layers")
+        check(rec2["qubit_pair_history"][:resumed]
+              == rec1["qubit_pair_history"][:resumed],
+              "the resumed pair history does not begin with the first "
+              "run's")
+        for rec in (rec1, rec2):
+            check(np.isfinite(rec["overlap"])
+                  and 0 <= rec["overlap"] <= 1 + 1e-6,
+                  f"random-MPS overlap out of range: {rec['overlap']}")
+        rec3 = workload_record(*spin, "spin_chain", 600)
+        print(record_line(f"spin_chain n={n} {spin_steps} steps", rec3),
+              flush=True)
+        check(all(v > 0 for v in rec3["launches"].values()),
+              f"the spin-chain workload did not launch every kernel: "
+              f"{rec3['launches']}")
+        check(np.isfinite(rec3["overlap"]) and np.isfinite(rec3["sm_raw"]),
+              "the spin-chain record has no finite overlap")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    sw = bench_sweep.run(n=sweep_shape[0], chi=sweep_shape[1], device=dev)
+    print(f"workloads: bench_sweep n={sw['n']} chi={sw['chi']} "
+          f"{sw['window_layers']} layers: {sw['evals_per_sec']:.1f} evals/s,"
+          f" {sw['ms_per_sweep']:.2f} ms/sweep, {sw['evals_per_sweep']} "
+          f"evaluations a sweep on {card}", flush=True)
+    check(np.isfinite(sw["evals_per_sec"]) and sw["evals_per_sec"] > 0,
+          "bench_sweep gave no rate")
+
+    from adaptaqc_tpu_torch import examples  # noqa: F401
+    import importlib
+    for name, floor in EXAMPLE_FLOORS.items():
+        mod = importlib.import_module(f"adaptaqc_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--device", dev])
+        m = re.search(r"Overlap between circuits is ([0-9.eE+-]+)",
+                      buf.getvalue())
+        check(m is not None, f"{name} printed no overlap")
+        ov = float(m.group(1))
+        print(f"workloads: example {name}: overlap {ov:.6f} (floor {floor})"
+              f" in {time.perf_counter() - t0:.2f} s on {card}", flush=True)
+        check(ov > floor, f"{name} overlap {ov} <= {floor}")
+
+    fn, args = entry.entry(device=dev)
+    cost = float(fn(*args))
+    fn, cargs = entry.entry(device="cpu", dtype=torch.complex128)
+    ref = float(fn(*cargs))
+    print(f"workloads: entry() cost {cost!r} on the card (complex64), "
+          f"{ref!r} on the CPU (complex128), |diff| {abs(cost - ref):.2e} <"
+          f" {TOL_ENTRY}", flush=True)
+    check(np.isfinite(cost) and abs(cost - ref) < TOL_ENTRY,
+          f"entry() cost {cost} vs {ref}")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2327,6 +2484,9 @@ def main():
     if wanted("optim"):
         f64 = phase_optim(torch, port, card)
         done("optim")
+    if wanted("workloads"):
+        phase_workloads(torch, card)
+        done("workloads")
     print(f"chip_smoke: wall seconds by phase {json.dumps(walls)}, "
           f"{sum(walls.values()):.1f} in all", flush=True)
 
@@ -2363,7 +2523,7 @@ def main():
 
 
 PHASES = ("kernels", "hazard", "slice", "sweep", "sv", "sampling", "isl_mps",
-          "spin", "ladder", "optim")
+          "spin", "ladder", "optim", "workloads")
 
 
 def parse_only(argv):

@@ -151,8 +151,9 @@ def test_sweep_probe_sites():
     """bench.py's window of 12 dressed-CNOT layers: 48 probes, each on a
     site of the 50-qubit chain, as many as the tape has trainable
     entries."""
+    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     sites = chip_smoke.sweep_probe_sites(Circuit, compile_tape)
-    _, ansatz = chip_smoke.bench_workload(Circuit, 50, 12)
+    _, ansatz = bench_workload(50, 12)
     assert len(sites) == 48 == int(np.sum(compile_tape(ansatz).trainable))
     assert all(0 <= q < 50 for q in sites)
 

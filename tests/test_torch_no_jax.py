@@ -55,3 +55,24 @@ def test_new_modules_are_among_those_imported_without_jax():
     for mod in ("backends.center_mps", "utils.verification",
                 "io.checkpoint", "utils.targets", "ops.native"):
         assert f"adaptaqc_tpu_torch.{mod}" in names
+
+
+def test_workloads_examples_and_utilities_are_among_those_imported():
+    """The workload scripts, the example twins and the utility modules are
+    found by the walk of the first test, so they too import with JAX made
+    unimportable and build nothing (each example's compile runs only
+    under `__main__`)."""
+    import pkgutil
+
+    import adaptaqc_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        adaptaqc_tpu_torch.__path__, "adaptaqc_tpu_torch.")}
+    for mod in ("workloads._common", "workloads.random_mps",
+                "workloads.spin_chain", "workloads.bench_sweep",
+                "workloads.entry", "examples.readme_example",
+                "examples.simple_sv_example", "examples.advanced_sv_example",
+                "examples.simple_mps_example",
+                "examples.advanced_mps_example", "utils.utilityfunctions",
+                "utils.hamiltonians", "utils.gate_tomography",
+                "utils.fixed_ansatz_circuits", "utils.tenpy_interop"):
+        assert f"adaptaqc_tpu_torch.{mod}" in names

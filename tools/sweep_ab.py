@@ -30,8 +30,14 @@ def sweep_args(tree, chi):
     from adaptaqc_tpu_torch.circuits.circuit import Circuit
     from adaptaqc_tpu_torch.circuits.tape import compile_tape
     from adaptaqc_tpu_torch.optim import sweeps
+    try:
+        from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
+    except ImportError:  # a tree from before the workloads package
+
+        def bench_workload(n, window):
+            return cs.bench_workload(Circuit, n, window)
     n, dev = 50, torch.device("cuda")
-    target, ansatz = cs.bench_workload(Circuit, n, 12)
+    target, ansatz = bench_workload(n, 12)
     tt, at = compile_tape(target), compile_tape(ansatz)
     prefix = mps_core.apply_tape(
         mps_core.zero_mps(n, chi, torch.complex64, dev), tt.kinds, tt.q0,
