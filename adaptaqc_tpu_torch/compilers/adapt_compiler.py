@@ -183,8 +183,10 @@ class AdaptCompiler(ApproximateCompiler):
     # --------------------------------------------------------- chi schedule
     def _check_schedule_fits_kernels(self, chis):
         """On a CUDA device the eigensolver and env-chain kernels take a
-        bounded bond dimension (ops/dispatch.py; their plain versions on the
-        CPU do not), and a call above it raises: refuse a schedule whose
+        bounded bond dimension (ops/dispatch.py REACH: chi <= 512, the
+        env chain's streamed kernel and the eigensolver at m = 2 chi <=
+        1024, in complex64 and complex128; their plain versions on the CPU
+        have no cap), and a call above it raises: refuse a schedule whose
         stages exceed it before its first stage, not hours into it."""
         if self.backend.device.type != "cuda":
             return
@@ -201,9 +203,10 @@ class AdaptCompiler(ApproximateCompiler):
                     f"compile_with_chi_schedule: stage chi={chi} works at "
                     f"bond dimension {working}, above what the CUDA kernels "
                     f"take in {dt} (chi <= {cap}: env_chain chi <= "
-                    f"{env_hi}, eigensolver m = 2 chi <= {eigh_hi}); on "
-                    f"device {self.backend.device} the schedule must stay "
-                    f"at or below chi={cap}")
+                    f"{env_hi}, eigensolver m = 2 chi <= {eigh_hi}), and "
+                    f"no other route runs on the card; on device "
+                    f"{self.backend.device} the schedule must stay at or "
+                    f"below chi={cap}")
 
     def compile_with_chi_schedule(self, chis=(32, 64, 128),
                                   initial_ansatz=None):

@@ -4,9 +4,9 @@
 //   tridiag_kernel        <- _tridiag_kernel       (pallas_eigh.py:56)
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
-// and, for 128 < m <= 560, their wide variants (tridiag_cluster_kernel,
+// and, for 128 < m <= 1024, their wide variants (tridiag_cluster_kernel,
 // teig_cluster_kernel, backtransform_wide_kernel, at the end of this file),
-// whose double instantiations serve complex128 at every m up to 504.
+// whose double instantiations serve complex128 at every m up to 1024.
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
 // <= 128, complex64 (float2), or a batch of P of them in one launch: the
 // full-cost sweep applies every gate to its 3 or 7 probe states at once (the
@@ -111,7 +111,8 @@ using adaptaqc::mbar_wait;
 using adaptaqc::warp_sum;
 
 constexpr int kMaxM = 128;  // the register, shared-memory designs below;
-                            // the wide variants at the end take m up to 560
+                            // the wide variants at the end take m up to
+                            // 1024
 // Every launcher takes a batch of `batch` matrices: the strides (in
 // elements) between the matrices of each input; the outputs are contiguous
 // in the batch. batch = 1 is the single-matrix launch.
@@ -1022,7 +1023,11 @@ __global__ void __launch_bounds__(kBtThreads)
 
 // ------------------------------------------------------ the wide variants
 // For 128 < m <= kWideMaxM (the JAX kernels' own reach, pallas_eigh.py's
-// `supported`: 10 m^2 float32 words in 12 MiB of VMEM). At m = 256 one
+// `supported`: 10 m^2 float32 words in 12 MiB of VMEM, ends at m = 560;
+// past it the reference runs XLA's eigh and the port these kernels, with
+// what no longer fits in shared memory kept in global memory: K2's rows
+// past its CTAs' fit in the wrapper's `work`, K3's iterate in its
+// `scratch`, K4's reflectors read where they lie). At m = 256 one
 // complex64 matrix is 512 KB, more than an SM's registers (256 KB) or
 // shared memory (227 KB), so the designs above do not stretch. K4 keeps
 // one CTA a matrix (a batch still costs one matrix's time) and reads its
@@ -1040,13 +1045,11 @@ __global__ void __launch_bounds__(kBtThreads)
 //
 // They are templates on the real type T. float serves complex64 for
 // 128 < m <= kWideMaxM; double serves complex128 at every m, 2 <= m <=
-// kWideMaxM64 (backtransform's panel of m double2 rows bounds it in shared
-// memory). In double the constants are the plain version's float64 ones
+// kWideMaxM. In double the constants are the plain version's float64 ones
 // (ops/eigh_kernels.py _teig_constants: 60 bisection rounds, eps 2.3e-16,
 // pivmin floor 1e-300) and the tiny-column threshold is DBL_MIN /
 // DBL_EPSILON, as the plain version's finfo(float64).tiny / eps.
-constexpr int kWideMaxM = 560;
-constexpr int kWideMaxM64 = 504;
+constexpr int kWideMaxM = 1024;
 
 template <typename T>
 struct Real;
@@ -1083,8 +1086,8 @@ __device__ __forceinline__ V warp_sum2(V v) {
 
 // K3's wide variant: teig_kernel's algorithm on a thread-block cluster of G
 // CTAs a matrix (G = ceil(m / 32), at most 16; 8 where 16 does not fit),
-// for complex64 at 128 < m <= 560 and complex128 at every m <= 504. One CTA
-// a matrix (the first design) ran every stage on one SM: the multisection
+// for complex64 at 128 < m <= 1024 and complex128 at every m <= 1024. One
+// CTA a matrix (the first design) ran every stage on one SM: the multisection
 // with two threads a lane at m = 512 (30 dependent Sturm sweeps), the
 // inverse iteration's LU and iterate in global memory (a round trip
 // through L1/L2 in every step of the dependent solves), and the BCGS2 over
@@ -1093,7 +1096,8 @@ __device__ __forceinline__ V warp_sum2(V v) {
 //     m <= 16; a multiple of the CGS2 panel, so that each panel lies in one
 //     CTA) and keeps their columns of the iterate in its shared memory
 //     (m rows of L + 1 reals: walking a row and walking a column are both
-//     conflict-free);
+//     conflict-free), to m = 640 where they fit (complex64; complex128
+//     to 512), else in the wrapper's scratch in global memory;
 //   - multisection as in teig_kernel with 16 threads a lane (k = 4: 8
 //     sweeps for the 30 float rounds, 15 for the 60 double ones), w equal
 //     to the plain version's bit for bit;
@@ -1130,6 +1134,8 @@ constexpr int kClLaneThreads = 16;  // multisection threads an eigenvalue
 constexpr int kClCgsWarps = 4;      // the in-panel CGS2's warps
 constexpr int kClCgsRows = (kWideMaxM + 32 * kClCgsWarps - 1) /
                            (32 * kClCgsWarps);  // its rows a thread
+constexpr int kClCgsRowsSmem = 5;  // with the iterate in shared memory:
+                                   // m <= 640
 static_assert(kPanel == 16, "the panel's row is four 4-real quads");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
@@ -1142,19 +1148,21 @@ __host__ __device__ inline int cl_lu_reals(int m, int L) {
 }
 
 // A CTA's dynamic shared memory, offsets in reals of T (16-byte aligned):
-// d, e, e2, w (m each), the iterate's columns (m rows of ldb = L + 1), the
-// projections W (L x kPanel), then one region holding the LU factors
-// (where they are in shared memory) during the inverse iteration and the
-// pulled panel, overwritten by the partial Q_r W_r, during the BCGS2.
+// d, e, e2, w (m each), the iterate's columns (m rows of ldb = L + 1;
+// none where they stay in global memory, !iter_smem), the projections W
+// (L x kPanel), then one region holding the LU factors (where they are in
+// shared memory) during the inverse iteration and the pulled panel,
+// overwritten by the partial Q_r W_r, during the BCGS2.
 struct ClLayout {
   int ldb, bb, W, X, total;
 };
 template <typename T>
-__host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem) {
+__host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem,
+                                              bool iter_smem = true) {
   ClLayout c;
   c.ldb = L + 1;
   c.bb = round4(4 * m);
-  c.W = round4(c.bb + m * c.ldb);
+  c.W = round4(c.bb + (iter_smem ? m * c.ldb : 0));
   c.X = round4(c.W + L * kPanel);
   const int words = ((m + 31) / 32) * L;
   const int lu = 2 * m * L + (int)((words * 4 + sizeof(T) - 1) / sizeof(T));
@@ -1163,9 +1171,26 @@ __host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem) {
   return c;
 }
 
-// The global LU scratch a matrix, in reals, for every plan (G L < m + 80).
-__host__ __device__ inline long long teig_wide_scratch_reals(int m) {
-  return (long long)(m + 80) * (2 * m + (m + 31) / 32);
+// The lanes a CTA where a cluster holds at most `cap` CTAs: ceil(m / cap)
+// rounded up to a multiple of kPanel (the cluster then has ceil(m / L)).
+__host__ __device__ inline int cl_lanes(int m, int cap) {
+  const int g0 = (m + 31) / 32 < cap ? (m + 31) / 32 : cap;
+  const int L = (((m + g0 - 1) / g0 + kPanel - 1) / kPanel) * kPanel;
+  return L > kPanel ? L : kPanel;
+}
+
+// The global scratch a matrix, in reals, for every plan: each CTA's LU
+// factors, then (the global-iterate route) each CTA's columns of the
+// iterate, m rows of L + 1.
+inline long long teig_wide_scratch_reals(int m) {
+  long long most = 0;
+  for (int cap : {kClMaxCluster, 8}) {
+    const int L = cl_lanes(m, cap), G = (m + L - 1) / L;
+    const long long need =
+        (long long)G * (cl_lu_reals(m, L) + (long long)m * (L + 1));
+    most = need > most ? need : most;
+  }
+  return most;
 }
 
 // One level of transpose_sum16: lanes that differ in bit `kBit` swap the
@@ -1281,25 +1306,45 @@ __device__ __forceinline__ void cgs2_panel(T* bb, int ldb, int m, int c0,
   }
 }
 
-// cgs2_panel with as many rows a thread as m needs.
-template <typename T>
+// cgs2_panel with as many rows a thread as m needs, up to kMaxRows.
+template <int kMaxRows, typename T>
 __device__ __forceinline__ void cgs2_panel_rows(
     T* bb, int ldb, int m, int c0, int cl0, int pw,
     T (*red)[kClCgsWarps][kPanel]) {
-  static_assert(kClCgsRows == 5, "one case a row count");
-  switch ((m + 32 * kClCgsWarps - 1) / (32 * kClCgsWarps)) {
-    case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
-    case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
-    case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
-    case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
-    default: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
+  static_assert(kMaxRows == kClCgsRowsSmem || kMaxRows == kClCgsRows,
+                "one case a row count");
+  const int rows = (m + 32 * kClCgsWarps - 1) / (32 * kClCgsWarps);
+  if constexpr (kMaxRows == kClCgsRowsSmem) {
+    switch (rows) {
+      case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
+      default: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
+    }
+  } else {
+    static_assert(kClCgsRows == 8, "one case a row count");
+    switch (rows) {
+      case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 5: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 6: cgs2_panel<6>(bb, ldb, m, c0, cl0, pw, red); break;
+      case 7: cgs2_panel<7>(bb, ldb, m, c0, cl0, pw, red); break;
+      default: cgs2_panel<8>(bb, ldb, m, c0, cl0, pw, red); break;
+    }
   }
 }
 
 // Grid: batch x G CTAs of kClThreads, clusters of G along x (cluster b is
 // matrix b). L: lanes a CTA; lu_smem: the LU factors in shared memory,
-// else in `scratch` (batch x G x cl_lu_reals(m, L) reals).
-template <typename T>
+// else in `scratch` (batch x G x cl_lu_reals(m, L) reals). kIterSmem: the
+// iterate's columns in shared memory, for m <= 640 where they fit; else
+// (complex64 above m = 640, complex128 above 512) in `scratch` after every
+// CTA's LU factors, batch x G x m (L + 1) reals, read and written in the
+// same order (the same bits).
+template <typename T, bool kIterSmem>
 __global__ void __launch_bounds__(kClThreads, 1)
     teig_cluster_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
                         const T* __restrict__ b0, T* __restrict__ w_out,
@@ -1316,7 +1361,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
   z_out += b * (size_t)m * m;
   const int j0 = rank * L;          // this CTA's first lane
   const int nl = min(L, m - j0);    // and its number of lanes
-  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0);
+  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0, kIterSmem);
   const int ldb = lay.ldb;
   extern __shared__ __align__(16) unsigned char csm_raw[];
   T* sm = reinterpret_cast<T*>(csm_raw);
@@ -1324,7 +1369,10 @@ __global__ void __launch_bounds__(kClThreads, 1)
   T* e = d + m;
   T* e2 = e + m;
   T* w = e2 + m;
-  T* bb = sm + lay.bb;  // bb[i * ldb + jl]: row i of lane j0 + jl
+  // bb[i * ldb + jl]: row i of lane j0 + jl
+  T* bb = kIterSmem ? sm + lay.bb
+                    : scratch + (size_t)gridDim.x * cl_lu_reals(m, L) +
+                          (b * G + rank) * (size_t)m * ldb;
   T* W = sm + lay.W;    // (L, kPanel)
   T* PY = sm + lay.X;   // (m, kPanel) the pulled panel, then Q_r W_r
   T* du = lu_smem ? sm + lay.X
@@ -1617,7 +1665,8 @@ __global__ void __launch_bounds__(kClThreads, 1)
         __syncthreads();
       }
       if (tid < 32 * kClCgsWarps)
-        cgs2_panel_rows(bb, ldb, m, c0, cl0, pw, red);
+        cgs2_panel_rows<kIterSmem ? kClCgsRowsSmem : kClCgsRows>(
+            bb, ldb, m, c0, cl0, pw, red);
     }
   }
   __syncthreads();
@@ -1631,8 +1680,8 @@ __global__ void __launch_bounds__(kClThreads, 1)
 
 // K2's wide variant: tridiag_kernel's Householder steps on a thread-block
 // cluster of G = ceil(m / 16) CTAs a matrix (at most 16; 8 where the card
-// refuses 16), for complex64 at 128 < m <= 560 and complex128 at every
-// m <= 504. One CTA a matrix (the first design) used one SM of 132, kept A
+// refuses 16), for complex64 at 128 < m <= 1024 and complex128 at every
+// m <= 1024. One CTA a matrix (the first design) used one SM of 132, kept A
 // in global memory and streamed the trailing block through that SM's L1/L2
 // three times a step (the product u half its cycles, the update the other
 // half, tools/stage_clocks.py), divided per element in the rank-2 update,
@@ -1641,7 +1690,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
 //     deals them over row groups, so that the trailing block stays spread
 //     over every CTA to the last steps), whole rows of m entries, in its
 //     shared memory: the first rs of its R = ceil(m / G) rows, all of them
-//     where they fit (complex64 at every m, complex128 to m = 438), the
+//     where they fit (complex64 to m = 640, complex128 to m = 438), the
 //     rest in the wrapper's `work` at their own row of the matrix; either
 //     way a row is reached through one pointer;
 //   - a warp a row: u_i = sum_j A[i][j] v_j with a shuffle reduction, and
@@ -2031,26 +2080,32 @@ __global__ void __launch_bounds__(kClThreads, 1)
 constexpr int kBtLdp = kBtPanel + 1;
 // backtransform_wide_kernel's dynamic shared memory: the active list (m
 // ints, to a 16-byte boundary), then in complex elements of T its taus,
-// the CTA's columns of z, one panel of reflectors (m rows of kBtLdp), its
-// kBtGSplit partial V^H V blocks (the first becomes T), the partial V^H Z
-// and T V^H Z.
+// the CTA's columns of z, one panel of reflectors (m rows of kBtLdp; none
+// where the panel is read from global memory, !panel_smem), its kBtGSplit
+// partial V^H V blocks (the first becomes T), the partial V^H Z and
+// T V^H Z.
 __host__ __device__ inline int bt_wide_act_bytes(int m) {
   return (4 * m + 15) & ~15;
 }
 template <typename T>
-__host__ __device__ inline int bt_wide_smem_bytes(int m) {
+__host__ __device__ inline int bt_wide_smem_bytes(int m,
+                                                  bool panel_smem = true) {
   return bt_wide_act_bytes(m) +
          (int)(2 * sizeof(T)) *
-             (m + m * kBtCols + m * kBtLdp + kBtGSplit * kBtBlock +
-              (kBtSplit + 1) * kBtPanel * kBtCols);
+             (m + m * kBtCols + (panel_smem ? m * kBtLdp : 0) +
+              kBtGSplit * kBtBlock + (kBtSplit + 1) * kBtPanel * kBtCols);
 }
 
 // backtransform_kernel's compact-WY panels, with the reflectors read from
 // global memory one panel at a time (the last first) instead of all of
 // them held in shared memory: per panel, its reflectors are loaded
 // transposed, G = V^H V and T are formed, and Y = V^H Z, W = T Y,
-// Z -= V W follow as before.
-template <typename T>
+// Z -= V W follow as before. kPanelSmem false (complex128 past m = 504,
+// where the panel of m double2 rows no longer fits beside z's columns):
+// every read of the panel goes to the reflector's row in global memory
+// instead (L2-resident), in the same order, so the bits are those of the
+// shared-memory panel.
+template <typename T, bool kPanelSmem>
 __global__ void __launch_bounds__(kBtThreads)
     backtransform_wide_kernel(const typename Real<T>::C* __restrict__ vrows,
                               const typename Real<T>::C* __restrict__ tau,
@@ -2071,7 +2126,7 @@ __global__ void __launch_bounds__(kBtThreads)
   V* tau_s = reinterpret_cast<V*>(bsm_raw + bt_wide_act_bytes(m));  // m
   V* Z = tau_s + m;                                 // (m, kBtCols)
   V* Vt = Z + m * kBtCols;                          // (m, kBtLdp)
-  V* G = Vt + m * kBtLdp;                           // (kBtGSplit, kBtBlock)
+  V* G = Vt + (kPanelSmem ? m * kBtLdp : 0);        // (kBtGSplit, kBtBlock)
   V* Y = G + kBtGSplit * kBtBlock;                  // (split, 16, 8)
   V* Wp = Y + kBtSplit * kBtPanel * kBtCols;        // (16, 8)
   V* Tm = G;
@@ -2110,21 +2165,33 @@ __global__ void __launch_bounds__(kBtThreads)
   const int pi = (tid / kBtCols) % kBtPanel, pc = tid % kBtCols;
   for (int p = npan - 1; p >= 0; --p) {
     const int s0 = p * kBtPanel, pn = min(kBtPanel, na - s0);
-    // the panel's reflectors, transposed; zeros above row k+1
-    for (int sl = warp; sl < kBtPanel; sl += kWarps) {
-      const int k = sl < pn ? act[s0 + sl] : m;
-      const V* src = vrows + (size_t)(sl < pn ? k : 0) * m;
-      for (int r = lane; r < m; r += 32)
-        Vt[r * kBtLdp + sl] = r > k ? src[r] : czero;
+    // entry r of the panel's reflector sl (zero above row k + 1, and past
+    // the panel's last reflector)
+    auto vt = [&](int r, int sl) -> V {
+      if constexpr (kPanelSmem) {
+        return Vt[r * kBtLdp + sl];
+      } else {
+        const int k = sl < pn ? act[s0 + sl] : m;
+        return r > k ? vrows[(size_t)k * m + r] : czero;
+      }
+    };
+    if constexpr (kPanelSmem) {
+      // the panel's reflectors, transposed; zeros above row k+1
+      for (int sl = warp; sl < kBtPanel; sl += kWarps) {
+        const int k = sl < pn ? act[s0 + sl] : m;
+        const V* src = vrows + (size_t)(sl < pn ? k : 0) * m;
+        for (int r = lane; r < m; r += 32)
+          Vt[r * kBtLdp + sl] = r > k ? src[r] : czero;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     {  // G = V^H V, strictly upper, kBtGSplit partial sums
       const int gh = tid / kBtBlock, gi = (tid / kBtPanel) % kBtPanel,
                 gj = tid % kBtPanel;
       if (gi < gj && gj < pn) {
         V gsum = czero;
         for (int r = act[s0 + gi] + 1 + gh; r < m; r += kBtGSplit)
-          cfma_conj(gsum, Vt[r * kBtLdp + gi], Vt[r * kBtLdp + gj]);
+          cfma_conj(gsum, vt(r, gi), vt(r, gj));
         G[gh * kBtBlock + gi * kBtPanel + gj] = gsum;
       }
     }
@@ -2159,7 +2226,7 @@ __global__ void __launch_bounds__(kBtThreads)
     if (pi < pn) {  // Y = V^H Z
       V y = czero;
       for (int r = act[s0 + pi] + 1 + h; r < m; r += kBtSplit)
-        cfma_conj(y, Vt[r * kBtLdp + pi], Z[r * kBtCols + pc]);
+        cfma_conj(y, vt(r, pi), Z[r * kBtCols + pc]);
       Y[(h * kBtPanel + pi) * kBtCols + pc] = y;
     }
     __syncthreads();
@@ -2187,7 +2254,7 @@ __global__ void __launch_bounds__(kBtThreads)
         V acc = czero;
 #pragma unroll
         for (int i = 0; i < kBtPanel; ++i)
-          if (i < pn) cfma(acc, Vt[r * kBtLdp + i], wc[i]);
+          if (i < pn) cfma(acc, vt(r, i), wc[i]);
         V& x = Z[r * kBtCols + pc];
         x = make_c(x.x - acc.x, x.y - acc.y);
       }
@@ -2205,13 +2272,15 @@ __global__ void __launch_bounds__(kBtThreads)
 // batch x teig_wide_scratch_reals(m) reals) are the caller's, as every
 // output.
 // K3's wide launch plan for m and real type T: the cluster size G, the
-// lanes a CTA L (a multiple of kPanel), whether the LU factors fit in
-// shared memory, and the dynamic shared memory a CTA. G = ceil(m / 32)
-// CTAs where that is at most 8 or a cluster of 16 fits on the card
-// (non-portable size, cudaOccupancyMaxActiveClusters), else 8 with longer
-// lanes. Returns a plan with G = 0 (and sets *err) if nothing launches.
+// lanes a CTA L (a multiple of kPanel), whether the iterate's columns and
+// the LU factors fit in shared memory, and the dynamic shared memory a
+// CTA. G = ceil(m / 32) CTAs where that is at most 8 or a cluster of 16
+// fits on the card (non-portable size, cudaOccupancyMaxActiveClusters),
+// else 8 with longer lanes; with the iterate in shared memory where any
+// cluster size takes it and m <= 640, else in global memory. Returns a
+// plan with G = 0 (and sets *err) if nothing launches.
 struct TeigPlan {
-  int G, L, lu_smem;
+  int G, L, lu_smem, iter_smem;
   size_t smem;
 };
 
@@ -2231,52 +2300,68 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int grid, int G,
   return cfg;
 }
 
+// The instantiation of K3's wide kernel for the plan's iterate route.
+template <typename T>
+using TeigKernel = void (*)(const T*, const T*, const T*, T*, T*, T*, int,
+                            int, int, long long, long long);
+template <typename T>
+TeigKernel<T> teig_kernel_for(bool iter_smem) {
+  return iter_smem ? teig_cluster_kernel<T, true>
+                   : teig_cluster_kernel<T, false>;
+}
+
 template <typename T>
 TeigPlan teig_plan(int m, cudaError_t* err) {
   static TeigPlan cached[kWideMaxM + 1] = {};
   if (cached[m].G) return cached[m];
-  const void* fn = (const void*)teig_cluster_kernel<T>;
   int dev = 0, optin = 0;
-  cudaFuncAttributes fa;
   if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
       (*err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-          cudaSuccess ||
-      (*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
-      (*err = cudaFuncSetAttribute(
-           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
           cudaSuccess)
     return TeigPlan{};
-  const size_t budget = (size_t)optin - fa.sharedSizeBytes;
-  const int want = (m + 31) / 32;
-  for (int cap : {kClMaxCluster, 8}) {
-    const int g0 = want < cap ? want : cap;
-    int L = (((m + g0 - 1) / g0 + kPanel - 1) / kPanel) * kPanel;
-    L = L > kPanel ? L : kPanel;
-    TeigPlan pl;
-    pl.L = L;
-    pl.G = (m + L - 1) / L;
-    pl.lu_smem =
-        (size_t)cl_layout<T>(m, L, true).total * sizeof(T) <= budget;
-    pl.smem = (size_t)cl_layout<T>(m, L, pl.lu_smem).total * sizeof(T);
-    if (pl.smem > budget) continue;
-    if ((*err = cudaFuncSetAttribute(
-             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)pl.smem)) != cudaSuccess)
+  for (const bool iter_smem : {true, false}) {
+    const TeigKernel<T> fn = teig_kernel_for<T>(iter_smem);
+    cudaFuncAttributes fa;
+    if ((*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
+        (*err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+            cudaSuccess)
       return TeigPlan{};
-    if (pl.G <= 8) {
-      cached[m] = pl;
-      return pl;
+    const size_t budget = (size_t)optin - fa.sharedSizeBytes;
+    for (int cap : {kClMaxCluster, 8}) {
+      const int L = cl_lanes(m, cap);
+      TeigPlan pl;
+      pl.L = L;
+      pl.G = (m + L - 1) / L;
+      pl.iter_smem = iter_smem;
+      pl.lu_smem = (size_t)cl_layout<T>(m, L, true, iter_smem).total *
+                       sizeof(T) <=
+                   budget;
+      pl.smem = (size_t)cl_layout<T>(m, L, pl.lu_smem, iter_smem).total *
+                sizeof(T);
+      if (pl.smem > budget ||
+          (iter_smem && m > 32 * kClCgsWarps * kClCgsRowsSmem))
+        continue;
+      if ((*err = cudaFuncSetAttribute(
+               fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+               (int)pl.smem)) != cudaSuccess)
+        return TeigPlan{};
+      if (pl.G <= 8) {
+        cached[m] = pl;
+        return pl;
+      }
+      cudaLaunchAttribute attr[1];
+      cudaLaunchConfig_t cfg = cluster_config(attr, pl.G, pl.G, pl.smem, 0);
+      int clusters = 0;
+      if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) ==
+              cudaSuccess &&
+          clusters >= 1) {
+        cached[m] = pl;
+        return pl;
+      }
+      cudaGetLastError();  // a refused query is not an error of the launch
     }
-    cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg = cluster_config(attr, pl.G, pl.G, pl.smem, 0);
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess &&
-        clusters >= 1) {
-      cached[m] = pl;
-      return pl;
-    }
-    cudaGetLastError();  // a refused query is not an error of the launch
   }
   *err = cudaErrorInvalidConfiguration;
   return TeigPlan{};
@@ -2381,7 +2466,7 @@ int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
   cudaError_t err = cudaSuccess;
   const TeigPlan pl = teig_plan<T>(m, &err);
   if (pl.G == 0) return (int)err;
-  const void* fn = (const void*)teig_cluster_kernel<T>;
+  const TeigKernel<T> fn = teig_kernel_for<T>(pl.iter_smem);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
@@ -2390,9 +2475,43 @@ int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
   cudaLaunchConfig_t cfg = cluster_config(attr, batch * pl.G, pl.G, pl.smem,
                                           (cudaStream_t)stream);
   ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
-      &cfg, teig_cluster_kernel<T>, (const T*)d, (const T*)e, (const T*)b0,
-      (T*)w, (T*)z, (T*)scratch, m, pl.L, pl.lu_smem, d_stride, e_stride));
+      &cfg, fn, (const T*)d, (const T*)e, (const T*)b0, (T*)w, (T*)z,
+      (T*)scratch, m, pl.L, pl.lu_smem, d_stride, e_stride));
   return (int)cudaGetLastError();
+}
+
+// The instantiation of K4's wide kernel for its panel route.
+template <typename T>
+using BtKernel = void (*)(const typename Real<T>::C*,
+                          const typename Real<T>::C*, const T*,
+                          typename Real<T>::C*, int, int, long long,
+                          long long, long long);
+template <typename T>
+BtKernel<T> bt_kernel_for(bool panel_smem) {
+  return panel_smem ? backtransform_wide_kernel<T, true>
+                    : backtransform_wide_kernel<T, false>;
+}
+
+// K4's panel route at m for real type T: 1 where a panel of reflectors
+// fits in shared memory beside z's columns, 0 where it is read from
+// global memory (decided once a size), -1 (and *err) on error.
+template <typename T>
+int bt_panel_smem(int m, cudaError_t* err) {
+  static int cached[kWideMaxM + 1] = {};  // 0 unknown, else route + 1
+  if (cached[m]) return cached[m] - 1;
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (*err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (*err = cudaFuncGetAttributes(&fa, bt_kernel_for<T>(true))) !=
+          cudaSuccess)
+    return -1;
+  const bool fits = (size_t)bt_wide_smem_bytes<T>(m, true) <=
+                    (size_t)optin - fa.sharedSizeBytes;
+  cached[m] = fits + 1;
+  return fits;
 }
 
 template <typename T>
@@ -2404,15 +2523,17 @@ int backtransform_wide_run(const void* vrows, const void* tau, const void* z,
   if (m < lo || m > hi || keep < 1 || keep > m || batch < 1 ||
       batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)bt_wide_smem_bytes<T>(m);
+  cudaError_t err = cudaSuccess;
+  const int panel_smem = bt_panel_smem<T>(m, &err);
+  if (panel_smem < 0) return (int)err;
+  const BtKernel<T> fn = bt_kernel_for<T>(panel_smem);
+  const size_t smem = (size_t)bt_wide_smem_bytes<T>(m, panel_smem);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      backtransform_wide_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
   const dim3 grid((keep + kBtCols - 1) / kBtCols, batch);
-  backtransform_wide_kernel<T>
-      <<<grid, kBtThreads, smem, (cudaStream_t)stream>>>(
-          (const V*)vrows, (const V*)tau, (const T*)z, (V*)out, m, keep,
-          v_stride, tau_stride, z_stride);
+  fn<<<grid, kBtThreads, smem, (cudaStream_t)stream>>>(
+      (const V*)vrows, (const V*)tau, (const T*)z, (V*)out, m, keep,
+      v_stride, tau_stride, z_stride);
   return (int)cudaGetLastError();
 }
 
@@ -2472,7 +2593,7 @@ int backtransform_launch(const void* vrows, const void* tau, const void* z,
   return (int)cudaGetLastError();
 }
 
-// The wide variants in complex64 (128 < m <= 560).
+// The wide variants in complex64 (128 < m <= 1024).
 int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
                         void* d, void* e, int m, int batch,
                         long long h_stride, void* stream) {
@@ -2480,12 +2601,12 @@ int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
                                  h_stride, stream, kMaxM + 1, kWideMaxM);
 }
 
-// K2's wide plan at m in float (f64 = 0, 128 < m <= 560) or double (2 <=
-// m <= 504): the CTAs of the cluster that runs a matrix, and the rows of
+// K2's wide plan at m in float (f64 = 0, 128 < m <= 1024) or double (2 <=
+// m <= 1024): the CTAs of the cluster that runs a matrix, and the rows of
 // the R = ceil(m / G) a CTA holds that it keeps in shared memory (fewer
 // than R: the rest stay in `work`); 0 on error.
 int tridiag_cluster_size(int m, int f64) {
-  if (m < (f64 ? 2 : kMaxM + 1) || m > (f64 ? kWideMaxM64 : kWideMaxM))
+  if (m < (f64 ? 2 : kMaxM + 1) || m > kWideMaxM)
     return 0;
   cudaError_t err = cudaSuccess;
   return (f64 ? tridiag_plan<double>(m, &err) : tridiag_plan<float>(m, &err))
@@ -2502,12 +2623,27 @@ int tridiag_smem_rows(int m, int f64) {
 long long teig_wide_scratch(int m) { return teig_wide_scratch_reals(m); }
 
 // The CTAs of the cluster that K3's wide variant runs a matrix on, at m in
-// float (f64 = 0, 128 < m <= 560) or double (2 <= m <= 504); 0 on error.
+// float (f64 = 0, 128 < m <= 1024) or double (2 <= m <= 1024); 0 on error.
 int teig_cluster_size(int m, int f64) {
-  if (m < (f64 ? 2 : kMaxM + 1) || m > (f64 ? kWideMaxM64 : kWideMaxM))
+  if (m < (f64 ? 2 : kMaxM + 1) || m > kWideMaxM)
     return 0;
   cudaError_t err = cudaSuccess;
   return (f64 ? teig_plan<double>(m, &err) : teig_plan<float>(m, &err)).G;
+}
+
+// The routes K3's and K4's wide variants take at m in float (f64 = 0, 128 <
+// m <= 1024) or double (2 <= m <= 1024), as bits: 1, K3's iterate in
+// global memory (`scratch`); 2, K4's panel read from global memory. -1 on
+// error. The wrappers count each launch by them.
+int eigh_wide_routes(int m, int f64) {
+  if (teig_cluster_size(m, f64) == 0) return -1;
+  cudaError_t err = cudaSuccess;
+  const int iter_smem = (f64 ? teig_plan<double>(m, &err)
+                             : teig_plan<float>(m, &err)).iter_smem;
+  const int panel_smem = f64 ? bt_panel_smem<double>(m, &err)
+                             : bt_panel_smem<float>(m, &err);
+  if (panel_smem < 0) return -1;
+  return (iter_smem ? 0 : 1) | (panel_smem ? 0 : 2);
 }
 
 int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
@@ -2527,19 +2663,19 @@ int backtransform_wide_launch(const void* vrows, const void* tau,
                                        kMaxM + 1, kWideMaxM);
 }
 
-// The same kernels in complex128 / float64, at every m (2 <= m <= 504).
+// The same kernels in complex128 / float64, at every m (2 <= m <= 1024).
 int tridiag_f64_launch(const void* h, void* work, void* vrows, void* tau,
                        void* d, void* e, int m, int batch, long long h_stride,
                        void* stream) {
   return tridiag_wide_run<double>(h, work, vrows, tau, d, e, m, batch,
-                                  h_stride, stream, 2, kWideMaxM64);
+                                  h_stride, stream, 2, kWideMaxM);
 }
 
 int teig_f64_launch(const void* d, const void* e, const void* b0, void* w,
                     void* z, void* scratch, int m, int batch,
                     long long d_stride, long long e_stride, void* stream) {
   return teig_wide_run<double>(d, e, b0, w, z, scratch, m, batch, d_stride,
-                               e_stride, stream, 2, kWideMaxM64);
+                               e_stride, stream, 2, kWideMaxM);
 }
 
 int backtransform_f64_launch(const void* vrows, const void* tau, const void* z,
@@ -2548,7 +2684,7 @@ int backtransform_f64_launch(const void* vrows, const void* tau, const void* z,
                              long long z_stride, void* stream) {
   return backtransform_wide_run<double>(vrows, tau, z, out, m, keep, batch,
                                         v_stride, tau_stride, z_stride,
-                                        stream, 2, kWideMaxM64);
+                                        stream, 2, kWideMaxM);
 }
 
 // Marks a library whose eigensolver launchers take the batch arguments

@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("env_chain.cu", "eigh_tridiag.cu")
+SOURCES = ("env_chain.cu", "env_chain_stream.cu", "eigh_tridiag.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -39,12 +39,14 @@ _SIGNATURES = {
     "env_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_cluster_size": (_I, _I),
+    "env_chain_stream_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tridiag_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "backtransform_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P),
     "tridiag_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "teig_cluster_size": (_I, _I),
+    "eigh_wide_routes": (_I, _I),
     "tridiag_cluster_size": (_I, _I),
     "tridiag_smem_rows": (_I, _I),
     "backtransform_wide_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,

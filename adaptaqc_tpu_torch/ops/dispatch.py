@@ -26,13 +26,15 @@ import torch
 
 # op -> complex dtype -> (smallest, largest) size its kernels take
 REACH = {
-    # csrc/env_chain.cu: complex64 narrow to chi 64, wide to 128; complex128
-    # in its double instantiation, partials through global memory
-    "env": {torch.complex64: (1, 128), torch.complex128: (1, 128)},
-    # csrc/eigh_tridiag.cu: complex64 to m 128, the wide variants to 560
-    # (the JAX kernels' own reach); complex128 in the wide variants' double
-    # instantiation, to m 504 (backtransform's panel in shared memory)
-    "eigh": {torch.complex64: (2, 560), torch.complex128: (2, 504)},
+    # csrc/env_chain.cu to chi 128 (complex64 narrow to 64, wide to 128;
+    # complex128 in its double instantiation), then the streamed kernel of
+    # csrc/env_chain_stream.cu to chi 512, in both dtypes
+    "env": {torch.complex64: (1, 512), torch.complex128: (1, 512)},
+    # csrc/eigh_tridiag.cu: complex64 to m 128 in the register and
+    # shared-memory designs, then the wide variants; complex128 in the wide
+    # variants' double instantiation; past each kernel's shared-memory fit
+    # its rows, iterate or reflectors stay in global memory, to m 1024
+    "eigh": {torch.complex64: (2, 1024), torch.complex128: (2, 1024)},
 }
 
 

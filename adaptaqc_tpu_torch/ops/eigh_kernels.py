@@ -23,16 +23,23 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
 Each wrapper runs the plain version for a tensor on the CPU and launches the
 CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device
 (ops/dispatch.py): in complex64 for m <= 128 the register and shared-memory
-designs, for 128 < m <= 560 their wide variants (K2 and K3 on a
+designs, for 128 < m <= 1024 their wide variants (K2 and K3 on a
 thread-block cluster of up to 16 CTAs a matrix, K4 with its reflectors read
 from global memory), chosen by m alone; in complex128 / float64 the wide
-variants' double instantiation, for every m <= 504. It raises for anything the
-kernels do not take (m above the cap of its dtype, another dtype, a
-non-contiguous tensor). There is no fallback from a kernel to the plain
-version. Each wrapper counts its launches in `<wrapper>.launches`, those of
-them that took a batch (P > 1 matrices in one launch) in
-`<wrapper>.batched_launches`, those of the complex64 wide variant in
-`<wrapper>.wide_launches` and those in double in `<wrapper>.f64_launches`.
+variants' double instantiation, for every m <= 1024. Past what a CTA's shared
+memory holds, K2 keeps the rest of its rows in the wrapper's `work`, K3 its
+iterate in its `scratch`, and K4 (complex128 past m = 504) reads each
+panel's reflectors where they lie. It raises for anything the kernels do not
+take (m above 1024, another dtype, a non-contiguous tensor). There is no
+fallback from a kernel to the plain version. Each wrapper counts its
+launches in `<wrapper>.launches`, those of them that took a batch (P > 1
+matrices in one launch) in `<wrapper>.batched_launches`, and each wide or
+complex128 launch in the counter of the code it ran: `.reach_launches`
+(complex64) or `.reach_f64_launches` (complex128) for what runs only past
+the old caps (K2 past REACH_M, the same kernel at sizes it did not take
+before; K3 with its iterate in `scratch`; K4 reading its panel from global
+memory: `wide_routes`), else `<wrapper>.wide_launches` (complex64, m > 128)
+or `.f64_launches` (complex128).
 
 Every function here also takes one leading batch dimension P (h of shape
 (P, m, m), d of (P, m), ...): the full-cost sweep applies each gate to its
@@ -53,6 +60,12 @@ from . import cuda_lib, dispatch
 
 NARROW_MAX_M = 128  # the register and shared-memory designs; above it the
                     # wide variants
+# by f64: the eigensolver's cap before its wide variants took m to 1024
+# (complex64: the JAX kernels' own reach, pallas_eigh.supported;
+# complex128: the largest m whose K4 panel fits in shared memory). K2's
+# launches past it count as reach_launches / reach_f64_launches, and only
+# past it do K3 and K4 take their global-memory routes (wide_routes)
+REACH_M = {False: 560, True: 504}
 _B0_SEED = 181818
 
 
@@ -347,11 +360,15 @@ def _batch_of(t: torch.Tensor, core_dims: int, name: str):
     return lead, (lead[0] if lead else 1)
 
 
-def _count(fn, p: int, m: int, f64: bool):
+def _count(fn, p: int, m: int, f64: bool, reach: bool = False):
+    """One launch of fn at m; `reach`: it ran code that only sizes past the
+    old caps run."""
     fn.launches += 1
     fn.batched_launches += p > 1
-    fn.wide_launches += not f64 and m > NARROW_MAX_M
-    fn.f64_launches += f64
+    fn.wide_launches += not f64 and NARROW_MAX_M < m and not reach
+    fn.f64_launches += f64 and not reach
+    fn.reach_launches += not f64 and reach
+    fn.reach_f64_launches += f64 and reach
 
 
 def tridiag(h: torch.Tensor):
@@ -384,7 +401,7 @@ def tridiag(h: torch.Tensor):
             h.data_ptr(), vrows.data_ptr(), tau.data_ptr(), d.data_ptr(),
             e.data_ptr(), m, p, m * m, cuda_lib.stream_of(h))
     cuda_lib.check(rc, "tridiag")
-    _count(tridiag, p, m, f64)
+    _count(tridiag, p, m, f64, m > REACH_M[f64])
     return vrows, tau, d, e
 
 
@@ -408,6 +425,8 @@ def teig(d: torch.Tensor, e: torch.Tensor):
     b0 = teig_b0(m, rdt, dev)
     w = torch.empty(lead + (m,), dtype=rdt, device=dev)
     z = torch.empty(lead + (m, m), dtype=rdt, device=dev)
+    # the global-memory routes start past REACH_M: within it, the old code
+    reach = m > REACH_M[f64] and wide_routes(m, f64)["teig"] == "global"
     if f64 or m > NARROW_MAX_M:
         # the wide variant's LU factors and swap bits, where they do not
         # fit in its shared memory
@@ -422,7 +441,7 @@ def teig(d: torch.Tensor, e: torch.Tensor):
             d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
             z.data_ptr(), m, p, m, m, cuda_lib.stream_of(d))
     cuda_lib.check(rc, "teig")
-    _count(teig, p, m, f64)
+    _count(teig, p, m, f64, reach)
     return w, z
 
 
@@ -436,6 +455,20 @@ def teig_cluster_size(m: int, f64: bool = False) -> int:
         raise RuntimeError(f"teig: no cluster size can launch m={m}"
                            + (" in complex128" if f64 else ""))
     return g
+
+
+def wide_routes(m: int, f64: bool = False) -> dict:
+    """The routes of the wide variants at m (complex64 above NARROW_MAX_M,
+    or f64: complex128 at every m), "smem" or "global": `teig`, where K3
+    keeps the iterate's columns (each CTA's shared memory, or the wrapper's
+    scratch past the fit); `backtransform`, where K4 reads a panel of
+    reflectors (a copy in shared memory, or the rows in global memory)."""
+    r = cuda_lib.lib().eigh_wide_routes(int(m), int(f64))
+    if r < 0:
+        raise RuntimeError(f"eigh: no wide plan launches m={m}"
+                           + (" in complex128" if f64 else ""))
+    return {"teig": "global" if r & 1 else "smem",
+            "backtransform": "global" if r & 2 else "smem"}
 
 
 def tridiag_cluster_plan(m: int, f64: bool = False) -> dict:
@@ -481,11 +514,13 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
     launch = (lib.backtransform_f64_launch if f64
               else lib.backtransform_wide_launch if m > NARROW_MAX_M
               else lib.backtransform_launch)
+    reach = (m > REACH_M[f64]
+             and wide_routes(m, f64)["backtransform"] == "global")
     rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
                 out.data_ptr(), m, keep, p, m * m, m, m * m,
                 cuda_lib.stream_of(vrows))
     cuda_lib.check(rc, "backtransform")
-    _count(backtransform, p, m, f64)
+    _count(backtransform, p, m, f64, reach)
     return out
 
 
@@ -494,6 +529,8 @@ for _fn in (tridiag, teig, backtransform):
     _fn.batched_launches = 0
     _fn.wide_launches = 0
     _fn.f64_launches = 0
+    _fn.reach_launches = 0
+    _fn.reach_f64_launches = 0
 
 
 def eigh_top_kernels(h: torch.Tensor, keep: int):

@@ -14,16 +14,20 @@ from the B-form site tensors of the bra R and the ket L (n, 2, chi, chi):
 
 with A = R's and B = L's tensors and both chains starting from |0><0| on the
 (padded) boundary bond. The wrapper runs the plain version for tensors on the
-CPU and launches the CUDA kernel (csrc/env_chain.cu) for tensors on a CUDA
-device (ops/dispatch.py), raising for anything the kernel does not take
-(chi > 128, another dtype, a non-contiguous or misaligned tensor). The
-kernel runs each chain on a thread-block cluster and combines in whichever
-cluster finishes last, chosen through a counter that the wrapper keeps per
-device and stream; complex64 above chi = 64 takes its wide variant, and
-complex128 its double instantiation at every chi. Launches are counted in
-`env_chain.launches`, those of the complex64 wide variant also in
-`env_chain.wide_launches` and those in complex128 in
-`env_chain.f64_launches`.
+CPU and launches the CUDA kernels for tensors on a CUDA device
+(ops/dispatch.py), raising for anything they do not take (chi > 512, another
+dtype, a non-contiguous or misaligned tensor). To chi = 128 the kernel of
+csrc/env_chain.cu runs each chain on a thread-block cluster and combines in
+whichever cluster finishes last, chosen through a counter that the wrapper
+keeps per device and stream; complex64 above chi = 64 takes its wide
+variant, and complex128 its double instantiation. Past chi = 128 the
+streamed kernel of csrc/env_chain_stream.cu keeps the environments in the
+wrapper's global scratch and runs each site as two tiled products over the
+whole card, both chains in the same launches, in either dtype. Every call
+counts one in `env_chain.launches`, and one in the counter of its variant:
+`env_chain.wide_launches` (complex64, 64 < chi <= 128), `.f64_launches`
+(complex128, chi <= 128), `.reach_launches` (streamed, complex64) or
+`.reach_f64_launches` (streamed, complex128).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from . import cuda_lib, dispatch
 
 NARROW_MAX_CHI = 64  # the narrow variant holds both B_p of a site and two
                      # chi x chi partials in a CTA's shared memory
+CLUSTER_MAX_CHI = 128  # csrc/env_chain.cu; past it the streamed kernel
 
 _COUNTERS = {}  # (device, stream) -> the kernel's combine counter (int32)
 
@@ -119,9 +124,21 @@ def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
     f64 = dt == torch.complex128
     lib = cuda_lib.lib()
     stream = cuda_lib.stream_of(br)
+    out = torch.empty((2, 2), dtype=dt, device=br.device)
+    if chi > CLUSTER_MAX_CHI:
+        # the environments E, F and the products M_0, M_1 of each chain
+        work = torch.empty((6, chi, chi), dtype=dt, device=br.device)
+        rc = lib.env_chain_stream_launch(
+            br.data_ptr(), bl.data_ptr(),
+            boundary_env(chi, dt, br.device).data_ptr(), work.data_ptr(),
+            out.data_ptr(), n, chi, int(q), int(f64), stream)
+        cuda_lib.check(rc, "env_chain")
+        env_chain.launches += 1
+        env_chain.reach_launches += not f64
+        env_chain.reach_f64_launches += f64
+        return out
     counter = _counter(br.device, stream).data_ptr()
     snaps = torch.empty((2, chi, chi), dtype=dt, device=br.device)
-    out = torch.empty((2, 2), dtype=dt, device=br.device)
     if f64:
         count = lib.env_chain_f64_partials(chi)
         if count == 0:
@@ -146,3 +163,5 @@ def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
 env_chain.launches = 0
 env_chain.wide_launches = 0
 env_chain.f64_launches = 0
+env_chain.reach_launches = 0
+env_chain.reach_f64_launches = 0

@@ -4,7 +4,7 @@
 
 (`--only` runs the named phases alone, for work on one of them; the whole
 run, with no arguments, is the one that prints the result lines.) Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
-(sm_90a) and runs twelve phases, each printing lines that start with its
+(sm_90a) and runs thirteen phases, each printing lines that start with its
 name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
@@ -75,6 +75,17 @@ name; any failure exits non-zero:
             center-gauge verifier at chi=128; a checkpoint written
             mid-compile on the card, loaded (also onto the CPU) and resumed
             to the straight run's pair history
+  reach     past the sizes whose operands fit on chip: the streamed K1
+            (chi 129/192/256/512 in complex64, 192/256/512 in complex128,
+            q 0/1/25/48/49) and K2-K4 at m = 561/768/1024 (complex64) and
+            505/512/1024 (complex128) against their plain versions, with
+            times, bounds and library calls; then at n=50 the sweep phase's
+            workload at chi=256 and chi=512 in complex64 and complex128,
+            and the spin chain through workloads/spin_chain.py with
+            SPIN_CHI_SCHEDULE=32,64,128,256 cut to 2 layers a stage
+            (center-gauge verifier within 1e-3, relative): every launch is
+            counted by the code it runs, and each new code path must
+            launch on them; the deep re-simulation at chi=256
   optim     on the slice's target (n=50, chi=32): BOBYQA layers with the
             final BOBYQA minimisation (use_roto_algos=False,
             perform_final_minimisation=True), and Rotosolve layers
@@ -91,9 +102,14 @@ name; any failure exits non-zero:
 
 The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
-call), per batched kernel shape (its batched launches on the spin phase)
-and per wide variant (its launches on the ladder's chi schedule, its times
-at chi = 128 and m = 256), the line before the last the card's name and
+call), per batched kernel shape (its batched launches on the spin phase),
+per wide variant (its launches on the ladder's chi schedule, its times
+at chi = 128 and m = 256), per complex128 variant (the optim phase) and per
+variant whose code only sizes past the old caps run, `[reach]` and
+`[reach_f64]` (reach_rows: its launches on the reach phase's sweeps and
+spin chain, its times at chi = 256 and m = 1024), the line before the last
+the
+card's name and
 power limit from
 nvidia-smi, and the last line {"ok": true, "device": {...}}. Without a
 CUDA card, or without the package beside this script, it exits non-zero
@@ -151,8 +167,10 @@ HBM_GBS = 3350.0        # H100 SXM device memory, GB/s (published peak)
 FP32_TFLOPS = 67.0      # H100 SXM fp32 outside the tensor cores (published
                         # peak); the port computes in exact float32, so no
                         # TF32 or bf16 rate applies
-FP64_TFLOPS = 34.0      # H100 SXM fp64 outside the tensor cores (NVIDIA's
-                        # data sheet): the complex128 instantiations
+FP64_TFLOPS = 67.0      # H100 SXM fp64 on the tensor cores (DMMA, full
+                        # IEEE fp64; NVIDIA's data sheet): the complex128
+                        # instantiations, whose work is mostly products that
+                        # could run there
 TOL_F64_ENV = 1e-12     # complex128 K1 vs its plain version, relative
 TOL_F64 = 1e-10         # complex128 K2-K4: Q T Q^H = H, w (/ scale), K4 vs
                         # plain, the chain vs numpy (w, ortho, resid)
@@ -228,8 +246,16 @@ def reset_counts(ek, envk):
     """Every kernel's launch counters to 0."""
     for fn in (envk.env_chain, ek.tridiag, ek.teig, ek.backtransform):
         fn.launches = fn.wide_launches = fn.f64_launches = 0
+        fn.reach_launches = fn.reach_f64_launches = 0
     for fn in (ek.tridiag, ek.teig, ek.backtransform):
         fn.batched_launches = 0
+
+
+def variant_counts(ek, envk):
+    """{kernel: {variant: launches}} of every counted variant."""
+    return {fn.__name__: {v: getattr(fn, f"{v}_launches") for v in (
+        "wide", "f64", "reach", "reach_f64")} for fn in (
+        envk.env_chain, ek.tridiag, ek.teig, ek.backtransform)}
 
 
 def wide_counts(ek, envk):
@@ -358,6 +384,7 @@ def record_eigh_inputs(torch, ek, fn):
         record.launches = 0  # a wrapper counts on its module-level name
         record.batched_launches = record.wide_launches = 0
         record.f64_launches = 0
+        record.reach_launches = record.reach_f64_launches = 0
         return record
     try:
         for name in seen:
@@ -1380,23 +1407,47 @@ def phase_slice(torch, port, counted, card):
 
 
 # ---------------------------------------------------------------- phase 5
+def sweep_variants(ek, envk, chi, f64):
+    """{kernel: the counted variant it launches in a sweep at bond
+    dimension chi} (the Grams have m = 2 chi): the one of the code its
+    wrapper runs there (K3 and K4 by their routes, ek.wide_routes); the
+    narrow variants have no counter of their own and are left out."""
+    def pick(reach, wide):
+        if reach:
+            return "reach_f64" if f64 else "reach"
+        return "f64" if f64 else "wide" if wide else None
+    m = 2 * chi
+    wide = f64 or m > ek.NARROW_MAX_M
+    past = m > ek.REACH_M[f64]
+    routes = ek.wide_routes(m, f64) if past else {}
+    return {k: v for k, v in {
+        "env_chain": pick(chi > envk.CLUSTER_MAX_CHI,
+                          chi > envk.NARROW_MAX_CHI),
+        "tridiag": pick(past, wide),
+        "teig": pick(routes.get("teig") == "global", wide),
+        "backtransform": pick(routes.get("backtransform") == "global", wide),
+    }.items() if v}
+
+
 def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
-                chi=64, ek=None, envk=None):
+                chi=64, ek=None, envk=None, dtype=None):
     """bench.py's workload: a 3-layer random-entangling 50-qubit target at
     bond dimension chi (64: bench.py's) and a window of 12 dressed-CNOT
-    layers, one Rotoselect sweep; with ek and envk given, the wide variants'
-    launches of the timed sweeps are printed too."""
+    layers, one Rotoselect sweep, in complex64 (or dtype);
+    with ek and envk given, the launches of the timed sweeps are printed
+    by variant, each kernel's counted variant at this chi and dtype
+    (sweep_variants) must have launched, and they are returned."""
     from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     n, window = 50, 12
+    dtype = dtype or torch.complex64
     dev = torch.device("cuda")
     target, ansatz = bench_workload(n, window)
     tt = compile_tape(target)
-    prefix = mps_core.apply_tape(mps_core.zero_mps(n, chi, torch.complex64,
-                                                   dev),
+    prefix = mps_core.apply_tape(mps_core.zero_mps(n, chi, dtype, dev),
                                  tt.kinds, tt.q0, tt.q1, tt.angles, 1e-16)
     at = compile_tape(ansatz)
     engine = mps_core.sweep_engine(1e-16)
-    ref = mps_core.zero_mps(n, chi, torch.complex64, dev)
+    ref = mps_core.zero_mps(n, chi, dtype, dev)
     bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
     args = (engine, bl, True, prefix, ref, at.kinds, at.q0, at.q1, at.angles,
             at.trainable)
@@ -1409,19 +1460,24 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
         _, _, cost, _, evals, ov2 = sweeps.sweep(*args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
-    wide = ("" if ek is None else
-            f", wide-variant launches in {reps} sweeps "
-            f"{json.dumps(wide_counts(ek, envk))}")
-    print(f"sweep: n={n} chi={chi} {window} layers ({int(at.trainable.sum())} "
-          f"probes, {int(np.sum(at.kinds == 4))} CX, block {bl}): "
-          f"{ms:.2f} ms/sweep, {evals / (ms / 1e3):.1f} evals/s, {syncs} "
-          f"host syncs/sweep, final |<0|psi>|^2 {ov2:.3e}{wide} on {card}",
-          flush=True)
+    counts = None if ek is None else variant_counts(ek, envk)
+    launched = ("" if ek is None else
+                f", launches by variant in {reps} sweeps "
+                f"{json.dumps(counts)}")
+    tag = "" if dtype == torch.complex64 else " " + str(dtype)[6:]
+    print(f"sweep: n={n} chi={chi}{tag} {window} layers "
+          f"({int(at.trainable.sum())} probes, {int(np.sum(at.kinds == 4))} "
+          f"CX, block {bl}): {ms:.2f} ms/sweep, {evals / (ms / 1e3):.1f} "
+          f"evals/s, {syncs} host syncs/sweep, final |<0|psi>|^2 "
+          f"{ov2:.3e}{launched} on {card}", flush=True)
     if ek is not None:
-        check(all(v > 0 for v in wide_counts(ek, envk).values()),
-              f"the chi={chi} sweep did not run every wide variant: "
-              f"{wide_counts(ek, envk)}")
+        missing = {k: v for k, v in sweep_variants(
+            ek, envk, chi, dtype == torch.complex128).items()
+                   if counts[k][v] == 0}
+        check(not missing, f"the chi={chi}{tag} sweep did not launch "
+                           f"{missing}: {counts}")
     check(np.isfinite(cost) and np.isfinite(ms), "sweep produced no number")
+    return counts
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2156,6 +2212,321 @@ def phase_ladder(torch, port, card, max_layers=2, dev="cuda", n=50):
 
 
 # --------------------------------------------------------------- phase 11
+REACH_Q = (0, 1, 25, 48, 49)
+REACH_CHI = (129, 192, 256, 512)  # the streamed K1 in complex64
+REACH_CHI_F64 = (192, 256, 512)   # and in complex128
+REACH_M = (561, 768, 1024)        # K2-K4 past 560 in complex64
+REACH_M_F64 = (505, 512, 1024)    # past 504 in complex128
+REACH_VARIANTS = ("reach", "reach_f64")
+REACH_SWEEPS = ((256, False), (256, True), (512, False), (512, True))
+
+
+def reach_rows(ek, envk):
+    """The (kernel, variant) pairs of code that only sizes past the old
+    caps run and that the reach phase's sweeps launch (sweep_variants at
+    REACH_SWEEPS): the streamed K1 and K2 past REACH_M in both dtypes, and
+    K3's and K4's global-memory routes where the plan takes them (K4's
+    panel fits in shared memory to m = 1024 in complex64, so its global
+    route runs in complex128 only)."""
+    rows = set()
+    for chi, f64 in REACH_SWEEPS:
+        for k, v in sweep_variants(ek, envk, chi, f64).items():
+            if v in REACH_VARIANTS:
+                rows.add((k, v))
+    return [(k, v) for k in KERNELS for v in REACH_VARIANTS
+            if (k, v) in rows]
+STREAM_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_stream.cu"
+
+
+def reach_env_check(torch, envk, card, dev, rec):
+    """The streamed K1 (chi > 128) against env_chain_plain at n = 50 on the
+    card: complex64 at REACH_CHI (TOL_ENV_REL), complex128 at REACH_CHI_F64
+    (TOL_F64_ENV), q in REACH_Q; at q = 25 its time (20 launches), the
+    plain version's and the bound, at every chi (`by_chi`)."""
+    n = 50
+    worst = {False: 0.0, True: 0.0}
+    parts = {False: [], True: []}
+    for chi in sorted(set(REACH_CHI) | set(REACH_CHI_F64)):
+        br64, bl64 = env_inputs(torch, n, chi, dev)
+        for f64 in (False, True):
+            if chi not in (REACH_CHI_F64 if f64 else REACH_CHI):
+                continue
+            dt = torch.complex128 if f64 else torch.complex64
+            tol = TOL_F64_ENV if f64 else TOL_ENV_REL
+            key = f"env_chain[{REACH_VARIANTS[f64]}]"
+            br, bl = br64.to(dt), bl64.to(dt)
+            for q in REACH_Q:
+                c = envk.env_chain(br, bl, q)
+                cp = envk.env_chain_plain(br, bl, q)
+                err = float((c - cp).abs().max())
+                rel = err / max(float(cp.abs().max()), 1e-300)
+                worst[f64] = max(worst[f64], rel)
+                check(rel < tol, f"streamed env_chain {dt} chi={chi} q={q}: "
+                                 f"rel {rel}")
+                if chi == 256 and q == 25:
+                    rec[key]["max_abs_err"] = err
+            ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), 20, torch)
+            pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 3, torch)
+            bound = bound_fields("env_chain", n=n, chi=chi, f64=f64)
+            rec[key].setdefault("by_chi", {})[chi] = dict(
+                ms=ms, plain_ms=pms, **bound)
+            if chi == 256:
+                rec[key].update(ms=ms, plain_ms=pms, shape=(
+                    "n=50, chi=256, q=25" + (", complex128" if f64 else "")),
+                    **bound)
+            parts[f64].append(f"chi={chi} {ms:.4f} ms plain {pms:.4f} ms "
+                              f"bound {bound['bound_ms']:.4f} ms "
+                              f"({bound['bound_by']})")
+        del br64, bl64
+    for f64 in (False, True):
+        print(f"reach: env_chain streamed "
+              f"{'complex128' if f64 else 'complex64'} n={n} against plain "
+              f"over chi {REACH_CHI_F64 if f64 else REACH_CHI} and q "
+              f"{REACH_Q}: worst rel {worst[f64]:.2e} < "
+              f"{TOL_F64_ENV if f64 else TOL_ENV_REL}; at q=25 "
+              + "; ".join(parts[f64]) + f"; no library call on {card}",
+              flush=True)
+
+
+def reach_eigh_check(torch, ek, card, dev, rec):
+    """K2-K4 past 560 (complex64: REACH_M) and 504 (complex128:
+    REACH_M_F64) against their plain versions on the card, on the "rand"
+    and "lowrank" Grams: K2's own Q T Q^H = H and its exactly inactive
+    steps; K3 on the plain (d, e): w against the plain version's (bit for
+    bit in complex128), z against float64:
+    orthogonality, residual, degenerate-cluster projectors (z against the
+    plain version is left to the class loop's m <= 512); K4 on the plain
+    reflectors; the whole chain against numpy float64; and a batch of 3
+    ("rand", "lowrank", "bell") bit for bit against its P = 1 launches. The
+    tolerances of the class loop (complex64) and of f64_kernel_check
+    (complex128). At every m: each kernel's time (20 launches), its plain
+    version's (1 run), bound and library call, and the whole chain against
+    torch.linalg.eigh(H)."""
+    rng = np.random.default_rng(1024)
+    for f64, sizes in ((False, REACH_M), (True, REACH_M_F64)):
+        dt = torch.complex128 if f64 else torch.complex64
+        sfx = f"[{REACH_VARIANTS[f64]}]"
+        worst = {k: 0.0 for k in ("tridiag", "teig", "ortho", "resid",
+                                  "cluster", "bt", "chain_w", "chain_ortho",
+                                  "chain_resid")}
+        tol = ({k: TOL_F64 for k in worst} if f64 else dict(
+            tridiag=TOL_TRIDIAG_REL, teig=TOL_TEIG_W_REL, ortho=TOL_ORTHO,
+            resid=TOL_RESID, bt=TOL_BT, chain_w=TOL_CHAIN_W,
+            chain_ortho=TOL_ORTHO, chain_resid=TOL_RESID))
+        tol["cluster"] = TOL_VEC
+        lines = []
+        for m in sizes:
+            cases = _gram_cases(m, rng)
+            keep = m // 2
+            for name in ("rand", "lowrank"):
+                t = torch.tensor(cases[name], dtype=dt, device=dev)
+                h = t.mH @ t
+                hh = ((h + h.mH) * 0.5).contiguous()
+                v, tau, d, e = ek.tridiag(hh)
+                vp, taup, dp, ep = ek.tridiag_plain(hh)
+                err = {"tridiag": tridiag_residual(torch, ek, v, tau, d, e,
+                                                   hh)}
+                zeros_equal(e, tau, ep, taup, f"tridiag {dt} m={m} {name}")
+                w, z = ek.teig(dp, ep)
+                wp, zp = ek.teig_plain(dp, ep)
+                check(not f64 or torch.equal(w, wp),
+                      f"teig {dt} m={m} {name}: w differs from the plain "
+                      "version's")
+                err["teig"] = float((w - wp).abs().max()) / max(
+                    float(wp.abs().max()), 1e-300)
+                tv = teig_vector_errors(dp, ep, w, z, zp)
+                err.update(ortho=tv["ortho"], resid=tv["resid"],
+                           cluster=tv["cluster"])
+                o = ek.backtransform(vp, taup, zp, keep)
+                err["bt"] = float((o - ek.backtransform_plain(
+                    vp, taup, zp, keep)).abs().max())
+                h64 = hh.to(torch.complex128).cpu().numpy()
+                wx = np.linalg.eigvalsh(h64)[::-1][:keep]
+                sc = max(np.abs(wx).max(), 1e-300)
+                wk, vk = ek.eigh_top_kernels(hh, keep)
+                V = vk.cpu().numpy().astype(complex)
+                wk = wk.cpu().numpy().astype(float)
+                err.update(
+                    chain_w=np.abs(wk - wx).max() / sc,
+                    chain_ortho=np.abs(V.conj().T @ V - np.eye(keep)).max(),
+                    chain_resid=max(
+                        np.linalg.norm(h64 @ V[:, i] - wk[i] * V[:, i]) / sc
+                        for i in range(min(4, keep))))
+                for k, val in err.items():
+                    worst[k] = max(worst[k], val)
+                bad = {k: v for k, v in err.items() if not v < tol[k]}
+                check(not bad, f"eigensolver {dt} m={m} {name}: {bad} "
+                               f"(limits {tol})")
+            batch_against_singles(
+                torch, ek, torch.stack([_sym_gram(torch, cases[k], dev).to(dt)
+                                        for k in ("rand", "lowrank", "bell")]),
+                keep, f"{dt} batched m={m} P=3", {})
+            lines.append(reach_eigh_times(torch, ek, rec, sfx, m, f64,
+                                          _gram_cases(m, rng)["rand"], dev))
+        for k in ("tridiag", "teig", "backtransform"):
+            rec[k + sfx]["max_abs_err"] = worst[
+                {"tridiag": "tridiag", "teig": "teig", "backtransform": "bt"}[
+                    k]]
+        print(f"reach: K2-K4 {str(dt)[6:]} past their shared-memory sizes, m "
+              f"{sizes}, agree with the plain versions (worst: "
+              + ", ".join(f"{k} {v:.2e} < {tol[k]}" for k, v in worst.items())
+              + f"; batches of 3 bit for bit) on {card}", flush=True)
+        for line in lines:
+            print(line, flush=True)
+
+
+def reach_eigh_times(torch, ek, rec, sfx, m, f64, th, dev):
+    """The kernels' times at m on the "rand" Gram th, with the plain
+    versions', the bounds, the library calls, the whole K2-K4 chain and
+    torch.linalg.eigh(H), into rec[<kernel><sfx>]["by_m"][m]; returns the
+    line to print."""
+    dt = torch.complex128 if f64 else torch.complex64
+    hh = _sym_gram(torch, th, dev).to(dt)
+    vp, taup, dp, ep = ek.tridiag_plain(hh)
+    wp, zp = ek.teig_plain(dp, ep)
+    keep = m // 2
+    tdense = (torch.diag(dp) + torch.diag(ep[:-1], 1)
+              + torch.diag(ep[:-1], -1)).contiguous()
+    oa, otau, _ = ormqr_inputs(torch, vp, taup, zp, keep)
+    oz = zp[1:, :keep].to(dt).contiguous()
+    check(float((torch.ormqr(oa, otau, oz) - ek.backtransform_plain(
+        vp, taup, zp, keep)[1:]).abs().max()) < (TOL_F64 if f64 else TOL_BT),
+          f"torch.ormqr does not compute backtransform at m={m} {dt}")
+    rdt = "float64" if f64 else "float32"
+    calls = {
+        "tridiag": (lambda: ek.tridiag(hh), lambda: ek.tridiag_plain(hh),
+                    None, None),
+        "teig": (lambda: ek.teig(dp, ep), lambda: ek.teig_plain(dp, ep),
+                 f"torch.linalg.eigh(T) of the dense {rdt} T",
+                 lambda: torch.linalg.eigh(tdense)),
+        "backtransform": (
+            lambda: ek.backtransform(vp, taup, zp, keep),
+            lambda: ek.backtransform_plain(vp, taup, zp, keep),
+            "torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
+            lambda: torch.ormqr(oa, otau, oz))}
+    parts = []
+    for kname, (kfn, pfn, lname, lfn) in calls.items():
+        ms = cuda_ms(kfn, 20, torch)
+        pms = cuda_ms(pfn, 1, torch)
+        lms = cuda_ms(lfn, 20, torch) if lfn else None
+        bound = bound_fields(kname, m=m, keep=keep, f64=f64)
+        row = dict(ms=ms, plain_ms=pms, library_ms=lms, **bound)
+        plan = ""
+        if kname == "tridiag":
+            row["route"] = ek.tridiag_cluster_plan(m, f64)["route"]
+            plan = f" ({tridiag_plan_text(ek, m, f64)})"
+        if kname == "teig":
+            row["route"] = ek.wide_routes(m, f64)["teig"]
+            plan = (f" (clusters of {ek.teig_cluster_size(m, f64)} CTAs, "
+                    f"iterate in {row['route']} memory)")
+        if kname == "backtransform":
+            row["route"] = ek.wide_routes(m, f64)["backtransform"]
+            plan = f" (panel in {row['route']} memory)"
+        rec[kname + sfx].setdefault("by_m", {})[m] = row
+        if m == 1024:  # the size the chi = 512 sweeps launch
+            rec[kname + sfx].update(
+                ms=ms, plain_ms=pms, library_call=lname, library_ms=lms,
+                shape=f"m={m}" + (", complex128" if f64 else ""), **bound)
+        parts.append(f"{kname}{plan} kernel {ms:.4f} ms plain {pms:.4f} ms "
+                     f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
+                     + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
+    chain_ms = cuda_ms(lambda: ek.eigh_top_kernels(hh, keep), 20, torch)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(hh), 20, torch)
+    rec["tridiag" + sfx]["by_m"][m].update(chain_ms=chain_ms,
+                                           eigh_h_ms=eigh_ms)
+    return (f"reach: m={m} {str(dt)[6:]} " + "; ".join(parts) + f"; the "
+            f"K2-K4 chain {chain_ms:.4f} ms against torch.linalg.eigh(H) "
+            f"{eigh_ms:.4f} ms")
+
+
+def reach_spin(torch, ek, envk, card, n=50, layers=2):
+    """The spin chain through the port's workload script (workloads/
+    spin_chain.py) with SPIN_CHI_SCHEDULE=32,64,128,256, cut to `layers`
+    layers a stage: every stage runs, the last one on the streamed K1
+    (chi = 256), and the record's center-gauge verifier agrees with the
+    compile's overlap (relative: the cut schedule's overlaps are small).
+    Returns the launches by variant of that run."""
+    import os
+    import tempfile
+    from adaptaqc_tpu_torch.workloads import spin_chain
+    knobs = {"SPIN_CHI_SCHEDULE": "32,64,128,256", "SPIN_LAYERS": str(layers)}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    reset_counts(ek, envk)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            rec = spin_chain.run(n=n, steps=SPIN["steps"], dt=SPIN["dt"],
+                                 device="cuda", circuits_dir=d)
+            wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = variant_counts(ek, envk)
+    stages = [c for c, _ in rec["chi_schedule"] or []]
+    ver, ov = rec["independent_engine_overlap"], rec["overlap"]
+    rel = abs(ver - ov) / max(abs(ver), abs(ov), 1e-300)
+    print(f"reach: spin chain n={n} through workloads/spin_chain.py, "
+          f"SPIN_CHI_SCHEDULE=32,64,128,256, {layers} layers a stage (cut): "
+          f"chi_schedule {[(c, f'{o:.3e}') for c, o in rec['chi_schedule']]}"
+          f", overlap {ov:.6e}, center-gauge verifier {ver:.6e}, relative "
+          f"difference {rel:.2e} < {TOL_LADDER_REL}, {rec['layers']} layers, "
+          f"{rec['cost_evaluations']} cost evaluations, {wall:.2f} s, "
+          f"launches {json.dumps(rec['launches'])}, by variant "
+          f"{json.dumps(counts)} on {card}", flush=True)
+    check(stages == [32, 64, 128, 256], f"spin chi schedule stages {stages}")
+    check(counts["env_chain"]["reach"] > 0,
+          "the chi=256 stage did not launch the streamed env chain")
+    check(np.isfinite(ov) and rel < TOL_LADDER_REL,
+          f"spin chi schedule: verifier {ver} vs {ov}")
+    return counts
+
+
+def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
+                card):
+    """Past the sizes whose operands fit on chip: the streamed K1 and K2-K4
+    to m = 1024 against their plain versions, then the paths at full width
+    (n = 50) that launch them, each counted on its own: bench.py's sweep at
+    chi = 256 and 512 in complex64 and complex128 (REACH_SWEEPS), and the
+    spin chain's chi schedule to 256; then the deep re-simulation at chi =
+    256. Every row of reach_rows must have launched on those paths, and
+    no other reach counter. Returns (the records of the new variants,
+    their launches on those paths, reach_rows)."""
+    dev = torch.device("cuda")
+    rec = {f"{k}[{v}]": {"max_abs_err": None, "ms": None, "plain_ms": None,
+                         "bound_ms": None, "bound_by": None,
+                         "library_call": None, "library_ms": None}
+           for k in KERNELS for v in REACH_VARIANTS}
+    reach_env_check(torch, envk, card, dev, rec)
+    reach_eigh_check(torch, ek, card, dev, rec)
+    launches = {k: dict.fromkeys(REACH_VARIANTS, 0) for k in KERNELS}
+
+    def add(counts):
+        for k, c in counts.items():
+            for v in REACH_VARIANTS:
+                launches[k][v] += c[v]
+
+    sweep_args = (torch, mps_core, sweeps, Circuit, compile_tape, card)
+    for chi, f64 in REACH_SWEEPS:
+        add(phase_sweep(*sweep_args, chi=chi, ek=ek, envk=envk,
+                        dtype=torch.complex128 if f64 else torch.complex64))
+    add(reach_spin(torch, ek, envk, card))
+    phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=256)
+    rows = reach_rows(ek, envk)
+    for k, by_v in launches.items():
+        for v, count in by_v.items():
+            check((count > 0) == ((k, v) in rows),
+                  f"{k}[{v}] launched {count} times on the reach phase's "
+                  f"paths; the rows whose code they run: {rows}")
+    print(f"reach: launches of the new variants on the sweeps and the spin "
+          f"chain {json.dumps(launches)} on {card}", flush=True)
+    return rec, launches, rows
+
+
+# --------------------------------------------------------------- phase 12
 def phase_optim(torch, port, card, dev="cuda", n=50, n_small=10):
     """The host optimisers and the subsampled sweep on the card: BOBYQA
     layers with the final BOBYQA minimisation, and Rotosolve layers under
@@ -2239,7 +2610,7 @@ def phase_optim(torch, port, card, dev="cuda", n=50, n_small=10):
     return f64
 
 
-# --------------------------------------------------------------- phase 12
+# --------------------------------------------------------------- phase 13
 RMPS_DEADLINES = (60, 30)  # s: the first run stops, the second resumes
 SPIN_DEADLINE = 45         # s
 EXAMPLE_FLOORS = {"readme_example": 0.98, "simple_sv_example": 0.98,
@@ -2441,7 +2812,7 @@ def main():
 
     phase_device(torch, cuda_lib)
     done("device")
-    rec = launches = batched = wide = f64 = None
+    rec = launches = batched = wide = f64 = reach = None
     if wanted("kernels"):
         rec = phase_kernels(torch, ek, envk, cplx, card,
                             sweep_probe_sites(Circuit, compile_tape),
@@ -2481,6 +2852,10 @@ def main():
     if wanted("ladder"):
         wide = phase_ladder(torch, port, card)
         done("ladder")
+    if wanted("reach"):
+        reach = phase_reach(torch, mps_core, sweeps, Circuit, compile_tape,
+                            ek, envk, card)
+        done("reach")
     if wanted("optim"):
         f64 = phase_optim(torch, port, card)
         done("optim")
@@ -2514,6 +2889,14 @@ def main():
         kernels.append(dict(name=f"{name}[f64]", route="cuda",
                             source=source, replaces=replaces, launches=count,
                             **rec[f"{name}[f64]"]))
+    reach_rec, reach_launches, rows = reach
+    for name, v in rows:  # the reach phase
+        source, replaces = KERNELS[name]
+        kernels.append(dict(
+            name=f"{name}[{v}]", route="cuda",
+            source=STREAM_SOURCE if name == "env_chain" else source,
+            replaces=replaces, launches=reach_launches[name][v],
+            **reach_rec[f"{name}[{v}]"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2523,7 +2906,7 @@ def main():
 
 
 PHASES = ("kernels", "hazard", "slice", "sweep", "sv", "sampling", "isl_mps",
-          "spin", "ladder", "optim", "workloads")
+          "spin", "ladder", "reach", "optim", "workloads")
 
 
 def parse_only(argv):

@@ -190,13 +190,13 @@ def _schedule_compiler(n=14):
 
 def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
         monkeypatch):
-    """On a CUDA device the kernels take chi <= 128 (env_chain, complex64
-    and complex128) and m = 2 chi <= 560 (504 in complex128: the
-    eigensolver), and a call above a cap raises (ops/dispatch.py). A stage
-    whose working chi exceeds the cap stops the schedule before its first
-    stage, with a message that names the cap; the README's (32, 64, 128)
-    schedule is let through, as is any schedule at n = 14, where the
-    working chi stops at 2**7 = 128."""
+    """On a CUDA device the kernels take chi <= 512 (env_chain, complex64
+    and complex128) and m = 2 chi <= 1024 (the eigensolver, both dtypes),
+    and a call above a cap raises (ops/dispatch.py). A stage whose working
+    chi exceeds the cap stops the schedule before its first stage, with a
+    message that names the cap; the README's (32, 64, 128) schedule and
+    (32, 64, 128, 256) are let through, as is any schedule at n = 14, where
+    the working chi stops at 2**7 = 128."""
     compiled = []
     monkeypatch.setattr(port.AdaptCompiler, "compile",
                         lambda self, **kw: compiled.append(self) or 1 / 0)
@@ -210,12 +210,15 @@ def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
         wide = _schedule_compiler(n=20)
         wide.backend.device = torch.device("cuda")
         wide.backend.dtype = dt
-        with pytest.raises(ValueError, match=r"chi <= 128.*env_chain chi "
-                                             r"<= 128, eigensolver m = 2 chi"):
-            wide.compile_with_chi_schedule(chis=(32, 256))
+        with pytest.raises(ValueError, match=r"chi <= 512.*env_chain chi "
+                                             r"<= 512, eigensolver m = 2 chi "
+                                             r"<= 1024"):
+            wide.compile_with_chi_schedule(chis=(32, 1024))
         with pytest.raises(ZeroDivisionError):
             wide.compile_with_chi_schedule(chis=(32, 64, 128))
-    assert len(compiled) == 5
+        with pytest.raises(ZeroDivisionError):
+            wide.compile_with_chi_schedule(chis=(32, 64, 128, 256))
+    assert len(compiled) == 7
 
 
 def test_chi_schedule_past_the_kernel_caps_runs_on_the_cpu():

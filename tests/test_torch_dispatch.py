@@ -26,29 +26,32 @@ KERNELS = (env_kernel.env_chain, eigh_kernels.tridiag, eigh_kernels.teig,
 
 def test_caps_are_the_kernels_reach():
     assert dispatch.REACH == {
-        "env": {C64: (1, 128), C128: (1, 128)},
-        "eigh": {C64: (2, 560), C128: (2, 504)}}
+        "env": {C64: (1, 512), C128: (1, 512)},
+        "eigh": {C64: (2, 1024), C128: (2, 1024)}}
     assert env_kernel.NARROW_MAX_CHI == 64
+    assert env_kernel.CLUSTER_MAX_CHI == 128
     assert eigh_kernels.NARROW_MAX_M == 128
+    assert eigh_kernels.REACH_M == {False: 560, True: 504}
 
 
 @pytest.mark.parametrize("size,want", [
-    (1, True), (64, True), (65, True), (ENV_CAP - 1, True), (ENV_CAP, True),
-    (ENV_CAP + 1, False), (4 * ENV_CAP, False)])
+    (1, True), (64, True), (65, True), (128, True), (129, True),
+    (ENV_CAP - 1, True), (ENV_CAP, True), (ENV_CAP + 1, False),
+    (4 * ENV_CAP, False)])
 def test_env_route_on_the_card_by_chi(size, want):
-    """complex64 and complex128 alike (the double instantiation takes every
-    chi the complex64 kernel does); above the cap the call raises."""
+    """complex64 and complex128 alike (the double instantiations take every
+    chi the complex64 kernels do); above the cap the call raises."""
     for dtype in (C64, C128):
         if want:
             assert dispatch.use_kernel("env", "cuda", dtype, size)
         else:
-            with pytest.raises(ValueError, match="size <= 128"):
+            with pytest.raises(ValueError, match=f"size <= {ENV_CAP}"):
                 dispatch.use_kernel("env", "cuda", dtype, size)
 
 
-@pytest.mark.parametrize("size", [1, 2, 128, 129, 256, EIGH_CAP_64,
-                                  EIGH_CAP_64 + 1, EIGH_CAP - 1, EIGH_CAP,
-                                  EIGH_CAP + 1, 1024])
+@pytest.mark.parametrize("size", [1, 2, 128, 129, 256, 504, 505, 560, 561,
+                                  EIGH_CAP_64, EIGH_CAP_64 + 1, EIGH_CAP - 1,
+                                  EIGH_CAP, EIGH_CAP + 1, 4096])
 def test_eigh_route_on_the_card_by_m(size):
     for dtype, hi in ((C64, EIGH_CAP), (C128, EIGH_CAP_64)):
         if 2 <= size <= hi:
@@ -87,12 +90,18 @@ def test_other_dtypes_and_devices_raise_on_the_card(op):
 def _reset():
     for fn in KERNELS:
         fn.launches = fn.wide_launches = fn.f64_launches = 0
+        fn.reach_launches = fn.reach_f64_launches = 0
     for fn in KERNELS[1:]:
         fn.batched_launches = 0
 
 
 def _counts():
     return {fn.__name__: (fn.launches, fn.wide_launches, fn.f64_launches)
+            for fn in KERNELS}
+
+
+def _reach_counts():
+    return {fn.__name__: (fn.reach_launches, fn.reach_f64_launches)
             for fn in KERNELS}
 
 
@@ -112,6 +121,7 @@ def test_counters_stay_still_on_the_cpu():
         br = torch.randn(5, 2, 4, 4, dtype=dtype)
         env_kernel.env_chain(br, br, 2)
     assert all(v == (0, 0, 0) for v in _counts().values())
+    assert all(v == (0, 0) for v in _reach_counts().values())
 
 
 class _Recorder:
@@ -127,6 +137,12 @@ class _Recorder:
     def env_chain_f64_partials(self, chi):
         cs = min(8, chi)
         return 2 * cs * cs * (-(-chi // cs)) * chi
+
+    def eigh_wide_routes(self, m, f64):
+        # as the library answers on an H100 (227 KB of shared memory a
+        # CTA): K3's iterate in global memory past m = 640 (complex128
+        # 512), K4's panel read from global memory in complex128 past 504
+        return int(m > (512 if f64 else 640)) | 2 * int(f64 and m > 504)
 
     def __getattr__(self, name):
         def launch(*args):
@@ -185,3 +201,75 @@ def test_counters_move_only_on_launches(card):
         br = torch.zeros(2, 2, ENV_CAP + 8, ENV_CAP + 8, dtype=C64)
         env_kernel.env_chain(br, br, 0)
     assert len(card.calls) == 12 and _counts()["env_chain"] == (3, 1, 1)
+
+
+@pytest.mark.parametrize("dtype", [C64, C128])
+def test_reach_edges_launch_and_raise(card, dtype):
+    """At the caps the wrappers launch (the streamed env chain at chi =
+    512, the wide eigensolver at m = 1024), each launch counted once, by
+    the code it ran: the streamed K1, K2 past REACH_M and K3 with its
+    iterate in global memory as reach launches of their dtype; K4 as one
+    only where it reads its panel from global memory (complex128), else
+    as the wide variant's. One past the caps the call raises before any
+    launch and counts nothing."""
+    f64 = dtype == C128
+    br = torch.zeros(3, 2, ENV_CAP, ENV_CAP, dtype=dtype)
+    env_kernel.env_chain(br, br, 1)
+    assert card.calls == ["env_chain_stream_launch"]
+    cplx.eigh_top(_gram(EIGH_CAP, dtype), 8)
+    wide = "f64" if f64 else "wide"
+    assert card.calls[1:] == [f"tridiag_{wide}_launch", f"teig_{wide}_launch",
+                              f"backtransform_{wide}_launch"]
+    for name in ("env_chain", "tridiag", "teig"):
+        assert _counts()[name] == (1, 0, 0)
+        assert _reach_counts()[name] == ((0, 1) if f64 else (1, 0))
+    assert _counts()["backtransform"] == ((1, 0, 0) if f64 else (1, 1, 0))
+    assert _reach_counts()["backtransform"] == ((0, 1) if f64 else (0, 0))
+    with pytest.raises(ValueError, match=f"size <= {ENV_CAP}"):
+        br = torch.zeros(2, 2, ENV_CAP + 1, ENV_CAP + 1, dtype=dtype)
+        env_kernel.env_chain(br, br, 0)
+    with pytest.raises(ValueError, match=f"size <= {EIGH_CAP}"):
+        cplx.eigh_top(_gram(EIGH_CAP + 1, dtype), 8)
+    assert len(card.calls) == 4
+    assert _counts()["env_chain"] == (1, 0, 0)
+
+
+@pytest.mark.parametrize("dtype,m,reach", [
+    (C64, 560, False), (C64, 561, True), (C128, 504, False),
+    (C128, 505, True)])
+def test_reach_counter_starts_past_the_shared_memory_sizes(card, dtype, m,
+                                                          reach):
+    """K2-K4 launches count as reach launches exactly past REACH_M (560 in
+    complex64, 504 in complex128), and as the wide or complex128 variant's
+    up to it; the env chain's past chi = 128."""
+    f64 = dtype == C128
+    cplx.eigh_top(_gram(m, dtype), 8)
+    got = _counts()["tridiag"][1:] + _reach_counts()["tridiag"]
+    want = [0, 0, 0, 0]
+    want[(2 if reach else 0) + f64] = 1
+    assert got == tuple(want)
+    for chi, streamed in ((128, False), (129, True)):
+        br = torch.zeros(3, 2, chi, chi, dtype=dtype)
+        env_kernel.env_chain(br, br, 1)
+        assert (card.calls[-1] == "env_chain_stream_launch") == streamed
+    assert _reach_counts()["env_chain"] == ((0, 1) if f64 else (1, 0))
+
+
+@pytest.mark.parametrize("dtype,m,kernel,route", [
+    (C64, 640, "teig", "smem"), (C64, 641, "teig", "global"),
+    (C128, 512, "teig", "smem"), (C128, 513, "teig", "global"),
+    (C64, 1024, "backtransform", "smem"),
+    (C128, 504, "backtransform", "smem"),
+    (C128, 505, "backtransform", "global")])
+def test_reach_counters_follow_the_routes(card, dtype, m, kernel, route):
+    """K3 and K4 count a launch as a reach launch exactly when the plan
+    sends it down the route that only sizes past the old caps take (the
+    iterate or the panel in global memory, eigh_kernels.wide_routes), and
+    as the wide or complex128 variant's where it runs the old code."""
+    f64 = dtype == C128
+    assert eigh_kernels.wide_routes(m, f64)[kernel] == route
+    cplx.eigh_top(_gram(m, dtype), 8)
+    got = _counts()[kernel][1:] + _reach_counts()[kernel]
+    want = [0, 0, 0, 0]
+    want[(2 if route == "global" else 0) + f64] = 1
+    assert got == tuple(want)

@@ -1,16 +1,17 @@
 """bench.py's MPS sweep for an older tree and this one, in turns, on one
 CUDA card; then one profiled sweep of each.
 
-    python3 tools/sweep_ab.py --parent DIR [--chi 128]
+    python3 tools/sweep_ab.py [--parent DIR] [--chi 128]
 
 DIR is an unpacked older tree (for example `git archive` of the parent
 commit). Each run is its own process, which builds that tree's kernels and
 times chip_smoke.phase_sweep REPS times (each prints the mean of three
 sweeps); the order is parent, this tree, this tree, parent, so
-drift on the card shows in both. The profile, in a process of its own for
-each tree, sums each kernel's device time over one sweep (torch.profiler)
-and sets it beside the same sweep's unprofiled wall time. --chi sets the
-bond dimension (64, bench.py's, by default; 128 runs the wide variants).
+drift on the card shows in both. Without --parent, this tree alone, twice.
+The profile, in a process of its own for each tree, sums each kernel's
+device time over one sweep (torch.profiler) and sets it beside the same
+sweep's unprofiled wall time. --chi sets the bond dimension (64, bench.py's,
+by default; 128 runs the wide variants, 256 and 512 the streamed env chain).
 """
 
 import argparse
@@ -105,22 +106,25 @@ def profile(tree, tag, chi):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True)
+    ap.add_argument("--parent")
     ap.add_argument("--chi", type=int, default=64)
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--profile", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
         return run_one(args.one, args.chi)
-    parent = os.path.abspath(args.parent)
+    parent = os.path.abspath(args.parent) if args.parent else None
     if args.profile:
         return profile(*((parent, "parent") if args.profile == "parent"
                          else (ROOT, "this tree")), args.chi)
-    for tag, tree in (("parent", parent), ("this tree", ROOT),
-                      ("this tree", ROOT), ("parent", parent)):
+    turns = ((("parent", parent), ("this tree", ROOT), ("this tree", ROOT),
+              ("parent", parent)) if parent else
+             (("this tree", ROOT), ("this tree", ROOT)))
+    common = ["--chi", str(args.chi)] + (["--parent", parent] if parent
+                                         else [])
+    for tag, tree in turns:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--parent", parent, "--chi", str(args.chi),
-                              "--one", tree],
+                              *common, "--one", tree],
                              capture_output=True, text=True)
         for line in out.stdout.splitlines():
             if line.startswith("sweep:"):
@@ -128,10 +132,9 @@ def main():
         if out.returncode:
             print(f"ab {tag} failed: {out.stderr[-2000:]}", flush=True)
             return 1
-    for which in ("parent", "this"):
+    for which in ("parent", "this") if parent else ("this",):
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--parent", parent, "--chi", str(args.chi),
-                             "--profile", which]).returncode
+                             *common, "--profile", which]).returncode
         if rc:
             return rc
     return 0
