@@ -4,9 +4,10 @@
 //   tridiag_kernel        <- _tridiag_kernel       (pallas_eigh.py:56)
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
-// and, for 128 < m <= 1024, their wide variants (tridiag_cluster_kernel,
-// teig_cluster_kernel, backtransform_wide_kernel, at the end of this file),
-// whose double instantiations serve complex128 at every m up to 1024.
+// and, for 128 < m <= 2048, the wide variants of the first two
+// (tridiag_cluster_kernel, teig_cluster_kernel, at the end of this file),
+// whose double instantiations serve complex128 at every m up to 2048; the
+// wide back-transform is csrc/backtransform_wide.cu.
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
 // <= 128, complex64 (float2), or a batch of P of them in one launch: the
 // full-cost sweep applies every gate to its 3 or 7 probe states at once (the
@@ -112,7 +113,7 @@ using adaptaqc::warp_sum;
 
 constexpr int kMaxM = 128;  // the register, shared-memory designs below;
                             // the wide variants at the end take m up to
-                            // 1024
+                            // 2048
 // Every launcher takes a batch of `batch` matrices: the strides (in
 // elements) between the matrices of each input; the outputs are contiguous
 // in the batch. batch = 1 is the single-matrix launch.
@@ -1027,13 +1028,11 @@ __global__ void __launch_bounds__(kBtThreads)
 // past it the reference runs XLA's eigh and the port these kernels, with
 // what no longer fits in shared memory kept in global memory: K2's rows
 // past its CTAs' fit in the wrapper's `work`, K3's iterate in its
-// `scratch`, K4's reflectors read where they lie). At m = 256 one
-// complex64 matrix is 512 KB, more than an SM's registers (256 KB) or
-// shared memory (227 KB), so the designs above do not stretch. K4 keeps
-// one CTA a matrix (a batch still costs one matrix's time) and reads its
-// reflectors from global memory, where they stay L2-resident (0.5 MB a
-// matrix at m = 256 against 50 MB of L2), a panel at a time into shared
-// memory. K2 and K3 spread a matrix over a thread-block cluster of up to
+// `scratch`). At m = 256 one complex64 matrix is 512 KB, more than an SM's
+// registers (256 KB) or shared memory (227 KB), so the designs above do
+// not stretch. K4's wide design is csrc/backtransform_wide.cu (a cluster
+// over the rows of each tile of output columns). K2 and K3 spread a matrix
+// over a thread-block cluster of up to
 // 16 CTAs: K2 its rows (tridiag_cluster_kernel: the trailing block split
 // by rows, kept in the CTAs' shared memory, v and u exchanged through
 // distributed shared memory), K3 its eigenvalue lanes and their columns of
@@ -1049,7 +1048,7 @@ __global__ void __launch_bounds__(kBtThreads)
 // (ops/eigh_kernels.py _teig_constants: 60 bisection rounds, eps 2.3e-16,
 // pivmin floor 1e-300) and the tiny-column threshold is DBL_MIN /
 // DBL_EPSILON, as the plain version's finfo(float64).tiny / eps.
-constexpr int kWideMaxM = 1024;
+constexpr int kWideMaxM = 2048;
 
 template <typename T>
 struct Real;
@@ -1086,7 +1085,7 @@ __device__ __forceinline__ V warp_sum2(V v) {
 
 // K3's wide variant: teig_kernel's algorithm on a thread-block cluster of G
 // CTAs a matrix (G = ceil(m / 32), at most 16; 8 where 16 does not fit),
-// for complex64 at 128 < m <= 1024 and complex128 at every m <= 1024. One
+// for complex64 at 128 < m <= 2048 and complex128 at every m <= 2048. One
 // CTA a matrix (the first design) ran every stage on one SM: the multisection
 // with two threads a lane at m = 512 (30 dependent Sturm sweeps), the
 // inverse iteration's LU and iterate in global memory (a round trip
@@ -1132,10 +1131,14 @@ constexpr int kClThreads = 512;     // 16 warps a CTA
 constexpr int kClMaxCluster = 16;
 constexpr int kClLaneThreads = 16;  // multisection threads an eigenvalue
 constexpr int kClCgsWarps = 4;      // the in-panel CGS2's warps
-constexpr int kClCgsRows = (kWideMaxM + 32 * kClCgsWarps - 1) /
-                           (32 * kClCgsWarps);  // its rows a thread
+constexpr int kClCgsRows = 8;      // its rows a thread with the iterate in
+                                   // global memory, m <= kClMidMaxM
+constexpr int kClMidMaxM = 32 * kClCgsWarps * kClCgsRows;  // 1024
+constexpr int kClCgsRowsWide = 16;  // past kClMidMaxM, to m = 2048
 constexpr int kClCgsRowsSmem = 5;  // with the iterate in shared memory:
                                    // m <= 640
+static_assert(32 * kClCgsWarps * kClCgsRowsWide >= kWideMaxM,
+              "the in-panel CGS2 covers every row");
 static_assert(kPanel == 16, "the panel's row is four 4-real quads");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
@@ -1152,13 +1155,16 @@ __host__ __device__ inline int cl_lu_reals(int m, int L) {
 // none where they stay in global memory, !iter_smem), the projections W
 // (L x kPanel), then one region holding the LU factors (where they are in
 // shared memory) during the inverse iteration and the pulled panel,
-// overwritten by the partial Q_r W_r, during the BCGS2.
+// overwritten by the partial Q_r W_r, during the BCGS2 (none where the
+// panel is in global memory too, !py_smem: past kClMidMaxM, where it takes
+// 256 KB a CTA in double at m = 2048).
 struct ClLayout {
   int ldb, bb, W, X, total;
 };
 template <typename T>
 __host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem,
-                                              bool iter_smem = true) {
+                                              bool iter_smem = true,
+                                              bool py_smem = true) {
   ClLayout c;
   c.ldb = L + 1;
   c.bb = round4(4 * m);
@@ -1166,7 +1172,7 @@ __host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem,
   c.X = round4(c.W + L * kPanel);
   const int words = ((m + 31) / 32) * L;
   const int lu = 2 * m * L + (int)((words * 4 + sizeof(T) - 1) / sizeof(T));
-  const int py = m * kPanel;
+  const int py = py_smem ? m * kPanel : 0;
   c.total = c.X + (lu_smem && lu > py ? lu : py);
   return c;
 }
@@ -1181,16 +1187,34 @@ __host__ __device__ inline int cl_lanes(int m, int cap) {
 
 // The global scratch a matrix, in reals, for every plan: each CTA's LU
 // factors, then (the global-iterate route) each CTA's columns of the
-// iterate, m rows of L + 1.
+// iterate, m rows of L + 1, then past kClMidMaxM, from a multiple of four
+// reals, each CTA's pulled panel and partial (m x kPanel).
+__host__ __device__ inline long long cl_py_offset(int ctas, int m, int L) {
+  return ((long long)ctas * (cl_lu_reals(m, L) + (long long)m * (L + 1)) +
+          3) & ~3LL;
+}
 inline long long teig_wide_scratch_reals(int m) {
   long long most = 0;
   for (int cap : {kClMaxCluster, 8}) {
     const int L = cl_lanes(m, cap), G = (m + L - 1) / L;
     const long long need =
-        (long long)G * (cl_lu_reals(m, L) + (long long)m * (L + 1));
+        m > kClMidMaxM ? cl_py_offset(G, m, L) + (long long)G * m * kPanel
+                       : (long long)G * (cl_lu_reals(m, L) +
+                                         (long long)m * (L + 1));
     most = need > most ? need : most;
   }
   return most;
+}
+
+// Four reals of a row in global memory, read at L2 (another CTA wrote it).
+__device__ __forceinline__ Quad<float> ldcg_quad(const Quad<float>* p) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Quad<double> ldcg_quad(const Quad<double>* p) {
+  const double2 a = __ldcg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldcg(reinterpret_cast<const double2*>(p) + 1);
+  return {a.x, a.y, b.x, b.y};
 }
 
 // One level of transpose_sum16: lanes that differ in bit `kBit` swap the
@@ -1311,7 +1335,8 @@ template <int kMaxRows, typename T>
 __device__ __forceinline__ void cgs2_panel_rows(
     T* bb, int ldb, int m, int c0, int cl0, int pw,
     T (*red)[kClCgsWarps][kPanel]) {
-  static_assert(kMaxRows == kClCgsRowsSmem || kMaxRows == kClCgsRows,
+  static_assert(kMaxRows == kClCgsRowsSmem || kMaxRows == kClCgsRows ||
+                    kMaxRows == kClCgsRowsWide,
                 "one case a row count");
   const int rows = (m + 32 * kClCgsWarps - 1) / (32 * kClCgsWarps);
   if constexpr (kMaxRows == kClCgsRowsSmem) {
@@ -1322,6 +1347,13 @@ __device__ __forceinline__ void cgs2_panel_rows(
       case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
       default: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
     }
+  } else if constexpr (kMaxRows == kClCgsRowsWide) {
+    // m in (1024, 2048]: 9 to 16 rows; a row past m reads row m - 1 with a
+    // zero weight, so 12 rows serve m <= 1536 at the bits of any longer case
+    if (rows <= 12)
+      cgs2_panel<12>(bb, ldb, m, c0, cl0, pw, red);
+    else
+      cgs2_panel<16>(bb, ldb, m, c0, cl0, pw, red);
   } else {
     static_assert(kClCgsRows == 8, "one case a row count");
     switch (rows) {
@@ -1343,8 +1375,12 @@ __device__ __forceinline__ void cgs2_panel_rows(
 // iterate's columns in shared memory, for m <= 640 where they fit; else
 // (complex64 above m = 640, complex128 above 512) in `scratch` after every
 // CTA's LU factors, batch x G x m (L + 1) reals, read and written in the
-// same order (the same bits).
-template <typename T, bool kIterSmem>
+// same order (the same bits). kPanelGlobal (past kClMidMaxM, the iterate
+// in global memory): the pulled panel and the partials Q_r W_r also stay
+// in `scratch` (batch x G x m kPanel reals from cl_py_offset), which the
+// other ranks read at L2 after the same cluster barriers, and the in-panel
+// CGS2 takes up to kClCgsRowsWide rows a thread.
+template <typename T, bool kIterSmem, bool kPanelGlobal = false>
 __global__ void __launch_bounds__(kClThreads, 1)
     teig_cluster_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
                         const T* __restrict__ b0, T* __restrict__ w_out,
@@ -1361,7 +1397,9 @@ __global__ void __launch_bounds__(kClThreads, 1)
   z_out += b * (size_t)m * m;
   const int j0 = rank * L;          // this CTA's first lane
   const int nl = min(L, m - j0);    // and its number of lanes
-  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0, kIterSmem);
+  static_assert(!(kIterSmem && kPanelGlobal), "the panel follows the iterate");
+  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0, kIterSmem,
+                                    !kPanelGlobal);
   const int ldb = lay.ldb;
   extern __shared__ __align__(16) unsigned char csm_raw[];
   T* sm = reinterpret_cast<T*>(csm_raw);
@@ -1374,7 +1412,11 @@ __global__ void __launch_bounds__(kClThreads, 1)
                     : scratch + (size_t)gridDim.x * cl_lu_reals(m, L) +
                           (b * G + rank) * (size_t)m * ldb;
   T* W = sm + lay.W;    // (L, kPanel)
-  T* PY = sm + lay.X;   // (m, kPanel) the pulled panel, then Q_r W_r
+  // (m, kPanel) the pulled panel, then Q_r W_r; rank s's at py_of(s)
+  T* const py_base = scratch + cl_py_offset(gridDim.x, m, L) +
+                     b * G * (size_t)m * kPanel;
+  auto py_of = [&](int s) { return py_base + (size_t)s * m * kPanel; };
+  T* PY = kPanelGlobal ? py_of(rank) : sm + lay.X;
   T* du = lu_smem ? sm + lay.X
                   : scratch + (b * G + rank) * (size_t)cl_lu_reals(m, L);
   T* u1 = du + (size_t)m * L;
@@ -1638,9 +1680,14 @@ __global__ void __launch_bounds__(kClThreads, 1)
           Q4 v[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            if (s0 + k < nsrc)
-              v[k] = reinterpret_cast<const Q4*>(cluster.map_shared_rank(
-                  PY, s0 + k))[i * (kPanel / 4) + pg];
+            if (s0 + k < nsrc) {
+              if constexpr (kPanelGlobal)
+                v[k] = ldcg_quad(reinterpret_cast<const Q4*>(py_of(s0 + k)) +
+                                 i * (kPanel / 4) + pg);
+              else
+                v[k] = reinterpret_cast<const Q4*>(cluster.map_shared_rank(
+                    PY, s0 + k))[i * (kPanel / 4) + pg];
+            }
 #pragma unroll
           for (int k = 0; k < 4; ++k)
             if (s0 + k < nsrc) {
@@ -1665,8 +1712,10 @@ __global__ void __launch_bounds__(kClThreads, 1)
         __syncthreads();
       }
       if (tid < 32 * kClCgsWarps)
-        cgs2_panel_rows<kIterSmem ? kClCgsRowsSmem : kClCgsRows>(
-            bb, ldb, m, c0, cl0, pw, red);
+        cgs2_panel_rows<kIterSmem      ? kClCgsRowsSmem
+                        : kPanelGlobal ? kClCgsRowsWide
+                                       : kClCgsRows>(bb, ldb, m, c0, cl0, pw,
+                                                     red);
     }
   }
   __syncthreads();
@@ -1680,8 +1729,9 @@ __global__ void __launch_bounds__(kClThreads, 1)
 
 // K2's wide variant: tridiag_kernel's Householder steps on a thread-block
 // cluster of G = ceil(m / 16) CTAs a matrix (at most 16; 8 where the card
-// refuses 16), for complex64 at 128 < m <= 1024 and complex128 at every
-// m <= 1024. One CTA a matrix (the first design) used one SM of 132, kept A
+// refuses 16), for complex64 at 128 < m <= 2048 and complex128 at every
+// m <= 2048 (R = 128 rows a CTA at m = 2048 on 16 CTAs: the most its
+// flags hold). One CTA a matrix (the first design) used one SM of 132, kept A
 // in global memory and streamed the trailing block through that SM's L1/L2
 // three times a step (the product u half its cycles, the update the other
 // half, tools/stage_clocks.py), divided per element in the rank-2 update,
@@ -2076,197 +2126,6 @@ __global__ void __launch_bounds__(kClThreads, 1)
   cluster.sync();  // no CTA leaves while another may read its memory
 }
 
-// The row stride of a wide panel of transposed reflectors: odd.
-constexpr int kBtLdp = kBtPanel + 1;
-// backtransform_wide_kernel's dynamic shared memory: the active list (m
-// ints, to a 16-byte boundary), then in complex elements of T its taus,
-// the CTA's columns of z, one panel of reflectors (m rows of kBtLdp; none
-// where the panel is read from global memory, !panel_smem), its kBtGSplit
-// partial V^H V blocks (the first becomes T), the partial V^H Z and
-// T V^H Z.
-__host__ __device__ inline int bt_wide_act_bytes(int m) {
-  return (4 * m + 15) & ~15;
-}
-template <typename T>
-__host__ __device__ inline int bt_wide_smem_bytes(int m,
-                                                  bool panel_smem = true) {
-  return bt_wide_act_bytes(m) +
-         (int)(2 * sizeof(T)) *
-             (m + m * kBtCols + (panel_smem ? m * kBtLdp : 0) +
-              kBtGSplit * kBtBlock + (kBtSplit + 1) * kBtPanel * kBtCols);
-}
-
-// backtransform_kernel's compact-WY panels, with the reflectors read from
-// global memory one panel at a time (the last first) instead of all of
-// them held in shared memory: per panel, its reflectors are loaded
-// transposed, G = V^H V and T are formed, and Y = V^H Z, W = T Y,
-// Z -= V W follow as before. kPanelSmem false (complex128 past m = 504,
-// where the panel of m double2 rows no longer fits beside z's columns):
-// every read of the panel goes to the reflector's row in global memory
-// instead (L2-resident), in the same order, so the bits are those of the
-// shared-memory panel.
-template <typename T, bool kPanelSmem>
-__global__ void __launch_bounds__(kBtThreads)
-    backtransform_wide_kernel(const typename Real<T>::C* __restrict__ vrows,
-                              const typename Real<T>::C* __restrict__ tau,
-                              const T* __restrict__ z,
-                              typename Real<T>::C* __restrict__ out, int m,
-                              int keep, long long v_stride,
-                              long long tau_stride, long long z_stride) {
-  using V = typename Real<T>::C;
-  {
-    const size_t b = blockIdx.y;
-    vrows += b * (size_t)v_stride;
-    tau += b * (size_t)tau_stride;
-    z += b * (size_t)z_stride;
-    out += b * (size_t)m * keep;
-  }
-  extern __shared__ __align__(16) unsigned char bsm_raw[];
-  int* act = reinterpret_cast<int*>(bsm_raw);       // m
-  V* tau_s = reinterpret_cast<V*>(bsm_raw + bt_wide_act_bytes(m));  // m
-  V* Z = tau_s + m;                                 // (m, kBtCols)
-  V* Vt = Z + m * kBtCols;                          // (m, kBtLdp)
-  V* G = Vt + (kPanelSmem ? m * kBtLdp : 0);        // (kBtGSplit, kBtBlock)
-  V* Y = G + kBtGSplit * kBtBlock;                  // (split, 16, 8)
-  V* Wp = Y + kBtSplit * kBtPanel * kBtCols;        // (16, 8)
-  V* Tm = G;
-  __shared__ int na_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int kWarps = kBtThreads / 32;
-  const int c0 = blockIdx.x * kBtCols;
-  const int cw = min(kBtCols, keep - c0);
-  const T zero = 0;
-  const V czero = make_c(zero, zero);
-
-  if (warp == 0) {
-    int count = 0;
-    for (int base = 0; base < m - 1; base += 32) {
-      const int k = base + lane;
-      const V t = (k < m - 1) ? tau[k] : czero;
-      const bool on = t.x != zero || t.y != zero;
-      const unsigned mask = __ballot_sync(0xffffffffu, on);
-      if (on) {
-        const int pos = count + __popc(mask & ((1u << lane) - 1u));
-        act[pos] = k;
-        tau_s[pos] = t;
-      }
-      count += __popc(mask);
-    }
-    if (lane == 0) na_s = count;
-  }
-  for (int idx = tid; idx < m * kBtCols; idx += kBtThreads) {
-    const int r = idx / kBtCols, c = idx % kBtCols;
-    Z[idx] = make_c(c < cw ? z[(size_t)r * m + c0 + c] : zero, zero);
-  }
-  __syncthreads();
-  const int na = na_s;
-  const int npan = (na + kBtPanel - 1) / kBtPanel;
-  const int h = tid / (kBtPanel * kBtCols);
-  const int pi = (tid / kBtCols) % kBtPanel, pc = tid % kBtCols;
-  for (int p = npan - 1; p >= 0; --p) {
-    const int s0 = p * kBtPanel, pn = min(kBtPanel, na - s0);
-    // entry r of the panel's reflector sl (zero above row k + 1, and past
-    // the panel's last reflector)
-    auto vt = [&](int r, int sl) -> V {
-      if constexpr (kPanelSmem) {
-        return Vt[r * kBtLdp + sl];
-      } else {
-        const int k = sl < pn ? act[s0 + sl] : m;
-        return r > k ? vrows[(size_t)k * m + r] : czero;
-      }
-    };
-    if constexpr (kPanelSmem) {
-      // the panel's reflectors, transposed; zeros above row k+1
-      for (int sl = warp; sl < kBtPanel; sl += kWarps) {
-        const int k = sl < pn ? act[s0 + sl] : m;
-        const V* src = vrows + (size_t)(sl < pn ? k : 0) * m;
-        for (int r = lane; r < m; r += 32)
-          Vt[r * kBtLdp + sl] = r > k ? src[r] : czero;
-      }
-      __syncthreads();
-    }
-    {  // G = V^H V, strictly upper, kBtGSplit partial sums
-      const int gh = tid / kBtBlock, gi = (tid / kBtPanel) % kBtPanel,
-                gj = tid % kBtPanel;
-      if (gi < gj && gj < pn) {
-        V gsum = czero;
-        for (int r = act[s0 + gi] + 1 + gh; r < m; r += kBtGSplit)
-          cfma_conj(gsum, vt(r, gi), vt(r, gj));
-        G[gh * kBtBlock + gi * kBtPanel + gj] = gsum;
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {  // T by the zlarft recurrence; lane l holds row l
-      V trow[kBtPanel];
-#pragma unroll
-      for (int i = 0; i < kBtPanel; ++i) {
-        if (i < pn) {
-          const V ti = tau_s[s0 + i];
-          V acc = czero;
-#pragma unroll
-          for (int q = 0; q < i; ++q) {
-            V gq = Tm[q * kBtPanel + i];
-#pragma unroll
-            for (int x = 1; x < kBtGSplit; ++x) {
-              const V gx = G[x * kBtBlock + q * kBtPanel + i];
-              gq = make_c(gq.x + gx.x, gq.y + gx.y);
-            }
-            if (q >= lane) cfma(acc, trow[q], gq);
-          }
-          const V ta = cmul(ti, acc);
-          trow[i] = (lane < i) ? make_c(-ta.x, -ta.y)
-                               : (lane == i ? ti : czero);
-          __syncwarp();
-          if (lane < kBtPanel) Tm[lane * kBtPanel + i] = trow[i];
-          __syncwarp();
-        }
-      }
-    }
-    __syncthreads();
-    if (pi < pn) {  // Y = V^H Z
-      V y = czero;
-      for (int r = act[s0 + pi] + 1 + h; r < m; r += kBtSplit)
-        cfma_conj(y, vt(r, pi), Z[r * kBtCols + pc]);
-      Y[(h * kBtPanel + pi) * kBtCols + pc] = y;
-    }
-    __syncthreads();
-    if (h == 0 && pi < pn) {  // W = T Y
-      V wv = czero;
-      for (int i = pi; i < pn; ++i) {
-        V y = Y[i * kBtCols + pc];
-#pragma unroll
-        for (int x = 1; x < kBtSplit; ++x) {
-          const V yx = Y[(x * kBtPanel + i) * kBtCols + pc];
-          y = make_c(y.x + yx.x, y.y + yx.y);
-        }
-        cfma(wv, Tm[pi * kBtPanel + i], y);
-      }
-      Wp[pi * kBtCols + pc] = wv;
-    }
-    __syncthreads();
-    {  // Z -= V W below the panel's first reflector
-      V wc[kBtPanel];
-#pragma unroll
-      for (int i = 0; i < kBtPanel; ++i)
-        wc[i] = (i < pn) ? Wp[i * kBtCols + pc] : czero;
-      for (int r = act[s0] + 1 + tid / kBtCols; r < m;
-           r += kBtThreads / kBtCols) {
-        V acc = czero;
-#pragma unroll
-        for (int i = 0; i < kBtPanel; ++i)
-          if (i < pn) cfma(acc, vt(r, i), wc[i]);
-        V& x = Z[r * kBtCols + pc];
-        x = make_c(x.x - acc.x, x.y - acc.y);
-      }
-    }
-    __syncthreads();
-  }
-  for (int idx = tid; idx < m * kBtCols; idx += kBtThreads) {
-    const int r = idx / kBtCols, c = idx % kBtCols;
-    if (c < cw) out[(size_t)r * keep + c0 + c] = Z[idx];
-  }
-}
-
 // The wide variants' launches for real type T: m in [lo, hi], batch
 // matrices; `work` (tridiag: batch x m x m complex) and `scratch` (teig:
 // batch x teig_wide_scratch_reals(m) reals) are the caller's, as every
@@ -2305,9 +2164,10 @@ template <typename T>
 using TeigKernel = void (*)(const T*, const T*, const T*, T*, T*, T*, int,
                             int, int, long long, long long);
 template <typename T>
-TeigKernel<T> teig_kernel_for(bool iter_smem) {
-  return iter_smem ? teig_cluster_kernel<T, true>
-                   : teig_cluster_kernel<T, false>;
+TeigKernel<T> teig_kernel_for(bool iter_smem, int m) {
+  return iter_smem           ? teig_cluster_kernel<T, true>
+         : m <= kClMidMaxM ? teig_cluster_kernel<T, false>
+                           : teig_cluster_kernel<T, false, true>;
 }
 
 template <typename T>
@@ -2321,7 +2181,8 @@ TeigPlan teig_plan(int m, cudaError_t* err) {
           cudaSuccess)
     return TeigPlan{};
   for (const bool iter_smem : {true, false}) {
-    const TeigKernel<T> fn = teig_kernel_for<T>(iter_smem);
+    const TeigKernel<T> fn = teig_kernel_for<T>(iter_smem, m);
+    const bool py_smem = iter_smem || m <= kClMidMaxM;
     cudaFuncAttributes fa;
     if ((*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
         (*err = cudaFuncSetAttribute(
@@ -2335,11 +2196,13 @@ TeigPlan teig_plan(int m, cudaError_t* err) {
       pl.L = L;
       pl.G = (m + L - 1) / L;
       pl.iter_smem = iter_smem;
-      pl.lu_smem = (size_t)cl_layout<T>(m, L, true, iter_smem).total *
-                       sizeof(T) <=
-                   budget;
-      pl.smem = (size_t)cl_layout<T>(m, L, pl.lu_smem, iter_smem).total *
-                sizeof(T);
+      pl.lu_smem =
+          (size_t)cl_layout<T>(m, L, true, iter_smem, py_smem).total *
+              sizeof(T) <=
+          budget;
+      pl.smem =
+          (size_t)cl_layout<T>(m, L, pl.lu_smem, iter_smem, py_smem).total *
+          sizeof(T);
       if (pl.smem > budget ||
           (iter_smem && m > 32 * kClCgsWarps * kClCgsRowsSmem))
         continue;
@@ -2466,7 +2329,7 @@ int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
   cudaError_t err = cudaSuccess;
   const TeigPlan pl = teig_plan<T>(m, &err);
   if (pl.G == 0) return (int)err;
-  const TeigKernel<T> fn = teig_kernel_for<T>(pl.iter_smem);
+  const TeigKernel<T> fn = teig_kernel_for<T>(pl.iter_smem, m);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
@@ -2477,63 +2340,6 @@ int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
   ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
       &cfg, fn, (const T*)d, (const T*)e, (const T*)b0, (T*)w, (T*)z,
       (T*)scratch, m, pl.L, pl.lu_smem, d_stride, e_stride));
-  return (int)cudaGetLastError();
-}
-
-// The instantiation of K4's wide kernel for its panel route.
-template <typename T>
-using BtKernel = void (*)(const typename Real<T>::C*,
-                          const typename Real<T>::C*, const T*,
-                          typename Real<T>::C*, int, int, long long,
-                          long long, long long);
-template <typename T>
-BtKernel<T> bt_kernel_for(bool panel_smem) {
-  return panel_smem ? backtransform_wide_kernel<T, true>
-                    : backtransform_wide_kernel<T, false>;
-}
-
-// K4's panel route at m for real type T: 1 where a panel of reflectors
-// fits in shared memory beside z's columns, 0 where it is read from
-// global memory (decided once a size), -1 (and *err) on error.
-template <typename T>
-int bt_panel_smem(int m, cudaError_t* err) {
-  static int cached[kWideMaxM + 1] = {};  // 0 unknown, else route + 1
-  if (cached[m]) return cached[m] - 1;
-  int dev = 0, optin = 0;
-  cudaFuncAttributes fa;
-  if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (*err = cudaDeviceGetAttribute(
-           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-          cudaSuccess ||
-      (*err = cudaFuncGetAttributes(&fa, bt_kernel_for<T>(true))) !=
-          cudaSuccess)
-    return -1;
-  const bool fits = (size_t)bt_wide_smem_bytes<T>(m, true) <=
-                    (size_t)optin - fa.sharedSizeBytes;
-  cached[m] = fits + 1;
-  return fits;
-}
-
-template <typename T>
-int backtransform_wide_run(const void* vrows, const void* tau, const void* z,
-                           void* out, int m, int keep, int batch,
-                           long long v_stride, long long tau_stride,
-                           long long z_stride, void* stream, int lo, int hi) {
-  using V = typename Real<T>::C;
-  if (m < lo || m > hi || keep < 1 || keep > m || batch < 1 ||
-      batch > kMaxBatch)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSuccess;
-  const int panel_smem = bt_panel_smem<T>(m, &err);
-  if (panel_smem < 0) return (int)err;
-  const BtKernel<T> fn = bt_kernel_for<T>(panel_smem);
-  const size_t smem = (size_t)bt_wide_smem_bytes<T>(m, panel_smem);
-  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  const dim3 grid((keep + kBtCols - 1) / kBtCols, batch);
-  fn<<<grid, kBtThreads, smem, (cudaStream_t)stream>>>(
-      (const V*)vrows, (const V*)tau, (const T*)z, (V*)out, m, keep,
-      v_stride, tau_stride, z_stride);
   return (int)cudaGetLastError();
 }
 
@@ -2593,7 +2399,7 @@ int backtransform_launch(const void* vrows, const void* tau, const void* z,
   return (int)cudaGetLastError();
 }
 
-// The wide variants in complex64 (128 < m <= 1024).
+// The wide variants in complex64 (128 < m <= 2048).
 int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
                         void* d, void* e, int m, int batch,
                         long long h_stride, void* stream) {
@@ -2601,8 +2407,8 @@ int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
                                  h_stride, stream, kMaxM + 1, kWideMaxM);
 }
 
-// K2's wide plan at m in float (f64 = 0, 128 < m <= 1024) or double (2 <=
-// m <= 1024): the CTAs of the cluster that runs a matrix, and the rows of
+// K2's wide plan at m in float (f64 = 0, 128 < m <= 2048) or double (2 <=
+// m <= 2048): the CTAs of the cluster that runs a matrix, and the rows of
 // the R = ceil(m / G) a CTA holds that it keeps in shared memory (fewer
 // than R: the rest stay in `work`); 0 on error.
 int tridiag_cluster_size(int m, int f64) {
@@ -2623,7 +2429,7 @@ int tridiag_smem_rows(int m, int f64) {
 long long teig_wide_scratch(int m) { return teig_wide_scratch_reals(m); }
 
 // The CTAs of the cluster that K3's wide variant runs a matrix on, at m in
-// float (f64 = 0, 128 < m <= 1024) or double (2 <= m <= 1024); 0 on error.
+// float (f64 = 0, 128 < m <= 2048) or double (2 <= m <= 2048); 0 on error.
 int teig_cluster_size(int m, int f64) {
   if (m < (f64 ? 2 : kMaxM + 1) || m > kWideMaxM)
     return 0;
@@ -2631,19 +2437,15 @@ int teig_cluster_size(int m, int f64) {
   return (f64 ? teig_plan<double>(m, &err) : teig_plan<float>(m, &err)).G;
 }
 
-// The routes K3's and K4's wide variants take at m in float (f64 = 0, 128 <
-// m <= 1024) or double (2 <= m <= 1024), as bits: 1, K3's iterate in
-// global memory (`scratch`); 2, K4's panel read from global memory. -1 on
-// error. The wrappers count each launch by them.
+// The route K3's wide variant takes at m in float (f64 = 0, 128 < m <=
+// 2048) or double (2 <= m <= 2048), as bits: 1, its iterate in global
+// memory (`scratch`). -1 on error. The wrapper counts each launch by it.
 int eigh_wide_routes(int m, int f64) {
   if (teig_cluster_size(m, f64) == 0) return -1;
   cudaError_t err = cudaSuccess;
   const int iter_smem = (f64 ? teig_plan<double>(m, &err)
                              : teig_plan<float>(m, &err)).iter_smem;
-  const int panel_smem = f64 ? bt_panel_smem<double>(m, &err)
-                             : bt_panel_smem<float>(m, &err);
-  if (panel_smem < 0) return -1;
-  return (iter_smem ? 0 : 1) | (panel_smem ? 0 : 2);
+  return iter_smem ? 0 : 1;
 }
 
 int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
@@ -2653,17 +2455,7 @@ int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
                               e_stride, stream, kMaxM + 1, kWideMaxM);
 }
 
-int backtransform_wide_launch(const void* vrows, const void* tau,
-                              const void* z, void* out, int m, int keep,
-                              int batch, long long v_stride,
-                              long long tau_stride, long long z_stride,
-                              void* stream) {
-  return backtransform_wide_run<float>(vrows, tau, z, out, m, keep, batch,
-                                       v_stride, tau_stride, z_stride, stream,
-                                       kMaxM + 1, kWideMaxM);
-}
-
-// The same kernels in complex128 / float64, at every m (2 <= m <= 1024).
+// The same kernels in complex128 / float64, at every m (2 <= m <= 2048).
 int tridiag_f64_launch(const void* h, void* work, void* vrows, void* tau,
                        void* d, void* e, int m, int batch, long long h_stride,
                        void* stream) {
@@ -2676,15 +2468,6 @@ int teig_f64_launch(const void* d, const void* e, const void* b0, void* w,
                     long long d_stride, long long e_stride, void* stream) {
   return teig_wide_run<double>(d, e, b0, w, z, scratch, m, batch, d_stride,
                                e_stride, stream, 2, kWideMaxM);
-}
-
-int backtransform_f64_launch(const void* vrows, const void* tau, const void* z,
-                             void* out, int m, int keep, int batch,
-                             long long v_stride, long long tau_stride,
-                             long long z_stride, void* stream) {
-  return backtransform_wide_run<double>(vrows, tau, z, out, m, keep, batch,
-                                        v_stride, tau_stride, z_stride,
-                                        stream, 2, kWideMaxM);
 }
 
 // Marks a library whose eigensolver launchers take the batch arguments

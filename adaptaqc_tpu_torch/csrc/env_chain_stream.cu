@@ -1,4 +1,4 @@
-// Streamed environment-chain kernel for 128 < chi <= 512, for sm_90a.
+// Streamed environment-chain kernel for 128 < chi <= 1024, for sm_90a.
 //
 // Replaces the JAX package's Pallas TPU kernel _env_kernel
 // (ops/pallas_env.py:46) where the TPU route itself leaves the kernel: past
@@ -11,9 +11,10 @@
 //             G_j = e B_j, K_i = conj(A_i) f   at site q.
 //
 // What bounds it on this card: 32 chi^3 flops a chain step (4.3 GFLOP at
-// chi = 512, 215 GFLOP for n = 50: 3.2 ms at the fp32 peak), so unlike the
-// cluster kernels of env_chain.cu this size has enough work a site to fill
-// the card. At chi = 512 an environment is 2 MB (4 MB in complex128): a
+// chi = 512, 215 GFLOP for n = 50: 3.2 ms at the fp32 peak; eight times
+// that at chi = 1024), so unlike the cluster kernels of env_chain.cu this
+// size has enough work a site to fill the card. At chi = 512 an
+// environment is 2 MB (4 MB in complex128; 8 and 16 MB at chi = 1024): a
 // site's operands no longer fit in a CTA's, or a cluster's, shared memory.
 //
 // The design is the simplest one that spreads a site over the card:
@@ -54,7 +55,7 @@ constexpr int kDepth = 16;    // depth of a staged tile
 constexpr int kThreads = 256;  // 16 x 16, 4 x 4 outputs each
 constexpr int kCombineThreads = 1024;
 constexpr int kMinChi = 129;  // below: env_chain.cu's cluster kernels
-constexpr int kMaxChi = 512;
+constexpr int kMaxChi = 1024;  // any chi tiles: the cap is the port's reach
 constexpr int kMaxJobs = 4;
 
 __device__ __forceinline__ void cfma(float2& acc, float2 a, float2 b) {
@@ -285,7 +286,7 @@ int run(const V* br, const V* bl, const V* e0, V* work, V* out, int n,
 
 // The streamed chain, complex64 (f64 = 0) or complex128: br, bl (n, 2, chi,
 // chi), e0 the boundary environment (chi, chi), work 6 chi^2 elements of
-// scratch, out (2, 2); 128 < chi <= 512, 0 <= q < n. Launches 2 max(q,
+// scratch, out (2, 2); 128 < chi <= 1024, 0 <= q < n. Launches 2 max(q,
 // n-1-q) + 2 kernels on `stream`; returns the first launch error.
 extern "C" int env_chain_stream_launch(const void* br, const void* bl,
                                        const void* e0, void* work, void* out,

@@ -28,13 +28,15 @@ import torch
 REACH = {
     # csrc/env_chain.cu to chi 128 (complex64 narrow to 64, wide to 128;
     # complex128 in its double instantiation), then the streamed kernel of
-    # csrc/env_chain_stream.cu to chi 512, in both dtypes
-    "env": {torch.complex64: (1, 512), torch.complex128: (1, 512)},
+    # csrc/env_chain_stream.cu to chi 1024, in both dtypes
+    "env": {torch.complex64: (1, 1024), torch.complex128: (1, 1024)},
     # csrc/eigh_tridiag.cu: complex64 to m 128 in the register and
     # shared-memory designs, then the wide variants; complex128 in the wide
     # variants' double instantiation; past each kernel's shared-memory fit
-    # its rows, iterate or reflectors stay in global memory, to m 1024
-    "eigh": {torch.complex64: (2, 1024), torch.complex128: (2, 1024)},
+    # K2's rows and K3's iterate stay in global memory, to m 2048 (K2's 128
+    # rows a CTA on 16 CTAs, K3's 16 in-panel CGS2 rows a thread); K4's
+    # wide design (csrc/backtransform_wide.cu) takes any of these m
+    "eigh": {torch.complex64: (2, 2048), torch.complex128: (2, 2048)},
 }
 
 

@@ -21,25 +21,27 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
   backtransform  out = H_0 H_1 ... H_{m-2} z with H_k = I - tau_k v_k v_k^H.
 
 Each wrapper runs the plain version for a tensor on the CPU and launches the
-CUDA kernel (csrc/eigh_tridiag.cu) for a tensor on a CUDA device
-(ops/dispatch.py): in complex64 for m <= 128 the register and shared-memory
-designs, for 128 < m <= 1024 their wide variants (K2 and K3 on a
-thread-block cluster of up to 16 CTAs a matrix, K4 with its reflectors read
-from global memory), chosen by m alone; in complex128 / float64 the wide
-variants' double instantiation, for every m <= 1024. Past what a CTA's shared
-memory holds, K2 keeps the rest of its rows in the wrapper's `work`, K3 its
-iterate in its `scratch`, and K4 (complex128 past m = 504) reads each
-panel's reflectors where they lie. It raises for anything the kernels do not
-take (m above 1024, another dtype, a non-contiguous tensor). There is no
-fallback from a kernel to the plain version. Each wrapper counts its
-launches in `<wrapper>.launches`, those of them that took a batch (P > 1
-matrices in one launch) in `<wrapper>.batched_launches`, and each wide or
-complex128 launch in the counter of the code it ran: `.reach_launches`
-(complex64) or `.reach_f64_launches` (complex128) for what runs only past
-the old caps (K2 past REACH_M, the same kernel at sizes it did not take
-before; K3 with its iterate in `scratch`; K4 reading its panel from global
-memory: `wide_routes`), else `<wrapper>.wide_launches` (complex64, m > 128)
-or `.f64_launches` (complex128).
+CUDA kernel (csrc/eigh_tridiag.cu, and csrc/backtransform_wide.cu for K4's
+wide design) for a tensor on a CUDA device (ops/dispatch.py): in complex64
+for m <= 128 the register and shared-memory designs, for 128 < m <= 2048
+the wide variants (K2 and K3 on a thread-block cluster of up to 16 CTAs a
+matrix; K4 a preparation launch that gathers the active reflectors into
+panels with their T, then a cluster of CTAs over the rows of each tile of
+32 output columns), chosen by m alone; in complex128 / float64 the wide
+variants' double instantiation, for every m <= 2048. Past what a CTA's
+shared memory holds, K2 keeps the rest of its rows in the wrapper's `work`
+and K3 its iterate in its `scratch` (past m = 1024 its panel too). It raises
+for anything the kernels do not take (m above 2048, another dtype, a
+non-contiguous tensor). There is no fallback from a kernel to the plain
+version. Each wrapper counts its launches in `<wrapper>.launches`, those of
+them that took a batch (P > 1 matrices in one launch) in
+`<wrapper>.batched_launches`, and each wide or complex128 launch in the
+counter of the code it ran: `.reach_launches` (complex64) or
+`.reach_f64_launches` (complex128) for what runs only past the old caps (K2
+and K4 past REACH_M, the same kernels at sizes they did not take before; K3
+with its iterate in `scratch`: `wide_routes`), else
+`<wrapper>.wide_launches` (complex64, m > 128) or `.f64_launches`
+(complex128).
 
 Every function here also takes one leading batch dimension P (h of shape
 (P, m, m), d of (P, m), ...): the full-cost sweep applies each gate to its
@@ -60,11 +62,12 @@ from . import cuda_lib, dispatch
 
 NARROW_MAX_M = 128  # the register and shared-memory designs; above it the
                     # wide variants
-# by f64: the eigensolver's cap before its wide variants took m to 1024
+# by f64: the eigensolver's cap before its wide variants took m past it
 # (complex64: the JAX kernels' own reach, pallas_eigh.supported;
-# complex128: the largest m whose K4 panel fits in shared memory). K2's
-# launches past it count as reach_launches / reach_f64_launches, and only
-# past it do K3 and K4 take their global-memory routes (wide_routes)
+# complex128: the largest m whose first wide K4's panel fit in shared
+# memory). K2's and K4's launches past it count as reach_launches /
+# reach_f64_launches, and only past it does K3 take its global-memory
+# route (wide_routes)
 REACH_M = {False: 560, True: 504}
 _B0_SEED = 181818
 
@@ -458,17 +461,29 @@ def teig_cluster_size(m: int, f64: bool = False) -> int:
 
 
 def wide_routes(m: int, f64: bool = False) -> dict:
-    """The routes of the wide variants at m (complex64 above NARROW_MAX_M,
-    or f64: complex128 at every m), "smem" or "global": `teig`, where K3
+    """The route of K3's wide variant at m (complex64 above NARROW_MAX_M,
+    or f64: complex128 at every m), "smem" or "global": `teig`, where it
     keeps the iterate's columns (each CTA's shared memory, or the wrapper's
-    scratch past the fit); `backtransform`, where K4 reads a panel of
-    reflectors (a copy in shared memory, or the rows in global memory)."""
+    scratch past the fit)."""
     r = cuda_lib.lib().eigh_wide_routes(int(m), int(f64))
     if r < 0:
         raise RuntimeError(f"eigh: no wide plan launches m={m}"
                            + (" in complex128" if f64 else ""))
-    return {"teig": "global" if r & 1 else "smem",
-            "backtransform": "global" if r & 2 else "smem"}
+    return {"teig": "global" if r & 1 else "smem"}
+
+
+def backtransform_cluster_size(m: int, keep: int, f64: bool = False) -> int:
+    """CTAs of the cluster over the rows of one tile of 32 output columns
+    in K4's wide design (complex64 above NARROW_MAX_M, or f64: complex128
+    at every m) for `keep` columns of one matrix: ceil(m / 128) (ceil(m /
+    64) at m <= 512), at most 16, or fewer where that makes all of the
+    launch's clusters fit on the card at once."""
+    g = cuda_lib.lib().backtransform_cluster_size(int(m), int(keep),
+                                                  int(f64))
+    if g == 0:
+        raise RuntimeError(f"backtransform: no cluster size can launch m={m}"
+                           + (" in complex128" if f64 else ""))
+    return g
 
 
 def tridiag_cluster_plan(m: int, f64: bool = False) -> dict:
@@ -490,12 +505,24 @@ def tridiag_cluster_plan(m: int, f64: bool = False) -> dict:
             "route": "smem" if rs >= rows else "spill"}
 
 
+@functools.lru_cache(maxsize=64)
+def _bt_workspace_bytes(m: int, f64: bool) -> int:
+    """The wide K4's workspace a matrix, in bytes: m and the dtype fix it."""
+    nbytes = cuda_lib.lib().backtransform_workspace(int(m), int(f64))
+    if nbytes <= 0:
+        raise RuntimeError(f"backtransform: no workspace at m={m}"
+                           + (" in complex128" if f64 else ""))
+    return nbytes
+
+
 def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
                   keep: int) -> torch.Tensor:
     """Kernel K4 (replaces pallas_eigh._backtransform_kernel): the first
     `keep` columns of z lifted to the complex basis, (m, keep), or
     (P, m, keep) for a batch. Each matrix drops its own inactive reflectors
-    inside the kernel: the wrapper reads nothing back."""
+    inside the kernel: the wrapper reads nothing back. The wide design's
+    workspace (the gathered panels and their T) has a size that depends on
+    m and the dtype alone."""
     m = vrows.shape[-1]
     if not dispatch.use_kernel("eigh", vrows.device.type, vrows.dtype, m):
         return backtransform_plain(vrows, tau, z, keep)
@@ -511,16 +538,21 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
     out = torch.empty(lead + (m, keep), dtype=vrows.dtype,
                       device=vrows.device)
     lib = cuda_lib.lib()
-    launch = (lib.backtransform_f64_launch if f64
-              else lib.backtransform_wide_launch if m > NARROW_MAX_M
-              else lib.backtransform_launch)
-    reach = (m > REACH_M[f64]
-             and wide_routes(m, f64)["backtransform"] == "global")
-    rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
-                out.data_ptr(), m, keep, p, m * m, m, m * m,
-                cuda_lib.stream_of(vrows))
+    stream = cuda_lib.stream_of(vrows)
+    if f64 or m > NARROW_MAX_M:
+        ws = torch.empty((p, _bt_workspace_bytes(m, f64)), dtype=torch.uint8,
+                         device=vrows.device)
+        launch = (lib.backtransform_f64_launch if f64
+                  else lib.backtransform_wide_launch)
+        rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), m, keep, p, m * m, m,
+                    m * m, stream)
+    else:
+        rc = lib.backtransform_launch(vrows.data_ptr(), tau.data_ptr(),
+                                      z.data_ptr(), out.data_ptr(), m, keep,
+                                      p, m * m, m, m * m, stream)
     cuda_lib.check(rc, "backtransform")
-    _count(backtransform, p, m, f64, reach)
+    _count(backtransform, p, m, f64, m > REACH_M[f64])
     return out
 
 

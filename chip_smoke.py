@@ -29,8 +29,10 @@ name; any failure exits non-zero:
             192/256/512 to the same checks (a batch of 3 bit for bit
             against its P = 1 launches, and of 7 at m = 256), with the
             chain's yardstick torch.linalg.eigh of the complex H and K3's
-            cluster size; the complex128 instantiations (K3's w bit for
-            bit), timed at m = 64/256/504 with torch.linalg.eigh(H); K2's
+            cluster size; K4 on the chi=128 sweep's own reflectors (m =
+            256) against torch.ormqr; the complex128 instantiations (K3's
+            w bit for bit), timed at m = 64/256/504 with
+            torch.linalg.eigh(H); K2's
             cluster kernel also at complex64 m = 560 and at the complex128
             sizes on each side of its shared-memory fit, on the chi=128
             sweep's Grams (inactive steps as the plain version's; time,
@@ -76,16 +78,19 @@ name; any failure exits non-zero:
             mid-compile on the card, loaded (also onto the CPU) and resumed
             to the straight run's pair history
   reach     past the sizes whose operands fit on chip: the streamed K1
-            (chi 129/192/256/512 in complex64, 192/256/512 in complex128,
-            q 0/1/25/48/49) and K2-K4 at m = 561/768/1024 (complex64) and
-            505/512/1024 (complex128) against their plain versions, with
-            times, bounds and library calls; then at n=50 the sweep phase's
-            workload at chi=256 and chi=512 in complex64 and complex128,
-            and the spin chain through workloads/spin_chain.py with
+            (chi 129/192/256/512/768/1024 in complex64, 192/256/512/1024 in
+            complex128, q 0/1/25/48/49) and K2-K4 at m =
+            561/768/1024/1536/2048 (complex64) and 505/512/1024/2048
+            (complex128) against their plain versions, with times, bounds
+            and library calls (K4 against torch.ormqr); then at n=50 the
+            sweep phase's workload at chi=256 and chi=512 in complex64 and
+            complex128 and at chi=1024 in complex64, and the spin chain
+            through workloads/spin_chain.py with
             SPIN_CHI_SCHEDULE=32,64,128,256 cut to 2 layers a stage
             (center-gauge verifier within 1e-3, relative): every launch is
             counted by the code it runs, and each new code path must
-            launch on them; the deep re-simulation at chi=256
+            launch on them; the deep re-simulation at chi=256 (8 layers)
+            and chi=1024 (2 layers)
   optim     on the slice's target (n=50, chi=32): BOBYQA layers with the
             final BOBYQA minimisation (use_roto_algos=False,
             perform_final_minimisation=True), and Rotosolve layers
@@ -93,9 +98,9 @@ name; any failure exits non-zero:
             at n=10 on the card, which takes the counted non-kernel routes
   workloads the scripts of adaptaqc_tpu_torch/workloads as a user runs
             them, each its own process: random_mps at n=50 stopped by a
-            60 s deadline with its checkpoint, a second process resuming it
-            for 30 s (resumed at the checkpoint's layer, the first run's
-            pairs first), spin_chain at its defaults for 45 s alongside,
+            30 s deadline with its checkpoint, a second process resuming it
+            for 15 s (resumed at the checkpoint's layer, the first run's
+            pairs first), spin_chain at its defaults for 25 s alongside,
             each launching every kernel; then bench_sweep's evals/s, the
             readme, simple_sv and advanced_sv example twins to their
             floors, and entry()'s cost against the CPU's
@@ -425,7 +430,8 @@ def ormqr_inputs(torch, vrows, tau, z, keep):
 
 def teig_vector_errors(d, e, w, z, zp):
     """The eigenvectors z of teig (kernel) on the tridiagonal (d, e),
-    measured in float64 on the host:
+    measured in float64 (the products on z's device, T's float64
+    eigenvectors on the host by scipy's tridiagonal solver):
       z        max |z - zp| after each column's sign is matched to the
                plain version's zp (meaningful where w is well separated)
       ortho    max |z^T z - I|
@@ -435,21 +441,24 @@ def teig_vector_errors(d, e, w, z, zp):
                scale, at least 1e-2 of the scale from every other one),
                V from float64 eigh of T: an eigenspace's projector is
                fixed even where its vectors may rotate."""
-    d64 = d.double().cpu().numpy()
-    e64 = e.double().cpu().numpy()[:-1]
-    t = np.diag(d64) + np.diag(e64, 1) + np.diag(e64, -1)
-    zz = z.double().cpu().numpy()
-    wk = w.double().cpu().numpy()
-    zr = zp.double().cpu().numpy()
-    sign = np.where(np.sum(zz * zr, axis=0) < 0, -1.0, 1.0)
-    m = len(d64)
-    w64, v64 = np.linalg.eigh(t)
+    import scipy.linalg
+    import torch
+    d64, e64 = d.double(), e.double()[:-1]
+    zz, zr, wk = z.double(), zp.double(), w.double()
+    m = d64.shape[0]
+    sign = torch.where((zz * zr).sum(0) < 0, -1.0, 1.0)
+    tz = d64[:, None] * zz  # T z, T tridiagonal
+    tz[:-1] += e64[:, None] * zz[1:]
+    tz[1:] += e64[:, None] * zz[:-1]
+    w64, v64 = scipy.linalg.eigh_tridiagonal(d64.cpu().numpy(),
+                                             e64.cpu().numpy())
     w64, v64 = w64[::-1], v64[:, ::-1]
     scale = max(np.abs(w64).max(), 1e-30)
-    out = {"z": float(np.abs(zz * sign - zr).max()),
-           "ortho": float(np.abs(zz.T @ zz - np.eye(m)).max()),
-           "resid": float(np.linalg.norm(t @ zz - zz * wk, axis=0).max()
-                          / scale),
+    eye = torch.eye(m, dtype=torch.float64, device=zz.device)
+    out = {"z": float((zz * sign - zr).abs().max()),
+           "ortho": float((zz.T @ zz - eye).abs().max()),
+           "resid": float(torch.linalg.vector_norm(tz - zz * wk, dim=0).max())
+           / scale,
            "cluster": 0.0}
     starts = [0] + [i for i in range(1, m)
                     if w64[i - 1] - w64[i] > 1e-9 * scale] + [m]
@@ -458,9 +467,10 @@ def teig_vector_errors(d, e, w, z, zp):
         gap_hi = w64[b - 1] - w64[b] if b < m else np.inf
         if b - a < 2 or min(gap_lo, gap_hi) < 1e-2 * scale:
             continue
+        vc = torch.from_numpy(np.ascontiguousarray(v64[:, a:b])).to(zz.device)
         pk = zz[:, a:b] @ zz[:, a:b].T
-        pt = v64[:, a:b] @ v64[:, a:b].T
-        out["cluster"] = max(out["cluster"], float(np.abs(pk - pt).max()))
+        out["cluster"] = max(out["cluster"],
+                             float((pk - vc @ vc.T).abs().max()))
     return out
 
 
@@ -918,6 +928,37 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
           + "; ".join(parts) + f" on {card}", flush=True)
 
 
+def bt_sweep128_check(torch, ek, bts, rec, card):
+    """K4's wide design on the reflectors one chi=128 sweep gives it (m =
+    256, its 24 launches) against the plain version (TOL_BT), with its mean
+    time over those inputs, the bound on their active reflectors and
+    torch.ormqr on the same reflectors."""
+    worst, bounds, lib = 0.0, [], []
+    for vr, ta, z, keep in bts:
+        err = float((ek.backtransform(vr, ta, z, keep)
+                     - ek.backtransform_plain(vr, ta, z, keep)).abs().max())
+        worst = max(worst, err)
+        check(err < TOL_BT, f"backtransform on a chi=128 sweep input: {err}")
+        m = vr.shape[0]
+        act = [k for k in range(m - 1) if ta[k] != 0]
+        bounds.append(kernel_bound("backtransform", m=m, keep=keep,
+                                   active=act)[0])
+        oa, otau, oz = ormqr_inputs(torch, vr, ta, z, keep)
+        lib.append(cuda_ms(lambda: torch.ormqr(oa, otau, oz), 10, torch))
+    ms = float(np.mean([cuda_ms(lambda: ek.backtransform(*a), 10, torch)
+                        for a in bts]))
+    rec["backtransform[wide]"]["sweep_chi128"] = dict(
+        launches=len(bts), ms=ms, bound_ms=float(np.mean(bounds)),
+        library_ms=float(np.mean(lib)), max_abs_err=worst)
+    print(f"kernels: backtransform on the chi=128 sweep's {len(bts)} inputs "
+          f"(m=256, keep {sorted({a[3] for a in bts})}, clusters of "
+          f"{ek.backtransform_cluster_size(256, 128)} CTAs): {ms:.4f} ms a "
+          f"launch "
+          f"(bound on the active reflectors {np.mean(bounds):.5f} ms; "
+          f"torch.ormqr {np.mean(lib):.4f} ms), vs plain {worst:.2e} < "
+          f"{TOL_BT} on {card}", flush=True)
+
+
 def tridiag_plan_text(ek, m, f64=False):
     """K2's wide plan at m, as the kernels lines print it."""
     pl = ek.tridiag_cluster_plan(m, f64)
@@ -1239,6 +1280,8 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
         tridiag_cluster_check(torch, ek, card, dev, rec,
                               [a[0] for a in sweep128_inputs["tridiag"]],
                               center_inputs)
+        bt_sweep128_check(torch, ek, sweep128_inputs["backtransform"], rec,
+                          card)
 
     # K3 and the whole eigensolver chain against float64 truth on 7-decade
     # spectra: the kernel's eigenvalues of T against float64 eigh of the
@@ -1294,11 +1337,14 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64):
-    """(C^dag C)|0> at n = 50 for a deep random two-qubit chain C;
-    |<0|psi>|^2 / <psi|psi> under both eigensolvers (at chi = 128 the
-    wide variants of K2-K4)."""
-    n, layers = 50, 8
+def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
+                 layers=8, native_chi=None):
+    """(C^dag C)|0> at n = 50 for a random two-qubit chain C of `layers`
+    brickwork layers; |<0|psi>|^2 / <psi|psi> under both eigensolvers (at
+    chi = 128 the wide variants of K2-K4, past 256 the reach kernels), the
+    native one at native_chi (chi unless given)."""
+    n = 50
+    native_chi = native_chi or chi
     rng = np.random.default_rng(7)
     qc = Circuit(n)
     for layer in range(layers):
@@ -1313,7 +1359,8 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64):
     out = {}
     for eigh in ("kernels", "native"):
         t0 = time.perf_counter()
-        st = mps_core.zero_mps(n, chi, torch.complex64, dev)
+        st = mps_core.zero_mps(n, chi if eigh == "kernels" else native_chi,
+                               torch.complex64, dev)
         st = mps_core.apply_tape(st, tape.kinds, tape.q0, tape.q1,
                                  tape.angles, 1e-16, eigh=eigh)
         st = mps_core.apply_tape_adjoint(st, tape.kinds, tape.q0, tape.q1,
@@ -1322,10 +1369,13 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64):
         torch.cuda.synchronize()
         out[eigh] = (1.0 - cost, float(st.trunc), time.perf_counter() - t0)
     diff = abs(out["kernels"][0] - out["native"][0])
-    print(f"hazard: n={n} chi={chi} {2 * n2q} two-qubit applies: overlap "
+    print(f"hazard: n={n} chi={chi} {layers} layers, {2 * n2q} two-qubit "
+          f"applies: overlap "
           f"kernels {out['kernels'][0]:.8f} native {out['native'][0]:.8f} "
           f"|diff| {diff:.2e} < {TOL_HAZARD}; discarded weight kernels "
-          f"{out['kernels'][1]:.3e} native {out['native'][1]:.3e}; wall "
+          f"{out['kernels'][1]:.3e} native {out['native'][1]:.3e}"
+          + (f" (native at chi={native_chi})" if native_chi != chi else "")
+          + f"; wall "
           f"kernels {out['kernels'][2]:.2f} s native {out['native'][2]:.2f} s"
           f" on {card}", flush=True)
     check(diff < TOL_HAZARD, f"kernels vs native overlap differ by {diff}")
@@ -1410,8 +1460,8 @@ def phase_slice(torch, port, counted, card):
 def sweep_variants(ek, envk, chi, f64):
     """{kernel: the counted variant it launches in a sweep at bond
     dimension chi} (the Grams have m = 2 chi): the one of the code its
-    wrapper runs there (K3 and K4 by their routes, ek.wide_routes); the
-    narrow variants have no counter of their own and are left out."""
+    wrapper runs there (K3 by its route, ek.wide_routes); the narrow
+    variants have no counter of their own and are left out."""
     def pick(reach, wide):
         if reach:
             return "reach_f64" if f64 else "reach"
@@ -1425,38 +1475,48 @@ def sweep_variants(ek, envk, chi, f64):
                           chi > envk.NARROW_MAX_CHI),
         "tridiag": pick(past, wide),
         "teig": pick(routes.get("teig") == "global", wide),
-        "backtransform": pick(routes.get("backtransform") == "global", wide),
+        "backtransform": pick(past, wide),
     }.items() if v}
 
 
 def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
-                chi=64, ek=None, envk=None, dtype=None):
+                chi=64, ek=None, envk=None, dtype=None, reps=3):
     """bench.py's workload: a 3-layer random-entangling 50-qubit target at
     bond dimension chi (64: bench.py's) and a window of 12 dressed-CNOT
-    layers, one Rotoselect sweep, in complex64 (or dtype);
+    layers, one Rotoselect sweep timed over `reps` sweeps after a warm-up
+    (reps = 1: the one sweep, timed without one), in complex64 (or
+    dtype);
     with ek and envk given, the launches of the timed sweeps are printed
     by variant, each kernel's counted variant at this chi and dtype
     (sweep_variants) must have launched, and they are returned."""
     from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     n, window = 50, 12
+    t_setup = time.perf_counter()
     dtype = dtype or torch.complex64
     dev = torch.device("cuda")
     target, ansatz = bench_workload(n, window)
     tt = compile_tape(target)
-    prefix = mps_core.apply_tape(mps_core.zero_mps(n, chi, dtype, dev),
-                                 tt.kinds, tt.q0, tt.q1, tt.angles, 1e-16)
+    # past chi = 256 the target is applied at 256 and padded: its bond rank
+    # stays far below that, so the state is the same, set up in seconds
+    prefix = mps_core.pad_chi(mps_core.apply_tape(
+        mps_core.zero_mps(n, min(chi, 256), dtype, dev), tt.kinds, tt.q0,
+        tt.q1, tt.angles, 1e-16), chi)
     at = compile_tape(ansatz)
     engine = mps_core.sweep_engine(1e-16)
     ref = mps_core.zero_mps(n, chi, dtype, dev)
     bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
     args = (engine, bl, True, prefix, ref, at.kinds, at.q0, at.q1, at.angles,
             at.trainable)
-    _, syncs = count_syncs(torch, lambda: sweeps.sweep(*args))  # warm-up
-    reps = 3
+    if reps > 1:
+        _, syncs = count_syncs(torch, lambda: sweeps.sweep(*args))  # warm-up
     if ek is not None:
         reset_counts(ek, envk)
     t0 = time.perf_counter()
-    for _ in range(reps):
+    if reps == 1:  # one sweep, timed and its syncs counted (no warm-up:
+        # past chi = 256 the reach phase's checks have run every kernel)
+        out, syncs = count_syncs(torch, lambda: sweeps.sweep(*args))
+        _, _, cost, _, evals, ov2 = out
+    for _ in range(reps if reps > 1 else 0):
         _, _, cost, _, evals, ov2 = sweeps.sweep(*args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / reps * 1e3
@@ -1465,11 +1525,13 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
                 f", launches by variant in {reps} sweeps "
                 f"{json.dumps(counts)}")
     tag = "" if dtype == torch.complex64 else " " + str(dtype)[6:]
+    wall = time.perf_counter() - t_setup
     print(f"sweep: n={n} chi={chi}{tag} {window} layers "
           f"({int(at.trainable.sum())} probes, {int(np.sum(at.kinds == 4))} "
           f"CX, block {bl}): {ms:.2f} ms/sweep, {evals / (ms / 1e3):.1f} "
           f"evals/s, {syncs} host syncs/sweep, final |<0|psi>|^2 "
-          f"{ov2:.3e}{launched} on {card}", flush=True)
+          f"{ov2:.3e}{launched} ({wall:.1f} s with the prefix and the "
+          f"warm-up) on {card}", flush=True)
     if ek is not None:
         missing = {k: v for k, v in sweep_variants(
             ek, envk, chi, dtype == torch.complex128).items()
@@ -2213,29 +2275,47 @@ def phase_ladder(torch, port, card, max_layers=2, dev="cuda", n=50):
 
 # --------------------------------------------------------------- phase 11
 REACH_Q = (0, 1, 25, 48, 49)
-REACH_CHI = (129, 192, 256, 512)  # the streamed K1 in complex64
-REACH_CHI_F64 = (192, 256, 512)   # and in complex128
-REACH_M = (561, 768, 1024)        # K2-K4 past 560 in complex64
-REACH_M_F64 = (505, 512, 1024)    # past 504 in complex128
+REACH_CHI = (129, 192, 256, 512, 768, 1024)  # the streamed K1, complex64
+REACH_CHI_F64 = (192, 256, 512, 1024)        # and in complex128
+REACH_M = (561, 768, 1024, 1536, 2048)       # K2-K4 past 560, complex64
+REACH_M_F64 = (505, 512, 1024, 2048)         # past 504 in complex128
 REACH_VARIANTS = ("reach", "reach_f64")
-REACH_SWEEPS = ((256, False), (256, True), (512, False), (512, True))
+# (chi, complex128, timed sweeps): bench.py's sweep at each chi; past chi =
+# 256 one sweep, timed without a warm-up, to keep the run's time
+REACH_SWEEPS = ((256, False, 3), (256, True, 3), (512, False, 1),
+                (512, True, 1), (1024, False, 1))
+# (chi, layers, chi of the native run) of the re-simulation. At chi = 1024
+# cuSOLVER's eigh (the native eigensolver) fails to converge on the Grams'
+# 2040-fold zero eigenvalue; two brickwork layers keep every bond at rank
+# <= 2, so the exact state, and its native run, is the same at chi = 256
+REACH_HAZARD = ((256, 8, 256), (1024, 2, 256))
 
 
 def reach_rows(ek, envk):
     """The (kernel, variant) pairs of code that only sizes past the old
     caps run and that the reach phase's sweeps launch (sweep_variants at
-    REACH_SWEEPS): the streamed K1 and K2 past REACH_M in both dtypes, and
-    K3's and K4's global-memory routes where the plan takes them (K4's
-    panel fits in shared memory to m = 1024 in complex64, so its global
-    route runs in complex128 only)."""
+    REACH_SWEEPS): the streamed K1, K2 and K4 past REACH_M in both dtypes,
+    and K3's global-memory route where the plan takes it."""
     rows = set()
-    for chi, f64 in REACH_SWEEPS:
+    for chi, f64, _ in REACH_SWEEPS:
         for k, v in sweep_variants(ek, envk, chi, f64).items():
             if v in REACH_VARIANTS:
                 rows.add((k, v))
     return [(k, v) for k in KERNELS for v in REACH_VARIANTS
             if (k, v) in rows]
 STREAM_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_stream.cu"
+BT_WIDE_SOURCE = "adaptaqc_tpu_torch/csrc/backtransform_wide.cu"
+
+
+def kernel_source(name, variant=None):
+    """The source of a kernel row: K1 past chi = 128 is the streamed
+    kernel; K4 past the narrow design (complex64 m > 128, every complex128
+    m) is the wide back-transform's own source."""
+    if name == "env_chain" and variant in REACH_VARIANTS:
+        return STREAM_SOURCE
+    if name == "backtransform" and variant in ("wide", "f64") + REACH_VARIANTS:
+        return BT_WIDE_SOURCE
+    return KERNELS[name][0]
 
 
 def reach_env_check(torch, envk, card, dev, rec):
@@ -2244,6 +2324,7 @@ def reach_env_check(torch, envk, card, dev, rec):
     (TOL_F64_ENV), q in REACH_Q; at q = 25 its time (20 launches), the
     plain version's and the bound, at every chi (`by_chi`)."""
     n = 50
+    t0 = time.perf_counter()
     worst = {False: 0.0, True: 0.0}
     parts = {False: [], True: []}
     for chi in sorted(set(REACH_CHI) | set(REACH_CHI_F64)):
@@ -2284,7 +2365,8 @@ def reach_env_check(torch, envk, card, dev, rec):
               f"over chi {REACH_CHI_F64 if f64 else REACH_CHI} and q "
               f"{REACH_Q}: worst rel {worst[f64]:.2e} < "
               f"{TOL_F64_ENV if f64 else TOL_ENV_REL}; at q=25 "
-              + "; ".join(parts[f64]) + f"; no library call on {card}",
+              + "; ".join(parts[f64]) + f"; no library call ("
+              f"{time.perf_counter() - t0:.1f} s of checks) on {card}",
               flush=True)
 
 
@@ -2304,6 +2386,7 @@ def reach_eigh_check(torch, ek, card, dev, rec):
     torch.linalg.eigh(H)."""
     rng = np.random.default_rng(1024)
     for f64, sizes in ((False, REACH_M), (True, REACH_M_F64)):
+        t0 = time.perf_counter()
         dt = torch.complex128 if f64 else torch.complex64
         sfx = f"[{REACH_VARIANTS[f64]}]"
         worst = {k: 0.0 for k in ("tridiag", "teig", "ortho", "resid",
@@ -2318,17 +2401,24 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         for m in sizes:
             cases = _gram_cases(m, rng)
             keep = m // 2
+            plain = {}  # "rand": the matrix, its plain factors and times
             for name in ("rand", "lowrank"):
                 t = torch.tensor(cases[name], dtype=dt, device=dev)
                 h = t.mH @ t
                 hh = ((h + h.mH) * 0.5).contiguous()
                 v, tau, d, e = ek.tridiag(hh)
+                t0 = time.perf_counter()
                 vp, taup, dp, ep = ek.tridiag_plain(hh)
+                torch.cuda.synchronize()
+                t_tridiag = time.perf_counter() - t0
                 err = {"tridiag": tridiag_residual(torch, ek, v, tau, d, e,
                                                    hh)}
                 zeros_equal(e, tau, ep, taup, f"tridiag {dt} m={m} {name}")
                 w, z = ek.teig(dp, ep)
+                t0 = time.perf_counter()
                 wp, zp = ek.teig_plain(dp, ep)
+                torch.cuda.synchronize()
+                t_teig = time.perf_counter() - t0
                 check(not f64 or torch.equal(w, wp),
                       f"teig {dt} m={m} {name}: w differs from the plain "
                       "version's")
@@ -2338,20 +2428,29 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                 err.update(ortho=tv["ortho"], resid=tv["resid"],
                            cluster=tv["cluster"])
                 o = ek.backtransform(vp, taup, zp, keep)
-                err["bt"] = float((o - ek.backtransform_plain(
-                    vp, taup, zp, keep)).abs().max())
-                h64 = hh.to(torch.complex128).cpu().numpy()
-                wx = np.linalg.eigvalsh(h64)[::-1][:keep]
+                t0 = time.perf_counter()
+                op = ek.backtransform_plain(vp, taup, zp, keep)
+                torch.cuda.synchronize()
+                t_bt = time.perf_counter() - t0
+                err["bt"] = float((o - op).abs().max())
+                if name == "rand":
+                    plain = dict(
+                        hh=hh, factors=(vp, taup, dp, ep, zp),
+                        ms=dict(tridiag=t_tridiag * 1e3, teig=t_teig * 1e3,
+                                backtransform=t_bt * 1e3))
+                h64 = hh.to(torch.complex128)
+                wx = np.linalg.eigvalsh(h64.cpu().numpy())[::-1][:keep]
                 sc = max(np.abs(wx).max(), 1e-300)
                 wk, vk = ek.eigh_top_kernels(hh, keep)
-                V = vk.cpu().numpy().astype(complex)
-                wk = wk.cpu().numpy().astype(float)
+                vk64 = vk.to(torch.complex128)
+                eye = torch.eye(keep, dtype=torch.complex128, device=dev)
+                resid = torch.linalg.vector_norm(
+                    h64 @ vk64[:, :4] - vk64[:, :4] * wk[:4].double(), dim=0)
                 err.update(
-                    chain_w=np.abs(wk - wx).max() / sc,
-                    chain_ortho=np.abs(V.conj().T @ V - np.eye(keep)).max(),
-                    chain_resid=max(
-                        np.linalg.norm(h64 @ V[:, i] - wk[i] * V[:, i]) / sc
-                        for i in range(min(4, keep))))
+                    chain_w=np.abs(wk.cpu().numpy().astype(float) - wx).max()
+                    / sc,
+                    chain_ortho=float((vk64.mH @ vk64 - eye).abs().max()),
+                    chain_resid=float(resid.max()) / sc)
                 for k, val in err.items():
                     worst[k] = max(worst[k], val)
                 bad = {k: v for k, v in err.items() if not v < tol[k]}
@@ -2362,7 +2461,7 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                                         for k in ("rand", "lowrank", "bell")]),
                 keep, f"{dt} batched m={m} P=3", {})
             lines.append(reach_eigh_times(torch, ek, rec, sfx, m, f64,
-                                          _gram_cases(m, rng)["rand"], dev))
+                                          plain))
         for k in ("tridiag", "teig", "backtransform"):
             rec[k + sfx]["max_abs_err"] = worst[
                 {"tridiag": "tridiag", "teig": "teig", "backtransform": "bt"}[
@@ -2370,20 +2469,21 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         print(f"reach: K2-K4 {str(dt)[6:]} past their shared-memory sizes, m "
               f"{sizes}, agree with the plain versions (worst: "
               + ", ".join(f"{k} {v:.2e} < {tol[k]}" for k, v in worst.items())
-              + f"; batches of 3 bit for bit) on {card}", flush=True)
+              + f"; batches of 3 bit for bit; {time.perf_counter() - t0:.1f} "
+              f"s of checks and times) on {card}", flush=True)
         for line in lines:
             print(line, flush=True)
 
 
-def reach_eigh_times(torch, ek, rec, sfx, m, f64, th, dev):
-    """The kernels' times at m on the "rand" Gram th, with the plain
-    versions', the bounds, the library calls, the whole K2-K4 chain and
-    torch.linalg.eigh(H), into rec[<kernel><sfx>]["by_m"][m]; returns the
-    line to print."""
+def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
+    """The kernels' times at m on the check's "rand" Gram (`plain`: the
+    matrix, its plain factors and the plain versions' times, one run each
+    on the host clock around a synchronise), with the bounds, the library
+    calls, the whole K2-K4 chain and torch.linalg.eigh(H), into
+    rec[<kernel><sfx>]["by_m"][m]; returns the line to print."""
     dt = torch.complex128 if f64 else torch.complex64
-    hh = _sym_gram(torch, th, dev).to(dt)
-    vp, taup, dp, ep = ek.tridiag_plain(hh)
-    wp, zp = ek.teig_plain(dp, ep)
+    hh = plain["hh"]
+    vp, taup, dp, ep, zp = plain["factors"]
     keep = m // 2
     tdense = (torch.diag(dp) + torch.diag(ep[:-1], 1)
               + torch.diag(ep[:-1], -1)).contiguous()
@@ -2394,21 +2494,20 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, th, dev):
           f"torch.ormqr does not compute backtransform at m={m} {dt}")
     rdt = "float64" if f64 else "float32"
     calls = {
-        "tridiag": (lambda: ek.tridiag(hh), lambda: ek.tridiag_plain(hh),
-                    None, None),
-        "teig": (lambda: ek.teig(dp, ep), lambda: ek.teig_plain(dp, ep),
+        "tridiag": (lambda: ek.tridiag(hh), None, None),
+        "teig": (lambda: ek.teig(dp, ep),
                  f"torch.linalg.eigh(T) of the dense {rdt} T",
                  lambda: torch.linalg.eigh(tdense)),
         "backtransform": (
             lambda: ek.backtransform(vp, taup, zp, keep),
-            lambda: ek.backtransform_plain(vp, taup, zp, keep),
             "torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
             lambda: torch.ormqr(oa, otau, oz))}
     parts = []
-    for kname, (kfn, pfn, lname, lfn) in calls.items():
-        ms = cuda_ms(kfn, 20, torch)
-        pms = cuda_ms(pfn, 1, torch)
-        lms = cuda_ms(lfn, 20, torch) if lfn else None
+    reps = 20 if m <= 1024 else 3  # launches a mean: fewer past m = 1024
+    for kname, (kfn, lname, lfn) in calls.items():
+        ms = cuda_ms(kfn, reps, torch)
+        pms = plain["ms"][kname]
+        lms = cuda_ms(lfn, reps, torch) if lfn else None
         bound = bound_fields(kname, m=m, keep=keep, f64=f64)
         row = dict(ms=ms, plain_ms=pms, library_ms=lms, **bound)
         plan = ""
@@ -2420,8 +2519,10 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, th, dev):
             plan = (f" (clusters of {ek.teig_cluster_size(m, f64)} CTAs, "
                     f"iterate in {row['route']} memory)")
         if kname == "backtransform":
-            row["route"] = ek.wide_routes(m, f64)["backtransform"]
-            plan = f" (panel in {row['route']} memory)"
+            row["cluster_ctas"] = ek.backtransform_cluster_size(m, keep,
+                                                                f64)
+            plan = (f" (clusters of {row['cluster_ctas']} CTAs over 32 "
+                    f"columns' rows)")
         rec[kname + sfx].setdefault("by_m", {})[m] = row
         if m == 1024:  # the size the chi = 512 sweeps launch
             rec[kname + sfx].update(
@@ -2430,8 +2531,8 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, th, dev):
         parts.append(f"{kname}{plan} kernel {ms:.4f} ms plain {pms:.4f} ms "
                      f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
                      + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
-    chain_ms = cuda_ms(lambda: ek.eigh_top_kernels(hh, keep), 20, torch)
-    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(hh), 20, torch)
+    chain_ms = cuda_ms(lambda: ek.eigh_top_kernels(hh, keep), reps, torch)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(hh), reps, torch)
     rec["tridiag" + sfx]["by_m"][m].update(chain_ms=chain_ms,
                                            eigh_h_ms=eigh_ms)
     return (f"reach: m={m} {str(dt)[6:]} " + "; ".join(parts) + f"; the "
@@ -2487,14 +2588,15 @@ def reach_spin(torch, ek, envk, card, n=50, layers=2):
 
 def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                 card):
-    """Past the sizes whose operands fit on chip: the streamed K1 and K2-K4
-    to m = 1024 against their plain versions, then the paths at full width
-    (n = 50) that launch them, each counted on its own: bench.py's sweep at
-    chi = 256 and 512 in complex64 and complex128 (REACH_SWEEPS), and the
-    spin chain's chi schedule to 256; then the deep re-simulation at chi =
-    256. Every row of reach_rows must have launched on those paths, and
-    no other reach counter. Returns (the records of the new variants,
-    their launches on those paths, reach_rows)."""
+    """Past the sizes whose operands fit on chip: the streamed K1 to chi =
+    1024 and K2-K4 to m = 2048 against their plain versions, then the
+    paths at full width (n = 50) that launch them, each counted on its
+    own: bench.py's sweep at chi = 256 and 512 in complex64 and complex128
+    and at chi = 1024 in complex64 (REACH_SWEEPS), and the spin chain's chi
+    schedule to 256; then the deep re-simulation at chi = 256 and 1024
+    (REACH_HAZARD). Every row of reach_rows must have launched on those
+    paths, and no other reach counter. Returns (the records of the new
+    variants, their launches on those paths, reach_rows)."""
     dev = torch.device("cuda")
     rec = {f"{k}[{v}]": {"max_abs_err": None, "ms": None, "plain_ms": None,
                          "bound_ms": None, "bound_by": None,
@@ -2510,11 +2612,14 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                 launches[k][v] += c[v]
 
     sweep_args = (torch, mps_core, sweeps, Circuit, compile_tape, card)
-    for chi, f64 in REACH_SWEEPS:
+    for chi, f64, reps in REACH_SWEEPS:
         add(phase_sweep(*sweep_args, chi=chi, ek=ek, envk=envk,
-                        dtype=torch.complex128 if f64 else torch.complex64))
+                        dtype=torch.complex128 if f64 else torch.complex64,
+                        reps=reps))
     add(reach_spin(torch, ek, envk, card))
-    phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=256)
+    for chi, layers, native_chi in REACH_HAZARD:
+        phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=chi,
+                     layers=layers, native_chi=native_chi)
     rows = reach_rows(ek, envk)
     for k, by_v in launches.items():
         for v, count in by_v.items():
@@ -2611,8 +2716,10 @@ def phase_optim(torch, port, card, dev="cuda", n=50, n_small=10):
 
 
 # --------------------------------------------------------------- phase 13
-RMPS_DEADLINES = (60, 30)  # s: the first run stops, the second resumes
-SPIN_DEADLINE = 45         # s
+# s: the first run stops, the second resumes (60 and 30 until the reach
+# phase's m = 2048 checks needed the run's time), the spin chain alongside
+RMPS_DEADLINES = (30, 15)
+SPIN_DEADLINE = 25         # s
 EXAMPLE_FLOORS = {"readme_example": 0.98, "simple_sv_example": 0.98,
                   "advanced_sv_example": 0.9}  # tests/test_examples.py
 TOL_ENTRY = 1e-5           # entry()'s cost, card complex64 vs CPU complex128
@@ -2880,21 +2987,22 @@ def main():
                             source=source, replaces=replaces, launches=count,
                             **rec[f"{name}[batched]"]))
     for name, count in wide.items():  # the wide variants: chi schedule
-        source, replaces = KERNELS[name]
+        replaces = KERNELS[name][1]
         kernels.append(dict(name=f"{name}[wide]", route="cuda",
-                            source=source, replaces=replaces, launches=count,
+                            source=kernel_source(name, "wide"),
+                            replaces=replaces, launches=count,
                             **rec[f"{name}[wide]"]))
     for name, count in f64.items():  # complex128: the optim phase's compile
-        source, replaces = KERNELS[name]
+        replaces = KERNELS[name][1]
         kernels.append(dict(name=f"{name}[f64]", route="cuda",
-                            source=source, replaces=replaces, launches=count,
+                            source=kernel_source(name, "f64"),
+                            replaces=replaces, launches=count,
                             **rec[f"{name}[f64]"]))
     reach_rec, reach_launches, rows = reach
     for name, v in rows:  # the reach phase
-        source, replaces = KERNELS[name]
+        replaces = KERNELS[name][1]
         kernels.append(dict(
-            name=f"{name}[{v}]", route="cuda",
-            source=STREAM_SOURCE if name == "env_chain" else source,
+            name=f"{name}[{v}]", route="cuda", source=kernel_source(name, v),
             replaces=replaces, launches=reach_launches[name][v],
             **reach_rec[f"{name}[{v}]"]))
     print(json.dumps({"kernels": kernels}))

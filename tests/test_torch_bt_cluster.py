@@ -1,0 +1,191 @@
+"""The order of operations of K4's wide design (csrc/backtransform_wide.cu:
+a preparation launch, then a cluster of G CTAs over the rows of each tile
+of 32 output columns), emulated in torch on the CPU and held against the
+plain version backtransform_plain.
+
+  preparation  the active reflectors (tau != 0) in order, in panels of
+               NB = 16; each panel's G = V^H V over all its rows (four
+               partial sums by row mod 4, combined in order) and T by the
+               zlarft recurrence, T[:i, i] = -tau_i T[:i, :i] G[:i, i];
+               the panel's rows dealt to the ranks cyclically (rank g:
+               rows g, g + G, ..);
+  apply        per tile of 32 columns, panels last first: each rank's
+               partial Y = V_g^H Z_g over its rows below the panel's first
+               reflector; Y = the partials summed in rank order; W = T Y;
+               each rank's Z_g -= V_g W.
+
+Held against backtransform_plain: 1e-5 in complex64, 1e-12 in complex128,
+at keep 1, m/2 and m, on padded Grams' reflectors with an all-inactive
+panel, over G = 1, 4 and 16 ranks, and once past m = 1024 with the plan's
+own G. The preparation does not depend on G, so T is the same bits for
+every G; the apply's sums over the ranks do, so its bits are promised for
+reruns and batches at one G, not across G.
+"""
+
+import functools
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+
+from test_torch_eigh_kernels import _bt_inputs
+
+torch.set_num_threads(1)
+
+NB = 16         # reflectors of a panel
+COLS = 32       # output columns of a cluster
+ROWS_CTA = 128  # rows a CTA aims at: G = ceil(m / 128), at most 16
+ROWS_SMALL = 64  # or ceil(m / 64) at m <= 512
+TOL = {torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
+@functools.lru_cache(maxsize=8)
+def _inputs(m, dtype, seed):
+    """_bt_inputs, made once a case (the emulation reads them only)."""
+    return _bt_inputs(m, dtype, seed)
+
+
+def _reflectors(m, dtype, seed):
+    """Unitary reflectors without a tridiagonalization (cheap at large m):
+    v_k = e_{k+1} + x_k below it, tau_k = 2 / |v_k|^2, with a run of
+    inactive ones; z orthonormal."""
+    rng = np.random.default_rng(seed)
+    v = np.zeros((m, m), complex)
+    tau = np.zeros(m, complex)
+    for k in range(m - 1):
+        x = 0.3 * (rng.standard_normal(m - k - 2)
+                   + 1j * rng.standard_normal(m - k - 2))
+        v[k, k + 1] = 1.0
+        v[k, k + 2:] = x
+        tau[k] = 2.0 / (1.0 + np.vdot(x, x).real)
+    tau[m // 3:m // 3 + 20] = 0.0
+    z = np.linalg.qr(rng.standard_normal((m, m)))[0]
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    return (torch.tensor(v, dtype=dtype), torch.tensor(tau, dtype=dtype),
+            torch.tensor(z, dtype=rdt))
+
+
+def bt_plan(m, cap=16):
+    """(G, R): the plan's cluster size and rows a CTA."""
+    rows = ROWS_SMALL if m <= 512 else ROWS_CTA
+    g = min(math.ceil(m / rows), cap)
+    return g, math.ceil(m / g)
+
+
+def prepare(vrows, tau):
+    """bt_prep_kernel: [(first reflector k0, V (m, NB), T (NB, NB))] of
+    every panel, in order."""
+    m = vrows.shape[0]
+    active = [k for k in range(m - 1) if tau[k] != 0]
+    panels = []
+    for s0 in range(0, len(active), NB):
+        idx = active[s0:s0 + NB]
+        pn = len(idx)
+        v = torch.zeros((m, NB), dtype=vrows.dtype)
+        v[:, :pn] = vrows[idx].T  # row k of vrows is zero through entry k
+        parts = [v[j::4].conj().T @ v[j::4] for j in range(4)]
+        g = (parts[0] + parts[1]) + (parts[2] + parts[3])
+        t = torch.zeros((NB, NB), dtype=vrows.dtype)
+        for i in range(pn):
+            t[i, i] = tau[idx[i]]
+            t[:i, i] = -tau[idx[i]] * (t[:i, :i] @ g[:i, i])
+        panels.append((idx[0], v, t))
+    return panels
+
+
+def apply(panels, z, keep, groups):
+    """bt_apply_kernel on `groups` ranks: (m, keep) complex."""
+    m = z.shape[0]
+    # rank g holds rows g, g + G, ..: none where g >= m
+    rows = [torch.arange(g, max(g, m), groups) for g in range(groups)]
+    out = torch.zeros((m, keep), dtype=panels[0][1].dtype if panels
+                      else torch.complex64)
+    for c0 in range(0, keep, COLS):
+        cw = min(COLS, keep - c0)
+        zs = [z[r, c0:c0 + cw].to(out.dtype) for r in rows]
+        for k0, v, t in reversed(panels):
+            below = [r > k0 for r in rows]  # rows above k0 are zero in V
+            vg = [v[r][b] for r, b in zip(rows, below)]
+            y = None
+            for g in range(groups):  # partials, summed in rank order
+                part = vg[g].conj().T @ zs[g][below[g]]
+                y = part if y is None else y + part
+            w = t @ y
+            for g in range(groups):
+                zs[g][below[g]] = zs[g][below[g]] - vg[g] @ w
+        for g in range(groups):
+            out[rows[g], c0:c0 + cw] = zs[g]
+    return out
+
+
+def emulate(vrows, tau, z, keep, groups):
+    panels = prepare(vrows, tau)
+    if not panels:
+        return z[:, :keep].to(vrows.dtype)
+    return apply(panels, z, keep, groups)
+
+
+@pytest.mark.parametrize("dtype,m", [
+    (torch.complex64, 8), (torch.complex64, 64), (torch.complex64, 200),
+    (torch.complex64, 600), (torch.complex128, 64),
+    (torch.complex128, 520)])
+@pytest.mark.parametrize("keep", ["one", "half", "all"])
+def test_cluster_order_matches_plain(dtype, m, keep):
+    """Every G of 1, 4 and 16 ranks gives backtransform_plain's
+    Q z[:, :keep], on reflectors with runs of inactive ones (an
+    all-inactive panel past m = 32)."""
+    vrows, tau, z = _inputs(m, dtype, m)
+    assert int((tau[: m - 1] == 0).sum()) >= 1
+    kp = {"one": 1, "half": m // 2, "all": m}[keep]
+    ref = ek.backtransform_plain(vrows, tau, z, kp)
+    for groups in (1, 4, 16):
+        out = emulate(vrows, tau, z, kp, groups)
+        assert out.shape == (m, kp)
+        assert float((out - ref).abs().max()) < TOL[dtype], groups
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_panels_and_t_do_not_depend_on_the_ranks(dtype):
+    """The preparation gathers and forms T once a panel, whatever the
+    cluster size: the same panels and the same bits of T; the apply's
+    rank sums make its bits depend on G, but a rerun at one G repeats
+    them."""
+    m = 200
+    vrows, tau, z = _bt_inputs(m, dtype, seed=7)
+    first = prepare(vrows, tau)
+    assert len(first) == math.ceil(int((tau[: m - 1] != 0).sum()) / NB)
+    for (k0, v, t), (k1, v1, t1) in zip(first, prepare(vrows, tau)):
+        assert k0 == k1 and torch.equal(v, v1) and torch.equal(t, t1)
+    assert all(torch.equal(t.triu(), t) for _, _, t in first)
+    a = emulate(vrows, tau, z, m // 2, 4)
+    assert torch.equal(a, emulate(vrows, tau, z, m // 2, 4))
+
+
+def test_plan_past_1024():
+    """Past m = 1024 (m = 1040, keep = 8: one ragged column tile): the
+    plan's 9 ranks of 116 rows against the plain version, on unitary
+    reflectors with a run of inactive ones; the plan at the cap, 16 ranks
+    of 128 rows."""
+    m = 1040
+    assert bt_plan(m) == (9, 116)
+    assert bt_plan(2048) == (16, 128)
+    assert bt_plan(512) == (8, 64) and bt_plan(513) == (5, 103)
+    vrows, tau, z = _reflectors(m, torch.complex64, m)
+    ref = ek.backtransform_plain(vrows, tau, z, 8)
+    out = emulate(vrows, tau, z, 8, bt_plan(m)[0])
+    assert float((out - ref).abs().max()) < TOL[torch.complex64]
+
+
+def test_all_inactive_reflectors_leave_z():
+    """No active reflector (tau all zero): the preparation makes no panel
+    and the apply writes z's columns unchanged."""
+    m = 130
+    vrows, _, z = _bt_inputs(m, torch.complex64, seed=3)
+    tau = torch.zeros(m, dtype=torch.complex64)
+    assert prepare(vrows, tau) == []
+    out = emulate(vrows, tau, z, 40, bt_plan(m)[0])
+    assert torch.equal(out, z[:, :40].to(torch.complex64))
+    assert torch.equal(out, ek.backtransform_plain(vrows, tau, z, 40))

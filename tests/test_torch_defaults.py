@@ -190,13 +190,15 @@ def _schedule_compiler(n=14):
 
 def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
         monkeypatch):
-    """On a CUDA device the kernels take chi <= 512 (env_chain, complex64
-    and complex128) and m = 2 chi <= 1024 (the eigensolver, both dtypes),
+    """On a CUDA device the kernels take chi <= 1024 (env_chain, complex64
+    and complex128) and m = 2 chi <= 2048 (the eigensolver, both dtypes),
     and a call above a cap raises (ops/dispatch.py). A stage whose working
     chi exceeds the cap stops the schedule before its first stage, with a
-    message that names the cap; the README's (32, 64, 128) schedule and
-    (32, 64, 128, 256) are let through, as is any schedule at n = 14, where
-    the working chi stops at 2**7 = 128."""
+    message that names the cap (at n = 22, where (32, 2048) works at chi
+    2048); the README's (32, 64, 128) schedule, (32, 64, 128, 256) and
+    (32, 1024) are let through (stage 1 is reached on the recorder, and
+    nothing launches on the CPU), as is any schedule at n = 14, where the
+    working chi stops at 2**7 = 128."""
     compiled = []
     monkeypatch.setattr(port.AdaptCompiler, "compile",
                         lambda self, **kw: compiled.append(self) or 1 / 0)
@@ -207,18 +209,20 @@ def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
             compiler.compile_with_chi_schedule(chis=chis)
     assert len(compiled) == 3
     for dt in (torch.complex64, C128):
-        wide = _schedule_compiler(n=20)
+        wide = _schedule_compiler(n=22)
         wide.backend.device = torch.device("cuda")
         wide.backend.dtype = dt
-        with pytest.raises(ValueError, match=r"chi <= 512.*env_chain chi "
-                                             r"<= 512, eigensolver m = 2 chi "
-                                             r"<= 1024"):
-            wide.compile_with_chi_schedule(chis=(32, 1024))
+        with pytest.raises(ValueError, match=r"chi <= 1024.*env_chain chi "
+                                             r"<= 1024, eigensolver m = 2 "
+                                             r"chi <= 2048"):
+            wide.compile_with_chi_schedule(chis=(32, 2048))
         with pytest.raises(ZeroDivisionError):
             wide.compile_with_chi_schedule(chis=(32, 64, 128))
         with pytest.raises(ZeroDivisionError):
             wide.compile_with_chi_schedule(chis=(32, 64, 128, 256))
-    assert len(compiled) == 7
+        with pytest.raises(ZeroDivisionError):
+            wide.compile_with_chi_schedule(chis=(32, 1024))
+    assert len(compiled) == 9
 
 
 def test_chi_schedule_past_the_kernel_caps_runs_on_the_cpu():

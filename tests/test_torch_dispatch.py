@@ -26,8 +26,8 @@ KERNELS = (env_kernel.env_chain, eigh_kernels.tridiag, eigh_kernels.teig,
 
 def test_caps_are_the_kernels_reach():
     assert dispatch.REACH == {
-        "env": {C64: (1, 512), C128: (1, 512)},
-        "eigh": {C64: (2, 1024), C128: (2, 1024)}}
+        "env": {C64: (1, 1024), C128: (1, 1024)},
+        "eigh": {C64: (2, 2048), C128: (2, 2048)}}
     assert env_kernel.NARROW_MAX_CHI == 64
     assert env_kernel.CLUSTER_MAX_CHI == 128
     assert eigh_kernels.NARROW_MAX_M == 128
@@ -141,8 +141,11 @@ class _Recorder:
     def eigh_wide_routes(self, m, f64):
         # as the library answers on an H100 (227 KB of shared memory a
         # CTA): K3's iterate in global memory past m = 640 (complex128
-        # 512), K4's panel read from global memory in complex128 past 504
-        return int(m > (512 if f64 else 640)) | 2 * int(f64 and m > 504)
+        # 512)
+        return int(m > (512 if f64 else 640))
+
+    def backtransform_workspace(self, m, f64):
+        return 4096 * m
 
     def __getattr__(self, name):
         def launch(*args):
@@ -206,12 +209,11 @@ def test_counters_move_only_on_launches(card):
 @pytest.mark.parametrize("dtype", [C64, C128])
 def test_reach_edges_launch_and_raise(card, dtype):
     """At the caps the wrappers launch (the streamed env chain at chi =
-    512, the wide eigensolver at m = 1024), each launch counted once, by
-    the code it ran: the streamed K1, K2 past REACH_M and K3 with its
-    iterate in global memory as reach launches of their dtype; K4 as one
-    only where it reads its panel from global memory (complex128), else
-    as the wide variant's. One past the caps the call raises before any
-    launch and counts nothing."""
+    1024, the wide eigensolver at m = 2048), each launch counted once, by
+    the code it ran: the streamed K1, K2 and K4 past REACH_M and K3 with
+    its iterate in global memory as reach launches of their dtype. One
+    past the caps (chi = 1025, m = 2049) the call raises before any launch
+    and counts nothing."""
     f64 = dtype == C128
     br = torch.zeros(3, 2, ENV_CAP, ENV_CAP, dtype=dtype)
     env_kernel.env_chain(br, br, 1)
@@ -220,11 +222,9 @@ def test_reach_edges_launch_and_raise(card, dtype):
     wide = "f64" if f64 else "wide"
     assert card.calls[1:] == [f"tridiag_{wide}_launch", f"teig_{wide}_launch",
                               f"backtransform_{wide}_launch"]
-    for name in ("env_chain", "tridiag", "teig"):
+    for name in ("env_chain", "tridiag", "teig", "backtransform"):
         assert _counts()[name] == (1, 0, 0)
         assert _reach_counts()[name] == ((0, 1) if f64 else (1, 0))
-    assert _counts()["backtransform"] == ((1, 0, 0) if f64 else (1, 1, 0))
-    assert _reach_counts()["backtransform"] == ((0, 1) if f64 else (0, 0))
     with pytest.raises(ValueError, match=f"size <= {ENV_CAP}"):
         br = torch.zeros(2, 2, ENV_CAP + 1, ENV_CAP + 1, dtype=dtype)
         env_kernel.env_chain(br, br, 0)
@@ -258,18 +258,28 @@ def test_reach_counter_starts_past_the_shared_memory_sizes(card, dtype, m,
 @pytest.mark.parametrize("dtype,m,kernel,route", [
     (C64, 640, "teig", "smem"), (C64, 641, "teig", "global"),
     (C128, 512, "teig", "smem"), (C128, 513, "teig", "global"),
-    (C64, 1024, "backtransform", "smem"),
-    (C128, 504, "backtransform", "smem"),
-    (C128, 505, "backtransform", "global")])
+    (C64, 2048, "teig", "global"), (C128, 2048, "teig", "global"),
+    (C64, 560, "backtransform", "size"),
+    (C64, 1024, "backtransform", "size"),
+    (C128, 504, "backtransform", "size"),
+    (C128, 505, "backtransform", "size")])
 def test_reach_counters_follow_the_routes(card, dtype, m, kernel, route):
-    """K3 and K4 count a launch as a reach launch exactly when the plan
-    sends it down the route that only sizes past the old caps take (the
-    iterate or the panel in global memory, eigh_kernels.wide_routes), and
-    as the wide or complex128 variant's where it runs the old code."""
+    """K3 counts a launch as a reach launch exactly when the plan sends it
+    down the route that only sizes past the old caps take (the iterate in
+    global memory, eigh_kernels.wide_routes), and as the wide or
+    complex128 variant's where it runs the old code. K4's wide design has
+    one route at every m ("size"): it counts as a reach launch exactly
+    past REACH_M, as K2 does, and wide_routes names no route of it."""
     f64 = dtype == C128
-    assert eigh_kernels.wide_routes(m, f64)[kernel] == route
+    routes = eigh_kernels.wide_routes(m, f64)
+    if route == "size":
+        assert kernel not in routes
+        reach = m > eigh_kernels.REACH_M[f64]
+    else:
+        assert routes[kernel] == route
+        reach = route == "global"
     cplx.eigh_top(_gram(m, dtype), 8)
     got = _counts()[kernel][1:] + _reach_counts()[kernel]
     want = [0, 0, 0, 0]
-    want[(2 if route == "global" else 0) + f64] = 1
+    want[(2 if reach else 0) + f64] = 1
     assert got == tuple(want)
