@@ -97,6 +97,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <unordered_map>
 
 #include "common.cuh"
 
@@ -104,6 +105,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using adaptaqc::cp_async16;
 using adaptaqc::cp_async8;
 using adaptaqc::cp_async_commit;
 using adaptaqc::cp_async_wait;
@@ -1023,32 +1025,32 @@ __global__ void __launch_bounds__(kBtThreads)
 }
 
 // ------------------------------------------------------ the wide variants
-// For 128 < m <= kWideMaxM (the JAX kernels' own reach, pallas_eigh.py's
-// `supported`: 10 m^2 float32 words in 12 MiB of VMEM, ends at m = 560;
-// past it the reference runs XLA's eigh and the port these kernels, with
-// what no longer fits in shared memory kept in global memory: K2's rows
-// past its CTAs' fit in the wrapper's `work`, K3's iterate in its
-// `scratch`). At m = 256 one complex64 matrix is 512 KB, more than an SM's
-// registers (256 KB) or shared memory (227 KB), so the designs above do
-// not stretch. K4's wide design is csrc/backtransform_wide.cu (a cluster
-// over the rows of each tile of output columns). K2 and K3 spread a matrix
-// over a thread-block cluster of up to
-// 16 CTAs: K2 its rows (tridiag_cluster_kernel: the trailing block split
-// by rows, kept in the CTAs' shared memory, v and u exchanged through
-// distributed shared memory), K3 its eigenvalue lanes and their columns of
-// the iterate (teig_cluster_kernel). The properties of
-// the m <= 128 kernels carry over: the scaled norm of a tiny column, the
+// For 128 < m (the JAX kernels' own reach, pallas_eigh.py's `supported`:
+// 10 m^2 float32 words in 12 MiB of VMEM, ends at m = 560; past it the
+// reference runs XLA's eigh and the port these kernels, to m = kWideMaxM,
+// K2's cap: its rows past its CTAs' fit stay in the wrapper's `work`, and
+// K3 runs teig_grid, its card-wide route). At m = 256 one complex64
+// matrix is 512 KB, more than an SM's registers (256 KB) or shared memory
+// (227 KB), so the designs above do not stretch. K4's wide design is
+// csrc/backtransform_wide.cu (a cluster over the rows of each tile of
+// output columns). K2 and K3 spread a matrix over a thread-block cluster
+// of up to 16 CTAs: K2 its rows (tridiag_cluster_kernel: the trailing
+// block split by rows, kept in the CTAs' shared memory, v and u exchanged
+// through distributed shared memory), K3 its eigenvalue lanes and their
+// columns of the iterate (teig_cluster_kernel; past that fit, teig_grid's
+// launches over the whole card). The properties of the m <= 128 kernels
+// carry over: the scaled norm of a tiny column, the
 // exactly inactive step, eigenvalues equal to the plain version's bit for
 // bit, and a batch equal to its P = 1 launches (fixed reduction orders,
 // nothing shared across the batch but b0).
 //
 // They are templates on the real type T. float serves complex64 for
-// 128 < m <= kWideMaxM; double serves complex128 at every m, 2 <= m <=
-// kWideMaxM. In double the constants are the plain version's float64 ones
+// 128 < m; double serves complex128 at every m >= 2. In double the
+// constants are the plain version's float64 ones
 // (ops/eigh_kernels.py _teig_constants: 60 bisection rounds, eps 2.3e-16,
 // pivmin floor 1e-300) and the tiny-column threshold is DBL_MIN /
 // DBL_EPSILON, as the plain version's finfo(float64).tiny / eps.
-constexpr int kWideMaxM = 2048;
+constexpr int kWideMaxM = 2048;  // K2's cap (tridiag_plan's flags)
 
 template <typename T>
 struct Real;
@@ -1085,7 +1087,9 @@ __device__ __forceinline__ V warp_sum2(V v) {
 
 // K3's wide variant: teig_kernel's algorithm on a thread-block cluster of G
 // CTAs a matrix (G = ceil(m / 32), at most 16; 8 where 16 does not fit),
-// for complex64 at 128 < m <= 2048 and complex128 at every m <= 2048. One
+// for complex64 at 128 < m <= 640 and complex128 at m <= 512, where every
+// CTA's columns of the iterate fit in its shared memory (past that fit,
+// teig_grid below). One
 // CTA a matrix (the first design) ran every stage on one SM: the multisection
 // with two threads a lane at m = 512 (30 dependent Sturm sweeps), the
 // inverse iteration's LU and iterate in global memory (a round trip
@@ -1095,8 +1099,7 @@ __device__ __forceinline__ V warp_sum2(V v) {
 //     m <= 16; a multiple of the CGS2 panel, so that each panel lies in one
 //     CTA) and keeps their columns of the iterate in its shared memory
 //     (m rows of L + 1 reals: walking a row and walking a column are both
-//     conflict-free), to m = 640 where they fit (complex64; complex128
-//     to 512), else in the wrapper's scratch in global memory;
+//     conflict-free);
 //   - multisection as in teig_kernel with 16 threads a lane (k = 4: 8
 //     sweeps for the 30 float rounds, 15 for the 60 double ones), w equal
 //     to the plain version's bit for bit;
@@ -1131,17 +1134,11 @@ constexpr int kClThreads = 512;     // 16 warps a CTA
 constexpr int kClMaxCluster = 16;
 constexpr int kClLaneThreads = 16;  // multisection threads an eigenvalue
 constexpr int kClCgsWarps = 4;      // the in-panel CGS2's warps
-constexpr int kClCgsRows = 8;      // its rows a thread with the iterate in
-                                   // global memory, m <= kClMidMaxM
-constexpr int kClMidMaxM = 32 * kClCgsWarps * kClCgsRows;  // 1024
-constexpr int kClCgsRowsWide = 16;  // past kClMidMaxM, to m = 2048
-constexpr int kClCgsRowsSmem = 5;  // with the iterate in shared memory:
-                                   // m <= 640
-static_assert(32 * kClCgsWarps * kClCgsRowsWide >= kWideMaxM,
-              "the in-panel CGS2 covers every row");
+constexpr int kClCgsRowsSmem = 5;   // its rows a thread: m <= 640
+constexpr int kClMaxM = 32 * kClCgsWarps * kClCgsRowsSmem;  // 640
 static_assert(kPanel == 16, "the panel's row is four 4-real quads");
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
 // The LU factors of one CTA's lanes, in reals: du and u1 (m x L each,
 // lane-fastest) and the swap bits (one word per 32 steps a lane, counted
@@ -1151,28 +1148,23 @@ __host__ __device__ inline int cl_lu_reals(int m, int L) {
 }
 
 // A CTA's dynamic shared memory, offsets in reals of T (16-byte aligned):
-// d, e, e2, w (m each), the iterate's columns (m rows of ldb = L + 1;
-// none where they stay in global memory, !iter_smem), the projections W
-// (L x kPanel), then one region holding the LU factors (where they are in
-// shared memory) during the inverse iteration and the pulled panel,
-// overwritten by the partial Q_r W_r, during the BCGS2 (none where the
-// panel is in global memory too, !py_smem: past kClMidMaxM, where it takes
-// 256 KB a CTA in double at m = 2048).
+// d, e, e2, w (m each), the iterate's columns (m rows of ldb = L + 1), the
+// projections W (L x kPanel), then one region holding the LU factors (where
+// they are in shared memory) during the inverse iteration and the pulled
+// panel, overwritten by the partial Q_r W_r, during the BCGS2.
 struct ClLayout {
   int ldb, bb, W, X, total;
 };
 template <typename T>
-__host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem,
-                                              bool iter_smem = true,
-                                              bool py_smem = true) {
+__host__ __device__ inline ClLayout cl_layout(int m, int L, bool lu_smem) {
   ClLayout c;
   c.ldb = L + 1;
   c.bb = round4(4 * m);
-  c.W = round4(c.bb + (iter_smem ? m * c.ldb : 0));
+  c.W = round4(c.bb + m * c.ldb);
   c.X = round4(c.W + L * kPanel);
   const int words = ((m + 31) / 32) * L;
   const int lu = 2 * m * L + (int)((words * 4 + sizeof(T) - 1) / sizeof(T));
-  const int py = py_smem ? m * kPanel : 0;
+  const int py = m * kPanel;
   c.total = c.X + (lu_smem && lu > py ? lu : py);
   return c;
 }
@@ -1185,42 +1177,22 @@ __host__ __device__ inline int cl_lanes(int m, int cap) {
   return L > kPanel ? L : kPanel;
 }
 
-// The global scratch a matrix, in reals, for every plan: each CTA's LU
-// factors, then (the global-iterate route) each CTA's columns of the
-// iterate, m rows of L + 1, then past kClMidMaxM, from a multiple of four
-// reals, each CTA's pulled panel and partial (m x kPanel).
-__host__ __device__ inline long long cl_py_offset(int ctas, int m, int L) {
-  return ((long long)ctas * (cl_lu_reals(m, L) + (long long)m * (L + 1)) +
-          3) & ~3LL;
-}
-inline long long teig_wide_scratch_reals(int m) {
+// The global scratch a matrix of the cluster route, in reals: each CTA's LU
+// factors, where they do not fit in its shared memory.
+inline long long teig_cluster_scratch_reals(int m) {
   long long most = 0;
   for (int cap : {kClMaxCluster, 8}) {
     const int L = cl_lanes(m, cap), G = (m + L - 1) / L;
-    const long long need =
-        m > kClMidMaxM ? cl_py_offset(G, m, L) + (long long)G * m * kPanel
-                       : (long long)G * (cl_lu_reals(m, L) +
-                                         (long long)m * (L + 1));
+    const long long need = (long long)G * cl_lu_reals(m, L);
     most = need > most ? need : most;
   }
   return most;
 }
 
-// Four reals of a row in global memory, read at L2 (another CTA wrote it).
-__device__ __forceinline__ Quad<float> ldcg_quad(const Quad<float>* p) {
-  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-  return {v.x, v.y, v.z, v.w};
-}
-__device__ __forceinline__ Quad<double> ldcg_quad(const Quad<double>* p) {
-  const double2 a = __ldcg(reinterpret_cast<const double2*>(p));
-  const double2 b = __ldcg(reinterpret_cast<const double2*>(p) + 1);
-  return {a.x, a.y, b.x, b.y};
-}
-
 // One level of transpose_sum16: lanes that differ in bit `kBit` swap the
 // halves of their first 2 kN sums, each keeping one half, summed.
-template <int kN, int kBit, typename T>
-__device__ __forceinline__ void halve_sums(T (&x)[kPanel], int lane) {
+template <int kN, int kBit, typename T, int kLen>
+__device__ __forceinline__ void halve_sums(T (&x)[kLen], int lane) {
   const bool up = lane & kBit;
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
@@ -1330,57 +1302,25 @@ __device__ __forceinline__ void cgs2_panel(T* bb, int ldb, int m, int c0,
   }
 }
 
-// cgs2_panel with as many rows a thread as m needs, up to kMaxRows.
-template <int kMaxRows, typename T>
+// cgs2_panel with as many rows a thread as m needs, up to kClCgsRowsSmem.
+template <typename T>
 __device__ __forceinline__ void cgs2_panel_rows(
     T* bb, int ldb, int m, int c0, int cl0, int pw,
     T (*red)[kClCgsWarps][kPanel]) {
-  static_assert(kMaxRows == kClCgsRowsSmem || kMaxRows == kClCgsRows ||
-                    kMaxRows == kClCgsRowsWide,
-                "one case a row count");
   const int rows = (m + 32 * kClCgsWarps - 1) / (32 * kClCgsWarps);
-  if constexpr (kMaxRows == kClCgsRowsSmem) {
-    switch (rows) {
-      case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
-      default: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
-    }
-  } else if constexpr (kMaxRows == kClCgsRowsWide) {
-    // m in (1024, 2048]: 9 to 16 rows; a row past m reads row m - 1 with a
-    // zero weight, so 12 rows serve m <= 1536 at the bits of any longer case
-    if (rows <= 12)
-      cgs2_panel<12>(bb, ldb, m, c0, cl0, pw, red);
-    else
-      cgs2_panel<16>(bb, ldb, m, c0, cl0, pw, red);
-  } else {
-    static_assert(kClCgsRows == 8, "one case a row count");
-    switch (rows) {
-      case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 5: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 6: cgs2_panel<6>(bb, ldb, m, c0, cl0, pw, red); break;
-      case 7: cgs2_panel<7>(bb, ldb, m, c0, cl0, pw, red); break;
-      default: cgs2_panel<8>(bb, ldb, m, c0, cl0, pw, red); break;
-    }
+  switch (rows) {
+    case 1: cgs2_panel<1>(bb, ldb, m, c0, cl0, pw, red); break;
+    case 2: cgs2_panel<2>(bb, ldb, m, c0, cl0, pw, red); break;
+    case 3: cgs2_panel<3>(bb, ldb, m, c0, cl0, pw, red); break;
+    case 4: cgs2_panel<4>(bb, ldb, m, c0, cl0, pw, red); break;
+    default: cgs2_panel<5>(bb, ldb, m, c0, cl0, pw, red); break;
   }
 }
 
 // Grid: batch x G CTAs of kClThreads, clusters of G along x (cluster b is
 // matrix b). L: lanes a CTA; lu_smem: the LU factors in shared memory,
-// else in `scratch` (batch x G x cl_lu_reals(m, L) reals). kIterSmem: the
-// iterate's columns in shared memory, for m <= 640 where they fit; else
-// (complex64 above m = 640, complex128 above 512) in `scratch` after every
-// CTA's LU factors, batch x G x m (L + 1) reals, read and written in the
-// same order (the same bits). kPanelGlobal (past kClMidMaxM, the iterate
-// in global memory): the pulled panel and the partials Q_r W_r also stay
-// in `scratch` (batch x G x m kPanel reals from cl_py_offset), which the
-// other ranks read at L2 after the same cluster barriers, and the in-panel
-// CGS2 takes up to kClCgsRowsWide rows a thread.
-template <typename T, bool kIterSmem, bool kPanelGlobal = false>
+// else in `scratch` (batch x G x cl_lu_reals(m, L) reals).
+template <typename T>
 __global__ void __launch_bounds__(kClThreads, 1)
     teig_cluster_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
                         const T* __restrict__ b0, T* __restrict__ w_out,
@@ -1397,9 +1337,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
   z_out += b * (size_t)m * m;
   const int j0 = rank * L;          // this CTA's first lane
   const int nl = min(L, m - j0);    // and its number of lanes
-  static_assert(!(kIterSmem && kPanelGlobal), "the panel follows the iterate");
-  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0, kIterSmem,
-                                    !kPanelGlobal);
+  const ClLayout lay = cl_layout<T>(m, L, lu_smem != 0);
   const int ldb = lay.ldb;
   extern __shared__ __align__(16) unsigned char csm_raw[];
   T* sm = reinterpret_cast<T*>(csm_raw);
@@ -1408,15 +1346,9 @@ __global__ void __launch_bounds__(kClThreads, 1)
   T* e2 = e + m;
   T* w = e2 + m;
   // bb[i * ldb + jl]: row i of lane j0 + jl
-  T* bb = kIterSmem ? sm + lay.bb
-                    : scratch + (size_t)gridDim.x * cl_lu_reals(m, L) +
-                          (b * G + rank) * (size_t)m * ldb;
+  T* bb = sm + lay.bb;
   T* W = sm + lay.W;    // (L, kPanel)
-  // (m, kPanel) the pulled panel, then Q_r W_r; rank s's at py_of(s)
-  T* const py_base = scratch + cl_py_offset(gridDim.x, m, L) +
-                     b * G * (size_t)m * kPanel;
-  auto py_of = [&](int s) { return py_base + (size_t)s * m * kPanel; };
-  T* PY = kPanelGlobal ? py_of(rank) : sm + lay.X;
+  T* PY = sm + lay.X;   // (m, kPanel) the pulled panel, then Q_r W_r
   T* du = lu_smem ? sm + lay.X
                   : scratch + (b * G + rank) * (size_t)cl_lu_reals(m, L);
   T* u1 = du + (size_t)m * L;
@@ -1680,14 +1612,9 @@ __global__ void __launch_bounds__(kClThreads, 1)
           Q4 v[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            if (s0 + k < nsrc) {
-              if constexpr (kPanelGlobal)
-                v[k] = ldcg_quad(reinterpret_cast<const Q4*>(py_of(s0 + k)) +
-                                 i * (kPanel / 4) + pg);
-              else
-                v[k] = reinterpret_cast<const Q4*>(cluster.map_shared_rank(
-                    PY, s0 + k))[i * (kPanel / 4) + pg];
-            }
+            if (s0 + k < nsrc)
+              v[k] = reinterpret_cast<const Q4*>(cluster.map_shared_rank(
+                  PY, s0 + k))[i * (kPanel / 4) + pg];
 #pragma unroll
           for (int k = 0; k < 4; ++k)
             if (s0 + k < nsrc) {
@@ -1712,10 +1639,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
         __syncthreads();
       }
       if (tid < 32 * kClCgsWarps)
-        cgs2_panel_rows<kIterSmem      ? kClCgsRowsSmem
-                        : kPanelGlobal ? kClCgsRowsWide
-                                       : kClCgsRows>(bb, ldb, m, c0, cl0, pw,
-                                                     red);
+        cgs2_panel_rows(bb, ldb, m, c0, cl0, pw, red);
     }
   }
   __syncthreads();
@@ -1725,6 +1649,733 @@ __global__ void __launch_bounds__(kClThreads, 1)
   }
   for (int jl = tid; jl < nl; jl += kClThreads) w_out[j0 + jl] = w[j0 + jl];
   cluster.sync();  // no CTA leaves while another may read its memory
+}
+
+// K3's card-wide route, teig_grid: the same function as teig_cluster_kernel
+// for the sizes whose iterate no cluster's shared memory holds (complex64
+// m > 640, complex128 m > 512), at any m that device memory holds, and for
+// the first `keep` eigenpairs only. The sweeps keep the top half (K4
+// reads `keep` columns), and the first keep columns do not depend on the
+// others: lane j's bisection reads lane j only, its shift only earlier
+// eigenvalues, and CGS2 column j projects only against final columns < j.
+// So keep = m / 2 does half the lanes and a quarter of the Gram-Schmidt.
+// The cluster kernel's global-iterate route that it replaces ran every
+// stage on one cluster of 16 SMs and spent 86-90% of its cycles in 128
+// serial panels of four cluster barriers and an in-panel CGS2 that
+// spilled and read L2 (tools/stage_clocks.py). Here the stages are
+// separate launches from one host loop that reads nothing back
+// (capturable in a CUDA graph), each as wide as its work:
+//   - tg_bisect_kernel: the keep lanes' multisection, a warp a lane (k =
+//     5: 6 Sturm sweeps for float's 30 rounds, 12 for double's 60), 8
+//     lanes a CTA over as many CTAs as keep needs; every CTA takes the
+//     Gershgorin bounds itself (min and max do not round, so any order
+//     gives the same bounds), and w is the plain version's bit for bit;
+//   - tg_invit_kernel: the shift and two rounds of inverse iteration, a
+//     thread a lane, a warp a CTA. The iterate lives in z itself (row i of
+//     lane j at z[i m + j], so a warp's accesses are coalesced), the LU
+//     factors, multipliers and swap bits in `scratch`; every pass over a
+//     column (the forward elimination, the backward solve, the
+//     normalisation) reads its operands through a ring in shared memory
+//     that cp.async fills a chunk of kTgChunk steps ahead (their addresses
+//     do not depend on the recurrence, so no step waits on L2 for them);
+//     the first round reads b0 in place, the second eliminates with the
+//     first round's multipliers and swaps (the LU depends on the shift
+//     alone: the same bits, and no division on its chain);
+//   - block CGS2 over blocks of kB columns in order. Each block P (the
+//     iterate's columns [c0, c0 + kB)) is projected twice against every
+//     earlier column Q = z[:, :c0] by card-wide products: W = Q^T P as
+//     partial sums over slabs of kTgSlab rows (tg_wpart_kernel, a CTA a
+//     slab and a tile of Q's columns), summed in slab order
+//     (tg_wsum_kernel), then P -= Q W (tg_update_kernel, a CTA a tile of
+//     rows, Q and W staged by cp.async a tile ahead). Then CGS2 inside the
+//     block (tg_inblock_kernel) on the block held in shared memory, its
+//     rows split over a cluster of G = ceil(m / kTgInRows) CTAs (more
+//     where a rank's rows would not fit a CTA; at most 16); each dot and
+//     norm is summed over the CTA's warps, exchanged through distributed
+//     shared memory and summed over the ranks in order, a block and a
+//     cluster barrier a reduction (double-buffered slots). Every sum has a
+//     fixed order whatever the grid, so a batch equals its P = 1 launches
+//     bit for bit;
+//   - the arithmetic is the plain version's: two passes against every
+//     earlier column, column 0 kept, the same floors, div_rn and the
+//     round-to-nearest intrinsics in the recurrences; products in exact
+//     float32 or float64 FMAs (no TF32). In double the products stay on
+//     DFMA (not DMMA): they are about a quarter of the time at keep = m / 2.
+// What bounds it: the in-block CGS2, three dependent reductions a column
+// (keep x 3 in all), each a block and a cluster barrier, then the lanes'
+// serial recurrences (the multisection's Sturm sweeps and the inverse
+// iteration's solves): tools/stage_clocks.py --kernels teig_grid gives
+// each stage's device time, and with --variants the tuning choices above
+// undone one at a time (128 rows and threads a rank against 256, the
+// fewest ranks that hold the block, 16 threads a lane, slabs of 128, one
+// Q column a thread in W).
+// A batch of P matrices is P on the grid's batch axis (y, z in
+// tg_wpart_kernel, clusters on x in tg_inblock_kernel).
+constexpr int kTgThreads = 256;      // tg_bisect_kernel (over every SM)
+constexpr int kTgLaneThreads = 32;   // its threads a lane: k = 5
+constexpr int kTgBisectLanes = kTgThreads / kTgLaneThreads;  // 8
+constexpr int kTgInvThreads = 32;    // tg_invit_kernel: lanes a CTA
+constexpr int kTgChunk = 16;         // its rows a cp.async group
+constexpr int kTgSlab = 64;          // rows of a W partial
+constexpr int kTgProdThreads = 256;  // tg_wpart_kernel, tg_wsum_kernel
+constexpr int kTgWCols = 2;          // its Q columns a thread in W
+constexpr int kTgUpdThreads = 128;   // tg_update_kernel
+constexpr int kTgUpdCols = 128;      // Q columns it stages at a time
+constexpr int kTgInThreads = 128;    // tg_inblock_kernel
+constexpr int kTgInWarps = kTgInThreads / 32;
+constexpr int kTgInRows = 128;       // rows a rank it aims at
+constexpr int kTgMaxCluster = 16;
+
+// d (and e, e2) of one matrix into shared memory, with the Gershgorin
+// bounds and their derived constants in sc: lo0, hi0, scale, pivmin
+// (teig_cluster_kernel's, from exact block-wide min and max).
+template <typename T, int kThreads>
+__device__ __forceinline__ void tg_load_bounds(const T* __restrict__ d_in,
+                                               const T* __restrict__ e_in,
+                                               int m, T* d, T* e, T* e2,
+                                               T* sc) {
+  __shared__ T red[2][kThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const T zero = 0;
+  T lo = T(INFINITY), hi = -T(INFINITY);
+  for (int i = tid; i < m; i += kThreads) {
+    const T di = d_in[i];
+    const T ei = i < m - 1 ? e_in[i] : zero;
+    const T el = i > 0 ? e_in[i - 1] : zero;
+    d[i] = di;
+    if (e) e[i] = ei;
+    if (e2) e2[i] = mul_rn(ei, ei);
+    const T rad = add_rn(abs_(ei), abs_(el));
+    lo = min_(lo, sub_rn(di, rad));
+    hi = max_(hi, add_rn(di, rad));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min_(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max_(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    red[0][tid >> 5] = lo;
+    red[1][tid >> 5] = hi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    T lo0 = red[0][0], hi0 = red[1][0];
+    for (int w = 1; w < kThreads / 32; ++w) {
+      lo0 = min_(lo0, red[0][w]);
+      hi0 = max_(hi0, red[1][w]);
+    }
+    const T scale = max_(max_(abs_(lo0), abs_(hi0)), Real<T>::kFloor);
+    const T p = mul_rn(Real<T>::kEps, scale);
+    sc[0] = lo0;
+    sc[1] = hi0;
+    sc[2] = scale;
+    sc[3] = max_(Real<T>::kPivFloor, mul_rn(p, p));
+  }
+  __syncthreads();
+}
+
+// Grid (ceil(keep / kTgBisectLanes), batch); dynamic shared memory 2 m
+// reals.
+template <typename T>
+__global__ void __launch_bounds__(kTgThreads)
+    tg_bisect_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
+                     T* __restrict__ w_out, int m, int keep,
+                     long long d_stride, long long e_stride) {
+  const size_t b = blockIdx.y;
+  extern __shared__ __align__(16) unsigned char tg_raw[];
+  T* d = reinterpret_cast<T*>(tg_raw);
+  T* e2 = d + m;
+  __shared__ T sc[4];
+  tg_load_bounds<T, kTgThreads>(d_in + b * (size_t)d_stride,
+                                e_in + b * (size_t)e_stride, m, d, nullptr,
+                                e2, sc);
+  const T pivmin = sc[3];
+  constexpr int k = 5;  // log2(kTgLaneThreads): points a sweep 2^k - 1
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int sub = tid % kTgLaneThreads;
+  const int base = lane & ~(kTgLaneThreads - 1);
+  const int j = blockIdx.x * kTgBisectLanes + tid / kTgLaneThreads;
+  const T target = (T)(m - 1 - min(j, keep - 1));
+  T lo = sc[0], hi = sc[1];
+  for (int r = 0; r < Real<T>::kRounds; r += k) {
+    const int kk = min(k, Real<T>::kRounds - r);
+    const T x = (sub >= 1 && sub < (1 << kk)) ? tree_point(lo, hi, sub)
+                                              : mid_rn(lo, hi);
+    const int cnt = sturm_count(d, e2, m, x, pivmin);
+    int node = 1;
+    for (int l = 0; l < kk; ++l) {
+      const int cn = __shfl_sync(0xffffffffu, cnt, base + node);
+      const T mid = mid_rn(lo, hi);
+      if ((T)cn > target) {
+        hi = mid;
+        node = 2 * node;
+      } else {
+        lo = mid;
+        node = 2 * node + 1;
+      }
+    }
+  }
+  if (sub == 0 && j < keep) w_out[b * (size_t)m + j] = mid_rn(lo, hi);
+}
+
+// The LU factors of a matrix in `scratch`: du, u1 and the multipliers ml
+// (m x keep each, lane fastest), then the swap bits (ceil(m / 32) words a
+// lane).
+__host__ __device__ inline long long tg_lu_reals(int m, int keep,
+                                                 int real_bytes) {
+  const long long words = (long long)((m + 31) / 32) * keep;
+  return 3LL * m * keep + (words * 4 + real_bytes - 1) / real_bytes;
+}
+
+// One real, global to shared, by cp.async (4 or 8 bytes).
+__device__ __forceinline__ void cp_async_real(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   adaptaqc::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_real(double* dst,
+                                              const double* src) {
+  cp_async8(dst, src);
+}
+
+// One 32-bit word, global to shared, by cp.async.
+__device__ __forceinline__ void cp_async_word(uint32_t* dst,
+                                              const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   adaptaqc::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// tg_invit_kernel's dynamic shared memory, in reals: d, e (m each), w
+// (keep), then its rings: three of reals and one of words, each two chunks
+// of kTgChunk steps x kTgInvThreads lanes.
+template <typename T>
+__host__ __device__ inline int tg_invit_smem_reals(int m, int keep) {
+  constexpr int kRing = 2 * kTgChunk * kTgInvThreads;
+  return round4(2 * m + keep) + 3 * kRing +
+         (kRing * 4 + (int)sizeof(T) - 1) / (int)sizeof(T);
+}
+
+// Grid (ceil(keep / kTgInvThreads), batch); dynamic shared memory
+// tg_invit_smem_reals.
+template <typename T>
+__global__ void __launch_bounds__(kTgInvThreads)
+    tg_invit_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
+                    const T* b0, const T* __restrict__ w_in, T* z,
+                    T* __restrict__ scratch, int m, int keep,
+                    long long d_stride, long long e_stride,
+                    long long scratch_stride) {
+  constexpr int kRing = 2 * kTgChunk * kTgInvThreads;
+  const size_t b = blockIdx.y;
+  extern __shared__ __align__(16) unsigned char tg_raw[];
+  T* d = reinterpret_cast<T*>(tg_raw);
+  T* e = d + m;
+  T* w = e + m;
+  T* ra = d + round4(2 * m + keep);  // [2][kTgChunk][kTgInvThreads] each
+  T* rb = ra + kRing;
+  T* rc = rb + kRing;
+  uint32_t* rs = reinterpret_cast<uint32_t*>(rc + kRing);
+  __shared__ T sc[4];
+  w_in += b * (size_t)m;
+  for (int l = threadIdx.x; l < keep; l += kTgInvThreads) w[l] = w_in[l];
+  tg_load_bounds<T, kTgInvThreads>(d_in + b * (size_t)d_stride,
+                                   e_in + b * (size_t)e_stride, m, d, e,
+                                   nullptr, sc);
+  const int lt = threadIdx.x;
+  const int j = blockIdx.x * kTgInvThreads + lt;
+  if (j >= keep) return;
+  const T hi0 = sc[1], scale = sc[2], pivmin = sc[3];
+  const T zero = 0;
+  z += b * (size_t)m * m;
+  T* du = scratch + b * (size_t)scratch_stride;
+  T* u1 = du + (size_t)m * keep;
+  T* ml = u1 + (size_t)m * keep;
+  uint32_t* swb = reinterpret_cast<uint32_t*>(ml + (size_t)m * keep);
+  const size_t ld = m;
+  auto slot = [&](int buf, int k) {
+    return (buf * kTgChunk + k) * kTgInvThreads + lt;
+  };
+  // rows first .. first + n - 1 of this lane's column of the row-major
+  // base (row stride m), in order, each to f(row, value), read a chunk
+  // ahead through ring ra
+  auto stream = [&](const T* base, int first, int n, auto&& f) {
+    auto issue = [&](int c, int buf) {
+#pragma unroll
+      for (int k = 0; k < kTgChunk; ++k)
+        cp_async_real(&ra[slot(buf, k)],
+                      base + (size_t)(first + min(c + k, n - 1)) * ld + j);
+      cp_async_commit();
+    };
+    issue(0, 0);
+    int buf = 0;
+    for (int c = 0; c < n; c += kTgChunk, buf ^= 1) {
+      if (c + kTgChunk < n) {
+        issue(c + kTgChunk, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+#pragma unroll
+      for (int k = 0; k < kTgChunk; ++k)
+        if (c + k < n) f(first + c + k, ra[slot(buf, k)]);
+    }
+  };
+  // shift lam_j = min_{l<=j} (w_l - (j-l) eps): coincident shifts split
+  const T eps = mul_rn(Real<T>::kEps, scale);
+  T lam = add_rn(hi0, scale);
+  for (int l = 0; l <= j; ++l)
+    lam = min_(lam, sub_rn(w[l], mul_rn((T)(j - l), eps)));
+  // the previous round's normalisation, applied as its rows are read: x /
+  // amax (where amax > 0), then times s
+  T amax = zero, s = T(1), dlast = zero;
+  for (int rep = 0; rep < 2; ++rep) {
+    const T* src = rep == 0 ? b0 : z;
+    auto fix = [&](T x) {
+      if (rep == 0) return x;
+      return mul_rn(amax > zero ? div_rn(x, amax) : x, s);
+    };
+    // round 0: the LU of T - lam I with the forward elimination of the
+    // iterate; round 1: the elimination with round 0's multipliers and
+    // swaps (the same factors: the LU depends on lam alone)
+    T carry = fix(src[j]);
+    if (rep == 1) {
+      auto issue = [&](int first, int buf) {
+#pragma unroll
+        for (int k = 0; k < kTgChunk; ++k) {
+          const int i = min(first + k, m - 2);
+          cp_async_real(&ra[slot(buf, k)], z + (i + 1) * ld + j);
+          cp_async_real(&rb[slot(buf, k)], ml + (size_t)i * keep + j);
+          cp_async_word(&rs[slot(buf, k)],
+                        swb + (size_t)(i >> 5) * keep + j);
+        }
+        cp_async_commit();
+      };
+      issue(0, 0);
+      int buf = 0;
+      for (int i0 = 0; i0 < m - 1; i0 += kTgChunk, buf ^= 1) {
+        if (i0 + kTgChunk < m - 1) {
+          issue(i0 + kTgChunk, buf ^ 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+#pragma unroll
+        for (int k = 0; k < kTgChunk; ++k) {
+          const int i = i0 + k;
+          if (i < m - 1) {
+            const int o = slot(buf, k);
+            const bool swap = (rs[o] >> (i & 31)) & 1u;
+            const T bi1 = fix(ra[o]);
+            const T bt = swap ? bi1 : carry;
+            const T bo = swap ? carry : bi1;
+            z[i * ld + j] = bt;
+            carry = sub_rn(bo, mul_rn(rb[o], bt));
+          }
+        }
+      }
+    }
+    T a_i = sub_rn(d[0], lam), s1_i = e[0];
+    uint32_t bits = 0;
+    if (rep == 0) stream(src, 1, m - 1, [&](int r, T x) {
+      const int i = r - 1;
+      const T a_next = sub_rn(d[i + 1], lam);
+      const T s1_next = e[i + 1];
+      const T r2 = e[i];
+      const bool swap = abs_(r2) > abs_(a_i);
+      const T top0 = guard(swap ? r2 : a_i, pivmin);
+      const T top1 = swap ? a_next : s1_i;
+      const T top2 = swap ? s1_next : zero;
+      const T bot0 = swap ? a_i : r2;
+      const T bot1 = swap ? s1_i : a_next;
+      const T bot2 = swap ? zero : s1_next;
+      const T mlt = div_rn(bot0, top0);
+      du[(size_t)i * keep + j] = top0;
+      u1[(size_t)i * keep + j] = top1;
+      ml[(size_t)i * keep + j] = mlt;
+      bits |= (swap ? 1u : 0u) << (i & 31);
+      if ((i & 31) == 31 || i == m - 2) {
+        swb[(size_t)(i >> 5) * keep + j] = bits;
+        bits = 0;
+      }
+      a_i = sub_rn(bot1, mul_rn(mlt, top1));
+      s1_i = sub_rn(bot2, mul_rn(mlt, top2));
+      const T bi1 = fix(x);
+      const T bt = swap ? bi1 : carry;
+      const T bo = swap ? carry : bi1;
+      z[i * ld + j] = bt;
+      carry = sub_rn(bo, mul_rn(mlt, bt));
+    });
+    __threadfence_block();  // this lane's stores before its cp.async reads
+    // the backward solve, its factors, swap words and rows a chunk ahead
+    if (rep == 0) dlast = guard(a_i, pivmin);
+    T x2 = div_rn(carry, dlast);
+    z[(m - 1) * ld + j] = x2;
+    T x1 = div_rn(sub_rn(z[(m - 2) * ld + j],
+                         mul_rn(u1[(size_t)(m - 2) * keep + j], x2)),
+                  du[(size_t)(m - 2) * keep + j]);
+    z[(m - 2) * ld + j] = x1;
+    amax = max_(abs_(x2), abs_(x1));
+    auto issue = [&](int top, int buf) {
+#pragma unroll
+      for (int k = 0; k < kTgChunk; ++k) {
+        const int i = max(top - k, 0);
+        cp_async_real(&ra[slot(buf, k)], du + (size_t)i * keep + j);
+        cp_async_real(&rb[slot(buf, k)], u1 + (size_t)i * keep + j);
+        cp_async_real(&rc[slot(buf, k)], z + i * ld + j);
+        cp_async_word(&rs[slot(buf, k)], swb + (size_t)(i >> 5) * keep + j);
+      }
+      cp_async_commit();
+    };
+    issue(m - 3, 0);
+    int buf = 0;
+    for (int i0 = m - 3; i0 >= 0; i0 -= kTgChunk, buf ^= 1) {
+      if (i0 - kTgChunk >= 0) {
+        issue(i0 - kTgChunk, buf ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+#pragma unroll
+      for (int k = 0; k < kTgChunk; ++k) {
+        const int i = i0 - k;
+        if (i >= 0) {
+          const int o = slot(buf, k);
+          const T u2 = ((rs[o] >> (i & 31)) & 1u) ? e[i + 1] : zero;
+          const T t = sub_rn(sub_rn(rc[o], mul_rn(rb[o], x1)),
+                             mul_rn(u2, x2));
+          const T xi = div_rn(t, ra[o]);
+          z[i * ld + j] = xi;
+          amax = max_(amax, abs_(xi));
+          x2 = x1;
+          x1 = xi;
+        }
+      }
+    }
+    __threadfence_block();
+    // scale by the max-abs first (a nearly singular shift leaves |x| ~
+    // 1 / pivmin^2, whose square overflows), then to unit norm; the sum of
+    // squares in row order
+    T nrm2 = zero;
+    stream(z, 0, m, [&](int, T x) {
+      const T q = amax > zero ? div_rn(x, amax) : x;
+      nrm2 = add_rn(nrm2, mul_rn(q, q));
+    });
+    s = rsqrt_rn(max_(nrm2, Real<T>::kFloor));
+  }
+  stream(z, 0, m, [&](int i, T x) {
+    z[i * ld + j] = mul_rn(amax > zero ? div_rn(x, amax) : x, s);
+  });
+}
+
+// The block's partial W = Q^T P over one slab of kTgSlab rows: grid
+// (ceil(c0 / kTC), ceil(m / kTgSlab), batch); thread (columns ct + k kCT,
+// quad) sums its kTgWCols x 4 entries over the slab's rows in order (a
+// wider tile of Q reads P fewer times). Partial s of a matrix at wp + s
+// c0 kB, W[c][p] at [c kB + p]. Dynamic shared memory: the slab's Q tile
+// and P, kTgSlab (kTC + kB) reals.
+template <typename T, int kB>
+__global__ void __launch_bounds__(kTgProdThreads)
+    tg_wpart_kernel(const T* __restrict__ z, T* __restrict__ scratch, int m,
+                    int c0, int pw, long long scratch_stride) {
+  constexpr int kQ = kB / 4;
+  constexpr int kCT = kTgProdThreads / kQ;
+  constexpr int kW = kTgWCols;
+  constexpr int kTC = kCT * kW;
+  using Q4 = Quad<T>;
+  const size_t b = blockIdx.z;
+  z += b * (size_t)m * m;
+  T* wp = scratch + b * (size_t)scratch_stride;
+  extern __shared__ __align__(16) unsigned char tg_raw[];
+  T* Qs = reinterpret_cast<T*>(tg_raw);      // [kTgSlab][kTC]
+  T* Ps = Qs + kTgSlab * kTC;                 // [kTgSlab][kB]
+  const int tid = threadIdx.x;
+  const int s = blockIdx.y, r0 = s * kTgSlab, nr = min(kTgSlab, m - r0);
+  const int cb = blockIdx.x * kTC;
+  const T zero = 0;
+  for (int idx = tid; idx < nr * kTC; idx += kTgProdThreads) {
+    const int i = idx / kTC, c = idx - i * kTC;
+    Qs[idx] = cb + c < c0 ? z[(size_t)(r0 + i) * m + cb + c] : zero;
+  }
+  for (int idx = tid; idx < nr * kB; idx += kTgProdThreads) {
+    const int i = idx / kB, p = idx - i * kB;
+    Ps[idx] = p < pw ? z[(size_t)(r0 + i) * m + c0 + p] : zero;
+  }
+  __syncthreads();
+  const int ct = tid / kQ, pq = tid - ct * kQ;
+  const Q4* P4 = reinterpret_cast<const Q4*>(Ps);
+  Q4 acc[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) acc[k] = {zero, zero, zero, zero};
+  for (int i = 0; i < nr; ++i) {
+    const Q4 pv = P4[i * kQ + pq];
+#pragma unroll
+    for (int k = 0; k < kW; ++k) {
+      const T q = Qs[i * kTC + ct + k * kCT];
+      acc[k].x = fma_(q, pv.x, acc[k].x);
+      acc[k].y = fma_(q, pv.y, acc[k].y);
+      acc[k].z = fma_(q, pv.z, acc[k].z);
+      acc[k].w = fma_(q, pv.w, acc[k].w);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    const int c = ct + k * kCT;
+    if (cb + c < c0)
+      reinterpret_cast<Q4*>(wp)[((size_t)s * c0 + cb + c) * kQ + pq] =
+          acc[k];
+  }
+}
+
+// W = the slab partials summed in slab order, into wp + wofs: grid
+// (ceil(c0 kB / 4 / kTgProdThreads), batch), a thread a quad.
+template <typename T, int kB>
+__global__ void __launch_bounds__(kTgProdThreads)
+    tg_wsum_kernel(T* __restrict__ scratch, int c0, int slabs, long long wofs,
+                   long long scratch_stride) {
+  using Q4 = Quad<T>;
+  const size_t b = blockIdx.y;
+  const Q4* wp = reinterpret_cast<const Q4*>(scratch + b * scratch_stride);
+  Q4* W = reinterpret_cast<Q4*>(scratch + b * scratch_stride + wofs);
+  const size_t n = (size_t)c0 * (kB / 4);
+  const size_t idx = (size_t)blockIdx.x * kTgProdThreads + threadIdx.x;
+  if (idx >= n) return;
+  Q4 acc = wp[idx];
+  for (int s = 1; s < slabs; ++s) {
+    const Q4 v = wp[s * n + idx];
+    acc.x = add_rn(acc.x, v.x);
+    acc.y = add_rn(acc.y, v.y);
+    acc.z = add_rn(acc.z, v.z);
+    acc.w = add_rn(acc.w, v.w);
+  }
+  W[idx] = acc;
+}
+
+template <typename T, int kB>
+constexpr size_t tg_update_smem_bytes() {
+  constexpr int kTR = kTgUpdThreads / (kB / 4);
+  return (round4(2 * kTR * (kTgUpdCols + 1)) + 2 * kTgUpdCols * kB) *
+         sizeof(T);
+}
+
+// P -= Q W on a tile of rows: grid (ceil(m / kTR), batch); thread (row,
+// quad) sums Q[i][c] W[c][p] over c in order and subtracts the sum from P.
+// kTgUpdCols columns of Q and rows of W at a time go to shared memory by
+// cp.async, the next ones in flight while the current ones are used.
+template <typename T, int kB>
+__global__ void __launch_bounds__(kTgUpdThreads)
+    tg_update_kernel(T* __restrict__ z, const T* __restrict__ scratch, int m,
+                     int c0, int pw, long long wofs,
+                     long long scratch_stride) {
+  constexpr int kQ = kB / 4;
+  constexpr int kTR = kTgUpdThreads / kQ;
+  constexpr int kCC = kTgUpdCols;
+  using Q4 = Quad<T>;
+  const size_t b = blockIdx.y;
+  z += b * (size_t)m * m;
+  const T* W = scratch + b * (size_t)scratch_stride + wofs;
+  extern __shared__ __align__(16) unsigned char tg_raw[];
+  // Qs[2][kTR][kCC + 1], then Ws[2][kCC][kB] (tg_update_smem_bytes)
+  auto Qs = reinterpret_cast<T(*)[kTR][kCC + 1]>(tg_raw);
+  auto Ws = reinterpret_cast<T(*)[kCC][kB]>(
+      tg_raw + round4(2 * kTR * (kCC + 1)) * sizeof(T));
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kTR;
+  const int row = tid / kQ, pq = tid - row * kQ;
+  const T zero = 0;
+  auto stage = [&](int buf, int cc) {
+    for (int idx = tid; idx < kTR * kCC; idx += kTgUpdThreads) {
+      const int r = idx / kCC, c = idx - r * kCC;
+      if (r0 + r < m && cc + c < c0)
+        cp_async_real(&Qs[buf][r][c], z + (size_t)(r0 + r) * m + cc + c);
+      else
+        Qs[buf][r][c] = zero;
+    }
+    constexpr int kChunks = kB * (int)sizeof(T) / 16;  // of a W row
+    for (int idx = tid; idx < kCC * kChunks; idx += kTgUpdThreads) {
+      const int c = idx / kChunks, k = idx - c * kChunks;
+      T* dst = &Ws[buf][c][k * 16 / (int)sizeof(T)];
+      if (cc + c < c0) {
+        cp_async16(dst, W + (size_t)(cc + c) * kB + k * 16 / sizeof(T));
+      } else {
+#pragma unroll
+        for (int l = 0; l < 16 / (int)sizeof(T); ++l) dst[l] = zero;
+      }
+    }
+    cp_async_commit();
+  };
+  Q4 acc = {zero, zero, zero, zero};
+  int buf = 0;
+  if (c0 > 0) stage(0, 0);
+  for (int cc = 0; cc < c0; cc += kCC) {
+    if (cc + kCC < c0) {
+      stage(buf ^ 1, cc + kCC);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int c = 0; c < kCC; ++c) {
+      const T q = Qs[buf][row][c];
+      const Q4 wv = reinterpret_cast<const Q4*>(Ws[buf][c])[pq];
+      acc.x = fma_(q, wv.x, acc.x);
+      acc.y = fma_(q, wv.y, acc.y);
+      acc.z = fma_(q, wv.z, acc.z);
+      acc.w = fma_(q, wv.w, acc.w);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+  const int i = r0 + row;
+  if (i >= m) return;
+  T* prow = z + (size_t)i * m + c0 + 4 * pq;
+  const T sub4[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (4 * pq + k < pw) prow[k] = sub_rn(prow[k], sub4[k]);
+}
+
+// The 32 sums x[q] over a warp at once (transpose_sum16's levels, one
+// more): afterwards x[0] of lane q is the sum of x[q].
+template <typename T>
+__device__ __forceinline__ void transpose_sum32(T (&x)[32], int lane) {
+  halve_sums<16, 16>(x, lane);
+  halve_sums<8, 8>(x, lane);
+  halve_sums<4, 4>(x, lane);
+  halve_sums<2, 2>(x, lane);
+  halve_sums<1, 1>(x, lane);
+}
+
+// The in-block kernel's dynamic shared memory, in reals: the reduction
+// slots [2][G][kB], then the block's rows, R x (kB + 16 bytes).
+template <typename T, int kB>
+__host__ __device__ constexpr int tg_in_ld() {
+  return kB + 16 / (int)sizeof(T);
+}
+template <typename T, int kB>
+__host__ __device__ inline long long tg_in_smem_reals(int G, int R) {
+  return round4(2 * G * kB) + (long long)R * tg_in_ld<T, kB>();
+}
+
+// CGS2 inside the block of columns [c0, c0 + pw): grid batch x G, clusters
+// of G on x; rank r holds rows [r R, r R + R) of the block in shared memory
+// (16-byte rows padded by 16 bytes: a warp's rows fall on distinct banks).
+// Each thread keeps its rows (t, t + kTgInThreads, ...) for the whole
+// kernel. A pass reads only the columns before p, by groups of 8 behind a
+// branch that is uniform over the CTA; its dots are summed over the
+// thread's rows in order, over each warp by transpose_sum32, over the
+// CTA's warps in order, then over the ranks in order from the slots that
+// each rank posts into every rank (one block and one cluster barrier a
+// reduction).
+template <typename T, int kB>
+__global__ void __launch_bounds__(kTgInThreads, 1)
+    tg_inblock_kernel(T* __restrict__ z, int m, int c0, int pw, int R) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const size_t b = blockIdx.x / G;
+  z += b * (size_t)m * m;
+  constexpr int kLd = tg_in_ld<T, kB>();
+  constexpr int kGroups = kB / 8;
+  using Q4 = Quad<T>;
+  extern __shared__ __align__(16) unsigned char tg_raw[];
+  T* slot = reinterpret_cast<T*>(tg_raw);
+  T* blk = slot + round4(2 * G * kB);
+  const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
+  const int r0 = rank * R, nr = max(0, min(R, m - r0));
+  const T zero = 0;
+  for (int idx = tid; idx < nr * kB; idx += kTgInThreads) {
+    const int i = idx / kB, p = idx - i * kB;
+    blk[i * kLd + p] = p < pw ? z[(size_t)(r0 + i) * m + c0 + p] : zero;
+  }
+  cluster.sync();  // the rows are in place, and every rank has started
+  static_assert(kB == 32, "a dot a lane");
+  __shared__ T red[2][kTgInWarps][kB];
+  int buf = 0;
+  // this warp's sum for dot `lane` (x): summed over the CTA's warps in order,
+  // posted into every rank's slots (warp s to rank s, s + kTgInWarps, ..),
+  // one cluster barrier, then summed over the ranks in order. The slots
+  // and red are double-buffered: a rank
+  // posts reduction n + 2 only after the barrier of n + 1, which every rank
+  // passes after reading reduction n's slots.
+  auto reduce = [&](T x) {
+    red[buf][wp][lane] = x;
+    __syncthreads();
+    T cta = red[buf][0][lane];
+#pragma unroll
+    for (int w = 1; w < kTgInWarps; ++w) cta += red[buf][w][lane];
+    for (int s = wp; s < G; s += kTgInWarps)
+      cluster.map_shared_rank(slot, s)[(buf * G + rank) * kB + lane] = cta;
+    cluster.sync();
+    T tot = slot[buf * G * kB + lane];
+#pragma unroll 4
+    for (int s = 1; s < G; ++s) tot += slot[(buf * G + s) * kB + lane];
+    buf ^= 1;
+    return tot;
+  };
+  for (int p = 0; p < pw; ++p) {
+    if (c0 + p == 0) continue;  // column 0 keeps its iterate
+    for (int pass = 0; p > 0 && pass < 2; ++pass) {
+      T part[kB];
+#pragma unroll
+      for (int q = 0; q < kB; ++q) part[q] = zero;
+      for (int i = tid; i < nr; i += kTgInThreads) {
+        const T* row = blk + i * kLd;
+        const Q4* row4 = reinterpret_cast<const Q4*>(row);
+        const T vi = row[p];
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          if (8 * g < p) {
+            const Q4 a = row4[2 * g], c = row4[2 * g + 1];
+            const T x[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              part[8 * g + k] = fma_(x[k], vi, part[8 * g + k]);
+          }
+        }
+      }
+      transpose_sum32(part, lane);
+      const T dots = reduce(part[0]);
+      T neg[kB];
+#pragma unroll
+      for (int q = 0; q < kB; ++q) {
+        const T dq = __shfl_sync(0xffffffffu, dots, q);
+        neg[q] = q < p ? -dq : zero;
+      }
+      for (int i = tid; i < nr; i += kTgInThreads) {
+        T* row = blk + i * kLd;
+        const Q4* row4 = reinterpret_cast<const Q4*>(row);
+        T vi = row[p];
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          if (8 * g < p) {
+            const Q4 a = row4[2 * g], c = row4[2 * g + 1];
+            const T x[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+            for (int k = 0; k < 8; ++k) vi = fma_(neg[8 * g + k], x[k], vi);
+          }
+        }
+        row[p] = vi;
+      }
+    }
+    T sq = zero;
+    for (int i = tid; i < nr; i += kTgInThreads) {
+      const T vi = blk[i * kLd + p];
+      sq = fma_(vi, vi, sq);
+    }
+    sq = warp_sum(sq);
+    const T tot = __shfl_sync(0xffffffffu, reduce(sq), 0);
+    const T scl = rsqrt_rn(max_(tot, Real<T>::kFloor));
+    for (int i = tid; i < nr; i += kTgInThreads) blk[i * kLd + p] *= scl;
+  }
+  for (int idx = tid; idx < nr * pw; idx += kTgInThreads) {
+    const int i = idx / pw, p = idx - i * pw;
+    z[(size_t)(r0 + i) * m + c0 + p] = blk[i * kLd + p];
+  }
+  cluster.sync();  // no CTA leaves while another may still post to it
 }
 
 // K2's wide variant: tridiag_kernel's Householder steps on a thread-block
@@ -2128,26 +2779,26 @@ __global__ void __launch_bounds__(kClThreads, 1)
 
 // The wide variants' launches for real type T: m in [lo, hi], batch
 // matrices; `work` (tridiag: batch x m x m complex) and `scratch` (teig:
-// batch x teig_wide_scratch_reals(m) reals) are the caller's, as every
-// output.
-// K3's wide launch plan for m and real type T: the cluster size G, the
-// lanes a CTA L (a multiple of kPanel), whether the iterate's columns and
-// the LU factors fit in shared memory, and the dynamic shared memory a
-// CTA. G = ceil(m / 32) CTAs where that is at most 8 or a cluster of 16
-// fits on the card (non-portable size, cudaOccupancyMaxActiveClusters),
-// else 8 with longer lanes; with the iterate in shared memory where any
-// cluster size takes it and m <= 640, else in global memory. Returns a
-// plan with G = 0 (and sets *err) if nothing launches.
+// batch x teig_wide_scratch(m) reals) are the caller's, as every output.
+// K3's cluster plan for m and real type T: the cluster size G, the lanes a
+// CTA L (a multiple of kPanel), whether the LU factors fit in shared
+// memory, and the dynamic shared memory a CTA. G = ceil(m / 32) CTAs where
+// that is at most 8 or a cluster of 16 fits on the card (non-portable
+// size, cudaOccupancyMaxActiveClusters), else 8 with longer lanes; only
+// where the iterate's columns fit in shared memory and m <= kClMaxM. Returns
+// a plan with G = 0 (and sets *err) where the cluster route does not take
+// m: teig_grid takes it.
 struct TeigPlan {
-  int G, L, lu_smem, iter_smem;
+  int G, L, lu_smem;
   size_t smem;
 };
 
 cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int grid, int G,
-                                  size_t smem, cudaStream_t stream) {
+                                  size_t smem, cudaStream_t stream,
+                                  int threads = kClThreads) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid, 1, 1);
-  cfg.blockDim = dim3(kClThreads, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -2159,75 +2810,202 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int grid, int G,
   return cfg;
 }
 
-// The instantiation of K3's wide kernel for the plan's iterate route.
-template <typename T>
-using TeigKernel = void (*)(const T*, const T*, const T*, T*, T*, T*, int,
-                            int, int, long long, long long);
-template <typename T>
-TeigKernel<T> teig_kernel_for(bool iter_smem, int m) {
-  return iter_smem           ? teig_cluster_kernel<T, true>
-         : m <= kClMidMaxM ? teig_cluster_kernel<T, false>
-                           : teig_cluster_kernel<T, false, true>;
-}
-
 template <typename T>
 TeigPlan teig_plan(int m, cudaError_t* err) {
-  static TeigPlan cached[kWideMaxM + 1] = {};
+  static TeigPlan cached[kClMaxM + 1] = {};
+  *err = cudaErrorInvalidConfiguration;
+  if (m > kClMaxM) return TeigPlan{};
   if (cached[m].G) return cached[m];
   int dev = 0, optin = 0;
+  const void* fn = (const void*)teig_cluster_kernel<T>;
+  cudaFuncAttributes fa;
   if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
       (*err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
+      (*err = cudaFuncSetAttribute(
+           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
           cudaSuccess)
     return TeigPlan{};
-  for (const bool iter_smem : {true, false}) {
-    const TeigKernel<T> fn = teig_kernel_for<T>(iter_smem, m);
-    const bool py_smem = iter_smem || m <= kClMidMaxM;
-    cudaFuncAttributes fa;
-    if ((*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
-        (*err = cudaFuncSetAttribute(
-             fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
-            cudaSuccess)
+  const size_t budget = (size_t)optin - fa.sharedSizeBytes;
+  for (int cap : {kClMaxCluster, 8}) {
+    const int L = cl_lanes(m, cap);
+    TeigPlan pl;
+    pl.L = L;
+    pl.G = (m + L - 1) / L;
+    pl.lu_smem =
+        (size_t)cl_layout<T>(m, L, true).total * sizeof(T) <= budget;
+    pl.smem = (size_t)cl_layout<T>(m, L, pl.lu_smem).total * sizeof(T);
+    if (pl.smem > budget) continue;
+    if ((*err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)pl.smem)) != cudaSuccess)
       return TeigPlan{};
-    const size_t budget = (size_t)optin - fa.sharedSizeBytes;
-    for (int cap : {kClMaxCluster, 8}) {
-      const int L = cl_lanes(m, cap);
-      TeigPlan pl;
-      pl.L = L;
-      pl.G = (m + L - 1) / L;
-      pl.iter_smem = iter_smem;
-      pl.lu_smem =
-          (size_t)cl_layout<T>(m, L, true, iter_smem, py_smem).total *
-              sizeof(T) <=
-          budget;
-      pl.smem =
-          (size_t)cl_layout<T>(m, L, pl.lu_smem, iter_smem, py_smem).total *
-          sizeof(T);
-      if (pl.smem > budget ||
-          (iter_smem && m > 32 * kClCgsWarps * kClCgsRowsSmem))
-        continue;
-      if ((*err = cudaFuncSetAttribute(
-               fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-               (int)pl.smem)) != cudaSuccess)
-        return TeigPlan{};
-      if (pl.G <= 8) {
-        cached[m] = pl;
-        return pl;
-      }
-      cudaLaunchAttribute attr[1];
-      cudaLaunchConfig_t cfg = cluster_config(attr, pl.G, pl.G, pl.smem, 0);
-      int clusters = 0;
-      if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) ==
-              cudaSuccess &&
-          clusters >= 1) {
-        cached[m] = pl;
-        return pl;
-      }
-      cudaGetLastError();  // a refused query is not an error of the launch
+    if (pl.G <= 8) {
+      cached[m] = pl;
+      return pl;
     }
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg = cluster_config(attr, pl.G, pl.G, pl.smem, 0);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess &&
+        clusters >= 1) {
+      cached[m] = pl;
+      return pl;
+    }
+    cudaGetLastError();  // a refused query is not an error of the launch
   }
   *err = cudaErrorInvalidConfiguration;
   return TeigPlan{};
+}
+
+// teig_grid's plan for m and real type T: its block width kB, the CTAs G of
+// the in-block kernel's cluster (the fewest whose shared memory holds the
+// block's m rows, at most kTgMaxCluster, checked to fit on the card past
+// 8), the rows a rank R = ceil(m / G), the W partials' slabs and the
+// in-block kernel's dynamic shared memory. Any m whose block fits in a
+// cluster of 16 (over 20,000 rows in double) has a plan. G = 0 (and *err
+// set) where none launches.
+constexpr int kTgBlock = 32;  // columns a block of the BCGS2
+struct TgPlan {
+  int kB, G, R, slabs;
+  size_t smem_in;
+};
+
+template <typename T, int kB>
+TgPlan tg_plan_for(int m, cudaError_t* err) {
+  int dev = 0, optin = 0;
+  const void* fn = (const void*)tg_inblock_kernel<T, kB>;
+  cudaFuncAttributes fa;
+  if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (*err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+          cudaSuccess ||
+      (*err = cudaFuncGetAttributes(&fa, fn)) != cudaSuccess ||
+      (*err = cudaFuncSetAttribute(
+           fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return TgPlan{};
+  // the bisection's and the inverse iteration's d, e and w, at keep = m
+  if ((size_t)tg_invit_smem_reals<T>(m, m) * sizeof(T) > (size_t)optin) {
+    *err = cudaErrorInvalidConfiguration;
+    return TgPlan{};
+  }
+  const size_t budget = (size_t)optin - fa.sharedSizeBytes;
+  // at least ceil(m / kTgInRows) CTAs: the column loop's shared-memory
+  // reads, and its rows a thread, spread over more SMs
+  for (int G = min((m + kTgInRows - 1) / kTgInRows, kTgMaxCluster);
+       G <= kTgMaxCluster; ++G) {
+    TgPlan pl;
+    pl.kB = kB;
+    pl.G = G;
+    pl.R = (m + G - 1) / G;
+    pl.slabs = (m + kTgSlab - 1) / kTgSlab;
+    pl.smem_in = (size_t)tg_in_smem_reals<T, kB>(G, pl.R) * sizeof(T);
+    if (pl.smem_in > budget) continue;
+    if ((*err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)pl.smem_in)) != cudaSuccess)
+      return TgPlan{};
+    if (G <= 8) return pl;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg =
+        cluster_config(attr, G, G, pl.smem_in, 0, kTgInThreads);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess &&
+        clusters >= 1)
+      return pl;
+    cudaGetLastError();  // a refused query is not an error of the launch
+  }
+  *err = cudaErrorInvalidConfiguration;
+  return TgPlan{};
+}
+
+template <typename T>
+TgPlan tg_plan(int m, cudaError_t* err) {
+  static std::unordered_map<int, TgPlan> cached;
+  const auto it = cached.find(m);
+  if (it != cached.end()) return it->second;
+  const TgPlan pl = tg_plan_for<T, kTgBlock>(m, err);
+  if (pl.G) cached[m] = pl;
+  return pl;
+}
+
+// teig_grid's scratch a matrix, in reals of real_bytes: the LU factors
+// during the inverse iteration, then, over them, the W partials (slabs x
+// keep x kB) and W (keep x kB) from wofs.
+__host__ __device__ inline long long tg_wofs(int m, int keep, int kB) {
+  return ((long long)((m + kTgSlab - 1) / kTgSlab) * keep * kB + 3) & ~3LL;
+}
+inline long long tg_scratch_reals(int m, int keep, int kB, int real_bytes) {
+  const long long lu = tg_lu_reals(m, keep, real_bytes);
+  const long long prod = tg_wofs(m, keep, kB) + (long long)keep * kB;
+  return lu > prod ? lu : prod;
+}
+
+template <typename T, int kB>
+int tg_run(const T* d, const T* e, const T* b0, T* w, T* z, T* scratch,
+           int m, int keep, int batch, long long d_stride,
+           long long e_stride, long long scratch_stride, const TgPlan& pl,
+           cudaStream_t st) {
+  constexpr int kQ = kB / 4;
+  constexpr int kTC = kTgProdThreads / kQ * kTgWCols;
+  constexpr int kTR = kTgUpdThreads / kQ;
+  const size_t sm_bisect = 2 * (size_t)m * sizeof(T);
+  const size_t sm_invit = (size_t)tg_invit_smem_reals<T>(m, keep) * sizeof(T);
+  const size_t sm_update = tg_update_smem_bytes<T, kB>();
+  const size_t sm_wpart = (size_t)kTgSlab * (kTC + kB) * sizeof(T);
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      tg_bisect_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm_bisect));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      tg_invit_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm_invit));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      tg_wpart_kernel<T, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm_wpart));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      tg_update_kernel<T, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm_update));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      tg_inblock_kernel<T, kB>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+      1));
+  ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
+      tg_inblock_kernel<T, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pl.smem_in));
+  tg_bisect_kernel<T>
+      <<<dim3((keep + kTgBisectLanes - 1) / kTgBisectLanes, batch),
+         kTgThreads, sm_bisect, st>>>(d, e, w, m, keep, d_stride, e_stride);
+  ADAPTAQC_RETURN_IF_ERR(cudaGetLastError());
+  tg_invit_kernel<T>
+      <<<dim3((keep + kTgInvThreads - 1) / kTgInvThreads, batch),
+         kTgInvThreads, sm_invit, st>>>(d, e, b0, w, z, scratch, m, keep,
+                                        d_stride, e_stride, scratch_stride);
+  ADAPTAQC_RETURN_IF_ERR(cudaGetLastError());
+  const long long wofs = tg_wofs(m, keep, kB);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      attr, batch * pl.G, pl.G, pl.smem_in, st, kTgInThreads);
+  for (int c0 = 0; c0 < keep; c0 += kB) {
+    const int pw = min(kB, keep - c0);
+    for (int pass = 0; c0 > 0 && pass < 2; ++pass) {
+      tg_wpart_kernel<T, kB>
+          <<<dim3((c0 + kTC - 1) / kTC, pl.slabs, batch), kTgProdThreads,
+             sm_wpart, st>>>(z, scratch, m, c0, pw, scratch_stride);
+      tg_wsum_kernel<T, kB>
+          <<<dim3((c0 * kQ + kTgProdThreads - 1) / kTgProdThreads, batch),
+             kTgProdThreads, 0, st>>>(scratch, c0, pl.slabs, wofs,
+                                      scratch_stride);
+      tg_update_kernel<T, kB>
+          <<<dim3((m + kTR - 1) / kTR, batch), kTgUpdThreads, sm_update,
+             st>>>(
+              z, scratch, m, c0, pw, wofs, scratch_stride);
+    }
+    ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, tg_inblock_kernel<T, kB>,
+                                              z, m, c0, pw, pl.R));
+  }
+  return (int)cudaGetLastError();
 }
 
 // K2's wide launch plan for m and real type T: the cluster size G, the
@@ -2319,17 +3097,29 @@ int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
   return (int)cudaGetLastError();
 }
 
+// K3's wide variant: the cluster route where its plan takes m (every CTA's
+// columns of the iterate in shared memory; it computes all m eigenpairs),
+// else teig_grid (the first `keep`). Either way w (batch x m) and z (batch x
+// m x m, row stride m) hold the first keep eigenpairs.
 template <typename T>
 int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
-                  void* z, void* scratch, int m, int batch,
-                  long long d_stride, long long e_stride, void* stream,
-                  int lo, int hi) {
-  if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
+                  void* z, void* scratch, int m, int keep, int batch,
+                  long long d_stride, long long e_stride,
+                  long long scratch_stride, void* stream, int lo) {
+  if (m < lo || keep < 1 || keep > m || batch < 1 || batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   const TeigPlan pl = teig_plan<T>(m, &err);
-  if (pl.G == 0) return (int)err;
-  const TeigKernel<T> fn = teig_kernel_for<T>(pl.iter_smem, m);
+  if (pl.G == 0) {
+    const TgPlan tg = tg_plan<T>(m, &err);
+    if (tg.G == 0) return (int)err;
+    if (scratch_stride < tg_scratch_reals(m, keep, tg.kB, sizeof(T)))
+      return (int)cudaErrorInvalidValue;
+    return tg_run<T, kTgBlock>((const T*)d, (const T*)e, (const T*)b0, (T*)w,
+                         (T*)z, (T*)scratch, m, keep, batch, d_stride,
+                         e_stride, scratch_stride, tg, (cudaStream_t)stream);
+  }
+  const void* fn = (const void*)teig_cluster_kernel<T>;
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
@@ -2338,8 +3128,8 @@ int teig_wide_run(const void* d, const void* e, const void* b0, void* w,
   cudaLaunchConfig_t cfg = cluster_config(attr, batch * pl.G, pl.G, pl.smem,
                                           (cudaStream_t)stream);
   ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
-      &cfg, fn, (const T*)d, (const T*)e, (const T*)b0, (T*)w, (T*)z,
-      (T*)scratch, m, pl.L, pl.lu_smem, d_stride, e_stride));
+      &cfg, teig_cluster_kernel<T>, (const T*)d, (const T*)e, (const T*)b0,
+      (T*)w, (T*)z, (T*)scratch, m, pl.L, pl.lu_smem, d_stride, e_stride));
   return (int)cudaGetLastError();
 }
 
@@ -2426,33 +3216,57 @@ int tridiag_smem_rows(int m, int f64) {
       .rs;
 }
 
-long long teig_wide_scratch(int m) { return teig_wide_scratch_reals(m); }
+// K3's wide scratch a matrix, in reals (of float: enough in double too),
+// for every route and every keep <= m: the cluster route's LU factors, or
+// teig_grid's (its LU factors, then its W partials).
+long long teig_wide_scratch(int m) {
+  const long long cl = m <= kClMaxM ? teig_cluster_scratch_reals(m) : 0;
+  const long long tg = tg_scratch_reals(m, m, kTgBlock, (int)sizeof(float));
+  // a multiple of 4 reals, so that every matrix's W is 16-byte aligned
+  return ((cl > tg ? cl : tg) + 3) & ~3LL;
+}
 
-// The CTAs of the cluster that K3's wide variant runs a matrix on, at m in
-// float (f64 = 0, 128 < m <= 2048) or double (2 <= m <= 2048); 0 on error.
+// The CTAs of the cluster that K3's cluster route runs a matrix on, at m in
+// float (f64 = 0, 128 < m) or double (2 <= m); 0 where that route does not
+// take m (see eigh_wide_routes).
 int teig_cluster_size(int m, int f64) {
-  if (m < (f64 ? 2 : kMaxM + 1) || m > kWideMaxM)
-    return 0;
+  if (m < (f64 ? 2 : kMaxM + 1)) return 0;
   cudaError_t err = cudaSuccess;
   return (f64 ? teig_plan<double>(m, &err) : teig_plan<float>(m, &err)).G;
 }
 
-// The route K3's wide variant takes at m in float (f64 = 0, 128 < m <=
-// 2048) or double (2 <= m <= 2048), as bits: 1, its iterate in global
-// memory (`scratch`). -1 on error. The wrapper counts each launch by it.
-int eigh_wide_routes(int m, int f64) {
-  if (teig_cluster_size(m, f64) == 0) return -1;
+// teig_grid's plan at m (the same lower bounds): out[0] its block width,
+// out[1] the CTAs of its in-block cluster, out[2] the rows a rank of it,
+// out[3] the slabs of the W partials. Returns the CUDA error (0: planned).
+int teig_grid_plan(int m, int f64, int* out) {
+  if (m < (f64 ? 2 : kMaxM + 1)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  const int iter_smem = (f64 ? teig_plan<double>(m, &err)
-                             : teig_plan<float>(m, &err)).iter_smem;
-  return iter_smem ? 0 : 1;
+  const TgPlan pl =
+      f64 ? tg_plan<double>(m, &err) : tg_plan<float>(m, &err);
+  if (pl.G == 0) return (int)err;
+  out[0] = pl.kB;
+  out[1] = pl.G;
+  out[2] = pl.R;
+  out[3] = pl.slabs;
+  return 0;
+}
+
+// The route K3's wide variant takes at m in float (f64 = 0, 128 < m) or
+// double (2 <= m): 0 the cluster route, 1 teig_grid; -1 where neither
+// launches. The wrapper counts each launch by it.
+int eigh_wide_routes(int m, int f64) {
+  if (teig_cluster_size(m, f64) > 0) return 0;
+  int plan[4];
+  return teig_grid_plan(m, f64, plan) == 0 ? 1 : -1;
 }
 
 int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
-                     void* z, void* scratch, int m, int batch,
-                     long long d_stride, long long e_stride, void* stream) {
-  return teig_wide_run<float>(d, e, b0, w, z, scratch, m, batch, d_stride,
-                              e_stride, stream, kMaxM + 1, kWideMaxM);
+                     void* z, void* scratch, int m, int keep, int batch,
+                     long long d_stride, long long e_stride,
+                     long long scratch_stride, void* stream) {
+  return teig_wide_run<float>(d, e, b0, w, z, scratch, m, keep, batch,
+                              d_stride, e_stride, scratch_stride, stream,
+                              kMaxM + 1);
 }
 
 // The same kernels in complex128 / float64, at every m (2 <= m <= 2048).
@@ -2464,10 +3278,11 @@ int tridiag_f64_launch(const void* h, void* work, void* vrows, void* tau,
 }
 
 int teig_f64_launch(const void* d, const void* e, const void* b0, void* w,
-                    void* z, void* scratch, int m, int batch,
-                    long long d_stride, long long e_stride, void* stream) {
-  return teig_wide_run<double>(d, e, b0, w, z, scratch, m, batch, d_stride,
-                               e_stride, stream, 2, kWideMaxM);
+                    void* z, void* scratch, int m, int keep, int batch,
+                    long long d_stride, long long e_stride,
+                    long long scratch_stride, void* stream) {
+  return teig_wide_run<double>(d, e, b0, w, z, scratch, m, keep, batch,
+                               d_stride, e_stride, scratch_stride, stream, 2);
 }
 
 // Marks a library whose eigensolver launchers take the batch arguments

@@ -45,7 +45,8 @@ _SIGNATURES = {
     "teig_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "backtransform_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P),
     "tridiag_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
-    "teig_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+    "teig_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                         _P),
     "teig_cluster_size": (_I, _I),
     "eigh_wide_routes": (_I, _I),
     "tridiag_cluster_size": (_I, _I),
@@ -54,7 +55,9 @@ _SIGNATURES = {
                                   _L, _P),
     "backtransform_cluster_size": (_I, _I, _I),
     "tridiag_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
-    "teig_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
+    "teig_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                        _P),
+    "teig_grid_plan": (_I, _I, _P),
     "backtransform_f64_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
                                  _L, _P),
 }
@@ -163,3 +166,24 @@ def require(t, name: str, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_columns(t, name: str, dtype, lead: tuple, rows: int, cols: int,
+                    row_stride: int) -> int:
+    """Kernel argument check for the first `cols` columns of a matrix (or a
+    batch of them, `lead`): a CUDA tensor of exact dtype with `rows` rows
+    of at least `cols` columns, unit column stride and the given row
+    stride. Returns the stride between the matrices of a batch (rows x
+    row_stride for one matrix)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if (tuple(t.shape[:-1]) != tuple(lead) + (rows,)
+            or not cols <= t.shape[-1] <= row_stride or t.stride(-1) != 1
+            or t.stride(-2) != row_stride):
+        raise ValueError(f"{name}: expected {rows} rows of at least {cols} "
+                         f"columns at row stride {row_stride}, batched as "
+                         f"{tuple(lead)}, got shape {tuple(t.shape)} strides "
+                         f"{t.stride()}")
+    return t.stride(0) if lead else rows * row_stride

@@ -13,11 +13,15 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
                  falls below tiny / eps (gradual underflow; the residue
                  columns of a rank-deficient Gram reach it) the norm is
                  taken scaled, so the reflector stays unitary;
-  teig           all eigenpairs of T: 30 rounds of Sturm bisection (one lane
-                 per eigenvalue, descending), ulp-scaled separation of
-                 coincident shifts, two rounds of partial-pivoted LU inverse
-                 iteration from the fixed right-hand side b0, then CGS2
-                 across the columns;
+  teig           the top `keep` eigenpairs of T (all m by default): 30
+                 rounds of Sturm bisection (one lane per eigenvalue,
+                 descending), ulp-scaled separation of coincident shifts,
+                 two rounds of partial-pivoted LU inverse iteration from the
+                 fixed right-hand side b0, then CGS2 across the columns. The
+                 first keep columns depend on no later one (a lane's
+                 bisection reads only itself, its shift only earlier
+                 eigenvalues, CGS2 column j only columns < j), so keep
+                 columns of the call equal the first keep of the full call;
   backtransform  out = H_0 H_1 ... H_{m-2} z with H_k = I - tau_k v_k v_k^H.
 
 Each wrapper runs the plain version for a tensor on the CPU and launches the
@@ -29,8 +33,11 @@ matrix; K4 a preparation launch that gathers the active reflectors into
 panels with their T, then a cluster of CTAs over the rows of each tile of
 32 output columns), chosen by m alone; in complex128 / float64 the wide
 variants' double instantiation, for every m <= 2048. Past what a CTA's
-shared memory holds, K2 keeps the rest of its rows in the wrapper's `work`
-and K3 its iterate in its `scratch` (past m = 1024 its panel too). It raises
+shared memory holds, K2 keeps the rest of its rows in the wrapper's `work`,
+and K3 runs its card-wide route (`wide_routes`: "global", complex64 past m
+= 640, complex128 past 512: the iterate in global memory), launches over
+the whole card that compute only the kept columns, its LU factors and
+products in `scratch`. It raises
 for anything the kernels do not take (m above 2048, another dtype, a
 non-contiguous tensor). There is no fallback from a kernel to the plain
 version. Each wrapper counts its launches in `<wrapper>.launches`, those of
@@ -39,7 +46,7 @@ them that took a batch (P > 1 matrices in one launch) in
 counter of the code it ran: `.reach_launches` (complex64) or
 `.reach_f64_launches` (complex128) for what runs only past the old caps (K2
 and K4 past REACH_M, the same kernels at sizes they did not take before; K3
-with its iterate in `scratch`: `wide_routes`), else
+on its card-wide route: `wide_routes`), else
 `<wrapper>.wide_launches` (complex64, m > 128) or `.f64_launches`
 (complex128).
 
@@ -53,6 +60,7 @@ loops over the batch.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -66,7 +74,7 @@ NARROW_MAX_M = 128  # the register and shared-memory designs; above it the
 # (complex64: the JAX kernels' own reach, pallas_eigh.supported;
 # complex128: the largest m whose first wide K4's panel fit in shared
 # memory). K2's and K4's launches past it count as reach_launches /
-# reach_f64_launches, and only past it does K3 take its global-memory
+# reach_f64_launches, and only past it does K3 take its card-wide
 # route (wide_routes)
 REACH_M = {False: 560, True: 504}
 _B0_SEED = 181818
@@ -198,10 +206,13 @@ def teig_bounds(d: torch.Tensor, e: torch.Tensor):
 
 
 def teig_plain_iterates(d: torch.Tensor, e: torch.Tensor,
-                        b0: torch.Tensor = None):
-    """teig_plain up to its CGS2 (one matrix): (w (m,) descending, the
-    inverse-iteration iterate (m, m), column j normalised for w[j])."""
+                        b0: torch.Tensor = None, keep: int = None):
+    """teig_plain up to its CGS2 (one matrix): (w (keep,) descending, the
+    inverse-iteration iterate (m, keep), column j normalised for w[j]);
+    keep = m by default. Every step is a lane's own, so the keep lanes of
+    the call equal the first keep of the full call bit for bit."""
     m = d.shape[0]
+    keep = m if keep is None else keep
     dt = d.dtype
     dev = d.device
     rounds, eps_rel, _ = _teig_constants(dt)
@@ -210,7 +221,7 @@ def teig_plain_iterates(d: torch.Tensor, e: torch.Tensor,
     e_row, lo0, hi0, scale, pivmin = teig_bounds(d, e)
     neg_piv = -pivmin
     e2 = e_row * e_row
-    lane = torch.arange(m, device=dev)
+    lane = torch.arange(keep, device=dev)
     target = (m - 1 - lane).to(dt)
 
     # Sturm bisection: lane j converges onto the j-th largest eigenvalue.
@@ -219,8 +230,8 @@ def teig_plain_iterates(d: torch.Tensor, e: torch.Tensor,
     # A round first runs without the guard; only if some |q| fell below
     # pivmin (the guard would have fired) is it rerun with the guard, so
     # the result is that of the guarded recurrence either way.
-    los = lo0.expand(m).clone()
-    his = hi0.expand(m).clone()
+    los = lo0.expand(keep).clone()
+    his = hi0.expand(keep).clone()
     e2_rows = e2.unbind(0)
 
     def sturm(dm, guarded):
@@ -285,7 +296,7 @@ def teig_plain_iterates(d: torch.Tensor, e: torch.Tensor,
     du.append(guard(a_i))
 
     # two rounds of inverse iteration from b0 (rows of the iterate as a list)
-    rows = list(b0.unbind(0))
+    rows = list(b0[:, :keep].unbind(0))
     for _ in range(2):
         for i in range(m - 1):
             bi, bi1 = rows[i], rows[i + 1]
@@ -297,40 +308,48 @@ def teig_plain_iterates(d: torch.Tensor, e: torch.Tensor,
         for i in range(m - 3, -1, -1):
             rows[i] = (rows[i] - u1[i] * rows[i + 1]
                        - u2[i] * rows[i + 2]) / du[i]
-        bb = torch.stack(rows)
+        # a lane's column as a contiguous row, so that its sum of squares
+        # is taken the same way whatever keep is
+        bt = torch.stack(rows, dim=1)
         # scale by the max-abs first: a nearly singular shift leaves
         # |x| ~ 1/pivmin^2, whose square overflows float32
-        amax = bb.abs().max(dim=0).values
-        bb = bb / torch.where(amax > 0, amax, torch.ones_like(amax))
-        nrm2 = (bb * bb).sum(dim=0)
-        bb = bb * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
-        rows = list(bb.unbind(0))
-    return w, bb
+        amax = bt.abs().max(dim=1).values
+        bt = bt / torch.where(amax > 0, amax, torch.ones_like(amax))[:, None]
+        nrm2 = (bt * bt).sum(dim=1)
+        bt = bt * torch.rsqrt(torch.clamp(nrm2, min=1e-30))[:, None]
+        rows = list(bt.unbind(1))
+    return w, bt.T.contiguous()
 
 
 def cgs2_plain(bb: torch.Tensor) -> torch.Tensor:
-    """CGS2 across the columns of bb (m, m), in place, column by column
-    (descending order keeps clusters contiguous); column 0 is kept."""
-    m = bb.shape[1]
-    for j in range(1, m):
-        prev = bb[:, :j]
-        v = bb[:, j]
+    """CGS2 across the columns of bb (m, k), in place, column by column
+    (descending order keeps clusters contiguous); column 0 is kept. The
+    columns are worked on as the contiguous rows of bb^T, so that column j
+    comes out the same whatever k is."""
+    bt = bb.T.contiguous()
+    for j in range(1, bt.shape[0]):
+        prev = bt[:j]
+        v = bt[j]
         for _ in range(2):
-            v = v - prev @ (prev.T @ v)
+            v = v - prev.T @ (prev @ v)
         nrm2 = (v * v).sum()
-        bb[:, j] = v * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
+        bt[j] = v * torch.rsqrt(torch.clamp(nrm2, min=1e-30))
+    bb.copy_(bt.T)
     return bb
 
 
-def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None):
-    """All eigenpairs of the real symmetric tridiagonal (d, e[:m-1]).
+def teig_plain(d: torch.Tensor, e: torch.Tensor, b0: torch.Tensor = None,
+               keep: int = None):
+    """The top `keep` eigenpairs (all m by default) of the real symmetric
+    tridiagonal (d, e[:m-1]).
 
-    Returns (w (m,) descending, z (m, m) with column j the eigenvector of
-    w[j]). Vectorised over the m eigenvalue lanes. d and e may carry a
-    leading batch dimension (b0 is shared)."""
+    Returns (w (keep,) descending, z (m, keep) with column j the eigenvector
+    of w[j]), the first keep of the full call's bit for bit. Vectorised over
+    the eigenvalue lanes. d and e may carry a leading batch dimension (b0 is
+    shared)."""
     if d.dim() == 2:
-        return _over_batch(lambda dd, ee: teig_plain(dd, ee, b0), d, e)
-    w, bb = teig_plain_iterates(d, e, b0)
+        return _over_batch(lambda dd, ee: teig_plain(dd, ee, b0, keep), d, e)
+    w, bb = teig_plain_iterates(d, e, b0, keep)
     return w, cgs2_plain(bb)
 
 
@@ -408,16 +427,29 @@ def tridiag(h: torch.Tensor):
     return vrows, tau, d, e
 
 
-def teig(d: torch.Tensor, e: torch.Tensor):
+@functools.lru_cache(maxsize=64)
+def _teig_scratch_reals(m: int) -> int:
+    """K3's wide scratch a matrix, in reals: m fixes it (every route, every
+    keep)."""
+    return int(cuda_lib.lib().teig_wide_scratch(int(m)))
+
+
+def teig(d: torch.Tensor, e: torch.Tensor, keep: int = None):
     """Kernel K3 (replaces pallas_eigh._teig_kernel). The outputs of
-    teig_plain: (w (m,) descending, z (m, m) eigenvector columns), with the
-    leading batch dimension of d and e if they have one; w bit for bit, z
-    to rounding (the kernel orthogonalises in panels, BCGS2)."""
+    teig_plain(d, e, keep=keep): (w (keep,) descending, z (m, keep)
+    eigenvector columns), with the leading batch dimension of d and e if
+    they have one; w bit for bit, z to rounding (the kernel orthogonalises
+    in blocks, BCGS2). On the card z is a view of the first keep columns of
+    an (m, m) buffer (row stride m); the card-wide route computes only
+    those, the other routes all m."""
     m = d.shape[-1]
+    keep = m if keep is None else int(keep)
+    if not 1 <= keep <= m:
+        raise ValueError(f"teig: keep={keep} outside [1, {m}]")
     if not dispatch.use_kernel("eigh", d.device.type,
                                torch.promote_types(d.dtype, torch.complex64),
                                m):
-        return teig_plain(d, e)
+        return teig_plain(d, e, keep=keep)
     lead, p = _batch_of(d, 1, "teig")
     rdt = d.dtype
     cuda_lib.require(d, "teig d", rdt, lead + (m,))
@@ -428,16 +460,16 @@ def teig(d: torch.Tensor, e: torch.Tensor):
     b0 = teig_b0(m, rdt, dev)
     w = torch.empty(lead + (m,), dtype=rdt, device=dev)
     z = torch.empty(lead + (m, m), dtype=rdt, device=dev)
-    # the global-memory routes start past REACH_M: within it, the old code
+    # the card-wide route starts past REACH_M: within it, the older code
     reach = m > REACH_M[f64] and wide_routes(m, f64)["teig"] == "global"
     if f64 or m > NARROW_MAX_M:
-        # the wide variant's LU factors and swap bits, where they do not
-        # fit in its shared memory
-        scratch = torch.empty((p, lib.teig_wide_scratch(m)), dtype=rdt,
-                              device=dev)
+        # the cluster route's LU factors where they do not fit in its shared
+        # memory; the card-wide route's LU factors and W partials
+        sn = _teig_scratch_reals(m)
+        scratch = torch.empty((p, sn), dtype=rdt, device=dev)
         launch = lib.teig_f64_launch if f64 else lib.teig_wide_launch
         rc = launch(d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
-                    z.data_ptr(), scratch.data_ptr(), m, p, m, m,
+                    z.data_ptr(), scratch.data_ptr(), m, keep, p, m, m, sn,
                     cuda_lib.stream_of(d))
     else:
         rc = lib.teig_launch(
@@ -445,14 +477,14 @@ def teig(d: torch.Tensor, e: torch.Tensor):
             z.data_ptr(), m, p, m, m, cuda_lib.stream_of(d))
     cuda_lib.check(rc, "teig")
     _count(teig, p, m, f64, reach)
-    return w, z
+    return w[..., :keep], z[..., :, :keep]
 
 
 def teig_cluster_size(m: int, f64: bool = False) -> int:
-    """CTAs of the thread-block cluster on which K3's wide variant solves
+    """CTAs of the thread-block cluster on which K3's cluster route solves
     one matrix of size m (complex64 above NARROW_MAX_M, or f64: complex128
-    at every m): ceil(m / 32), at most 16, or 8 where the card does not
-    take a cluster of 16."""
+    at every m, up to where the iterate fits: wide_routes "smem"): ceil(m /
+    32), at most 16, or 8 where the card does not take a cluster of 16."""
     g = cuda_lib.lib().teig_cluster_size(int(m), int(f64))
     if g == 0:
         raise RuntimeError(f"teig: no cluster size can launch m={m}"
@@ -460,11 +492,28 @@ def teig_cluster_size(m: int, f64: bool = False) -> int:
     return g
 
 
+def teig_grid_plan(m: int, f64: bool = False) -> dict:
+    """How K3's card-wide route (wide_routes "global") runs one matrix of
+    size m: `block`, the columns a block of its BCGS2; `inblock_ctas`, the
+    CTAs of the cluster whose shared memory holds a block's m rows for the
+    CGS2 inside it (ceil(m / 128), at most 16, more where a CTA's rows would
+    not fit); `rows`, the rows a CTA of it, ceil(m / inblock_ctas); `slabs`,
+    the row slabs of its W partial sums, ceil(m / 64)."""
+    out = (ctypes.c_int * 4)()
+    rc = cuda_lib.lib().teig_grid_plan(int(m), int(f64), out)
+    if rc != 0:
+        raise RuntimeError(f"teig: no card-wide plan launches m={m}"
+                           + (" in complex128" if f64 else ""))
+    return {"block": out[0], "inblock_ctas": out[1], "rows": out[2],
+            "slabs": out[3]}
+
+
 def wide_routes(m: int, f64: bool = False) -> dict:
     """The route of K3's wide variant at m (complex64 above NARROW_MAX_M,
-    or f64: complex128 at every m), "smem" or "global": `teig`, where it
-    keeps the iterate's columns (each CTA's shared memory, or the wrapper's
-    scratch past the fit)."""
+    or f64: complex128 at every m): `teig`, "smem" where one cluster keeps
+    the iterate's columns in its CTAs' shared memory (complex64 to m = 640,
+    complex128 to 512), "global" past it: the card-wide route, its iterate
+    in global memory (teig_grid_plan)."""
     r = cuda_lib.lib().eigh_wide_routes(int(m), int(f64))
     if r < 0:
         raise RuntimeError(f"eigh: no wide plan launches m={m}"
@@ -533,8 +582,10 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
     cuda_lib.require(vrows, "backtransform vrows", vrows.dtype,
                      lead + (m, m))
     cuda_lib.require(tau, "backtransform tau", vrows.dtype, lead + (m,))
-    cuda_lib.require(z, "backtransform z",
-                     torch.float64 if f64 else torch.float32, lead + (m, m))
+    # z: an (m, m) matrix, or teig's view of the first columns of one
+    z_stride = cuda_lib.require_columns(
+        z, "backtransform z", torch.float64 if f64 else torch.float32, lead,
+        m, keep, m)
     out = torch.empty(lead + (m, keep), dtype=vrows.dtype,
                       device=vrows.device)
     lib = cuda_lib.lib()
@@ -546,11 +597,11 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
                   else lib.backtransform_wide_launch)
         rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
                     out.data_ptr(), ws.data_ptr(), m, keep, p, m * m, m,
-                    m * m, stream)
+                    z_stride, stream)
     else:
         rc = lib.backtransform_launch(vrows.data_ptr(), tau.data_ptr(),
                                       z.data_ptr(), out.data_ptr(), m, keep,
-                                      p, m * m, m, m * m, stream)
+                                      p, m * m, m, z_stride, stream)
     cuda_lib.check(rc, "backtransform")
     _count(backtransform, p, m, f64, m > REACH_M[f64])
     return out
@@ -571,5 +622,5 @@ def eigh_top_kernels(h: torch.Tensor, keep: int):
     descending, V (m, keep) eigenvector columns), batched as h is."""
     hh = (h + h.mH) * 0.5
     vrows, tau, d, e = tridiag(hh.contiguous())
-    w, z = teig(d, e)
-    return w[..., :keep], backtransform(vrows, tau, z, keep)
+    w, z = teig(d, e, keep)
+    return w, backtransform(vrows, tau, z, keep)

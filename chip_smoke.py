@@ -82,9 +82,12 @@ name; any failure exits non-zero:
             complex128, q 0/1/25/48/49) and K2-K4 at m =
             561/768/1024/1536/2048 (complex64) and 505/512/1024/2048
             (complex128) against their plain versions, with times, bounds
-            and library calls (K4 against torch.ormqr); then at n=50 the
-            sweep phase's workload at chi=256 and chi=512 in complex64 and
-            complex128 and at chi=1024 in complex64, and the spin chain
+            and library calls (K3 against torch.linalg.eigh(T), its
+            card-wide route also at keep = m/2: the first columns of its
+            keep = m launch, alone and in a batch of 3; K4 against
+            torch.ormqr); then at n=50 the sweep phase's workload at
+            chi=256, 512 and 1024 in complex64 and complex128, and the spin
+            chain
             through workloads/spin_chain.py with
             SPIN_CHI_SCHEDULE=32,64,128,256 cut to 2 layers a stage
             (center-gauge verifier within 1e-3, relative): every launch is
@@ -197,13 +200,15 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None,
                      chi^2 dots, 32 chi^2): the same for every q
       tridiag        m x m complex64 in; v (m x m complex), tau, d, e out;
                      zhetrd's 16/3 m^3 flops
-      teig           d, e (m float32) and b0 (m x m) in, w and z out; 30
-                     bisection rounds (60 in float64) of m lanes x m Sturm
-                     steps (3 ops),
-                     the LU (6 m^2) and two inverse-iteration rounds (12
-                     m^2 with the normalisation), and CGS2: two passes of
-                     a dot and an update over j earlier columns of m
-                     (8 j m flops for column j, 4 m^3 in all)
+      teig           the top `keep` eigenpairs (keep = m by default): d, e
+                     (m float32) and keep columns of b0 in, w (keep) and
+                     z (m x keep) out; 30 bisection rounds (60 in float64)
+                     of keep lanes x m Sturm steps (3 ops), the LU (6 m
+                     keep) and two inverse-iteration rounds (24 m keep
+                     with the normalisation; the LU and the solves are per
+                     lane), and CGS2: two passes of a dot and an update
+                     over j earlier columns of m (8 j m flops for column
+                     j, 4 m keep^2 in all)
       backtransform  m-1 reflectors (m x m complex64 and tau) and the keep
                      columns of z (float32) in, (m, keep) complex64 out;
                      reflector k touches m-k-1 rows of each column with a
@@ -222,9 +227,10 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None,
         nbytes = m * m * 8 + m * m * 8 + m * 8 + 2 * m * 4
     elif name == "teig":
         rounds = 60 if f64 else 30  # _teig_constants
-        flops = (rounds * m * m * 3 + 6 * m * m + 2 * 12 * m * m
-                 + 4 * m ** 3)
-        nbytes = 2 * m * 4 + m * m * 4 + m * 4 + m * m * 4
+        k = m if keep is None else keep
+        flops = (rounds * k * m * 3 + 6 * m * k + 24 * m * k
+                 + 4 * m * k * k)
+        nbytes = 2 * m * 4 + m * k * 4 + k * 4 + m * k * 4
     elif name == "backtransform":
         flops = (8 * m * m * keep if active is None
                  else sum(16 * (m - k - 1) * keep for k in active))
@@ -377,14 +383,21 @@ def sweep_eigh_inputs(torch, ek, mps_core, sweeps, Circuit, compile_tape,
 def record_eigh_inputs(torch, ek, fn):
     """Run fn() with recorders around ek.tridiag, teig and backtransform:
     {name: [args, ...]} of every launch, in launch order, cloned as they
-    were passed."""
+    were passed, strides and all (K3's z is a view of the first columns of
+    an (m, m) buffer, and K4 reads it at row stride m)."""
     seen = {"tridiag": [], "teig": [], "backtransform": []}
     kernels = {name: getattr(ek, name) for name in seen}
 
+    def copy(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        b = torch.empty_strided(a.size(), a.stride(), dtype=a.dtype,
+                                device=a.device)
+        return b.copy_(a)
+
     def recorder(name):
         def record(*args):
-            seen[name].append(tuple(a.clone() if hasattr(a, "clone") else a
-                                    for a in args))
+            seen[name].append(tuple(copy(a) for a in args))
             return kernels[name](*args)
         record.launches = 0  # a wrapper counts on its module-level name
         record.batched_launches = record.wide_launches = 0
@@ -679,7 +692,8 @@ def batched_kernel_check(torch, ek, card, dev, probe_inputs=None):
             }
             for kname, (kfn, pfn, lfn) in calls.items():
                 ms = cuda_ms(kfn, 20, torch)
-                bound = bound_fields(kname, m=m, keep=keep, batch=p)
+                bound = bound_fields(
+                    kname, m=m, keep=m if kname == "teig" else keep, batch=p)
                 row.append(f"{kname} P={p} {ms:.4f} ms (bound "
                            f"{bound['bound_ms']:.5f})")
                 if m == 64 and p == 3:
@@ -729,9 +743,9 @@ def center_kernel_check(torch, ek, inputs, card):
             v, tau, d, e = ek.tridiag(hh)
             worst_t = max(worst_t, tridiag_residual(torch, ek, v, tau, d, e,
                                                     hh))
-            dd, ee = inputs["teig"][idx]
-            w, z = ek.teig(dd, ee)
-            wp, _ = ek.teig_plain(dd, ee)
+            dd, ee, kk = inputs["teig"][idx]  # as eigh_top_kernels calls it
+            w, z = ek.teig(dd, ee, kk)
+            wp, _ = ek.teig_plain(dd, ee, keep=kk)
             worst_w = max(worst_w, float((w - wp).abs().max())
                           / max(float(wp.abs().max()), 1e-30))
             bt = inputs["backtransform"][idx]
@@ -754,12 +768,12 @@ def center_kernel_check(torch, ek, inputs, card):
             bnd["tridiag"].append(kernel_bound(
                 "tridiag", m=m,
                 active=[k for k in range(m - 1) if e2[k] != 0])[0])
-            bnd["teig"].append(kernel_bound("teig", m=m)[0])
+            dd, ee, kk = inputs["teig"][i]
+            bnd["teig"].append(kernel_bound("teig", m=m, keep=kk)[0])
             vr, ta, z, keep = inputs["backtransform"][i]
             bnd["backtransform"].append(kernel_bound(
                 "backtransform", m=m, keep=keep,
                 active=[k for k in range(m - 1) if ta[k] != 0])[0])
-            dd, ee = inputs["teig"][i]
             tdense = (torch.diag(dd) + torch.diag(ee[:-1], 1)
                       + torch.diag(ee[:-1], -1)).contiguous()
             lib["teig"].append(cuda_ms(lambda: torch.linalg.eigh(tdense), 5,
@@ -889,7 +903,8 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
             ms = cuda_ms(kfn, 10, torch)
             pms = cuda_ms(pfn, 1, torch)
             lms = cuda_ms(lfn, 10, torch) if lfn else None
-            bound = bound_fields(kname, m=m, keep=keep, f64=True)
+            bound = bound_fields(
+                kname, m=m, keep=m if kname == "teig" else keep, f64=True)
             ctas = (ek.teig_cluster_size(m, True) if kname == "teig" else
                     ek.tridiag_cluster_plan(m, True)["ctas"]
                     if kname == "tridiag" else None)
@@ -1241,7 +1256,8 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                 ms = cuda_ms(kfn, 20, torch)
                 pms = cuda_ms(pfn, 2, torch)
                 lms = cuda_ms(lfn, 20, torch) if lfn else None
-                bound = bound_fields(kname, m=m, keep=keep)
+                bound = bound_fields(
+                    kname, m=m, keep=m if kname == "teig" else keep)
                 ctas = (None if m <= 128 else ek.teig_cluster_size(m)
                         if kname == "teig" else ek.tridiag_cluster_plan(m)[
                             "ctas"] if kname == "tridiag" else None)
@@ -2283,7 +2299,7 @@ REACH_VARIANTS = ("reach", "reach_f64")
 # (chi, complex128, timed sweeps): bench.py's sweep at each chi; past chi =
 # 256 one sweep, timed without a warm-up, to keep the run's time
 REACH_SWEEPS = ((256, False, 3), (256, True, 3), (512, False, 1),
-                (512, True, 1), (1024, False, 1))
+                (512, True, 1), (1024, False, 1), (1024, True, 1))
 # (chi, layers, chi of the native run) of the re-simulation. At chi = 1024
 # cuSOLVER's eigh (the native eigensolver) fails to converge on the Grams'
 # 2040-fold zero eigenvalue; two brickwork layers keep every bond at rank
@@ -2377,7 +2393,9 @@ def reach_eigh_check(torch, ek, card, dev, rec):
     steps; K3 on the plain (d, e): w against the plain version's (bit for
     bit in complex128), z against float64:
     orthogonality, residual, degenerate-cluster projectors (z against the
-    plain version is left to the class loop's m <= 512); K4 on the plain
+    plain version is left to the class loop's m <= 512), and on its
+    card-wide route at keep = m / 2 too (teig_keep_check, and on the
+    batch teig_keep_batch); K4 on the plain
     reflectors; the whole chain against numpy float64; and a batch of 3
     ("rand", "lowrank", "bell") bit for bit against its P = 1 launches. The
     tolerances of the class loop (complex64) and of f64_kernel_check
@@ -2427,6 +2445,9 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                 tv = teig_vector_errors(dp, ep, w, z, zp)
                 err.update(ortho=tv["ortho"], resid=tv["resid"],
                            cluster=tv["cluster"])
+                if ek.wide_routes(m, f64)["teig"] == "global":
+                    teig_keep_check(torch, ek, dp, ep, w, z, wp, keep,
+                                    f"teig {dt} m={m} {name}")
                 o = ek.backtransform(vp, taup, zp, keep)
                 t0 = time.perf_counter()
                 op = ek.backtransform_plain(vp, taup, zp, keep)
@@ -2456,10 +2477,13 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                 bad = {k: v for k, v in err.items() if not v < tol[k]}
                 check(not bad, f"eigensolver {dt} m={m} {name}: {bad} "
                                f"(limits {tol})")
-            batch_against_singles(
+            _, _, db, eb, _, _, _ = batch_against_singles(
                 torch, ek, torch.stack([_sym_gram(torch, cases[k], dev).to(dt)
                                         for k in ("rand", "lowrank", "bell")]),
                 keep, f"{dt} batched m={m} P=3", {})
+            if ek.wide_routes(m, f64)["teig"] == "global":
+                teig_keep_batch(torch, ek, db, eb, keep,
+                                f"teig {dt} batched m={m} P=3")
             lines.append(reach_eigh_times(torch, ek, rec, sfx, m, f64,
                                           plain))
         for k in ("tridiag", "teig", "backtransform"):
@@ -2473,6 +2497,44 @@ def reach_eigh_check(torch, ek, card, dev, rec):
               f"s of checks and times) on {card}", flush=True)
         for line in lines:
             print(line, flush=True)
+
+
+def teig_keep_check(torch, ek, d, e, w, z, wp, keep, what):
+    """K3's card-wide route at `keep` (its first keep eigenpairs only) on
+    one matrix: equal to the first keep of its keep = m launch (w, z),
+    bit for bit; w against the plain version's (bit for bit in complex128,
+    TOL_TEIG_W_REL of the scale in complex64); z orthonormal to
+    TOL_ORTHO (complex64) or TOL_F64 (complex128), measured in float64."""
+    wk, zk = ek.teig(d, e, keep)
+    check(torch.equal(wk, w[:keep]) and torch.equal(zk, z[:, :keep]),
+          f"{what}: keep={keep} differs from the first columns of keep=m")
+    f64 = d.dtype == torch.float64
+    check(not f64 or torch.equal(wk, wp[:keep]),
+          f"{what}: keep={keep} w differs from the plain version's")
+    rel = float((wk - wp[:keep]).abs().max()) / max(float(wp.abs().max()),
+                                                    1e-300)
+    check(rel < TOL_TEIG_W_REL, f"{what}: keep={keep} w rel {rel}")
+    z64 = zk.double()
+    eye = torch.eye(keep, dtype=torch.float64, device=z64.device)
+    ortho = float((z64.T @ z64 - eye).abs().max())
+    check(ortho < (TOL_F64 if f64 else TOL_ORTHO),
+          f"{what}: keep={keep} ortho {ortho}")
+
+
+def teig_keep_batch(torch, ek, d, e, keep, what):
+    """K3 at `keep` on a batch (P, m): every matrix bit for bit its P = 1
+    launch, and the first keep of the batch's keep = m launch."""
+    wb, zb = ek.teig(d, e, keep)
+    wf, zf = ek.teig(d, e)
+    for i in range(d.shape[0]):
+        w1, z1 = ek.teig(d[i], e[i], keep)
+        check(torch.equal(wb[i], w1) and torch.equal(zb[i], z1),
+              f"{what}: keep={keep}: matrix {i} of the batch differs from "
+              "its P = 1 launch")
+        check(torch.equal(wb[i], wf[i, :keep])
+              and torch.equal(zb[i], zf[i, :, :keep]),
+              f"{what}: keep={keep}: matrix {i} differs from the first "
+              "columns of keep=m")
 
 
 def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
@@ -2508,7 +2570,8 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
         ms = cuda_ms(kfn, reps, torch)
         pms = plain["ms"][kname]
         lms = cuda_ms(lfn, reps, torch) if lfn else None
-        bound = bound_fields(kname, m=m, keep=keep, f64=f64)
+        bound = bound_fields(
+            kname, m=m, keep=m if kname == "teig" else keep, f64=f64)
         row = dict(ms=ms, plain_ms=pms, library_ms=lms, **bound)
         plan = ""
         if kname == "tridiag":
@@ -2516,8 +2579,23 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             plan = f" ({tridiag_plan_text(ek, m, f64)})"
         if kname == "teig":
             row["route"] = ek.wide_routes(m, f64)["teig"]
-            plan = (f" (clusters of {ek.teig_cluster_size(m, f64)} CTAs, "
-                    f"iterate in {row['route']} memory)")
+            if row["route"] == "global":
+                # the card-wide route: also its time at keep = m / 2, what
+                # the sweeps launch, with that call's bound
+                gp = ek.teig_grid_plan(m, f64)
+                hms = cuda_ms(lambda: ek.teig(dp, ep, keep), reps, torch)
+                hb = bound_fields("teig", m=m, keep=keep, f64=f64)
+                row.update(design="card-wide (teig_grid)", keep_half_ms=hms,
+                           keep_half_bound_ms=hb["bound_ms"],
+                           keep_half_bound_by=hb["bound_by"], plan=gp)
+                plan = (f" (card-wide, iterate in global memory, blocks of "
+                        f"{gp['block']}, in-block clusters of "
+                        f"{gp['inblock_ctas']} CTAs; keep={keep} {hms:.4f} "
+                        f"ms, bound {hb['bound_ms']:.5f} ms "
+                        f"({hb['bound_by']}))")
+            else:
+                plan = (f" (clusters of {ek.teig_cluster_size(m, f64)} "
+                        f"CTAs, iterate in {row['route']} memory)")
         if kname == "backtransform":
             row["cluster_ctas"] = ek.backtransform_cluster_size(m, keep,
                                                                 f64)
@@ -2528,6 +2606,9 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             rec[kname + sfx].update(
                 ms=ms, plain_ms=pms, library_call=lname, library_ms=lms,
                 shape=f"m={m}" + (", complex128" if f64 else ""), **bound)
+            rec[kname + sfx].update({k: row[k] for k in (
+                "design", "keep_half_ms", "keep_half_bound_ms",
+                "keep_half_bound_by") if k in row})
         parts.append(f"{kname}{plan} kernel {ms:.4f} ms plain {pms:.4f} ms "
                      f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
                      + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
@@ -2591,8 +2672,8 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     """Past the sizes whose operands fit on chip: the streamed K1 to chi =
     1024 and K2-K4 to m = 2048 against their plain versions, then the
     paths at full width (n = 50) that launch them, each counted on its
-    own: bench.py's sweep at chi = 256 and 512 in complex64 and complex128
-    and at chi = 1024 in complex64 (REACH_SWEEPS), and the spin chain's chi
+    own: bench.py's sweep at chi = 256, 512 and 1024 in complex64 and
+    complex128 (REACH_SWEEPS), and the spin chain's chi
     schedule to 256; then the deep re-simulation at chi = 256 and 1024
     (REACH_HAZARD). Every row of reach_rows must have launched on those
     paths, and no other reach counter. Returns (the records of the new

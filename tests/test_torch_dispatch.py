@@ -130,9 +130,16 @@ class _Recorder:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def teig_wide_scratch(self, m):
-        return 2 * m * m + ((m + 31) // 32) * m
+        return 3 * m * m + ((m + 31) // 32) * m
+
+    def teig_grid_plan(self, m, f64, out):
+        # K3's card-wide plan as the library makes it on an H100
+        out[0], out[1] = 32, min(16, -(-m // 128))
+        out[2], out[3] = -(-m // out[1]), -(-m // 64)
+        return 0
 
     def env_chain_f64_partials(self, chi):
         cs = min(8, chi)
@@ -140,8 +147,8 @@ class _Recorder:
 
     def eigh_wide_routes(self, m, f64):
         # as the library answers on an H100 (227 KB of shared memory a
-        # CTA): K3's iterate in global memory past m = 640 (complex128
-        # 512)
+        # CTA): K3's card-wide route, its iterate in global memory, past m
+        # = 640 (complex128 512)
         return int(m > (512 if f64 else 640))
 
     def backtransform_workspace(self, m, f64):
@@ -150,6 +157,7 @@ class _Recorder:
     def __getattr__(self, name):
         def launch(*args):
             self.calls.append(name)
+            self.args.append(args)
             return 0
         return launch
 
@@ -163,6 +171,9 @@ def card(monkeypatch):
                         lambda op, dev, dtype, size: real(op, "cuda", dtype,
                                                           size))
     monkeypatch.setattr(cuda_lib, "require", lambda *a, **k: None)
+    monkeypatch.setattr(cuda_lib, "require_columns",
+                        lambda t, name, dtype, lead, rows, cols, stride:
+                        rows * stride)
     monkeypatch.setattr(cuda_lib, "stream_of", lambda t: 0)
     lib = _Recorder()
     monkeypatch.setattr(cuda_lib, "lib", lambda: lib)
@@ -265,8 +276,9 @@ def test_reach_counter_starts_past_the_shared_memory_sizes(card, dtype, m,
     (C128, 505, "backtransform", "size")])
 def test_reach_counters_follow_the_routes(card, dtype, m, kernel, route):
     """K3 counts a launch as a reach launch exactly when the plan sends it
-    down the route that only sizes past the old caps take (the iterate in
-    global memory, eigh_kernels.wide_routes), and as the wide or
+    down the route that only sizes past the old caps take (the card-wide
+    route, its iterate in global memory, eigh_kernels.wide_routes), and as
+    the wide or
     complex128 variant's where it runs the old code. K4's wide design has
     one route at every m ("size"): it counts as a reach launch exactly
     past REACH_M, as K2 does, and wide_routes names no route of it."""
@@ -283,3 +295,37 @@ def test_reach_counters_follow_the_routes(card, dtype, m, kernel, route):
     want = [0, 0, 0, 0]
     want[(2 if reach else 0) + f64] = 1
     assert got == tuple(want)
+
+
+@pytest.mark.parametrize("dtype,m", [(C64, 64), (C64, 256), (C64, 1024),
+                                     (C128, 1024), (C64, EIGH_CAP)])
+def test_teig_passes_keep_to_its_launcher(card, dtype, m):
+    """K3's wrapper hands `keep` to the launcher of every route (the
+    narrow kernel has no keep: it computes all m), returns the first keep
+    eigenpairs as (keep,) and (m, keep) views of its (m, m) output, and
+    K4 reads those keep columns in place at row stride m; a keep outside
+    [1, m] raises before any launch. eigh_top's chain passes its own keep
+    through."""
+    f64 = dtype == C128
+    rdt = torch.float64 if f64 else torch.float32
+    d, e = torch.zeros(m, dtype=rdt), torch.zeros(m, dtype=rdt)
+    keep = m // 2
+    w, z = eigh_kernels.teig(d, e, keep)
+    assert w.shape == (keep,) and z.shape == (m, keep)
+    assert z.stride() == (m, 1)
+    name = card.calls[-1]
+    if f64 or m > eigh_kernels.NARROW_MAX_M:
+        assert name == ("teig_f64_launch" if f64 else "teig_wide_launch")
+        # d, e, b0, w, z, scratch, m, keep, batch, strides, stream
+        assert card.args[-1][6:9] == (m, keep, 1)
+        assert card.args[-1][11] == card.teig_wide_scratch(m)
+    else:
+        assert name == "teig_launch"
+    for bad in (0, m + 1):
+        with pytest.raises(ValueError, match="keep"):
+            eigh_kernels.teig(d, e, bad)
+    assert card.calls[-1] == name and len(card.calls) == 1
+    cplx.eigh_top(_gram(m, dtype), 5)
+    if f64 or m > eigh_kernels.NARROW_MAX_M:
+        assert card.args[-2][7] == 5  # teig's keep; then K4's launch
+    assert card.calls[-1].startswith("backtransform")

@@ -4,10 +4,11 @@
 global memory. On the CPU the wrappers run their plain versions, held here
 against the JAX package (its XLA path: local_overlap_matrix, the MPS engine
 with the `embed` eigh) and against numpy float64; the streamed kernel's order
-of operations is emulated in torch and held against the plain version. The
-wide K3 and K4 keep their order of operations when the iterate or the panel
-moves to global memory, so their emulations (test_torch_teig_cluster.py,
-test_torch_eigh_kernels.py) run here at the new sizes and plans."""
+of operations is emulated in torch and held against the plain version. K4
+keeps its order of operations when its panel moves to global memory, so its
+emulation (test_torch_eigh_kernels.py) runs here at the new sizes; K3 past
+its cluster route runs the card-wide route, whose order
+(test_torch_teig_global.py) runs here at the new sizes and plans."""
 
 import math
 
@@ -26,8 +27,8 @@ from adaptaqc_tpu_torch.ops import eigh_kernels as ek, env_kernel
 from test_torch_eigh_kernels import _backtransform_panels, _bt_inputs
 from test_torch_sweep import _jax_prefix, _jax_sweep, _port, _port_sweep
 from test_torch_sweep import _workload
-from test_torch_teig_cluster import (PANEL, bcgs2_cluster, cluster_plan,
-                                     multisection, tridiagonal)
+from test_torch_teig_cluster import multisection, tridiagonal
+from test_torch_teig_global import check_grid_order, grid_plan
 
 torch.set_num_threads(1)
 
@@ -204,30 +205,23 @@ def test_plain_chain_past_the_wide_sizes_matches_numpy_f64(m, dtype, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_teig_cluster_plan_and_order_at_1024(dtype):
-    """K3 at m = 1024 (its iterate in global memory on the card: the same
-    order of operations): the plan's 16 ranks of 64 lanes cover m; the
-    multisection's w is bit for bit the plain version's, and the
-    distributed BCGS2 over that plan matches the column CGS2 to the
-    tolerances of test_torch_teig_cluster.py."""
+def test_teig_global_plan_and_order_at_1024(dtype):
+    """K3 at m = 1024 (the card-wide route on the card): the plan's 8
+    in-block ranks of 128 rows and 16 slabs; the multisection with a warp
+    a lane (k = 5) gives the plain version's w bit for bit; the route's
+    block CGS2 at keep = 256 over two tilings, the same bits, against the
+    column CGS2 at the tolerances of test_torch_teig_cluster.py."""
     m = 1024
-    groups, lanes = cluster_plan(m)
-    assert (groups, lanes) == (16, 64) and groups * lanes == m
+    assert grid_plan(m, dtype == torch.float64) == {
+        "block": 32, "inblock_ctas": 8, "rows": 128, "slabs": 16}
     d, e = tridiagonal(m, "separated", dtype)
-    w, it = ek.teig_plain_iterates(d, e)
-    assert torch.equal(multisection(d, e, 3), w)  # 8 threads a lane
-    z = bcgs2_cluster(it, groups, lanes).double()
-    zp = ek.cgs2_plain(it.clone()).double()
-    ortho = {torch.float32: 2e-4, torch.float64: 1e-10}[dtype]
-    assert float((z.T @ z - torch.eye(m, dtype=torch.float64)).abs().max()
-                 ) < ortho
-    sign = torch.where((z * zp).sum(0) < 0, -1.0, 1.0)
-    assert float((z * sign - zp).abs().max()) < 1e-3
+    w, _ = ek.teig_plain_iterates(d, e, keep=m // 2)
+    assert torch.equal(multisection(d, e, 5)[:m // 2], w)
+    check_grid_order(m, dtype, 256, [(32, 16), (64, 32)])
 
 
 K2_ROWS_CTA = 16   # tridiag_cluster_kernel: G = ceil(m / 16) CTAs
 K2_MAX_ROWS = 128  # the rows a CTA's flags hold (kTcMaxRows)
-K3_CGS_ROWS = 16   # the in-panel CGS2's rows a thread past m = 1024
 
 
 def tridiag_cluster_rows(m, cap):
@@ -248,69 +242,14 @@ class _PlanLib:
         return 9
 
 
-def panel_cgs2_rows(bb, c0, pw, rows):
-    """cgs2_panel<rows>: CGS2 inside columns [c0, c0 + pw) of bb, on four
-    warps of 32 threads, thread t holding rows t + 128 k (k < rows; rows
-    past m weigh zero). A pass's 16 dots: each thread's sum over its rows
-    in order, then over each warp's 32 threads, then the four warps in
-    order; the update subtracts the columns before p."""
-    m = bb.shape[0]
-    pad = 128 * rows
-    assert m <= pad
-    for p in range(pw):
-        j = c0 + p
-        if j == 0:
-            continue
-        v = bb[:, j].clone()
-        for _ in range(2 if p > 0 else 0):
-            q = torch.zeros((pad, PANEL), dtype=bb.dtype)
-            q[:m, :pw] = bb[:, c0:c0 + pw]
-            vp = torch.zeros(pad, dtype=bb.dtype)
-            vp[:m] = v
-            part = torch.zeros((128, PANEL), dtype=bb.dtype)
-            for k in range(rows):  # a thread's rows in order
-                part = part + q[128 * k:128 * (k + 1)] * vp[128 * k:
-                                                            128 * (k + 1),
-                                                            None]
-            warps = part.view(4, 32, PANEL).sum(1)
-            dots = ((warps[0] + warps[1]) + warps[2]) + warps[3]
-            v = v - bb[:, c0:c0 + p] @ dots[:p]
-        bb[:, j] = v * torch.rsqrt(torch.clamp((v * v).sum(), min=1e-30))
-    return bb
-
-
-def bcgs2_cluster_rows(bb, groups, lanes, rows):
-    """bcgs2_cluster (test_torch_teig_cluster.py) with the in-panel CGS2
-    in the kernel's rows-a-thread order (panel_cgs2_rows)."""
-    bb = bb.clone()
-    m = bb.shape[0]
-    for c0 in range(0, m, PANEL):
-        owner = c0 // lanes
-        pw = min(PANEL, m - c0)
-        assert c0 + pw <= min(m, (owner + 1) * lanes), "panel spans ranks"
-        if c0 > 0:
-            for _ in range(2):
-                p = bb[:, c0:c0 + pw].clone()
-                acc = None
-                for r in range(groups):
-                    q = bb[:, r * lanes:min(c0, (r + 1) * lanes)]
-                    if q.shape[1] == 0:
-                        continue
-                    part = q @ (q.T @ p)
-                    acc = part if acc is None else acc + part
-                bb[:, c0:c0 + pw] = p - acc
-        panel_cgs2_rows(bb, c0, pw, rows)
-    return bb
-
-
 def test_k2_and_k3_plans_and_k3_order_at_2048(monkeypatch):
-    """F5's new cap, m = 2048. K2: G = 16 CTAs of exactly K2_MAX_ROWS = 128
-    rows (8 CTAs would hold 256; m = 2049 would need 129), the rest of the
-    rows past a CTA's shared memory in `work` (the spill route, as the
-    plan wrapper reports it). K3: 16 ranks of 128 lanes, its in-panel
-    CGS2 at 16 rows a thread (m = 2049 would need 17); the distributed
-    BCGS2 with that CGS2 in its order, on the iterate of a separated
-    float32 spectrum, against the column CGS2 of cgs2_plain: columns up to
+    """F5's cap, m = 2048, set by K2: G = 16 CTAs of exactly K2_MAX_ROWS =
+    128 rows (8 CTAs would hold 256; m = 2049 would need 129), the rest of
+    the rows past a CTA's shared memory in `work` (the spill route, as the
+    plan wrapper reports it). K3's card-wide route has no cap of its own:
+    16 in-block ranks of 128 rows, 32 slabs, at m = 2049 too; its block
+    CGS2 at keep = 128 over the plan's 16 ranks, against the column CGS2
+    of cgs2_plain on a separated float32 spectrum's iterate: columns up to
     sign 1e-3, orthonormality 2e-4."""
     m = 2048
     assert tridiag_cluster_rows(m, 16) == (16, K2_MAX_ROWS)
@@ -320,18 +259,11 @@ def test_k2_and_k3_plans_and_k3_order_at_2048(monkeypatch):
     assert ek.tridiag_cluster_plan(m) == {
         "ctas": 16, "rows": K2_MAX_ROWS, "smem_rows": 9, "route": "spill"}
     monkeypatch.undo()
-    groups, lanes = cluster_plan(m)
-    assert (groups, lanes) == (16, 128) and groups * lanes == m
-    rows = math.ceil(m / 128)
-    assert rows == K3_CGS_ROWS and math.ceil((m + 1) / 128) > K3_CGS_ROWS
-    d, e = tridiagonal(m, "separated", torch.float32)
-    _, it = ek.teig_plain_iterates(d, e)
-    z = bcgs2_cluster_rows(it, groups, lanes, rows).double()
-    zp = ek.cgs2_plain(it.clone()).double()
-    assert float((z.T @ z - torch.eye(m, dtype=torch.float64)).abs().max()
-                 ) < 2e-4
-    sign = torch.where((z * zp).sum(0) < 0, -1.0, 1.0)
-    assert float((z * sign - zp).abs().max()) < 1e-3
+    for f64 in (False, True):
+        assert grid_plan(m, f64) == {"block": 32, "inblock_ctas": 16,
+                                     "rows": 128, "slabs": 32}
+        assert grid_plan(m + 1, f64)["rows"] == 129
+    check_grid_order(m, torch.float32, 128, [(32, 16)])
 
 
 @pytest.mark.parametrize("m,dtype,tol", [(600, torch.complex64, 1e-5),

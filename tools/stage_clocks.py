@@ -1,7 +1,7 @@
 """Where the cycles of the redesigned kernels go, on one CUDA card.
 
     python3 tools/stage_clocks.py [--parent DIR] [--kernels tridiag,teig,
-        teig_wide,tridiag_wide,backtransform_ormqr,env_chain]
+        teig_wide,teig_grid,tridiag_wide,backtransform_ormqr,env_chain]
 
 Builds instrumented copies of the kernel sources (clock64() stamps taken by
 thread 0 at each stage boundary) into tools/_build/, a git-ignored
@@ -22,6 +22,14 @@ directory, and prints (--kernels picks the reports; all by default):
             with the kernel's time on both inputs, and the same for a build
             whose divisions are plain __fdiv_rn. With --parent DIR (an
             unpacked older tree) also the older kernel's split and times.
+  teig_grid K3's card-wide route (complex64 m > 640, complex128 m > 512)
+            at m = 768, 1024, 1536, 2048 (float32) and 1024, 2048
+            (float64), keep = m and m / 2: each stage's device time and
+            launches (torch.profiler), their sum and the call's time; with
+            --parent DIR first the parent's wide K3 at those sizes (its
+            global-iterate route there) split by stage as teig_wide;
+            with --variants then this tree's route with the tuning
+            choices of TG_VARIANTS undone one at a time.
   teig_wide the wide K3 (complex64 128 < m <= 560, complex128 every m):
             cycles by stage (bisection, shift, inverse iteration, BCGS2
             projections, in-panel CGS2; in the cluster design also the
@@ -489,23 +497,43 @@ def cluster_stages(st, steps):
              comp, bar, exch, cgs, st[5] - st[4]], st[5] - st[0])
 
 
+# an older cluster kernel called its in-panel CGS2 by the route's row count
+# (its global-iterate route, kIterSmem = false, ran m = 641-2048)
+CGS_CALL = "        cgs2_panel_rows(bb, ldb, m, c0, cl0, pw, red);\n    }\n"
+CGS_CALL_PR14 = (
+    "        cgs2_panel_rows<kIterSmem      ? kClCgsRowsSmem\n"
+    "                        : kPanelGlobal ? kClCgsRowsWide\n"
+    "                                       : kClCgsRows>(bb, ldb, m, c0, "
+    "cl0, pw,\n                                                     red);\n"
+    "    }\n")
+
+
 def teig_wide_design(src):
     """(edits, labels, stage function, cluster) for the wide K3 in `src`:
     the cluster design of this tree or PR 6's one CTA a matrix."""
-    if "teig_cluster_kernel" in open(src).read():
-        return (TEIG_CLUSTER_MARKS, TEIG_CLUSTER_LABELS, cluster_stages,
-                True)
+    text = open(src).read()
+    if "teig_cluster_kernel" in text:
+        marks = TEIG_CLUSTER_MARKS
+        if CGS_CALL_PR14 in text:
+            marks = [(old.replace(CGS_CALL, CGS_CALL_PR14),
+                      new.replace(CGS_CALL, CGS_CALL_PR14))
+                     for old, new in marks]
+        return (marks, TEIG_CLUSTER_LABELS, cluster_stages, True)
     return (TEIG_WIDE_ONE_CTA, TEIG_WIDE_ONE_CTA_LABELS, one_cta_stages,
             False)
 
 
 def teig_wide_runner(lib, f64):
     """Launch the instrumented wide K3 (float32) or its double
-    instantiation on one matrix through the build's own launcher."""
+    instantiation on one matrix through the build's own launcher (all m
+    eigenpairs; the launchers of a build with the card-wide route take keep
+    and the scratch's stride too)."""
     from adaptaqc_tpu_torch.ops import eigh_kernels as ek
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.teig_f64_launch if f64 else lib.teig_wide_launch
-    fn.argtypes = [P] * 6 + [I, I, L, L, P]
+    keep_args = hasattr(lib, "teig_grid_plan")
+    fn.argtypes = [P] * 6 + ([I, I, I, L, L, L, P] if keep_args
+                             else [I, I, L, L, P])
     lib.teig_wide_scratch.argtypes = [I]
     lib.teig_wide_scratch.restype = L
     lib.clear_steps.argtypes = []
@@ -516,9 +544,11 @@ def teig_wide_runner(lib, f64):
         b0 = ek.teig_b0(m, dt, dev)
         w = torch.empty(m, dtype=dt, device=dev)
         z = torch.empty(m, m, dtype=dt, device=dev)
-        scratch = torch.empty(lib.teig_wide_scratch(m), dtype=dt, device=dev)
+        sn = lib.teig_wide_scratch(m)
+        scratch = torch.empty(sn, dtype=dt, device=dev)
+        shape = [m, m, 1, m, m, sn] if keep_args else [m, 1, m, m]
         rc = fn(d.data_ptr(), e.data_ptr(), b0.data_ptr(), w.data_ptr(),
-                z.data_ptr(), scratch.data_ptr(), m, 1, m, m,
+                z.data_ptr(), scratch.data_ptr(), *shape,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"teig wide launch failed: {rc}")
@@ -585,6 +615,150 @@ def report_teig_wide(tag, lib, design, sweep128):
               + ", ".join(f"{lab} {c:.0f} ({c / max(total, 1):.3f})"
                           for lab, c in zip(labels, cyc))
               + f"; max |w - w_plain| {wdiff:.1e}", flush=True)
+
+
+# K3's card-wide route: its launches by kernel name, and what each stage is
+TEIG_GRID_STAGES = (("tg_bisect_kernel", "multisection"),
+                    ("tg_invit_kernel", "shift and inverse iteration"),
+                    ("tg_wpart_kernel", "W = Q^T P slab partials"),
+                    ("tg_wsum_kernel", "W slab sums"),
+                    ("tg_update_kernel", "P -= Q W"),
+                    ("tg_inblock_kernel", "in-block CGS2"))
+TEIG_GRID_SIZES = ((False, 768), (False, 1024), (False, 1536),
+                   (False, 2048), (True, 1024), (True, 2048))
+
+
+# teig_grid's tuning choices, each a text edit of this tree's source
+# (--variants): the in-block CGS2's rows a rank and threads a CTA, one CTA
+# wherever the block fits, the multisection's threads a lane, the W
+# partials' slab and Q columns a thread
+TG_VARIANTS = {
+    "inblock_rows256_threads256": [
+        ("constexpr int kTgInThreads = 128;",
+         "constexpr int kTgInThreads = 256;"),
+        ("constexpr int kTgInRows = 128;", "constexpr int kTgInRows = 256;")],
+    "inblock_fewest_ranks": [
+        ("constexpr int kTgInRows = 128;",
+         "constexpr int kTgInRows = 1 << 20;")],
+    "bisect_16_threads_a_lane": [
+        ("constexpr int kTgThreads = 256;", "constexpr int kTgThreads = 128;"),
+        ("constexpr int kTgLaneThreads = 32;",
+         "constexpr int kTgLaneThreads = 16;"),
+        ("constexpr int k = 5;  // log2", "constexpr int k = 4;  // log2")],
+    "slab128": [("constexpr int kTgSlab = 64;", "constexpr int kTgSlab = 128;")],
+    "wpart_one_column": [("constexpr int kTgWCols = 2;",
+                          "constexpr int kTgWCols = 1;")],
+}
+
+
+def build_plain(src, variants):
+    """{tag: `src` with that tag's text edits compiled as the package
+    compiles it (no stamps), its K3 launchers typed}, one nvcc process a
+    tag, all started together."""
+    from adaptaqc_tpu_torch.ops.cuda_lib import NVCC_FLAGS, _nvcc
+    os.makedirs(BUILD, exist_ok=True)
+    procs = {}
+    for tag, edits in variants.items():
+        text = open(src).read()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"{tag}: marker not found: {old!r}")
+            text = text.replace(old, new, 1)
+        cu = os.path.join(BUILD, f"teig_grid_{tag}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(BUILD, f"libteig_grid_{tag}.so")
+        procs[tag] = (so, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", os.path.dirname(src), "-o", so,
+             cu]))
+    libs = {}
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for tag, (so, proc) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"{tag}: nvcc failed")
+        lib = ctypes.CDLL(so)
+        for fn in (lib.teig_wide_launch, lib.teig_f64_launch):
+            fn.argtypes = [P] * 6 + [I, I, I, L, L, L, P]
+        lib.teig_wide_scratch.argtypes = [I]
+        lib.teig_wide_scratch.restype = L
+        libs[tag] = lib
+    return libs
+
+
+def report_teig_grid(tag, lib):
+    """K3's card-wide route through `lib`'s own launcher on a random Gram's
+    tridiagonal at TEIG_GRID_SIZES, keep = m and m / 2: each stage's device
+    time and launches from one profiled call (torch.profiler, kernel rows
+    only), their sum, and the call's time by CUDA events (3 calls; the rest
+    is the card idle between launches)."""
+    import chip_smoke as cs
+    from torch.profiler import ProfilerActivity, profile
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    for f64, m in TEIG_GRID_SIZES:
+        d, e = random_tridiagonal64(m) if f64 else random_tridiagonal(m)
+        dt, dev = d.dtype, d.device
+        b0 = ek.teig_b0(m, dt, dev)
+        w = torch.empty(m, dtype=dt, device=dev)
+        z = torch.empty(m, m, dtype=dt, device=dev)
+        sn = lib.teig_wide_scratch(m)
+        scratch = torch.empty(sn, dtype=dt, device=dev)
+        fn = lib.teig_f64_launch if f64 else lib.teig_wide_launch
+        wp = ek.teig_plain(d, e)[0]
+        for keep in (m, m // 2):
+            def run():
+                rc = fn(d.data_ptr(), e.data_ptr(), b0.data_ptr(),
+                        w.data_ptr(), z.data_ptr(), scratch.data_ptr(), m,
+                        keep, 1, m, m, sn,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"teig launch failed: {rc}")
+            run()
+            torch.cuda.synchronize()
+            wdiff = float((w[:keep] - wp[:keep]).abs().max())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            by = {name: [0.0, 0] for name, _ in TEIG_GRID_STAGES}
+            for ev in prof.key_averages():
+                dt_us = getattr(ev, "self_device_time_total", 0)
+                for name, _ in TEIG_GRID_STAGES:
+                    if dt_us and name in ev.key and not ev.key.startswith(
+                            "aten::"):
+                        by[name][0] += dt_us / 1e3
+                        by[name][1] += ev.count
+            busy = sum(v[0] for v in by.values())
+            ms = cs.cuda_ms(run, 3, torch)
+            print(f"teig grid {tag} {'float64' if f64 else 'float32'} "
+                  f"m={m} keep={keep}: {ms:.4f} ms, kernels {busy:.4f} ms "
+                  f"(idle {1 - busy / ms:.3f}): "
+                  + ", ".join(f"{lab} {by[n][0]:.4f} ms ({by[n][1]})"
+                              for n, lab in TEIG_GRID_STAGES)
+                  + f"; max |w - w_plain| {wdiff:.1e}", flush=True)
+
+
+def report_teig_global_parent(lib, design):
+    """The parent's wide K3 at TEIG_GRID_SIZES (an older tree's: its
+    global-iterate route there), cycles by stage as report_teig_wide
+    splits them, and its time."""
+    import chip_smoke as cs
+    _, labels, stages, _ = design
+    for f64, m in TEIG_GRID_SIZES:
+        d, e = random_tridiagonal64(m) if f64 else random_tridiagonal(m)
+        run = teig_wide_runner(lib, f64)
+        lib.clear_steps()
+        run(d, e)
+        torch.cuda.synchronize()
+        out = (ctypes.c_longlong * (128 * 5))()
+        if lib.read_steps(out) != 0:
+            raise RuntimeError("reading the step stamps failed")
+        cyc, total = stages(stamps(lib), np.array(out[:], dtype=np.float64)
+                            .reshape(128, 5))
+        ms = cs.cuda_ms(lambda: run(d, e), 3, torch)
+        print(f"teig global parent {'float64' if f64 else 'float32'} m={m}: "
+              f"{ms:.4f} ms, {total:.0f} cycles: "
+              + ", ".join(f"{lab} {c:.0f} ({c / max(total, 1):.3f})"
+                          for lab, c in zip(labels, cyc)), flush=True)
 
 
 def tridiag_runner(lib):
@@ -970,13 +1144,14 @@ def report_env():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked older tree to compare")
-    ap.add_argument("--kernels", default="tridiag,teig,teig_wide,"
+    ap.add_argument("--kernels", default="tridiag,teig,teig_wide,teig_grid,"
                     "tridiag_wide,backtransform_ormqr,env_chain",
                     help="which reports, comma-separated (tridiag also "
                     "times backtransform)")
     ap.add_argument("--variants", action="store_true",
                     help="tridiag_wide: also this tree's kernel at other "
-                    "cluster sizes (TW_VARIANTS)")
+                    "cluster sizes (TW_VARIANTS); teig_grid: also this "
+                    "tree's route with other tuning choices (TG_VARIANTS)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -1017,6 +1192,13 @@ def main():
         for tag in ("parent", "this_tree", "this_tree", "parent"):
             if tag in trees:
                 report_teig_wide(tag, *trees[tag], sweep128)
+    if "teig_grid" in which:
+        if parent:
+            report_teig_global_parent(*build_teig_wide("parent", parent))
+        libs = build_plain(src, {"this_tree": [], **(
+            TG_VARIANTS if args.variants else {})})
+        for tag, lib in libs.items():
+            report_teig_grid(tag, lib)
     if "tridiag_wide" in which:
         import chip_smoke as cs
         from adaptaqc_tpu_torch.backends import mps_core
