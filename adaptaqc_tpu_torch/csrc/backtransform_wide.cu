@@ -67,6 +67,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+using adaptaqc::dmma;
 using adaptaqc::mbar_init;
 using adaptaqc::mbar_wait;
 using adaptaqc::smem_addr;
@@ -440,17 +441,6 @@ __device__ __forceinline__ void partial_y(const float2* Vs, const float2* Zs,
     yi[k] = 4 * ig + (f >> 2);
     yc[k] = cg + 8 * (f & 3);
   }
-}
-
-// D += A B on the fp64 tensor cores, one warp: A 8 x 4 (thread: row
-// lane / 4, column lane % 4), B 4 x 8 (row lane % 4, column lane / 4), D
-// 8 x 8 (row lane / 4, columns 2 (lane % 4) + {0, 1}).
-__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
-                                     double b) {
-  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
-      "{%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
 }
 
 // complex128 on the fp64 tensor cores (DMMA): warp w takes the 8 x 8 tile

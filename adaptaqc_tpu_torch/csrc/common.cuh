@@ -1,7 +1,7 @@
 // Shared device helpers for the package's kernels: complex64 as float2
 // and complex128 as double2 (PyTorch's interleaved layouts), warp and block reductions, and the
 // asynchronous copies into shared memory (mbarrier bulk copies, cp.async)
-// that env_chain.cu and eigh_tridiag.cu share.
+// and the fp64 tensor-core product that the kernels share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -79,6 +79,52 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// D += A B on the fp64 tensor cores, one warp: A 8 x 4 (thread: row
+// lane / 4, column lane % 4), B 4 x 8 (row lane % 4, column lane / 4), D
+// 8 x 8 (row lane / 4, columns 2 (lane % 4) + {0, 1}). mma.sync in fp64 is
+// full IEEE double: the wide back-transform runs its complex128 products on
+// this shape (at half the rate of dmma16 below), the streamed env chain on
+// dmma16, each a complex product as four real ones.
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
+                                     double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+// D += A B on the fp64 tensor cores at the full rate, one warp (m16n8k4:
+// on an H100 m8n8k4 runs at 33.4 TFLOP/s, m16n8k4 and m16n8k16 at 66.5 and
+// 67.0, tools/dmma_shapes.py): A 16 x 4 (thread: rows lane / 4 and lane /
+// 4 + 8, column lane % 4), B 4 x 8 (row lane % 4, column lane / 4), D 16 x
+// 8 (rows lane / 4 and lane / 4 + 8, columns 2 (lane % 4) + {0, 1}: d[0],
+// d[1] the first row, d[2], d[3] the second).
+__device__ __forceinline__ void dmma16(double (&d)[4], double a0, double a1,
+                                       double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// cp.async of 16 (or 8) bytes that fills the destination with zeros
+// instead of reading where `ok` is false (src is then not read).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
+                                                bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
 }
 
 // (float or double)

@@ -40,7 +40,10 @@ _SIGNATURES = {
     "env_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_cluster_size": (_I, _I),
-    "env_chain_stream_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "env_chain_stream_launch": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I,
+                                _P),
+    "env_chain_stream_plan": (_I, _I, _I, _I, _P),
+    "env_chain_stream_step2": (_P, _P, _P, _P, _L, _I, _I, _P),
     "tridiag_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "backtransform_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P),
@@ -63,6 +66,7 @@ _SIGNATURES = {
 }
 _RESTYPES = {"teig_wide_scratch": ((_I,), ctypes.c_longlong),
              "env_chain_f64_partials": ((_I,), ctypes.c_longlong),
+             "env_chain_stream_work": ((_I, _I), ctypes.c_longlong),
              "backtransform_workspace": ((_I, _I), ctypes.c_longlong)}
 
 _lib = None

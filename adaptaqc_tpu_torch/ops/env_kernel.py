@@ -23,7 +23,9 @@ keeps per device and stream; complex64 above chi = 64 takes its wide
 variant, and complex128 its double instantiation. Past chi = 128 the
 streamed kernel of csrc/env_chain_stream.cu keeps the environments in the
 wrapper's global scratch and runs each site as two tiled products over the
-whole card, both chains in the same launches, in either dtype. Every call
+whole card, both chains in the same launches, in either dtype (complex64 on
+FFMA, complex128 on the fp64 tensor cores), with the depth split into
+slices where a launch would not fill the card (`stream_slices`). Every call
 counts one in `env_chain.launches`, and one in the counter of its variant:
 `env_chain.wide_launches` (complex64, 64 < chi <= 128), `.f64_launches`
 (complex128, chi <= 128), `.reach_launches` (streamed, complex64) or
@@ -41,6 +43,60 @@ NARROW_MAX_CHI = 64  # the narrow variant holds both B_p of a site and two
 CLUSTER_MAX_CHI = 128  # csrc/env_chain.cu; past it the streamed kernel
 
 _COUNTERS = {}  # (device, stream) -> the kernel's combine counter (int32)
+
+# The streamed kernel's plan (csrc/env_chain_stream.cu kConfigs, plan_config,
+# plan_slices, plan_work; chip_smoke.py holds the two equal on the card).
+# A config: (rows, columns, depth tile, CTAs an SM holds that the plan
+# fills) of a CTA's tile.
+STREAM_CONFIGS = ((128, 128, 16, 1),  # complex64, even chi >= 512
+                  (64, 64, 16, 3),    # complex64, even chi < 512
+                  (64, 64, 16, 3),    # complex64, odd chi
+                  (64, 64, 8, 2))     # complex128 (DMMA)
+STREAM_WAVE = 132  # the H100 SXM's SMs
+STREAM_MAX_SLICES = 16
+# (products, depth blocks np) of the host loop's launches: step 1 of both
+# chains or one (the combine's four products are the first), step 2 of both
+# or one
+STREAM_LAUNCHES = ((4, 1), (2, 1), (2, 2), (1, 2))
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stream_config(chi: int, f64: bool) -> int:
+    """The index in STREAM_CONFIGS of the streamed kernel's CTA tile."""
+    if f64:
+        return 3
+    if chi % 2:
+        return 2
+    return 0 if chi >= 512 else 1
+
+
+def stream_slices(chi: int, f64: bool, products: int, np_: int) -> int:
+    """Depth slices of a launch of `products` products of depth np_ chi: of
+    S = 1 .. STREAM_MAX_SLICES (at most one depth tile a slice), the S whose
+    waves of STREAM_WAVE times the CTAs an SM holds, each 1 / S of the
+    depth, take the least time, ceil(ctas S / wave) / S; a split must give
+    at least STREAM_WAVE CTAs, and a larger S must gain 10% over the best
+    smaller one, to pay for its reduction."""
+    bm, bn, bk, fill = STREAM_CONFIGS[stream_config(chi, f64)]
+    ctas = _ceil(chi, bm) * _ceil(chi, bn) * products
+    wave = STREAM_WAVE * fill
+    best, best_w = 1, _ceil(ctas, wave)
+    for s in range(2, min(np_ * _ceil(chi, bk), STREAM_MAX_SLICES) + 1):
+        w = _ceil(ctas * s, wave)
+        if ctas * s >= STREAM_WAVE and 10 * w * best < 9 * best_w * s:
+            best, best_w = s, w
+    return best
+
+
+def stream_work(chi: int, f64: bool) -> int:
+    """Elements of the streamed kernel's scratch: the environments and
+    products (6 chi^2) and the most partial sums a launch keeps."""
+    part = max([s * p for p, np_ in STREAM_LAUNCHES
+                if (s := stream_slices(chi, f64, p, np_)) > 1], default=0)
+    return (6 + part) * chi * chi
 
 
 def _counter(device, stream: int) -> torch.Tensor:
@@ -126,12 +182,14 @@ def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
     stream = cuda_lib.stream_of(br)
     out = torch.empty((2, 2), dtype=dt, device=br.device)
     if chi > CLUSTER_MAX_CHI:
-        # the environments E, F and the products M_0, M_1 of each chain
-        work = torch.empty((6, chi, chi), dtype=dt, device=br.device)
+        # the environments E, F, the products M_0, M_1 of each chain and
+        # the depth slices' partial sums
+        size = stream_work(chi, f64)
+        work = torch.empty(size, dtype=dt, device=br.device)
         rc = lib.env_chain_stream_launch(
             br.data_ptr(), bl.data_ptr(),
             boundary_env(chi, dt, br.device).data_ptr(), work.data_ptr(),
-            out.data_ptr(), n, chi, int(q), int(f64), stream)
+            size, out.data_ptr(), n, chi, int(q), int(f64), stream)
         cuda_lib.check(rc, "env_chain")
         env_chain.launches += 1
         env_chain.reach_launches += not f64

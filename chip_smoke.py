@@ -79,21 +79,25 @@ name; any failure exits non-zero:
             to the straight run's pair history
   reach     past the sizes whose operands fit on chip: the streamed K1
             (chi 129/192/256/512/768/1024 in complex64, 192/256/512/1024 in
-            complex128, q 0/1/25/48/49) and K2-K4 at m =
-            561/768/1024/1536/2048 (complex64) and 505/512/1024/2048
+            complex128, q 0/1/25/48/49; its plan as the library's, a rerun
+            the same bits at chi 256 and 1024, its cuBLAS chain and one
+            step-2 product against torch.matmul timed beside it) and K2-K4
+            at m = 561/768/1024/1536/2048 (complex64) and 505/512/1024/2048
             (complex128) against their plain versions, with times, bounds
             and library calls (K3 against torch.linalg.eigh(T), its
             card-wide route also at keep = m/2: the first columns of its
             keep = m launch, alone and in a batch of 3; K4 against
             torch.ormqr); then at n=50 the sweep phase's workload at
-            chi=256, 512 and 1024 in complex64 and complex128, and the spin
-            chain
-            through workloads/spin_chain.py with
+            chi=256, 512 and 1024 in complex64 and complex128 (the
+            complex128 chi=1024 sweep also profiled by kernel name), and
+            the spin chain through workloads/spin_chain.py with
             SPIN_CHI_SCHEDULE=32,64,128,256 cut to 2 layers a stage
             (center-gauge verifier within 1e-3, relative): every launch is
             counted by the code it runs, and each new code path must
             launch on them; the deep re-simulation at chi=256 (8 layers)
-            and chi=1024 (2 layers)
+            and chi=1024 (2 layers), its native verifier at the same chi;
+            a compile at working chi=512, n=21, whose verified stop
+            re-simulates at chi=1024 on the native verifier
   optim     on the slice's target (n=50, chi=32): BOBYQA layers with the
             final BOBYQA minimisation (use_roto_algos=False,
             perform_final_minimisation=True), and Rotosolve layers
@@ -1495,8 +1499,36 @@ def sweep_variants(ek, envk, chi, f64):
     }.items() if v}
 
 
+def kernel_profile(torch, fn):
+    """Run fn once under torch.profiler: ({kernel name: (device ms,
+    launches)}, the kernels' device ms in all, the run's wall ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, count = by.get(e.name, (0.0, 0))
+            by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    return by, sum(v[0] for v in by.values()), wall
+
+
+def profile_line(by, total, wall, top=8):
+    """The `top` kernels by device time, names cut to 70 characters."""
+    rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    return (f"{total:.2f} ms of kernels in {wall:.2f} ms (busy "
+            f"{total / wall:.3f}): " + "; ".join(
+                f"{name[:70]} {ms:.2f} ms ({n})" for name, (ms, n) in rows))
+
+
 def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
-                chi=64, ek=None, envk=None, dtype=None, reps=3):
+                chi=64, ek=None, envk=None, dtype=None, reps=3,
+                profile=False):
     """bench.py's workload: a 3-layer random-entangling 50-qubit target at
     bond dimension chi (64: bench.py's) and a window of 12 dressed-CNOT
     layers, one Rotoselect sweep timed over `reps` sweeps after a warm-up
@@ -1504,7 +1536,9 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
     dtype);
     with ek and envk given, the launches of the timed sweeps are printed
     by variant, each kernel's counted variant at this chi and dtype
-    (sweep_variants) must have launched, and they are returned."""
+    (sweep_variants) must have launched, and they are returned. profile:
+    one more sweep, under torch.profiler, its kernels' device time by
+    name."""
     from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     n, window = 50, 12
     t_setup = time.perf_counter()
@@ -1555,6 +1589,10 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
         check(not missing, f"the chi={chi}{tag} sweep did not launch "
                            f"{missing}: {counts}")
     check(np.isfinite(cost) and np.isfinite(ms), "sweep produced no number")
+    if profile:
+        by, total, pwall = kernel_profile(torch, lambda: sweeps.sweep(*args))
+        print(f"sweep: n={n} chi={chi}{tag} profiled sweep: "
+              + profile_line(by, total, pwall) + f" on {card}", flush=True)
     return counts
 
 
@@ -2300,11 +2338,14 @@ REACH_VARIANTS = ("reach", "reach_f64")
 # 256 one sweep, timed without a warm-up, to keep the run's time
 REACH_SWEEPS = ((256, False, 3), (256, True, 3), (512, False, 1),
                 (512, True, 1), (1024, False, 1), (1024, True, 1))
-# (chi, layers, chi of the native run) of the re-simulation. At chi = 1024
-# cuSOLVER's eigh (the native eigensolver) fails to converge on the Grams'
-# 2040-fold zero eigenvalue; two brickwork layers keep every bond at rank
-# <= 2, so the exact state, and its native run, is the same at chi = 256
-REACH_HAZARD = ((256, 8, 256), (1024, 2, 256))
+# (chi, layers, chi of the native run) of the re-simulation: the native
+# verifier at the kernels' chi (at chi = 1024 its Grams, m = 2048, have
+# 2044 exactly zero rows, which cplx.split_zero_rows takes off before
+# cuSOLVER's eigh: without, it fails to converge on 10 of 98)
+REACH_HAZARD = ((256, 8, 256), (1024, 2, 1024))
+# a compile whose verified stop re-simulates at chi = 1024: working chi 512,
+# n >= 21 (2 ** ((n + 1) // 2) >= 1024), at most 2 layers
+VERIFIED_STOP = dict(n=21, chi=512, max_layers=2)
 
 
 def reach_rows(ek, envk):
@@ -2334,13 +2375,73 @@ def kernel_source(name, variant=None):
     return KERNELS[name][0]
 
 
-def reach_env_check(torch, envk, card, dev, rec):
+def stream_plan_check(envk, lib):
+    """The streamed K1's plan mirror (env_kernel.stream_config,
+    stream_slices, stream_work: what the wrapper sizes `work` by and the
+    CPU tests check) against the library's own, at every chi of its reach
+    and every launch of its host loop, in both dtypes."""
+    import ctypes
+    out = (ctypes.c_int * 2)()
+    bad = []
+    for chi in range(envk.CLUSTER_MAX_CHI + 1, 1025):
+        for f64 in (False, True):
+            if lib.env_chain_stream_work(chi, int(f64)) != envk.stream_work(
+                    chi, f64):
+                bad.append(("work", chi, f64))
+            for products, np_ in envk.STREAM_LAUNCHES:
+                rc = lib.env_chain_stream_plan(chi, int(f64), products, np_,
+                                               out)
+                if rc != 0 or (out[0], out[1]) != (
+                        envk.stream_config(chi, f64),
+                        envk.stream_slices(chi, f64, products, np_)):
+                    bad.append((chi, f64, products, np_, tuple(out)))
+    check(not bad, f"the streamed K1's plan mirror differs from the "
+                   f"library's: {bad[:4]}")
+
+
+def stream_step2_times(torch, envk, cuda_lib, br, f64, chi):
+    """One step-2 product of the forward chain (sum_p A_p^H M_p, depth 2
+    chi) through the streamed kernel's launches for it
+    (env_chain_stream_step2: the product and, where the plan splits it,
+    the reduction), against one torch.matmul of the same shape, (chi x 2
+    chi) (2 chi x chi), A^H laid out beforehand: (kernel ms, matmul ms,
+    max |difference| / max |matmul|), 20 calls each, CUDA events."""
+    dt = br.dtype
+    lib = cuda_lib.lib()
+    g = torch.Generator(device="cpu").manual_seed(chi + 1)
+    m = torch.randn((2, chi, chi), generator=g, dtype=dt).to(br.device)
+    a = br[25]
+    out = torch.empty((chi, chi), dtype=dt, device=br.device)
+    work = torch.empty(envk.stream_work(chi, f64), dtype=dt,
+                       device=br.device)
+    stream = cuda_lib.stream_of(br)
+
+    def kernel():
+        cuda_lib.check(lib.env_chain_stream_step2(
+            a.data_ptr(), m.data_ptr(), out.data_ptr(), work.data_ptr(),
+            work.numel(), chi, int(f64), stream), "env_chain_stream_step2")
+
+    left = torch.cat([a[0].mH, a[1].mH], dim=1).contiguous()
+    right = m.reshape(2 * chi, chi)
+    kernel()
+    ref = torch.matmul(left, right)
+    err = float((out - ref).abs().max() / ref.abs().max())
+    return (cuda_ms(kernel, 20, torch),
+            cuda_ms(lambda: torch.matmul(left, right), 20, torch), err)
+
+
+def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
     """The streamed K1 (chi > 128) against env_chain_plain at n = 50 on the
     card: complex64 at REACH_CHI (TOL_ENV_REL), complex128 at REACH_CHI_F64
-    (TOL_F64_ENV), q in REACH_Q; at q = 25 its time (20 launches), the
-    plain version's and the bound, at every chi (`by_chi`)."""
+    (TOL_F64_ENV), q in REACH_Q; a rerun at q = 25 the same bits at chi =
+    256 and 1024; at q = 25 its time, the plain chain's (the chain of
+    cuBLAS products, its library yardstick: 20 calls each, CUDA events)
+    and the bound, and one step-2 product against one torch.matmul of its
+    shape, at every chi (`by_chi`). First the plan mirror against the
+    library's (stream_plan_check)."""
     n = 50
     t0 = time.perf_counter()
+    stream_plan_check(envk, cuda_lib.lib())
     worst = {False: 0.0, True: 0.0}
     parts = {False: [], True: []}
     for chi in sorted(set(REACH_CHI) | set(REACH_CHI_F64)):
@@ -2362,27 +2463,41 @@ def reach_env_check(torch, envk, card, dev, rec):
                                  f"rel {rel}")
                 if chi == 256 and q == 25:
                     rec[key]["max_abs_err"] = err
+            if chi in (256, 1024):
+                check(torch.equal(envk.env_chain(br, bl, 25),
+                                  envk.env_chain(br, bl, 25)),
+                      f"streamed env_chain {dt} chi={chi}: a rerun gave "
+                      "other bits")
             ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), 20, torch)
-            pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 3, torch)
+            pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 20, torch)
+            sms, mms, serr = stream_step2_times(torch, envk, cuda_lib, br,
+                                                f64, chi)
+            check(serr < tol, f"streamed step 2 {dt} chi={chi}: rel {serr} "
+                              "against torch.matmul")
             bound = bound_fields("env_chain", n=n, chi=chi, f64=f64)
-            rec[key].setdefault("by_chi", {})[chi] = dict(
-                ms=ms, plain_ms=pms, **bound)
+            row = dict(ms=ms, plain_ms=pms, library_ms=pms, step2_ms=sms,
+                       step2_matmul_ms=mms, **bound)
+            rec[key].setdefault("by_chi", {})[chi] = row
             if chi == 256:
-                rec[key].update(ms=ms, plain_ms=pms, shape=(
-                    "n=50, chi=256, q=25" + (", complex128" if f64 else "")),
-                    **bound)
-            parts[f64].append(f"chi={chi} {ms:.4f} ms plain {pms:.4f} ms "
-                              f"bound {bound['bound_ms']:.4f} ms "
-                              f"({bound['bound_by']})")
+                rec[key].update(
+                    ms=ms, plain_ms=pms, library_ms=pms,
+                    library_call="env_chain_plain (the chain of cuBLAS "
+                                 "products)",
+                    shape="n=50, chi=256, q=25" + (", complex128" if f64
+                                                   else ""), **bound)
+            parts[f64].append(
+                f"chi={chi} {ms:.4f} ms plain (cuBLAS chain) {pms:.4f} ms "
+                f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                f"step 2 {sms:.4f} ms against torch.matmul {mms:.4f} ms")
         del br64, bl64
     for f64 in (False, True):
         print(f"reach: env_chain streamed "
               f"{'complex128' if f64 else 'complex64'} n={n} against plain "
               f"over chi {REACH_CHI_F64 if f64 else REACH_CHI} and q "
               f"{REACH_Q}: worst rel {worst[f64]:.2e} < "
-              f"{TOL_F64_ENV if f64 else TOL_ENV_REL}; at q=25 "
-              + "; ".join(parts[f64]) + f"; no library call ("
-              f"{time.perf_counter() - t0:.1f} s of checks) on {card}",
+              f"{TOL_F64_ENV if f64 else TOL_ENV_REL}, reruns bit for bit, "
+              f"plan as the library's; at q=25 " + "; ".join(parts[f64])
+              + f" ({time.perf_counter() - t0:.1f} s of checks) on {card}",
               flush=True)
 
 
@@ -2667,23 +2782,94 @@ def reach_spin(torch, ek, envk, card, n=50, layers=2):
     return counts
 
 
+def reach_verified_stop(torch, port, cplx, card, n, chi, max_layers):
+    """AdaptCompiler on MPSBackend(max_chi=chi) for random_target(1, n),
+    cut to max_layers: its final cost is verified by a re-simulation at
+    twice the working chi (1024) on the native verifier, every Gram m =
+    2048. Prints the overlap, the verifier's seconds and calls of the
+    native route at m = 2048, and that route's ms a call (complex128, on
+    one of those Grams)."""
+    from adaptaqc_tpu_torch.utils.ansatzes import identity_resolvable
+    from adaptaqc_tpu_torch.utils.constants import (CMAP_LINEAR,
+                                                    generate_coupling_map)
+    from adaptaqc_tpu_torch.utils.targets import random_target
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    config = port.AdaptConfig(method="general_gradient",
+                              cost_improvement_num_layers=1000,
+                              sufficient_cost=9.5e-3, max_layers=max_layers)
+    backend = port.mps_backend_with_args(mps_truncation_threshold=1e-8,
+                                         max_chi=chi, device=dev)
+    compiler = port.AdaptCompiler(
+        random_target(1, n=n, device=dev), backend=backend,
+        adapt_config=config, coupling_map=generate_coupling_map(
+            n, CMAP_LINEAR),
+        custom_layer_2q_gate=identity_resolvable(),
+        starting_circuit="tenpy_product_state")
+    verified, gram, calls = [], [], [0]
+    true_cost = compiler._true_cost_of_gate_circuit
+    eigh_top = cplx.eigh_top
+
+    def timed_true_cost(qc):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        cost = true_cost(qc)
+        torch.cuda.synchronize()
+        verified.append((time.perf_counter() - s0, cost))
+        return cost
+
+    def counted_eigh_top(h, keep, eigh=None):
+        if (eigh or cplx.default_eigh()) == "native" and h.shape[-1] == 2048:
+            calls[0] += 1
+            gram[:] = gram or [(h.clone(), keep)]
+        return eigh_top(h, keep, eigh)
+
+    compiler._true_cost_of_gate_circuit = timed_true_cost
+    cplx.eigh_top = counted_eigh_top
+    try:
+        result = compiler.compile()
+        torch.cuda.synchronize()
+    finally:
+        cplx.eigh_top = eigh_top
+    wall = time.perf_counter() - t0
+    calls = calls[0]
+    check(verified and calls > 0,
+          f"the compile at chi={chi} made no verification at m=2048 "
+          f"({len(verified)} verifications, {calls} native calls)")
+    h, keep = gram[0]
+    route_ms = cuda_ms(lambda: cplx.eigh_top(h, keep, "native"), 5, torch)
+    ov = float(result.overlap)
+    print(f"reach: verified stop n={n} working chi={chi} "
+          f"({len(result.qubit_pair_history)} pairs, {max_layers} layers "
+          f"at most): overlap {ov:.6f}, verifier {sum(v[0] for v in verified):.2f}"
+          f" s over {len(verified)} re-simulation(s) at chi={2 * chi} "
+          f"({calls} native calls at m=2048; the route "
+          f"{route_ms:.4f} ms a call in complex128), compile "
+          f"{wall:.1f} s on {card}", flush=True)
+    check(np.isfinite(ov) and -1e-6 <= ov <= 1 + 1e-6,
+          f"verified stop: overlap {ov}")
+
+
 def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
-                card):
+                card, port, cplx):
     """Past the sizes whose operands fit on chip: the streamed K1 to chi =
     1024 and K2-K4 to m = 2048 against their plain versions, then the
     paths at full width (n = 50) that launch them, each counted on its
     own: bench.py's sweep at chi = 256, 512 and 1024 in complex64 and
     complex128 (REACH_SWEEPS), and the spin chain's chi
     schedule to 256; then the deep re-simulation at chi = 256 and 1024
-    (REACH_HAZARD). Every row of reach_rows must have launched on those
-    paths, and no other reach counter. Returns (the records of the new
-    variants, their launches on those paths, reach_rows)."""
+    (REACH_HAZARD), its native side at the same chi, and a compile's
+    verified stop re-simulated at chi = 1024 (VERIFIED_STOP). Every row of
+    reach_rows must have launched on the sweeps and the spin chain, and no
+    other reach counter. Returns (the records of the new variants, their
+    launches on those paths, reach_rows)."""
+    from adaptaqc_tpu_torch.ops import cuda_lib
     dev = torch.device("cuda")
     rec = {f"{k}[{v}]": {"max_abs_err": None, "ms": None, "plain_ms": None,
                          "bound_ms": None, "bound_by": None,
                          "library_call": None, "library_ms": None}
            for k in KERNELS for v in REACH_VARIANTS}
-    reach_env_check(torch, envk, card, dev, rec)
+    reach_env_check(torch, envk, cuda_lib, card, dev, rec)
     reach_eigh_check(torch, ek, card, dev, rec)
     launches = {k: dict.fromkeys(REACH_VARIANTS, 0) for k in KERNELS}
 
@@ -2696,11 +2882,12 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     for chi, f64, reps in REACH_SWEEPS:
         add(phase_sweep(*sweep_args, chi=chi, ek=ek, envk=envk,
                         dtype=torch.complex128 if f64 else torch.complex64,
-                        reps=reps))
+                        reps=reps, profile=chi == 1024 and f64))
     add(reach_spin(torch, ek, envk, card))
     for chi, layers, native_chi in REACH_HAZARD:
         phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=chi,
                      layers=layers, native_chi=native_chi)
+    reach_verified_stop(torch, port, cplx, card, **VERIFIED_STOP)
     rows = reach_rows(ek, envk)
     for k, by_v in launches.items():
         for v, count in by_v.items():
@@ -3042,7 +3229,7 @@ def main():
         done("ladder")
     if wanted("reach"):
         reach = phase_reach(torch, mps_core, sweeps, Circuit, compile_tape,
-                            ek, envk, card)
+                            ek, envk, card, port, cplx)
         done("reach")
     if wanted("optim"):
         f64 = phase_optim(torch, port, card)

@@ -78,55 +78,116 @@ def test_plain_env_chain_past_128_matches_jax_local_overlap(chi, prec):
         assert rel < TOL_ENV[prec], (q, rel)
 
 
-def _product(l_, r, conj_l, l_i, l_a, l_p, r_a, r_j, r_p, np_, chi):
-    """One product of the streamed kernel (stream_product_kernel), in its
-    order: C[i][j] = sum over p < np_ (outer) and a < chi (inner, in
-    order) of L(i, p, a) R(p, a, j), with L(i, p, a) = l_[p l_p + i l_i +
-    a l_a] (conjugated if conj_l) and R(p, a, j) = r[p r_p + a r_a + j r_j]
-    read from flat storage with the strides the host loop gives the
-    kernel."""
-    acc = torch.zeros((chi, chi), dtype=l_.dtype)
+def _views(l_, r, conj_l, l_i, l_a, l_p, r_a, r_j, r_p, np_, chi):
+    """The operands of one product of the streamed kernel, read from flat
+    storage with the strides the host loop gives it: L_p (chi x chi, rows
+    i, depth a; conjugated if conj_l) and R_p (depth a, columns j), p <
+    np_."""
+    ls, rs = [], []
     for p in range(np_):
         lv = torch.as_strided(l_, (chi, chi), (l_i, l_a),
                               l_.storage_offset() + p * l_p)
-        rv = torch.as_strided(r, (chi, chi), (r_a, r_j),
-                              r.storage_offset() + p * r_p)
-        if conj_l:
-            lv = lv.conj()
-        for a in range(chi):
-            acc = acc + lv[:, a:a + 1] * rv[a:a + 1, :]
-    return acc
+        ls.append(lv.conj() if conj_l else lv)
+        rs.append(torch.as_strided(r, (chi, chi), (r_a, r_j),
+                                   r.storage_offset() + p * r_p))
+    return ls, rs
+
+
+def product_order(ls, rs, slices, bk, rows=slice(None), cols=slice(None)):
+    """One product as the streamed kernel sums it (stream_product_*_kernel
+    and stream_reduce_kernel), for the outputs [rows, cols]: the depth
+    (p outer, a inner) cut into tiles of bk per p, the tiles into `slices`
+    slices ([s T / S, (s + 1) T / S) of the T tiles); within a slice one
+    sum per output over its depth in order, then the slices added in
+    order. Complex64 as the FFMA kernel: acc.x = fma(a.x, b.x, fma(-a.y,
+    b.y, acc.x)), acc.y = fma(a.x, b.y, fma(a.y, b.x, acc.y)) a depth
+    index (here rounded after each product); complex128 as the DMMA
+    kernel: by steps of 4 depth indices, four real products each summed
+    over the step into the real (a.x b.x, then -a.y b.y) or imaginary (a.x
+    b.y, then a.y b.x) accumulator. Real arithmetic only, so the bits do
+    not depend on the shape of the outputs taken."""
+    chi = ls[0].shape[0]
+    ktp = -(-chi // bk)
+    total = len(ls) * ktp
+    f64 = ls[0].dtype == torch.complex128
+    lr = [(x.real.contiguous()[rows], x.imag.contiguous()[rows])
+          for x in (l.resolve_conj() for l in ls)]
+    rr = [(x.real.contiguous()[:, cols], x.imag.contiguous()[:, cols])
+          for x in rs]
+    out = None
+    for s in range(slices):
+        re = im = None
+        for t in range(s * total // slices, (s + 1) * total // slices):
+            p, a0 = t // ktp, (t % ktp) * bk
+            (ax, ay), (bx, by) = lr[p], rr[p]
+            if re is None:
+                re = torch.zeros((ax.shape[0], bx.shape[1]), dtype=ax.dtype)
+                im = torch.zeros_like(re)
+            steps = range(a0, min(a0 + bk, chi))
+            if not f64:
+                for a in steps:
+                    xa, ya = ax[:, a:a + 1], ay[:, a:a + 1]
+                    xb, yb = bx[a:a + 1], by[a:a + 1]
+                    re = (re - ya * yb) + xa * xb
+                    im = (im + ya * xb) + xa * yb
+                continue
+            for k0 in range(a0, min(a0 + bk, chi), 4):
+                ks = range(k0, min(k0 + 4, chi))
+                for acc, pairs in (("re", ((ax, bx, 1.0), (ay, by, -1.0))),
+                                   ("im", ((ax, by, 1.0), (ay, bx, 1.0)))):
+                    v = re if acc == "re" else im
+                    for x, y, sign in pairs:
+                        for a in ks:
+                            v = v + (sign * x[:, a:a + 1]) * y[a:a + 1]
+                    if acc == "re":
+                        re = v
+                    else:
+                        im = v
+        out = (re, im) if out is None else (out[0] + re, out[1] + im)
+    return torch.complex(*out)
+
+
+def _product(l_, r, conj_l, l_i, l_a, l_p, r_a, r_j, r_p, np_, chi,
+             products):
+    """One product of a launch of `products` products (the plan's slices
+    for that launch), in the streamed kernel's order (product_order)."""
+    f64 = l_.dtype == torch.complex128
+    bk = env_kernel.STREAM_CONFIGS[env_kernel.stream_config(chi, f64)][2]
+    slices = env_kernel.stream_slices(chi, f64, products, np_)
+    ls, rs = _views(l_, r, conj_l, l_i, l_a, l_p, r_a, r_j, r_p, np_, chi)
+    return product_order(ls, rs, slices, bk)
 
 
 def stream_emulated(br, bl, q):
     """The streamed kernel's host loop (csrc/env_chain_stream.cu `run`)
     with its products in their order: per site step 1, M_p = X S_p
-    (forward: S_p[a][j]) or X S_p^T (backward: S_p[j][a]); step 2, the
-    environment = sum over the depth (p, a) of L M, L(x, p, a) =
-    conj(A_p[a][x]) (forward) or conj(A_p[x][a]) (backward); then G_j = e
-    B_j, K_i = conj(A_i) f and C[i][j] = sum G_j K_i."""
+    (forward: S_p[a][j]) or X S_p^T (backward: S_p[j][a]), a launch of 2
+    products per chain still running; step 2, the environment = sum over
+    the depth (p, a) of L M, L(x, p, a) = conj(A_p[a][x]) (forward) or
+    conj(A_p[x][a]) (backward), one product per chain; then the combine's
+    four products G_j = e B_j, K_i = conj(A_i) f and C[i][j] = sum G_j
+    K_i."""
     n, _, chi, _ = br.shape
     cc = chi * chi
     fb, fk = br.reshape(-1), bl.reshape(-1)
     e0 = env_kernel.boundary_env(chi, br.dtype, br.device).reshape(-1)
     cur = [e0, e0]
     for s in range(max(q, n - 1 - q)):
-        for ch, count in enumerate((q, n - 1 - q)):
-            if s >= count:
-                continue
+        live = [ch for ch, count in enumerate((q, n - 1 - q)) if s < count]
+        for ch in live:
             fwd = ch == 0
             i = s if fwd else n - 1 - s
             m = torch.stack([_product(
                 cur[ch], fk[i * 2 * cc + p * cc:], False, chi, 1, 0,
-                chi if fwd else 1, 1 if fwd else chi, 0, 1, chi)
-                for p in range(2)]).reshape(-1)
+                chi if fwd else 1, 1 if fwd else chi, 0, 1, chi,
+                2 * len(live)) for p in range(2)]).reshape(-1)
             cur[ch] = _product(fb[i * 2 * cc:], m, True,
                                1 if fwd else chi, chi if fwd else 1, cc,
-                               chi, 1, cc, 2, chi).reshape(-1)
+                               chi, 1, cc, 2, chi, len(live)).reshape(-1)
     g = [_product(cur[0], fk[q * 2 * cc + j * cc:], False, chi, 1, 0, chi, 1,
-                  0, 1, chi) for j in range(2)]
+                  0, 1, chi, 4) for j in range(2)]
     k = [_product(fb[q * 2 * cc + i * cc:], cur[1], True, chi, 1, 0, chi, 1,
-                  0, 1, chi) for i in range(2)]
+                  0, 1, chi, 4) for i in range(2)]
     return torch.stack([torch.stack([(g[j] * k[i]).sum() for j in range(2)])
                         for i in range(2)])
 
@@ -135,10 +196,10 @@ def stream_emulated(br, bl, q):
 @pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
                                        (torch.complex64, 1e-4)])
 def test_stream_order_matches_plain(dtype, tol, q):
-    """The streamed kernel's products, strides and depth order, emulated at
-    chi = 160 (two 64-wide tiles and a ragged one), n = 5, against
-    env_chain_plain: 1e-12 relative in complex128, 1e-4 (the card's
-    tolerance) in complex64."""
+    """The streamed kernel's products, strides, depth slices and order
+    (product_order), emulated at chi = 160 (two 64-wide tiles and a ragged
+    one, depth slices by the plan), n = 5, against env_chain_plain: 1e-12
+    relative in complex128, 1e-4 (the card's tolerance) in complex64."""
     n, chi = 5, 160
     br, bl = (torch.tensor(x, dtype=dtype) for x in _sites(n, chi, seed=9))
     out = stream_emulated(br, bl, q)
