@@ -183,9 +183,11 @@ class AdaptCompiler(ApproximateCompiler):
     # --------------------------------------------------------- chi schedule
     def _check_schedule_fits_kernels(self, chis):
         """On a CUDA device the eigensolver and env-chain kernels take a
-        bounded bond dimension (ops/dispatch.py REACH: chi <= 1024, the
+        bounded bond dimension (ops/dispatch.py REACH: chi <= 2048, the
         env chain's streamed kernel and the eigensolver at m = 2 chi <=
-        2048, in complex64 and complex128; their plain versions on the CPU
+        4096 in complex64, chi <= 1024 in complex128, where the
+        eigensolver's back-transform stops at m = 2048; their plain
+        versions on the CPU
         have no cap), and a call above it raises: refuse a schedule whose
         stages exceed it before its first stage, not hours into it."""
         if self.backend.device.type != "cuda":

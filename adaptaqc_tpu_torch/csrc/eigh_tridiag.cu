@@ -4,10 +4,11 @@
 //   tridiag_kernel        <- _tridiag_kernel       (pallas_eigh.py:56)
 //   teig_kernel           <- _teig_kernel          (pallas_eigh.py:194)
 //   backtransform_kernel  <- _backtransform_kernel (pallas_eigh.py:136)
-// and, for 128 < m <= 2048, the wide variants of the first two
+// and, for 128 < m, the wide variants of the first two
 // (tridiag_cluster_kernel, teig_cluster_kernel, at the end of this file),
-// whose double instantiations serve complex128 at every m up to 2048; the
-// wide back-transform is csrc/backtransform_wide.cu.
+// whose double instantiations serve complex128 at every m; the wide
+// back-transform is csrc/backtransform_wide.cu, and K2 past its cluster's
+// shared memory is csrc/tridiag_grid.cu.
 // Input is the m x m Hermitian Gram matrix of one two-qubit apply, m = 2 chi
 // <= 128, complex64 (float2), or a batch of P of them in one launch: the
 // full-cost sweep applies every gate to its 3 or 7 probe states at once (the
@@ -1027,9 +1028,9 @@ __global__ void __launch_bounds__(kBtThreads)
 // ------------------------------------------------------ the wide variants
 // For 128 < m (the JAX kernels' own reach, pallas_eigh.py's `supported`:
 // 10 m^2 float32 words in 12 MiB of VMEM, ends at m = 560; past it the
-// reference runs XLA's eigh and the port these kernels, to m = kWideMaxM,
-// K2's cap: its rows past its CTAs' fit stay in the wrapper's `work`, and
-// K3 runs teig_grid, its card-wide route). At m = 256 one complex64
+// reference runs XLA's eigh and the port these kernels: past its CTAs'
+// shared memory K2 runs its card-wide route, csrc/tridiag_grid.cu, and K3
+// teig_grid, its own card-wide route). At m = 256 one complex64
 // matrix is 512 KB, more than an SM's registers (256 KB) or shared memory
 // (227 KB), so the designs above do not stretch. K4's wide design is
 // csrc/backtransform_wide.cu (a cluster over the rows of each tile of
@@ -1050,7 +1051,8 @@ __global__ void __launch_bounds__(kBtThreads)
 // (ops/eigh_kernels.py _teig_constants: 60 bisection rounds, eps 2.3e-16,
 // pivmin floor 1e-300) and the tiny-column threshold is DBL_MIN /
 // DBL_EPSILON, as the plain version's finfo(float64).tiny / eps.
-constexpr int kWideMaxM = 2048;  // K2's cap (tridiag_plan's flags)
+constexpr int kTcMaxM = 640;  // the most K2's cluster route takes (its
+                              // rows in shared memory, complex64)
 
 template <typename T>
 struct Real;
@@ -2380,9 +2382,9 @@ __global__ void __launch_bounds__(kTgInThreads, 1)
 
 // K2's wide variant: tridiag_kernel's Householder steps on a thread-block
 // cluster of G = ceil(m / 16) CTAs a matrix (at most 16; 8 where the card
-// refuses 16), for complex64 at 128 < m <= 2048 and complex128 at every
-// m <= 2048 (R = 128 rows a CTA at m = 2048 on 16 CTAs: the most its
-// flags hold). One CTA a matrix (the first design) used one SM of 132, kept A
+// refuses 16), for complex64 at 128 < m <= 640 and complex128 at m <= 438,
+// where every row fits in the cluster's shared memory (past that,
+// csrc/tridiag_grid.cu's card-wide route). One CTA a matrix (the first design) used one SM of 132, kept A
 // in global memory and streamed the trailing block through that SM's L1/L2
 // three times a step (the product u half its cycles, the update the other
 // half, tools/stage_clocks.py), divided per element in the rank-2 update,
@@ -2390,10 +2392,7 @@ __global__ void __launch_bounds__(kTgInThreads, 1)
 //   - CTA r holds rows r, r + G, r + 2G, .. (dealt cyclically, as tri_row
 //     deals them over row groups, so that the trailing block stays spread
 //     over every CTA to the last steps), whole rows of m entries, in its
-//     shared memory: the first rs of its R = ceil(m / G) rows, all of them
-//     where they fit (complex64 to m = 640, complex128 to m = 438), the
-//     rest in the wrapper's `work` at their own row of the matrix; either
-//     way a row is reached through one pointer;
+//     shared memory: all of its R = ceil(m / G) rows;
 //   - a warp a row: u_i = sum_j A[i][j] v_j with a shuffle reduction, and
 //     the rank-2 update over the row's trailing entries (coalesced, no
 //     integer division), rounded as written, so that A stays exactly
@@ -2431,11 +2430,11 @@ __global__ void __launch_bounds__(kTgInThreads, 1)
 //     cluster barrier keeps every CTA's shared memory alive until no other
 //     CTA reads it.
 // A batch of P matrices is P clusters on grid x.
-constexpr int kTcMaxRows = 128;  // rows a CTA: its flags
+constexpr int kTcMaxRows = 128;  // rows a CTA: its flags (40 at m = 640)
 constexpr int kTcRowsPerCta = 16;  // G = ceil(m / 16), at most 16
 
 // tridiag_cluster_kernel's dynamic shared memory, in complex elements: the
-// rs rows a CTA keeps (m each), then from a 16-byte boundary the messages
+// rs rows a CTA holds (m each), then from a 16-byte boundary the messages
 // (two buffers), u of every row (two buffers) and the CTA's own message
 // (m + 2 each, rounded to 16 bytes: entries m and m + 1 carry tau and the
 // active bit, and the bulk copy moves whole 16-byte units).
@@ -2511,11 +2510,10 @@ __device__ __forceinline__ bool tc_row_flag(const V* r, int i, int m,
 }
 
 // Grid: batch x G CTAs of kClThreads, clusters of G along x (cluster b is
-// matrix b); rs: the rows a CTA keeps in shared memory.
+// matrix b); rs: the rows a CTA holds, ceil(m / G).
 template <typename T>
 __global__ void __launch_bounds__(kClThreads, 1)
     tridiag_cluster_kernel(const typename Real<T>::C* __restrict__ h,
-                           typename Real<T>::C* __restrict__ work,
                            typename Real<T>::C* __restrict__ vrows,
                            typename Real<T>::C* __restrict__ tau_out,
                            T* __restrict__ d_out, T* __restrict__ e_out,
@@ -2527,7 +2525,6 @@ __global__ void __launch_bounds__(kClThreads, 1)
   {
     const size_t b = blockIdx.x / G;
     h += b * (size_t)h_stride;
-    work += b * (size_t)m * m;
     vrows += b * (size_t)m * m;
     tau_out += b * m;
     d_out += b * m;
@@ -2535,7 +2532,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
   }
   extern __shared__ __align__(16) unsigned char tsm_raw[];
   const int mv = tc_vec_elems(m);
-  V* As = reinterpret_cast<V*>(tsm_raw);      // rs rows of m
+  V* As = reinterpret_cast<V*>(tsm_raw);      // this CTA's rows, m each
   V* Vv = As + tc_rows_elems(m, rs);          // v of a step, 2 buffers
   V* U = Vv + 2 * mv;                         // u of every row, 2 buffers
   V* Vc = U + 2 * mv;                         // this CTA's reflector
@@ -2549,9 +2546,7 @@ __global__ void __launch_bounds__(kClThreads, 1)
   const int nr = (m - rank + G - 1) / G;  // rows rank + l G, l < nr
   const T zero = 0, one = 1;
   const V czero = make_c(zero, zero);
-  auto row = [&](int l) -> V* {
-    return l < rs ? As + (size_t)l * m : work + (size_t)(rank + l * G) * m;
-  };
+  auto row = [&](int l) -> V* { return As + (size_t)l * m; };
   // the first of this CTA's rows at or past i
   auto first_row = [&](int i) { return i > rank ? (i - rank + G - 1) / G : 0; };
   // a cluster barrier; a block barrier where the cluster is one CTA
@@ -2777,9 +2772,9 @@ __global__ void __launch_bounds__(kClThreads, 1)
   cluster.sync();  // no CTA leaves while another may read its memory
 }
 
-// The wide variants' launches for real type T: m in [lo, hi], batch
-// matrices; `work` (tridiag: batch x m x m complex) and `scratch` (teig:
-// batch x teig_wide_scratch(m) reals) are the caller's, as every output.
+// The wide variants' launches for real type T: m from lo, batch matrices;
+// `scratch` (teig: batch x teig_wide_scratch(m) reals) is the caller's, as
+// every output.
 // K3's cluster plan for m and real type T: the cluster size G, the lanes a
 // CTA L (a multiple of kPanel), whether the LU factors fit in shared
 // memory, and the dynamic shared memory a CTA. G = ceil(m / 32) CTAs where
@@ -3008,22 +3003,24 @@ int tg_run(const T* d, const T* e, const T* b0, T* w, T* z, T* scratch,
   return (int)cudaGetLastError();
 }
 
-// K2's wide launch plan for m and real type T: the cluster size G, the
-// rows a CTA R = ceil(m / G) and how many of them it keeps in shared
-// memory (rs; rs < R is the route that keeps the rest in `work`), and the
-// dynamic shared memory a CTA. G = ceil(m / 16) CTAs where that is at most
-// 8 or a cluster of that size fits on the card (non-portable size,
+// K2's cluster plan for m and real type T: the cluster size G, the rows a
+// CTA R = ceil(m / G), all in its shared memory, and the dynamic shared
+// memory a CTA. G = ceil(m / 16) CTAs where that is at most 8 or a cluster
+// of that size fits on the card (non-portable size,
 // cudaOccupancyMaxActiveClusters), else 8. Returns a plan with G = 0 (and
-// sets *err) if nothing launches.
+// sets *err) where the rows do not fit: the card-wide route
+// (csrc/tridiag_grid.cu) takes m there.
 struct TridiagPlan {
-  int G, R, rs;
+  int G, R;
   size_t smem;
 };
 
 template <typename T>
 TridiagPlan tridiag_plan(int m, cudaError_t* err) {
   using V = typename Real<T>::C;
-  static TridiagPlan cached[kWideMaxM + 1] = {};
+  static TridiagPlan cached[kTcMaxM + 1] = {};
+  *err = cudaErrorInvalidConfiguration;
+  if (m > kTcMaxM) return TridiagPlan{};
   if (cached[m].G) return cached[m];
   const void* fn = (const void*)tridiag_cluster_kernel<T>;
   int dev = 0, optin = 0;
@@ -3043,14 +3040,8 @@ TridiagPlan tridiag_plan(int m, cudaError_t* err) {
     TridiagPlan pl;
     pl.G = want < cap ? want : cap;
     pl.R = (m + pl.G - 1) / pl.G;
-    if (pl.R > kTcMaxRows || tc_smem_elems(m, 0) * sizeof(V) > budget)
-      continue;
-    const size_t fit = (budget - tc_smem_elems(m, 0) * sizeof(V)) /
-                       ((size_t)m * sizeof(V));
-    pl.rs = fit < (size_t)pl.R ? (int)fit : pl.R;
-    while (pl.rs > 0 && tc_smem_elems(m, pl.rs) * sizeof(V) > budget)
-      --pl.rs;  // the rows' 16-byte rounding
-    pl.smem = tc_smem_elems(m, pl.rs) * sizeof(V);
+    pl.smem = tc_smem_elems(m, pl.R) * sizeof(V);
+    if (pl.R > kTcMaxRows || pl.smem > budget) continue;
     if ((*err = cudaFuncSetAttribute(
              fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
              (int)pl.smem)) != cudaSuccess)
@@ -3074,11 +3065,11 @@ TridiagPlan tridiag_plan(int m, cudaError_t* err) {
 }
 
 template <typename T>
-int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
-                     void* d, void* e, int m, int batch, long long h_stride,
-                     void* stream, int lo, int hi) {
+int tridiag_wide_run(const void* h, void* vrows, void* tau, void* d, void* e,
+                     int m, int batch, long long h_stride, void* stream,
+                     int lo) {
   using V = typename Real<T>::C;
-  if (m < lo || m > hi || batch < 1 || batch > kMaxBatch)
+  if (m < lo || batch < 1 || batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   const TridiagPlan pl = tridiag_plan<T>(m, &err);
@@ -3092,8 +3083,8 @@ int tridiag_wide_run(const void* h, void* work, void* vrows, void* tau,
   cudaLaunchConfig_t cfg = cluster_config(attr, batch * pl.G, pl.G, pl.smem,
                                           (cudaStream_t)stream);
   ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
-      &cfg, tridiag_cluster_kernel<T>, (const V*)h, (V*)work, (V*)vrows,
-      (V*)tau, (T*)d, (T*)e, m, pl.rs, h_stride));
+      &cfg, tridiag_cluster_kernel<T>, (const V*)h, (V*)vrows, (V*)tau,
+      (T*)d, (T*)e, m, pl.R, h_stride));
   return (int)cudaGetLastError();
 }
 
@@ -3189,31 +3180,33 @@ int backtransform_launch(const void* vrows, const void* tau, const void* z,
   return (int)cudaGetLastError();
 }
 
-// The wide variants in complex64 (128 < m <= 2048).
-int tridiag_wide_launch(const void* h, void* work, void* vrows, void* tau,
-                        void* d, void* e, int m, int batch,
-                        long long h_stride, void* stream) {
-  return tridiag_wide_run<float>(h, work, vrows, tau, d, e, m, batch,
-                                 h_stride, stream, kMaxM + 1, kWideMaxM);
+// K2's cluster route in complex64 (128 < m <= 640: every row in the
+// cluster's shared memory).
+int tridiag_wide_launch(const void* h, void* vrows, void* tau, void* d,
+                        void* e, int m, int batch, long long h_stride,
+                        void* stream) {
+  return tridiag_wide_run<float>(h, vrows, tau, d, e, m, batch, h_stride,
+                                 stream, kMaxM + 1);
 }
 
-// K2's wide plan at m in float (f64 = 0, 128 < m <= 2048) or double (2 <=
-// m <= 2048): the CTAs of the cluster that runs a matrix, and the rows of
-// the R = ceil(m / G) a CTA holds that it keeps in shared memory (fewer
-// than R: the rest stay in `work`); 0 on error.
+// K2's cluster plan at m in float (f64 = 0, 128 < m) or double (2 <= m):
+// the CTAs of the cluster that runs a matrix; 0 where its rows do not fit
+// in the cluster's shared memory (complex64 past 640, complex128 past
+// 438) or on error.
 int tridiag_cluster_size(int m, int f64) {
-  if (m < (f64 ? 2 : kMaxM + 1) || m > kWideMaxM)
-    return 0;
+  if (m < (f64 ? 2 : kMaxM + 1)) return 0;
   cudaError_t err = cudaSuccess;
   return (f64 ? tridiag_plan<double>(m, &err) : tridiag_plan<float>(m, &err))
       .G;
 }
 
-int tridiag_smem_rows(int m, int f64) {
-  if (tridiag_cluster_size(m, f64) == 0) return 0;
-  cudaError_t err = cudaSuccess;
-  return (f64 ? tridiag_plan<double>(m, &err) : tridiag_plan<float>(m, &err))
-      .rs;
+// The route K2's wide variant takes at m in float (f64 = 0, 128 < m) or
+// double (2 <= m): 0 the cluster route where its rows fit in the cluster's
+// shared memory, else 1, the card-wide route (csrc/tridiag_grid.cu, whose
+// own plan says whether it launches); -1 below the wide variant's sizes.
+int tridiag_routes(int m, int f64) {
+  if (m < (f64 ? 2 : kMaxM + 1)) return -1;
+  return tridiag_cluster_size(m, f64) > 0 ? 0 : 1;
 }
 
 // K3's wide scratch a matrix, in reals (of float: enough in double too),
@@ -3269,12 +3262,13 @@ int teig_wide_launch(const void* d, const void* e, const void* b0, void* w,
                               kMaxM + 1);
 }
 
-// The same kernels in complex128 / float64, at every m (2 <= m <= 2048).
-int tridiag_f64_launch(const void* h, void* work, void* vrows, void* tau,
-                       void* d, void* e, int m, int batch, long long h_stride,
+// The same kernels in complex128 / float64 (K2's cluster route 2 <= m <=
+// 438, K3 every m).
+int tridiag_f64_launch(const void* h, void* vrows, void* tau, void* d,
+                       void* e, int m, int batch, long long h_stride,
                        void* stream) {
-  return tridiag_wide_run<double>(h, work, vrows, tau, d, e, m, batch,
-                                  h_stride, stream, 2, kWideMaxM);
+  return tridiag_wide_run<double>(h, vrows, tau, d, e, m, batch, h_stride,
+                                  stream, 2);
 }
 
 int teig_f64_launch(const void* d, const void* e, const void* b0, void* w,

@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("env_chain.cu", "env_chain_stream.cu", "eigh_tridiag.cu",
-           "backtransform_wide.cu")
+           "tridiag_grid.cu", "backtransform_wide.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -47,17 +47,20 @@ _SIGNATURES = {
     "tridiag_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _P),
     "backtransform_launch": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _P),
-    "tridiag_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "tridiag_wide_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_wide_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                          _P),
     "teig_cluster_size": (_I, _I),
     "eigh_wide_routes": (_I, _I),
     "tridiag_cluster_size": (_I, _I),
-    "tridiag_smem_rows": (_I, _I),
+    "tridiag_routes": (_I, _I),
+    "tridiag_grid_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "tridiag_grid_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "tridiag_grid_plan": (_I, _I, _P),
     "backtransform_wide_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
                                   _L, _P),
     "backtransform_cluster_size": (_I, _I, _I),
-    "tridiag_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _L, _P),
+    "tridiag_f64_launch": (_P, _P, _P, _P, _P, _I, _I, _L, _P),
     "teig_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                         _P),
     "teig_grid_plan": (_I, _I, _P),
@@ -67,7 +70,8 @@ _SIGNATURES = {
 _RESTYPES = {"teig_wide_scratch": ((_I,), ctypes.c_longlong),
              "env_chain_f64_partials": ((_I,), ctypes.c_longlong),
              "env_chain_stream_work": ((_I, _I), ctypes.c_longlong),
-             "backtransform_workspace": ((_I, _I), ctypes.c_longlong)}
+             "backtransform_workspace": ((_I, _I), ctypes.c_longlong),
+             "tridiag_grid_workspace": ((_I, _I), ctypes.c_longlong)}
 
 _lib = None
 build_seconds = None  # wall time of this process's nvcc run, if it built

@@ -28,15 +28,21 @@ import torch
 REACH = {
     # csrc/env_chain.cu to chi 128 (complex64 narrow to 64, wide to 128;
     # complex128 in its double instantiation), then the streamed kernel of
-    # csrc/env_chain_stream.cu to chi 1024, in both dtypes
-    "env": {torch.complex64: (1, 1024), torch.complex128: (1, 1024)},
+    # csrc/env_chain_stream.cu to chi 2048, in both dtypes (it has no cap of
+    # its own: this one is the size the card has been checked at)
+    "env": {torch.complex64: (1, 2048), torch.complex128: (1, 2048)},
     # csrc/eigh_tridiag.cu: complex64 to m 128 in the register and
     # shared-memory designs, then the wide variants; complex128 in the wide
     # variants' double instantiation; past each kernel's shared-memory fit
-    # K2's rows and K3's iterate stay in global memory, to m 2048 (K2's 128
-    # rows a CTA on 16 CTAs, K3's 16 in-panel CGS2 rows a thread); K4's
-    # wide design (csrc/backtransform_wide.cu) takes any of these m
-    "eigh": {torch.complex64: (2, 2048), torch.complex128: (2, 2048)},
+    # K2 and K3 run their card-wide routes (csrc/tridiag_grid.cu and
+    # teig_grid: the matrix and the iterate in global memory), K4 its wide
+    # design (csrc/backtransform_wide.cu): complex64 to m 4096, the size the
+    # card has been checked at (K2's cap is its column in a CTA's shared
+    # memory, m ~ 13,000 in complex128; K3's plan m ~ 8,490 in double);
+    # complex128 to m 2048, K4's cap: its cluster of 16 CTAs keeps a column
+    # tile's rows of z in shared memory, 147 KB a CTA at m = 4096 in
+    # complex128 beside a 139 KB double-buffered panel
+    "eigh": {torch.complex64: (2, 4096), torch.complex128: (2, 2048)},
 }
 
 

@@ -25,28 +25,32 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
   backtransform  out = H_0 H_1 ... H_{m-2} z with H_k = I - tau_k v_k v_k^H.
 
 Each wrapper runs the plain version for a tensor on the CPU and launches the
-CUDA kernel (csrc/eigh_tridiag.cu, and csrc/backtransform_wide.cu for K4's
-wide design) for a tensor on a CUDA device (ops/dispatch.py): in complex64
-for m <= 128 the register and shared-memory designs, for 128 < m <= 2048
-the wide variants (K2 and K3 on a thread-block cluster of up to 16 CTAs a
-matrix; K4 a preparation launch that gathers the active reflectors into
-panels with their T, then a cluster of CTAs over the rows of each tile of
-32 output columns), chosen by m alone; in complex128 / float64 the wide
-variants' double instantiation, for every m <= 2048. Past what a CTA's
-shared memory holds, K2 keeps the rest of its rows in the wrapper's `work`,
+CUDA kernel (csrc/eigh_tridiag.cu, csrc/tridiag_grid.cu for K2 past its
+cluster's shared memory, and csrc/backtransform_wide.cu for K4's wide
+design) for a tensor on a CUDA device (ops/dispatch.py): in complex64 for m
+<= 128 the register and shared-memory designs, for 128 < m <= 4096 the wide
+variants (K2 and K3 on a thread-block cluster of up to 16 CTAs a matrix;
+K4 a preparation launch that gathers the active reflectors into panels
+with their T, then a cluster of CTAs over the rows of each tile of 32
+output columns), chosen by m alone; in complex128 / float64 the wide
+variants' double instantiation, for every m <= 2048 (K4's cap there). Past what a cluster's
+shared memory holds, K2 runs its card-wide route (`tridiag_routes`:
+"grid", complex64 past m = 640, complex128 past 438: one persistent kernel
+over every SM, the matrix in the wrapper's workspace, a blocked Householder
+reduction whose trailing updates run on the tensor cores in complex128),
 and K3 runs its card-wide route (`wide_routes`: "global", complex64 past m
 = 640, complex128 past 512: the iterate in global memory), launches over
 the whole card that compute only the kept columns, its LU factors and
 products in `scratch`. It raises
-for anything the kernels do not take (m above 2048, another dtype, a
-non-contiguous tensor). There is no fallback from a kernel to the plain
+for anything the kernels do not take (m above 4096, or 2048 in complex128,
+another dtype, a non-contiguous tensor). There is no fallback from a kernel to the plain
 version. Each wrapper counts its launches in `<wrapper>.launches`, those of
 them that took a batch (P > 1 matrices in one launch) in
 `<wrapper>.batched_launches`, and each wide or complex128 launch in the
 counter of the code it ran: `.reach_launches` (complex64) or
 `.reach_f64_launches` (complex128) for what runs only past the old caps (K2
-and K4 past REACH_M, the same kernels at sizes they did not take before; K3
-on its card-wide route: `wide_routes`), else
+and K4 past REACH_M, by size; K3 on its card-wide route: `wide_routes`),
+else
 `<wrapper>.wide_launches` (complex64, m > 128) or `.f64_launches`
 (complex128).
 
@@ -410,13 +414,20 @@ def tridiag(h: torch.Tensor):
     d = torch.empty(lead + (m,), dtype=rdt, device=dev)
     e = torch.empty(lead + (m,), dtype=rdt, device=dev)
     lib = cuda_lib.lib()
-    if f64 or m > NARROW_MAX_M:
-        # the wide variant's rows past its CTAs' shared memory (the
-        # "spill" route of tridiag_cluster_plan)
-        work = torch.empty_like(vrows)
-        launch = lib.tridiag_f64_launch if f64 else lib.tridiag_wide_launch
-        rc = launch(h.data_ptr(), work.data_ptr(), vrows.data_ptr(),
+    if (f64 or m > NARROW_MAX_M) and tridiag_routes(m, f64) == "grid":
+        # the card-wide route: the matrix, the panel and its vectors in one
+        # workspace (the batch's matrices one after another)
+        ws = torch.empty(_tridiag_grid_bytes(m, f64), dtype=torch.uint8,
+                         device=dev)
+        launch = (lib.tridiag_grid_f64_launch if f64
+                  else lib.tridiag_grid_launch)
+        rc = launch(h.data_ptr(), ws.data_ptr(), vrows.data_ptr(),
                     tau.data_ptr(), d.data_ptr(), e.data_ptr(), m, p, m * m,
+                    cuda_lib.stream_of(h))
+    elif f64 or m > NARROW_MAX_M:
+        launch = lib.tridiag_f64_launch if f64 else lib.tridiag_wide_launch
+        rc = launch(h.data_ptr(), vrows.data_ptr(), tau.data_ptr(),
+                    d.data_ptr(), e.data_ptr(), m, p, m * m,
                     cuda_lib.stream_of(h))
     else:
         rc = lib.tridiag_launch(
@@ -535,23 +546,80 @@ def backtransform_cluster_size(m: int, keep: int, f64: bool = False) -> int:
     return g
 
 
+def tridiag_routes(m: int, f64: bool = False) -> str:
+    """The route of K2's wide variant at m (complex64 above NARROW_MAX_M,
+    or f64: complex128 at every m): "smem" where one thread-block cluster
+    keeps every row in its CTAs' shared memory (complex64 to m = 640,
+    complex128 to 438: tridiag_cluster_plan), "grid" past it: the
+    card-wide route (tridiag_grid_plan, which raises where it cannot
+    launch). Raises below the wide variant's sizes."""
+    r = cuda_lib.lib().tridiag_routes(int(m), int(f64))
+    if r < 0:
+        raise RuntimeError(f"tridiag: no route launches m={m}"
+                           + (" in complex128" if f64 else ""))
+    return "grid" if r else "smem"
+
+
 def tridiag_cluster_plan(m: int, f64: bool = False) -> dict:
-    """How K2's wide variant runs one matrix of size m (complex64 above
-    NARROW_MAX_M, or f64: complex128 at every m): `ctas`, the CTAs of its
-    thread-block cluster (1 at m <= 64, else ceil(m / 16), at most 16, or 8
-    where the card does not take the larger cluster); `rows`, the rows a
-    CTA holds, ceil(m / ctas); `smem_rows`, how many of them it keeps in
-    shared memory; and `route`: "smem" where that is all of them, "spill"
-    where the rest stay in the wrapper's work matrix."""
-    lib = cuda_lib.lib()
-    g = lib.tridiag_cluster_size(int(m), int(f64))
+    """How K2's cluster route runs one matrix of size m (complex64 above
+    NARROW_MAX_M, or f64: complex128 at every m, while its rows fit):
+    `ctas`, the CTAs of its thread-block cluster (1 at m <= 64, else
+    ceil(m / 16), at most 16, or 8 where the card does not take the larger
+    cluster); `rows`, the rows a CTA holds in its shared memory, ceil(m /
+    ctas). Raises where they do not fit (the card-wide route's sizes)."""
+    g = cuda_lib.lib().tridiag_cluster_size(int(m), int(f64))
     if g == 0:
         raise RuntimeError(f"tridiag: no cluster size can launch m={m}"
                            + (" in complex128" if f64 else ""))
-    rows = -(-int(m) // g)
-    rs = lib.tridiag_smem_rows(int(m), int(f64))
-    return {"ctas": g, "rows": rows, "smem_rows": rs,
-            "route": "smem" if rs >= rows else "spill"}
+    return {"ctas": g, "rows": -(-int(m) // g)}
+
+
+def tridiag_grid_plan(m: int, f64: bool = False) -> dict:
+    """How K2's card-wide route runs a matrix of size m: `panel`, the
+    columns a panel reduces before its trailing update; `ctas`, the CTAs of
+    its persistent kernel (one an SM); `slab`, the rows of a partial sum of
+    the panel's products with v; `smem`, a CTA's dynamic shared memory in
+    bytes (the column, or the trailing update's tiles). Raises where it
+    cannot launch."""
+    out = (ctypes.c_int * 4)()
+    rc = cuda_lib.lib().tridiag_grid_plan(int(m), int(f64), out)
+    if rc != 0:
+        raise RuntimeError(f"tridiag: no card-wide plan launches m={m}"
+                           + (" in complex128" if f64 else ""))
+    return {"panel": out[0], "ctas": out[1], "slab": out[2],
+            "smem": out[3]}
+
+
+GRID_PANEL = 32  # tridiag_grid.cu kNb: the columns of a panel
+GRID_SLAB = 64   # kSlab: the rows of a slab's partial sums
+
+
+def tridiag_grid_workspace_bytes(m: int, f64: bool = False) -> int:
+    """The card-wide K2's workspace as csrc/tridiag_grid.cu lays it out
+    (glayout), each part from a 256-byte boundary: the matrix (m x m
+    complex), the panel's V and W (m x GRID_PANEL each), the column and y
+    (m each), the slabs' partials of a and b (ceil(m / GRID_SLAB) x 2 x
+    GRID_PANEL), two buffers of row flags (2 m ints) and the grid barrier's
+    words (256 of 4 bytes). chip_smoke.py holds it equal to the
+    library's."""
+    cs = 16 if f64 else 8
+
+    def align(x):
+        return (x + 255) // 256 * 256
+    slabs = -(-m // GRID_SLAB)
+    return (align(m * m * cs) + 2 * align(m * GRID_PANEL * cs)
+            + 2 * align(m * cs) + align(slabs * 2 * GRID_PANEL * cs)
+            + align(2 * m * 4) + 256 * 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _tridiag_grid_bytes(m: int, f64: bool) -> int:
+    """The card-wide K2's workspace, in bytes: m and the dtype fix it."""
+    nbytes = cuda_lib.lib().tridiag_grid_workspace(int(m), int(f64))
+    if nbytes <= 0:
+        raise RuntimeError(f"tridiag: no workspace at m={m}"
+                           + (" in complex128" if f64 else ""))
+    return nbytes
 
 
 @functools.lru_cache(maxsize=64)

@@ -423,13 +423,15 @@ def env_inputs(torch, n, chi, dev):
     """Bra and ket site stacks (n, 2, chi, chi) from a seed: a ket close to
     the bra keeps C of order one over 50 sites, as the probes of a
     converging sweep see it (independent random tensors make the chains
-    decay to ~1e-11)."""
-    g = torch.Generator(device="cpu").manual_seed(chi)
+    decay to ~1e-11). Past chi = 1024 drawn on the card (2 x 3.4 GB at chi
+    = 2048 would take the host half a minute)."""
+    gdev = dev if chi > 1024 else "cpu"
+    g = torch.Generator(device=gdev).manual_seed(chi)
     scale = (2.0 * chi) ** -0.5
-    br = torch.randn(n, 2, chi, chi, generator=g,
+    br = torch.randn(n, 2, chi, chi, generator=g, device=gdev,
                      dtype=torch.complex64) * scale
     bl = br + 0.1 * scale * torch.randn(n, 2, chi, chi, generator=g,
-                                        dtype=torch.complex64)
+                                        device=gdev, dtype=torch.complex64)
     return br.to(dev), bl.to(dev)
 
 
@@ -910,8 +912,7 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
             bound = bound_fields(
                 kname, m=m, keep=m if kname == "teig" else keep, f64=True)
             ctas = (ek.teig_cluster_size(m, True) if kname == "teig" else
-                    ek.tridiag_cluster_plan(m, True)["ctas"]
-                    if kname == "tridiag" else None)
+                    tridiag_ctas(ek, m, True) if kname == "tridiag" else None)
             cl = (f" ({tridiag_plan_text(ek, m, True)})"
                   if kname == "tridiag" else
                   f" (clusters of {ctas} CTAs)" if ctas else "")
@@ -925,7 +926,7 @@ def f64_kernel_check(torch, ek, envk, card, dev, rec):
                 **bound)
             if kname == "tridiag":
                 rec["tridiag[f64]"]["by_m"][m]["route"] = (
-                    ek.tridiag_cluster_plan(m, True)["route"])
+                    ek.tridiag_routes(m, True))
             if m == 64:
                 rec[f"{kname}[f64]"].update(
                     ms=ms, plain_ms=pms, library_call=lname, library_ms=lms,
@@ -979,11 +980,24 @@ def bt_sweep128_check(torch, ek, bts, rec, card):
 
 
 def tridiag_plan_text(ek, m, f64=False):
-    """K2's wide plan at m, as the kernels lines print it."""
+    """K2's wide plan at m, as the kernels lines print it: its cluster, or
+    past the cluster's shared memory its card-wide route."""
+    if ek.tridiag_routes(m, f64) == "grid":
+        pl = ek.tridiag_grid_plan(m, f64)
+        return (f"card-wide route: {pl['ctas']} CTAs, panels of "
+                f"{pl['panel']} columns, {pl['smem']} bytes of shared "
+                f"memory a CTA")
     pl = ek.tridiag_cluster_plan(m, f64)
-    return (f"clusters of {pl['ctas']} CTAs, {pl['smem_rows']} of "
-            f"{pl['rows']} rows a CTA in shared memory (route "
-            f"{pl['route']})")
+    return (f"clusters of {pl['ctas']} CTAs, {pl['rows']} rows a CTA in "
+            f"shared memory (route smem)")
+
+
+def tridiag_ctas(ek, m, f64=False):
+    """The CTAs K2's wide variant runs a matrix of size m on: its cluster,
+    or past the cluster's shared memory the card-wide route's grid."""
+    if ek.tridiag_routes(m, f64) == "grid":
+        return ek.tridiag_grid_plan(m, f64)["ctas"]
+    return ek.tridiag_cluster_plan(m, f64)["ctas"]
 
 
 def tridiag_cluster_check(torch, ek, card, dev, rec, sweep128,
@@ -1000,7 +1014,7 @@ def tridiag_cluster_check(torch, ek, card, dev, rec, sweep128,
     rng = np.random.default_rng(560)
     c128 = torch.complex128
     fit = max(m for m in range(2, 505)
-              if ek.tridiag_cluster_plan(m, True)["route"] == "smem")
+              if ek.tridiag_routes(m, True) == "smem")
     worst = {False: 0.0, True: 0.0}
     sizes = [(560, False), (fit, True)] + ([(fit + 1, True)]
                                             if fit < 504 else [])
@@ -1263,8 +1277,8 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                 bound = bound_fields(
                     kname, m=m, keep=m if kname == "teig" else keep)
                 ctas = (None if m <= 128 else ek.teig_cluster_size(m)
-                        if kname == "teig" else ek.tridiag_cluster_plan(m)[
-                            "ctas"] if kname == "tridiag" else None)
+                        if kname == "teig" else tridiag_ctas(ek, m)
+                        if kname == "tridiag" else None)
                 cl = (f" ({tridiag_plan_text(ek, m)})"
                       if kname == "tridiag" and ctas else
                       f" (clusters of {ctas} CTAs)" if ctas else "")
@@ -1278,7 +1292,7 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                         cluster_ctas=ctas, **bound)
                     if kname == "tridiag":
                         rec["tridiag[wide]"]["by_m"][m]["route"] = (
-                            ek.tridiag_cluster_plan(m)["route"])
+                            ek.tridiag_routes(m))
                 if m in (64, 256):
                     rec[kname + ("" if m == 64 else "[wide]")].update(
                         ms=ms, plain_ms=pms, library_call=lname,
@@ -1526,6 +1540,27 @@ def profile_line(by, total, wall, top=8):
                 f"{name[:70]} {ms:.2f} ms ({n})" for name, (ms, n) in rows))
 
 
+def sweep_setup(torch, mps_core, sweeps, compile_tape, chi, dtype, n=50,
+                window=12):
+    """bench.py's sweep at bond dimension chi in `dtype`: (the ansatz's
+    tape, the block length, the arguments of sweeps.sweep)."""
+    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
+    dev = torch.device("cuda")
+    target, ansatz = bench_workload(n, window)
+    tt = compile_tape(target)
+    # past chi = 256 the target is applied at 256 and padded: its bond rank
+    # stays far below that, so the state is the same, set up in seconds
+    prefix = mps_core.pad_chi(mps_core.apply_tape(
+        mps_core.zero_mps(n, min(chi, 256), dtype, dev), tt.kinds, tt.q0,
+        tt.q1, tt.angles, 1e-16), chi)
+    at = compile_tape(ansatz)
+    engine = mps_core.sweep_engine(1e-16)
+    ref = mps_core.zero_mps(n, chi, dtype, dev)
+    bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
+    return at, bl, (engine, bl, True, prefix, ref, at.kinds, at.q0, at.q1,
+                    at.angles, at.trainable)
+
+
 def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
                 chi=64, ek=None, envk=None, dtype=None, reps=3,
                 profile=False):
@@ -1539,24 +1574,11 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
     (sweep_variants) must have launched, and they are returned. profile:
     one more sweep, under torch.profiler, its kernels' device time by
     name."""
-    from adaptaqc_tpu_torch.workloads.bench_sweep import bench_workload
     n, window = 50, 12
     t_setup = time.perf_counter()
     dtype = dtype or torch.complex64
-    dev = torch.device("cuda")
-    target, ansatz = bench_workload(n, window)
-    tt = compile_tape(target)
-    # past chi = 256 the target is applied at 256 and padded: its bond rank
-    # stays far below that, so the state is the same, set up in seconds
-    prefix = mps_core.pad_chi(mps_core.apply_tape(
-        mps_core.zero_mps(n, min(chi, 256), dtype, dev), tt.kinds, tt.q0,
-        tt.q1, tt.angles, 1e-16), chi)
-    at = compile_tape(ansatz)
-    engine = mps_core.sweep_engine(1e-16)
-    ref = mps_core.zero_mps(n, chi, dtype, dev)
-    bl = sweeps.default_block_len(at.padded_length, sweeps.state_nbytes(ref))
-    args = (engine, bl, True, prefix, ref, at.kinds, at.q0, at.q1, at.angles,
-            at.trainable)
+    at, bl, args = sweep_setup(torch, mps_core, sweeps, compile_tape, chi,
+                               dtype, n, window)
     if reps > 1:
         _, syncs = count_syncs(torch, lambda: sweeps.sweep(*args))  # warm-up
     if ek is not None:
@@ -2329,10 +2351,13 @@ def phase_ladder(torch, port, card, max_layers=2, dev="cuda", n=50):
 
 # --------------------------------------------------------------- phase 11
 REACH_Q = (0, 1, 25, 48, 49)
-REACH_CHI = (129, 192, 256, 512, 768, 1024)  # the streamed K1, complex64
-REACH_CHI_F64 = (192, 256, 512, 1024)        # and in complex128
-REACH_M = (561, 768, 1024, 1536, 2048)       # K2-K4 past 560, complex64
-REACH_M_F64 = (505, 512, 1024, 2048)         # past 504 in complex128
+REACH_CHI = (129, 192, 256, 512, 768, 1024, 2048)  # the streamed K1, c64
+REACH_CHI_F64 = (192, 256, 512, 1024, 2048)        # and in complex128
+REACH_Q_TOP = (0, 25, 49)  # the q of the largest chi (its plain chain is
+                           # 0.3 s a call)
+REACH_M = (561, 768, 1024, 1536, 2048, 4096)  # K2-K4 past 560, complex64
+REACH_M_F64 = (505, 512, 1024, 2048)          # past 504 in complex128 (K4
+                                              # takes m <= 2048 there)
 REACH_VARIANTS = ("reach", "reach_f64")
 # (chi, complex128, timed sweeps): bench.py's sweep at each chi; past chi =
 # 256 one sweep, timed without a warm-up, to keep the run's time
@@ -2341,8 +2366,10 @@ REACH_SWEEPS = ((256, False, 3), (256, True, 3), (512, False, 1),
 # (chi, layers, chi of the native run) of the re-simulation: the native
 # verifier at the kernels' chi (at chi = 1024 its Grams, m = 2048, have
 # 2044 exactly zero rows, which cplx.split_zero_rows takes off before
-# cuSOLVER's eigh: without, it fails to converge on 10 of 98)
-REACH_HAZARD = ((256, 8, 256), (1024, 2, 1024))
+# cuSOLVER's eigh: without, it fails to converge on 10 of 98); chi = 2048,
+# m = 4096, is the reach's cap, one layer deep (chi = 256 four layers: the
+# deeper runs at 1024 and 2048 cover what 8 layers did)
+REACH_HAZARD = ((256, 4, 256), (1024, 2, 1024), (2048, 1, 2048))
 # a compile whose verified stop re-simulates at chi = 1024: working chi 512,
 # n >= 21 (2 ** ((n + 1) // 2) >= 1024), at most 2 layers
 VERIFIED_STOP = dict(n=21, chi=512, max_layers=2)
@@ -2362,14 +2389,18 @@ def reach_rows(ek, envk):
             if (k, v) in rows]
 STREAM_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_stream.cu"
 BT_WIDE_SOURCE = "adaptaqc_tpu_torch/csrc/backtransform_wide.cu"
+TRIDIAG_GRID_SOURCE = "adaptaqc_tpu_torch/csrc/tridiag_grid.cu"
 
 
 def kernel_source(name, variant=None):
     """The source of a kernel row: K1 past chi = 128 is the streamed
-    kernel; K4 past the narrow design (complex64 m > 128, every complex128
-    m) is the wide back-transform's own source."""
+    kernel; K2 past REACH_M runs its card-wide route (every such m is past
+    the cluster's shared memory); K4 past the narrow design (complex64 m >
+    128, every complex128 m) is the wide back-transform's own source."""
     if name == "env_chain" and variant in REACH_VARIANTS:
         return STREAM_SOURCE
+    if name == "tridiag" and variant in REACH_VARIANTS:
+        return TRIDIAG_GRID_SOURCE
     if name == "backtransform" and variant in ("wide", "f64") + REACH_VARIANTS:
         return BT_WIDE_SOURCE
     return KERNELS[name][0]
@@ -2383,7 +2414,7 @@ def stream_plan_check(envk, lib):
     import ctypes
     out = (ctypes.c_int * 2)()
     bad = []
-    for chi in range(envk.CLUSTER_MAX_CHI + 1, 1025):
+    for chi in range(envk.CLUSTER_MAX_CHI + 1, max(REACH_CHI) + 1):
         for f64 in (False, True):
             if lib.env_chain_stream_work(chi, int(f64)) != envk.stream_work(
                     chi, f64):
@@ -2453,7 +2484,8 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
             tol = TOL_F64_ENV if f64 else TOL_ENV_REL
             key = f"env_chain[{REACH_VARIANTS[f64]}]"
             br, bl = br64.to(dt), bl64.to(dt)
-            for q in REACH_Q:
+            top = chi == max(REACH_CHI)
+            for q in REACH_Q_TOP if top else REACH_Q:
                 c = envk.env_chain(br, bl, q)
                 cp = envk.env_chain_plain(br, bl, q)
                 err = float((c - cp).abs().max())
@@ -2468,8 +2500,10 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
                                   envk.env_chain(br, bl, 25)),
                       f"streamed env_chain {dt} chi={chi}: a rerun gave "
                       "other bits")
-            ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), 20, torch)
-            pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 20, torch)
+            reps = 3 if top else 20
+            ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), reps, torch)
+            pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), reps,
+                          torch)
             sms, mms, serr = stream_step2_times(torch, envk, cuda_lib, br,
                                                 f64, chi)
             check(serr < tol, f"streamed step 2 {dt} chi={chi}: rel {serr} "
@@ -2494,7 +2528,7 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
         print(f"reach: env_chain streamed "
               f"{'complex128' if f64 else 'complex64'} n={n} against plain "
               f"over chi {REACH_CHI_F64 if f64 else REACH_CHI} and q "
-              f"{REACH_Q}: worst rel {worst[f64]:.2e} < "
+              f"{REACH_Q} (at chi {max(REACH_CHI)} q {REACH_Q_TOP}): worst rel {worst[f64]:.2e} < "
               f"{TOL_F64_ENV if f64 else TOL_ENV_REL}, reruns bit for bit, "
               f"plan as the library's; at q=25 " + "; ".join(parts[f64])
               + f" ({time.perf_counter() - t0:.1f} s of checks) on {card}",
@@ -2504,19 +2538,23 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
 def reach_eigh_check(torch, ek, card, dev, rec):
     """K2-K4 past 560 (complex64: REACH_M) and 504 (complex128:
     REACH_M_F64) against their plain versions on the card, on the "rand"
-    and "lowrank" Grams: K2's own Q T Q^H = H and its exactly inactive
-    steps; K3 on the plain (d, e): w against the plain version's (bit for
+    and "lowrank" Grams ("rand" alone at the cap, m = 4096): K2's own
+    Q T Q^H = H and its exactly inactive steps, a rerun at m = 2048 bit for
+    bit, its card-wide route's workspace as the mirror in eigh_kernels
+    sizes it; K3 on the plain (d, e): w against the plain version's (bit for
     bit in complex128), z against float64:
     orthogonality, residual, degenerate-cluster projectors (z against the
     plain version is left to the class loop's m <= 512), and on its
     card-wide route at keep = m / 2 too (teig_keep_check, and on the
     batch teig_keep_batch); K4 on the plain
     reflectors; the whole chain against numpy float64; and a batch of 3
-    ("rand", "lowrank", "bell") bit for bit against its P = 1 launches. The
+    ("rand", "lowrank", "bell") bit for bit against its P = 1 launches
+    (below the cap). The
     tolerances of the class loop (complex64) and of f64_kernel_check
     (complex128). At every m: each kernel's time (20 launches), its plain
     version's (1 run), bound and library call, and the whole chain against
     torch.linalg.eigh(H)."""
+    from adaptaqc_tpu_torch.ops import cuda_lib
     rng = np.random.default_rng(1024)
     for f64, sizes in ((False, REACH_M), (True, REACH_M_F64)):
         t0 = time.perf_counter()
@@ -2534,8 +2572,15 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         for m in sizes:
             cases = _gram_cases(m, rng)
             keep = m // 2
+            top = m == max(sizes)  # the cap: "rand" alone, no batch
+            if ek.tridiag_routes(m, f64) == "grid":
+                lib_ws = cuda_lib.lib().tridiag_grid_workspace(m, int(f64))
+                check(lib_ws == ek.tridiag_grid_workspace_bytes(m, f64),
+                      f"tridiag {dt} m={m}: the workspace mirror "
+                      f"{ek.tridiag_grid_workspace_bytes(m, f64)} differs "
+                      f"from the library's {lib_ws}")
             plain = {}  # "rand": the matrix, its plain factors and times
-            for name in ("rand", "lowrank"):
+            for name in ("rand",) if top else ("rand", "lowrank"):
                 t = torch.tensor(cases[name], dtype=dt, device=dev)
                 h = t.mH @ t
                 hh = ((h + h.mH) * 0.5).contiguous()
@@ -2547,6 +2592,11 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                 err = {"tridiag": tridiag_residual(torch, ek, v, tau, d, e,
                                                    hh)}
                 zeros_equal(e, tau, ep, taup, f"tridiag {dt} m={m} {name}")
+                if m == 2048:
+                    check(all(torch.equal(a, b) for a, b in zip(
+                        (v, tau, d, e), ek.tridiag(hh))),
+                          f"tridiag {dt} m={m} {name}: a rerun gave other "
+                          "bits")
                 w, z = ek.teig(dp, ep)
                 t0 = time.perf_counter()
                 wp, zp = ek.teig_plain(dp, ep)
@@ -2575,7 +2625,10 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                         ms=dict(tridiag=t_tridiag * 1e3, teig=t_teig * 1e3,
                                 backtransform=t_bt * 1e3))
                 h64 = hh.to(torch.complex128)
-                wx = np.linalg.eigvalsh(h64.cpu().numpy())[::-1][:keep]
+                # the float64 yardstick: numpy's eigvalsh, on the card past
+                # m = 2048 (about a minute on the host at m = 4096)
+                wx = (torch.linalg.eigvalsh(h64).cpu().numpy() if m > 2048
+                      else np.linalg.eigvalsh(h64.cpu().numpy()))[::-1][:keep]
                 sc = max(np.abs(wx).max(), 1e-300)
                 wk, vk = ek.eigh_top_kernels(hh, keep)
                 vk64 = vk.to(torch.complex128)
@@ -2592,13 +2645,15 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                 bad = {k: v for k, v in err.items() if not v < tol[k]}
                 check(not bad, f"eigensolver {dt} m={m} {name}: {bad} "
                                f"(limits {tol})")
-            _, _, db, eb, _, _, _ = batch_against_singles(
-                torch, ek, torch.stack([_sym_gram(torch, cases[k], dev).to(dt)
-                                        for k in ("rand", "lowrank", "bell")]),
-                keep, f"{dt} batched m={m} P=3", {})
-            if ek.wide_routes(m, f64)["teig"] == "global":
-                teig_keep_batch(torch, ek, db, eb, keep,
-                                f"teig {dt} batched m={m} P=3")
+            if not top:
+                _, _, db, eb, _, _, _ = batch_against_singles(
+                    torch, ek, torch.stack([
+                        _sym_gram(torch, cases[k], dev).to(dt)
+                        for k in ("rand", "lowrank", "bell")]),
+                    keep, f"{dt} batched m={m} P=3", {})
+                if ek.wide_routes(m, f64)["teig"] == "global":
+                    teig_keep_batch(torch, ek, db, eb, keep,
+                                    f"teig {dt} batched m={m} P=3")
             lines.append(reach_eigh_times(torch, ek, rec, sfx, m, f64,
                                           plain))
         for k in ("tridiag", "teig", "backtransform"):
@@ -2690,7 +2745,7 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
         row = dict(ms=ms, plain_ms=pms, library_ms=lms, **bound)
         plan = ""
         if kname == "tridiag":
-            row["route"] = ek.tridiag_cluster_plan(m, f64)["route"]
+            row["route"] = ek.tridiag_routes(m, f64)
             plan = f" ({tridiag_plan_text(ek, m, f64)})"
         if kname == "teig":
             row["route"] = ek.wide_routes(m, f64)["teig"]
@@ -2850,15 +2905,79 @@ def reach_verified_stop(torch, port, cplx, card, n, chi, max_layers):
           f"verified stop: overlap {ov}")
 
 
+# the reach sweeps whose K2 Grams are checked and timed one by one
+REACH_GRAM_SWEEPS = ((512, False), (512, True), (1024, False), (1024, True))
+
+
+def reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec):
+    """K2 on the Grams that the reach sweeps at REACH_GRAM_SWEEPS give it
+    (one more sweep each, its tridiag launches recorded): every Gram
+    launched again alone, its active steps (tau != 0) and time (CUDA
+    events, 2 launches) beside the bound on those steps; on two of them
+    (the one with the most active steps, and the padded one with the most
+    zero rows among those with active steps; but in complex128 at chi =
+    1024 that one alone) the zeros of e and tau against the plain version's
+    (every plain-inactive step inactive) and Q T Q^H = H. Into
+    rec["tridiag[<variant>]"]["sweep_grams"][chi]."""
+    for chi, f64 in REACH_GRAM_SWEEPS:
+        t0 = time.perf_counter()
+        dt = torch.complex128 if f64 else torch.complex64
+        _, _, args = sweep_setup(torch, mps_core, sweeps, compile_tape, chi,
+                                 dt)
+        grams = [a[0] for a in record_eigh_inputs(
+            torch, ek, lambda: sweeps.sweep(*args))["tridiag"]]
+        act, ms, bounds, zero_rows = [], [], [], []
+        for hh in grams:
+            m = hh.shape[-1]
+            _, tau, _, _ = ek.tridiag(hh)
+            a = [k for k in range(m - 1) if tau[k] != 0]
+            act.append(len(a))
+            bounds.append(kernel_bound("tridiag", m=m, active=a, f64=f64)[0])
+            ms.append(cuda_ms(lambda: ek.tridiag(hh), 2, torch))
+            zero_rows.append(int((hh.abs().amax(dim=1) == 0).sum()))
+        dense = int(np.argmax(act))
+        padded = [i for i in range(len(grams)) if act[i] and zero_rows[i]]
+        pad = {max(padded, key=lambda i: zero_rows[i])} if padded else set()
+        picks = sorted({dense} | pad if (chi, f64) == (1024, True) or not pad
+                       else pad)
+        worst, inactive = 0.0, []
+        for i in picks:
+            hh = grams[i]
+            v, tau, d, e = ek.tridiag(hh)
+            _, taup, _, ep = ek.tridiag_plain(hh)
+            inactive.append(zeros_equal(e, tau, ep, taup,
+                                        f"tridiag {dt} chi={chi} sweep "
+                                        f"Gram {i}"))
+            err = tridiag_residual(torch, ek, v, tau, d, e, hh)
+            worst = max(worst, err)
+            check(err < (TOL_F64 if f64 else TOL_TRIDIAG_REL),
+                  f"tridiag {dt} chi={chi} sweep Gram {i}: Q T Q^H rel {err}")
+        key = f"tridiag[{REACH_VARIANTS[f64]}]"
+        rec[key].setdefault("sweep_grams", {})[chi] = dict(
+            launches=len(grams), active_steps=float(np.mean(act)),
+            ms=float(np.mean(ms)), ms_all=float(np.sum(ms)),
+            bound_ms=float(np.mean(bounds)))
+        print(f"reach: tridiag {str(dt)[6:]} on the chi={chi} sweep's "
+              f"{len(grams)} Grams (m={2 * chi}, "
+              f"{tridiag_plan_text(ek, 2 * chi, f64)}): {np.mean(ms):.4f} ms "
+              f"a launch ({np.sum(ms):.3f} ms in all), active steps a Gram "
+              f"{np.mean(act):.1f} (max {max(act)}), bound on the active "
+              f"steps {np.mean(bounds):.5f} ms a launch; Grams {picks}: "
+              f"inactive steps {inactive} (every plain-inactive step "
+              f"inactive), Q T Q^H {worst:.2e} "
+              f"({time.perf_counter() - t0:.1f} s) on {card}", flush=True)
+
+
 def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                 card, port, cplx):
     """Past the sizes whose operands fit on chip: the streamed K1 to chi =
-    1024 and K2-K4 to m = 2048 against their plain versions, then the
+    2048 and K2-K4 to m = 4096 against their plain versions, then the
     paths at full width (n = 50) that launch them, each counted on its
     own: bench.py's sweep at chi = 256, 512 and 1024 in complex64 and
     complex128 (REACH_SWEEPS), and the spin chain's chi
-    schedule to 256; then the deep re-simulation at chi = 256 and 1024
-    (REACH_HAZARD), its native side at the same chi, and a compile's
+    schedule to 256; K2 on the chi = 512 and 1024 sweeps' own Grams
+    (reach_sweep_grams); then the deep re-simulation at chi = 256, 1024
+    and 2048 (REACH_HAZARD), its native side at the same chi, and a compile's
     verified stop re-simulated at chi = 1024 (VERIFIED_STOP). Every row of
     reach_rows must have launched on the sweeps and the spin chain, and no
     other reach counter. Returns (the records of the new variants, their
@@ -2884,6 +3003,7 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                         dtype=torch.complex128 if f64 else torch.complex64,
                         reps=reps, profile=chi == 1024 and f64))
     add(reach_spin(torch, ek, envk, card))
+    reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec)
     for chi, layers, native_chi in REACH_HAZARD:
         phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=chi,
                      layers=layers, native_chi=native_chi)

@@ -26,8 +26,8 @@ KERNELS = (env_kernel.env_chain, eigh_kernels.tridiag, eigh_kernels.teig,
 
 def test_caps_are_the_kernels_reach():
     assert dispatch.REACH == {
-        "env": {C64: (1, 1024), C128: (1, 1024)},
-        "eigh": {C64: (2, 2048), C128: (2, 2048)}}
+        "env": {C64: (1, 2048), C128: (1, 2048)},
+        "eigh": {C64: (2, 4096), C128: (2, 2048)}}
     assert env_kernel.NARROW_MAX_CHI == 64
     assert env_kernel.CLUSTER_MAX_CHI == 128
     assert eigh_kernels.NARROW_MAX_M == 128
@@ -51,7 +51,7 @@ def test_env_route_on_the_card_by_chi(size, want):
 
 @pytest.mark.parametrize("size", [1, 2, 128, 129, 256, 504, 505, 560, 561,
                                   EIGH_CAP_64, EIGH_CAP_64 + 1, EIGH_CAP - 1,
-                                  EIGH_CAP, EIGH_CAP + 1, 4096])
+                                  EIGH_CAP, EIGH_CAP + 1, 8192])
 def test_eigh_route_on_the_card_by_m(size):
     for dtype, hi in ((C64, EIGH_CAP), (C128, EIGH_CAP_64)):
         if 2 <= size <= hi:
@@ -63,7 +63,7 @@ def test_eigh_route_on_the_card_by_m(size):
 
 @pytest.mark.parametrize("op", ["env", "eigh"])
 @pytest.mark.parametrize("dtype", [C64, C128])
-@pytest.mark.parametrize("size", [2, 128, 129, 560, 561, 4096])
+@pytest.mark.parametrize("size", [2, 128, 129, 560, 561, 8192])
 def test_cpu_always_takes_the_wrappers(op, dtype, size):
     """On the CPU the wrappers run the plain versions, at any size."""
     assert dispatch.use_kernel(op, "cpu", dtype, size) is False
@@ -84,7 +84,7 @@ def test_other_dtypes_and_devices_raise_on_the_card(op):
             dispatch.use_kernel(op, "cuda", dtype, 8)
     assert dispatch.use_kernel(op, "meta", C64, 8)
     with pytest.raises(ValueError):
-        dispatch.use_kernel(op, "meta", C64, 4096)
+        dispatch.use_kernel(op, "meta", C64, 8192)
 
 
 def _reset():
@@ -106,7 +106,12 @@ def _reach_counts():
 
 
 def _gram(m, dtype, seed=0):
+    """A random Gram; past m = 1024, where the recorder only reads its
+    shape, a diagonal one (a product of two 4096 x 4096 matrices would take
+    a minute here)."""
     rng = np.random.default_rng(seed)
+    if m > 1024:
+        return torch.diag(torch.tensor(rng.random(m), dtype=dtype))
     a = rng.standard_normal((m, m)) + 1j * rng.standard_normal((m, m))
     t = torch.tensor(a / np.linalg.norm(a), dtype=dtype)
     return t.mH @ t
@@ -153,6 +158,14 @@ class _Recorder:
 
     def backtransform_workspace(self, m, f64):
         return 4096 * m
+
+    def tridiag_routes(self, m, f64):
+        # K2's card-wide route past its cluster's shared memory (m = 640,
+        # complex128 438), as the library answers on an H100
+        return int(m > (438 if f64 else 640))
+
+    def tridiag_grid_workspace(self, m, f64):
+        return eigh_kernels.tridiag_grid_workspace_bytes(m, f64)
 
     def __getattr__(self, name):
         def launch(*args):
@@ -220,27 +233,30 @@ def test_counters_move_only_on_launches(card):
 @pytest.mark.parametrize("dtype", [C64, C128])
 def test_reach_edges_launch_and_raise(card, dtype):
     """At the caps the wrappers launch (the streamed env chain at chi =
-    1024, the wide eigensolver at m = 2048), each launch counted once, by
+    2048, the wide eigensolver at m = 4096 in complex64 and 2048 in
+    complex128, K2 on its card-wide route), each launch counted once, by
     the code it ran: the streamed K1, K2 and K4 past REACH_M and K3 with
     its iterate in global memory as reach launches of their dtype. One
-    past the caps (chi = 1025, m = 2049) the call raises before any launch
-    and counts nothing."""
+    past the caps (chi = 2049, m = 4097 / 2049) the call raises before any
+    launch and counts nothing."""
     f64 = dtype == C128
+    cap = EIGH_CAP_64 if f64 else EIGH_CAP
     br = torch.zeros(3, 2, ENV_CAP, ENV_CAP, dtype=dtype)
     env_kernel.env_chain(br, br, 1)
     assert card.calls == ["env_chain_stream_launch"]
-    cplx.eigh_top(_gram(EIGH_CAP, dtype), 8)
+    cplx.eigh_top(_gram(cap, dtype), 8)
     wide = "f64" if f64 else "wide"
-    assert card.calls[1:] == [f"tridiag_{wide}_launch", f"teig_{wide}_launch",
-                              f"backtransform_{wide}_launch"]
+    assert card.calls[1:] == [
+        "tridiag_grid_f64_launch" if f64 else "tridiag_grid_launch",
+        f"teig_{wide}_launch", f"backtransform_{wide}_launch"]
     for name in ("env_chain", "tridiag", "teig", "backtransform"):
         assert _counts()[name] == (1, 0, 0)
         assert _reach_counts()[name] == ((0, 1) if f64 else (1, 0))
     with pytest.raises(ValueError, match=f"size <= {ENV_CAP}"):
         br = torch.zeros(2, 2, ENV_CAP + 1, ENV_CAP + 1, dtype=dtype)
         env_kernel.env_chain(br, br, 0)
-    with pytest.raises(ValueError, match=f"size <= {EIGH_CAP}"):
-        cplx.eigh_top(_gram(EIGH_CAP + 1, dtype), 8)
+    with pytest.raises(ValueError, match=f"size <= {cap}"):
+        cplx.eigh_top(_gram(cap + 1, dtype), 8)
     assert len(card.calls) == 4
     assert _counts()["env_chain"] == (1, 0, 0)
 

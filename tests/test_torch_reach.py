@@ -282,43 +282,47 @@ def test_teig_global_plan_and_order_at_1024(dtype):
 
 
 K2_ROWS_CTA = 16   # tridiag_cluster_kernel: G = ceil(m / 16) CTAs
-K2_MAX_ROWS = 128  # the rows a CTA's flags hold (kTcMaxRows)
+K2_FIT = {False: 640, True: 438}  # the most whose rows fit in the cluster
 
 
 def tridiag_cluster_rows(m, cap):
-    """K2's plan rule (eigh_tridiag.cu tridiag_plan): (G, the rows a CTA)
-    with G = ceil(m / 16), at most `cap`."""
+    """K2's cluster plan rule (eigh_tridiag.cu tridiag_plan): (G, the rows
+    a CTA) with G = ceil(m / 16), at most `cap`."""
     g = min(math.ceil(m / K2_ROWS_CTA), cap)
     return g, math.ceil(m / g)
 
 
 class _PlanLib:
-    """Stands in for the kernel library's K2 plan queries at m = 2048: 16
-    CTAs, 9 rows a CTA in shared memory (complex64 on an H100)."""
+    """Stands in for the kernel library's K2 plan queries as an H100
+    answers them: the cluster route while its rows fit in shared memory
+    (K2_FIT), the card-wide route past it."""
 
     def tridiag_cluster_size(self, m, f64):
-        return 16
+        return 0 if m > K2_FIT[f64] else tridiag_cluster_rows(m, 16)[0]
 
-    def tridiag_smem_rows(self, m, f64):
-        return 9
+    def tridiag_routes(self, m, f64):
+        return int(m > K2_FIT[f64])
 
 
 def test_k2_and_k3_plans_and_k3_order_at_2048(monkeypatch):
-    """F5's cap, m = 2048, set by K2: G = 16 CTAs of exactly K2_MAX_ROWS =
-    128 rows (8 CTAs would hold 256; m = 2049 would need 129), the rest of
-    the rows past a CTA's shared memory in `work` (the spill route, as the
-    plan wrapper reports it). K3's card-wide route has no cap of its own:
-    16 in-block ranks of 128 rows, 32 slabs, at m = 2049 too; its block
-    CGS2 at keep = 128 over the plan's 16 ranks, against the column CGS2
-    of cgs2_plain on a separated float32 spectrum's iterate: columns up to
+    """At m = 2048 (and past it) K2 runs its card-wide route, which has no
+    cap of its own below its column's shared memory: the cluster route
+    stops where its rows no longer fit (complex64 640: 16 CTAs of 40 rows;
+    complex128 438). K3's card-wide route has no cap of its own: 16
+    in-block ranks of 128 rows, 32 slabs, at m = 2049 too; its block CGS2
+    at keep = 128 over the plan's 16 ranks, against the column CGS2 of
+    cgs2_plain on a separated float32 spectrum's iterate: columns up to
     sign 1e-3, orthonormality 2e-4."""
     m = 2048
-    assert tridiag_cluster_rows(m, 16) == (16, K2_MAX_ROWS)
-    assert tridiag_cluster_rows(m, 8)[1] > K2_MAX_ROWS
-    assert tridiag_cluster_rows(m + 1, 16)[1] > K2_MAX_ROWS
+    assert tridiag_cluster_rows(K2_FIT[False], 16) == (16, 40)
+    assert tridiag_cluster_rows(K2_FIT[True], 16) == (16, 28)
     monkeypatch.setattr(cuda_lib, "lib", lambda: _PlanLib())
-    assert ek.tridiag_cluster_plan(m) == {
-        "ctas": 16, "rows": K2_MAX_ROWS, "smem_rows": 9, "route": "spill"}
+    for f64 in (False, True):
+        assert ek.tridiag_routes(m, f64) == "grid"
+        assert ek.tridiag_routes(m + 1, f64) == "grid"
+        assert ek.tridiag_routes(K2_FIT[f64], f64) == "smem"
+        assert ek.tridiag_cluster_plan(K2_FIT[f64], f64)["rows"] == (
+            28 if f64 else 40)
     monkeypatch.undo()
     for f64 in (False, True):
         assert grid_plan(m, f64) == {"block": 32, "inblock_ctas": 16,

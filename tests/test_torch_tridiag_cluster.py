@@ -244,33 +244,42 @@ def test_cluster_order_keeps_reflectors_unitary_on_tiny_columns(scale):
 
 
 class _PlanLib:
-    """Stands in for the kernel library's plan queries."""
+    """Stands in for the kernel library's plan queries: the cluster size
+    (0 where the rows do not fit in the cluster's shared memory), and the
+    route, the card-wide one where they do not (or none: `grid` False)."""
 
-    def __init__(self, ctas, smem_rows):
-        self.ctas, self.smem_rows = ctas, smem_rows
+    def __init__(self, ctas, grid=True):
+        self.ctas, self.grid = ctas, grid
 
     def tridiag_cluster_size(self, m, f64):
         return self.ctas
 
-    def tridiag_smem_rows(self, m, f64):
-        return self.smem_rows
+    def tridiag_routes(self, m, f64):
+        return 0 if self.ctas else (1 if self.grid else -1)
 
 
-@pytest.mark.parametrize("m,ctas,smem_rows,route", [
-    (256, 16, 16, "smem"), (504, 16, 23, "spill"), (64, 4, 16, "smem")])
-def test_plan_reports_cluster_rows_and_route(monkeypatch, m, ctas,
-                                             smem_rows, route):
-    """tridiag_cluster_plan: the cluster size and the rows a CTA keeps in
-    shared memory as the library plans them; rows = ceil(m / ctas), and
-    the route is "spill" where fewer than those fit."""
-    monkeypatch.setattr(cuda_lib, "lib", lambda: _PlanLib(ctas, smem_rows))
-    assert ek.tridiag_cluster_plan(m, True) == {
-        "ctas": ctas, "rows": -(-m // ctas), "smem_rows": smem_rows,
-        "route": route}
+@pytest.mark.parametrize("m,ctas,route", [
+    (256, 16, "smem"), (504, 0, "grid"), (64, 4, "smem")])
+def test_plan_reports_cluster_rows_and_route(monkeypatch, m, ctas, route):
+    """tridiag_cluster_plan: the cluster size as the library plans it and
+    the rows a CTA holds in shared memory, ceil(m / ctas), where they fit
+    (route "smem"); past the fit (complex128 m = 504) the route is the
+    card-wide one and the cluster plan raises."""
+    monkeypatch.setattr(cuda_lib, "lib", lambda: _PlanLib(ctas))
+    assert ek.tridiag_routes(m, True) == route
+    if route == "smem":
+        assert ek.tridiag_cluster_plan(m, True) == {
+            "ctas": ctas, "rows": -(-m // ctas)}
+    else:
+        with pytest.raises(RuntimeError, match="no cluster size"):
+            ek.tridiag_cluster_plan(m, True)
 
 
 def test_plan_raises_where_nothing_launches(monkeypatch):
-    """A size the card cannot launch (the library plans G = 0) raises."""
-    monkeypatch.setattr(cuda_lib, "lib", lambda: _PlanLib(0, 0))
+    """A size the card cannot launch (the library plans G = 0 and no
+    card-wide plan) raises."""
+    monkeypatch.setattr(cuda_lib, "lib", lambda: _PlanLib(0, grid=False))
     with pytest.raises(RuntimeError, match="no cluster size"):
         ek.tridiag_cluster_plan(600)
+    with pytest.raises(RuntimeError, match="no route"):
+        ek.tridiag_routes(600)

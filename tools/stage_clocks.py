@@ -1,7 +1,8 @@
 """Where the cycles of the redesigned kernels go, on one CUDA card.
 
     python3 tools/stage_clocks.py [--parent DIR] [--kernels tridiag,teig,
-        teig_wide,teig_grid,tridiag_wide,backtransform_ormqr,env_chain]
+        teig_wide,teig_grid,tridiag_wide,tridiag_grid,backtransform_ormqr,
+        env_chain]
 
 Builds instrumented copies of the kernel sources (clock64() stamps taken by
 thread 0 at each stage boundary) into tools/_build/, a git-ignored
@@ -53,6 +54,16 @@ directory, and prints (--kernels picks the reports; all by default):
             one chi=128 bench.py sweep (m = 256) in both. With --parent, in
             the order parent, this tree, this tree, parent; with
             --variants, then this tree's kernel at other cluster sizes.
+  tridiag_grid
+            K2's card-wide route (complex64 m > 640, complex128 m > 438):
+            CTA 0's cycles by stage (the load, the panels' flags, skipped
+            steps, a column's four phases and its two grid barriers, the
+            panel's end, the trailing update and its barrier) from one
+            launch of the source built with TRIDIAG_GRID_STAGES, on a
+            random Gram at complex64 and complex128 m = 1024 and 2048, and
+            each stage's device time as its share of the instrumented
+            launch's time; then the same summed over the 32 Grams of the
+            chi=1024 reach sweep (chip_smoke.sweep_setup) in both dtypes.
   backtransform_ormqr
             K4 against torch.ormqr on the same reflectors, complex64 m=512
             and complex128 m=504: 20 pairs in turns, medians and spread.
@@ -865,7 +876,7 @@ def report_tridiag(tag, lib, labels, inputs):
 # active step, 2 for an inactive one of the one-CTA kernel), taken by
 # thread 0 (of rank 0 in the cluster design); g_stamp[6] and [7] hold the
 # load's and the step loop's cycles.
-TW_STEPS = (560, 9)  # K2's steps (m <= 560) and slots
+TW_STEPS = (2048, 9)  # K2's steps (m <= 2048) and slots
 
 
 def _tw(slot, indent="    "):
@@ -978,7 +989,10 @@ def tridiag_wide_runner(lib, f64):
     instantiation on one matrix through the build's own launcher."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.tridiag_f64_launch if f64 else lib.tridiag_wide_launch
-    fn.argtypes = [P] * 6 + [I, I, L, P]
+    # since the card-wide route took the sizes past the cluster's shared
+    # memory, the cluster launcher has no `work` matrix
+    spill = not hasattr(lib, "tridiag_routes")
+    fn.argtypes = [P] * (6 if spill else 5) + [I, I, L, P]
 
     def run(h):
         m, dev = h.shape[0], h.device
@@ -987,8 +1001,10 @@ def tridiag_wide_runner(lib, f64):
         tau = torch.empty(m, dtype=h.dtype, device=dev)
         d = torch.empty(m, dtype=rdt, device=dev)
         e = torch.empty(m, dtype=rdt, device=dev)
-        rc = fn(h.data_ptr(), work.data_ptr(), vrows.data_ptr(),
-                tau.data_ptr(), d.data_ptr(), e.data_ptr(), m, 1, m * m,
+        ptrs = ([h.data_ptr(), work.data_ptr()] if spill
+                else [h.data_ptr()])
+        rc = fn(*ptrs, vrows.data_ptr(), tau.data_ptr(), d.data_ptr(),
+                e.data_ptr(), m, 1, m * m,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"tridiag wide launch failed: {rc}")
@@ -1013,24 +1029,35 @@ def build_tridiag_wide(tag, src, extra=()):
     return lib, labels
 
 
-def report_tridiag_wide(tag, lib, labels, sweep128):
+def report_tridiag_wide(tag, lib, labels, sweep128, sizes=None):
     """The wide K2's cycles by stage (rank 0's view in the cluster design)
     and its time (CUDA events, on the instrumented build), with its active
     and inactive steps, in complex64 at m = 192, 256 and 512 and in
     complex128 at m = 64, 256 and 504 on a random Gram, and on the 24
-    Grams of one chi=128 bench.py sweep (m = 256) in both."""
+    Grams of one chi=128 bench.py sweep (m = 256) in both; or, given
+    `sizes` ((f64, m), ...), on a random Gram at each of them alone."""
     import chip_smoke as cs
     from adaptaqc_tpu_torch.ops import eigh_kernels as ek
-    sweep64 = [h.to(torch.complex128) for h in sweep128]
-    cases = [(False, f"random m={m}", [random_gram(m)]) for m in
-             (192, 256, 512)]
-    cases.append((False, f"the chi=128 sweep's {len(sweep128)} m=256",
-                  sweep128))
-    cases += [(True, f"random m={m}", [random_gram64(m)]) for m in
-              (64, 256, 504)]
-    cases.append((True, f"the chi=128 sweep's {len(sweep64)} m=256",
-                  sweep64))
+    if sizes:
+        cases = [(f64, f"random m={m}",
+                  [random_gram64(m) if f64 else random_gram(m)])
+                 for f64, m in sizes]
+    else:
+        sweep64 = [h.to(torch.complex128) for h in sweep128]
+        cases = [(False, f"random m={m}", [random_gram(m)]) for m in
+                 (192, 256, 512)]
+        cases.append((False, f"the chi=128 sweep's {len(sweep128)} m=256",
+                      sweep128))
+        cases += [(True, f"random m={m}", [random_gram64(m)]) for m in
+                  (64, 256, 504)]
+        cases.append((True, f"the chi=128 sweep's {len(sweep64)} m=256",
+                      sweep64))
     for f64, label, grams in cases:
+        m = grams[0].shape[-1]
+        if hasattr(lib, "tridiag_routes") and lib.tridiag_routes(m, int(f64)):
+            print(f"tridiag wide {tag}: m={m} runs the card-wide route "
+                  "(--kernels tridiag_grid)", flush=True)
+            continue
         run = tridiag_wide_runner(lib, f64)
         cyc, inact_cyc, load, loop, n_act = np.zeros(len(labels)), 0.0, 0, 0, 0
         for h in grams:
@@ -1057,8 +1084,9 @@ def report_tridiag_wide(tag, lib, labels, sweep128):
         plan = ""
         if hasattr(lib, "tridiag_cluster_size"):
             g = lib.tridiag_cluster_size(m, int(f64))
-            rs = lib.tridiag_smem_rows(m, int(f64))
             rows = -(-m // g)
+            rs = (lib.tridiag_smem_rows(m, int(f64))
+                  if hasattr(lib, "tridiag_smem_rows") else rows)
             plan = (f", clusters of {g} CTAs, {rs} of {rows} rows a CTA in "
                     "shared memory")
         else:
@@ -1073,6 +1101,86 @@ def report_tridiag_wide(tag, lib, labels, sweep128):
                  f"({inact_cyc / max(loop, 1):.3f})" if inact_cyc else "")
               + f"; {cyc.sum() / max(act, 1):.0f} cycles an active step; "
               f"Q T Q^H rel {err:.1e}", flush=True)
+
+
+# K2's card-wide route (csrc/tridiag_grid.cu built with TRIDIAG_GRID_STAGES:
+# CTA 0's thread 0 adds the cycles since its last stamp to each stage)
+TG_LABELS = ["load", "panel start (flags)", "skipped steps",
+             "A: column update", "barrier 1", "B: reflector",
+             "C: y pass and slabs", "barrier 2", "D: a, b, s and w",
+             "panel end: barrier and d", "trailing update",
+             "barrier after the update", "end barrier"]
+TG_SIZES = ((False, 1024), (False, 2048), (True, 1024), (True, 2048))
+
+
+def build_tridiag_grid(tag, src):
+    """`src` (a tridiag_grid.cu) with its stage clocks, as its own library."""
+    from adaptaqc_tpu_torch.ops.cuda_lib import NVCC_FLAGS, _nvcc
+    os.makedirs(BUILD, exist_ok=True)
+    so = os.path.join(BUILD, f"libtridiag_grid_{tag}.so")
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-DTRIDIAG_GRID_STAGES", "-I",
+                    os.path.dirname(src), "-o", so, src], check=True)
+    lib = ctypes.CDLL(so)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.tridiag_grid_launch, lib.tridiag_grid_f64_launch):
+        fn.argtypes = [P] * 6 + [I, I, L, P]
+    lib.tridiag_grid_workspace.argtypes = [I, I]
+    lib.tridiag_grid_workspace.restype = L
+    lib.tridiag_grid_stages.argtypes = [P]
+    return lib
+
+
+def report_tridiag_grid(tag, lib, sizes=TG_SIZES, grams=None):
+    """K2's card-wide route: CTA 0's cycles by stage from one instrumented
+    launch on a random Gram at each of `sizes` (or on each of `grams`,
+    summed), the stages' share, their device time (the share of the
+    instrumented launch's time by CUDA events) and the active columns."""
+    import chip_smoke as cs
+    cases = grams or [(f64, f"random m={m}",
+                       [random_gram64(m) if f64 else random_gram(m)])
+                      for f64, m in sizes]
+    for f64, label, hs in cases:
+        fn = lib.tridiag_grid_f64_launch if f64 else lib.tridiag_grid_launch
+        cyc, ms, act = np.zeros(16), 0.0, 0
+        for h in hs:
+            m, dev = h.shape[-1], h.device
+            rdt = torch.float64 if f64 else torch.float32
+            ws = torch.empty(lib.tridiag_grid_workspace(m, int(f64)),
+                             dtype=torch.uint8, device=dev)
+            vrows = torch.empty_like(h)
+            tau = torch.empty(m, dtype=h.dtype, device=dev)
+            d = torch.empty(m, dtype=rdt, device=dev)
+            e = torch.empty(m, dtype=rdt, device=dev)
+
+            def run():
+                rc = fn(h.data_ptr(), ws.data_ptr(), vrows.data_ptr(),
+                        tau.data_ptr(), d.data_ptr(), e.data_ptr(), m, 1,
+                        m * m, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"tridiag grid launch failed: {rc}")
+            ms += cs.cuda_ms(run, 3, torch)
+            raw = (ctypes.c_longlong * 16)()
+            lib.tridiag_grid_stages(raw)  # cleared
+            run()
+            torch.cuda.synchronize()
+            if lib.tridiag_grid_stages(raw) != 0:
+                raise RuntimeError("reading the stage clocks failed")
+            cyc += np.array(raw[:], dtype=np.float64)
+            act += int((tau[:-1] != 0).sum())
+        counts = cyc[13:16].copy()
+        cyc[13:16] = 0
+        total = max(cyc.sum(), 1.0)
+        print(f"tridiag grid {tag} {'complex128' if f64 else 'complex64'} "
+              f"on {label}: {ms:.4f} ms (instrumented), {act} active "
+              f"columns, {total:.0f} cycles of CTA 0: "
+              + ", ".join(f"{lab} {c:.0f} ({c / total:.3f}, "
+                          f"{ms * c / total:.3f} ms)"
+                          for lab, c in zip(TG_LABELS, cyc) if c)
+              + (f"; {total / act:.0f} cycles an active column"
+                 if act else "")
+              + f"; {counts[0]:.0f} panels, {counts[1]:.0f} columns found "
+              f"inactive by their step, {counts[2]:.0f} panels ended by a "
+              "residue column", flush=True)
 
 
 def report_backtransform_ormqr(pairs=20):
@@ -1145,13 +1253,17 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="an unpacked older tree to compare")
     ap.add_argument("--kernels", default="tridiag,teig,teig_wide,teig_grid,"
-                    "tridiag_wide,backtransform_ormqr,env_chain",
+                    "tridiag_wide,tridiag_grid,backtransform_ormqr,"
+                    "env_chain",
                     help="which reports, comma-separated (tridiag also "
                     "times backtransform)")
     ap.add_argument("--variants", action="store_true",
                     help="tridiag_wide: also this tree's kernel at other "
                     "cluster sizes (TW_VARIANTS); teig_grid: also this "
                     "tree's route with other tuning choices (TG_VARIANTS)")
+    ap.add_argument("--wide-sizes",
+                    help="tridiag_wide: only a random Gram at each of these "
+                    "sizes, for example c64:1024,c128:2048")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -1206,7 +1318,10 @@ def main():
         from adaptaqc_tpu_torch.circuits.tape import compile_tape
         from adaptaqc_tpu_torch.ops import eigh_kernels as ek
         from adaptaqc_tpu_torch.optim import sweeps
-        sweep128 = [a[0] for a in cs.sweep_eigh_inputs(
+        sizes = [(s.split(":")[0] == "c128", int(s.split(":")[1]))
+                 for s in args.wide_sizes.split(",")] if args.wide_sizes \
+            else None
+        sweep128 = None if sizes else [a[0] for a in cs.sweep_eigh_inputs(
             torch, ek, mps_core, sweeps, Circuit, compile_tape,
             chi=128)["tridiag"]]
         trees = {"this_tree": build_tridiag_wide("this_tree", src)}
@@ -1214,10 +1329,28 @@ def main():
             trees["parent"] = build_tridiag_wide("parent", parent)
         for tag in ("parent", "this_tree", "this_tree", "parent"):
             if tag in trees:
-                report_tridiag_wide(tag, *trees[tag], sweep128)
+                report_tridiag_wide(tag, *trees[tag], sweep128, sizes)
         for tag, extra in (TW_VARIANTS.items() if args.variants else ()):
             report_tridiag_wide(tag, *build_tridiag_wide(tag, src, extra),
                                 sweep128)
+    if "tridiag_grid" in which:
+        gsrc = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc",
+                            "tridiag_grid.cu")
+        glib = build_tridiag_grid("this_tree", gsrc)
+        report_tridiag_grid("this_tree", glib)
+        import chip_smoke as cs
+        from adaptaqc_tpu_torch.backends import mps_core
+        from adaptaqc_tpu_torch.circuits.tape import compile_tape
+        from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+        from adaptaqc_tpu_torch.optim import sweeps
+        for chi, f64 in ((1024, False), (1024, True)):
+            dt = torch.complex128 if f64 else torch.complex64
+            _, _, sargs = cs.sweep_setup(torch, mps_core, sweeps,
+                                         compile_tape, chi, dt)
+            grams = [a[0] for a in cs.record_eigh_inputs(
+                torch, ek, lambda: sweeps.sweep(*sargs))["tridiag"]]
+            report_tridiag_grid("this_tree", glib, grams=[(
+                f64, f"the chi={chi} sweep's {len(grams)} Grams", grams)])
     if "backtransform_ormqr" in which:
         report_backtransform_ormqr()
     if "env_chain" in which:
