@@ -185,10 +185,8 @@ class AdaptCompiler(ApproximateCompiler):
         """On a CUDA device the eigensolver and env-chain kernels take a
         bounded bond dimension (ops/dispatch.py REACH: chi <= 2048, the
         env chain's streamed kernel and the eigensolver at m = 2 chi <=
-        4096 in complex64, chi <= 1024 in complex128, where the
-        eigensolver's back-transform stops at m = 2048; their plain
-        versions on the CPU
-        have no cap), and a call above it raises: refuse a schedule whose
+        4096, in complex64 and complex128; their plain versions on the
+        CPU have no cap), and a call above it raises: refuse a schedule whose
         stages exceed it before its first stage, not hours into it."""
         if self.backend.device.type != "cuda":
             return

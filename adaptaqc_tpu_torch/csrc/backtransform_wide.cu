@@ -48,6 +48,15 @@
 //     Gathering all G partials in every CTA (the first version) took
 //     3,000-10,000 cycles a panel, more than the products (clock64()
 //     stamps, one H100).
+// Past the shared-memory fit (complex128 at m > kDoubleMaxF64 = 2816: at m
+// = 4096 a CTA's 256 rows of z take 147 KB, two panel buffers 139 KB) the
+// apply keeps one panel buffer and rows of z at a stride of kCols + 1
+// (226,816 bytes a CTA at m = 4096): the next panel's copy is issued once
+// this one's update is done, so its load is no longer hidden behind the
+// products, and the eight bank groups of a 16-byte row are each read once
+// a pass in both products. The arithmetic and its order are those of the
+// double-buffered route (the same bits at the same G); past m = 4096 (R >
+// 256) neither fits and the plan refuses before any launch.
 // complex64 runs both products on FP32 FFMA (no TF32). complex128 runs the
 // same kernel on double with both products on the fp64 tensor cores (DMMA,
 // mma.sync m8n8k4: full IEEE fp64, a complex product as four real ones):
@@ -68,8 +77,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 using adaptaqc::dmma;
+using adaptaqc::bulk_copy;
+using adaptaqc::mbar_arrive_remote;
 using adaptaqc::mbar_init;
+using adaptaqc::mbar_init_count;
 using adaptaqc::mbar_wait;
+using adaptaqc::mbar_expect_tx;
+using adaptaqc::mbar_wait_cluster;
 using adaptaqc::smem_addr;
 
 constexpr int kNb = 16;         // reflectors of a compact-WY panel
@@ -81,6 +95,10 @@ constexpr int kMaxCluster = 16;
 constexpr int kChunk = 128;     // rows the preparation stages at a time
 constexpr int kMaxBatch = 65535;
 constexpr int kPlanCache = 4096;
+constexpr int kDoubleMaxF64 = 2816;  // complex128 m past it: one buffer
+                                     // (R = 176 rows a CTA of 16 and two
+                                     // buffers: 222,912 bytes; 192 rows:
+                                     // 240,128)
 static_assert(kNb == 16 && kCols == 32 && kThreads == 256,
               "the register tiles below: 4 x 4 outputs a thread");
 
@@ -159,26 +177,33 @@ __host__ __device__ inline BtWs bt_ws(int m, int esize) {
 }
 
 // bt_apply_kernel's dynamic shared memory, offsets in complex elements:
-// the CTA's rows of z (Rp = R rounded up to 16, rows of ldz), two panel
-// buffers (Rp rows of ldv), two T, the partial Y of this CTA's columns
+// the CTA's rows of z (Rp = R rounded up to 16, rows of ldz), nbuf panel
+// buffers (Rp rows of ldv), nbuf T, the partial Y of this CTA's columns
 // (c = g mod G) as every rank posts it (G x kNb x ncmax, ncmax = ceil(kCols
 // / G)), their sum (kNb x ncmax), W (kNb x kCols), then the panels' first
-// reflectors (ints). ldz = kCols + 4: the eight rows a warp reads at once in
-// the partial Y fall on the fewest bank passes in either dtype.
+// reflectors (ints). ldz = kCols + 4 on the double-buffered route: the
+// eight rows a warp reads at once in the partial Y fall on the fewest bank
+// passes in either dtype; kCols + 1 on the single-buffered route
+// (complex128 alone), which needs the 3 elements a row back. The route is
+// fixed by m and the dtype alone (bt_single).
+__host__ __device__ inline bool bt_single(int m, int esize) {
+  return esize == 16 && m > kDoubleMaxF64;
+}
 struct BtSmem {
-  int Rp, ldz, ldv, ncmax;
+  int Rp, ldz, ldv, ncmax, nbuf;
   size_t zs, vb, tb, rv, yl, ws, k0, total_bytes;
 };
 __host__ __device__ inline BtSmem bt_smem(int m, int G, int R, int esize) {
   BtSmem s;
+  s.nbuf = bt_single(m, esize) ? 1 : 2;
   s.Rp = (R + 15) & ~15;
-  s.ldz = kCols + 4;
+  s.ldz = kCols + (s.nbuf == 1 ? 1 : 4);
   s.ldv = kNb + 16 / esize;
   s.ncmax = (kCols + G - 1) / G;
   s.zs = 0;
   s.vb = s.zs + (size_t)s.Rp * s.ldz;
-  s.tb = s.vb + 2 * (size_t)s.Rp * s.ldv;
-  s.rv = s.tb + 2 * (size_t)kNb * kNb;
+  s.tb = s.vb + (size_t)s.nbuf * s.Rp * s.ldv;
+  s.rv = s.tb + (size_t)s.nbuf * kNb * kNb;
   s.yl = s.rv + (size_t)G * kNb * s.ncmax;
   s.ws = s.yl + (size_t)kNb * s.ncmax;
   s.k0 = s.ws + (size_t)kNb * kCols;
@@ -191,26 +216,6 @@ __host__ __device__ inline BtSmem bt_smem(int m, int G, int R, int esize) {
 // a staged chunk of the panel, kNb rows of kChunk + 1 elements.
 __host__ __device__ inline size_t bt_prep_smem(int m, int esize) {
   return round16(4 * (size_t)m) + (size_t)kNb * (kChunk + 1) * esize;
-}
-
-// This thread's arrival on bar, expecting `bytes` more to complete.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-// One thread: bulk-copy `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global memory into this CTA's shared memory, completing on
-// bar (whose expected bytes the caller has set).
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // One level of the shuffle tree that sums x over the eight lanes of a
@@ -348,46 +353,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kNb; ++i) tblk[lane * kNb + i] = trow[i];
     }
-  }
-}
-
-// An mbarrier of this CTA that completes a phase on `count` arrivals.
-__device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// An arrival, with release semantics at cluster scope, on the mbarrier at
-// bar's address in CTA `rank` of the cluster: what this CTA wrote before
-// (ordered by a block barrier) is visible to that CTA once it has waited.
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(smem_addr(bar)), "r"(rank));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          r)
-      : "memory");
-}
-
-// Wait for the phase of parity `parity` of this CTA's mbarrier, acquiring
-// at cluster scope what the arriving CTAs released.
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
-                                                  uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
   }
 }
 
@@ -684,13 +649,14 @@ __global__ void __launch_bounds__(kThreads)
   };
   if (npan > 0 && tid == 0) issue(npan - 1, 0);
 
+  const bool single = S.nbuf == 1;
   for (int it = 0; it < npan; ++it) {
-    const int p = npan - 1 - it, buf = it & 1;
+    const int p = npan - 1 - it, buf = single ? 0 : it & 1;
     const int l0 = first_row(p);
-    mbar_wait(&vbar[buf], (it >> 1) & 1);
+    mbar_wait(&vbar[buf], single ? it & 1 : (it >> 1) & 1);
     // the other buffer was last read before the barrier that ended the
-    // previous panel
-    if (tid == 0 && p > 0) issue(p - 1, buf ^ 1);
+    // previous panel (one buffer: it is refilled after this panel)
+    if (!single && tid == 0 && p > 0) issue(p - 1, buf ^ 1);
     const V* Vs = Vb + (size_t)buf * Rp * ldv;
     const V* Ts = Tb + (size_t)buf * kNb * kNb;
 
@@ -743,6 +709,7 @@ __global__ void __launch_bounds__(kThreads)
     mbar_wait_cluster(&wbar, it & 1);
     update_z(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
     __syncthreads();  // Z and both buffers are read again by the next panel
+    if (single && tid == 0 && p > 0) issue(p - 1, 0);
   }
   for (int idx = tid; idx < R * kCols; idx += kThreads) {
     const int l = idx / kCols, c = idx % kCols, r = g + l * G;
@@ -909,6 +876,14 @@ extern "C" {
 long long backtransform_workspace(int m, int f64) {
   if (m < (f64 ? 2 : 129)) return 0;
   return (long long)bt_ws(m, f64 ? 16 : 8).total;
+}
+
+// bt_apply_kernel's dynamic shared memory in bytes at m on a cluster of G
+// CTAs (complex64: f64 = 0, m > 128; complex128: m >= 2); 0 outside.
+long long backtransform_apply_smem(int m, int G, int f64) {
+  if (m < (f64 ? 2 : 129) || G < 1 || G > kMaxCluster) return 0;
+  return (long long)bt_smem(m, G, (m + G - 1) / G, f64 ? 16 : 8)
+      .total_bytes;
 }
 
 // The CTAs of the cluster over a column tile's rows at m, for `keep`

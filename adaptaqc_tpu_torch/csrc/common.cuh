@@ -33,6 +33,66 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// An mbarrier of this CTA that completes a phase on `count` arrivals.
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// An arrival, with release semantics at cluster scope, on the mbarrier at
+// bar's address in CTA `rank` of the cluster: what this CTA wrote before
+// (ordered by a block barrier) is visible to that CTA once it has waited.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          r)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` of this CTA's mbarrier, acquiring
+// at cluster scope what the arriving CTAs released.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// This thread's arrival on bar, expecting `bytes` more to complete.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// One thread: bulk-copy `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global memory into this CTA's shared memory, completing on
+// bar (whose expected bytes the caller has set).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One thread: bulk-copy `bytes` (a multiple of 16) from global to this
 // CTA's shared memory; completion is counted on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,

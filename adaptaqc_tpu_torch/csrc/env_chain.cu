@@ -55,15 +55,13 @@
 //     No second launch, and no cluster waits on the other.
 // All arithmetic is fp32 FMA on the CUDA cores; no tensor-core (TF32) path.
 //
-// The wide variant (64 < chi <= 128, env_chain_kernel<true>): at chi = 128
-// the B_p pair of a site is 256 KB and the double-buffered receive buffers
-// another 256 KB, each more than a CTA's 227 KB of shared memory. So step 1
-// reads B_p straight from global memory (the whole ket stack, 13 MB at
-// n = 50, stays in L2; __ldg), the receive buffer is single (one more
-// cluster barrier a site, after the sums, before the next site's stores),
-// A's slab is single-buffered (its copy overlaps step 1), and the combine
-// reads f from the snapshot in global memory (__ldcg) instead of copying
-// it. The cluster is 16 CTAs where two fit (168 KB each), else 8 (208 KB).
+// The wide variant (kWide) is the complex128 instantiation alone (below):
+// at chi = 128 a site's B_p pair and the receive buffers each outgrow a
+// CTA's 227 KB, so step 1 reads B_p straight from global memory (the whole
+// ket stack stays in L2; __ldg), A's slab is single-buffered (its copy
+// overlaps step 1), one more cluster barrier a site guards the single
+// receive buffer, and the combine reads f from the snapshot in global
+// memory (__ldcg). complex64 above chi = 64 runs csrc/env_chain_wide.cu.
 //
 // complex128 (env_chain_kernel<double2, true, true>, every chi <= 128): the
 // wide variant in double, whose receive buffers would take 256 KB at
@@ -104,7 +102,7 @@ using adaptaqc::mbar_wait;
 
 constexpr int kThreads = 256;
 constexpr int kMaxChi = 128;
-constexpr int kNarrowMaxChi = 64;  // above it the wide variant
+constexpr int kNarrowMaxChi = 64;  // complex64 above it: env_chain_wide.cu
 
 // Offsets (in complex elements) of the dynamic shared-memory buffers.
 struct Layout {
@@ -353,9 +351,9 @@ __device__ void load_a_slab(V* dst, const V* br, int site, int x0, int rows,
 // sites [0, q), cluster 1 the backward chain over (q, n). snaps (2, chi,
 // chi) receives e_q and f_q; counter (one int, zero on entry) picks the
 // cluster that combines; out (2, 2) receives C. V: float2 (complex64) or
-// double2 (complex128); kWide: the variant for 64 < chi <= 128 (top of
-// this file); kGlobalP: the partials go through `partials` in global
-// memory (2 cs cs s chi elements), not through shared memory.
+// double2 (complex128); kWide: the wide variant (top of this file), run
+// in complex128 alone; kGlobalP: the partials go through `partials` in
+// global memory (2 cs cs s chi elements), not through shared memory.
 template <typename V, bool kWide, bool kGlobalP>
 __global__ void __launch_bounds__(kThreads, 1)
     env_chain_kernel(const V* __restrict__ br, const V* __restrict__ bl,
@@ -528,21 +526,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster.sync();  // keep every CTA's shared memory alive for rank 0's reads
 }
 
-bool is_wide(int c) { return c > kNarrowMaxChi; }
-
-// f64: the complex128 kernel (every chi), else the complex64 one by chi.
+// f64: the complex128 kernel (every chi), else the narrow complex64 one.
 size_t smem_bytes(int c, int cs, bool f64) {
-  const Layout L = make_layout(c, (c + cs - 1) / cs, cs, f64 || is_wide(c),
-                               f64);
+  const Layout L = make_layout(c, (c + cs - 1) / cs, cs, f64, f64);
   return (size_t)L.total * (f64 ? sizeof(double2) : sizeof(float2));
 }
 
 // The kernel that serves chi (as a function pointer for the attribute and
 // occupancy calls).
-const void* kernel_for(int c, bool f64) {
-  if (f64) return (const void*)env_chain_kernel<double2, true, true>;
-  return is_wide(c) ? (const void*)env_chain_kernel<float2, true, false>
-                    : (const void*)env_chain_kernel<float2, false, false>;
+const void* kernel_for(bool f64) {
+  return f64 ? (const void*)env_chain_kernel<double2, true, true>
+             : (const void*)env_chain_kernel<float2, false, false>;
 }
 
 cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cs, size_t smem,
@@ -567,7 +561,7 @@ cudaLaunchConfig_t make_config(cudaLaunchAttribute* attr, int cs, size_t smem,
 int pick_cluster(int c, bool f64, cudaError_t* err) {
   static int cached[2][kMaxChi + 1] = {{0}};
   if (cached[f64][c]) return cached[f64][c];
-  const void* fn = kernel_for(c, f64);
+  const void* fn = kernel_for(f64);
   *err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (*err != cudaSuccess) return 0;
@@ -609,15 +603,15 @@ cudaError_t launch_chain(cudaLaunchConfig_t* cfg, const void* br,
 int launch(const void* br, const void* bl, void* snaps, void* partials,
            void* counter, void* out, int n, int chi, int q, void* stream,
            bool f64) {
-  if (chi < 1 || chi > kMaxChi || n < 1 || q < 0 || q >= n ||
-      ((uintptr_t)br | (uintptr_t)bl) % 16 != 0 ||
+  if (chi < 1 || chi > (f64 ? kMaxChi : kNarrowMaxChi) || n < 1 || q < 0 ||
+      q >= n || ((uintptr_t)br | (uintptr_t)bl) % 16 != 0 ||
       (f64 && partials == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   const int cs = pick_cluster(chi, f64, &err);
   if (cs == 0) return (int)err;
   const size_t smem = smem_bytes(chi, cs, f64);
-  const void* fn = kernel_for(chi, f64);
+  const void* fn = kernel_for(f64);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
@@ -626,9 +620,6 @@ int launch(const void* br, const void* bl, void* snaps, void* partials,
   cudaLaunchConfig_t cfg = make_config(attr, cs, smem, (cudaStream_t)stream);
   if (f64)
     ADAPTAQC_RETURN_IF_ERR((launch_chain<double2, true, true>(
-        &cfg, br, bl, snaps, partials, counter, out, n, chi, q)));
-  else if (is_wide(chi))
-    ADAPTAQC_RETURN_IF_ERR((launch_chain<float2, true, false>(
         &cfg, br, bl, snaps, partials, counter, out, n, chi, q)));
   else
     ADAPTAQC_RETURN_IF_ERR((launch_chain<float2, false, false>(
@@ -641,13 +632,14 @@ int launch(const void* br, const void* bl, void* snaps, void* partials,
 // The cluster size the launcher picks for chi (0 on error); f64: for the
 // complex128 kernel.
 extern "C" int env_chain_cluster_size(int chi, int f64) {
-  if (chi < 1 || chi > kMaxChi) return 0;
+  if (chi < 1 || chi > (f64 ? kMaxChi : kNarrowMaxChi)) return 0;
   cudaError_t err = cudaSuccess;
   return pick_cluster(chi, f64 != 0, &err);
 }
 
 // counter must hold 0 and stay private to this stream's launches (the
-// kernel leaves it at 0); br and bl must be 16-byte aligned. complex64.
+// kernel leaves it at 0); br and bl must be 16-byte aligned. complex64,
+// chi <= 64 (above: env_chain_wide_launch, the same arguments).
 extern "C" int env_chain_launch(const void* br, const void* bl, void* snaps,
                                 void* counter, void* out, int n, int chi,
                                 int q, void* stream) {

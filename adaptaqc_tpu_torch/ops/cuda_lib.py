@@ -26,8 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("env_chain.cu", "env_chain_stream.cu", "eigh_tridiag.cu",
-           "tridiag_grid.cu", "backtransform_wide.cu")
+SOURCES = ("env_chain.cu", "env_chain_wide.cu", "env_chain_stream.cu",
+           "eigh_tridiag.cu", "tridiag_grid.cu", "backtransform_wide.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -40,6 +40,9 @@ _SIGNATURES = {
     "env_chain_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_f64_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "env_chain_cluster_size": (_I, _I),
+    "env_chain_wide_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "env_chain_wide_cluster_size": (_I,),
+    "env_chain_wide_plan": (_I, _P),
     "env_chain_stream_launch": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I,
                                 _P),
     "env_chain_stream_plan": (_I, _I, _I, _I, _P),
@@ -71,6 +74,7 @@ _RESTYPES = {"teig_wide_scratch": ((_I,), ctypes.c_longlong),
              "env_chain_f64_partials": ((_I,), ctypes.c_longlong),
              "env_chain_stream_work": ((_I, _I), ctypes.c_longlong),
              "backtransform_workspace": ((_I, _I), ctypes.c_longlong),
+             "backtransform_apply_smem": ((_I, _I, _I), ctypes.c_longlong),
              "tridiag_grid_workspace": ((_I, _I), ctypes.c_longlong)}
 
 _lib = None

@@ -36,13 +36,13 @@ REACH = {
     # variants' double instantiation; past each kernel's shared-memory fit
     # K2 and K3 run their card-wide routes (csrc/tridiag_grid.cu and
     # teig_grid: the matrix and the iterate in global memory), K4 its wide
-    # design (csrc/backtransform_wide.cu): complex64 to m 4096, the size the
-    # card has been checked at (K2's cap is its column in a CTA's shared
-    # memory, m ~ 13,000 in complex128; K3's plan m ~ 8,490 in double);
-    # complex128 to m 2048, K4's cap: its cluster of 16 CTAs keeps a column
-    # tile's rows of z in shared memory, 147 KB a CTA at m = 4096 in
-    # complex128 beside a 139 KB double-buffered panel
-    "eigh": {torch.complex64: (2, 4096), torch.complex128: (2, 2048)},
+    # design (csrc/backtransform_wide.cu), in complex128 past m 2816 on one
+    # panel buffer. Both dtypes to m 4096: in complex64 the size the card
+    # has been checked at (K2's cap is its column in a CTA's shared memory,
+    # m ~ 13,000 in complex128; K3's plan m ~ 8,490 in double); in
+    # complex128 K4's cap as well: its cluster of 16 CTAs keeps a column
+    # tile's 256 rows of z and one panel in 226,816 bytes a CTA at m = 4096
+    "eigh": {torch.complex64: (2, 4096), torch.complex128: (2, 4096)},
 }
 
 

@@ -622,6 +622,60 @@ def _tridiag_grid_bytes(m: int, f64: bool) -> int:
     return nbytes
 
 
+BT_NB = 16            # backtransform_wide.cu kNb: reflectors of a panel
+BT_COLS = 32          # kCols: output columns of a cluster
+BT_MAX_CLUSTER = 16   # kMaxCluster
+BT_DOUBLE_MAX_F64 = 2816  # kDoubleMaxF64: complex128 past it, one buffer
+
+
+def backtransform_routes(m: int, f64: bool = False) -> str:
+    """The wide K4's apply route at m: "double" (two panel buffers, the
+    next panel's copy under this one's products: every complex64 m,
+    complex128 to m = 2816, the last m whose 176 rows a CTA fit beside two
+    buffers on a cluster of 16) or "single" (one panel buffer and rows of z
+    at a stride of BT_COLS + 1: complex128 past it). By m and the dtype
+    alone."""
+    return "single" if f64 and m > BT_DOUBLE_MAX_F64 else "double"
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def backtransform_workspace_bytes(m: int, f64: bool = False) -> int:
+    """The wide K4's workspace a matrix as csrc/backtransform_wide.cu lays
+    it out (bt_ws): the active count and each panel's first reflector
+    (ints), each panel's T (BT_NB x BT_NB), then each panel's reflector
+    block of m + BT_MAX_CLUSTER - 1 rows of BT_NB entries and 16 bytes.
+    chip_smoke.py holds it equal to the library's."""
+    es = 16 if f64 else 8
+    npmax = -(-(m - 1) // BT_NB)
+    ldv = BT_NB + 16 // es
+    t_off = _round16(4 * (1 + npmax))
+    v_off = t_off + npmax * BT_NB * BT_NB * es
+    return v_off + npmax * (m + BT_MAX_CLUSTER - 1) * ldv * es
+
+
+def backtransform_apply_smem(m: int, g: int, f64: bool = False,
+                             route: str = None) -> int:
+    """bt_apply_kernel's dynamic shared memory in bytes at m on a cluster
+    of g CTAs (bt_smem) on `route` (the plan's by default): rows of z (R =
+    ceil(m / g), rounded up to 16, at a stride of BT_COLS + 4, or + 1 on
+    the single-buffered route), one or two panel buffers and T, the partial
+    Y posted by every rank, their sum, W and the panels' first
+    reflectors."""
+    es = 16 if f64 else 8
+    route = route or backtransform_routes(m, f64)
+    nbuf = 1 if route == "single" else 2
+    rp = _round16(-(-m // g))
+    ldz = BT_COLS + (1 if nbuf == 1 else 4)
+    ldv = BT_NB + 16 // es
+    ncmax = -(-BT_COLS // g)
+    elems = (rp * ldz + nbuf * rp * ldv + nbuf * BT_NB * BT_NB
+             + g * BT_NB * ncmax + BT_NB * ncmax + BT_NB * BT_COLS)
+    return elems * es + _round16(4 * -(-(m - 1) // BT_NB))
+
+
 @functools.lru_cache(maxsize=64)
 def _bt_workspace_bytes(m: int, f64: bool) -> int:
     """The wide K4's workspace a matrix, in bytes: m and the dtype fix it."""

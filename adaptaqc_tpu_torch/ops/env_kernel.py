@@ -16,11 +16,13 @@ with A = R's and B = L's tensors and both chains starting from |0><0| on the
 (padded) boundary bond. The wrapper runs the plain version for tensors on the
 CPU and launches the CUDA kernels for tensors on a CUDA device
 (ops/dispatch.py), raising for anything they do not take (chi > 2048, another
-dtype, a non-contiguous or misaligned tensor). To chi = 128 the kernel of
-csrc/env_chain.cu runs each chain on a thread-block cluster and combines in
-whichever cluster finishes last, chosen through a counter that the wrapper
-keeps per device and stream; complex64 above chi = 64 takes its wide
-variant, and complex128 its double instantiation. Past chi = 128 the
+dtype, a non-contiguous or misaligned tensor). To chi = 128 each chain runs
+on a thread-block cluster and the two combine in whichever cluster finishes
+last, chosen through a counter that the wrapper keeps per device and
+stream: complex64 to chi = 64 in the narrow kernel of csrc/env_chain.cu,
+above it in csrc/env_chain_wide.cu (a 4 x 4 cluster, each CTA a block of
+the environment: `wide_plan`), complex128 in env_chain.cu's double
+instantiation. Past chi = 128 the
 streamed kernel of csrc/env_chain_stream.cu keeps the environments in the
 wrapper's global scratch and runs each site as two tiled products over the
 whole card, both chains in the same launches, in either dtype (complex64 on
@@ -39,10 +41,20 @@ import torch
 from . import cuda_lib, dispatch
 
 NARROW_MAX_CHI = 64  # the narrow variant holds both B_p of a site and two
-                     # chi x chi partials in a CTA's shared memory
+                     # chi x chi partials in a CTA's shared memory; above
+                     # it complex64 runs csrc/env_chain_wide.cu
 CLUSTER_MAX_CHI = 128  # csrc/env_chain.cu; past it the streamed kernel
 
 _COUNTERS = {}  # (device, stream) -> the kernel's combine counter (int32)
+
+# The complex64 wide kernel's plan (csrc/env_chain_wide.cu wide_plan;
+# chip_smoke.py holds the two equal on the card): a chain's cluster of
+# WIDE_GRID CTAs of WIDE_THREADS threads, the register tiles it picks by
+# cost, and its shared memory.
+WIDE_GRID = (4, 4)
+WIDE_THREADS = 256
+WIDE_STEP1_TILES = ((4, 2), (3, 2), (2, 2))
+WIDE_STEP2_TILES = ((4, 4), (3, 3), (4, 2))
 
 # The streamed kernel's plan (csrc/env_chain_stream.cu kConfigs, plan_config,
 # plan_slices, plan_work; chip_smoke.py holds the two equal on the card).
@@ -97,6 +109,47 @@ def stream_work(chi: int, f64: bool) -> int:
     part = max([s * p for p, np_ in STREAM_LAUNCHES
                 if (s := stream_slices(chi, f64, p, np_)) > 1], default=0)
     return (6 + part) * chi * chi
+
+
+def _tile_cost(tiles: int, r1: int, r2: int) -> int:
+    """A thread's cost per depth step of an r1 x r2 tile when `tiles` tiles
+    share the block: rounds times 4 FMAs an output and r1 + r2 loads, a
+    load counted as two FMAs."""
+    return _ceil(tiles, WIDE_THREADS) * (4 * r1 * r2 + 2 * (r1 + r2))
+
+
+def wide_plan(chi: int) -> dict:
+    """The complex64 wide K1's plan at 64 < chi <= 128: CTA (i, j) of the
+    4 x 4 cluster owns block rows [i br, i br + br) x columns [j bc, j bc +
+    bc) of the environment; `ld` is step 1's depth (chi made even), `lde`,
+    `ldb` and `lda` the row strides of the environment's rows (and the
+    forward A block) and of the backward B and A blocks, all even; `vec`:
+    TMA copies (chi and br even); the tiles (`step1`, `step2`) are the
+    cheapest by _tile_cost (the first of a tie); `smem` the dynamic shared
+    memory in bytes: the B and A blocks in either chain's layout, the rows
+    of E, the partials received and the products M."""
+    if not NARROW_MAX_CHI < chi <= CLUSTER_MAX_CHI:
+        raise ValueError(f"env_chain: no wide plan at chi={chi}")
+    gr, gc = WIDE_GRID
+    br, bc = _ceil(chi, gr), _ceil(chi, gc)
+    ld = chi + chi % 2
+
+    def pick(tiles, cands):
+        return min(cands, key=lambda t: _tile_cost(tiles(*t), *t))
+    step1 = pick(lambda r1, r2: 2 * _ceil(br, r1) * _ceil(bc, r2),
+                 WIDE_STEP1_TILES)
+    step2 = pick(lambda r1, r2: _ceil(chi, r1) * _ceil(bc, r2),
+                 WIDE_STEP2_TILES)
+    lde = ldb = ld + 2
+    lda = (br + 2) & ~1
+    def up(x):  # buffers start on 128 bytes (16 elements)
+        return -(-x // 16) * 16
+    elems = (up(2 * max(bc * ldb, ld * bc)) + up(2 * max(ld * lda, br * lde))
+             + up(br * lde) + up(gr * br * bc) + 2 * br * bc)
+    return dict(ctas=gr * gc, grid=(gr, gc), br=br, bc=bc, ld=ld, lde=lde,
+                ldb=ldb, lda=lda, vec=chi % 2 == 0 and br % 2 == 0,
+                step1=step1, step2=step2, smem=8 * elems,
+                threads=WIDE_THREADS)
 
 
 def _counter(device, stream: int) -> torch.Tensor:
@@ -154,10 +207,14 @@ def env_chain_plain(br: torch.Tensor, bl: torch.Tensor, q: int):
 
 
 def cluster_size(chi: int, f64: bool = False) -> int:
-    """CTAs a chain the kernel runs on at this chi (8, or 16 where the card
-    takes two such clusters at once; never more than chi), in complex64 or
-    (f64) complex128."""
-    cs = cuda_lib.lib().env_chain_cluster_size(int(chi), int(f64))
+    """CTAs a chain the kernel runs on at this chi, in complex64 or (f64)
+    complex128: in env_chain.cu 8, or 16 where the card takes two such
+    clusters at once, never more than chi; in the complex64 wide kernel
+    (64 < chi <= 128) its 4 x 4 cluster."""
+    lib = cuda_lib.lib()
+    cs = (lib.env_chain_wide_cluster_size(int(chi))
+          if not f64 and chi > NARROW_MAX_CHI
+          else lib.env_chain_cluster_size(int(chi), int(f64)))
     if cs == 0:
         raise RuntimeError(f"env_chain: no cluster size can launch chi={chi}")
     return cs
@@ -208,9 +265,10 @@ def env_chain(br: torch.Tensor, bl: torch.Tensor, q: int) -> torch.Tensor:
             partials.data_ptr(), counter, out.data_ptr(), n, chi, int(q),
             stream)
     else:
-        rc = lib.env_chain_launch(
-            br.data_ptr(), bl.data_ptr(), snaps.data_ptr(), counter,
-            out.data_ptr(), n, chi, int(q), stream)
+        launch = (lib.env_chain_wide_launch if chi > NARROW_MAX_CHI
+                  else lib.env_chain_launch)
+        rc = launch(br.data_ptr(), bl.data_ptr(), snaps.data_ptr(), counter,
+                    out.data_ptr(), n, chi, int(q), stream)
     cuda_lib.check(rc, "env_chain")
     env_chain.launches += 1
     env_chain.wide_launches += not f64 and chi > NARROW_MAX_CHI

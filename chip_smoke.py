@@ -25,7 +25,10 @@ name; any failure exits non-zero:
             the plain version and, bit for bit, against the P = 1 launch of
             the same matrix, with times for P = 1/3/7; K2-K4 on the
             center-gauge engine's inputs (m = chi from its center moves);
-            the wide variants: K1 at chi 96/128 and K2-K4 at m =
+            the wide variants: K1 at chi 65/96/127/128 (the complex64 wide
+            kernel of csrc/env_chain_wide.cu: its plan mirror equal to the
+            library's at every chi of 65..128, a rerun at chi = 128 the same
+            bits, its cluster floor beside the bound) and K2-K4 at m =
             192/256/512 to the same checks (a batch of 3 bit for bit
             against its P = 1 launches, and of 7 at m = 256), with the
             chain's yardstick torch.linalg.eigh of the complex H and K3's
@@ -82,20 +85,26 @@ name; any failure exits non-zero:
             complex128, q 0/1/25/48/49; its plan as the library's, a rerun
             the same bits at chi 256 and 1024, its cuBLAS chain and one
             step-2 product against torch.matmul timed beside it) and K2-K4
-            at m = 561/768/1024/1536/2048 (complex64) and 505/512/1024/2048
-            (complex128) against their plain versions, with times, bounds
-            and library calls (K3 against torch.linalg.eigh(T), its
-            card-wide route also at keep = m/2: the first columns of its
-            keep = m launch, alone and in a batch of 3; K4 against
-            torch.ormqr); then at n=50 the sweep phase's workload at
-            chi=256, 512 and 1024 in complex64 and complex128 (the
-            complex128 chi=1024 sweep also profiled by kernel name), and
+            at m = 561/768/1024/1536/2048/4096 (complex64) and
+            505/512/1024/2048/4096 (complex128; at each dtype's 4096 the
+            "rand" Gram alone, no batch; from m = 1024 the float64
+            yardstick is torch.linalg.eigvalsh in complex128 on the card)
+            against their plain versions, with
+            times, bounds and library calls (K3 against
+            torch.linalg.eigh(T), its card-wide route also at keep = m/2:
+            the first columns of its keep = m launch, alone and in a batch
+            of 3; K4 against torch.ormqr, its workspace and shared memory
+            equal to the mirrors in eigh_kernels); then at n=50 the sweep
+            phase's workload at
+            chi=256, 512 and 1024 in complex64 and complex128, and
             the spin chain through workloads/spin_chain.py with
             SPIN_CHI_SCHEDULE=32,64,128,256 cut to 2 layers a stage
             (center-gauge verifier within 1e-3, relative): every launch is
             counted by the code it runs, and each new code path must
-            launch on them; the deep re-simulation at chi=256 (8 layers)
-            and chi=1024 (2 layers), its native verifier at the same chi;
+            launch on them (the chi = 128 stage the wide K1); the deep
+            re-simulation at chi=256 (2 layers), 1024 and 2048 (1 layer;
+            2048 in complex64 and complex128), its native verifier at the
+            same chi (complex64 2048: at 1024);
             a compile at working chi=512, n=21, whose verified stop
             re-simulates at chi=1024 on the native verifier
   optim     on the slice's target (n=50, chi=32): BOBYQA layers with the
@@ -105,9 +114,9 @@ name; any failure exits non-zero:
             at n=10 on the card, which takes the counted non-kernel routes
   workloads the scripts of adaptaqc_tpu_torch/workloads as a user runs
             them, each its own process: random_mps at n=50 stopped by a
-            30 s deadline with its checkpoint, a second process resuming it
-            for 15 s (resumed at the checkpoint's layer, the first run's
-            pairs first), spin_chain at its defaults for 25 s alongside,
+            20 s deadline with its checkpoint, a second process resuming it
+            for 10 s (resumed at the checkpoint's layer, the first run's
+            pairs first), spin_chain at its defaults for 15 s alongside,
             each launching every kernel; then bench_sweep's evals/s, the
             readme, simple_sv and advanced_sv example twins to their
             floors, and entry()'s cost against the CPU's
@@ -116,7 +125,8 @@ The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
 call), per batched kernel shape (its batched launches on the spin phase),
 per wide variant (its launches on the ladder's chi schedule, its times
-at chi = 128 and m = 256), per complex128 variant (the optim phase) and per
+at chi = 128 and m = 256; K1's also by chi with its cluster floor), per
+complex128 variant (the optim phase) and per
 variant whose code only sizes past the old caps run, `[reach]` and
 `[reach_f64]` (reach_rows: its launches on the reach phase's sweeps and
 spin chain, its times at chi = 256 and m = 1024), the line before the last
@@ -147,7 +157,9 @@ KERNELS = {
                       "adaptaqc_tpu/ops/pallas_eigh.py:136"),
 }
 WIDE_M = (192, 256, 512)  # the wide variants of K2-K4 (128 < m <= 560)
-WIDE_CHI = (96, 128)      # the wide variant of K1 (64 < chi <= 128)
+WIDE_CHI = (65, 96, 127, 128)  # the complex64 wide K1 (64 < chi <= 128,
+                               # csrc/env_chain_wide.cu): its edges, odd
+                               # chi and the ladder's 96 and 128
 # BOBYQA's own maxfun, a call, in the optim phase: uncapped, the layers'
 # global-minimum restarts may ask for 500 (d + 1) x 3 evaluations
 BOBYQA_MAXFUN = 200
@@ -176,6 +188,7 @@ TOL_EXACT = 1e-4        # |exact_overlap - overlap| of a statevector compile
 SV_N = 26               # DENSE_OVERLAP_MAX_QUBITS: the JAX package's limit
                         # for a dense state
 HBM_GBS = 3350.0        # H100 SXM device memory, GB/s (published peak)
+SM_COUNT = 132          # H100 SXM streaming multiprocessors
 FP32_TFLOPS = 67.0      # H100 SXM fp32 outside the tensor cores (published
                         # peak); the port computes in exact float32, so no
                         # TF32 or bf16 rate applies
@@ -246,6 +259,18 @@ def kernel_bound(name, n=None, chi=None, m=None, keep=None, active=None,
     t_bytes = nbytes / (HBM_GBS * 1e9) * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, flops, nbytes
+
+
+def cluster_floor(n, chi, q, ctas=16):
+    """(floor_ms, how) of the wide K1 on its clusters: a chain's sites are
+    dependent, so its time is at least the critical path, max(q, n-1-q)
+    sites and the combine at 32 chi^3 flops each, at the FP32 peak of the
+    `ctas` SMs of one chain's cluster (FP32_TFLOPS x ctas / SM_COUNT)."""
+    sites = max(q, n - 1 - q) + 1
+    rate = FP32_TFLOPS * 1e12 * ctas / SM_COUNT
+    return sites * 32 * chi ** 3 / rate * 1e3, (
+        f"{sites} dependent sites of 32 chi^3 flops at the FP32 peak of "
+        f"{ctas} of {SM_COUNT} SMs")
 
 
 class SmokeFailure(Exception):
@@ -334,15 +359,19 @@ def phase_device(torch, cuda_lib):
 
 
 # ---------------------------------------------------------------- phase 2
-def _gram_cases(m, rng):
+def _gram_cases(m, rng, spec7=True):
     """Normalised thetas (||theta|| = 1, as every MPS bond update sees)
-    whose Grams span the spectrum classes of the eigensolver tests."""
+    whose Grams span the spectrum classes of the eigensolver tests.
+    spec7=False leaves out "spec7", whose host SVD takes most of the time
+    at large m; the random draws, and so every other case and the later
+    calls on rng, are the same either way."""
     cases = {}
     a = rng.standard_normal((m, m)) + 1j * rng.standard_normal((m, m))
     cases["rand"] = a / np.linalg.norm(a)
-    u, _, vh = np.linalg.svd(a)
-    th = (u * np.logspace(0, -7, m)) @ vh
-    cases["spec7"] = th / np.linalg.norm(th)
+    if spec7:
+        u, _, vh = np.linalg.svd(a)
+        th = (u * np.logspace(0, -7, m)) @ vh
+        cases["spec7"] = th / np.linalg.norm(th)
     cases["flat"] = np.eye(m, dtype=complex) / np.sqrt(m)
     a = rng.standard_normal((m, min(4, m))) + 1j * rng.standard_normal(
         (m, min(4, m)))
@@ -1103,6 +1132,27 @@ def tridiag_cluster_check(torch, ek, card, dev, rec, sweep128,
           f"at m=256 bit-equal to P=1 on {card}", flush=True)
 
 
+def wide_plan_check(envk):
+    """The complex64 wide K1's plan mirror (env_kernel.wide_plan) equal to
+    the library's (env_chain_wide_plan) at every chi of 65..128: cluster,
+    blocks, depth, tiles, shared memory and threads."""
+    import ctypes
+    from adaptaqc_tpu_torch.ops import cuda_lib
+    lib = cuda_lib.lib()
+    for chi in range(envk.NARROW_MAX_CHI + 1, envk.CLUSTER_MAX_CHI + 1):
+        out = (ctypes.c_int * 12)()
+        check(lib.env_chain_wide_plan(chi, out) == 0,
+              f"env_chain_wide_plan refused chi={chi}")
+        pl = envk.wide_plan(chi)
+        want = [pl["ctas"], *pl["grid"], pl["br"], pl["bc"], pl["ld"],
+                *pl["step1"], *pl["step2"], pl["smem"], pl["threads"]]
+        check(list(out) == want, f"env_chain wide plan at chi={chi}: the "
+              f"library's {list(out)}, the mirror's {want}")
+    print(f"kernels: env_chain wide plan mirror equal to the library's at "
+          f"chi {envk.NARROW_MAX_CHI + 1}..{envk.CLUSTER_MAX_CHI} "
+          f"(128: {envk.wide_plan(128)})", flush=True)
+
+
 def bound_fields(name, **shape):
     ms, by, _, _ = kernel_bound(name, **shape)
     return {"bound_ms": ms, "bound_by": by}
@@ -1125,8 +1175,10 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
              "resid": 0.0}
     # K1: n = 50 chains at every width the contract takes a ragged slab
     # at, at chi 32 (the compile) and 64 (bench.py's sweep), and in the
-    # wide variant at 96 and 128 (the chi schedule's last stage)
+    # wide variant at its edges, odd chi and 96 and 128 (the chi
+    # schedule's last stage)
     n = 50
+    wide_plan_check(envk)
     for chi in (2, 24, 32, 64) + WIDE_CHI:
         br, bl = env_inputs(torch, n, chi, dev)
         for q in (0, 1, 17, 25, 48, 49):
@@ -1138,8 +1190,13 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
             check(rel < TOL_ENV_REL, f"env_chain chi={chi} q={q} rel {rel}")
             if chi == 32 and q == 17:
                 rec["env_chain"]["max_abs_err"] = err
-            if chi == 128 and q == 25:
-                rec["env_chain[wide]"]["max_abs_err"] = err
+            if chi in WIDE_CHI:
+                wide_err = rec["env_chain[wide]"]["max_abs_err"] or 0.0
+                rec["env_chain[wide]"]["max_abs_err"] = max(wide_err, err)
+        if chi == 128:
+            check(torch.equal(envk.env_chain(br, bl, 25),
+                              envk.env_chain(br, bl, 25)),
+                  "env_chain chi=128: a rerun gave other bits")
         if chi < 32:
             continue
         by_q = {q: cuda_ms(lambda: envk.env_chain(br, bl, q), 20, torch)
@@ -1148,20 +1205,29 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
                    for q in probe_sites]
         pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), 3, torch)
         bound = bound_fields("env_chain", n=n, chi=chi)
+        floor = ""
+        if chi in WIDE_CHI:
+            floor_ms, how = cluster_floor(n, chi, 25,
+                                          envk.cluster_size(chi))
+            floor = f"; cluster floor q=25 {floor_ms:.4f} ms ({how})"
+            rec["env_chain[wide]"].setdefault("by_chi", {})[chi] = dict(
+                ms_q0=by_q[0], ms=by_q[25], ms_q49=by_q[49],
+                sweep_sites_ms=float(np.mean(site_ms)), plain_ms=pms,
+                cluster_floor_ms=floor_ms, **bound)
         print(f"kernels: env_chain n={n} chi={chi} clusters of "
               f"{envk.cluster_size(chi)} CTAs, kernel "
               + ", ".join(f"q={q} {t:.4f} ms" for q, t in by_q.items())
               + f", mean over the sweep's {len(site_ms)} probe sites "
               f"{np.mean(site_ms):.4f} ms; plain q=25 {pms:.4f} ms; bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); no library"
-              f" call on {card}", flush=True)
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}){floor}; "
+              f"no library call on {card}", flush=True)
         if chi == 32:
             rec["env_chain"].update(ms=by_q[25], plain_ms=pms,
                                     shape="n=50, chi=32, q=25", **bound)
         if chi == 128:
-            rec["env_chain[wide]"].update(ms=by_q[25], plain_ms=pms,
-                                          shape="n=50, chi=128, q=25",
-                                          **bound)
+            rec["env_chain[wide]"].update(
+                ms=by_q[25], plain_ms=pms, shape="n=50, chi=128, q=25",
+                cluster_floor_ms=floor_ms, cluster_floor_by=how, **bound)
 
     # K2-K4 on every spectrum class, m = 4 .. 128, and the wide variants
     for m in (4, 16, 64, 128) + WIDE_M:
@@ -1372,11 +1438,13 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
 
 # ---------------------------------------------------------------- phase 3
 def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
-                 layers=8, native_chi=None):
+                 layers=8, native_chi=None, dtype=None):
     """(C^dag C)|0> at n = 50 for a random two-qubit chain C of `layers`
     brickwork layers; |<0|psi>|^2 / <psi|psi> under both eigensolvers (at
     chi = 128 the wide variants of K2-K4, past 256 the reach kernels), the
-    native one at native_chi (chi unless given)."""
+    native one at native_chi (chi unless given), in `dtype` (complex64
+    unless given)."""
+    dtype = dtype or torch.complex64
     n = 50
     native_chi = native_chi or chi
     rng = np.random.default_rng(7)
@@ -1394,7 +1462,7 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
     for eigh in ("kernels", "native"):
         t0 = time.perf_counter()
         st = mps_core.zero_mps(n, chi if eigh == "kernels" else native_chi,
-                               torch.complex64, dev)
+                               dtype, dev)
         st = mps_core.apply_tape(st, tape.kinds, tape.q0, tape.q1,
                                  tape.angles, 1e-16, eigh=eigh)
         st = mps_core.apply_tape_adjoint(st, tape.kinds, tape.q0, tape.q1,
@@ -1403,8 +1471,8 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
         torch.cuda.synchronize()
         out[eigh] = (1.0 - cost, float(st.trunc), time.perf_counter() - t0)
     diff = abs(out["kernels"][0] - out["native"][0])
-    print(f"hazard: n={n} chi={chi} {layers} layers, {2 * n2q} two-qubit "
-          f"applies: overlap "
+    print(f"hazard: n={n} chi={chi} {str(dtype)[6:]} {layers} layers, "
+          f"{2 * n2q} two-qubit applies: overlap "
           f"kernels {out['kernels'][0]:.8f} native {out['native'][0]:.8f} "
           f"|diff| {diff:.2e} < {TOL_HAZARD}; discarded weight kernels "
           f"{out['kernels'][1]:.3e} native {out['native'][1]:.3e}"
@@ -1513,33 +1581,6 @@ def sweep_variants(ek, envk, chi, f64):
     }.items() if v}
 
 
-def kernel_profile(torch, fn):
-    """Run fn once under torch.profiler: ({kernel name: (device ms,
-    launches)}, the kernels' device ms in all, the run's wall ms)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    by = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, count = by.get(e.name, (0.0, 0))
-            by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
-    return by, sum(v[0] for v in by.values()), wall
-
-
-def profile_line(by, total, wall, top=8):
-    """The `top` kernels by device time, names cut to 70 characters."""
-    rows = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
-    return (f"{total:.2f} ms of kernels in {wall:.2f} ms (busy "
-            f"{total / wall:.3f}): " + "; ".join(
-                f"{name[:70]} {ms:.2f} ms ({n})" for name, (ms, n) in rows))
-
-
 def sweep_setup(torch, mps_core, sweeps, compile_tape, chi, dtype, n=50,
                 window=12):
     """bench.py's sweep at bond dimension chi in `dtype`: (the ansatz's
@@ -1562,8 +1603,7 @@ def sweep_setup(torch, mps_core, sweeps, compile_tape, chi, dtype, n=50,
 
 
 def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
-                chi=64, ek=None, envk=None, dtype=None, reps=3,
-                profile=False):
+                chi=64, ek=None, envk=None, dtype=None, reps=3):
     """bench.py's workload: a 3-layer random-entangling 50-qubit target at
     bond dimension chi (64: bench.py's) and a window of 12 dressed-CNOT
     layers, one Rotoselect sweep timed over `reps` sweeps after a warm-up
@@ -1571,9 +1611,7 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
     dtype);
     with ek and envk given, the launches of the timed sweeps are printed
     by variant, each kernel's counted variant at this chi and dtype
-    (sweep_variants) must have launched, and they are returned. profile:
-    one more sweep, under torch.profiler, its kernels' device time by
-    name."""
+    (sweep_variants) must have launched, and they are returned."""
     n, window = 50, 12
     t_setup = time.perf_counter()
     dtype = dtype or torch.complex64
@@ -1611,10 +1649,6 @@ def phase_sweep(torch, mps_core, sweeps, Circuit, compile_tape, card,
         check(not missing, f"the chi={chi}{tag} sweep did not launch "
                            f"{missing}: {counts}")
     check(np.isfinite(cost) and np.isfinite(ms), "sweep produced no number")
-    if profile:
-        by, total, pwall = kernel_profile(torch, lambda: sweeps.sweep(*args))
-        print(f"sweep: n={n} chi={chi}{tag} profiled sweep: "
-              + profile_line(by, total, pwall) + f" on {card}", flush=True)
     return counts
 
 
@@ -2356,20 +2390,25 @@ REACH_CHI_F64 = (192, 256, 512, 1024, 2048)        # and in complex128
 REACH_Q_TOP = (0, 25, 49)  # the q of the largest chi (its plain chain is
                            # 0.3 s a call)
 REACH_M = (561, 768, 1024, 1536, 2048, 4096)  # K2-K4 past 560, complex64
-REACH_M_F64 = (505, 512, 1024, 2048)          # past 504 in complex128 (K4
-                                              # takes m <= 2048 there)
+REACH_M_F64 = (505, 512, 1024, 2048, 4096)    # past 504 in complex128
+                                              # (4096: K4 on one panel
+                                              # buffer)
 REACH_VARIANTS = ("reach", "reach_f64")
 # (chi, complex128, timed sweeps): bench.py's sweep at each chi; past chi =
 # 256 one sweep, timed without a warm-up, to keep the run's time
 REACH_SWEEPS = ((256, False, 3), (256, True, 3), (512, False, 1),
                 (512, True, 1), (1024, False, 1), (1024, True, 1))
-# (chi, layers, chi of the native run) of the re-simulation: the native
-# verifier at the kernels' chi (at chi = 1024 its Grams, m = 2048, have
-# 2044 exactly zero rows, which cplx.split_zero_rows takes off before
-# cuSOLVER's eigh: without, it fails to converge on 10 of 98); chi = 2048,
-# m = 4096, is the reach's cap, one layer deep (chi = 256 four layers: the
-# deeper runs at 1024 and 2048 cover what 8 layers did)
-REACH_HAZARD = ((256, 4, 256), (1024, 2, 1024), (2048, 1, 2048))
+# (chi, layers, chi of the native run, complex128) of the re-simulation:
+# the native verifier at the kernels' chi (at chi = 1024 its Grams, m =
+# 2048, have 2044 exactly zero rows, which cplx.split_zero_rows takes off
+# before cuSOLVER's eigh: without, it fails to converge on 10 of 98); chi =
+# 2048, m = 4096, is the reach's cap in both dtypes, one layer deep (chi =
+# 256 two layers and 1024 one: the runs at 2048 in both dtypes cover what
+# deeper ones did, inside the run's time; the native side at chi = 2048 in
+# complex128, at 1024 in complex64, where one layer's bonds stay far
+# below either)
+REACH_HAZARD = ((256, 2, 256, False), (1024, 1, 1024, False),
+                (2048, 1, 1024, False), (2048, 1, 2048, True))
 # a compile whose verified stop re-simulates at chi = 1024: working chi 512,
 # n >= 21 (2 ** ((n + 1) // 2) >= 1024), at most 2 layers
 VERIFIED_STOP = dict(n=21, chi=512, max_layers=2)
@@ -2388,17 +2427,21 @@ def reach_rows(ek, envk):
     return [(k, v) for k in KERNELS for v in REACH_VARIANTS
             if (k, v) in rows]
 STREAM_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_stream.cu"
+ENV_WIDE_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_wide.cu"
 BT_WIDE_SOURCE = "adaptaqc_tpu_torch/csrc/backtransform_wide.cu"
 TRIDIAG_GRID_SOURCE = "adaptaqc_tpu_torch/csrc/tridiag_grid.cu"
 
 
 def kernel_source(name, variant=None):
     """The source of a kernel row: K1 past chi = 128 is the streamed
-    kernel; K2 past REACH_M runs its card-wide route (every such m is past
-    the cluster's shared memory); K4 past the narrow design (complex64 m >
-    128, every complex128 m) is the wide back-transform's own source."""
+    kernel, its complex64 wide variant its own source; K2 past REACH_M
+    runs its card-wide route (every such m is past the cluster's shared
+    memory); K4 past the narrow design (complex64 m > 128, every
+    complex128 m) is the wide back-transform's own source."""
     if name == "env_chain" and variant in REACH_VARIANTS:
         return STREAM_SOURCE
+    if name == "env_chain" and variant == "wide":
+        return ENV_WIDE_SOURCE
     if name == "tridiag" and variant in REACH_VARIANTS:
         return TRIDIAG_GRID_SOURCE
     if name == "backtransform" and variant in ("wide", "f64") + REACH_VARIANTS:
@@ -2500,7 +2543,7 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
                                   envk.env_chain(br, bl, 25)),
                       f"streamed env_chain {dt} chi={chi}: a rerun gave "
                       "other bits")
-            reps = 3 if top else 20
+            reps = 3 if top else 5 if chi >= 512 else 20
             ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), reps, torch)
             pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), reps,
                           torch)
@@ -2547,7 +2590,7 @@ def reach_eigh_check(torch, ek, card, dev, rec):
     plain version is left to the class loop's m <= 512), and on its
     card-wide route at keep = m / 2 too (teig_keep_check, and on the
     batch teig_keep_batch); K4 on the plain
-    reflectors; the whole chain against numpy float64; and a batch of 3
+    reflectors; the whole chain against float64 eigenvalues; and a batch of 3
     ("rand", "lowrank", "bell") bit for bit against its P = 1 launches
     (below the cap). The
     tolerances of the class loop (complex64) and of f64_kernel_check
@@ -2557,7 +2600,7 @@ def reach_eigh_check(torch, ek, card, dev, rec):
     from adaptaqc_tpu_torch.ops import cuda_lib
     rng = np.random.default_rng(1024)
     for f64, sizes in ((False, REACH_M), (True, REACH_M_F64)):
-        t0 = time.perf_counter()
+        t_start = time.perf_counter()
         dt = torch.complex128 if f64 else torch.complex64
         sfx = f"[{REACH_VARIANTS[f64]}]"
         worst = {k: 0.0 for k in ("tridiag", "teig", "ortho", "resid",
@@ -2570,9 +2613,11 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         tol["cluster"] = TOL_VEC
         lines = []
         for m in sizes:
-            cases = _gram_cases(m, rng)
+            t_m = time.perf_counter()
+            cases = _gram_cases(m, rng, spec7=False)
             keep = m // 2
             top = m == max(sizes)  # the cap: "rand" alone, no batch
+            bt_mirror_check(ek, cuda_lib, m, keep, f64)
             if ek.tridiag_routes(m, f64) == "grid":
                 lib_ws = cuda_lib.lib().tridiag_grid_workspace(m, int(f64))
                 check(lib_ws == ek.tridiag_grid_workspace_bytes(m, f64),
@@ -2625,9 +2670,10 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                         ms=dict(tridiag=t_tridiag * 1e3, teig=t_teig * 1e3,
                                 backtransform=t_bt * 1e3))
                 h64 = hh.to(torch.complex128)
-                # the float64 yardstick: numpy's eigvalsh, on the card past
-                # m = 2048 (about a minute on the host at m = 4096)
-                wx = (torch.linalg.eigvalsh(h64).cpu().numpy() if m > 2048
+                # the float64 yardstick: torch.linalg.eigvalsh in
+                # complex128 on the card (numpy's on the host below m =
+                # 1024; about a minute on the host at m = 4096)
+                wx = (torch.linalg.eigvalsh(h64).cpu().numpy() if m >= 1024
                       else np.linalg.eigvalsh(h64.cpu().numpy()))[::-1][:keep]
                 sc = max(np.abs(wx).max(), 1e-300)
                 wk, vk = ek.eigh_top_kernels(hh, keep)
@@ -2655,7 +2701,8 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                     teig_keep_batch(torch, ek, db, eb, keep,
                                     f"teig {dt} batched m={m} P=3")
             lines.append(reach_eigh_times(torch, ek, rec, sfx, m, f64,
-                                          plain))
+                                          plain)
+                         + f" ({time.perf_counter() - t_m:.1f} s at this m)")
         for k in ("tridiag", "teig", "backtransform"):
             rec[k + sfx]["max_abs_err"] = worst[
                 {"tridiag": "tridiag", "teig": "teig", "backtransform": "bt"}[
@@ -2663,10 +2710,25 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         print(f"reach: K2-K4 {str(dt)[6:]} past their shared-memory sizes, m "
               f"{sizes}, agree with the plain versions (worst: "
               + ", ".join(f"{k} {v:.2e} < {tol[k]}" for k, v in worst.items())
-              + f"; batches of 3 bit for bit; {time.perf_counter() - t0:.1f} "
-              f"s of checks and times) on {card}", flush=True)
+              + f"; batches of 3 bit for bit; "
+              f"{time.perf_counter() - t_start:.1f} s of checks and times) on "
+              f"{card}", flush=True)
         for line in lines:
             print(line, flush=True)
+
+
+def bt_mirror_check(ek, cuda_lib, m, keep, f64):
+    """K4's workspace and its apply's shared memory on the plan's cluster
+    as the mirrors in eigh_kernels size them, equal to the library's."""
+    lib = cuda_lib.lib()
+    g = ek.backtransform_cluster_size(m, keep, f64)
+    got = (lib.backtransform_workspace(m, int(f64)),
+           lib.backtransform_apply_smem(m, g, int(f64)))
+    want = (ek.backtransform_workspace_bytes(m, f64),
+            ek.backtransform_apply_smem(m, g, f64))
+    check(got == want, f"backtransform m={m} f64={f64} G={g}: workspace "
+          f"and shared memory {got} from the library, {want} from the "
+          "mirror")
 
 
 def teig_keep_check(torch, ek, d, e, w, z, wp, keep, what):
@@ -2735,7 +2797,8 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             "torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
             lambda: torch.ormqr(oa, otau, oz))}
     parts = []
-    reps = 20 if m <= 1024 else 3  # launches a mean: fewer past m = 1024
+    # launches a mean: fewer past m = 1024, one at m = 4096
+    reps = 20 if m <= 1024 else 3 if m <= 2048 else 1
     for kname, (kfn, lname, lfn) in calls.items():
         ms = cuda_ms(kfn, reps, torch)
         pms = plain["ms"][kname]
@@ -2769,8 +2832,9 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
         if kname == "backtransform":
             row["cluster_ctas"] = ek.backtransform_cluster_size(m, keep,
                                                                 f64)
+            row["route"] = ek.backtransform_routes(m, f64)
             plan = (f" (clusters of {row['cluster_ctas']} CTAs over 32 "
-                    f"columns' rows)")
+                    f"columns' rows, {row['route']}-buffered panels)")
         rec[kname + sfx].setdefault("by_m", {})[m] = row
         if m == 1024:  # the size the chi = 512 sweeps launch
             rec[kname + sfx].update(
@@ -2832,6 +2896,8 @@ def reach_spin(torch, ek, envk, card, n=50, layers=2):
     check(stages == [32, 64, 128, 256], f"spin chi schedule stages {stages}")
     check(counts["env_chain"]["reach"] > 0,
           "the chi=256 stage did not launch the streamed env chain")
+    check(counts["env_chain"]["wide"] > 0,
+          "the chi=128 stage did not launch the wide env chain")
     check(np.isfinite(ov) and rel < TOL_LADDER_REL,
           f"spin chi schedule: verifier {ver} vs {ov}")
     return counts
@@ -2977,7 +3043,7 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     complex128 (REACH_SWEEPS), and the spin chain's chi
     schedule to 256; K2 on the chi = 512 and 1024 sweeps' own Grams
     (reach_sweep_grams); then the deep re-simulation at chi = 256, 1024
-    and 2048 (REACH_HAZARD), its native side at the same chi, and a compile's
+    and 2048 (REACH_HAZARD), its native side beside it, and a compile's
     verified stop re-simulated at chi = 1024 (VERIFIED_STOP). Every row of
     reach_rows must have launched on the sweeps and the spin chain, and no
     other reach counter. Returns (the records of the new variants, their
@@ -2988,8 +3054,17 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                          "bound_ms": None, "bound_by": None,
                          "library_call": None, "library_ms": None}
            for k in KERNELS for v in REACH_VARIANTS}
+    parts, last = {}, [time.perf_counter()]
+
+    def part(name):  # the wall seconds of the part that just ended
+        now = time.perf_counter()
+        parts[name] = round(now - last[0], 1)
+        last[0] = now
+
     reach_env_check(torch, envk, cuda_lib, card, dev, rec)
+    part("env")
     reach_eigh_check(torch, ek, card, dev, rec)
+    part("eigh")
     launches = {k: dict.fromkeys(REACH_VARIANTS, 0) for k in KERNELS}
 
     def add(counts):
@@ -3001,13 +3076,20 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     for chi, f64, reps in REACH_SWEEPS:
         add(phase_sweep(*sweep_args, chi=chi, ek=ek, envk=envk,
                         dtype=torch.complex128 if f64 else torch.complex64,
-                        reps=reps, profile=chi == 1024 and f64))
+                        reps=reps))
+    part("sweeps")
     add(reach_spin(torch, ek, envk, card))
+    part("spin")
     reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec)
-    for chi, layers, native_chi in REACH_HAZARD:
+    part("grams")
+    for chi, layers, native_chi, f64 in REACH_HAZARD:
         phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=chi,
-                     layers=layers, native_chi=native_chi)
+                     layers=layers, native_chi=native_chi,
+                     dtype=torch.complex128 if f64 else torch.complex64)
+    part("hazard")
     reach_verified_stop(torch, port, cplx, card, **VERIFIED_STOP)
+    part("verified_stop")
+    print(f"reach: wall seconds by part {json.dumps(parts)}", flush=True)
     rows = reach_rows(ek, envk)
     for k, by_v in launches.items():
         for v, count in by_v.items():
@@ -3106,8 +3188,8 @@ def phase_optim(torch, port, card, dev="cuda", n=50, n_small=10):
 # --------------------------------------------------------------- phase 13
 # s: the first run stops, the second resumes (60 and 30 until the reach
 # phase's m = 2048 checks needed the run's time), the spin chain alongside
-RMPS_DEADLINES = (30, 15)
-SPIN_DEADLINE = 25         # s
+RMPS_DEADLINES = (20, 10)
+SPIN_DEADLINE = 15         # s
 EXAMPLE_FLOORS = {"readme_example": 0.98, "simple_sv_example": 0.98,
                   "advanced_sv_example": 0.9}  # tests/test_examples.py
 TOL_ENTRY = 1e-5           # entry()'s cost, card complex64 vs CPU complex128

@@ -2,8 +2,8 @@
 could take for each kernel's work (its bound) against hand counts at the
 main path's shapes, the library call that stands beside K4 (torch.ormqr
 of the reflectors in geqrf layout computes the back-transform), the
-eigenvector measures that the teig check uses, and the probe sites of the
-sweep workload."""
+eigenvector measures that the teig check uses, the probe sites of the
+sweep workload, and the wide K1's floor on its cluster."""
 
 import os
 import sys
@@ -168,3 +168,19 @@ def test_teig_bound_counts_the_double_rounds():
     t_ops = f / (chip_smoke.FP64_TFLOPS * 1e12) * 1e3
     assert ms == pytest.approx(max(t_ops, b / BYTES * 1e3), rel=1e-12)
     assert by == "operations"
+
+
+@pytest.mark.parametrize("chi,q,sites", [(128, 25, 26), (96, 0, 50),
+                                         (65, 49, 50)])
+def test_wide_k1_cluster_floor(chi, q, sites):
+    """The wide K1's floor on one chain's cluster of 16 SMs: the longer
+    chain's max(q, n-1-q) dependent sites and the combine, 32 chi^3 flops
+    each, at 16/132 of the fp32 peak (0.2148 ms at chi = 128, q = 25)."""
+    ms, how = chip_smoke.cluster_floor(50, chi, q, 16)
+    assert ms == pytest.approx(sites * 32 * chi ** 3
+                               / (FLOPS * 16 / 132) * 1e3, rel=1e-12)
+    assert how.startswith(f"{sites} dependent sites")
+    if (chi, q) == (128, 25):
+        assert ms == pytest.approx(0.2148, abs=1e-4)
+    # the whole card's bound is the lower: the floor counts one cluster
+    assert chip_smoke.kernel_bound("env_chain", n=50, chi=chi)[0] < ms

@@ -31,6 +31,7 @@ import torch
 
 from adaptaqc_tpu_torch.ops import eigh_kernels as ek
 
+from test_torch_dispatch import card  # noqa: F401
 from test_torch_eigh_kernels import _bt_inputs
 
 torch.set_num_threads(1)
@@ -189,3 +190,66 @@ def test_all_inactive_reflectors_leave_z():
     out = emulate(vrows, tau, z, 40, bt_plan(m)[0])
     assert torch.equal(out, z[:, :40].to(torch.complex64))
     assert torch.equal(out, ek.backtransform_plain(vrows, tau, z, 40))
+
+
+SMEM_BUDGET = 232448 - 32  # a CTA's shared memory on an H100, less the
+                           # apply's static mbarriers
+
+
+@pytest.mark.parametrize("f64,m,route", [
+    (False, 2048, "double"), (False, 4096, "double"),
+    (True, 2048, "double"), (True, 2816, "double"), (True, 2817, "single"),
+    (True, 4096, "single")])
+def test_apply_route_and_its_shared_memory(f64, m, route):
+    """The apply's route by m and the dtype alone (ek.backtransform_routes,
+    the mirror of bt_single): complex128 past m = 2816, where two panel
+    buffers beside a CTA's rows of z outgrow its shared memory on the
+    plan's cluster of 16, keeps one buffer and rows of z at a stride of 33
+    (226,816 bytes at m = 4096); one row more a CTA (m = 4097) fits
+    neither route, so the cap stays at 4096. The order of operations is
+    the double-buffered route's (only the storage differs), so the
+    emulation above holds both."""
+    assert ek.backtransform_routes(m, f64) == route
+    g, r = bt_plan(m)
+    assert g == 16 and r == -(-m // 16)
+    assert ek.backtransform_apply_smem(m, g, f64) <= SMEM_BUDGET
+    if f64:
+        fits = ek.backtransform_apply_smem(m, g, f64, "double") <= SMEM_BUDGET
+        assert fits == (route == "double")
+    if (f64, m) == (True, 4096):
+        assert ek.backtransform_apply_smem(m, g, f64) == 226816
+        assert ek.backtransform_apply_smem(4097, 16, True) > SMEM_BUDGET
+
+
+def test_workspace_mirror_at_the_cap():
+    """The workspace a matrix (bt_ws): the active count and the panels'
+    first reflectors, every panel's T and its reflector block of m + 15
+    rows of 16 entries and 16 bytes; at complex128 m = 4096, 256 panels."""
+    m, es = 4096, 16
+    npmax = 256
+    t_off = -(-4 * (1 + npmax) // 16) * 16
+    want = t_off + npmax * 256 * es + npmax * (m + 15) * (16 + 1) * es
+    assert ek.backtransform_workspace_bytes(m, True) == want == 287306768
+    assert ek.backtransform_workspace_bytes(2048, False) == (
+        -(-4 * 129 // 16) * 16 + 128 * 256 * 8 + 128 * 2063 * 18 * 8)
+
+
+def test_c128_cap_launches_with_a_stand_in_library(card):  # noqa: F811
+    """On the card (library replaced by a recorder that sizes the
+    workspace by the mirror) complex128 K4 at m = 4096 launches its double
+    instantiation and counts as a reach launch of complex128; at m = 4097
+    the call raises before any launch."""
+    card.backtransform_workspace = ek.backtransform_workspace_bytes
+    m, keep = 4096, 8
+    vrows = torch.zeros((), dtype=torch.complex128).expand(m, m)
+    tau = torch.zeros((), dtype=torch.complex128).expand(m)
+    z = torch.zeros((), dtype=torch.float64).expand(m, m)
+    out = ek.backtransform(vrows, tau, z, keep)
+    assert out.shape == (m, keep)
+    assert card.calls == ["backtransform_f64_launch"]
+    assert card.args[0][5:8] == (m, keep, 1)
+    assert ek.backtransform.reach_f64_launches == 1
+    with pytest.raises(ValueError, match="size <= 4096"):
+        big = torch.zeros((), dtype=torch.complex128).expand(m + 1, m + 1)
+        ek.backtransform(big, tau, z, keep)
+    assert len(card.calls) == 1

@@ -27,7 +27,7 @@ KERNELS = (env_kernel.env_chain, eigh_kernels.tridiag, eigh_kernels.teig,
 def test_caps_are_the_kernels_reach():
     assert dispatch.REACH == {
         "env": {C64: (1, 2048), C128: (1, 2048)},
-        "eigh": {C64: (2, 4096), C128: (2, 2048)}}
+        "eigh": {C64: (2, 4096), C128: (2, 4096)}}
     assert env_kernel.NARROW_MAX_CHI == 64
     assert env_kernel.CLUSTER_MAX_CHI == 128
     assert eigh_kernels.NARROW_MAX_M == 128
@@ -218,7 +218,7 @@ def test_counters_move_only_on_launches(card):
     assert _counts()["tridiag"] == (3, 1, 1)
 
     for dtype, chi, launcher in ((C64, 8, "env_chain_launch"),
-                                 (C64, 96, "env_chain_launch"),
+                                 (C64, 96, "env_chain_wide_launch"),
                                  (C128, 96, "env_chain_f64_launch")):
         br = torch.zeros(6, 2, chi, chi, dtype=dtype)
         env_kernel.env_chain(br, br, 3)
@@ -233,12 +233,12 @@ def test_counters_move_only_on_launches(card):
 @pytest.mark.parametrize("dtype", [C64, C128])
 def test_reach_edges_launch_and_raise(card, dtype):
     """At the caps the wrappers launch (the streamed env chain at chi =
-    2048, the wide eigensolver at m = 4096 in complex64 and 2048 in
-    complex128, K2 on its card-wide route), each launch counted once, by
-    the code it ran: the streamed K1, K2 and K4 past REACH_M and K3 with
-    its iterate in global memory as reach launches of their dtype. One
-    past the caps (chi = 2049, m = 4097 / 2049) the call raises before any
-    launch and counts nothing."""
+    2048, the wide eigensolver at m = 4096 in both dtypes, K2 on its
+    card-wide route, K4 in complex128 on its single-buffered route), each
+    launch counted once, by the code it ran: the streamed K1, K2 and K4
+    past REACH_M and K3 with its iterate in global memory as reach
+    launches of their dtype. One past the caps (chi = 2049, m = 4097) the
+    call raises before any launch and counts nothing."""
     f64 = dtype == C128
     cap = EIGH_CAP_64 if f64 else EIGH_CAP
     br = torch.zeros(3, 2, ENV_CAP, ENV_CAP, dtype=dtype)

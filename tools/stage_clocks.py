@@ -69,7 +69,11 @@ directory, and prints (--kernels picks the reports; all by default):
             and complex128 m=504: 20 pairs in turns, medians and spread.
   env_chain cycles per site (B wait, step 1, step 2, cluster barrier, sum
             of received partials) on rank 0 of each chain's cluster at
-            n = 50, chi = 32 and 64, clusters of 8 and 16 CTAs, q = 25.
+            n = 50, chi = 32 and 64, clusters of 8 and 16 CTAs, q = 25;
+            then the complex64 wide K1 at chi = 96 and 128 by stage, with
+            its times at q = 0/25/49: with --parent DIR the parent's wide
+            variant too, in the order parent, this tree, this tree,
+            parent.
 
 The stamps are thread 0's view; the stages are separated by block
 barriers, so they are the block's stages. Needs nvcc and one card.
@@ -117,11 +121,14 @@ PLAIN_DIV = ("  const float q = __fdiv_rn(a == 0.f ? 1.f : a, b);\n"
              "  return __fdiv_rn(a, b);\n  const float q = 0.f;\n"
              "  return a == 0.f\n")
 ENV_MARKS = [
-    # (the wide variants have no B wait: their step 1 is counted in step 2)
+    # (the wide variants have no B wait: step 1 ends with A's slab landed)
     ("  for (int step = 0; step < count; ++step) {",
      "  long long acc_t[5] = {0, 0, 0, 0, 0};\n"
      "  for (int step = 0; step < count; ++step) {\n"
      "    long long tA = clock64(), tB = tA, tC = tA;"),
+    ("      cp_async_wait<0>();\n      __syncthreads();\n    } else {",
+     "      cp_async_wait<0>();\n      __syncthreads();\n"
+     "      tC = clock64();\n    } else {"),
     ("    mbar_wait(&bar, step & 1);",
      "    tA = clock64();\n    mbar_wait(&bar, step & 1);\n"
      "    tB = clock64();"),
@@ -158,6 +165,71 @@ ENV_MARKS += [
      "extern \"C\" void set_cluster(int c) { g_cluster = c; }"),
 ]
 ENV_LABELS = ["B wait", "step 1", "step 2", "cluster barrier", "sum"]
+
+def _wide_lap(k):
+    return f"    tN = clock64();\n    acc_t[{k}] += tN - tS;\n    tS = tN;\n"
+
+
+# the complex64 wide K1 (csrc/env_chain_wide.cu): every CTA's cycles a site
+# by stage, summed in registers of its thread 0 and stored after the loop
+# into g_steps[CTA][stage] (the sites in slot ENV_WIDE_SLOTS - 1)
+ENV_WIDE_LABELS = ["E wait", "step 1", "B issue", "A wait", "rfree wait",
+                   "step 2 and post", "partials wait", "sum", "efree wait",
+                   "post E", "(of step 2: the products)"]
+ENV_WIDE_SLOTS = 12
+# tuning choices of the wide K1 tried on the card (--variants): text edits
+# of csrc/env_chain_wide.cu
+ENV_WIDE_VARIANTS = {
+    "threads512": [("constexpr int kThreads = 256;",
+                    "constexpr int kThreads = 512;")],
+    "step1_unroll4": [
+        ("#pragma unroll 8\n    for (int b = 0; b < P.ld; b += 2) {",
+         "#pragma unroll 4\n    for (int b = 0; b < P.ld; b += 2) {")],
+    "step2_unroll8": [
+        ("#pragma unroll 4\n      for (int a = 0; a < rows; ++a) {",
+         "#pragma unroll 8\n      for (int a = 0; a < rows; ++a) {")],
+}
+ENV_WIDE_MARKS = [
+    ("  for (int step = 0; step < count; ++step) {\n",
+     "  long long acc_t[11] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  for (int step = 0; step < count; ++step) {\n"
+     "    long long tS = clock64(), tN;\n"),
+    ("    wait_copies<1>(&bbar, bph, P);  // Bs (this site) landed\n",
+     "    wait_copies<1>(&bbar, bph, P);\n" + _wide_lap(0)),
+    ("    __syncthreads();  // E_row, Bs read; M written\n",
+     "    __syncthreads();\n" + _wide_lap(1)),
+    ("    cp_async_commit();  // (an empty group on the last site)\n",
+     "    cp_async_commit();\n" + _wide_lap(2)),
+    ("    wait_copies<1>(&abar, aph, P);  // As (this site) landed\n",
+     "    wait_copies<1>(&abar, aph, P);\n" + _wide_lap(3)),
+    ("    if (step > 0) mbar_wait_cluster(&rfree, prev);\n",
+     "    if (step > 0) mbar_wait_cluster(&rfree, prev);\n" + _wide_lap(4)
+     + "    const long long t_s2 = tS;\n"),
+    ("    __syncthreads();  // As read; every partial of this CTA posted\n",
+     "    __syncthreads();\n" + _wide_lap(5)
+     + "    acc_t[10] += g_mark[blockIdx.x] - t_s2;\n"),
+    # thread 0's products end before its posts (one tile a thread at chi =
+    # 128)
+    ("// Step 2: this CTA's partial",
+     "__device__ long long g_mark[64];\n// Step 2: this CTA's partial"),
+    ("#pragma unroll\n    for (int i = 0; i < RX; ++i) {\n"
+     "      const int x = xg + i * nx;",
+     "    if (threadIdx.x == 0) g_mark[blockIdx.x] = clock64();\n"
+     "#pragma unroll\n    for (int i = 0; i < RX; ++i) {\n"
+     "      const int x = xg + i * nx;"),
+    ("    mbar_wait_cluster(&rfull, ph);\n",
+     "    mbar_wait_cluster(&rfull, ph);\n" + _wide_lap(6)),
+    ("    __syncthreads();  // R read\n",
+     "    __syncthreads();\n" + _wide_lap(7)),
+    ("    mbar_wait_cluster(&efree, ph);  // the row peers are done with "
+     "E_row\n",
+     "    mbar_wait_cluster(&efree, ph);\n" + _wide_lap(8)),
+    ("    // stage: end of the site\n  }\n",
+     _wide_lap(9) + "  }\n"
+     "  if (tid == 0) {\n"
+     "    for (int k = 0; k < 11; ++k) g_steps[blockIdx.x][k] = acc_t[k];\n"
+     f"    g_steps[blockIdx.x][{ENV_WIDE_SLOTS - 1}] = count;\n  }}\n"),
+]
 
 # tridiag: thread 0 stores a clock stamp a stage boundary of every step
 # (g_steps[k]: the top, the start of the product, after each of the three
@@ -1213,40 +1285,106 @@ def report_backtransform_ormqr(pairs=20):
               flush=True)
 
 
-def report_env():
+ENV_WIDE_CHI = (96, 128)
+
+
+def _env_run(lib, launcher, chi, labels, tag, what, per_cta=False):
+    """Time one env-chain build at n = 50, chi (q = 0/25/49, 20 launches
+    each), then launch it once at q = 25 and print the cycles a site by
+    stage for each chain: rank 0's (g_stamp[0..5] forward, [8..13]
+    backward, the sites at [6] and [14]), or with per_cta the mean over the
+    chain's 16 CTAs and the largest (g_steps[CTA][stage], the sites in the
+    last slot)."""
     import chip_smoke as cs
-    src = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc", "env_chain.cu")
-    lib = build(src, "env_chain", ENV_MARKS)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.env_chain_launch.argtypes = [P] * 5 + [I] * 3 + [P]
-    lib.set_cluster.argtypes = [I]
+    fn = getattr(lib, launcher)
+    fn.argtypes = [P] * 5 + [I] * 3 + [P]
+    br, bl = cs.env_inputs(torch, 50, chi, torch.device("cuda"))
+    snaps = torch.empty(2, chi, chi, dtype=torch.complex64, device="cuda")
+    out = torch.empty(2, 2, dtype=torch.complex64, device="cuda")
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def launch(q):
+        return fn(br.data_ptr(), bl.data_ptr(), snaps.data_ptr(),
+                  counter.data_ptr(), out.data_ptr(), 50, chi, q,
+                  torch.cuda.current_stream().cuda_stream)
+    ms = {q: cs.cuda_ms(lambda: launch(q), 20, torch) for q in (0, 25, 49)}
+    rc = launch(25)
+    if rc:
+        raise RuntimeError(f"{tag} env_chain launch failed: {rc}")
+    torch.cuda.synchronize()
+    if per_cta:
+        out = (ctypes.c_longlong * (32 * ENV_WIDE_SLOTS))()
+        if lib.read_steps(out) != 0:
+            raise RuntimeError("reading the per-CTA stamps failed")
+        st = np.array(out[:], dtype=np.float64).reshape(32, ENV_WIDE_SLOTS)
+        for c0, chain in ((0, "forward"), (16, "backward")):
+            blk = st[c0:c0 + 16]
+            sites = max(blk[0, -1], 1)
+            mean, top = blk.mean(0) / sites, blk.max(0) / sites
+            # the stages that add up to a site ("(of ...)" is a part of one)
+            total = sum(mean[k] for k, lab in enumerate(labels)
+                        if not lab.startswith("("))
+            print(f"env_chain {tag} chi={chi} {what} (q=0 {ms[0]:.4f} ms, "
+                  f"q=25 {ms[25]:.4f} ms, q=49 {ms[49]:.4f} ms) q=25 {chain} "
+                  f"({blk[0, -1]:.0f} sites), cycles a site, mean (max) over "
+                  f"the 16 CTAs: {total:.0f}: "
+                  + ", ".join(f"{lab} {mean[k]:.0f} ({top[k]:.0f})"
+                              for k, lab in enumerate(labels)), flush=True)
+        return
+    st = stamps(lib)
+    for off, chain in ((0, "forward"), (8, "backward")):
+        sites = max(st[off + 6], 1)
+        total = st[off:off + len(labels)].sum() / sites
+        print(f"env_chain {tag} chi={chi} {what} (q=0 {ms[0]:.4f} ms, q=25 "
+              f"{ms[25]:.4f} ms, q=49 {ms[49]:.4f} ms) q=25 {chain} "
+              f"({st[off + 6]:.0f} sites): {total:.0f} cycles a site: "
+              + ", ".join(f"{lab} {st[off + k] / sites:.0f}"
+                          for k, lab in enumerate(labels)), flush=True)
+
+
+def report_env(parent=None, variants=False):
+    """The narrow K1 (this tree, chi = 32 and 64, clusters of 8 and 16) by
+    stage; then the complex64 wide K1 at ENV_WIDE_CHI: the parent's (its
+    env_chain.cu, with --parent) and this tree's (csrc/env_chain_wide.cu),
+    in the order parent, this tree, this tree, parent."""
+    csrc = os.path.join(ROOT, "adaptaqc_tpu_torch", "csrc")
+    lib = build(os.path.join(csrc, "env_chain.cu"), "env_chain", ENV_MARKS)
+    lib.set_cluster.argtypes = [ctypes.c_int]
     for chi in (32, 64):
-        br, bl = cs.env_inputs(torch, 50, chi, torch.device("cuda"))
-        snaps = torch.empty(2, chi, chi, dtype=torch.complex64, device="cuda")
-        out = torch.empty(2, 2, dtype=torch.complex64, device="cuda")
-        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
         for cluster in (8, 16):
             lib.set_cluster(cluster)
-            launch = lambda q: lib.env_chain_launch(  # noqa: E731
-                br.data_ptr(), bl.data_ptr(), snaps.data_ptr(),
-                counter.data_ptr(), out.data_ptr(), 50, chi, q,
-                torch.cuda.current_stream().cuda_stream)
-            ms = {q: cs.cuda_ms(lambda: launch(q), 20, torch)
-                  for q in (0, 25)}
-            rc = launch(25)
-            if rc:
-                raise RuntimeError(f"env_chain launch failed: {rc}")
-            torch.cuda.synchronize()
-            st = stamps(lib)
-            for off, chain in ((0, "forward"), (8, "backward")):
-                sites = max(st[off + 6], 1)
-                total = st[off:off + 5].sum() / sites
-                print(f"env_chain chi={chi} cluster={cluster} (q=0 "
-                      f"{ms[0]:.4f} ms, q=25 {ms[25]:.4f} ms) q=25 {chain} "
-                      f"({st[off + 6]:.0f} sites): {total:.0f} cycles a site: "
-                      + ", ".join(f"{lab} {st[off + k] / sites:.0f}"
-                                  for k, lab in enumerate(ENV_LABELS)),
-                      flush=True)
+            _env_run(lib, "env_chain_launch", chi, ENV_LABELS, "this_tree",
+                     f"cluster={cluster}")
+    lib.set_cluster(0)
+    trees = {}
+    if parent:
+        plib = build(os.path.join(parent, "adaptaqc_tpu_torch", "csrc",
+                                  "env_chain.cu"), "env_chain_parent",
+                     ENV_MARKS)
+        plib.set_cluster.argtypes = [ctypes.c_int]
+        plib.set_cluster(0)
+        trees["parent"] = (plib, "env_chain_launch", ENV_LABELS)
+    wide = os.path.join(csrc, "env_chain_wide.cu")
+    if os.path.exists(wide):
+        trees["this_tree"] = (build(wide, "env_chain_wide", ENV_WIDE_MARKS,
+                                    steps=(32, ENV_WIDE_SLOTS)),
+                              "env_chain_wide_launch", ENV_WIDE_LABELS)
+    for tag in ("parent", "this_tree", "this_tree", "parent"):
+        if tag in trees:
+            for chi in ENV_WIDE_CHI:
+                _env_run(*trees[tag][:2], chi, trees[tag][2], tag, "wide",
+                         per_cta=tag == "this_tree")
+    for tag, edits in (ENV_WIDE_VARIANTS.items() if variants else ()):
+        try:
+            vlib = build(wide, f"env_chain_wide_{tag}",
+                         ENV_WIDE_MARKS + edits, steps=(32, ENV_WIDE_SLOTS))
+        except subprocess.CalledProcessError:
+            print(f"env_chain {tag}: the variant does not build", flush=True)
+            continue
+        for chi in ENV_WIDE_CHI:
+            _env_run(vlib, "env_chain_wide_launch", chi, ENV_WIDE_LABELS,
+                     tag, "wide", per_cta=True)
 
 
 def main():
@@ -1260,7 +1398,9 @@ def main():
     ap.add_argument("--variants", action="store_true",
                     help="tridiag_wide: also this tree's kernel at other "
                     "cluster sizes (TW_VARIANTS); teig_grid: also this "
-                    "tree's route with other tuning choices (TG_VARIANTS)")
+                    "tree's route with other tuning choices (TG_VARIANTS); "
+                    "env_chain: the wide K1 with the edits of "
+                    "ENV_WIDE_VARIANTS")
     ap.add_argument("--wide-sizes",
                     help="tridiag_wide: only a random Gram at each of these "
                     "sizes, for example c64:1024,c128:2048")
@@ -1354,7 +1494,7 @@ def main():
     if "backtransform_ormqr" in which:
         report_backtransform_ormqr()
     if "env_chain" in which:
-        report_env()
+        report_env(args.parent, args.variants)
     return 0
 
 
