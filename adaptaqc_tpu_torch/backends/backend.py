@@ -213,7 +213,9 @@ class MPSBackend(AQCBackend):
         return compiler._current_state()
 
     def sweep_engine(self):
-        return mps_core.sweep_engine(self.truncation_threshold)
+        # allow_env_cache None: ADAPTAQC_ENVCACHE decides (off by default)
+        return mps_core.sweep_engine(self.truncation_threshold,
+                                     allow_env_cache=None)
 
     def zero_ref(self, compiler):
         n = compiler.full_circuit.num_qubits

@@ -30,6 +30,7 @@ the explicit `eigh` argument ("kernels" by default, see ops/cplx.py).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -519,18 +520,83 @@ def check_mps(obj) -> bool:
 
 # ------------------------------------------------------------------ sweep
 
-def sweep_engine(threshold: float, eigh: str = None):
+class SweepEnv(NamedTuple):
+    """The incremental probe environments of one sweep (optim/sweeps.py
+    EnvOps), between the sweep's current R and L states:
+
+      e_buf[i]  env of sites < i, valid for i <= e_ptr;
+      g_buf[x]  env of sites > n-1-x, valid for x <= g_ptr: the right
+                chain in reversed coordinates, so both chains advance
+                upward.
+
+    The buffers (n, chi, chi) stay on the state's device and are written
+    in place as the frontiers advance; the pointers are host ints. The JAX
+    package advances ENV_CHUNK sites a while-loop iteration into buffers
+    with slack rows (a TPU loop iteration has a fixed dispatch cost); here
+    a site is one step, and every environment read is the same."""
+    e_buf: torch.Tensor
+    g_buf: torch.Tensor
+    e_ptr: int
+    g_ptr: int
+
+
+def _env_init(state: MPS) -> SweepEnv:
+    n, chi = state.n, state.chi
+    e0 = boundary_env(chi, state.dtype, state.device)
+    e_buf = torch.empty((n, chi, chi), dtype=state.dtype, device=state.device)
+    g_buf = torch.empty_like(e_buf)
+    e_buf[0] = e0  # device-to-device copies: no host synchronisation
+    g_buf[0] = e0
+    return SweepEnv(e_buf, g_buf, 0, 0)
+
+
+def _env_touch(env: SweepEnv, t0: int, t1: int) -> SweepEnv:
+    """A gate moved sites t0..t1 of the R or the L state: left envs stay
+    valid up to position t0, right envs up to reversed position n-1-t1."""
+    n = env.e_buf.shape[0]
+    return env._replace(e_ptr=min(env.e_ptr, t0),
+                        g_ptr=min(env.g_ptr, n - 1 - t1))
+
+
+def _env_probe(env: SweepEnv, r_state: MPS, l_state: MPS, q: int):
+    """Advance both frontiers to site q and contract
+    C[i, j] = <R| |i><j|_q |L>: |q - previous probe site| site steps
+    instead of local_overlap_matrix's n. Returns (C (2, 2), env)."""
+    n = r_state.n
+    br, bl = r_state.b, l_state.b
+    e_buf, g_buf = env.e_buf, env.g_buf
+    for i in range(env.e_ptr, q):  # E_{i+1} = step(E_i, site i)
+        e_buf[i + 1] = forward_step(e_buf[i], br[i], bl[i])
+    xq = n - 1 - q
+    for x in range(env.g_ptr, xq):  # G_{x+1} = step(G_x, site n-1-x)
+        g_buf[x + 1] = backward_step(g_buf[x], br[n - 1 - x], bl[n - 1 - x])
+    cm = torch.einsum("iax,ab,jby,xy->ij", br[q].conj(), e_buf[q], bl[q],
+                      g_buf[xq])
+    return cm, SweepEnv(e_buf, g_buf, max(env.e_ptr, q), max(env.g_ptr, xq))
+
+
+def sweep_engine(threshold: float, eigh: str = None, allow_env_cache=None):
     """The SweepEngine of this engine (optim/sweeps.py): the gate applier
     (a state or a batch of probe states), the probe's local overlap
     (through the env-chain kernel wrapper), <a|b> and the full-cost
-    sweep's cost terms."""
-    from ..optim.sweeps import SweepEngine
+    sweep's cost terms.
+
+    allow_env_cache: the incremental probe environments (EnvOps; the
+    probes then run as plain PyTorch site steps, not K1). None reads
+    ADAPTAQC_ENVCACHE as the JAX package does: any non-empty value turns
+    them on; off by default."""
+    from ..optim.sweeps import EnvOps, SweepEngine
+
+    use_env = (bool(os.environ.get("ADAPTAQC_ENVCACHE"))
+               if allow_env_cache is None else bool(allow_env_cache))
 
     def apply(state, kind, q0, q1, u4):
         return apply_gate(state, kind, q0, q1, u4, threshold, eigh)
 
-    return SweepEngine(f"mps[{threshold}]", apply, _local_overlap_dispatch,
-                       mps_dot, full_cost_terms, apply_1q_layer)
+    env_ops = EnvOps(_env_init, _env_touch, _env_probe) if use_env else None
+    return SweepEngine(f"mps[{threshold}{',env' if use_env else ''}]",
+                       apply, _local_overlap_dispatch, mps_dot,
+                       full_cost_terms, apply_1q_layer, env_ops)
 
 
 # ------------------------------------------------------ pair-gradient overlaps

@@ -72,7 +72,8 @@ class AdaptCompiler(ApproximateCompiler):
                  use_advanced_transpilation=False, rotosolve_fraction=1.0,
                  perform_final_minimisation=False, optimise_local_cost=False,
                  soften_global_cost=False, debug_log_full_ansatz=False,
-                 initial_single_qubit_layer=False, start_variant=0):
+                 initial_single_qubit_layer=False, profile_dir=None,
+                 zigzag=None, start_variant=0, **_compat):
         backend = backend if backend is not None else SVBackend()
         super().__init__(target=target, backend=backend,
                          execute_kwargs=execute_kwargs,
@@ -81,7 +82,7 @@ class AdaptCompiler(ApproximateCompiler):
                          optimise_local_cost=optimise_local_cost,
                          soften_global_cost=soften_global_cost,
                          rotosolve_fraction=rotosolve_fraction,
-                         start_variant=start_variant)
+                         zigzag=zigzag, start_variant=start_variant)
         self.save_circuit_history = save_circuit_history
         self.entanglement_measure_method = entanglement_measure
         self.adapt_config = (adapt_config if adapt_config is not None
@@ -119,6 +120,8 @@ class AdaptCompiler(ApproximateCompiler):
         self.time_taken = None
         self.debug_log_full_ansatz = debug_log_full_ansatz
         self.initial_single_qubit_layer = initial_single_qubit_layer
+        # a torch.profiler trace of the whole compile goes into profile_dir
+        self.profile_dir = profile_dir
         self.phase_timings = {"pair_selection": 0.0,
                               "layer_optimisation": 0.0,
                               "window_rotosolve": 0.0, "absorption": 0.0,
@@ -152,9 +155,9 @@ class AdaptCompiler(ApproximateCompiler):
 
         # construction arguments kept for the clones of compile_in_parts
         # and compile_with_chi_schedule. starting_circuit is left out (the
-        # carried solution rides through compile(initial_ansatz=...)), and
-        # so is the backend (the checkpoint codec stores it by its
-        # constructor arguments)
+        # carried solution rides through compile(initial_ansatz=...)), so
+        # is profile_dir (no nested traces), and so is the backend (the
+        # checkpoint codec stores it by its constructor arguments)
         self._ctor_kwargs = dict(
             entanglement_measure=entanglement_measure,
             execute_kwargs=execute_kwargs, coupling_map=coupling_map,
@@ -170,7 +173,7 @@ class AdaptCompiler(ApproximateCompiler):
             soften_global_cost=soften_global_cost,
             debug_log_full_ansatz=debug_log_full_ansatz,
             initial_single_qubit_layer=initial_single_qubit_layer,
-            start_variant=start_variant)
+            zigzag=zigzag, start_variant=start_variant)
 
     def _clone_with_target(self, target, backend=None, starting_circuit=None):
         """A fresh AdaptCompiler with the same construction arguments and a
@@ -178,7 +181,7 @@ class AdaptCompiler(ApproximateCompiler):
         backend unless another is given."""
         return AdaptCompiler(target, backend=backend or self.backend,
                              starting_circuit=starting_circuit,
-                             **self._ctor_kwargs)
+                             profile_dir=None, **self._ctor_kwargs)
 
     # --------------------------------------------------------- chi schedule
     def _check_schedule_fits_kernels(self, chis):
@@ -354,7 +357,35 @@ class AdaptCompiler(ApproximateCompiler):
         """Main adaptive loop (adapt_compiler.py:246-482). With
         checkpoint_every > 0 the compiler is pickled into checkpoint_dir
         every that many layers and at the end; a loaded checkpoint resumes
-        at its next layer (freeze_prev_layers then freezes what it had)."""
+        at its next layer (freeze_prev_layers then freezes what it had).
+        With profile_dir set, a torch.profiler trace of the whole compile
+        is written there (the JAX package writes a jax.profiler trace)."""
+        if self.profile_dir:
+            return self._profiled_compile(
+                initial_ansatz, optimise_initial_ansatz, checkpoint_every,
+                checkpoint_dir, delete_prev_chkpt, freeze_prev_layers)
+        return self._compile_impl(initial_ansatz, optimise_initial_ansatz,
+                                  checkpoint_every, checkpoint_dir,
+                                  delete_prev_chkpt, freeze_prev_layers)
+
+    def _profiled_compile(self, *args) -> AdaptResult:
+        """_compile_impl under torch.profiler (the card's activity too when
+        the backend is on one); the trace goes into profile_dir as
+        compile_<epoch seconds>.pt.trace.json."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.backend.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            result = self._compile_impl(*args)
+        prof.export_chrome_trace(os.path.join(
+            self.profile_dir, f"compile_{int(time.time())}.pt.trace.json"))
+        return result
+
+    def _compile_impl(self, initial_ansatz, optimise_initial_ansatz,
+                      checkpoint_every, checkpoint_dir, delete_prev_chkpt,
+                      freeze_prev_layers) -> AdaptResult:
         start_time = timeit.default_timer()
         if self.resume_from_layer is None:
             start_point = 0

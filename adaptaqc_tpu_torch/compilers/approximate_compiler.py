@@ -75,7 +75,10 @@ class ApproximateCompiler(ABC):
                  execute_kwargs=None, initial_state=None, qubit_subset=None,
                  general_initial_state=False, starting_circuit=None,
                  optimise_local_cost=False, soften_global_cost=False,
-                 rotosolve_fraction=1.0, start_variant=0):
+                 rotosolve_fraction=1.0, zigzag=None, start_variant=0,
+                 **_compat):
+        # _compat: keywords of the reference's other versions, accepted and
+        # ignored as the JAX package does
         self.target = target
         self.start_variant = int(start_variant)
         self.original_circuit_classical_ops = None
@@ -110,7 +113,7 @@ class ApproximateCompiler(ABC):
             raise ValueError("rotosolve_fraction must be in the range (0,1]")
         self.minimizer = CostMinimiser(self.evaluate_cost,
                                        self.variational_circuit_range, self,
-                                       rotosolve_fraction)
+                                       rotosolve_fraction, zigzag=zigzag)
         self.cost_evaluation_counter = 0
         self.compiling_finished = False
         self._prefix_cache = None   # (lhs_count, engine state)

@@ -95,6 +95,7 @@ def encode_compiler_state(compiler) -> Dict[str, Any]:
     minimizer = state.pop("minimizer", None)
     if minimizer is not None:
         state["minimizer_fraction"] = minimizer.rotosolve_fraction
+        state["minimizer_zigzag"] = minimizer.zigzag
     for attr in _CIRCUIT_ATTRS:
         if attr in state:
             state[attr] = _encode_circuit(state[attr])
@@ -118,6 +119,7 @@ def decode_compiler_state(compiler, state: Dict[str, Any]) -> None:
     compiler.__dict__.setdefault("_advance_hint", None)
     compiler.__dict__.setdefault("_absorption_bias", 0.0)
     compiler.__dict__.setdefault("_layers_since_verify", 0)
+    compiler.__dict__.setdefault("profile_dir", None)  # older checkpoints
 
     n = compiler.full_circuit.num_qubits if compiler.full_circuit else 0
     chi = backend.chi_for(n) if isinstance(backend, MPSBackend) else None
@@ -130,9 +132,12 @@ def decode_compiler_state(compiler, state: Dict[str, Any]) -> None:
         _decode_instr(compiler._orig_target_instr, chi, backend)
 
     fraction = getattr(compiler, "minimizer_fraction", None) or 1.0
+    # a checkpoint without the zigzag flag resumes as a new minimiser
+    # starts: ADAPTAQC_ZIGZAG decides
     compiler.minimizer = CostMinimiser(compiler.evaluate_cost,
                                        compiler.variational_circuit_range,
-                                       compiler, fraction)
+                                       compiler, fraction,
+                                       zigzag=state.get("minimizer_zigzag"))
     if (getattr(compiler, "adapt_config", None) is not None
             and compiler.adapt_config.method == "general_gradient"):
         from ..utils import gradients as gr

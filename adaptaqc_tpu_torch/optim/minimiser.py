@@ -14,6 +14,11 @@ Rotoselect dispatch in the JAX package's order (minimiser.py:89-99):
    cost evaluation): backends with no sweep engine (sampling) and
    parameterised ('#'/'@' labelled) circuits.
 
+With zigzag (CostMinimiser(zigzag=True), or ADAPTAQC_ZIGZAG=1 when the
+argument is None; off by default) the O(G) device sweep alternates its
+direction where the JAX package does: Rotoselect or a whole Rotosolve, one
+block of right states, and an engine without incremental environments.
+
 Under Rotosolve with rotosolve_fraction < 1 the O(G) device sweep runs one
 cycle at a time, each over a fresh random subsample of the window's
 rotation gates (the stdlib `random` module, as in the JAX package).
@@ -29,6 +34,7 @@ the JAX package does).
 from __future__ import annotations
 
 import logging
+import os
 import random
 from typing import Optional, Tuple
 
@@ -63,11 +69,18 @@ class CostMinimiser:
     """Minimizer of the compiler's cost (cost_minimiser.py:32)."""
 
     def __init__(self, cost_finder, variational_circuit_range, compiler,
-                 rotosolve_fraction=1.0):
+                 rotosolve_fraction=1.0, zigzag=None):
         self.cost_finder = cost_finder
         self.variational_circuit_range = variational_circuit_range
         self.compiler = compiler
         self.rotosolve_fraction = rotosolve_fraction
+        # alternating-direction cycles (sweeps.sweep_zigzag_until_converged,
+        # G applies a cycle instead of 2G): exact coordinate descent in
+        # another gate order than the reference's, so opt-in, as in the
+        # JAX package (minimiser.py:62-73)
+        if zigzag is None:
+            zigzag = bool(int(os.environ.get("ADAPTAQC_ZIGZAG", "0")))
+        self.zigzag = zigzag
 
     @property
     def full_circuit(self):
@@ -235,6 +248,13 @@ class CostMinimiser:
                                       sweeps.state_nbytes(prefix))
         logger.info(f"Starting {alg_name}")
         kinds, angles = tape.kinds, tape.angles
+        if (self.zigzag and bl >= tape.padded_length
+                and engine.env_ops is None):
+            # zigzag runs where the JAX package runs it: one block, no
+            # incremental environments
+            return self._roto_device_zigzag(
+                rotoselect, max_cycles, stop_val, tol, prefix, ref, engine,
+                tape, tape_range, mask)
         # the full-state cache, when valid, is prefix + tape at the input
         # angles: it spares the initial-cost pass over the tape
         init_state = comp._current_cache
@@ -271,6 +291,27 @@ class CostMinimiser:
         comp._invalidate_current()
         # the sweep's final state is the state of the whole full_circuit at
         # the written-back angles: seed the cache with it
+        comp._current_cache = final_state
+        logger.info(f"{alg_name} finished with cost {cost}")
+        return float(cost)
+
+    def _roto_device_zigzag(self, rotoselect, max_cycles, stop_val, tol,
+                            prefix, ref, engine, tape, tape_range, mask):
+        """_roto_device's zigzag branch: all cycles in one call, whose
+        initial backward pass gives the input angles' cost (the full-state
+        cache is not needed), under the same backwards guard."""
+        comp = self.compiler
+        alg_name = "ROTOSELECT" if rotoselect else "ROTOSOLVE"
+        (kinds, angles, cost, cycles, evals, final_state,
+         cost0) = sweeps.sweep_zigzag_until_converged(
+            engine, rotoselect, int(max_cycles), prefix, ref, tape.kinds,
+            tape.q0, tape.q1, tape.angles, mask, stop_val, tol)
+        comp.cost_evaluation_counter += int(evals)
+        logger.info(f"{alg_name} ran {cycles} zigzag cycles on device")
+        if _sweep_went_backwards(cost, cost0):
+            return self._reject_sweep(alg_name, cost, cost0)
+        writeback_angles(self.full_circuit, tape_range, tape, kinds, angles)
+        comp._invalidate_current()
         comp._current_cache = final_state
         logger.info(f"{alg_name} finished with cost {cost}")
         return float(cost)

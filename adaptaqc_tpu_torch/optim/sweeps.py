@@ -18,6 +18,14 @@ probe:
 Gate updates are sequential coordinate descent: gate k's probe sees gates
 < k already updated and gates > k at their old values.
 
+Two opt-in modes, off by default as in the JAX package: an engine with
+`env_ops` (the MPS engine under ADAPTAQC_ENVCACHE) advances its probes'
+transfer environments incrementally, O(distance between consecutive probed
+sites) site steps a probe instead of one O(n) chain; and zigzag cycles
+(`sweep_zigzag_until_converged`, ADAPTAQC_ZIGZAG) alternate direction and
+reuse the states the previous cycle emitted, G gate applies a cycle
+instead of 2G.
+
 The tape is host data: gate kinds and sites steer plain Python control flow.
 The angles and the (possibly re-chosen) rotation kinds live on the device
 for the whole sweep, and the probe's choice is applied from there, so a
@@ -42,6 +50,22 @@ ROTOSELECT_EVALS = 7  # 1 identity + 2 per axis
 ROTOSOLVE_EVALS = 3
 
 
+class EnvOps(NamedTuple):
+    """Incremental probe environments (the JAX package's EnvOps). An engine
+    that caches transfer environments between the sweep's R and L states
+    exposes:
+
+      init(state) -> env                 a fresh cache for one sweep
+      touch(env, t0, t1) -> env          a gate moved sites t0..t1 of the
+                                         R or the L state
+      probe(env, r_state, l_state, q) -> (C (2, 2), env)
+                                         advance to site q and contract
+    """
+    init: Callable[..., Any]
+    touch: Callable[..., Any]
+    probe: Callable[..., Any]
+
+
 class SweepEngine(NamedTuple):
     """What the sweep needs from a simulation engine."""
     name: str
@@ -60,6 +84,8 @@ class SweepEngine(NamedTuple):
     # every site in one call. With it the full-cost sweep applies a run of
     # one-qubit gates as one operation (identities elsewhere).
     apply_1q_layer: Any = None
+    # optional EnvOps: incremental probe environments for the overlap sweep
+    env_ops: Any = None
 
 
 def _abs2(z):
@@ -94,6 +120,15 @@ def _best_from_overlap_matrix(Cm, kind, rotoselect: bool):
     return kind, thetas.gather(0, axis)[0], ov2s.gather(0, axis)[0]
 
 
+def _take_best(cm, kinds, angles, i, rotoselect, dtype):
+    """Write the best kind and angle of tape entry i, from its probe's 2x2
+    local overlap matrix, into the device tensors kinds and angles; return
+    the entry's new 4x4 matrix."""
+    kinds[i], angles[i], _ = _best_from_overlap_matrix(cm, kinds[i],
+                                                       rotoselect)
+    return sv_core.build_u4(kinds[i:i + 1], angles[i:i + 1], dtype)[0]
+
+
 def _sweep(engine, block_len, rotoselect, prefix_state, ref_state, struct,
            q0s, q1s, kinds, angles, select):
     """One cycle on device tensors. `struct` (host) holds the tape's kinds
@@ -122,7 +157,14 @@ def _sweep(engine, block_len, rotoselect, prefix_state, ref_state, struct,
             state = engine.apply(state, struct[i], q0s[i], q1s[i], u_old_h[i])
         ckpts[b - 1] = state
 
-    # phase B: forward sweep, regenerating each block's right states
+    # phase B: forward sweep, regenerating each block's right states. With
+    # env_ops the probe's environments advance incrementally; gate i moves
+    # both states at its sites (R_{i-1} -> R_i before its probe, L gains it
+    # after), so the cache is told before and after the probe. An
+    # unselected gate is skipped: the JAX package probes it with a mask
+    # inside lax.cond, which leaves the same cache.
+    env_ops = engine.env_ops
+    env = None if env_ops is None else env_ops.init(prefix_state)
     l_state = prefix_state
     evals = 0
     for b in range(nb):
@@ -140,12 +182,16 @@ def _sweep(engine, block_len, rotoselect, prefix_state, ref_state, struct,
             if k == G.NOP:
                 continue
             u = u_old[i]
+            if env is not None:
+                t1 = q1s[i] if sv_core.is_two_qubit(k) else q0s[i]
+                env = env_ops.touch(env, q0s[i], t1)
             if select[i]:
-                cm = engine.local_overlap(r_buf[j], l_state, q0s[i])
-                nk, na, _ = _best_from_overlap_matrix(cm, kinds[i], rotoselect)
-                kinds[i] = nk
-                angles[i] = na
-                u = sv_core.build_u4(kinds[i:i + 1], angles[i:i + 1], dtype)[0]
+                if env is None:
+                    cm = engine.local_overlap(r_buf[j], l_state, q0s[i])
+                else:
+                    cm, env = env_ops.probe(env, r_buf[j], l_state, q0s[i])
+                    env = env_ops.touch(env, q0s[i], t1)
+                u = _take_best(cm, kinds, angles, i, rotoselect, dtype)
                 evals += per_probe
             l_state = engine.apply(l_state, k, q0s[i], q1s[i], u)
     final_ov2 = _abs2(engine.overlap(ref_state, l_state))
@@ -213,6 +259,19 @@ def _stopped_improving(hist3, rel_tol) -> bool:
     return slope / max(mean, 1e-30) > -rel_tol
 
 
+def _cycles_stopped(cycles, hist, ov2_hist, tol) -> bool:
+    """The overlap sweeps' improvement test: after 3 cycles, stop when
+    neither the cost history nor the overlap^2 history (which grows while
+    improving, and still moves where a float32 cost pins at 1) moves by
+    `tol` over its 3-value window."""
+    if cycles <= 3:
+        return False
+    ov2_slope = (ov2_hist[2] - ov2_hist[0]) / 2.0
+    ov2_mean = abs(sum(ov2_hist)) / 3.0
+    ov2_stopped = ov2_slope / max(ov2_mean, 1e-30) < tol
+    return _stopped_improving(hist, tol) and ov2_stopped
+
+
 def apply_all(engine: SweepEngine, state, kinds, q0s, q1s, angles):
     """State after every gate of the tape (host arrays)."""
     struct, q0l, q1l, _ = _host_structure(kinds, q0s, q1s, kinds)
@@ -250,12 +309,8 @@ def sweep_until_converged(engine: SweepEngine, block_len: int,
     evals = 1
     state = init_state
     while cost > stop_val and cycles < max_cycles:
-        if cycles > 3:
-            ov2_slope = (ov2_hist[2] - ov2_hist[0]) / 2.0
-            ov2_mean = abs(sum(ov2_hist)) / 3.0
-            ov2_stopped = ov2_slope / max(ov2_mean, 1e-30) < tol
-            if _stopped_improving(hist, tol) and ov2_stopped:
-                break
+        if _cycles_stopped(cycles, hist, ov2_hist, tol):
+            break
         kd, ad, state, ov2_t, ev = _sweep(engine, block_len, rotoselect,
                                           prefix_state, ref_state, struct,
                                           q0l, q1l, kd, ad, sel)
@@ -283,6 +338,161 @@ def sweep_n_cycles(engine: SweepEngine, block_len: int, rotoselect: bool,
                                       prefix_state, ref_state, struct, q0l,
                                       q1l, kd, ad, sel)
         evals += ev
+    cost = float("nan") if ov2_t is None else 1.0 - float(ov2_t)
+    return kd.cpu().numpy().astype(np.int32), ad.cpu().numpy(), cost, evals
+
+
+# ------------------------------------------------------------ zigzag mode
+# Alternating-direction coordinate descent (the JAX package's zigzag mode,
+# opt-in through CostMinimiser(zigzag=True) or ADAPTAQC_ZIGZAG=1). A
+# standard cycle pays 2G gate applies: the right states, then the probe
+# pass. Zigzag cycles alternate direction and reuse the states the previous
+# cycle emitted:
+#
+#   forward cycle, k = 0 .. G-1: the probe of gate k reads R_k from the
+#       buffer the previous backward cycle wrote; the carried L advances
+#       through each updated gate; the states L_{k-1} in front of each gate
+#       are emitted;
+#   backward cycle, k = G-1 .. 0: the probe reads L_{k-1} from that buffer;
+#       the carried R advances through each updated gate's adjoint
+#       (u4^H); the states R_k are emitted.
+#
+# Every probe sees every other gate at its latest value, so this is exact
+# coordinate descent in another visiting order, at G applies a cycle. The
+# buffers hold references to states the engine returned (an apply makes a
+# new state), so a buffer costs no copy.
+
+
+def _zz_forward(engine, rotoselect, prefix_state, ref_state, struct, q0s,
+                q1s, kinds, angles, select, r_buf):
+    """One forward probe cycle on device tensors. Returns (kinds, angles,
+    ov2 tensor, l_final, n_evals, l_buf); l_buf[k] is the state in front
+    of gate k, which a backward cycle probes gate k with."""
+    dtype = prefix_state.dtype
+    u_old = sv_core.build_u4(kinds, angles, dtype)
+    kinds, angles = kinds.clone(), angles.clone()
+    per_probe = ROTOSELECT_EVALS if rotoselect else ROTOSOLVE_EVALS
+    l_state, evals = prefix_state, 0
+    l_buf = [None] * len(struct)
+    for i, k in enumerate(struct):
+        l_buf[i] = l_state
+        if k == G.NOP:
+            continue
+        u = u_old[i]
+        if select[i]:
+            cm = engine.local_overlap(r_buf[i], l_state, q0s[i])
+            u = _take_best(cm, kinds, angles, i, rotoselect, dtype)
+            evals += per_probe
+        l_state = engine.apply(l_state, k, q0s[i], q1s[i], u)
+    ov2 = _abs2(engine.overlap(ref_state, l_state))
+    return kinds, angles, ov2, l_state, evals, l_buf
+
+
+def _zz_backward(engine, rotoselect, prefix_state, ref_state, struct, q0s,
+                 q1s, kinds, angles, select, l_buf):
+    """One backward probe cycle (gates G-1 .. 0). Returns (kinds, angles,
+    ov2 tensor, n_evals, r_buf) with r_buf[k] = R_k for the next forward
+    cycle. ov2 = |<(U tape)^H ref|prefix>|^2 = |<ref|U tape|prefix>|^2."""
+    dtype = prefix_state.dtype
+    u_old = sv_core.build_u4(kinds, angles, dtype)
+    kinds, angles = kinds.clone(), angles.clone()
+    per_probe = ROTOSELECT_EVALS if rotoselect else ROTOSOLVE_EVALS
+    r_state, evals = ref_state, 0
+    r_buf = [None] * len(struct)
+    for i in range(len(struct) - 1, -1, -1):
+        r_buf[i] = r_state
+        k = struct[i]
+        if k == G.NOP:
+            continue
+        u = u_old[i]
+        if select[i]:
+            cm = engine.local_overlap(r_state, l_buf[i], q0s[i])
+            u = _take_best(cm, kinds, angles, i, rotoselect, dtype)
+            evals += per_probe
+        r_state = engine.apply(r_state, k, q0s[i], q1s[i], u.mH)
+    ov2 = _abs2(engine.overlap(r_state, prefix_state))
+    return kinds, angles, ov2, evals, r_buf
+
+
+def _zz_right_states(engine, ref_state, struct, q0s, q1s, kinds, angles):
+    """The R states at the input angles (r_buf[k] = R_k) and the state of
+    every adjoint applied to ref, whose overlap with the prefix gives the
+    input angles' cost."""
+    u_h = sv_core.build_u4(kinds, angles, ref_state.dtype).mH
+    r_state = ref_state
+    r_buf = [None] * len(struct)
+    for i in range(len(struct) - 1, -1, -1):
+        r_buf[i] = r_state
+        if struct[i] != G.NOP:
+            r_state = engine.apply(r_state, struct[i], q0s[i], q1s[i],
+                                   u_h[i])
+    return r_buf, r_state
+
+
+def sweep_zigzag_until_converged(engine: SweepEngine, rotoselect: bool,
+                                 max_cycles: int, prefix_state, ref_state,
+                                 kinds, q0s, q1s, angles, select, stop_val,
+                                 tol):
+    """Zigzag cycles until converged (single block), under
+    sweep_until_converged's stop test: (forward, backward) pairs while
+    cost > stop_val, cycles < max_cycles and the cost or the overlap^2
+    history still moves by `tol` (after 3 cycles), then one forward cycle,
+    so that the returned state is prefix + tape at the returned angles.
+    The initial backward build of the R states also gives the input
+    angles' cost, so the tape is not re-simulated for it.
+
+    Returns (kinds, angles, final_cost, cycles, evals, final_state, cost0),
+    as sweep_until_converged."""
+    struct, q0l, q1l, sel = _host_structure(kinds, q0s, q1s, select)
+    kd, ad = _device_tape(prefix_state, kinds, angles)
+    r_buf, r_final = _zz_right_states(engine, ref_state, struct, q0l, q1l,
+                                      kd, ad)
+    cost0 = 1.0 - float(_abs2(engine.overlap(r_final, prefix_state)))
+    cost = cost0
+    hist = [1e30, 1e30, 1e30]
+    ov2_hist = [0.0, 0.0, 0.0]
+    cycles, evals = 0, 1
+    while cost > stop_val and cycles < max_cycles:
+        if _cycles_stopped(cycles, hist, ov2_hist, tol):
+            break
+        kd, ad, _, _, ev_f, l_buf = _zz_forward(
+            engine, rotoselect, prefix_state, ref_state, struct, q0l, q1l,
+            kd, ad, sel, r_buf)
+        kd, ad, ov2_t, ev_b, r_buf = _zz_backward(
+            engine, rotoselect, prefix_state, ref_state, struct, q0l, q1l,
+            kd, ad, sel, l_buf)
+        ov2 = float(ov2_t)
+        cost = 1.0 - ov2
+        hist = [hist[1], hist[2], cost]
+        ov2_hist = [ov2_hist[1], ov2_hist[2], ov2]
+        cycles += 2
+        evals += ev_f + ev_b
+    kd, ad, ov2_t, l_final, ev_f, _ = _zz_forward(
+        engine, rotoselect, prefix_state, ref_state, struct, q0l, q1l, kd,
+        ad, sel, r_buf)
+    return (kd.cpu().numpy().astype(np.int32), ad.cpu().numpy(),
+            1.0 - float(ov2_t), cycles + 1, evals + ev_f, l_final, cost0)
+
+
+def sweep_zigzag_n_cycles(engine: SweepEngine, rotoselect: bool, pairs: int,
+                          prefix_state, ref_state, kinds, q0s, q1s, angles,
+                          select):
+    """Exactly `pairs` (forward, backward) zigzag pairs, no convergence
+    test (the fixed-budget and benchmarking variant): 2 pairs update
+    cycles for (2 pairs + 1) G gate applies, against 4 pairs G for the
+    standard sweep. Returns (kinds, angles, final_cost, evals)."""
+    struct, q0l, q1l, sel = _host_structure(kinds, q0s, q1s, select)
+    kd, ad = _device_tape(prefix_state, kinds, angles)
+    r_buf, _ = _zz_right_states(engine, ref_state, struct, q0l, q1l, kd, ad)
+    evals, ov2_t = 0, None
+    for _ in range(pairs):
+        kd, ad, _, _, ev_f, l_buf = _zz_forward(
+            engine, rotoselect, prefix_state, ref_state, struct, q0l, q1l,
+            kd, ad, sel, r_buf)
+        kd, ad, ov2_t, ev_b, r_buf = _zz_backward(
+            engine, rotoselect, prefix_state, ref_state, struct, q0l, q1l,
+            kd, ad, sel, l_buf)
+        evals += ev_f + ev_b
     cost = float("nan") if ov2_t is None else 1.0 - float(ov2_t)
     return kd.cpu().numpy().astype(np.int32), ad.cpu().numpy(), cost, evals
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import glob
 import gzip
+import json
 import logging
 import os
 import shutil
@@ -111,6 +112,22 @@ def save_circuit(circuit, name_prefix, directory=None):
     return path
 
 
+def load_circuit(path, base_dir):
+    """The circuit a record names: gzipped QASM at `path`, a path relative
+    to `base_dir` (the records file's directory) unless absolute, with
+    classical operations dropped."""
+    with gzip.open(os.path.join(base_dir, path), "rt") as f:
+        return make_quantum_only_circuit(qasm.loads(f.read()))
+
+
+def read_records(path):
+    """The JSON records of a JSONL file, [] if there is none."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
 def newest_checkpoint(ckdir):
     """The path of the newest `<layer>.pkl` in `ckdir`, or None."""
     pkls = glob.glob(os.path.join(ckdir, "*.pkl"))
@@ -119,11 +136,13 @@ def newest_checkpoint(ckdir):
     return max(pkls, key=lambda p: int(os.path.basename(p)[:-4]))
 
 
-def compile_with_recovery(compiler, ckdir, every, device=None):
-    """compiler.compile(), checkpointed every `every` layers into `ckdir`
-    and resumed from its newest checkpoint where one exists
-    (`benchmarks/_common.py:59-102`). `every` <= 0 compiles without
-    checkpoints.
+def compile_with_recovery(compiler, ckdir, every, device=None,
+                          **compile_kwargs):
+    """compiler.compile(**compile_kwargs), checkpointed every `every`
+    layers into `ckdir` and resumed from its newest checkpoint where one
+    exists (`benchmarks/_common.py:59-102`). `every` <= 0 compiles without
+    checkpoints. A resumed compile ignores compile_kwargs (such as
+    initial_ansatz): they are in the checkpointed state already.
 
     A compile that reaches its stop removes `ckdir`, so a later run starts
     clean; one stopped by ADAPTAQC_WALL_DEADLINE keeps its checkpoint for
@@ -132,7 +151,7 @@ def compile_with_recovery(compiler, ckdir, every, device=None):
     `result.resumed_from_layer` is the layer the compile resumed at, or
     None for a fresh start."""
     if every <= 0:
-        result = compiler.compile()
+        result = compiler.compile(**compile_kwargs)
         result.resumed_from_layer = None
         return compiler, result
     os.makedirs(ckdir, exist_ok=True)
@@ -140,10 +159,15 @@ def compile_with_recovery(compiler, ckdir, every, device=None):
     resumed_from = None
     if newest is not None:
         logger.warning(f"resuming from checkpoint {newest}")
+        if compile_kwargs:
+            logger.warning(f"a resumed compile ignores "
+                           f"{sorted(compile_kwargs)}: they are in the "
+                           f"checkpointed state")
         compiler = checkpoint.load(newest, device=device)
         resumed_from = compiler.resume_from_layer
+        compile_kwargs = {}
     result = compiler.compile(checkpoint_every=every, checkpoint_dir=ckdir,
-                              delete_prev_chkpt=True)
+                              delete_prev_chkpt=True, **compile_kwargs)
     if result.stop_reason != "deadline":
         shutil.rmtree(ckdir, ignore_errors=True)
     result.resumed_from_layer = resumed_from

@@ -46,7 +46,8 @@ def compile_target(qmps, max_chi=None, sufficient_cost=None, max_layers=None,
                    dtype=None, checkpoint_every=50, checkpoint_dir=None):
     """Compile `qmps` with the paper's configuration
     (`benchmarks/random_mps.py:65-129`); returns (result, wall seconds of
-    this process's compile). Checkpoints go to `checkpoint_dir` (default
+    this process's compile; `result.zigzag` is the minimiser's zigzag
+    flag). Checkpoints go to `checkpoint_dir` (default
     `local/checkpoints/<tag>`) every `checkpoint_every` layers, and a
     compile resumes from the newest one there."""
     if sufficient_cost is None:
@@ -86,6 +87,7 @@ def compile_target(qmps, max_chi=None, sufficient_cost=None, max_layers=None,
     compiler, result = _common.compile_with_recovery(
         compiler, ckdir, checkpoint_every, device=device)
     _common.sync(device)
+    result.zigzag = compiler.minimizer.zigzag  # the flag in force
     return result, time.perf_counter() - t0
 
 
@@ -129,7 +131,7 @@ def run_seed(seed, n, device, checkpoint_every=50, checkpoint_dir=None,
     total = result.time_taken
     return {
         "seed": seed,
-        "source": "synthetic",
+        "source": f"synthetic n={n}",
         "n_qubits": n,
         "overlap": result.overlap,
         "overlap_chi64_check": overlap64,
@@ -143,7 +145,7 @@ def run_seed(seed, n, device, checkpoint_every=50, checkpoint_dir=None,
         "wall_seconds_total": total,
         "evals_per_sec": result.cost_evaluations / max(total, 1e-9),
         "phase_timings": dict(result.phase_timings),
-        "zigzag": False,
+        "zigzag": result.zigzag,
         "local_cost": bool(_common.env("RMPS_LOCAL", "0", int)),
         "start_variant": _common.env("RMPS_START_VARIANT", 0, int),
         "sufficient_cost": _common.env("RMPS_SUFF", 9.5e-3, float),

@@ -4,7 +4,7 @@
 
 (`--only` runs the named phases alone, for work on one of them; the whole
 run, with no arguments, is the one that prints the result lines.) Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
-(sm_90a) and runs thirteen phases, each printing lines that start with its
+(sm_90a) and runs fifteen phases, each printing lines that start with its
 name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
@@ -112,6 +112,15 @@ name; any failure exits non-zero:
             perform_final_minimisation=True), and Rotosolve layers
             subsampled by rotosolve_fraction=0.5; a complex128 MPS compile
             at n=10 on the card, which takes the counted non-kernel routes
+  zigzag    the opt-in sweep modes at bench.py's shape (n=50, chi=64,
+            12 dressed-CNOT layers, Rotoselect): the first zigzag forward
+            cycle against the standard sweep (kinds equal, angles 1e-5);
+            sweep_zigzag_until_converged's state against apply_all at its
+            angles (1e-4); the env-cached sweep against the full-chain
+            sweep (complex128 kinds equal, angles 1e-8; complex64 costs
+            1e-4) with no K1 launch; K2-K4 launches of a zigzag pair
+            against two standard cycles; ms a cycle of each mode in turns;
+            at chi=128 the first forward cycle and the ms of each mode
   workloads the scripts of adaptaqc_tpu_torch/workloads as a user runs
             them, each its own process: random_mps at n=50 stopped by a
             20 s deadline with its checkpoint, a second process resuming it
@@ -120,6 +129,13 @@ name; any failure exits non-zero:
             each launching every kernel; then bench_sweep's evals/s, the
             readme, simple_sv and advanced_sv example twins to their
             floors, and entry()'s cost against the CPU's
+  refine    the warm-start scripts on the workloads phase's n=50 records
+            (alone: on its own compiles, each stopped by a deadline):
+            refine and spin_refine at chi=64, 2 more layers under a
+            deadline, start from the saved circuit (first cost at most 1 -
+            its overlap + 1e-3, final overlap no lower than its overlap -
+            1e-3); reverify_spin of the refined spin circuit at chi=128
+            within 1e-3 of its record; summarize counts every record
 
 The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
@@ -3246,6 +3262,12 @@ def record_line(tag, rec):
         {k: rec[k] for k in keys if k in rec})
 
 
+def workloads_dir():
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "local",
+                        "chip_smoke_workloads")
+
+
 def phase_workloads(torch, card, dev="cuda", n=50, spin_steps=3,
                     sweep_shape=(50, 64)):
     """The workload scripts as a user runs them, each in its own process: the n=50
@@ -3260,8 +3282,7 @@ def phase_workloads(torch, card, dev="cuda", n=50, spin_steps=3,
     import re
     import shutil
     from adaptaqc_tpu_torch.workloads import _common, bench_sweep, entry
-    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "local", "chip_smoke_workloads")
+    workdir = workloads_dir()
     shutil.rmtree(workdir, ignore_errors=True)
     os.makedirs(workdir)
     procs = []
@@ -3352,7 +3373,354 @@ def phase_workloads(torch, card, dev="cuda", n=50, spin_steps=3,
           f" {TOL_ENTRY}", flush=True)
     check(np.isfinite(cost) and abs(cost - ref) < TOL_ENTRY,
           f"entry() cost {cost} vs {ref}")
-    shutil.rmtree(workdir, ignore_errors=True)
+    return workdir  # its records feed the refine phase, which removes it
+
+
+# ---------------------------------------------------------------- zigzag
+TOL_ZZ_ANGLE = 1e-5      # first zigzag forward cycle vs the standard sweep
+TOL_ZZ_STATE = 1e-4      # 1 - normalised |<a|b>|^2, zigzag state vs apply_all
+TOL_ENV_ANGLE_F64 = 1e-8  # env-cached vs full-chain sweep, complex128
+TOL_ENV_COST = 1e-4      # env-cached vs full-chain sweep's cost, complex64
+ZZ_CYCLES = 4            # sweep_zigzag_until_converged's cycle budget
+
+
+def _event_ms(torch, fn):
+    """(fn(), its milliseconds by CUDA events, the card synchronised)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _norm_infidelity(mps_core, a, b):
+    """1 - |<a|b>|^2 / (<a|a> <b|b>)."""
+    ab = complex(mps_core.mps_dot(a, b))
+    aa = float(mps_core.mps_dot(a, a).real)
+    bb = float(mps_core.mps_dot(b, b).real)
+    return 1.0 - abs(ab) ** 2 / max(aa * bb, 1e-30)
+
+
+def _eigh_launches(ek):
+    return {fn.__name__: fn.launches
+            for fn in (ek.tridiag, ek.teig, ek.backtransform)}
+
+
+def zz_first_forward(sweeps, args):
+    """The standard sweep and a zigzag forward cycle given the R states at
+    the input angles, on the same inputs: (kinds equal, largest angle
+    gap)."""
+    engine, bl, rot, prefix, ref, kinds, q0, q1, angles, sel = args
+    sk, sa = sweeps.sweep(*args)[:2]
+    struct, q0l, q1l, sell = sweeps._host_structure(kinds, q0, q1, sel)
+    kd, ad = sweeps._device_tape(prefix, kinds, angles)
+    r_buf, _ = sweeps._zz_right_states(engine, ref, struct, q0l, q1l, kd, ad)
+    kd, ad = sweeps._zz_forward(engine, rot, prefix, ref, struct, q0l, q1l,
+                                kd, ad, sell, r_buf)[:2]
+    return (np.array_equal(kd.cpu().numpy(), sk),
+            float(np.abs(ad.cpu().numpy() - sa).max()))
+
+
+def zz_pair(torch, sweeps, args):
+    """One (forward, backward) zigzag pair after its R states were built:
+    (its milliseconds, its K2 launches, its K1 launches)."""
+    engine, bl, rot, prefix, ref, kinds, q0, q1, angles, sel = args
+    struct, q0l, q1l, sell = sweeps._host_structure(kinds, q0, q1, sel)
+    kd, ad = sweeps._device_tape(prefix, kinds, angles)
+    r_buf, _ = sweeps._zz_right_states(engine, ref, struct, q0l, q1l, kd, ad)
+    torch.cuda.synchronize()
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    from adaptaqc_tpu_torch.ops import env_kernel as envk
+    before = ek.tridiag.launches, envk.env_chain.launches
+
+    def pair():
+        k, a, _, _, _, l_buf = sweeps._zz_forward(
+            engine, rot, prefix, ref, struct, q0l, q1l, kd, ad, sell, r_buf)
+        return sweeps._zz_backward(engine, rot, prefix, ref, struct, q0l,
+                                   q1l, k, a, sell, l_buf)
+
+    _, ms = _event_ms(torch, pair)
+    return (ms, ek.tridiag.launches - before[0],
+            envk.env_chain.launches - before[1])
+
+
+def phase_zigzag(torch, mps_core, sweeps, compile_tape, ek, envk, card,
+                 chi=64, full=True):
+    """The opt-in sweep modes at bench.py's shape (n=50, 12 dressed-CNOT
+    layers, Rotoselect, complex64) at bond dimension chi: the first zigzag forward
+    cycle against the standard sweep; with `full`, also
+    sweep_zigzag_until_converged against apply_all at its angles, the
+    env-cached sweep against the full-chain sweep (complex128: kinds
+    equal, angles 1e-8; complex64: costs 1e-4), the launches of each mode
+    and the ms a cycle of each, by CUDA events, in turns."""
+    t_phase = time.perf_counter()
+    at, bl, args = sweep_setup(torch, mps_core, sweeps, compile_tape, chi,
+                               torch.complex64)
+    check(bl == at.padded_length, f"zigzag needs one block: {bl}")
+    same, gap = zz_first_forward(sweeps, args)
+    print(f"zigzag: chi={chi} first forward cycle vs the standard sweep: "
+          f"kinds equal {same}, largest angle gap {gap:.3e} (tol "
+          f"{TOL_ZZ_ANGLE}) on {card}", flush=True)
+    check(same and gap <= TOL_ZZ_ANGLE,
+          f"zigzag first forward cycle at chi={chi}: kinds {same}, "
+          f"angles {gap}")
+    if not full:  # in turns; the first pair also grows the allocator
+        ms = {"standard": [], "zigzag": []}
+        for _ in range(2):
+            ms["standard"].append(round(_event_ms(
+                torch, lambda: sweeps.sweep(*args))[1], 4))
+            ms["zigzag"].append(round(zz_pair(torch, sweeps, args)[0] / 2,
+                                      4))
+        print(f"zigzag: chi={chi} ms a cycle in turns (standard, zigzag, "
+              f"twice): {json.dumps(ms)} ({time.perf_counter() - t_phase:.1f}"
+              f" s) on {card}", flush=True)
+        return
+    engine, _, _, prefix, ref, kinds, q0, q1, angles, sel = args
+
+    # sweep_zigzag_until_converged: its state is prefix + tape at its angles
+    nk, na, cost, cycles, evals, state, cost0 = \
+        sweeps.sweep_zigzag_until_converged(engine, True, ZZ_CYCLES, prefix,
+                                            ref, kinds, q0, q1, angles, sel,
+                                            -np.inf, 1e-10)
+    fresh = sweeps.apply_all(engine, prefix, nk, q0, q1, na)
+    infid = _norm_infidelity(mps_core, state, fresh)
+    nrm2 = float(mps_core.mps_dot(state, state).real)
+    ov2 = abs(complex(mps_core.mps_dot(ref, state))) ** 2
+    state_cost = 1.0 - ov2 / nrm2
+    # the cost pins at 1 in float32 at this overlap: |<0|psi>|^2 moves
+    start = sweeps.apply_all(engine, prefix, kinds, q0, q1, angles)
+    ov2_0 = abs(complex(mps_core.mps_dot(ref, start))) ** 2
+    print(f"zigzag: chi={chi} sweep_zigzag_until_converged, {cycles} "
+          f"cycles, cost {cost0:.6e} -> {cost:.6e}, |<0|psi>|^2 {ov2_0:.6e} "
+          f"-> {ov2:.6e}; its state vs apply_all at its angles 1 - "
+          f"|<a|b>|^2 {infid:.3e}, its cost vs its state's "
+          f"{abs(cost - state_cost):.3e} (tol {TOL_ZZ_STATE})", flush=True)
+    check(infid <= TOL_ZZ_STATE and abs(cost - state_cost) <= TOL_ZZ_STATE
+          and cost <= cost0 + 1e-3 and ov2 >= ov2_0,
+          f"zigzag state {infid}, cost {cost} vs {state_cost}, cost0 "
+          f"{cost0}, |<0|psi>|^2 {ov2_0} -> {ov2}")
+
+    # the env cache against the full chain: complex128, then complex64
+    env_engine = mps_core.sweep_engine(1e-16, allow_env_cache=True)
+    _, _, args128 = sweep_setup(torch, mps_core, sweeps, compile_tape, chi,
+                                torch.complex128)
+    full128 = sweeps.sweep(*args128)
+    env128 = sweeps.sweep(env_engine, *args128[1:])
+    gap128 = float(np.abs(full128[1] - env128[1]).max())
+    same128 = np.array_equal(full128[0], env128[0])
+    full64 = sweeps.sweep(*args)
+    reset_counts(ek, envk)
+    env64 = sweeps.sweep(env_engine, *args[1:])
+    env_k1 = envk.env_chain.launches
+    gap64 = float(np.abs(full64[1] - env64[1]).max())
+    print(f"zigzag: chi={chi} env-cached vs full-chain sweep: complex128 "
+          f"kinds equal {same128}, largest angle gap {gap128:.3e} (tol "
+          f"{TOL_ENV_ANGLE_F64}), costs {env128[2]:.12e} / {full128[2]:.12e};"
+          f" complex64 costs {env64[2]:.6e} / {full64[2]:.6e} (tol "
+          f"{TOL_ENV_COST}), largest angle gap {gap64:.3e}, kinds equal "
+          f"{np.array_equal(full64[0], env64[0])}; K1 launches of the "
+          f"env-cached sweep {env_k1}", flush=True)
+    check(same128 and gap128 <= TOL_ENV_ANGLE_F64,
+          f"env cache c128: kinds {same128}, angles {gap128}")
+    check(abs(env64[2] - full64[2]) <= TOL_ENV_COST,
+          f"env cache c64 cost {env64[2]} vs {full64[2]}")
+    check(env_k1 == 0, f"the env-cached sweep launched K1 {env_k1} times")
+
+    # launches: two standard cycles against one zigzag pair
+    reset_counts(ek, envk)
+    sweeps.sweep_n_cycles(*args[:3], 2, *args[3:])
+    std2 = _eigh_launches(ek)
+    _, pair_k2, pair_k1 = zz_pair(torch, sweeps, args)
+    two_q = int(sum(sweeps.sv_core.is_two_qubit(int(k)) for k in at.kinds))
+    print(f"zigzag: chi={chi} K2-K4 launches: two standard cycles "
+          f"{json.dumps(std2)}, one zigzag pair {pair_k2} each "
+          f"({two_q} two-qubit entries, G)", flush=True)
+    check(0.45 <= pair_k2 / max(std2["tridiag"], 1) <= 0.55,
+          f"a zigzag pair launched K2 {pair_k2} times against "
+          f"{std2['tridiag']} for two standard cycles")
+
+    # ms a cycle, in turns: standard, zigzag, env cache, then again
+    times = {"standard": [], "zigzag": [], "env_cache": []}
+    k1 = {"zigzag": pair_k1 / 2}
+    for _ in range(2):
+        reset_counts(ek, envk)
+        times["standard"].append(_event_ms(
+            torch, lambda: sweeps.sweep(*args))[1])
+        k1["standard"] = envk.env_chain.launches
+        times["zigzag"].append(zz_pair(torch, sweeps, args)[0] / 2)
+        reset_counts(ek, envk)
+        times["env_cache"].append(_event_ms(
+            torch, lambda: sweeps.sweep(env_engine, *args[1:]))[1])
+        k1["env_cache"] = envk.env_chain.launches
+    times = {k: [round(t, 4) for t in v] for k, v in times.items()}
+    print(f"zigzag: chi={chi} ms a cycle in turns (standard, zigzag, env "
+          f"cache, twice): {json.dumps(times)}; K1 launches a cycle "
+          f"{json.dumps(k1)} ({time.perf_counter() - t_phase:.1f} s) on "
+          f"{card}", flush=True)
+    check(all(np.isfinite(v).all() for v in times.values()),
+          "a mode gave no time")
+
+
+# ---------------------------------------------------------------- refine
+REFINE_DEADLINE = 6      # s, each refinement's compile
+REFINE_OWN_DEADLINES = (15, 10)  # s: --only refine's own random-MPS and
+# spin-chain compiles
+TOL_REFINE = 1e-3        # the warm start's first cost and the final overlap
+TOL_REVERIFY = 1e-3      # reverify_spin vs the refined record's overlap
+
+
+def _deadline(seconds):
+    """ADAPTAQC_WALL_DEADLINE `seconds` from now, for _with_env."""
+    return {"ADAPTAQC_WALL_DEADLINE": str(time.time() + seconds)}
+
+
+def _with_env(values, fn):
+    """fn() with the environment variables `values` set, then the
+    variables as they were."""
+    import os
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def refine_records(workdir, dev, n=50, spin_steps=3):
+    """The records the refine phase starts from, in workdir: the workloads
+    phase's (rmps.jsonl, spin.jsonl) where it ran, else a random-MPS
+    compile and a spin-chain compile made here, each stopped by its
+    deadline. Returns (random-MPS records path, spin-chain records
+    path)."""
+    import os
+    from adaptaqc_tpu_torch.workloads import (_common, random_mps,
+                                              spin_chain)
+    rmps = os.path.join(workdir, "rmps.jsonl")
+    spin = os.path.join(workdir, "spin.jsonl")
+    if os.path.exists(rmps) and os.path.exists(spin):
+        return rmps, spin
+    os.makedirs(workdir, exist_ok=True)
+    circuits = os.path.join(workdir, "circuits")
+    rec = _with_env(_deadline(REFINE_OWN_DEADLINES[0]),
+                    lambda: random_mps.run_seed(1, n, dev, checkpoint_every=0,
+                                                circuits_dir=circuits))
+    _common.append_record(rmps, json.dumps(rec))
+    rec = _with_env(_deadline(REFINE_OWN_DEADLINES[1]),
+                    lambda: spin_chain.run(n, spin_steps, SPIN["dt"], dev,
+                                           checkpoint_every=0,
+                                           circuits_dir=circuits))
+    _common.append_record(spin, json.dumps(rec))
+    return rmps, spin
+
+
+def phase_refine(torch, card, workdir, dev="cuda", n=50, spin_steps=3):
+    """The warm-start scripts on the n=50 records in workdir
+    (refine_records):
+    refine (REFINE_CHI=64, 2 more layers, under a deadline) and
+    spin_refine (the same) start from the saved circuits, reverify_spin
+    re-measures the refined spin circuit at chi=128, and summarize counts
+    the records. Each compile's first recorded cost is at most 1 - the
+    saved circuit's overlap + 1e-3, and its final overlap no lower than
+    that overlap - 1e-3."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    from adaptaqc_tpu_torch.workloads import (_common, refine, reverify_spin,
+                                              spin_refine, summarize)
+    t_phase = time.perf_counter()
+    rmps_src, spin_src = refine_records(workdir, dev, n, spin_steps)
+    rdir = os.path.join(workdir, "refine")
+    os.makedirs(rdir, exist_ok=True)
+    rmps = os.path.join(rdir, "results_random_mps.jsonl")
+    spin = os.path.join(rdir, "results_spin_chain.jsonl")
+    shutil.copy(rmps_src, rmps)
+    shutil.copy(spin_src, spin)
+    circuits = os.path.join(rdir, "circuits")
+    knobs = {"REFINE_CHI": "64", "REFINE_LAYERS": "2",
+             "SPIN_REFINE_CHI": "64", "SPIN_REFINE_LAYERS": "2",
+             "RMPS_CROSS_ENGINE": "0", "SPIN_CROSS_ENGINE": "0"}
+
+    src = {r["circuit"]: r for r in _common.read_records(rmps)}
+    path, _ = refine.best_saved_circuit(1, f"synthetic n={n}", rmps)
+    ov64 = src[path]["overlap_chi64_check"]
+    t0 = time.perf_counter()
+    rec, res = _with_env({**knobs, **_deadline(REFINE_DEADLINE)},
+                         lambda: refine.refine(1, n, dev, rmps,
+                                               checkpoint_every=0,
+                                               circuits_dir=circuits))
+    _common.append_record(rmps, json.dumps(rec))
+    first = res.global_cost_history[0]
+    print(f"refine: random_mps n={n} seed 1 from {os.path.basename(path)} "
+          f"(chi=64 check {ov64:.6f}): first cost {first:.6f} (<= "
+          f"{1 - ov64 + TOL_REFINE:.6f}), overlap {rec['overlap']:.6f}, chi64"
+          f" check {rec['overlap_chi64_check']:.6f}, {rec['layers']} layers,"
+          f" stopped {rec['stopped']}, launches "
+          f"{json.dumps(rec['launches'])}, {time.perf_counter() - t0:.1f} s "
+          f"on {card}", flush=True)
+    check(first <= 1 - ov64 + TOL_REFINE
+          and rec["overlap"] >= ov64 - TOL_REFINE,
+          f"refine did not start from the saved circuit: first cost {first},"
+          f" overlap {rec['overlap']}, saved {ov64}")
+    check(all(v > 0 for v in rec["launches"].values())
+          or torch.device(dev).type != "cuda",  # a CPU rehearsal
+          f"refine did not launch every kernel: {rec['launches']}")
+
+    workload = f"xxz_trotter_n{n}_steps{spin_steps}_dt{SPIN['dt']}"
+    path, spin_ov = spin_refine.best_saved_circuit(workload, spin)
+    t0 = time.perf_counter()
+    rec, res = _with_env({**knobs, **_deadline(REFINE_DEADLINE)},
+                         lambda: spin_refine.refine(
+                             n, spin_steps, SPIN["dt"], dev, spin,
+                             checkpoint_every=0, circuits_dir=circuits))
+    _common.append_record(spin, json.dumps(rec))
+    first = res.global_cost_history[0]
+    print(f"refine: spin_refine {workload} from {os.path.basename(path)} "
+          f"(overlap {spin_ov:.6f}): first cost {first:.6f}, overlap "
+          f"{rec['overlap']:.6f}, {rec['layers']} layers, stopped "
+          f"{rec['stopped']}, launches {json.dumps(rec['launches'])}, "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    check(first <= 1 - spin_ov + TOL_REFINE
+          and rec["overlap"] >= spin_ov - TOL_REFINE,
+          f"spin_refine did not start from the saved circuit: first cost "
+          f"{first}, overlap {rec['overlap']}, saved {spin_ov}")
+
+    t0 = time.perf_counter()
+    again = _with_env({"REVERIFY_CHI": "128"}, lambda: reverify_spin.reverify(
+        rec["circuit"], n, spin_steps, SPIN["dt"], dev))
+    _common.append_record(spin, json.dumps(again))
+    gap = abs(again["overlap"] - rec["overlap"])
+    print(f"refine: reverify_spin at chi=128: overlap {again['overlap']:.6f}"
+          f" against the refined record's {rec['overlap']:.6f} (|diff| "
+          f"{gap:.2e}, tol {TOL_REVERIFY}), center-gauge "
+          f"{again['independent_engine_overlap']:.6f}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(gap <= TOL_REVERIFY, f"reverify_spin {again['overlap']} vs "
+                               f"{rec['overlap']}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summarize.main(["--results-dir", rdir, "--source",
+                        f"synthetic n={n}"])
+    summary = json.loads(buf.getvalue())
+    runs = len(_common.read_records(rmps))
+    rows = len(_common.read_records(spin))
+    print(f"refine: summarize: {summary['random_mps']['runs']} random-MPS "
+          f"runs (of {runs} records), {len(summary['spin_chain'])} spin-chain"
+          f" rows (of {rows}), {len(summary['fig5_cz'])} fig5 workloads "
+          f"({time.perf_counter() - t_phase:.1f} s in the phase)",
+          flush=True)
+    check(summary["random_mps"]["runs"] == runs
+          and len(summary["spin_chain"]) == rows,
+          f"summarize counted {summary['random_mps']['runs']} / "
+          f"{len(summary['spin_chain'])} of {runs} / {rows}")
 
 
 def main():
@@ -3436,9 +3804,23 @@ def main():
     if wanted("optim"):
         f64 = phase_optim(torch, port, card)
         done("optim")
+    if wanted("zigzag"):
+        phase_zigzag(torch, mps_core, sweeps, compile_tape, ek, envk, card)
+        phase_zigzag(torch, mps_core, sweeps, compile_tape, ek, envk, card,
+                     chi=128, full=False)
+        done("zigzag")
     if wanted("workloads"):
         phase_workloads(torch, card)
         done("workloads")
+    if wanted("refine"):
+        import shutil
+        if not wanted("workloads"):  # alone: it makes its own records
+            shutil.rmtree(workloads_dir(), ignore_errors=True)
+        phase_refine(torch, card, workloads_dir())
+        done("refine")
+    if wanted("workloads") or wanted("refine"):
+        import shutil
+        shutil.rmtree(workloads_dir(), ignore_errors=True)
     print(f"chip_smoke: wall seconds by phase {json.dumps(walls)}, "
           f"{sum(walls.values()):.1f} in all", flush=True)
 
@@ -3484,7 +3866,7 @@ def main():
 
 
 PHASES = ("kernels", "hazard", "slice", "sweep", "sv", "sampling", "isl_mps",
-          "spin", "ladder", "reach", "optim", "workloads")
+          "spin", "ladder", "reach", "optim", "zigzag", "workloads", "refine")
 
 
 def parse_only(argv):

@@ -69,10 +69,28 @@ def test_workloads_examples_and_utilities_are_among_those_imported():
         adaptaqc_tpu_torch.__path__, "adaptaqc_tpu_torch.")}
     for mod in ("workloads._common", "workloads.random_mps",
                 "workloads.spin_chain", "workloads.bench_sweep",
-                "workloads.entry", "examples.readme_example",
+                "workloads.entry", "workloads.refine",
+                "workloads.spin_refine", "workloads.reverify_spin",
+                "workloads.summarize", "examples.readme_example",
                 "examples.simple_sv_example", "examples.advanced_sv_example",
                 "examples.simple_mps_example",
                 "examples.advanced_mps_example", "utils.utilityfunctions",
                 "utils.hamiltonians", "utils.gate_tomography",
                 "utils.fixed_ansatz_circuits", "utils.tenpy_interop"):
         assert f"adaptaqc_tpu_torch.{mod}" in names
+
+
+def test_zigzag_and_env_cache_import_without_jax():
+    """The zigzag sweeps and the incremental probe environments are the
+    port's own: they import with JAX made unimportable."""
+    script = ("import sys\nsys.modules['jax'] = None\n"
+              "sys.modules['adaptaqc_tpu'] = None\n"
+              "from adaptaqc_tpu_torch.optim.sweeps import (EnvOps, "
+              "sweep_zigzag_until_converged, sweep_zigzag_n_cycles)\n"
+              "from adaptaqc_tpu_torch.backends.mps_core import (SweepEnv, "
+              "_env_init, _env_touch, _env_probe)\nprint('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

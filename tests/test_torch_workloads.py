@@ -125,13 +125,30 @@ def test_random_mps_record_has_the_reference_keys(tmp_path, monkeypatch):
     own = {"device", "stopped", "resumed_from_layer", "launches",
            "qubit_pair_history", "wall_seconds_total"}
     assert _reference_record_keys("random_mps.py") | own == set(rec)
-    assert rec["source"] == "synthetic" and rec["platform"] == "cpu"
+    assert rec["source"] == "synthetic n=4" and rec["platform"] == "cpu"
     assert rec["working_chi"] == 4
     assert rec["launches"] == {"env_chain": 0, "tridiag": 0, "teig": 0,
                                "backtransform": 0}  # CPU: plain versions
     assert abs(rec["overlap_chi64_check"] - rec["overlap"]) < 1e-5
     assert abs(rec["independent_engine_overlap"] - rec["overlap"]) < 1e-5
     assert os.path.exists(rec["circuit"])
+
+
+@pytest.mark.parametrize("zigzag", ["0", "1"])
+def test_random_mps_record_source_and_zigzag(tmp_path, monkeypatch, zigzag):
+    """The record's source is the JAX script's for a synthetic target
+    ("synthetic n=<n>", which refine.py looks records up by), and its
+    zigzag is the flag the minimiser ran under (ADAPTAQC_ZIGZAG), as
+    benchmarks/random_mps.py writes them."""
+    monkeypatch.setenv("RMPS_CHI", "4")
+    monkeypatch.setenv("RMPS_LAYERS", "1")
+    monkeypatch.setenv("RMPS_CROSS_ENGINE", "0")
+    monkeypatch.setenv("ADAPTAQC_ZIGZAG", zigzag)
+    with cplx.verification_eigh():
+        rec = random_mps.run_seed(2, 4, "cpu", checkpoint_every=0,
+                                  circuits_dir=str(tmp_path))
+    assert rec["source"] == "synthetic n=4"
+    assert rec["zigzag"] is (zigzag == "1")
 
 
 def test_spin_chain_workload_record_and_magnetisation(tmp_path, monkeypatch):
