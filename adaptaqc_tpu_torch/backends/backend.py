@@ -71,42 +71,62 @@ class SVBackend(AQCBackend):
 
     :param device: torch device of every engine state ("cpu", "cuda", ...).
     :param dtype: complex dtype of the engine (complex64 by default).
+    :param mesh: optional (dp, tp) DeviceMesh of parallel/mesh.make_mesh,
+        inside ranks started by parallel/mesh.launch. Every engine state is
+        then tp-sharded over its amplitude axis and pair batches are
+        dp-sharded (parallel/sv_sharded.py); results match the unsharded
+        engine (tests/test_torch_mesh.py).
     """
 
     engine_name = "sv"
 
-    def __init__(self, device="cuda", dtype: torch.dtype = None):
+    def __init__(self, device="cuda", dtype: torch.dtype = None, mesh=None):
         self.device = torch.device(device)
         self.dtype = dtype or config.DEFAULT_DTYPE
+        self.mesh = mesh
+
+    @property
+    def _engine(self):
+        """sv_core, or under a mesh sv_sharded with the mesh bound (the same
+        names and arguments)."""
+        if self.mesh is None:
+            return sv_core
+        from ..parallel import mesh as pmesh
+        from ..parallel import sv_sharded
+        return pmesh.OnMesh(sv_sharded, self.mesh)
 
     # ------------------------------------------------------- engine plumbing
     def initial_state(self, circuit: Circuit, n: int):
         """Engine state for the leading state-injection instruction, if
         any, else |0...0>."""
         if circuit.data and circuit.data[0].name == "set_statevector":
-            return sv_core.state_from_vector(circuit.data[0].payload,
-                                             self.dtype, self.device)
+            state = sv_core.state_from_vector(circuit.data[0].payload,
+                                              self.dtype, self.device)
+            if self.mesh is None:
+                return state
+            from ..parallel import mesh as pmesh
+            return pmesh.shard_state(self.mesh, state)
         if circuit.data and circuit.data[0].name == "set_mps":
             raise ValueError("SV backend cannot consume an MPS target")
-        return sv_core.zero_state(n, self.dtype, self.device)
+        return self._engine.zero_state(n, self.dtype, self.device)
 
     def run_tape(self, state, tape: Tape):
-        return sv_core.apply_tape(state, tape.kinds, tape.q0, tape.q1,
-                                  tape.angles)
+        return self._engine.apply_tape(state, tape.kinds, tape.q0, tape.q1,
+                                       tape.angles)
 
     def run_tape_adjoint(self, state, tape: Tape):
-        return sv_core.apply_tape_adjoint(state, tape.kinds, tape.q0,
-                                          tape.q1, tape.angles)
+        return self._engine.apply_tape_adjoint(state, tape.kinds, tape.q0,
+                                               tape.q1, tape.angles)
 
     def state_of(self, compiler):
         return compiler._current_state()
 
     def sweep_engine(self):
-        return sv_core.sweep_engine()
+        return self._engine.sweep_engine()
 
     def zero_ref(self, compiler):
-        return sv_core.zero_state(compiler.full_circuit.num_qubits,
-                                  self.dtype, self.device)
+        return self._engine.zero_state(compiler.full_circuit.num_qubits,
+                                       self.dtype, self.device)
 
     # ----------------------------------------------------------- cost layer
     def evaluate_global_cost(self, compiler):
@@ -116,8 +136,9 @@ class SVBackend(AQCBackend):
         the full-cost sweep optimises them on this engine)."""
         state = self.state_of(compiler)
         if not compiler.soften_global_cost:
-            return float(sv_core.global_cost(state))
-        g, _, h1 = sv_core.full_cost_terms(state, self.zero_ref(compiler))
+            return float(self._engine.global_cost(state))
+        g, _, h1 = self._engine.full_cost_terms(state,
+                                                self.zero_ref(compiler))
         return float(g) - softening_alpha(compiler) * float(h1)
 
     def evaluate_local_cost(self, compiler):
@@ -130,20 +151,20 @@ class SVBackend(AQCBackend):
     def measure_qubit_expectation_values(self, compiler):
         """<Z_q> of every qubit (one device sync)."""
         state = self.state_of(compiler)
-        return sv_core.z_expectations(
+        return self._engine.z_expectations(
             state, compiler.full_circuit.num_qubits).cpu().numpy().tolist()
 
     # -------------------------------------------------------- analysis layer
     def all_pair_rdms(self, state, pairs):
         """Host (4, 4) RDMs of the pairs, computed on the device and read
-        back together (one sync)."""
-        return list(sv_core.all_pair_rdms(state, pairs).cpu().numpy())
+        back together (one sync); under a mesh the pairs are dp-sharded."""
+        return list(self._engine.all_pair_rdms(state, pairs).cpu().numpy())
 
     def two_qubit_rdm(self, circuit_or_compiler, q1, q2, state=None):
         if state is None:
             state = self.state_of(circuit_or_compiler)
         lo, hi = min(q1, q2), max(q1, q2)
-        return sv_core.rdm2(state, lo, hi).cpu().numpy()
+        return self._engine.rdm2(state, lo, hi).cpu().numpy()
 
 
 class MPSBackend(AQCBackend):
@@ -159,24 +180,52 @@ class MPSBackend(AQCBackend):
         tape execution (one device sync each).
     :param device: torch device of every engine state ("cpu", "cuda", ...).
     :param dtype: complex dtype of the engine (complex64 by default).
+    :param mesh: optional (dp, tp) DeviceMesh of parallel/mesh.make_mesh,
+        inside ranks started by parallel/mesh.launch: every engine MPS is
+        then tp-sharded over its bond (chi) axis, the sweeps' environment
+        chains and observables contract over the shards with collectives,
+        and each two-qubit apply solves its replicated Gram with K2-K4 on
+        every rank (parallel/mps_sharded.py). The env-chain kernel and the
+        incremental environments do not run under a mesh, as in the JAX
+        package. Results match the unsharded engine.
     """
 
     engine_name = "mps"
 
     def __init__(self, truncation_threshold: float = DEFAULT_TRUNCATION_THRESHOLD,
                  max_chi: Optional[int] = None, mps_log_data: bool = False,
-                 device="cuda", dtype: torch.dtype = None):
+                 device="cuda", dtype: torch.dtype = None, mesh=None):
         self.truncation_threshold = float(truncation_threshold)
         self.max_chi = max_chi
         self.mps_log_data = mps_log_data
         self.device = torch.device(device)
         self.dtype = dtype or config.DEFAULT_DTYPE
+        self.mesh = mesh
+
+    @property
+    def _engine(self):
+        """mps_core, or under a mesh mps_sharded with the mesh bound (the
+        same names and arguments)."""
+        if self.mesh is None:
+            return mps_core
+        from ..parallel import mesh as pmesh
+        from ..parallel import mps_sharded
+        return pmesh.OnMesh(mps_sharded, self.mesh)
+
+    def _shard(self, state):
+        """An engine MPS as the backend holds it: chi-sharded under a
+        mesh."""
+        if self.mesh is None:
+            return state
+        from ..parallel import mesh as pmesh
+        return pmesh.shard_mps(self.mesh, state)
 
     @staticmethod
     def truncated_weight(state) -> float:
         """Total relative Schmidt weight discarded by the 2q applies that
         produced `state` (one device sync)."""
-        return float(state.trunc)
+        from ..parallel.mesh import local
+        return float(local(state.trunc))
 
     def chi_for(self, n: int) -> int:
         cap = self.max_chi or DEFAULT_MAX_CHI
@@ -190,36 +239,41 @@ class MPSBackend(AQCBackend):
             if isinstance(payload, mps_core.MPS):
                 if payload.chi != chi:
                     raise ValueError("cached MPS chi mismatch")
-                return payload
-            return mps_core.from_qiskit_mps(payload, chi, **kw)
+                return self._shard(payload)
+            return self._shard(mps_core.from_qiskit_mps(payload, chi, **kw))
         if circuit.data and circuit.data[0].name == "set_statevector":
-            return mps_core.from_dense(circuit.data[0].payload, chi, **kw)
-        return mps_core.zero_mps(n, chi, **kw)
+            return self._shard(mps_core.from_dense(circuit.data[0].payload,
+                                                   chi, **kw))
+        return self._shard(mps_core.zero_mps(n, chi, **kw))
 
     def run_tape(self, state, tape: Tape):
-        out = mps_core.apply_tape(state, tape.kinds, tape.q0, tape.q1,
-                                  tape.angles, self.truncation_threshold)
+        out = self._engine.apply_tape(state, tape.kinds, tape.q0, tape.q1,
+                                      tape.angles, self.truncation_threshold)
         if self.mps_log_data:
             logger.info("mps_log_data: accumulated discarded Schmidt weight "
-                        f"= {float(out.trunc):.3e} (chi={out.chi})")
+                        f"= {self.truncated_weight(out):.3e} "
+                        f"(chi={out.chi})")
         return out
 
     def run_tape_adjoint(self, state, tape: Tape):
-        return mps_core.apply_tape_adjoint(state, tape.kinds, tape.q0,
-                                           tape.q1, tape.angles,
-                                           self.truncation_threshold)
+        return self._engine.apply_tape_adjoint(state, tape.kinds, tape.q0,
+                                               tape.q1, tape.angles,
+                                               self.truncation_threshold)
 
     def state_of(self, compiler):
         return compiler._current_state()
 
     def sweep_engine(self):
+        if self.mesh is not None:  # no environment cache under a mesh
+            return self._engine.sweep_engine(self.truncation_threshold)
         # allow_env_cache None: ADAPTAQC_ENVCACHE decides (off by default)
         return mps_core.sweep_engine(self.truncation_threshold,
                                      allow_env_cache=None)
 
     def zero_ref(self, compiler):
         n = compiler.full_circuit.num_qubits
-        return mps_core.zero_mps(n, self.chi_for(n), self.dtype, self.device)
+        return self._shard(mps_core.zero_mps(n, self.chi_for(n), self.dtype,
+                                             self.device))
 
     # ----------------------------------------------------------- cost layer
     def evaluate_global_cost(self, compiler):
@@ -229,8 +283,8 @@ class MPSBackend(AQCBackend):
         overlap sum."""
         state = self.state_of(compiler)
         if not compiler.soften_global_cost:
-            return float(mps_core.global_cost_normalized(state))
-        cost, h1_sum = mps_core.softened_cost_terms(state)
+            return float(self._engine.global_cost_normalized(state))
+        cost, h1_sum = self._engine.softened_cost_terms(state)
         return float(cost) - softening_alpha(compiler) * float(h1_sum)
 
     def evaluate_local_cost(self, compiler):
@@ -242,13 +296,13 @@ class MPSBackend(AQCBackend):
 
     def measure_qubit_expectation_values(self, compiler):
         state = self.state_of(compiler)
-        return mps_core.z_expectations(state).cpu().numpy().tolist()
+        return self._engine.z_expectations(state).cpu().numpy().tolist()
 
     # -------------------------------------------------------- analysis layer
     def all_pair_rdms(self, state, pairs):
         """Host (4, 4) RDMs of the pairs (lower qubit as the low bit), read
         off one device-side (n, n, 4, 4) sweep."""
-        rhos = mps_core.all_pair_rdms(state).cpu().numpy()
+        rhos = self._engine.all_pair_rdms(state).cpu().numpy()
         return [rhos[min(a, b), max(a, b)]
                 for a, b in np.asarray(pairs).reshape(-1, 2).tolist()]
 

@@ -186,9 +186,9 @@ class AdaptCompiler(ApproximateCompiler):
     # --------------------------------------------------------- chi schedule
     def _check_schedule_fits_kernels(self, chis):
         """On a CUDA device the eigensolver and env-chain kernels take a
-        bounded bond dimension (ops/dispatch.py REACH: chi <= 2048, the
+        bounded bond dimension (ops/dispatch.py REACH: chi <= 4096, the
         env chain's streamed kernel and the eigensolver at m = 2 chi <=
-        4096, in complex64 and complex128; their plain versions on the
+        8192, in complex64 and complex128; their plain versions on the
         CPU have no cap), and a call above it raises: refuse a schedule whose
         stages exceed it before its first stage, not hours into it."""
         if self.backend.device.type != "cuda":
@@ -246,7 +246,7 @@ class AdaptCompiler(ApproximateCompiler):
                 backend = MPSBackend(
                     self.backend.truncation_threshold, int(chi),
                     self.backend.mps_log_data, device=self.backend.device,
-                    dtype=self.backend.dtype)
+                    dtype=self.backend.dtype, mesh=self.backend.mesh)
                 # an engine-MPS target is pinned to its padded chi by
                 # MPSBackend.initial_state: bring it to this stage's
                 stage_target = self.target
@@ -628,9 +628,16 @@ class AdaptCompiler(ApproximateCompiler):
         self.resume_from_layer = layer_count + 1
         current = timeit.default_timer() - start_time
         self.prev_checkpoint_time_taken = self.time_taken + current
+        # under a mesh every rank encodes (a sharded payload is gathered
+        # collectively) and rank 0 alone writes
+        data = pickle.dumps(self)
+        if getattr(self.backend, "mesh", None) is not None:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                return
         with open(os.path.join(checkpoint_dir, f"{layer_count}.pkl"),
                   "wb") as f:
-            pickle.dump(self, f)
+            f.write(data)
         if delete_prev_chkpt:
             try:
                 os.remove(os.path.join(
@@ -902,6 +909,10 @@ class AdaptCompiler(ApproximateCompiler):
         kw = dict(dtype=self.backend.dtype, device=self.backend.device)
         with cplx.verification_eigh():
             payload = qc.data[0].payload
+            if getattr(self.backend, "mesh", None) is not None:
+                # a target on the mesh: every rank re-simulates it whole
+                from ..parallel.mesh import unshard
+                payload = unshard(payload)
             if qc.data[0].name == "set_statevector":
                 target = mps_core.from_dense(payload, verify_chi, **kw)
             elif isinstance(payload, mps_core.MPS):

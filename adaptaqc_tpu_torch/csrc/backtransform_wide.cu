@@ -48,27 +48,30 @@
 //     Gathering all G partials in every CTA (the first version) took
 //     3,000-10,000 cycles a panel, more than the products (clock64()
 //     stamps, one H100).
-// Past the shared-memory fit (complex128 at m > kDoubleMaxF64 = 2816: at m
-// = 4096 a CTA's 256 rows of z take 147 KB, two panel buffers 139 KB) the
-// apply keeps one panel buffer and rows of z at a stride of kCols + 1
-// (226,816 bytes a CTA at m = 4096): the next panel's copy is issued once
-// this one's update is done, so its load is no longer hidden behind the
-// products, and the eight bank groups of a 16-byte row are each read once
-// a pass in both products. The arithmetic and its order are those of the
-// double-buffered route (the same bits at the same G); past m = 4096 (R >
-// 256) neither fits and the plan refuses before any launch.
-// complex64 runs both products on FP32 FFMA (no TF32). complex128 runs the
-// same kernel on double with both products on the fp64 tensor cores (DMMA,
-// mma.sync m8n8k4: full IEEE fp64, a complex product as four real ones):
-// on FFMA its partial Y took 2.7 cycles a DFMA a warp against the 2 of
-// the issue rate, and with the update about 2/3 of a panel (clock64()
-// stamps at m = 1024 on one H100). Sums are taken in a fixed order, so a
-// rerun gives the same bits; the bits depend on the cluster size G, which
-// the plan fixes by m and keep.
-
+// Past the shared-memory fit of two panel buffers (complex128 at m >
+// kDoubleMaxF64 = 2816: at m = 4096 a CTA's 256 rows of z take 147 KB, two
+// panel buffers 139 KB; complex64 at m > kDoubleMaxF32 = 5888) the apply
+// keeps one panel buffer and rows of z at a stride of kCols + 1 (226,816
+// bytes a CTA at complex128 m = 4096, 221,440 at complex64 m = 8192): the
+// next panel's copy is issued once this one's update is done, so its load
+// is no longer hidden behind the products, and the eight bank groups of a
+// 16-byte row are each read once a pass in both products. The arithmetic
+// and its order are those of the double-buffered route (the same bits at
+// the same G).
+// complex128 past m = 4096 (R > 256 rows a CTA of 16, which fit neither
+// route) takes the half route: panels of 8 reflectors and column tiles of
+// 16 (kNbHalf, kColsHalf), one panel buffer, rows of z at a stride of 17
+// and of the panel at 9, and a scratch of four warps' partial Y (230,528
+// bytes a CTA at m = 8192, R = 512). Its products run on DMMA m16n8k4
+// (dmma16, the full fp64 tensor rate): the partial Y^T = Z^T conj(V) as
+// one 16 x 8 tile a warp over every eighth group of four rows, summed
+// over the warps in a fixed tree through the scratch, and Z -= V W as 16-row
+// tiles a warp. The exchange and W = T Y are the other routes'.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -88,19 +91,46 @@ using adaptaqc::smem_addr;
 
 constexpr int kNb = 16;         // reflectors of a compact-WY panel
 constexpr int kCols = 32;       // output columns of a cluster
+constexpr int kNbHalf = 8;      // the same on the half route
+constexpr int kColsHalf = 16;
+constexpr int kRedWarps = 4;    // the half route's scratch: partial Y of
+                                // half the warps
 constexpr int kThreads = 256;   // a CTA, in both launches
 constexpr int kRowsCta = 128;   // rows a CTA aims at: G = ceil(m / 128),
 constexpr int kRowsSmall = 64;  // or ceil(m / 64) at m <= 512
 constexpr int kMaxCluster = 16;
 constexpr int kChunk = 128;     // rows the preparation stages at a time
 constexpr int kMaxBatch = 65535;
-constexpr int kPlanCache = 4096;
+constexpr int kPlanCache = 8192;
 constexpr int kDoubleMaxF64 = 2816;  // complex128 m past it: one buffer
                                      // (R = 176 rows a CTA of 16 and two
                                      // buffers: 222,912 bytes; 192 rows:
                                      // 240,128)
-static_assert(kNb == 16 && kCols == 32 && kThreads == 256,
-              "the register tiles below: 4 x 4 outputs a thread");
+constexpr int kSingleMaxF64 = 4096;  // complex128 m past it: the half route
+                                     // (R = 256: 226,816 bytes; 272 rows:
+                                     // 238,592)
+constexpr int kDoubleMaxF32 = 5888;  // complex64 m past it: one buffer
+                                     // (R = 368 rows on two buffers:
+                                     // 225,984 bytes; 384 rows: 235,264)
+static_assert(kNb == 16 && kCols == 32 && kThreads == 256 &&
+                  kNbHalf == 8 && kColsHalf == 16,
+              "the register tiles below: 4 x 4 outputs a thread; the half "
+              "route: one m16n8 tile of Y^T, 16-row tiles of Z");
+
+// The apply's route, by m and the complex element size alone: 0 double
+// (two panel buffers), 1 single (one buffer), 2 half (one buffer, panels
+// of kNbHalf, tiles of kColsHalf; complex128 only).
+__host__ __device__ inline int bt_route(int m, int esize) {
+  if (esize == 16)
+    return m <= kDoubleMaxF64 ? 0 : (m <= kSingleMaxF64 ? 1 : 2);
+  return m <= kDoubleMaxF32 ? 0 : 1;
+}
+__host__ __device__ inline int bt_nb(int m, int esize) {
+  return bt_route(m, esize) == 2 ? kNbHalf : kNb;
+}
+__host__ __device__ inline int bt_cols(int m, int esize) {
+  return bt_route(m, esize) == 2 ? kColsHalf : kCols;
+}
 
 template <typename T>
 struct Cplx;
@@ -152,24 +182,26 @@ __host__ __device__ inline size_t round16(size_t x) {
 }
 
 // The workspace of one matrix, in bytes from its start: the active count
-// and each panel's first reflector (ints), each panel's T (kNb x kNb,
+// and each panel's first reflector (ints), each panel's T (nb x nb,
 // row-major), then each panel's reflector block: G R rows (CTA g's rows,
 // g + l G for l < R, at rows g R + l) of ldv elements, entry i of a row the
-// panel's reflector i. ldv: the panel's kNb entries and 16 bytes more, so
-// a block's rows are 16-byte aligned and their stride is no power of two.
-// A block holds m + kMaxCluster - 1 rows, as many as G R reaches for any
-// cluster size, so the workspace depends on m alone.
+// panel's reflector i. nb: the route's panel (kNb, or kNbHalf on the half
+// route). ldv: the panel's nb entries and 16 bytes more, so a block's rows
+// are 16-byte aligned and their stride is no power of two. A block holds m
+// + kMaxCluster - 1 rows, as many as G R reaches for any cluster size, so
+// the workspace depends on m and the dtype alone.
 struct BtWs {
-  int npmax, ldv, slots;
+  int nb, npmax, ldv, slots;
   size_t t_off, v_off, t_bytes, v_bytes, total;
 };
 __host__ __device__ inline BtWs bt_ws(int m, int esize) {
   BtWs w;
-  w.npmax = (m - 1 + kNb - 1) / kNb;
-  w.ldv = kNb + 16 / esize;
+  w.nb = bt_nb(m, esize);
+  w.npmax = (m - 1 + w.nb - 1) / w.nb;
+  w.ldv = w.nb + 16 / esize;
   w.slots = m + kMaxCluster - 1;
   w.t_off = round16(4 * (size_t)(1 + w.npmax));
-  w.t_bytes = (size_t)kNb * kNb * esize;
+  w.t_bytes = (size_t)w.nb * w.nb * esize;
   w.v_off = w.t_off + (size_t)w.npmax * w.t_bytes;
   w.v_bytes = (size_t)w.slots * w.ldv * esize;
   w.total = w.v_off + (size_t)w.npmax * w.v_bytes;
@@ -179,43 +211,46 @@ __host__ __device__ inline BtWs bt_ws(int m, int esize) {
 // bt_apply_kernel's dynamic shared memory, offsets in complex elements:
 // the CTA's rows of z (Rp = R rounded up to 16, rows of ldz), nbuf panel
 // buffers (Rp rows of ldv), nbuf T, the partial Y of this CTA's columns
-// (c = g mod G) as every rank posts it (G x kNb x ncmax, ncmax = ceil(kCols
-// / G)), their sum (kNb x ncmax), W (kNb x kCols), then the panels' first
-// reflectors (ints). ldz = kCols + 4 on the double-buffered route: the
+// (c = g mod G) as every rank posts it (G x nb x ncmax, ncmax = ceil(cols
+// / G)), their sum (nb x ncmax), W (nb x cols), on the half route the
+// scratch of kRedWarps warps' partial Y (nb x cols each), then the panels'
+// first reflectors (ints). ldz = cols + 4 on the double-buffered route: the
 // eight rows a warp reads at once in the partial Y fall on the fewest bank
-// passes in either dtype; kCols + 1 on the single-buffered route
-// (complex128 alone), which needs the 3 elements a row back. The route is
-// fixed by m and the dtype alone (bt_single).
-__host__ __device__ inline bool bt_single(int m, int esize) {
-  return esize == 16 && m > kDoubleMaxF64;
-}
+// passes in either dtype; cols + 1 on the one-buffer routes, which need
+// the 3 elements a row back. The route is fixed by m and the dtype alone
+// (bt_route).
 struct BtSmem {
-  int Rp, ldz, ldv, ncmax, nbuf;
-  size_t zs, vb, tb, rv, yl, ws, k0, total_bytes;
+  int Rp, ldz, ldv, ncmax, nbuf, nb, cols;
+  size_t zs, vb, tb, rv, yl, ws, red, k0, total_bytes;
 };
 __host__ __device__ inline BtSmem bt_smem(int m, int G, int R, int esize) {
   BtSmem s;
-  s.nbuf = bt_single(m, esize) ? 1 : 2;
+  const int route = bt_route(m, esize);
+  s.nb = bt_nb(m, esize);
+  s.cols = bt_cols(m, esize);
+  s.nbuf = route == 0 ? 2 : 1;
   s.Rp = (R + 15) & ~15;
-  s.ldz = kCols + (s.nbuf == 1 ? 1 : 4);
-  s.ldv = kNb + 16 / esize;
-  s.ncmax = (kCols + G - 1) / G;
+  s.ldz = s.cols + (s.nbuf == 1 ? 1 : 4);
+  s.ldv = s.nb + 16 / esize;
+  s.ncmax = (s.cols + G - 1) / G;
   s.zs = 0;
   s.vb = s.zs + (size_t)s.Rp * s.ldz;
   s.tb = s.vb + (size_t)s.nbuf * s.Rp * s.ldv;
-  s.rv = s.tb + (size_t)s.nbuf * kNb * kNb;
-  s.yl = s.rv + (size_t)G * kNb * s.ncmax;
-  s.ws = s.yl + (size_t)kNb * s.ncmax;
-  s.k0 = s.ws + (size_t)kNb * kCols;
-  const int npmax = (m - 1 + kNb - 1) / kNb;
+  s.rv = s.tb + (size_t)s.nbuf * s.nb * s.nb;
+  s.yl = s.rv + (size_t)G * s.nb * s.ncmax;
+  s.ws = s.yl + (size_t)s.nb * s.ncmax;
+  s.red = s.ws + (size_t)s.nb * s.cols;
+  s.k0 = s.red + (route == 2 ? (size_t)kRedWarps * s.nb * s.cols : 0);
+  const int npmax = (m - 1 + s.nb - 1) / s.nb;
   s.total_bytes = s.k0 * esize + round16(4 * (size_t)npmax);
   return s;
 }
 
 // bt_prep_kernel's dynamic shared memory: the active list (m ints), then
-// a staged chunk of the panel, kNb rows of kChunk + 1 elements.
+// a staged chunk of the panel, nb rows of kChunk + 1 elements.
 __host__ __device__ inline size_t bt_prep_smem(int m, int esize) {
-  return round16(4 * (size_t)m) + (size_t)kNb * (kChunk + 1) * esize;
+  return round16(4 * (size_t)m) + (size_t)bt_nb(m, esize) * (kChunk + 1) *
+                                      esize;
 }
 
 // One level of the shuffle tree that sums x over the eight lanes of a
@@ -234,9 +269,10 @@ __device__ __forceinline__ void halve(V (&x)[16], int lane) {
 }
 
 // Grid: panels (npmax) x batch, kThreads a CTA. CTA p writes panel p's
-// reflector block and T; CTA 0 also the active count. A panel past the
-// active reflectors is left unwritten: the apply stops before it.
-template <typename T>
+// reflector block and T (panels of NB reflectors, the route's); CTA 0
+// also the active count. A panel past the active reflectors is left
+// unwritten: the apply stops before it.
+template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads)
     bt_prep_kernel(const typename Cplx<T>::V* __restrict__ vrows,
                    const typename Cplx<T>::V* __restrict__ tau,
@@ -257,11 +293,11 @@ __global__ void __launch_bounds__(kThreads)
   V* vblk = reinterpret_cast<V*>(ws + L.v_off + p * L.v_bytes);
   extern __shared__ __align__(16) unsigned char psm[];
   int* act = reinterpret_cast<int*>(psm);                       // m
-  V* tile = reinterpret_cast<V*>(psm + round16(4 * (size_t)m));  // kNb rows
+  V* tile = reinterpret_cast<V*>(psm + round16(4 * (size_t)m));  // NB rows
   constexpr int kLd = kChunk + 1;
   __shared__ int wcount[kThreads / 32];
-  __shared__ int kref[kNb];
-  __shared__ V gm[kNb * kNb];
+  __shared__ int kref[NB];
+  __shared__ V gm[NB * NB];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T zero = 0;
   const V czero = mk(zero, zero);
@@ -286,14 +322,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // wcount is written again
   }
   if (p == 0 && tid == 0) meta[0] = na;
-  const int s0 = p * kNb;
+  const int s0 = p * NB;
   if (s0 >= na) return;
-  const int pn = min(kNb, na - s0);
-  if (tid < kNb) kref[tid] = tid < pn ? act[s0 + tid] : m;  // m: no rows
+  const int pn = min(NB, na - s0);
+  if (tid < NB) kref[tid] = tid < pn ? act[s0 + tid] : m;  // m: no rows
   if (tid == 0) meta[1 + p] = act[s0];
   // the slots past m (g + l G >= m, l < R) are zero rows
-  for (int idx = tid; idx < G * kNb; idx += kThreads) {
-    const int g = idx / kNb, i = idx % kNb;
+  for (int idx = tid; idx < G * NB; idx += kThreads) {
+    const int g = idx / NB, i = idx % NB;
     for (int l = (m - g + G - 1) / G; l < R; ++l)
       vblk[((size_t)g * R + l) * L.ldv + i] = czero;
   }
@@ -303,18 +339,18 @@ __global__ void __launch_bounds__(kThreads)
   // reflector's entries (read along its row of vrows), then written to
   // the slots of their rows; G = V^H V, the strictly upper part, one entry
   // a thread with four partial sums (rows mod 4) combined in order
-  const int gi = tid / kNb, gj = tid % kNb;
+  const int gi = tid / NB, gj = tid % NB;
   V g4[4] = {czero, czero, czero, czero};
   for (int r0 = (kref[0] + 1) & ~(kChunk - 1); r0 < m; r0 += kChunk) {
-    for (int idx = tid; idx < kNb * kChunk; idx += kThreads) {
+    for (int idx = tid; idx < NB * kChunk; idx += kThreads) {
       const int i = idx / kChunk, rr = idx % kChunk, r = r0 + rr;
       const int k = kref[i];
       tile[i * kLd + rr] = (r < m && r > k) ? vrows[(size_t)k * m + r]
                                             : czero;
     }
     __syncthreads();
-    for (int idx = tid; idx < kChunk * kNb; idx += kThreads) {
-      const int rr = idx / kNb, i = idx % kNb, r = r0 + rr;
+    for (int idx = tid; idx < kChunk * NB; idx += kThreads) {
+      const int rr = idx / NB, i = idx % NB, r = r0 + rr;
       if (r < m)
         vblk[((size_t)(r % G) * R + r / G) * L.ldv + i] = tile[i * kLd + rr];
     }
@@ -328,30 +364,30 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the tile is staged again
   }
   if (gi < gj)
-    gm[gi * kNb + gj] = cadd(cadd(g4[0], g4[1]), cadd(g4[2], g4[3]));
+    gm[gi * NB + gj] = cadd(cadd(g4[0], g4[1]), cadd(g4[2], g4[3]));
   __syncthreads();
 
   // T by the zlarft recurrence: T[i][i] = tau_i, T[:i, i] = -tau_i
   // T[:i, :i] G[:i, i]; lane l holds row l
   if (warp == 0) {
-    V trow[kNb];
+    V trow[NB];
 #pragma unroll
-    for (int i = 0; i < kNb; ++i) {
+    for (int i = 0; i < NB; ++i) {
       V next = czero;
       if (i < pn) {
         const V ti = tau[kref[i]];
         V acc = czero;
 #pragma unroll
         for (int q = 0; q < i; ++q)
-          if (q >= lane) cfma(acc, trow[q], gm[q * kNb + i]);
+          if (q >= lane) cfma(acc, trow[q], gm[q * NB + i]);
         const V ta = cmul(ti, acc);
         next = lane < i ? mk(-ta.x, -ta.y) : (lane == i ? ti : czero);
       }
       trow[i] = next;
     }
-    if (lane < kNb) {
+    if (lane < NB) {
 #pragma unroll
-      for (int i = 0; i < kNb; ++i) tblk[lane * kNb + i] = trow[i];
+      for (int i = 0; i < NB; ++i) tblk[lane * NB + i] = trow[i];
     }
   }
 }
@@ -564,17 +600,144 @@ __device__ __forceinline__ void update_z(const double2* Vs,
   }
 }
 
-// Grid: ceil(keep / kCols) column tiles x G x batch, clusters of (1, G, 1):
-// cluster (x, b) applies every panel to columns [x kCols, x kCols + kCols)
-// of matrix b. R: the rows a CTA holds, ceil(m / G). The exchange of a
-// panel: column c of Y and W belongs to rank c mod G. Every rank posts its
+// The half route (complex128, panels of kNbHalf = 8, tiles of kColsHalf =
+// 16) on DMMA m16n8k4. The partial Y^T = Z^T conj(V) over rows [l0, R) of
+// a CTA's slab is one 16 x 8 tile (column c of Z, reflector i): warp w
+// takes the groups of four rows 4 (w + 8 j) from l0 rounded down to four,
+// four chains (Zr Vr, Zi Vi, Zi Vr, -Zr Vi) into their own accumulators,
+// the next group's operands loaded while this one's are used; rows before
+// l0 and past R weigh zero. The eight warps' tiles are then summed in a
+// fixed tree through `red` (kRedWarps tiles: warps 4-7 into 0-3, then 2-3
+// into 0-1, then 1 into 0; each add its own tile first). Warp 0 returns
+// the sum: y[j] is Y[yi[j]][yc[j]], four entries a lane.
+__device__ __forceinline__ void partial_y_half(const double2* Vs,
+                                               const double2* Zs, int ldv,
+                                               int ldz, int l0, int R,
+                                               int tid, double2* red,
+                                               double2 (&y)[4], int (&yi)[4],
+                                               int (&yc)[4]) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int c = lane >> 2;  // A's rows c and c + 8 (columns of Z)
+  const int k = lane & 3;   // A's column, B's row (the row in the group)
+  const int i = lane >> 2;  // B's column (the reflector)
+  const double2 zero2 = make_double2(0.0, 0.0);
+  double acc[4][4] = {};
+  auto load = [&](int l4, double2& v, double2& z0, double2& z1) {
+    const int l = l4 + k;
+    const bool in = l < R;
+    v = (l >= l0 && in) ? Vs[l * ldv + i] : zero2;
+    z0 = in ? Zs[l * ldz + c] : zero2;
+    z1 = in ? Zs[l * ldz + c + 8] : zero2;
+  };
+  int l4 = (l0 & ~3) + 4 * warp;
+  double2 v, z0, z1;
+  load(l4, v, z0, z1);
+  for (; l4 < R; l4 += 4 * (kThreads / 32)) {
+    double2 vn, z0n, z1n;
+    load(l4 + 4 * (kThreads / 32), vn, z0n, z1n);
+    adaptaqc::dmma16(acc[0], z0.x, z1.x, v.x);
+    adaptaqc::dmma16(acc[1], z0.y, z1.y, v.y);
+    adaptaqc::dmma16(acc[2], z0.y, z1.y, v.x);
+    adaptaqc::dmma16(acc[3], z0.x, z1.x, -v.y);
+    v = vn;
+    z0 = z0n;
+    z1 = z1n;
+  }
+  // D fragment j: row c (j < 2) or c + 8, column 2 k + (j & 1)
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    y[j] = make_double2(acc[0][j] + acc[1][j], acc[2][j] + acc[3][j]);
+  constexpr int kTile = kNbHalf * kColsHalf;
+#pragma unroll
+  for (int span = kRedWarps; span >= 1; span >>= 1) {
+    if (warp >= span && warp < 2 * span) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        red[(warp - span) * kTile + 4 * lane + j] = y[j];
+    }
+    __syncthreads();
+    if (warp < span) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double2 o = red[warp * kTile + 4 * lane + j];
+        y[j] = make_double2(y[j].x + o.x, y[j].y + o.y);
+      }
+    }
+    __syncthreads();  // red is written again by the next level
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    yc[j] = c + 8 * (j >> 1);
+    yi[j] = 2 * k + (j & 1);
+  }
+}
+
+// Z -= V W on the half route (Ws: kNbHalf x kColsHalf): warp w takes the
+// 16-row tiles t = w, w + 8, .. that reach past l0, both 8-column tiles of
+// each, Z += (-V) W with Z's fragment as the accumulator (two steps of four
+// reflectors); each thread stores only its rows at or past l0.
+__device__ __forceinline__ void update_z_half(const double2* Vs,
+                                              const double2* Ws, double2* Zs,
+                                              int ldv, int ldz, int l0, int R,
+                                              int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int k = lane & 3, r = lane >> 2;
+  for (int rt = warp; 16 * rt < R; rt += kThreads / 32) {
+    if (16 * rt + 16 <= l0) continue;
+    const int la = 16 * rt + r, lb = la + 8;  // A's rows, D's rows
+    double2 va[2], vb[2];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      va[ks] = (la >= l0 && la < R) ? Vs[la * ldv + 4 * ks + k]
+                                    : make_double2(0.0, 0.0);
+      vb[ks] = (lb >= l0 && lb < R) ? Vs[lb * ldv + 4 * ks + k]
+                                    : make_double2(0.0, 0.0);
+    }
+    double zr[2][4], zi[2][4];
+#pragma unroll
+    for (int ct = 0; ct < 2; ++ct)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int l = j < 2 ? la : lb;
+        const double2 x = Zs[l * ldz + 8 * ct + 2 * k + (j & 1)];
+        zr[ct][j] = x.x;
+        zi[ct][j] = x.y;
+      }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int ct = 0; ct < 2; ++ct) {
+        const double2 w = Ws[(4 * ks + k) * kColsHalf + 8 * ct + r];
+        // Z -= v w: real -v.x w.x + v.y w.y, imaginary -v.x w.y - v.y w.x
+        adaptaqc::dmma16(zr[ct], -va[ks].x, -vb[ks].x, w.x);
+        adaptaqc::dmma16(zr[ct], va[ks].y, vb[ks].y, w.y);
+        adaptaqc::dmma16(zi[ct], -va[ks].x, -vb[ks].x, w.y);
+        adaptaqc::dmma16(zi[ct], -va[ks].y, -vb[ks].y, w.x);
+      }
+#pragma unroll
+    for (int ct = 0; ct < 2; ++ct)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int l = j < 2 ? la : lb;
+        if (l >= l0 && l < R)
+          Zs[l * ldz + 8 * ct + 2 * k + (j & 1)] =
+              make_double2(zr[ct][j], zi[ct][j]);
+      }
+  }
+}
+
+// Grid: ceil(keep / COLS) column tiles x G x batch, clusters of (1, G, 1):
+// cluster (x, b) applies every panel (of NB reflectors) to columns [x COLS,
+// x COLS + COLS) of matrix b; NB and COLS are the route's. R: the rows a
+// CTA holds, ceil(m / G). The exchange of a panel: column c of Y and W
+// belongs to rank c mod G. Every rank posts its
 // partial of column c into that rank's buffer (slot = the poster's rank)
 // and arrives on its `ybar`; the owner sums the G slots in rank order,
 // forms W = T Y for its columns, posts them into every rank's W and
 // arrives on each one's `wbar`. Each buffer is read before any rank can
 // post into it again (a rank posts the next panel's partials only after it
 // has every rank's W of this one), so one of each suffices.
-template <typename T>
+template <typename T, int NB, int COLS>
 __global__ void __launch_bounds__(kThreads)
     bt_apply_kernel(const T* __restrict__ z,
                     typename Cplx<T>::V* __restrict__ out,
@@ -605,12 +768,12 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ __align__(8) uint64_t vbar[2];
   __shared__ __align__(8) uint64_t ybar, wbar;
   const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * kCols, cw = min(kCols, keep - c0);
-  const int nown = (kCols - g + G - 1) / G;  // columns g, g + G, ..
+  const int c0 = blockIdx.x * COLS, cw = min(COLS, keep - c0);
+  const int nown = (COLS - g + G - 1) / G;  // columns g, g + G, ..
   const T zero = 0;
   const V czero = mk(zero, zero);
   const int* meta = reinterpret_cast<const int*>(ws);
-  const int npan = (meta[0] + kNb - 1) / kNb;
+  const int npan = (meta[0] + NB - 1) / NB;
 
   for (int p = tid; p < npan; p += kThreads) k0s[p] = meta[1 + p];
   if (tid == 0) {
@@ -620,8 +783,8 @@ __global__ void __launch_bounds__(kThreads)
     mbar_init_count(&wbar, G);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int idx = tid; idx < Rp * kCols; idx += kThreads) {
-    const int l = idx / kCols, c = idx % kCols, r = g + l * G;
+  for (int idx = tid; idx < Rp * COLS; idx += kThreads) {
+    const int l = idx / COLS, c = idx % COLS, r = g + l * G;
     Zs[l * ldz + c] =
         mk(l < R && r < m && c < cw ? z[(size_t)r * m + c0 + c] : zero, zero);
   }
@@ -639,7 +802,7 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t vbytes = (uint32_t)((R - l0) * ldv * sizeof(V));
     const uint32_t tbytes = (uint32_t)L.t_bytes;
     mbar_expect_tx(&vbar[buf], vbytes + tbytes);
-    bulk_copy(Tb + (size_t)buf * kNb * kNb, ws + L.t_off + p * L.t_bytes,
+    bulk_copy(Tb + (size_t)buf * NB * NB, ws + L.t_off + p * L.t_bytes,
               tbytes, &vbar[buf]);
     if (vbytes)
       bulk_copy(Vb + ((size_t)buf * Rp + l0) * ldv,
@@ -658,27 +821,39 @@ __global__ void __launch_bounds__(kThreads)
     // previous panel (one buffer: it is refilled after this panel)
     if (!single && tid == 0 && p > 0) issue(p - 1, buf ^ 1);
     const V* Vs = Vb + (size_t)buf * Rp * ldv;
-    const V* Ts = Tb + (size_t)buf * kNb * kNb;
+    const V* Ts = Tb + (size_t)buf * NB * NB;
 
-    {  // this CTA's partial Y = V^H Z, two entries a thread, posted to
-       // the rank that owns each entry's column, in this rank's slot
+    // this CTA's partial Y = V^H Z, posted to the rank that owns each
+    // entry's column, in this rank's slot: two entries a thread, or on
+    // the half route four a lane of warp 0
+    if constexpr (NB == kNbHalf) {
+      V y[4];
+      int yi[4], yc[4];
+      partial_y_half(Vs, Zs, ldv, ldz, l0, R, tid, sm + S.red, y, yi, yc);
+      if (tid < 32) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          cluster.map_shared_rank(Rv, yc[k] % G)[(g * NB + yi[k]) * ncmax +
+                                                 yc[k] / G] = y[k];
+      }
+    } else {
       V y[2];
       int yi[2], yc[2];
       partial_y(Vs, Zs, ldv, ldz, l0, R, tid, y, yi, yc);
 #pragma unroll
       for (int k = 0; k < 2; ++k)
-        cluster.map_shared_rank(Rv, yc[k] % G)[(g * kNb + yi[k]) * ncmax +
+        cluster.map_shared_rank(Rv, yc[k] % G)[(g * NB + yi[k]) * ncmax +
                                                yc[k] / G] = y[k];
     }
     __syncthreads();
     if (tid < G) mbar_arrive_remote(&ybar, tid);
     mbar_wait_cluster(&ybar, it & 1);
     // this rank's columns of Y: the G partials summed in rank order
-    for (int idx = tid; idx < kNb * nown; idx += kThreads) {
+    for (int idx = tid; idx < NB * nown; idx += kThreads) {
       const int i = idx / nown, lc = idx % nown;
       V acc = czero;
       for (int r = 0; r < G; ++r)
-        acc = cadd(acc, Rv[(r * kNb + i) * ncmax + lc]);
+        acc = cadd(acc, Rv[(r * NB + i) * ncmax + lc]);
       Yl[i * ncmax + lc] = acc;
     }
     __syncthreads();
@@ -686,14 +861,14 @@ __global__ void __launch_bounds__(kThreads)
     // rank: `split` threads an entry where a rank owns few columns
     // (reflectors j = q mod 4 of T's row, summed by two shuffles in a fixed
     // order, the posts shared), else one
-    const int split = 4 * kNb * nown <= kThreads ? 4 : 1;
-    for (int base = 0; base < split * kNb * nown; base += kThreads) {
+    const int split = 4 * NB * nown <= kThreads ? 4 : 1;
+    for (int base = 0; base < split * NB * nown; base += kThreads) {
       const int idx = base + tid, e = idx / split, q = idx % split;
-      const bool on = e < kNb * nown;
+      const bool on = e < NB * nown;
       const int i = on ? e / nown : 0, lc = on ? e % nown : 0;
       V acc = czero;
-      for (int j = i + ((q - i) & (split - 1)); on && j < kNb; j += split)
-        cfma(acc, Ts[i * kNb + j], Yl[j * ncmax + lc]);
+      for (int j = i + ((q - i) & (split - 1)); on && j < NB; j += split)
+        cfma(acc, Ts[i * NB + j], Yl[j * ncmax + lc]);
       if (split == 4) {
         acc = cadd(acc, mk(__shfl_xor_sync(0xffffffffu, acc.x, 1),
                            __shfl_xor_sync(0xffffffffu, acc.y, 1)));
@@ -702,17 +877,20 @@ __global__ void __launch_bounds__(kThreads)
       }
       const int c = lc * G + g;
       for (int r = q; on && r < G; r += split)
-        cluster.map_shared_rank(Ws, r)[i * kCols + c] = acc;
+        cluster.map_shared_rank(Ws, r)[i * COLS + c] = acc;
     }
     __syncthreads();
     if (tid < G) mbar_arrive_remote(&wbar, tid);
     mbar_wait_cluster(&wbar, it & 1);
-    update_z(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
+    if constexpr (NB == kNbHalf)
+      update_z_half(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
+    else
+      update_z(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
     __syncthreads();  // Z and both buffers are read again by the next panel
     if (single && tid == 0 && p > 0) issue(p - 1, 0);
   }
-  for (int idx = tid; idx < R * kCols; idx += kThreads) {
-    const int l = idx / kCols, c = idx % kCols, r = g + l * G;
+  for (int idx = tid; idx < R * COLS; idx += kThreads) {
+    const int l = idx / COLS, c = idx % COLS, r = g + l * G;
     if (r < m && c < cw) out[(size_t)r * keep + c0 + c] = Zs[l * ldz + c];
   }
   cluster.sync();  // no CTA leaves while another may still post to it
@@ -730,14 +908,14 @@ __global__ void __launch_bounds__(kThreads)
 // to G0 / 2 whose clusters all fit is taken instead (longer slabs, one
 // wave): complex128 at m = 1024 runs its 16 tiles on clusters of 6, 15
 // of 8 fitting at once on an H100. G = 0 (and *err) where nothing
-// launches.
+// launches. NB and COLS: the route's panel and column tile.
 struct BtPlan {
   int G, R;
   size_t smem, prep_smem;
   long long ws;
 };
 
-template <typename T>
+template <typename T, int NB, int COLS>
 BtPlan bt_plan(int m, int clusters, cudaError_t* err) {
   using V = typename Cplx<T>::V;
   // the last plan at each m and the tiles it was made for (a launch pays
@@ -749,8 +927,8 @@ BtPlan bt_plan(int m, int clusters, cudaError_t* err) {
   // the clusters of size G that the card holds at once, by m and G
   // (0 unknown, else count + 1)
   static int resident[kPlanCache + 1][kMaxCluster + 1] = {};
-  const void* fn = (const void*)bt_apply_kernel<T>;
-  const void* prep = (const void*)bt_prep_kernel<T>;
+  const void* fn = (const void*)bt_apply_kernel<T, NB, COLS>;
+  const void* prep = (const void*)bt_prep_kernel<T, NB>;
   int dev = 0, optin = 0;
   cudaFuncAttributes fa, fp;
   if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -832,20 +1010,19 @@ BtPlan bt_plan(int m, int clusters, cudaError_t* err) {
   return pick;
 }
 
-template <typename T>
-int bt_run(const void* vrows, const void* tau, const void* z, void* out,
-           void* ws, int m, int keep, int batch, long long v_stride,
-           long long tau_stride, long long z_stride, void* stream, int lo) {
+template <typename T, int NB, int COLS>
+int bt_run_route(const void* vrows, const void* tau, const void* z,
+                 void* out, void* ws, int m, int keep, int batch,
+                 long long v_stride, long long tau_stride, long long z_stride,
+                 void* stream) {
   using V = typename Cplx<T>::V;
-  if (m < lo || keep < 1 || keep > m || batch < 1 || batch > kMaxBatch)
-    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  const int tiles = (keep + kCols - 1) / kCols;
-  const BtPlan pl = bt_plan<T>(m, tiles, &err);
+  const int tiles = (keep + COLS - 1) / COLS;
+  const BtPlan pl = bt_plan<T, NB, COLS>(m, tiles, &err);
   if (pl.G == 0) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const int npmax = bt_ws(m, (int)sizeof(V)).npmax;
-  bt_prep_kernel<T><<<dim3(npmax, batch), kThreads, pl.prep_smem, st>>>(
+  bt_prep_kernel<T, NB><<<dim3(npmax, batch), kThreads, pl.prep_smem, st>>>(
       (const V*)vrows, (const V*)tau, (unsigned char*)ws, m, pl.G, pl.R,
       v_stride, tau_stride, pl.ws);
   ADAPTAQC_RETURN_IF_ERR(cudaGetLastError());
@@ -862,9 +1039,39 @@ int bt_run(const void* vrows, const void* tau, const void* z, void* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(
-      &cfg, bt_apply_kernel<T>, (const T*)z, (V*)out,
+      &cfg, bt_apply_kernel<T, NB, COLS>, (const T*)z, (V*)out,
       (const unsigned char*)ws, m, keep, pl.R, z_stride, pl.ws));
   return (int)cudaGetLastError();
+}
+
+// The route's instantiation at m: the half route in complex128 past
+// kSingleMaxF64, else panels of kNb and tiles of kCols.
+template <typename T>
+int bt_run(const void* vrows, const void* tau, const void* z, void* out,
+           void* ws, int m, int keep, int batch, long long v_stride,
+           long long tau_stride, long long z_stride, void* stream, int lo) {
+  if (m < lo || keep < 1 || keep > m || batch < 1 || batch > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, double>::value) {
+    if (bt_route(m, 16) == 2)
+      return bt_run_route<T, kNbHalf, kColsHalf>(
+          vrows, tau, z, out, ws, m, keep, batch, v_stride, tau_stride,
+          z_stride, stream);
+  }
+  return bt_run_route<T, kNb, kCols>(vrows, tau, z, out, ws, m, keep, batch,
+                                     v_stride, tau_stride, z_stride, stream);
+}
+
+template <typename T>
+int bt_cluster_size(int m, int keep) {
+  cudaError_t err = cudaSuccess;
+  if constexpr (std::is_same<T, double>::value) {
+    if (bt_route(m, 16) == 2)
+      return bt_plan<T, kNbHalf, kColsHalf>(
+                 m, (keep + kColsHalf - 1) / kColsHalf, &err)
+          .G;
+  }
+  return bt_plan<T, kNb, kCols>(m, (keep + kCols - 1) / kCols, &err).G;
 }
 
 }  // namespace
@@ -887,13 +1094,11 @@ long long backtransform_apply_smem(int m, int G, int f64) {
 }
 
 // The CTAs of the cluster over a column tile's rows at m, for `keep`
-// columns of one matrix; 0 on error.
+// columns of one matrix (tiles of the route's columns); 0 on error.
 int backtransform_cluster_size(int m, int keep, int f64) {
   if (m < (f64 ? 2 : 129) || keep < 1 || keep > m) return 0;
-  cudaError_t err = cudaSuccess;
-  const int tiles = (keep + kCols - 1) / kCols;
-  return (f64 ? bt_plan<double>(m, tiles, &err)
-              : bt_plan<float>(m, tiles, &err)).G;
+  return f64 ? bt_cluster_size<double>(m, keep)
+             : bt_cluster_size<float>(m, keep);
 }
 
 // out (batch, m, keep) = H_0 ... H_{m-2} z[:, :keep] for each matrix, in

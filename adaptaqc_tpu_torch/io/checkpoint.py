@@ -29,9 +29,12 @@ _device_override = None
 
 def _encode_instr(instr):
     from ..backends import mps_core
+    from ..parallel.mesh import unshard
     out = instr.copy()
     if out.name == "set_mps" and isinstance(out.payload, mps_core.MPS):
-        out.payload = (_QISKIT_TAG, mps_core.to_qiskit_mps(out.payload))
+        # a payload sharded over a mesh is gathered whole first
+        out.payload = (_QISKIT_TAG,
+                       mps_core.to_qiskit_mps(unshard(out.payload)))
     elif out.name == "set_statevector":
         out.payload = np.asarray(out.payload)
     return out
@@ -56,6 +59,9 @@ def _decode_instr(instr, chi, backend):
 
 
 def _backend_spec(backend):
+    """The backend's constructor arguments, its device and dtype. A mesh is
+    process-local and is not stored, as in the JAX package
+    (io/checkpoint.py:63): a loaded backend has mesh=None."""
     from ..backends.backend import (CenterMPSBackend, MPSBackend,
                                     SamplingBackend, SVBackend)
     where = (str(backend.device), backend.dtype) if hasattr(

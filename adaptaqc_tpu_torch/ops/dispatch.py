@@ -28,21 +28,25 @@ import torch
 REACH = {
     # csrc/env_chain.cu to chi 128 (complex64 narrow to 64, wide to 128;
     # complex128 in its double instantiation), then the streamed kernel of
-    # csrc/env_chain_stream.cu to chi 2048, in both dtypes (it has no cap of
-    # its own: this one is the size the card has been checked at)
-    "env": {torch.complex64: (1, 2048), torch.complex128: (1, 2048)},
+    # csrc/env_chain_stream.cu to chi 4096, in both dtypes: it has no cap of
+    # its own, so this one is the size the card has been checked at (past
+    # it the eigensolver's m = 2 chi would pass its cap, and one padded
+    # state at n >= 25 outgrows the card: ROADMAP F5)
+    "env": {torch.complex64: (1, 4096), torch.complex128: (1, 4096)},
     # csrc/eigh_tridiag.cu: complex64 to m 128 in the register and
     # shared-memory designs, then the wide variants; complex128 in the wide
     # variants' double instantiation; past each kernel's shared-memory fit
     # K2 and K3 run their card-wide routes (csrc/tridiag_grid.cu and
     # teig_grid: the matrix and the iterate in global memory), K4 its wide
-    # design (csrc/backtransform_wide.cu), in complex128 past m 2816 on one
-    # panel buffer. Both dtypes to m 4096: in complex64 the size the card
-    # has been checked at (K2's cap is its column in a CTA's shared memory,
-    # m ~ 13,000 in complex128; K3's plan m ~ 8,490 in double); in
-    # complex128 K4's cap as well: its cluster of 16 CTAs keeps a column
-    # tile's 256 rows of z and one panel in 226,816 bytes a CTA at m = 4096
-    "eigh": {torch.complex64: (2, 4096), torch.complex128: (2, 4096)},
+    # design (csrc/backtransform_wide.cu: complex64 past m 5888 and
+    # complex128 past 2816 on one panel buffer, complex128 past 4096 on the
+    # half route's panels of 8 and tiles of 16 columns). Both dtypes to m
+    # 8192, the size the card has been checked at; what sets the cap past
+    # it: K3's plan (m ~ 8,490 in double), K4's half route (a cluster of 16
+    # holds 512 rows a CTA at m 8192, 230,528 bytes in complex128), and
+    # the state's bytes at chi 4096 (one padded complex128 state at n = 24
+    # is 12.9 GB; a sweep keeps several)
+    "eigh": {torch.complex64: (2, 8192), torch.complex128: (2, 8192)},
 }
 
 

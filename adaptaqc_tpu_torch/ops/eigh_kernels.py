@@ -624,18 +624,35 @@ def _tridiag_grid_bytes(m: int, f64: bool) -> int:
 
 BT_NB = 16            # backtransform_wide.cu kNb: reflectors of a panel
 BT_COLS = 32          # kCols: output columns of a cluster
+BT_NB_HALF = 8        # kNbHalf, kColsHalf: the same on the half route
+BT_COLS_HALF = 16
+BT_RED_WARPS = 4      # kRedWarps: the half route's scratch of partial Y
 BT_MAX_CLUSTER = 16   # kMaxCluster
 BT_DOUBLE_MAX_F64 = 2816  # kDoubleMaxF64: complex128 past it, one buffer
+BT_SINGLE_MAX_F64 = 4096  # kSingleMaxF64: complex128 past it, the half route
+BT_DOUBLE_MAX_F32 = 5888  # kDoubleMaxF32: complex64 past it, one buffer
 
 
 def backtransform_routes(m: int, f64: bool = False) -> str:
-    """The wide K4's apply route at m: "double" (two panel buffers, the
-    next panel's copy under this one's products: every complex64 m,
-    complex128 to m = 2816, the last m whose 176 rows a CTA fit beside two
-    buffers on a cluster of 16) or "single" (one panel buffer and rows of z
-    at a stride of BT_COLS + 1: complex128 past it). By m and the dtype
-    alone."""
-    return "single" if f64 and m > BT_DOUBLE_MAX_F64 else "double"
+    """The wide K4's apply route at m, by m and the dtype alone (bt_route):
+    "double" (two panel buffers, the next panel's copy under this one's
+    products: complex64 to m = 5888, complex128 to m = 2816, the last m
+    whose rows a CTA fit beside two buffers on a cluster of 16), "single"
+    (one panel buffer and rows of z at a stride of BT_COLS + 1: complex64
+    past 5888, complex128 to m = 4096) or "half" (complex128 past 4096:
+    panels of BT_NB_HALF reflectors, tiles of BT_COLS_HALF columns, one
+    buffer, its products on DMMA m16n8k4)."""
+    if f64:
+        return ("double" if m <= BT_DOUBLE_MAX_F64 else
+                "single" if m <= BT_SINGLE_MAX_F64 else "half")
+    return "double" if m <= BT_DOUBLE_MAX_F32 else "single"
+
+
+def backtransform_panel(m: int, f64: bool = False) -> tuple:
+    """(reflectors a panel, columns a tile) of the route at m."""
+    if backtransform_routes(m, f64) == "half":
+        return BT_NB_HALF, BT_COLS_HALF
+    return BT_NB, BT_COLS
 
 
 def _round16(x: int) -> int:
@@ -645,14 +662,15 @@ def _round16(x: int) -> int:
 def backtransform_workspace_bytes(m: int, f64: bool = False) -> int:
     """The wide K4's workspace a matrix as csrc/backtransform_wide.cu lays
     it out (bt_ws): the active count and each panel's first reflector
-    (ints), each panel's T (BT_NB x BT_NB), then each panel's reflector
-    block of m + BT_MAX_CLUSTER - 1 rows of BT_NB entries and 16 bytes.
-    chip_smoke.py holds it equal to the library's."""
+    (ints), each panel's T (nb x nb, nb the route's panel), then each
+    panel's reflector block of m + BT_MAX_CLUSTER - 1 rows of nb entries
+    and 16 bytes. chip_smoke.py holds it equal to the library's."""
     es = 16 if f64 else 8
-    npmax = -(-(m - 1) // BT_NB)
-    ldv = BT_NB + 16 // es
+    nb, _ = backtransform_panel(m, f64)
+    npmax = -(-(m - 1) // nb)
+    ldv = nb + 16 // es
     t_off = _round16(4 * (1 + npmax))
-    v_off = t_off + npmax * BT_NB * BT_NB * es
+    v_off = t_off + npmax * nb * nb * es
     return v_off + npmax * (m + BT_MAX_CLUSTER - 1) * ldv * es
 
 
@@ -660,20 +678,23 @@ def backtransform_apply_smem(m: int, g: int, f64: bool = False,
                              route: str = None) -> int:
     """bt_apply_kernel's dynamic shared memory in bytes at m on a cluster
     of g CTAs (bt_smem) on `route` (the plan's by default): rows of z (R =
-    ceil(m / g), rounded up to 16, at a stride of BT_COLS + 4, or + 1 on
-    the single-buffered route), one or two panel buffers and T, the partial
-    Y posted by every rank, their sum, W and the panels' first
-    reflectors."""
+    ceil(m / g), rounded up to 16, at a stride of cols + 4, or + 1 on the
+    one-buffer routes), one or two panel buffers and T, the partial Y
+    posted by every rank, their sum, W, on the half route the scratch of
+    BT_RED_WARPS warps' partial Y, and the panels' first reflectors."""
     es = 16 if f64 else 8
     route = route or backtransform_routes(m, f64)
-    nbuf = 1 if route == "single" else 2
+    nb, cols = (BT_NB_HALF, BT_COLS_HALF) if route == "half" else (BT_NB,
+                                                                 BT_COLS)
+    nbuf = 2 if route == "double" else 1
     rp = _round16(-(-m // g))
-    ldz = BT_COLS + (1 if nbuf == 1 else 4)
-    ldv = BT_NB + 16 // es
-    ncmax = -(-BT_COLS // g)
-    elems = (rp * ldz + nbuf * rp * ldv + nbuf * BT_NB * BT_NB
-             + g * BT_NB * ncmax + BT_NB * ncmax + BT_NB * BT_COLS)
-    return elems * es + _round16(4 * -(-(m - 1) // BT_NB))
+    ldz = cols + (1 if nbuf == 1 else 4)
+    ldv = nb + 16 // es
+    ncmax = -(-cols // g)
+    red = BT_RED_WARPS * nb * cols if route == "half" else 0
+    elems = (rp * ldz + nbuf * rp * ldv + nbuf * nb * nb
+             + g * nb * ncmax + nb * ncmax + nb * cols + red)
+    return elems * es + _round16(4 * -(-(m - 1) // nb))
 
 
 @functools.lru_cache(maxsize=64)
@@ -726,9 +747,11 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
                                       p, m * m, m, z_stride, stream)
     cuda_lib.check(rc, "backtransform")
     _count(backtransform, p, m, f64, m > REACH_M[f64])
+    backtransform.half_launches += backtransform_routes(m, f64) == "half"
     return out
 
 
+backtransform.half_launches = 0  # complex128 past m = 4096: the half route
 for _fn in (tridiag, teig, backtransform):
     _fn.launches = 0
     _fn.batched_launches = 0

@@ -149,6 +149,10 @@ def general_grad_of_pairs_device(psi, starting_circuit, gradient_ops,
     s_state = backend.initial_state(Circuit(n), n)
     if starting_circuit is not None:
         s_state = backend.run_tape(s_state, compile_tape(starting_circuit))
+    if getattr(backend, "mesh", None) is not None:
+        # the pair contraction takes whole states: gathered on every rank
+        from ..parallel.mesh import unshard
+        psi, s_state = unshard(psi), unshard(s_state)
 
     pairs = np.asarray(coupling_map, dtype=np.int64)
     a_ops = torch.as_tensor(a_np, dtype=psi.dtype, device=psi.device)

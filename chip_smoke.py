@@ -4,7 +4,7 @@
 
 (`--only` runs the named phases alone, for work on one of them; the whole
 run, with no arguments, is the one that prints the result lines.) Builds the package's CUDA kernels from adaptaqc_tpu_torch/csrc with nvcc
-(sm_90a) and runs fifteen phases, each printing lines that start with its
+(sm_90a) and runs sixteen phases, each printing lines that start with its
 name; any failure exits non-zero:
 
   device    torch / CUDA versions, the card's name and power limit, build s
@@ -82,31 +82,35 @@ name; any failure exits non-zero:
             to the straight run's pair history
   reach     past the sizes whose operands fit on chip: the streamed K1
             (chi 129/192/256/512/768/1024 in complex64, 192/256/512/1024 in
-            complex128, q 0/1/25/48/49; its plan as the library's, a rerun
-            the same bits at chi 256 and 1024, its cuBLAS chain and one
-            step-2 product against torch.matmul timed beside it) and K2-K4
-            at m = 561/768/1024/1536/2048/4096 (complex64) and
-            505/512/1024/2048/4096 (complex128; at each dtype's 4096 the
-            "rand" Gram alone, no batch; from m = 1024 the float64
-            yardstick is torch.linalg.eigvalsh in complex128 on the card)
-            against their plain versions, with
-            times, bounds and library calls (K3 against
+            complex128, q 0/1/25/48/49 at n=50, and chi 4096 at n=24, q
+            0/12/23, in both; its plan as the library's, a rerun the same
+            bits at chi 256 and 1024, its cuBLAS chain and one step-2
+            product against torch.matmul timed beside it) and K2-K4 at m =
+            561/1024/2048/8192 (complex64) and 512/1024/2048/8192
+            (complex128) against their plain versions ("rand" and
+            "lowrank" Grams to m = 1024 with a batch of 3, "rand" at 2048;
+            at m = 8192 "rand"
+            alone against the float64 yardstick, K2 by a probe residual,
+            K4 on the half route in complex128 against its plain version),
+            with times, bounds and library calls (K3 against
             torch.linalg.eigh(T), its card-wide route also at keep = m/2:
             the first columns of its keep = m launch, alone and in a batch
             of 3; K4 against torch.ormqr, its workspace and shared memory
-            equal to the mirrors in eigh_kernels); then at n=50 the sweep
-            phase's workload at
-            chi=256, 512 and 1024 in complex64 and complex128, and
-            the spin chain through workloads/spin_chain.py with
-            SPIN_CHI_SCHEDULE=32,64,128,256 cut to 2 layers a stage
-            (center-gauge verifier within 1e-3, relative): every launch is
-            counted by the code it runs, and each new code path must
-            launch on them (the chi = 128 stage the wide K1); the deep
-            re-simulation at chi=256 (2 layers), 1024 and 2048 (1 layer;
-            2048 in complex64 and complex128), its native verifier at the
-            same chi (complex64 2048: at 1024);
-            a compile at working chi=512, n=21, whose verified stop
-            re-simulates at chi=1024 on the native verifier
+            equal to the mirrors in eigh_kernels), and K4 alone at
+            complex128 m = 4096, its single-buffered route; then at n=50
+            the sweep phase's workload at chi=256, 512 and 1024 in
+            complex64 and complex128, and the spin chain through
+            workloads/spin_chain.py with SPIN_CHI_SCHEDULE=32,64,128,256
+            cut to 2 layers a stage (center-gauge verifier within 1e-3,
+            relative): every launch is counted by the code it runs, and
+            each new code path must launch on them (the chi = 128 stage
+            the wide K1); the deep re-simulation at chi=256 (2 layers) and
+            1024 (1 layer) at n=50 and at chi=4096, n=24 (CX on sites
+            10-13, both dtypes), its native verifier beside it; one sweep
+            at chi=4096, n=23 in both dtypes with its peak device memory
+            (K4's half route launched in complex128); a compile at working
+            chi=512, n=21, whose verified stop re-simulates at chi=1024 on
+            the native verifier
   optim     on the slice's target (n=50, chi=32): BOBYQA layers with the
             final BOBYQA minimisation (use_roto_algos=False,
             perform_final_minimisation=True), and Rotosolve layers
@@ -136,6 +140,18 @@ name; any failure exits non-zero:
             its overlap + 1e-3, final overlap no lower than its overlap -
             1e-3); reverify_spin of the refined spin circuit at chi=128
             within 1e-3 of its record; summarize counts every record
+  mesh      M7, the device mesh (adaptaqc_tpu_torch/parallel): at once,
+            the sharded MPS compile (complex128, 2 layers) on 4 ranks
+            sharing the card over gloo against this process's unsharded
+            compile (pairs equal, overlap within 1e-8; every rank launches
+            K2-K4 and no K1), the dry run's MPS step on a 1 x 1 NCCL mesh
+            and dryrun_multichip(4, backend="gloo") (its four parts, each
+            rank's peak allocation), its chi = 256 step (tp 4) and the
+            1 x 1 step each against the unsharded sweep of its tape on the
+            card (complex64, cost and RDMs within 1e-6); the same 4 ranks
+            without backend="gloo" refused before any rank starts. On a
+            machine with 4 cards the ranks take one each over NCCL
+            (`--only mesh`)
 
 The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
@@ -145,10 +161,9 @@ at chi = 128 and m = 256; K1's also by chi with its cluster floor), per
 complex128 variant (the optim phase) and per
 variant whose code only sizes past the old caps run, `[reach]` and
 `[reach_f64]` (reach_rows: its launches on the reach phase's sweeps and
-spin chain, its times at chi = 256 and m = 1024), the line before the last
-the
-card's name and
-power limit from
+spin chain, its times at chi = 256 and m = 1024), and K4's half route,
+`backtransform[half]` (its launches on the chi = 4096 sweep, its times at
+m = 8192), the line before the last the card's name and power limit from
 nvidia-smi, and the last line {"ok": true, "device": {...}}. Without a
 CUDA card, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -305,6 +320,7 @@ def reset_counts(ek, envk):
         fn.reach_launches = fn.reach_f64_launches = 0
     for fn in (ek.tridiag, ek.teig, ek.backtransform):
         fn.batched_launches = 0
+    ek.backtransform.half_launches = 0
 
 
 def variant_counts(ek, envk):
@@ -347,6 +363,18 @@ def cuda_ms(fn, reps, torch):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_ms(fn, torch):
+    """(fn()'s result, the milliseconds of that one call), CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def count_syncs(torch, fn):
@@ -450,7 +478,7 @@ def record_eigh_inputs(torch, ek, fn):
             return kernels[name](*args)
         record.launches = 0  # a wrapper counts on its module-level name
         record.batched_launches = record.wide_launches = 0
-        record.f64_launches = 0
+        record.f64_launches = record.half_launches = 0
         record.reach_launches = record.reach_f64_launches = 0
         return record
     try:
@@ -1454,14 +1482,14 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
 
 # ---------------------------------------------------------------- phase 3
 def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
-                 layers=8, native_chi=None, dtype=None):
-    """(C^dag C)|0> at n = 50 for a random two-qubit chain C of `layers`
-    brickwork layers; |<0|psi>|^2 / <psi|psi> under both eigensolvers (at
+                 layers=8, native_chi=None, dtype=None, n=50, cx_sites=None):
+    """(C^dag C)|0> at n (50 unless given) for a random two-qubit chain C of
+    `layers` brickwork layers (each CX on the sites of `cx_sites` alone
+    where given); |<0|psi>|^2 / <psi|psi> under both eigensolvers (at
     chi = 128 the wide variants of K2-K4, past 256 the reach kernels), the
     native one at native_chi (chi unless given), in `dtype` (complex64
     unless given)."""
     dtype = dtype or torch.complex64
-    n = 50
     native_chi = native_chi or chi
     rng = np.random.default_rng(7)
     qc = Circuit(n)
@@ -1470,7 +1498,8 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
             qc.ry(float(rng.uniform(-0.6, 0.6)), q)
             qc.rz(float(rng.uniform(-0.6, 0.6)), q)
         for q in range(layer % 2, n - 1, 2):
-            qc.cx(q, q + 1)
+            if cx_sites is None or q in cx_sites:
+                qc.cx(q, q + 1)
     tape = compile_tape(qc)
     n2q = int(np.sum(tape.kinds == 4))
     dev = torch.device("cuda")
@@ -2163,7 +2192,7 @@ def cut_polish(layers):
 
 
 def phase_spin(torch, port, counted, card, max_layers=4, small_layers=8,
-               dev="cuda", n=50, n_small=10, small_seconds=45.0):
+               dev="cuda", n=50, n_small=10):
     from adaptaqc_tpu_torch.backends import mps_core
     from adaptaqc_tpu_torch.ops import eigh_kernels as ek
     from adaptaqc_tpu_torch.optim import sweeps
@@ -2232,11 +2261,10 @@ def phase_spin(torch, port, counted, card, max_layers=4, small_layers=8,
     full_cost_cycle(torch, port, mps_core, sweeps, ek, card, dev=dev, n=n)
 
     # the same compile at n=10 (2 Trotter steps) on both MPS engines, cut
-    # to small_layers layers (the polish lowered as above) and stopped
-    # sooner by the sufficient cost or by the compiler's own wall deadline
-    # (ADAPTAQC_WALL_DEADLINE: it stops with the best ansatz so far); its
-    # overlap against the center-gauge verifier
-    import os
+    # to small_layers layers (the polish lowered as above) or stopped
+    # sooner by the sufficient cost, and no clock: the headway check sees
+    # the same layers on every host; its overlap against the center-gauge
+    # verifier
     for name, backend in (
             ("MPSBackend", None),
             ("CenterMPSBackend", port.CenterMPSBackend(chi=32, cutoff=1e-8,
@@ -2245,12 +2273,7 @@ def phase_spin(torch, port, counted, card, max_layers=4, small_layers=8,
         compiler, target = spin_compiler(port, n_small, dev, small_layers,
                                          cut_polish(small_layers), steps=2,
                                          backend=backend)
-        os.environ["ADAPTAQC_WALL_DEADLINE"] = str(time.time()
-                                                   + small_seconds)
-        try:
-            result = compiler.compile()
-        finally:
-            del os.environ["ADAPTAQC_WALL_DEADLINE"]
+        result = compiler.compile()
         wall = time.perf_counter() - t0
         ov = cross_engine_overlap(target, result.circuit, chi=32, device=dev)
         loc = result.local_cost_history
@@ -2261,7 +2284,7 @@ def phase_spin(torch, port, counted, card, max_layers=4, small_layers=8,
               + ("stopped at the sufficient cost" if
                  result.global_cost_history[-2] < 1e-2 else
                  f"cut at {small_layers} layers" if layers >= small_layers
-                 else f"stopped by its {small_seconds:.0f} s wall deadline")
+                 else "stopped by the compiler")
               + f"), local cost {loc[0]:.4f} -> {loc[-1]:.4f} (by layer ["
               + ", ".join(f"{x:.4f}" for x in loc) + "]), global cost "
               f"{result.global_cost_history[0]:.4f} -> "
@@ -2401,30 +2424,53 @@ def phase_ladder(torch, port, card, max_layers=2, dev="cuda", n=50):
 
 # --------------------------------------------------------------- phase 11
 REACH_Q = (0, 1, 25, 48, 49)
-REACH_CHI = (129, 192, 256, 512, 768, 1024, 2048)  # the streamed K1, c64
-REACH_CHI_F64 = (192, 256, 512, 1024, 2048)        # and in complex128
-REACH_Q_TOP = (0, 25, 49)  # the q of the largest chi (its plain chain is
-                           # 0.3 s a call)
-REACH_M = (561, 768, 1024, 1536, 2048, 4096)  # K2-K4 past 560, complex64
-REACH_M_F64 = (505, 512, 1024, 2048, 4096)    # past 504 in complex128
-                                              # (4096: K4 on one panel
-                                              # buffer)
+REACH_CHI = (129, 192, 256, 512, 768, 1024, 4096)  # the streamed K1, c64
+REACH_CHI_F64 = (192, 256, 512, 1024, 4096)        # and in complex128
+# the largest chi at n = 24 (two complex128 chains at n = 50 are 54 GB),
+# its q (its plain chain is about a second a call); chi = 4096 replaced
+# 2048, the same streamed route
+REACH_N_TOP = 24
+REACH_Q_TOP = (0, 12, 23)
+REACH_M = (561, 1024, 2048, 8192)     # K2-K4 past 560, complex64
+REACH_M_F64 = (512, 1024, 2048, 8192)  # past 504 in complex128
+# (m = 8192: the cap, on the single-buffered K4 in complex64 and the half
+# route in complex128; it replaced 4096, the same K2 and K3 routes, and
+# its plain K2 and K3, Python loops of about 40 s each, give way to the
+# float64 yardstick and K2's probe residual: reach_eigh_top. For the run's
+# time, complex64 768 and 1536 and complex128 505 went: the routes of 1024
+# and 2048, and of 512, which the chi = 256 sweeps launch; and at 2048 the
+# "lowrank" class, which the batches of 3 below it hold)
+# the sizes whose batch of 3 is held against its P = 1 launches (at 2048
+# the plain versions of three matrices took 14 s a dtype; the same routes
+# and plans run at 1024)
+REACH_BATCH_MAX_M = 1024
+# K4 alone at a size whose route no other reach m takes: complex128 m =
+# 4096, its single-buffered route (synthetic reflectors)
+REACH_BT_ONLY = ((4096, True),)
 REACH_VARIANTS = ("reach", "reach_f64")
 # (chi, complex128, timed sweeps): bench.py's sweep at each chi; past chi =
 # 256 one sweep, timed without a warm-up, to keep the run's time
 REACH_SWEEPS = ((256, False, 3), (256, True, 3), (512, False, 1),
                 (512, True, 1), (1024, False, 1), (1024, True, 1))
-# (chi, layers, chi of the native run, complex128) of the re-simulation:
-# the native verifier at the kernels' chi (at chi = 1024 its Grams, m =
-# 2048, have 2044 exactly zero rows, which cplx.split_zero_rows takes off
-# before cuSOLVER's eigh: without, it fails to converge on 10 of 98); chi =
-# 2048, m = 4096, is the reach's cap in both dtypes, one layer deep (chi =
-# 256 two layers and 1024 one: the runs at 2048 in both dtypes cover what
-# deeper ones did, inside the run's time; the native side at chi = 2048 in
-# complex128, at 1024 in complex64, where one layer's bonds stay far
-# below either)
-REACH_HAZARD = ((256, 2, 256, False), (1024, 1, 1024, False),
-                (2048, 1, 1024, False), (2048, 1, 2048, True))
+# (chi, layers, chi of the native run, complex128, n, CX sites) of the
+# re-simulation: the native verifier at the kernels' chi (at chi = 1024
+# its Grams, m = 2048, have 2044 exactly zero rows, which
+# cplx.split_zero_rows takes off before cuSOLVER's eigh: without, it fails
+# to converge on 10 of 98); chi = 4096, m = 8192, is the reach's cap in
+# both dtypes (it replaced 2048), at n = 24, one layer whose CX sit on
+# sites 10-13 (four two-qubit applies each way: a state is 12.9 GB in
+# complex128 and a K2-K4 chain at m = 8192 a few seconds), the native side
+# at chi = 1024, far above that layer's bonds (chi = 256 two layers and
+# 1024 one at n = 50, every site)
+REACH_HAZARD = ((256, 2, 256, False, 50, None),
+                (1024, 1, 1024, False, 50, None),
+                (4096, 1, 1024, False, 24, (10, 12)),
+                (4096, 1, 1024, True, 24, (10, 12)))
+# the sweep whose peak device memory is printed: chi = 4096 at n = 23 (the
+# padded state is what a sweep at this chi holds; the true bonds of n = 23
+# stop at 2048), both dtypes, a short tape around the middle bond (its
+# K2-K4 at m = 8192, K4 on the half route in complex128)
+REACH_PEAK = dict(n=23, chi=4096)
 # a compile whose verified stop re-simulates at chi = 1024: working chi 512,
 # n >= 21 (2 ** ((n + 1) // 2) >= 1024), at most 2 layers
 VERIFIED_STOP = dict(n=21, chi=512, max_layers=2)
@@ -2500,7 +2546,7 @@ def stream_step2_times(torch, envk, cuda_lib, br, f64, chi):
     lib = cuda_lib.lib()
     g = torch.Generator(device="cpu").manual_seed(chi + 1)
     m = torch.randn((2, chi, chi), generator=g, dtype=dt).to(br.device)
-    a = br[25]
+    a = br[br.shape[0] // 2]
     out = torch.empty((chi, chi), dtype=dt, device=br.device)
     work = torch.empty(envk.stream_work(chi, f64), dtype=dt,
                        device=br.device)
@@ -2521,20 +2567,23 @@ def stream_step2_times(torch, envk, cuda_lib, br, f64, chi):
 
 
 def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
-    """The streamed K1 (chi > 128) against env_chain_plain at n = 50 on the
-    card: complex64 at REACH_CHI (TOL_ENV_REL), complex128 at REACH_CHI_F64
-    (TOL_F64_ENV), q in REACH_Q; a rerun at q = 25 the same bits at chi =
-    256 and 1024; at q = 25 its time, the plain chain's (the chain of
+    """The streamed K1 (chi > 128) against env_chain_plain on the card, at
+    n = 50 (at the largest chi, n = REACH_N_TOP): complex64 at REACH_CHI
+    (TOL_ENV_REL), complex128 at REACH_CHI_F64 (TOL_F64_ENV), q in REACH_Q
+    (REACH_Q_TOP at the largest chi); a rerun the same bits at chi = 256
+    and 1024; at the middle site its time, the plain chain's (the chain of
     cuBLAS products, its library yardstick: 20 calls each, CUDA events)
     and the bound, and one step-2 product against one torch.matmul of its
     shape, at every chi (`by_chi`). First the plan mirror against the
     library's (stream_plan_check)."""
-    n = 50
     t0 = time.perf_counter()
     stream_plan_check(envk, cuda_lib.lib())
     worst = {False: 0.0, True: 0.0}
     parts = {False: [], True: []}
     for chi in sorted(set(REACH_CHI) | set(REACH_CHI_F64)):
+        top = chi == max(REACH_CHI)
+        n = REACH_N_TOP if top else 50
+        qmid = n // 2
         br64, bl64 = env_inputs(torch, n, chi, dev)
         for f64 in (False, True):
             if chi not in (REACH_CHI_F64 if f64 else REACH_CHI):
@@ -2543,15 +2592,20 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
             tol = TOL_F64_ENV if f64 else TOL_ENV_REL
             key = f"env_chain[{REACH_VARIANTS[f64]}]"
             br, bl = br64.to(dt), bl64.to(dt)
-            top = chi == max(REACH_CHI)
             for q in REACH_Q_TOP if top else REACH_Q:
-                c = envk.env_chain(br, bl, q)
-                cp = envk.env_chain_plain(br, bl, q)
+                if top and q == qmid:  # the timed launches, checked here
+                    c, ms = timed_ms(lambda: envk.env_chain(br, bl, q),
+                                     torch)
+                    cp, pms = timed_ms(
+                        lambda: envk.env_chain_plain(br, bl, q), torch)
+                else:
+                    c = envk.env_chain(br, bl, q)
+                    cp = envk.env_chain_plain(br, bl, q)
                 err = float((c - cp).abs().max())
                 rel = err / max(float(cp.abs().max()), 1e-300)
                 worst[f64] = max(worst[f64], rel)
-                check(rel < tol, f"streamed env_chain {dt} chi={chi} q={q}: "
-                                 f"rel {rel}")
+                check(rel < tol, f"streamed env_chain {dt} n={n} chi={chi} "
+                                 f"q={q}: rel {rel}")
                 if chi == 256 and q == 25:
                     rec[key]["max_abs_err"] = err
             if chi in (256, 1024):
@@ -2559,17 +2613,19 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
                                   envk.env_chain(br, bl, 25)),
                       f"streamed env_chain {dt} chi={chi}: a rerun gave "
                       "other bits")
-            reps = 3 if top else 5 if chi >= 512 else 20
-            ms = cuda_ms(lambda: envk.env_chain(br, bl, 25), reps, torch)
-            pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, 25), reps,
-                          torch)
+            if not top:  # (at the top chi: one launch each, above)
+                reps = 5 if chi >= 512 else 20
+                ms = cuda_ms(lambda: envk.env_chain(br, bl, qmid), reps,
+                             torch)
+                pms = cuda_ms(lambda: envk.env_chain_plain(br, bl, qmid),
+                              reps, torch)
             sms, mms, serr = stream_step2_times(torch, envk, cuda_lib, br,
                                                 f64, chi)
             check(serr < tol, f"streamed step 2 {dt} chi={chi}: rel {serr} "
                               "against torch.matmul")
             bound = bound_fields("env_chain", n=n, chi=chi, f64=f64)
-            row = dict(ms=ms, plain_ms=pms, library_ms=pms, step2_ms=sms,
-                       step2_matmul_ms=mms, **bound)
+            row = dict(n=n, q=qmid, ms=ms, plain_ms=pms, library_ms=pms,
+                       step2_ms=sms, step2_matmul_ms=mms, **bound)
             rec[key].setdefault("by_chi", {})[chi] = row
             if chi == 256:
                 rec[key].update(
@@ -2579,17 +2635,21 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
                     shape="n=50, chi=256, q=25" + (", complex128" if f64
                                                    else ""), **bound)
             parts[f64].append(
-                f"chi={chi} {ms:.4f} ms plain (cuBLAS chain) {pms:.4f} ms "
-                f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
-                f"step 2 {sms:.4f} ms against torch.matmul {mms:.4f} ms")
+                f"chi={chi} (n={n}, q={qmid}) {ms:.4f} ms plain (cuBLAS "
+                f"chain) {pms:.4f} ms bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}), step 2 {sms:.4f} ms against "
+                f"torch.matmul {mms:.4f} ms")
+            del br, bl
         del br64, bl64
+        torch.cuda.empty_cache()
     for f64 in (False, True):
         print(f"reach: env_chain streamed "
-              f"{'complex128' if f64 else 'complex64'} n={n} against plain "
-              f"over chi {REACH_CHI_F64 if f64 else REACH_CHI} and q "
-              f"{REACH_Q} (at chi {max(REACH_CHI)} q {REACH_Q_TOP}): worst rel {worst[f64]:.2e} < "
+              f"{'complex128' if f64 else 'complex64'} against plain over "
+              f"chi {REACH_CHI_F64 if f64 else REACH_CHI} and q {REACH_Q} "
+              f"at n=50 (at chi {max(REACH_CHI)}: n={REACH_N_TOP}, q "
+              f"{REACH_Q_TOP}): worst rel {worst[f64]:.2e} < "
               f"{TOL_F64_ENV if f64 else TOL_ENV_REL}, reruns bit for bit, "
-              f"plan as the library's; at q=25 " + "; ".join(parts[f64])
+              f"plan as the library's; " + "; ".join(parts[f64])
               + f" ({time.perf_counter() - t0:.1f} s of checks) on {card}",
               flush=True)
 
@@ -2597,7 +2657,7 @@ def reach_env_check(torch, envk, cuda_lib, card, dev, rec):
 def reach_eigh_check(torch, ek, card, dev, rec):
     """K2-K4 past 560 (complex64: REACH_M) and 504 (complex128:
     REACH_M_F64) against their plain versions on the card, on the "rand"
-    and "lowrank" Grams ("rand" alone at the cap, m = 4096): K2's own
+    and "lowrank" Grams (at the cap, m = 8192, reach_eigh_top): K2's own
     Q T Q^H = H and its exactly inactive steps, a rerun at m = 2048 bit for
     bit, its card-wide route's workspace as the mirror in eigh_kernels
     sizes it; K3 on the plain (d, e): w against the plain version's (bit for
@@ -2630,7 +2690,6 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         lines = []
         for m in sizes:
             t_m = time.perf_counter()
-            cases = _gram_cases(m, rng, spec7=False)
             keep = m // 2
             top = m == max(sizes)  # the cap: "rand" alone, no batch
             bt_mirror_check(ek, cuda_lib, m, keep, f64)
@@ -2640,8 +2699,25 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                       f"tridiag {dt} m={m}: the workspace mirror "
                       f"{ek.tridiag_grid_workspace_bytes(m, f64)} differs "
                       f"from the library's {lib_ws}")
+            if top:
+                err, plain = reach_eigh_top(torch, ek, dev, dt, m, keep)
+                for k, val in err.items():
+                    worst[k] = max(worst[k], val)
+                bad = {k: v for k, v in err.items() if not v < tol[k]}
+                check(not bad, f"eigensolver {dt} m={m} rand: {bad} "
+                               f"(limits {tol})")
+                lines.append(reach_eigh_times(torch, ek, rec, sfx, m, f64,
+                                              plain)
+                             + f" ({time.perf_counter() - t_m:.1f} s at this"
+                               " m)")
+                rec["backtransform" + sfx]["by_m"][m]["max_abs_err"] = err[
+                    "bt"]
+                del plain
+                torch.cuda.empty_cache()
+                continue
+            cases = _gram_cases(m, rng, spec7=False)
             plain = {}  # "rand": the matrix, its plain factors and times
-            for name in ("rand",) if top else ("rand", "lowrank"):
+            for name in ("rand", "lowrank") if m < 2048 else ("rand",):
                 t = torch.tensor(cases[name], dtype=dt, device=dev)
                 h = t.mH @ t
                 hh = ((h + h.mH) * 0.5).contiguous()
@@ -2707,7 +2783,7 @@ def reach_eigh_check(torch, ek, card, dev, rec):
                 bad = {k: v for k, v in err.items() if not v < tol[k]}
                 check(not bad, f"eigensolver {dt} m={m} {name}: {bad} "
                                f"(limits {tol})")
-            if not top:
+            if m <= REACH_BATCH_MAX_M:
                 _, _, db, eb, _, _, _ = batch_against_singles(
                     torch, ek, torch.stack([
                         _sym_gram(torch, cases[k], dev).to(dt)
@@ -2726,11 +2802,195 @@ def reach_eigh_check(torch, ek, card, dev, rec):
         print(f"reach: K2-K4 {str(dt)[6:]} past their shared-memory sizes, m "
               f"{sizes}, agree with the plain versions (worst: "
               + ", ".join(f"{k} {v:.2e} < {tol[k]}" for k, v in worst.items())
-              + f"; batches of 3 bit for bit; "
+              + f"; batches of 3 bit for bit to m = {REACH_BATCH_MAX_M}; "
               f"{time.perf_counter() - t_start:.1f} s of checks and times) on "
               f"{card}", flush=True)
         for line in lines:
             print(line, flush=True)
+
+
+def reach_eigh_top(torch, ek, dev, dt, m, keep):
+    """K2-K4 at the cap, m = 8192, on a "rand" Gram drawn on the card,
+    where the plain K2 and K3 (Python loops of about 40 s each) give way
+    to the float64 yardstick: K2's factors by a probe residual (Q x and Q
+    T x for 8 random real x through the plain K4: |H Q x - Q T x| / (max|H|
+    max|x|), and |Q x| against |x|); K3 on K2's (d, e) at keep = m: w
+    against torch.linalg.eigvalsh(H) in complex128 on the card, z
+    orthonormal and its residual |T z - z w| / scale in float64 (no plain
+    z, no cluster projector: scipy's vectors of T would take the host
+    minutes), its keep = m / 2 launch the first columns of its keep = m
+    one; K4 on K2's reflectors and K3's z against the plain version (one
+    run, timed); the chain against the yardstick. Returns (errors by
+    name, the factors and plain times for reach_eigh_times)."""
+    f64 = dt == torch.complex128
+    g = torch.Generator(device=dev).manual_seed(m)
+    t = torch.randn((m, m), generator=g, dtype=torch.complex128, device=dev)
+    t = (t / torch.linalg.matrix_norm(t)).to(dt)
+    hh = ((t.mH @ t + (t.mH @ t).mH) * 0.5).contiguous()
+    del t
+    v, tau, d, e = ek.tridiag(hh)
+    rdt = torch.float64 if f64 else torch.float32
+    x = torch.randn((m, 8), generator=g, dtype=torch.float64, device=dev)
+    v64, tau64 = v.to(torch.complex128), tau.to(torch.complex128)
+    d64, e64 = d.double(), e[:-1].double()
+    tx = d64[:, None] * x
+    tx[:-1] += e64[:, None] * x[1:]
+    tx[1:] += e64[:, None] * x[:-1]
+    qx = ek.backtransform_plain(v64, tau64, x, 8)
+    qtx = ek.backtransform_plain(v64, tau64, tx, 8)
+    del v64, tau64
+    h64 = hh.to(torch.complex128)
+    hmax = float(h64.abs().max())
+    err = {"tridiag": max(
+        float((h64 @ qx - qtx).abs().max()) / (hmax * float(x.abs().max())),
+        float((torch.linalg.vector_norm(qx, dim=0)
+               - torch.linalg.vector_norm(x, dim=0)).abs().max()))}
+    wx = torch.linalg.eigvalsh(h64).flip(0)
+    del h64
+    scale = max(float(wx.abs().max()), 1e-300)
+    w, z = ek.teig(d, e)
+    err["teig"] = float((w.double() - wx).abs().max()) / scale
+    z64 = z.double()
+    eye = torch.eye(m, dtype=torch.float64, device=dev)
+    err["ortho"] = float((z64.T @ z64 - eye).abs().max())
+    del eye
+    tz = d64[:, None] * z64
+    tz[:-1] += e64[:, None] * z64[1:]
+    tz[1:] += e64[:, None] * z64[:-1]
+    err["resid"] = float(torch.linalg.vector_norm(
+        tz - z64 * w.double(), dim=0).max()) / scale
+    del tz, z64
+    teig_keep_check(torch, ek, d, e, w, z, None, keep, f"teig {dt} m={m}")
+    o = ek.backtransform(v, tau, z, keep)
+    t0 = time.perf_counter()
+    op = ek.backtransform_plain(v, tau, z, keep)
+    torch.cuda.synchronize()
+    t_bt = time.perf_counter() - t0
+    err["bt"] = float((o - op).abs().max())
+    del o, op
+    wk, vk = ek.eigh_top_kernels(hh, keep)
+    vk64 = vk.to(torch.complex128)
+    ek_ = torch.eye(keep, dtype=torch.complex128, device=dev)
+    resid = torch.linalg.vector_norm(
+        hh.to(torch.complex128) @ vk64[:, :4] - vk64[:, :4] * wk[:4].double(),
+        dim=0)
+    err.update(chain_w=float((wk.double() - wx[:keep]).abs().max()) / scale,
+               chain_ortho=float((vk64.mH @ vk64 - ek_).abs().max()),
+               chain_resid=float(resid.max()) / scale)
+    del wk, vk, vk64, ek_
+    return err, dict(hh=hh, factors=(v, tau, d, e, z),
+                     ms=dict(tridiag=None, teig=None,
+                             backtransform=t_bt * 1e3))
+
+
+def reach_peak_sweep(torch, mps_core, sweeps, Circuit, compile_tape, ek,
+                     envk, card, n, chi):
+    """One Rotoselect sweep at bond dimension chi (the cap, 4096) and n
+    qubits in complex64 and complex128, on the engine bench.py's sweep
+    uses: a short tape around the middle bond (two RY probes, one CX,
+    whose applies run K2-K4 at m = 2 chi, K4 on its half route in
+    complex128; the probes run the streamed K1 at chi), prefix and
+    reference the same |0> state. Its peak torch.cuda.max_memory_allocated,
+    its wall and its launches are printed; every kernel must launch, the
+    half route in complex128. Returns {dtype: (peak bytes, launches by
+    kernel, half-route launches)}."""
+    dev = torch.device("cuda")
+    mid = n // 2 - 1
+    qc = Circuit(n)
+    qc.ry(0.3, mid)
+    qc.cx(mid, mid + 1)
+    qc.ry(0.2, mid + 1)
+    tape = compile_tape(qc)
+    out = {}
+    for dt in (torch.complex64, torch.complex128):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ek, envk)
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        zero = mps_core.zero_mps(n, chi, dt, dev)
+        engine = mps_core.sweep_engine(1e-16)
+        bl = sweeps.default_block_len(tape.padded_length,
+                                      sweeps.state_nbytes(zero))
+        kinds, _, cost, state, evals, _ = sweeps.sweep(
+            engine, bl, True, zero, zero, tape.kinds, tape.q0, tape.q1,
+            tape.angles, tape.trainable)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = {fn.__name__: fn.launches for fn in (
+            envk.env_chain, ek.tridiag, ek.teig, ek.backtransform)}
+        half = ek.backtransform.half_launches
+        state_gb = sweeps.state_nbytes(zero) / 1e9
+        del zero, state
+        print(f"reach: peak sweep n={n} chi={chi} {str(dt)[6:]}: peak "
+              f"allocated {peak / 1e9:.3f} GB ({peak / state_gb / 1e9:.2f} "
+              f"states of {state_gb:.3f} GB; card 80 GB), cost {cost:.6f}, "
+              f"{evals} evaluations, kinds {kinds.tolist()[:3]}, {wall:.1f} "
+              f"s, launches {json.dumps(launches)}, K4 half route {half} on "
+              f"{card}", flush=True)
+        check(np.isfinite(cost) and -1e-6 <= cost <= 1.0 + 1e-6,
+              f"peak sweep {dt}: cost {cost}")
+        check(all(v > 0 for v in launches.values()),
+              f"peak sweep {dt}: a kernel did not launch: {launches}")
+        check((half > 0) == (dt == torch.complex128),
+              f"peak sweep {dt}: K4's half route launched {half} times")
+        out[str(dt)[6:]] = (peak, launches, half)
+        torch.cuda.empty_cache()
+    return out
+
+
+def reach_bt_only(torch, ek, cuda_lib, rec, dev, m, f64, card):
+    """K4 alone at m on synthetic unitary reflectors drawn on the card (v_k
+    = e_{k+1} + 0.3 x below it, tau_k = 2 / |v_k|^2, a run of 20 inactive
+    ones) and an orthonormal z, at keep = m / 2: against the plain version
+    (TOL_BT, or TOL_F64 in complex128), its workspace and apply shared
+    memory equal to the mirrors, a rerun the same bits; its time (3
+    launches), the plain version's (one run), the bound and torch.ormqr,
+    into rec["backtransform[...]"]["by_m"][m]. Returns the line to
+    print."""
+    dt = torch.complex128 if f64 else torch.complex64
+    rdt = torch.float64 if f64 else torch.float32
+    keep = m // 2
+    g = torch.Generator(device=dev).manual_seed(m + 1)
+    v = torch.triu(0.3 * torch.randn((m, m), generator=g, dtype=dt,
+                                     device=dev), diagonal=2)
+    idx = torch.arange(m - 1, device=dev)
+    v[idx, idx + 1] = 1.0
+    tau = torch.zeros(m, dtype=dt, device=dev)
+    tau[:m - 1] = (2.0 / (v[:m - 1].abs() ** 2).sum(-1)).to(dt)
+    tau[m // 3:m // 3 + 20] = 0
+    z = torch.linalg.qr(torch.randn((m, m), generator=g, dtype=rdt,
+                                    device=dev))[0].contiguous()
+    bt_mirror_check(ek, cuda_lib, m, keep, f64)
+    o = ek.backtransform(v, tau, z, keep)
+    check(torch.equal(o, ek.backtransform(v, tau, z, keep)),
+          f"backtransform {dt} m={m}: a rerun gave other bits")
+    t0 = time.perf_counter()
+    op = ek.backtransform_plain(v, tau, z, keep)
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((o - op).abs().max())
+    tol = TOL_F64 if f64 else TOL_BT
+    route = ek.backtransform_routes(m, f64)
+    check(err < tol, f"backtransform {dt} m={m} ({route} route) vs plain "
+                     f"{err} (limit {tol})")
+    oa, otau, _ = ormqr_inputs(torch, v, tau, z, keep)
+    oz = z[1:, :keep].to(dt).contiguous()
+    ms = cuda_ms(lambda: ek.backtransform(v, tau, z, keep), 3, torch)
+    lms = cuda_ms(lambda: torch.ormqr(oa, otau, oz), 3, torch)
+    bound = bound_fields("backtransform", m=m, keep=keep, f64=f64)
+    g_ = ek.backtransform_cluster_size(m, keep, f64)
+    rec[f"backtransform[{REACH_VARIANTS[f64]}]"].setdefault(
+        "by_m", {})[m] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                              max_abs_err=err, cluster_ctas=g_, route=route,
+                              inputs="synthetic reflectors", **bound)
+    return (f"reach: backtransform alone {str(dt)[6:]} m={m} keep={keep} "
+            f"({route} route, clusters of {g_} CTAs) on synthetic "
+            f"reflectors: vs plain {err:.2e} < {tol}, mirrors and rerun "
+            f"equal; kernel {ms:.4f} ms plain {pms:.4f} ms bound "
+            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}) torch.ormqr "
+            f"{lms:.4f} ms on {card}")
 
 
 def bt_mirror_check(ek, cuda_lib, m, keep, f64):
@@ -2750,18 +3010,20 @@ def bt_mirror_check(ek, cuda_lib, m, keep, f64):
 def teig_keep_check(torch, ek, d, e, w, z, wp, keep, what):
     """K3's card-wide route at `keep` (its first keep eigenpairs only) on
     one matrix: equal to the first keep of its keep = m launch (w, z),
-    bit for bit; w against the plain version's (bit for bit in complex128,
-    TOL_TEIG_W_REL of the scale in complex64); z orthonormal to
+    bit for bit; w against the plain version's wp where given (bit for bit
+    in complex128, TOL_TEIG_W_REL of the scale in complex64); z
+    orthonormal to
     TOL_ORTHO (complex64) or TOL_F64 (complex128), measured in float64."""
     wk, zk = ek.teig(d, e, keep)
     check(torch.equal(wk, w[:keep]) and torch.equal(zk, z[:, :keep]),
           f"{what}: keep={keep} differs from the first columns of keep=m")
     f64 = d.dtype == torch.float64
-    check(not f64 or torch.equal(wk, wp[:keep]),
-          f"{what}: keep={keep} w differs from the plain version's")
-    rel = float((wk - wp[:keep]).abs().max()) / max(float(wp.abs().max()),
-                                                    1e-300)
-    check(rel < TOL_TEIG_W_REL, f"{what}: keep={keep} w rel {rel}")
+    if wp is not None:  # (none at the cap: reach_eigh_top)
+        check(not f64 or torch.equal(wk, wp[:keep]),
+              f"{what}: keep={keep} w differs from the plain version's")
+        rel = float((wk - wp[:keep]).abs().max()) / max(
+            float(wp.abs().max()), 1e-300)
+        check(rel < TOL_TEIG_W_REL, f"{what}: keep={keep} w rel {rel}")
     z64 = zk.double()
     eye = torch.eye(keep, dtype=torch.float64, device=z64.device)
     ortho = float((z64.T @ z64 - eye).abs().max())
@@ -2787,8 +3049,9 @@ def teig_keep_batch(torch, ek, d, e, keep, what):
 
 def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
     """The kernels' times at m on the check's "rand" Gram (`plain`: the
-    matrix, its plain factors and the plain versions' times, one run each
-    on the host clock around a synchronise), with the bounds, the library
+    matrix, its plain factors (at the cap the kernels' own) and the plain
+    versions' times, one run each on the host clock around a synchronise,
+    None where not run), with the bounds, the library
     calls, the whole K2-K4 chain and torch.linalg.eigh(H), into
     rec[<kernel><sfx>]["by_m"][m]; returns the line to print."""
     dt = torch.complex128 if f64 else torch.complex64
@@ -2849,8 +3112,9 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             row["cluster_ctas"] = ek.backtransform_cluster_size(m, keep,
                                                                 f64)
             row["route"] = ek.backtransform_routes(m, f64)
-            plan = (f" (clusters of {row['cluster_ctas']} CTAs over 32 "
-                    f"columns' rows, {row['route']}-buffered panels)")
+            nb, cols = ek.backtransform_panel(m, f64)
+            plan = (f" (clusters of {row['cluster_ctas']} CTAs over {cols} "
+                    f"columns' rows, panels of {nb}, {row['route']} route)")
         rec[kname + sfx].setdefault("by_m", {})[m] = row
         if m == 1024:  # the size the chi = 512 sweeps launch
             rec[kname + sfx].update(
@@ -2859,7 +3123,9 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             rec[kname + sfx].update({k: row[k] for k in (
                 "design", "keep_half_ms", "keep_half_bound_ms",
                 "keep_half_bound_by") if k in row})
-        parts.append(f"{kname}{plan} kernel {ms:.4f} ms plain {pms:.4f} ms "
+        ptxt = (f"{pms:.4f} ms" if pms is not None
+                else "not measured (a Python loop past the run's time)")
+        parts.append(f"{kname}{plan} kernel {ms:.4f} ms plain {ptxt} "
                      f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
                      + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
     chain_ms = cuda_ms(lambda: ek.eigh_top_kernels(hh, keep), reps, torch)
@@ -2988,7 +3254,8 @@ def reach_verified_stop(torch, port, cplx, card, n, chi, max_layers):
 
 
 # the reach sweeps whose K2 Grams are checked and timed one by one
-REACH_GRAM_SWEEPS = ((512, False), (512, True), (1024, False), (1024, True))
+# (the chi = 512 sweeps' Grams went for the run's time: the same K2 route)
+REACH_GRAM_SWEEPS = ((1024, False), (1024, True))
 
 
 def reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec):
@@ -3053,17 +3320,19 @@ def reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec):
 def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                 card, port, cplx):
     """Past the sizes whose operands fit on chip: the streamed K1 to chi =
-    2048 and K2-K4 to m = 4096 against their plain versions, then the
-    paths at full width (n = 50) that launch them, each counted on its
-    own: bench.py's sweep at chi = 256, 512 and 1024 in complex64 and
-    complex128 (REACH_SWEEPS), and the spin chain's chi
-    schedule to 256; K2 on the chi = 512 and 1024 sweeps' own Grams
+    4096 and K2-K4 to m = 8192 against their plain versions (K4 also alone
+    at complex128 m = 4096), then the paths at full width (n = 50) that
+    launch them, each counted on its own: bench.py's sweep at chi = 256,
+    512 and 1024 in complex64 and complex128 (REACH_SWEEPS), and the spin
+    chain's chi schedule to 256; K2 on the chi = 1024 sweeps' own Grams
     (reach_sweep_grams); then the deep re-simulation at chi = 256, 1024
-    and 2048 (REACH_HAZARD), its native side beside it, and a compile's
-    verified stop re-simulated at chi = 1024 (VERIFIED_STOP). Every row of
+    and 4096 (REACH_HAZARD), its native side beside it, one sweep at chi
+    = 4096 with its peak memory (REACH_PEAK), and a compile's verified
+    stop re-simulated at chi = 1024 (VERIFIED_STOP). Every row of
     reach_rows must have launched on the sweeps and the spin chain, and no
     other reach counter. Returns (the records of the new variants, their
-    launches on those paths, reach_rows)."""
+    launches on those paths, reach_rows, the chi = 4096 sweep's peak and
+    launches by dtype)."""
     from adaptaqc_tpu_torch.ops import cuda_lib
     dev = torch.device("cuda")
     rec = {f"{k}[{v}]": {"max_abs_err": None, "ms": None, "plain_ms": None,
@@ -3080,6 +3349,10 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     reach_env_check(torch, envk, cuda_lib, card, dev, rec)
     part("env")
     reach_eigh_check(torch, ek, card, dev, rec)
+    for m, f64 in REACH_BT_ONLY:
+        print(reach_bt_only(torch, ek, cuda_lib, rec, dev, m, f64, card),
+              flush=True)
+        torch.cuda.empty_cache()
     part("eigh")
     launches = {k: dict.fromkeys(REACH_VARIANTS, 0) for k in KERNELS}
 
@@ -3098,11 +3371,16 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     part("spin")
     reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec)
     part("grams")
-    for chi, layers, native_chi, f64 in REACH_HAZARD:
+    for chi, layers, native_chi, f64, n, cx_sites in REACH_HAZARD:
         phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=chi,
                      layers=layers, native_chi=native_chi,
-                     dtype=torch.complex128 if f64 else torch.complex64)
+                     dtype=torch.complex128 if f64 else torch.complex64,
+                     n=n, cx_sites=cx_sites)
+        torch.cuda.empty_cache()
     part("hazard")
+    peak = reach_peak_sweep(torch, mps_core, sweeps, Circuit, compile_tape,
+                            ek, envk, card, **REACH_PEAK)
+    part("peak")
     reach_verified_stop(torch, port, cplx, card, **VERIFIED_STOP)
     part("verified_stop")
     print(f"reach: wall seconds by part {json.dumps(parts)}", flush=True)
@@ -3114,7 +3392,7 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                   f"paths; the rows whose code they run: {rows}")
     print(f"reach: launches of the new variants on the sweeps and the spin "
           f"chain {json.dumps(launches)} on {card}", flush=True)
-    return rec, launches, rows
+    return rec, launches, rows, peak
 
 
 # --------------------------------------------------------------- phase 12
@@ -3723,6 +4001,215 @@ def phase_refine(torch, card, workdir, dev="cuda", n=50, spin_steps=3):
           f"{len(summary['spin_chain'])} of {runs} / {rows}")
 
 
+# --------------------------------------------------------------- phase 16
+MESH_RANKS = 4          # ranks of the mesh (over gloo where they share
+                        # the card, over NCCL with a card each)
+MESH_MAX_LAYERS = 2     # the sharded compile, cut
+TOL_MESH_C128 = 1e-8    # the complex128 sharded compile's overlap against
+                        # the unsharded one's
+TOL_MESH_C64 = 1e-6    # the complex64 MPS steps (the dry run's chi = 256
+                        # over tp = 4, the 1 x 1 NCCL mesh's) against the
+                        # unsharded sweep: cost and every RDM entry
+MESH_STEP = dict(n=6, chi=16)  # the 1 x 1 NCCL mesh's MPS step
+
+
+def mesh_target(Circuit, n=4, seed=5):
+    """tests/test_mesh.py's MPS compile target: two layers of random RY and
+    a CX chain."""
+    rng = np.random.default_rng(seed)
+    qc = Circuit(n)
+    for _ in range(2):
+        for q in range(n):
+            qc.ry(float(rng.uniform(-3, 3)), q)
+        for q in range(n - 1):
+            qc.cx(q, q + 1)
+    return qc
+
+
+def mesh_compile(port, Circuit, dev, mesh=None):
+    """AdaptCompiler on MPSBackend (complex128, ISL) at MESH_MAX_LAYERS
+    layers on mesh_target: (pairs, overlap)."""
+    import torch
+    np.random.seed(11)
+    res = port.AdaptCompiler(
+        mesh_target(Circuit), backend=port.MPSBackend(
+            device=dev, dtype=torch.complex128, mesh=mesh),
+        adapt_config=port.AdaptConfig(max_layers=MESH_MAX_LAYERS)).compile()
+    return res.qubit_pair_history, res.overlap
+
+
+def mesh_compile_rank():
+    """One rank of the mesh phase's sharded compile: the (dp, tp) mesh of
+    the ranks, mesh_compile on it, and each rank's launches of every
+    kernel during it, gathered: (pairs, overlap, launches (ranks, 4) in
+    KERNELS' order)."""
+    import torch
+    import torch.distributed as dist
+    import adaptaqc_tpu_torch as port
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    from adaptaqc_tpu_torch.ops import env_kernel as envk
+    from adaptaqc_tpu_torch.parallel import mesh as pm
+    mesh = pm.make_mesh()
+    dev = pm.rank_device()
+    reset_counts(ek, envk)
+    pairs, overlap = mesh_compile(port, Circuit, dev, mesh)
+    mine = torch.tensor([[fn.launches for fn in (
+        envk.env_chain, ek.tridiag, ek.teig, ek.backtransform)]],
+        dtype=torch.float64, device=dev)
+    launches = pm.gather_dim(mine, 0, None, dist.get_world_size(),
+                             dist.get_rank())
+    return dict(mesh=tuple(mesh.shape), pairs=pairs, overlap=overlap,
+                launches=launches, backend=dist.get_backend())
+
+
+def unsharded_mps_step(tape, n, chi, dev):
+    """The unsharded engine's Rotoselect sweep of `tape` from |0> at chi on
+    dev (complex64), as make_mps_training_step runs it sharded: (cost,
+    all-pair RDMs (n, n, 4, 4) as numpy)."""
+    from adaptaqc_tpu_torch.backends import mps_core
+    from adaptaqc_tpu_torch.optim import sweeps
+    zero = mps_core.zero_mps(n, chi, device=dev)
+    _, _, cost, state, _, _ = sweeps.sweep(
+        mps_core.sweep_engine(0.0), sweeps.default_block_len(
+            tape.padded_length, sweeps.state_nbytes(zero)), True, zero,
+        mps_core.zero_mps(n, chi, device=dev), tape.kinds, tape.q0,
+        tape.q1, tape.angles, tape.trainable)
+    return cost, mps_core.all_pair_rdms(state).cpu().numpy()
+
+
+def mesh_nccl_rank(n, chi):
+    """A 1 x 1 mesh on one rank (NCCL on the card): the dry run's MPS step
+    (make_mps_training_step) against the unsharded engine's sweep of the
+    same tape on the same card."""
+    import torch.distributed as dist
+    from adaptaqc_tpu_torch.backends import mps_core
+    from adaptaqc_tpu_torch.parallel import mesh as pm
+    from adaptaqc_tpu_torch.workloads.entry import example_tape
+    mesh = pm.make_mesh(1)
+    dev = pm.rank_device()
+    tape = example_tape(n, 6, seed=1)
+    step = pm.make_mps_training_step(mesh, n, chi, tape.padded_length)
+    _, _, cost, state, rhos, _ = step(mps_core.zero_mps(n, chi, device=dev),
+                                      tape, tape.trainable)
+    cost0, rhos0 = unsharded_mps_step(tape, n, chi, dev)
+    return dict(mesh=tuple(mesh.shape), backend=dist.get_backend(),
+                cost=cost, cost0=cost0,
+                rdm_err=float(np.abs(rhos.cpu().numpy() - rhos0).max()),
+                shards=tuple(pm.local(state.b).shape))
+
+
+def phase_mesh(torch, port, card, dev="cuda"):
+    """M7 on the card(s), all at once: MESH_RANKS ranks running the sharded
+    MPS compile, one NCCL rank running the MPS step on a 1 x 1 mesh,
+    dryrun_multichip on MESH_RANKS more ranks (its four parts and
+    assertions, each rank's peak allocation printed), and this process's
+    unsharded compile in a thread. Ranks that share the one card go over
+    gloo, and the same ranks without backend="gloo" are refused before any
+    rank starts; with a card a rank (four cards) they go over NCCL. The
+    sharded compile's pair history equals the unsharded one's and its
+    overlap is within TOL_MESH_C128; every rank launches K2-K4 and no K1
+    (the env-chain kernel does not run under a mesh); the dry run's chi =
+    256 step (tp = 4) and the 1 x 1 step agree with the unsharded sweep of
+    their tapes on the card to TOL_MESH_C64 in cost and RDMs."""
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    from adaptaqc_tpu_torch.ops import env_kernel as envk
+    from adaptaqc_tpu_torch.parallel import mesh as pm
+    from adaptaqc_tpu_torch.workloads import entry
+    t0 = time.perf_counter()
+    shared = dev == "cuda" and torch.cuda.device_count() < MESH_RANKS
+    gloo = "gloo" if shared else None  # else launch picks (NCCL on cards)
+    if shared:
+        try:
+            pm.resolve_backend(MESH_RANKS, "cuda", None)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "mesh: ranks sharing the card were not refused "
+              "without backend='gloo'")
+    import threading
+    sharded = pm.launch(mesh_compile_rank, MESH_RANKS, device=dev,
+                        backend=gloo, wait=False)
+    one = pm.launch(mesh_nccl_rank, 1, MESH_STEP["n"], MESH_STEP["chi"],
+                    device=dev, wait=False)
+    box = {}
+
+    def unsharded():  # beside the dry run, which waits on its ranks
+        try:
+            reset_counts(ek, envk)
+            box["res"] = mesh_compile(port, Circuit, dev)
+            box["k1"] = envk.env_chain.launches
+        except BaseException as exc:  # re-raised below
+            box["exc"] = exc
+
+    thread = threading.Thread(target=unsharded)
+    thread.start()
+    d = entry.dryrun_multichip(MESH_RANKS, device=dev, backend=gloo)
+    t_dry = time.perf_counter() - t0
+    thread.join()
+    if "exc" in box:
+        raise box["exc"]
+    tp = d["mps"]["chi"] // d["mps"]["shards"][-1]
+    check(tp > 1 and d["mps"]["shards"][:3] == (6, 2, d["mps"]["chi"]),
+          f"mesh: the dry run's MPS shards {d['mps']['shards']}")
+    big = d["mps_big"]
+    t1 = time.perf_counter()
+    bcost0, brhos0 = unsharded_mps_step(big["tape"], big["shards"][0],
+                                        big["chi"], dev)
+    t_big = time.perf_counter() - t1
+    big_cost_err = abs(big["cost"] - bcost0)
+    big_rdm_err = float(np.abs(big["rhos"] - brhos0).max())
+    (pairs0, overlap0), k1_unsharded = box["res"], box["k1"]
+    got, nccl = sharded.result(), one.result()
+    t_compile = time.perf_counter() - t0
+    launches = np.asarray(got["launches"])
+    print(f"mesh: dryrun_multichip({MESH_RANKS}, backend={gloo!r}) passed "
+          f"on {d['platform']}: SV step cost {d['sv']['cost']:.6f}, MPS "
+          f"shards {d['mps']['shards']} and {d['mps_big']['shards']}, "
+          f"sharded-only SV n={d['sv_big']['n']} {d['sv_big']['shard_bytes']}"
+          f" bytes a rank (budget {d['sv_big']['budget']}), peak allocated a "
+          f"rank {[round(p / 2 ** 20, 1) for p in d['sv_big']['peaks']]} MB, "
+          f"{d['collectives']['collectives']} collectives on rank 0; "
+          f"{t_dry:.1f} s (beside the compile's ranks); its chi="
+          f"{big['chi']} step (tp {big['chi'] // big['shards'][-1]}) cost "
+          f"{big['cost']:.8f} vs unsharded {bcost0:.8f} (|diff| "
+          f"{big_cost_err:.2e}), RDMs max |diff| {big_rdm_err:.2e} "
+          f"(unsharded {t_big:.1f} s); "
+          + ("without backend='gloo' refused before any rank started "
+             if shared else "NCCL, a card a rank ") + f"on {card}",
+          flush=True)
+    print(f"mesh: sharded compile ({got['backend']}, mesh {got['mesh']}, "
+          f"complex128, {MESH_MAX_LAYERS} layers) pairs {got['pairs']} "
+          f"overlap {got['overlap']!r}, unsharded pairs {pairs0} overlap "
+          f"{overlap0!r} (|diff| {abs(got['overlap'] - overlap0):.2e}); "
+          f"launches a rank (env_chain, tridiag, teig, "
+          f"backtransform) {launches.astype(int).tolist()}, unsharded K1 "
+          f"{k1_unsharded}; 1 x 1 {nccl['backend']} mesh MPS step cost "
+          f"{nccl['cost']:.8f} vs unsharded {nccl['cost0']:.8f}, RDMs "
+          f"{nccl['rdm_err']:.2e}, shards {nccl['shards']}; "
+          f"{t_compile:.1f} s in all on {card}", flush=True)
+    check([tuple(p) for p in got["pairs"]] == [tuple(p) for p in pairs0],
+          f"mesh: sharded pairs {got['pairs']} != unsharded {pairs0}")
+    check(abs(got["overlap"] - overlap0) < TOL_MESH_C128,
+          f"mesh: sharded overlap {got['overlap']} vs {overlap0}")
+    check(big["chi"] // big["shards"][-1] == tp and
+          big_cost_err < TOL_MESH_C64 and big_rdm_err < TOL_MESH_C64,
+          f"mesh: the dry run's chi={big['chi']} step differs from the "
+          f"unsharded sweep: cost {big_cost_err}, RDMs {big_rdm_err}")
+    check(bool((launches[:, 0] == 0).all()),
+          f"mesh: K1 launched under the mesh: {launches.tolist()}")
+    check(bool((launches[:, 1:] > 0).all()),
+          f"mesh: a rank launched no K2-K4: {launches.tolist()}")
+    check(nccl["mesh"] == (1, 1) and (dev != "cuda"
+                                      or nccl["backend"] == "nccl"),
+          f"mesh: the one-rank mesh {nccl['mesh']} on {nccl['backend']}")
+    check(abs(nccl["cost"] - nccl["cost0"]) < TOL_MESH_C64
+          and nccl["rdm_err"] < TOL_MESH_C64,
+          f"mesh: the 1 x 1 step differs from the unsharded sweep: {nccl}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3821,6 +4308,9 @@ def main():
     if wanted("workloads") or wanted("refine"):
         import shutil
         shutil.rmtree(workloads_dir(), ignore_errors=True)
+    if wanted("mesh"):
+        phase_mesh(torch, port, card)
+        done("mesh")
     print(f"chip_smoke: wall seconds by phase {json.dumps(walls)}, "
           f"{sum(walls.values()):.1f} in all", flush=True)
 
@@ -3850,13 +4340,24 @@ def main():
                             source=kernel_source(name, "f64"),
                             replaces=replaces, launches=count,
                             **rec[f"{name}[f64]"]))
-    reach_rec, reach_launches, rows = reach
+    reach_rec, reach_launches, rows, peak = reach
     for name, v in rows:  # the reach phase
         replaces = KERNELS[name][1]
         kernels.append(dict(
             name=f"{name}[{v}]", route="cuda", source=kernel_source(name, v),
             replaces=replaces, launches=reach_launches[name][v],
             **reach_rec[f"{name}[{v}]"]))
+    # K4's half route (complex128 past m = 4096): its launches on the
+    # reach phase's chi = 4096 sweep, its times at the cap
+    top = reach_rec["backtransform[reach_f64]"]["by_m"][max(REACH_M_F64)]
+    kernels.append(dict(
+        name="backtransform[half]", route="cuda", source=BT_WIDE_SOURCE,
+        replaces=KERNELS["backtransform"][1], launches=peak["complex128"][2],
+        shape=f"m={max(REACH_M_F64)}, keep={max(REACH_M_F64) // 2}, "
+              "complex128",
+        library_call="torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
+        **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3866,7 +4367,8 @@ def main():
 
 
 PHASES = ("kernels", "hazard", "slice", "sweep", "sv", "sampling", "isl_mps",
-          "spin", "ladder", "reach", "optim", "zigzag", "workloads", "refine")
+          "spin", "ladder", "reach", "optim", "zigzag", "workloads", "refine",
+          "mesh")
 
 
 def parse_only(argv):

@@ -26,8 +26,8 @@ KERNELS = (env_kernel.env_chain, eigh_kernels.tridiag, eigh_kernels.teig,
 
 def test_caps_are_the_kernels_reach():
     assert dispatch.REACH == {
-        "env": {C64: (1, 2048), C128: (1, 2048)},
-        "eigh": {C64: (2, 4096), C128: (2, 4096)}}
+        "env": {C64: (1, 4096), C128: (1, 4096)},
+        "eigh": {C64: (2, 8192), C128: (2, 8192)}}
     assert env_kernel.NARROW_MAX_CHI == 64
     assert env_kernel.CLUSTER_MAX_CHI == 128
     assert eigh_kernels.NARROW_MAX_M == 128
@@ -51,7 +51,7 @@ def test_env_route_on_the_card_by_chi(size, want):
 
 @pytest.mark.parametrize("size", [1, 2, 128, 129, 256, 504, 505, 560, 561,
                                   EIGH_CAP_64, EIGH_CAP_64 + 1, EIGH_CAP - 1,
-                                  EIGH_CAP, EIGH_CAP + 1, 8192])
+                                  EIGH_CAP, EIGH_CAP + 1, 16384])
 def test_eigh_route_on_the_card_by_m(size):
     for dtype, hi in ((C64, EIGH_CAP), (C128, EIGH_CAP_64)):
         if 2 <= size <= hi:
@@ -63,7 +63,7 @@ def test_eigh_route_on_the_card_by_m(size):
 
 @pytest.mark.parametrize("op", ["env", "eigh"])
 @pytest.mark.parametrize("dtype", [C64, C128])
-@pytest.mark.parametrize("size", [2, 128, 129, 560, 561, 8192])
+@pytest.mark.parametrize("size", [2, 128, 129, 560, 561, 16384])
 def test_cpu_always_takes_the_wrappers(op, dtype, size):
     """On the CPU the wrappers run the plain versions, at any size."""
     assert dispatch.use_kernel(op, "cpu", dtype, size) is False
@@ -84,7 +84,7 @@ def test_other_dtypes_and_devices_raise_on_the_card(op):
             dispatch.use_kernel(op, "cuda", dtype, 8)
     assert dispatch.use_kernel(op, "meta", C64, 8)
     with pytest.raises(ValueError):
-        dispatch.use_kernel(op, "meta", C64, 8192)
+        dispatch.use_kernel(op, "meta", C64, 16384)
 
 
 def _reset():
@@ -233,12 +233,13 @@ def test_counters_move_only_on_launches(card):
 @pytest.mark.parametrize("dtype", [C64, C128])
 def test_reach_edges_launch_and_raise(card, dtype):
     """At the caps the wrappers launch (the streamed env chain at chi =
-    2048, the wide eigensolver at m = 4096 in both dtypes, K2 on its
-    card-wide route, K4 in complex128 on its single-buffered route), each
-    launch counted once, by the code it ran: the streamed K1, K2 and K4
-    past REACH_M and K3 with its iterate in global memory as reach
-    launches of their dtype. One past the caps (chi = 2049, m = 4097) the
-    call raises before any launch and counts nothing."""
+    4096, the wide eigensolver at m = 8192 in both dtypes, K2 on its
+    card-wide route, K4 on its one-buffer route in complex64 and its half
+    route in complex128), each launch counted once, by the code it ran:
+    the streamed K1, K2 and K4 past REACH_M and K3 with its iterate in
+    global memory as reach launches of their dtype. One past the caps (chi
+    = 4097, m = 8193) the call raises before any launch and counts
+    nothing."""
     f64 = dtype == C128
     cap = EIGH_CAP_64 if f64 else EIGH_CAP
     br = torch.zeros(3, 2, ENV_CAP, ENV_CAP, dtype=dtype)

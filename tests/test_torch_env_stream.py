@@ -17,8 +17,9 @@ from test_torch_reach import _sites, _views, product_order
 
 torch.set_num_threads(1)
 
-REACH_CHI = (129, 192, 256, 512, 768, 1024)   # chip_smoke.REACH_CHI
-REACH_CHI_F64 = (192, 256, 512, 1024)         # chip_smoke.REACH_CHI_F64
+# chip_smoke.REACH_CHI and REACH_CHI_F64, and 2048, the cap before
+REACH_CHI = (129, 192, 256, 512, 768, 1024, 2048, 4096)
+REACH_CHI_F64 = (192, 256, 512, 1024, 2048, 4096)
 WAVE = 132  # the H100 SXM's SMs
 
 

@@ -94,3 +94,23 @@ def test_zigzag_and_env_cache_import_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_parallel_modules_are_among_those_imported():
+    """M7's modules (the launcher and mesh, the sharded engines) are found
+    by the walk of the first test, so they import with JAX made
+    unimportable and build nothing; importing them starts no process
+    group."""
+    import pkgutil
+
+    import torch.distributed as dist
+
+    import adaptaqc_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(
+        adaptaqc_tpu_torch.__path__, "adaptaqc_tpu_torch.")}
+    for mod in ("parallel", "parallel.mesh", "parallel.sv_sharded",
+                "parallel.mps_sharded"):
+        assert f"adaptaqc_tpu_torch.{mod}" in names
+    from adaptaqc_tpu_torch.parallel import mesh, mps_sharded  # noqa: F401
+    from adaptaqc_tpu_torch.parallel import sv_sharded  # noqa: F401
+    assert not dist.is_initialized()

@@ -18,9 +18,9 @@ columns, on the CPU.
                 over the ranks in order. The same bits for every tiling;
                 against cgs2_plain of the same iterate at the tolerances of
                 test_torch_teig_cluster.py;
-  plan          the launch plan's rule at m = 2048 and 4096 (the route has
-                no cap of its own; dispatch's REACH keeps m <= 2048, K2's
-                cap), and the wrapper's query of it.
+  plan          the launch plan's rule at m = 2048, 4096 and 8192 (the
+                route has no cap of its own; dispatch's REACH keeps m <=
+                8192), and the wrapper's query of it.
 
 (The kernel's FMAs round once where torch's products round twice, so the
 emulation follows the order of the sums, not their last bits.)
@@ -201,8 +201,8 @@ def test_grid_order_matches_column_cgs2(dtype, m):
 
 
 def test_grid_plan_at_2048_and_4096(monkeypatch):
-    """The plan at m = 2048 and 4096 in both dtypes: 16 ranks of 128 and
-    256 rows, slabs of 64 rows; the route has no cap of its own, only
+    """The plan at m = 2048, 4096 and 8192 in both dtypes: 16 ranks of 128,
+    256 and 512 rows, slabs of 64 rows; the route has no cap of its own, only
     shared memory stops it (float: 800 rows a rank at m = 12800, 120 KB;
     double: the inverse iteration's d, e and w past m = 8490). The
     wrapper's query returns the library's plan (a stand-in library
@@ -213,6 +213,9 @@ def test_grid_plan_at_2048_and_4096(monkeypatch):
         assert grid_plan(4096, f64) == {"block": 32, "inblock_ctas": 16,
                                         "rows": 256, "slabs": 64}
     assert grid_plan(12800, False)["rows"] == 800
+    for f64 in (False, True):  # the cap, m = 8192: 512 rows a rank
+        assert grid_plan(8192, f64) == {"block": 32, "inblock_ctas": 16,
+                                        "rows": 512, "slabs": 128}
     assert grid_plan(8490, True) is not None
     assert grid_plan(8491, True) is None
     assert grid_plan(4096, True, smem=80000) is None  # 16 ranks too few

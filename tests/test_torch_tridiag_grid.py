@@ -299,15 +299,16 @@ class _GridLib:
         return ek.tridiag_grid_workspace_bytes(m, f64)
 
 
+@pytest.mark.parametrize("m", [4096, 8192])
 @pytest.mark.parametrize("f64", [False, True])
-def test_plan_and_workspace_at_4096(monkeypatch, f64):
-    """At m = 4096, F5's new cap: the card-wide route, 132 CTAs, panels of
-    32, slabs of 64; the workspace is the matrix (m^2 complex, 256 MiB in
-    complex128) with the panel's V and W, the vectors, the slabs' partials,
-    the flags and the barrier's words, each from a 256-byte boundary, as the
-    library lays it out; the route's shared memory fits a CTA's 227 KB."""
+def test_plan_and_workspace_at_4096(monkeypatch, f64, m):
+    """At m = 4096 and 8192, F5's cap: the card-wide route, 132 CTAs,
+    panels of 32, slabs of 64; the workspace is the matrix (m^2 complex,
+    256 MiB in complex128 at m = 4096, 1 GiB at 8192) with the panel's V
+    and W, the vectors, the slabs' partials, the flags and the barrier's
+    words, each from a 256-byte boundary, as the library lays it out; the
+    route's shared memory fits a CTA's 227 KB."""
     monkeypatch.setattr(cuda_lib, "lib", lambda: _GridLib())
-    m = 4096
     assert ek.tridiag_routes(m, f64) == "grid"
     assert ek.tridiag_routes(640 if not f64 else 438, f64) == "smem"
     pl = ek.tridiag_grid_plan(m, f64)
