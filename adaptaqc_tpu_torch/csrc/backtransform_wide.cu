@@ -1,5 +1,8 @@
 // The eigensolver's back-transform (K4) past the narrow design, for sm_90a:
-// complex64 at m > 128 and complex128 at every m.
+// complex64 at 128 < m < 3072 and complex128 at m < 1536 (the launchers
+// take m to 5888 and 2816, where a cluster keeps its rows of z beside two
+// panel buffers; from those sizes on backtransform_strip.cu measured
+// faster).
 //
 // Replaces the JAX package's Pallas TPU kernel _backtransform_kernel
 // (ops/pallas_eigh.py:136): out = H_0 H_1 ... H_{m-2} z[:, :keep], with
@@ -48,30 +51,15 @@
 //     Gathering all G partials in every CTA (the first version) took
 //     3,000-10,000 cycles a panel, more than the products (clock64()
 //     stamps, one H100).
-// Past the shared-memory fit of two panel buffers (complex128 at m >
+// Past the shared-memory fit of two panel buffers (complex128 m >
 // kDoubleMaxF64 = 2816: at m = 4096 a CTA's 256 rows of z take 147 KB, two
-// panel buffers 139 KB; complex64 at m > kDoubleMaxF32 = 5888) the apply
-// keeps one panel buffer and rows of z at a stride of kCols + 1 (226,816
-// bytes a CTA at complex128 m = 4096, 221,440 at complex64 m = 8192): the
-// next panel's copy is issued once this one's update is done, so its load
-// is no longer hidden behind the products, and the eight bank groups of a
-// 16-byte row are each read once a pass in both products. The arithmetic
-// and its order are those of the double-buffered route (the same bits at
-// the same G).
-// complex128 past m = 4096 (R > 256 rows a CTA of 16, which fit neither
-// route) takes the half route: panels of 8 reflectors and column tiles of
-// 16 (kNbHalf, kColsHalf), one panel buffer, rows of z at a stride of 17
-// and of the panel at 9, and a scratch of four warps' partial Y (230,528
-// bytes a CTA at m = 8192, R = 512). Its products run on DMMA m16n8k4
-// (dmma16, the full fp64 tensor rate): the partial Y^T = Z^T conj(V) as
-// one 16 x 8 tile a warp over every eighth group of four rows, summed
-// over the warps in a fixed tree through the scratch, and Z -= V W as 16-row
-// tiles a warp. The exchange and W = T Y are the other routes'.
+// panel buffers 139 KB; complex64 m > kDoubleMaxF32 = 5888) K4 runs the
+// strip route of backtransform_strip.cu, which takes over below that fit
+// too where it measured faster (bt_strip_route); the launchers here refuse
+// those m.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -91,10 +79,6 @@ using adaptaqc::smem_addr;
 
 constexpr int kNb = 16;         // reflectors of a compact-WY panel
 constexpr int kCols = 32;       // output columns of a cluster
-constexpr int kNbHalf = 8;      // the same on the half route
-constexpr int kColsHalf = 16;
-constexpr int kRedWarps = 4;    // the half route's scratch: partial Y of
-                                // half the warps
 constexpr int kThreads = 256;   // a CTA, in both launches
 constexpr int kRowsCta = 128;   // rows a CTA aims at: G = ceil(m / 128),
 constexpr int kRowsSmall = 64;  // or ceil(m / 64) at m <= 512
@@ -102,34 +86,17 @@ constexpr int kMaxCluster = 16;
 constexpr int kChunk = 128;     // rows the preparation stages at a time
 constexpr int kMaxBatch = 65535;
 constexpr int kPlanCache = 8192;
-constexpr int kDoubleMaxF64 = 2816;  // complex128 m past it: one buffer
-                                     // (R = 176 rows a CTA of 16 and two
-                                     // buffers: 222,912 bytes; 192 rows:
-                                     // 240,128)
-constexpr int kSingleMaxF64 = 4096;  // complex128 m past it: the half route
-                                     // (R = 256: 226,816 bytes; 272 rows:
-                                     // 238,592)
-constexpr int kDoubleMaxF32 = 5888;  // complex64 m past it: one buffer
-                                     // (R = 368 rows on two buffers:
-                                     // 225,984 bytes; 384 rows: 235,264)
-static_assert(kNb == 16 && kCols == 32 && kThreads == 256 &&
-                  kNbHalf == 8 && kColsHalf == 16,
-              "the register tiles below: 4 x 4 outputs a thread; the half "
-              "route: one m16n8 tile of Y^T, 16-row tiles of Z");
+constexpr int kDoubleMaxF64 = 2816;  // the last complex128 m whose rows
+                                     // fit beside two buffers (R = 176
+                                     // rows a CTA of 16: 222,912 bytes;
+                                     // 192 rows: 240,128)
+constexpr int kDoubleMaxF32 = 5888;  // complex64 (R = 368 rows: 225,984
+                                     // bytes; 384 rows: 235,264)
+static_assert(kNb == 16 && kCols == 32 && kThreads == 256,
+              "the register tiles below: 4 x 4 outputs a thread");
 
-// The apply's route, by m and the complex element size alone: 0 double
-// (two panel buffers), 1 single (one buffer), 2 half (one buffer, panels
-// of kNbHalf, tiles of kColsHalf; complex128 only).
-__host__ __device__ inline int bt_route(int m, int esize) {
-  if (esize == 16)
-    return m <= kDoubleMaxF64 ? 0 : (m <= kSingleMaxF64 ? 1 : 2);
-  return m <= kDoubleMaxF32 ? 0 : 1;
-}
-__host__ __device__ inline int bt_nb(int m, int esize) {
-  return bt_route(m, esize) == 2 ? kNbHalf : kNb;
-}
-__host__ __device__ inline int bt_cols(int m, int esize) {
-  return bt_route(m, esize) == 2 ? kColsHalf : kCols;
+__host__ __device__ inline int bt_max_m(int esize) {
+  return esize == 16 ? kDoubleMaxF64 : kDoubleMaxF32;
 }
 
 template <typename T>
@@ -185,9 +152,8 @@ __host__ __device__ inline size_t round16(size_t x) {
 // and each panel's first reflector (ints), each panel's T (nb x nb,
 // row-major), then each panel's reflector block: G R rows (CTA g's rows,
 // g + l G for l < R, at rows g R + l) of ldv elements, entry i of a row the
-// panel's reflector i. nb: the route's panel (kNb, or kNbHalf on the half
-// route). ldv: the panel's nb entries and 16 bytes more, so a block's rows
-// are 16-byte aligned and their stride is no power of two. A block holds m
+// panel's reflector i. ldv: the panel's nb entries and 16 bytes more, so a
+// block's rows are 16-byte aligned and their stride is no power of two. A block holds m
 // + kMaxCluster - 1 rows, as many as G R reaches for any cluster size, so
 // the workspace depends on m and the dtype alone.
 struct BtWs {
@@ -196,7 +162,7 @@ struct BtWs {
 };
 __host__ __device__ inline BtWs bt_ws(int m, int esize) {
   BtWs w;
-  w.nb = bt_nb(m, esize);
+  w.nb = kNb;
   w.npmax = (m - 1 + w.nb - 1) / w.nb;
   w.ldv = w.nb + 16 / esize;
   w.slots = m + kMaxCluster - 1;
@@ -209,28 +175,23 @@ __host__ __device__ inline BtWs bt_ws(int m, int esize) {
 }
 
 // bt_apply_kernel's dynamic shared memory, offsets in complex elements:
-// the CTA's rows of z (Rp = R rounded up to 16, rows of ldz), nbuf panel
-// buffers (Rp rows of ldv), nbuf T, the partial Y of this CTA's columns
+// the CTA's rows of z (Rp = R rounded up to 16, rows of ldz), two panel
+// buffers (Rp rows of ldv), two T, the partial Y of this CTA's columns
 // (c = g mod G) as every rank posts it (G x nb x ncmax, ncmax = ceil(cols
-// / G)), their sum (nb x ncmax), W (nb x cols), on the half route the
-// scratch of kRedWarps warps' partial Y (nb x cols each), then the panels'
-// first reflectors (ints). ldz = cols + 4 on the double-buffered route: the
-// eight rows a warp reads at once in the partial Y fall on the fewest bank
-// passes in either dtype; cols + 1 on the one-buffer routes, which need
-// the 3 elements a row back. The route is fixed by m and the dtype alone
-// (bt_route).
+// / G)), their sum (nb x ncmax), W (nb x cols), then the panels' first
+// reflectors (ints). ldz = cols + 4: the eight rows a warp reads at once in
+// the partial Y fall on the fewest bank passes in either dtype.
 struct BtSmem {
   int Rp, ldz, ldv, ncmax, nbuf, nb, cols;
-  size_t zs, vb, tb, rv, yl, ws, red, k0, total_bytes;
+  size_t zs, vb, tb, rv, yl, ws, k0, total_bytes;
 };
 __host__ __device__ inline BtSmem bt_smem(int m, int G, int R, int esize) {
   BtSmem s;
-  const int route = bt_route(m, esize);
-  s.nb = bt_nb(m, esize);
-  s.cols = bt_cols(m, esize);
-  s.nbuf = route == 0 ? 2 : 1;
+  s.nb = kNb;
+  s.cols = kCols;
+  s.nbuf = 2;
   s.Rp = (R + 15) & ~15;
-  s.ldz = s.cols + (s.nbuf == 1 ? 1 : 4);
+  s.ldz = s.cols + 4;
   s.ldv = s.nb + 16 / esize;
   s.ncmax = (s.cols + G - 1) / G;
   s.zs = 0;
@@ -239,8 +200,7 @@ __host__ __device__ inline BtSmem bt_smem(int m, int G, int R, int esize) {
   s.rv = s.tb + (size_t)s.nbuf * s.nb * s.nb;
   s.yl = s.rv + (size_t)G * s.nb * s.ncmax;
   s.ws = s.yl + (size_t)s.nb * s.ncmax;
-  s.red = s.ws + (size_t)s.nb * s.cols;
-  s.k0 = s.red + (route == 2 ? (size_t)kRedWarps * s.nb * s.cols : 0);
+  s.k0 = s.ws + (size_t)s.nb * s.cols;
   const int npmax = (m - 1 + s.nb - 1) / s.nb;
   s.total_bytes = s.k0 * esize + round16(4 * (size_t)npmax);
   return s;
@@ -249,8 +209,7 @@ __host__ __device__ inline BtSmem bt_smem(int m, int G, int R, int esize) {
 // bt_prep_kernel's dynamic shared memory: the active list (m ints), then
 // a staged chunk of the panel, nb rows of kChunk + 1 elements.
 __host__ __device__ inline size_t bt_prep_smem(int m, int esize) {
-  return round16(4 * (size_t)m) + (size_t)bt_nb(m, esize) * (kChunk + 1) *
-                                      esize;
+  return round16(4 * (size_t)m) + (size_t)kNb * (kChunk + 1) * esize;
 }
 
 // One level of the shuffle tree that sums x over the eight lanes of a
@@ -600,132 +559,6 @@ __device__ __forceinline__ void update_z(const double2* Vs,
   }
 }
 
-// The half route (complex128, panels of kNbHalf = 8, tiles of kColsHalf =
-// 16) on DMMA m16n8k4. The partial Y^T = Z^T conj(V) over rows [l0, R) of
-// a CTA's slab is one 16 x 8 tile (column c of Z, reflector i): warp w
-// takes the groups of four rows 4 (w + 8 j) from l0 rounded down to four,
-// four chains (Zr Vr, Zi Vi, Zi Vr, -Zr Vi) into their own accumulators,
-// the next group's operands loaded while this one's are used; rows before
-// l0 and past R weigh zero. The eight warps' tiles are then summed in a
-// fixed tree through `red` (kRedWarps tiles: warps 4-7 into 0-3, then 2-3
-// into 0-1, then 1 into 0; each add its own tile first). Warp 0 returns
-// the sum: y[j] is Y[yi[j]][yc[j]], four entries a lane.
-__device__ __forceinline__ void partial_y_half(const double2* Vs,
-                                               const double2* Zs, int ldv,
-                                               int ldz, int l0, int R,
-                                               int tid, double2* red,
-                                               double2 (&y)[4], int (&yi)[4],
-                                               int (&yc)[4]) {
-  const int lane = tid & 31, warp = tid >> 5;
-  const int c = lane >> 2;  // A's rows c and c + 8 (columns of Z)
-  const int k = lane & 3;   // A's column, B's row (the row in the group)
-  const int i = lane >> 2;  // B's column (the reflector)
-  const double2 zero2 = make_double2(0.0, 0.0);
-  double acc[4][4] = {};
-  auto load = [&](int l4, double2& v, double2& z0, double2& z1) {
-    const int l = l4 + k;
-    const bool in = l < R;
-    v = (l >= l0 && in) ? Vs[l * ldv + i] : zero2;
-    z0 = in ? Zs[l * ldz + c] : zero2;
-    z1 = in ? Zs[l * ldz + c + 8] : zero2;
-  };
-  int l4 = (l0 & ~3) + 4 * warp;
-  double2 v, z0, z1;
-  load(l4, v, z0, z1);
-  for (; l4 < R; l4 += 4 * (kThreads / 32)) {
-    double2 vn, z0n, z1n;
-    load(l4 + 4 * (kThreads / 32), vn, z0n, z1n);
-    adaptaqc::dmma16(acc[0], z0.x, z1.x, v.x);
-    adaptaqc::dmma16(acc[1], z0.y, z1.y, v.y);
-    adaptaqc::dmma16(acc[2], z0.y, z1.y, v.x);
-    adaptaqc::dmma16(acc[3], z0.x, z1.x, -v.y);
-    v = vn;
-    z0 = z0n;
-    z1 = z1n;
-  }
-  // D fragment j: row c (j < 2) or c + 8, column 2 k + (j & 1)
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    y[j] = make_double2(acc[0][j] + acc[1][j], acc[2][j] + acc[3][j]);
-  constexpr int kTile = kNbHalf * kColsHalf;
-#pragma unroll
-  for (int span = kRedWarps; span >= 1; span >>= 1) {
-    if (warp >= span && warp < 2 * span) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        red[(warp - span) * kTile + 4 * lane + j] = y[j];
-    }
-    __syncthreads();
-    if (warp < span) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const double2 o = red[warp * kTile + 4 * lane + j];
-        y[j] = make_double2(y[j].x + o.x, y[j].y + o.y);
-      }
-    }
-    __syncthreads();  // red is written again by the next level
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    yc[j] = c + 8 * (j >> 1);
-    yi[j] = 2 * k + (j & 1);
-  }
-}
-
-// Z -= V W on the half route (Ws: kNbHalf x kColsHalf): warp w takes the
-// 16-row tiles t = w, w + 8, .. that reach past l0, both 8-column tiles of
-// each, Z += (-V) W with Z's fragment as the accumulator (two steps of four
-// reflectors); each thread stores only its rows at or past l0.
-__device__ __forceinline__ void update_z_half(const double2* Vs,
-                                              const double2* Ws, double2* Zs,
-                                              int ldv, int ldz, int l0, int R,
-                                              int tid) {
-  const int lane = tid & 31, warp = tid >> 5;
-  const int k = lane & 3, r = lane >> 2;
-  for (int rt = warp; 16 * rt < R; rt += kThreads / 32) {
-    if (16 * rt + 16 <= l0) continue;
-    const int la = 16 * rt + r, lb = la + 8;  // A's rows, D's rows
-    double2 va[2], vb[2];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      va[ks] = (la >= l0 && la < R) ? Vs[la * ldv + 4 * ks + k]
-                                    : make_double2(0.0, 0.0);
-      vb[ks] = (lb >= l0 && lb < R) ? Vs[lb * ldv + 4 * ks + k]
-                                    : make_double2(0.0, 0.0);
-    }
-    double zr[2][4], zi[2][4];
-#pragma unroll
-    for (int ct = 0; ct < 2; ++ct)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int l = j < 2 ? la : lb;
-        const double2 x = Zs[l * ldz + 8 * ct + 2 * k + (j & 1)];
-        zr[ct][j] = x.x;
-        zi[ct][j] = x.y;
-      }
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int ct = 0; ct < 2; ++ct) {
-        const double2 w = Ws[(4 * ks + k) * kColsHalf + 8 * ct + r];
-        // Z -= v w: real -v.x w.x + v.y w.y, imaginary -v.x w.y - v.y w.x
-        adaptaqc::dmma16(zr[ct], -va[ks].x, -vb[ks].x, w.x);
-        adaptaqc::dmma16(zr[ct], va[ks].y, vb[ks].y, w.y);
-        adaptaqc::dmma16(zi[ct], -va[ks].x, -vb[ks].x, w.y);
-        adaptaqc::dmma16(zi[ct], -va[ks].y, -vb[ks].y, w.x);
-      }
-#pragma unroll
-    for (int ct = 0; ct < 2; ++ct)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int l = j < 2 ? la : lb;
-        if (l >= l0 && l < R)
-          Zs[l * ldz + 8 * ct + 2 * k + (j & 1)] =
-              make_double2(zr[ct][j], zi[ct][j]);
-      }
-  }
-}
-
 // Grid: ceil(keep / COLS) column tiles x G x batch, clusters of (1, G, 1):
 // cluster (x, b) applies every panel (of NB reflectors) to columns [x COLS,
 // x COLS + COLS) of matrix b; NB and COLS are the route's. R: the rows a
@@ -812,31 +645,19 @@ __global__ void __launch_bounds__(kThreads)
   };
   if (npan > 0 && tid == 0) issue(npan - 1, 0);
 
-  const bool single = S.nbuf == 1;
   for (int it = 0; it < npan; ++it) {
-    const int p = npan - 1 - it, buf = single ? 0 : it & 1;
+    const int p = npan - 1 - it, buf = it & 1;
     const int l0 = first_row(p);
-    mbar_wait(&vbar[buf], single ? it & 1 : (it >> 1) & 1);
+    mbar_wait(&vbar[buf], (it >> 1) & 1);
     // the other buffer was last read before the barrier that ended the
-    // previous panel (one buffer: it is refilled after this panel)
-    if (!single && tid == 0 && p > 0) issue(p - 1, buf ^ 1);
+    // previous panel
+    if (tid == 0 && p > 0) issue(p - 1, buf ^ 1);
     const V* Vs = Vb + (size_t)buf * Rp * ldv;
     const V* Ts = Tb + (size_t)buf * NB * NB;
 
     // this CTA's partial Y = V^H Z, posted to the rank that owns each
-    // entry's column, in this rank's slot: two entries a thread, or on
-    // the half route four a lane of warp 0
-    if constexpr (NB == kNbHalf) {
-      V y[4];
-      int yi[4], yc[4];
-      partial_y_half(Vs, Zs, ldv, ldz, l0, R, tid, sm + S.red, y, yi, yc);
-      if (tid < 32) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          cluster.map_shared_rank(Rv, yc[k] % G)[(g * NB + yi[k]) * ncmax +
-                                                 yc[k] / G] = y[k];
-      }
-    } else {
+    // entry's column, in this rank's slot: two entries a thread
+    {
       V y[2];
       int yi[2], yc[2];
       partial_y(Vs, Zs, ldv, ldz, l0, R, tid, y, yi, yc);
@@ -882,12 +703,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (tid < G) mbar_arrive_remote(&wbar, tid);
     mbar_wait_cluster(&wbar, it & 1);
-    if constexpr (NB == kNbHalf)
-      update_z_half(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
-    else
-      update_z(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
+    update_z(Vs, Ws, Zs, ldv, ldz, l0, R, tid);
     __syncthreads();  // Z and both buffers are read again by the next panel
-    if (single && tid == 0 && p > 0) issue(p - 1, 0);
   }
   for (int idx = tid; idx < R * COLS; idx += kThreads) {
     const int l = idx / COLS, c = idx % COLS, r = g + l * G;
@@ -908,7 +725,7 @@ __global__ void __launch_bounds__(kThreads)
 // to G0 / 2 whose clusters all fit is taken instead (longer slabs, one
 // wave): complex128 at m = 1024 runs its 16 tiles on clusters of 6, 15
 // of 8 fitting at once on an H100. G = 0 (and *err) where nothing
-// launches. NB and COLS: the route's panel and column tile.
+// launches. NB and COLS: the panel and column tile.
 struct BtPlan {
   int G, R;
   size_t smem, prep_smem;
@@ -1044,20 +861,13 @@ int bt_run_route(const void* vrows, const void* tau, const void* z,
   return (int)cudaGetLastError();
 }
 
-// The route's instantiation at m: the half route in complex128 past
-// kSingleMaxF64, else panels of kNb and tiles of kCols.
 template <typename T>
 int bt_run(const void* vrows, const void* tau, const void* z, void* out,
            void* ws, int m, int keep, int batch, long long v_stride,
            long long tau_stride, long long z_stride, void* stream, int lo) {
-  if (m < lo || keep < 1 || keep > m || batch < 1 || batch > kMaxBatch)
+  if (m < lo || m > bt_max_m((int)sizeof(typename Cplx<T>::V)) || keep < 1 ||
+      keep > m || batch < 1 || batch > kMaxBatch)
     return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, double>::value) {
-    if (bt_route(m, 16) == 2)
-      return bt_run_route<T, kNbHalf, kColsHalf>(
-          vrows, tau, z, out, ws, m, keep, batch, v_stride, tau_stride,
-          z_stride, stream);
-  }
   return bt_run_route<T, kNb, kCols>(vrows, tau, z, out, ws, m, keep, batch,
                                      v_stride, tau_stride, z_stride, stream);
 }
@@ -1065,12 +875,6 @@ int bt_run(const void* vrows, const void* tau, const void* z, void* out,
 template <typename T>
 int bt_cluster_size(int m, int keep) {
   cudaError_t err = cudaSuccess;
-  if constexpr (std::is_same<T, double>::value) {
-    if (bt_route(m, 16) == 2)
-      return bt_plan<T, kNbHalf, kColsHalf>(
-                 m, (keep + kColsHalf - 1) / kColsHalf, &err)
-          .G;
-  }
   return bt_plan<T, kNb, kCols>(m, (keep + kCols - 1) / kCols, &err).G;
 }
 
@@ -1079,30 +883,36 @@ int bt_cluster_size(int m, int keep) {
 extern "C" {
 
 // The workspace of one matrix in bytes (the wrapper allocates batch times
-// it), in complex64 (f64 = 0, m > 128) or complex128 (m >= 2); 0 outside.
+// it), in complex64 (f64 = 0, 128 < m <= 5888) or complex128 (2 <= m <=
+// 2816); 0 outside.
 long long backtransform_workspace(int m, int f64) {
-  if (m < (f64 ? 2 : 129)) return 0;
+  if (m < (f64 ? 2 : 129) || m > bt_max_m(f64 ? 16 : 8)) return 0;
   return (long long)bt_ws(m, f64 ? 16 : 8).total;
 }
 
 // bt_apply_kernel's dynamic shared memory in bytes at m on a cluster of G
-// CTAs (complex64: f64 = 0, m > 128; complex128: m >= 2); 0 outside.
+// CTAs (the sizes of backtransform_workspace); 0 outside.
 long long backtransform_apply_smem(int m, int G, int f64) {
-  if (m < (f64 ? 2 : 129) || G < 1 || G > kMaxCluster) return 0;
+  if (m < (f64 ? 2 : 129) || m > bt_max_m(f64 ? 16 : 8) || G < 1 ||
+      G > kMaxCluster)
+    return 0;
   return (long long)bt_smem(m, G, (m + G - 1) / G, f64 ? 16 : 8)
       .total_bytes;
 }
 
 // The CTAs of the cluster over a column tile's rows at m, for `keep`
-// columns of one matrix (tiles of the route's columns); 0 on error.
+// columns of one matrix; 0 on error or outside.
 int backtransform_cluster_size(int m, int keep, int f64) {
-  if (m < (f64 ? 2 : 129) || keep < 1 || keep > m) return 0;
+  if (m < (f64 ? 2 : 129) || m > bt_max_m(f64 ? 16 : 8) || keep < 1 ||
+      keep > m)
+    return 0;
   return f64 ? bt_cluster_size<double>(m, keep)
              : bt_cluster_size<float>(m, keep);
 }
 
 // out (batch, m, keep) = H_0 ... H_{m-2} z[:, :keep] for each matrix, in
-// complex64 (m > 128); ws: batch x backtransform_workspace(m, 0) bytes.
+// complex64 (128 < m <= 5888); ws: batch x backtransform_workspace(m, 0)
+// bytes.
 // Two launches on `stream`; returns the first launch error.
 int backtransform_wide_launch(const void* vrows, const void* tau,
                               const void* z, void* out, void* ws, int m,
@@ -1113,7 +923,7 @@ int backtransform_wide_launch(const void* vrows, const void* tau,
                        tau_stride, z_stride, stream, 129);
 }
 
-// The same in complex128 / float64, at every m >= 2.
+// The same in complex128 / float64, at 2 <= m <= 2816.
 int backtransform_f64_launch(const void* vrows, const void* tau,
                              const void* z, void* out, void* ws, int m,
                              int keep, int batch, long long v_stride,

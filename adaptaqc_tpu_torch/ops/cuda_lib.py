@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("env_chain.cu", "env_chain_wide.cu", "env_chain_stream.cu",
-           "eigh_tridiag.cu", "tridiag_grid.cu", "backtransform_wide.cu")
+           "eigh_tridiag.cu", "tridiag_grid.cu", "backtransform_wide.cu",
+           "backtransform_strip.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -69,12 +70,18 @@ _SIGNATURES = {
     "teig_grid_plan": (_I, _I, _P),
     "backtransform_f64_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L,
                                  _L, _P),
+    "backtransform_strip_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                                   _L, _L, _I, _P),
+    "backtransform_route": (_I, _I),
 }
 _RESTYPES = {"teig_wide_scratch": ((_I,), ctypes.c_longlong),
              "env_chain_f64_partials": ((_I,), ctypes.c_longlong),
              "env_chain_stream_work": ((_I, _I), ctypes.c_longlong),
              "backtransform_workspace": ((_I, _I), ctypes.c_longlong),
              "backtransform_apply_smem": ((_I, _I, _I), ctypes.c_longlong),
+             "backtransform_strip_workspace": ((_I, _I), ctypes.c_longlong),
+             "backtransform_strip_zbuf": ((_I, _I, _I), ctypes.c_longlong),
+             "backtransform_strip_smem": ((_I, _I), ctypes.c_longlong),
              "tridiag_grid_workspace": ((_I, _I), ctypes.c_longlong)}
 
 _lib = None

@@ -37,15 +37,13 @@ REACH = {
     # shared-memory designs, then the wide variants; complex128 in the wide
     # variants' double instantiation; past each kernel's shared-memory fit
     # K2 and K3 run their card-wide routes (csrc/tridiag_grid.cu and
-    # teig_grid: the matrix and the iterate in global memory), K4 its wide
-    # design (csrc/backtransform_wide.cu: complex64 past m 5888 and
-    # complex128 past 2816 on one panel buffer, complex128 past 4096 on the
-    # half route's panels of 8 and tiles of 16 columns). Both dtypes to m
-    # 8192, the size the card has been checked at; what sets the cap past
-    # it: K3's plan (m ~ 8,490 in double), K4's half route (a cluster of 16
-    # holds 512 rows a CTA at m 8192, 230,528 bytes in complex128), and
-    # the state's bytes at chi 4096 (one padded complex128 state at n = 24
-    # is 12.9 GB; a sweep keeps several)
+    # teig_grid: the matrix and the iterate in global memory), K4 its strip
+    # route (csrc/backtransform_strip.cu: a CTA a strip of columns kept in
+    # global memory; its plan and workspace are defined to m 16384). Both
+    # dtypes to m 8192, the size the card has been checked at; what sets
+    # the cap past it: K3's plan (m ~ 8,490 in double) and the state's
+    # bytes at chi 4096 (one padded complex128 state at n = 24 is 12.9 GB;
+    # a sweep keeps several)
     "eigh": {torch.complex64: (2, 8192), torch.complex128: (2, 8192)},
 }
 

@@ -26,9 +26,10 @@ top eigenpairs of the Hermitian Gram matrix h = theta^H theta (m = 2 chi):
 
 Each wrapper runs the plain version for a tensor on the CPU and launches the
 CUDA kernel (csrc/eigh_tridiag.cu, csrc/tridiag_grid.cu for K2 past its
-cluster's shared memory, and csrc/backtransform_wide.cu for K4's wide
-design) for a tensor on a CUDA device (ops/dispatch.py): in complex64 for m
-<= 128 the register and shared-memory designs, for 128 < m <= 4096 the wide
+cluster's shared memory, csrc/backtransform_wide.cu and
+csrc/backtransform_strip.cu for K4's wide design) for a tensor on a CUDA
+device (ops/dispatch.py): in complex64 for m <= 128 the register and
+shared-memory designs, for 128 < m <= 4096 the wide
 variants (K2 and K3 on a thread-block cluster of up to 16 CTAs a matrix;
 K4 a preparation launch that gathers the active reflectors into panels
 with their T, then a cluster of CTAs over the rows of each tile of 32
@@ -41,9 +42,12 @@ reduction whose trailing updates run on the tensor cores in complex128),
 and K3 runs its card-wide route (`wide_routes`: "global", complex64 past m
 = 640, complex128 past 512: the iterate in global memory), launches over
 the whole card that compute only the kept columns, its LU factors and
-products in `scratch`. It raises
-for anything the kernels do not take (m above 4096, or 2048 in complex128,
-another dtype, a non-contiguous tensor). There is no fallback from a kernel to the plain
+products in `scratch`, and K4 runs its strip route (`backtransform_routes`:
+"strip", complex64 from m = 3072, complex128 from 1536:
+csrc/backtransform_strip.cu, a CTA a strip of 32 output columns kept in
+global memory, panels of 64 reflectors). It raises for anything the
+kernels do not take (m above dispatch.REACH's 8192, another dtype, a
+non-contiguous tensor). There is no fallback from a kernel to the plain
 version. Each wrapper counts its launches in `<wrapper>.launches`, those of
 them that took a batch (P > 1 matrices in one launch) in
 `<wrapper>.batched_launches`, and each wide or complex128 launch in the
@@ -534,10 +538,10 @@ def wide_routes(m: int, f64: bool = False) -> dict:
 
 def backtransform_cluster_size(m: int, keep: int, f64: bool = False) -> int:
     """CTAs of the cluster over the rows of one tile of 32 output columns
-    in K4's wide design (complex64 above NARROW_MAX_M, or f64: complex128
-    at every m) for `keep` columns of one matrix: ceil(m / 128) (ceil(m /
-    64) at m <= 512), at most 16, or fewer where that makes all of the
-    launch's clusters fit on the card at once."""
+    on K4's double route (complex64 above NARROW_MAX_M, or f64: complex128,
+    to BT_DOUBLE_MAX) for `keep` columns of one matrix: ceil(m / 128)
+    (ceil(m / 64) at m <= 512), at most 16, or fewer where that makes all
+    of the launch's clusters fit on the card at once."""
     g = cuda_lib.lib().backtransform_cluster_size(int(m), int(keep),
                                                   int(f64))
     if g == 0:
@@ -624,35 +628,33 @@ def _tridiag_grid_bytes(m: int, f64: bool) -> int:
 
 BT_NB = 16            # backtransform_wide.cu kNb: reflectors of a panel
 BT_COLS = 32          # kCols: output columns of a cluster
-BT_NB_HALF = 8        # kNbHalf, kColsHalf: the same on the half route
-BT_COLS_HALF = 16
-BT_RED_WARPS = 4      # kRedWarps: the half route's scratch of partial Y
 BT_MAX_CLUSTER = 16   # kMaxCluster
-BT_DOUBLE_MAX_F64 = 2816  # kDoubleMaxF64: complex128 past it, one buffer
-BT_SINGLE_MAX_F64 = 4096  # kSingleMaxF64: complex128 past it, the half route
-BT_DOUBLE_MAX_F32 = 5888  # kDoubleMaxF32: complex64 past it, one buffer
+# by f64: the last m whose rows of z a cluster of 16 keeps beside two panel
+# buffers (kDoubleMaxF64 / kDoubleMaxF32)
+BT_DOUBLE_MAX = {False: 5888, True: 2816}
+# csrc/backtransform_strip.cu, the strip route: from BT_STRIP_FROM[f64]
+# (kStripFromF32 / kStripFromF64, the first sizes where it measured faster
+# than the double route) it takes every m
+BT_STRIP_FROM = {False: 3072, True: 1536}
+BT_STRIP_NB = 64       # kNb: reflectors of a panel
+BT_STRIP_LDV = 66      # kLdv: a panel row's stride, in elements
+BT_STRIP_NARROW_MAX = 4224  # kNarrowMax: strips of 16 columns to it, else
+                            # of 32
+BT_STRIP_ALIGN = 64    # kAlign: the padded m, panel p's first row 64 p
+BT_STRIP_ROWS = {False: 64, True: 32}  # Cplx<T>::kRows: rows of a chunk
+BT_STRIP_PREP_CHUNK = 64  # kPrepChunk
+BT_STRIP_MAX_M = 16384    # kMaxM: the plan and the workspace are defined
+                          # to it (dispatch.REACH caps the wrapper at 8192)
 
 
 def backtransform_routes(m: int, f64: bool = False) -> str:
-    """The wide K4's apply route at m, by m and the dtype alone (bt_route):
-    "double" (two panel buffers, the next panel's copy under this one's
-    products: complex64 to m = 5888, complex128 to m = 2816, the last m
-    whose rows a CTA fit beside two buffers on a cluster of 16), "single"
-    (one panel buffer and rows of z at a stride of BT_COLS + 1: complex64
-    past 5888, complex128 to m = 4096) or "half" (complex128 past 4096:
-    panels of BT_NB_HALF reflectors, tiles of BT_COLS_HALF columns, one
-    buffer, its products on DMMA m16n8k4)."""
-    if f64:
-        return ("double" if m <= BT_DOUBLE_MAX_F64 else
-                "single" if m <= BT_SINGLE_MAX_F64 else "half")
-    return "double" if m <= BT_DOUBLE_MAX_F32 else "single"
-
-
-def backtransform_panel(m: int, f64: bool = False) -> tuple:
-    """(reflectors a panel, columns a tile) of the route at m."""
-    if backtransform_routes(m, f64) == "half":
-        return BT_NB_HALF, BT_COLS_HALF
-    return BT_NB, BT_COLS
+    """The wide K4's route at m, by m and the dtype alone (bt_strip_route,
+    C backtransform_route): "double" (backtransform_wide.cu: a cluster of
+    CTAs over the rows of each tile of 32 columns, two panel buffers;
+    below complex64 m = 3072, complex128 m = 1536) or "strip"
+    (backtransform_strip.cu: a CTA a strip of 16 or 32 columns, panels of
+    64, every m from BT_STRIP_FROM)."""
+    return "strip" if m >= BT_STRIP_FROM[f64] else "double"
 
 
 def _round16(x: int) -> int:
@@ -660,13 +662,13 @@ def _round16(x: int) -> int:
 
 
 def backtransform_workspace_bytes(m: int, f64: bool = False) -> int:
-    """The wide K4's workspace a matrix as csrc/backtransform_wide.cu lays
-    it out (bt_ws): the active count and each panel's first reflector
-    (ints), each panel's T (nb x nb, nb the route's panel), then each
-    panel's reflector block of m + BT_MAX_CLUSTER - 1 rows of nb entries
-    and 16 bytes. chip_smoke.py holds it equal to the library's."""
+    """The double route's workspace a matrix as csrc/backtransform_wide.cu
+    lays it out (bt_ws): the active count and each panel's first reflector
+    (ints), each panel's T (16 x 16), then each panel's reflector block of
+    m + BT_MAX_CLUSTER - 1 rows of 16 entries and 16 bytes. chip_smoke.py
+    holds it equal to the library's."""
     es = 16 if f64 else 8
-    nb, _ = backtransform_panel(m, f64)
+    nb = BT_NB
     npmax = -(-(m - 1) // nb)
     ldv = nb + 16 // es
     t_off = _round16(4 * (1 + npmax))
@@ -674,37 +676,114 @@ def backtransform_workspace_bytes(m: int, f64: bool = False) -> int:
     return v_off + npmax * (m + BT_MAX_CLUSTER - 1) * ldv * es
 
 
-def backtransform_apply_smem(m: int, g: int, f64: bool = False,
-                             route: str = None) -> int:
-    """bt_apply_kernel's dynamic shared memory in bytes at m on a cluster
-    of g CTAs (bt_smem) on `route` (the plan's by default): rows of z (R =
-    ceil(m / g), rounded up to 16, at a stride of cols + 4, or + 1 on the
-    one-buffer routes), one or two panel buffers and T, the partial Y
-    posted by every rank, their sum, W, on the half route the scratch of
-    BT_RED_WARPS warps' partial Y, and the panels' first reflectors."""
+def backtransform_apply_smem(m: int, g: int, f64: bool = False) -> int:
+    """The double route's bt_apply_kernel dynamic shared memory in bytes at
+    m on a cluster of g CTAs (bt_smem): rows of z (R = ceil(m / g),
+    rounded up to 16, at a stride of 36), two panel buffers and two T, the
+    partial Y posted by every rank, their sum, W, and the panels' first
+    reflectors."""
     es = 16 if f64 else 8
-    route = route or backtransform_routes(m, f64)
-    nb, cols = (BT_NB_HALF, BT_COLS_HALF) if route == "half" else (BT_NB,
-                                                                 BT_COLS)
-    nbuf = 2 if route == "double" else 1
+    nb, cols = BT_NB, BT_COLS
     rp = _round16(-(-m // g))
-    ldz = cols + (1 if nbuf == 1 else 4)
+    ldz = cols + 4
     ldv = nb + 16 // es
     ncmax = -(-cols // g)
-    red = BT_RED_WARPS * nb * cols if route == "half" else 0
-    elems = (rp * ldz + nbuf * rp * ldv + nbuf * nb * nb
-             + g * nb * ncmax + nb * ncmax + nb * cols + red)
+    elems = (rp * ldz + 2 * rp * ldv + 2 * nb * nb + g * nb * ncmax
+             + nb * ncmax + nb * cols)
     return elems * es + _round16(4 * -(-(m - 1) // nb))
+
+
+def backtransform_strip_cols(m: int, f64: bool = False) -> int:
+    """The columns of a strip (one CTA) at m (bt_strip_cols): 16 to m =
+    BT_STRIP_NARROW_MAX (keep = m / 2 then makes at most 132 strips, one
+    wave on an H100), else 32; the same in both dtypes."""
+    return 16 if m <= BT_STRIP_NARROW_MAX else 32
+
+
+def backtransform_strip_plan(m: int, f64: bool = False) -> dict:
+    """How the strip route runs a matrix of size m (backtransform_strip.cu,
+    by m and the dtype alone): `nb` reflectors a panel, `cols` columns a
+    strip (a CTA; a launch has ceil(keep / cols) of them a matrix), `rows`
+    of a chunk staged at a time, `mpad` (m rounded up to BT_STRIP_ALIGN),
+    `panels` at most, `smem` the apply's dynamic shared memory (strip_smem:
+    two stages of two panels' chunk and Z's chunk at a stride of cols + 2,
+    W in complex64, the first rows) and `prep_smem` the preparation's, and
+    `workspace` a matrix in bytes (strip_ws: the count and first rows, each
+    panel's 64 x 64 T, then panel p's rows 64 p .. mpad of BT_STRIP_LDV
+    entries). chip_smoke.py holds them equal to the library's."""
+    es = 16 if f64 else 8
+    nb, rows = BT_STRIP_NB, BT_STRIP_ROWS[f64]
+    cols = backtransform_strip_cols(m, f64)
+    npmax = -(-(m - 1) // nb)
+    mpad = -(-m // BT_STRIP_ALIGN) * BT_STRIP_ALIGN
+    stage = 2 * rows * BT_STRIP_LDV + rows * (cols + 2)
+    extra = 0 if f64 else nb * cols
+    smem = (2 * stage + extra) * es + _round16(4 * npmax)
+    t_off = _round16(4 * (1 + npmax))
+    v_rows = npmax * mpad - nb * npmax * (npmax - 1) // 2
+    return {"nb": nb, "cols": cols, "rows": rows, "mpad": mpad,
+            "panels": npmax, "smem": smem,
+            "prep_smem": (nb * (BT_STRIP_PREP_CHUNK + 1) + nb * nb) * es,
+            "workspace": (t_off + npmax * nb * nb * es
+                          + v_rows * BT_STRIP_LDV * es)}
+
+
+def backtransform_strip_zbuf_bytes(m: int, keep: int,
+                                   f64: bool = False) -> int:
+    """The strip route's working columns a matrix (strip_zbuf): ceil(keep /
+    cols) strips of mpad rows of cols complex elements."""
+    mpad = -(-m // BT_STRIP_ALIGN) * BT_STRIP_ALIGN
+    cols = backtransform_strip_cols(m, f64)
+    return -(-keep // cols) * mpad * cols * (16 if f64 else 8)
 
 
 @functools.lru_cache(maxsize=64)
 def _bt_workspace_bytes(m: int, f64: bool) -> int:
-    """The wide K4's workspace a matrix, in bytes: m and the dtype fix it."""
+    """The double route's workspace a matrix, in bytes: m and the dtype fix
+    it."""
     nbytes = cuda_lib.lib().backtransform_workspace(int(m), int(f64))
     if nbytes <= 0:
         raise RuntimeError(f"backtransform: no workspace at m={m}"
                            + (" in complex128" if f64 else ""))
     return nbytes
+
+
+@functools.lru_cache(maxsize=64)
+def _bt_strip_bytes(m: int, f64: bool) -> int:
+    """The strip route's workspace a matrix, in bytes: m and the dtype fix
+    it."""
+    nbytes = cuda_lib.lib().backtransform_strip_workspace(int(m), int(f64))
+    if nbytes <= 0:
+        raise RuntimeError(f"backtransform: no strip workspace at m={m}"
+                           + (" in complex128" if f64 else ""))
+    return nbytes
+
+
+def backtransform_strip_launch(vrows, tau, z, keep: int,
+                               z_stride: int = None) -> torch.Tensor:
+    """One launch of the strip route on CUDA tensors, whatever the route
+    at m (the wrapper takes it past BT_STRIP_FROM; a timing script may
+    force it below): vrows (P, m, m) or (m, m), tau, z as the wrapper
+    checks them. Counts nothing."""
+    m = vrows.shape[-1]
+    lead, p = _batch_of(vrows, 2, "backtransform")
+    f64 = vrows.dtype == torch.complex128
+    if z_stride is None:
+        z_stride = z.stride(0) if lead else m * m
+    lib = cuda_lib.lib()
+    out = torch.empty(lead + (m, keep), dtype=vrows.dtype,
+                      device=vrows.device)
+    ws = torch.empty((p, _bt_strip_bytes(m, f64)), dtype=torch.uint8,
+                     device=vrows.device)
+    zb = torch.empty((p, lib.backtransform_strip_zbuf(int(m), int(keep),
+                                                      int(f64))),
+                     dtype=torch.uint8, device=vrows.device)
+    rc = lib.backtransform_strip_launch(
+        vrows.data_ptr(), tau.data_ptr(), z.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), zb.data_ptr(), m, keep, p, m * m, m, z_stride,
+        int(f64), cuda_lib.stream_of(vrows))
+    cuda_lib.check(rc, "backtransform")
+    return out
 
 
 def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
@@ -729,29 +808,34 @@ def backtransform(vrows: torch.Tensor, tau: torch.Tensor, z: torch.Tensor,
     z_stride = cuda_lib.require_columns(
         z, "backtransform z", torch.float64 if f64 else torch.float32, lead,
         m, keep, m)
-    out = torch.empty(lead + (m, keep), dtype=vrows.dtype,
-                      device=vrows.device)
-    lib = cuda_lib.lib()
-    stream = cuda_lib.stream_of(vrows)
-    if f64 or m > NARROW_MAX_M:
-        ws = torch.empty((p, _bt_workspace_bytes(m, f64)), dtype=torch.uint8,
-                         device=vrows.device)
-        launch = (lib.backtransform_f64_launch if f64
-                  else lib.backtransform_wide_launch)
-        rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
-                    out.data_ptr(), ws.data_ptr(), m, keep, p, m * m, m,
-                    z_stride, stream)
+    strip = (f64 or m > NARROW_MAX_M) and backtransform_routes(
+        m, f64) == "strip"
+    if strip:
+        out = backtransform_strip_launch(vrows, tau, z, keep, z_stride)
     else:
-        rc = lib.backtransform_launch(vrows.data_ptr(), tau.data_ptr(),
-                                      z.data_ptr(), out.data_ptr(), m, keep,
-                                      p, m * m, m, z_stride, stream)
-    cuda_lib.check(rc, "backtransform")
+        out = torch.empty(lead + (m, keep), dtype=vrows.dtype,
+                          device=vrows.device)
+        lib = cuda_lib.lib()
+        stream = cuda_lib.stream_of(vrows)
+        if f64 or m > NARROW_MAX_M:
+            ws = torch.empty((p, _bt_workspace_bytes(m, f64)),
+                             dtype=torch.uint8, device=vrows.device)
+            launch = (lib.backtransform_f64_launch if f64
+                      else lib.backtransform_wide_launch)
+            rc = launch(vrows.data_ptr(), tau.data_ptr(), z.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), m, keep, p, m * m, m,
+                        z_stride, stream)
+        else:
+            rc = lib.backtransform_launch(vrows.data_ptr(), tau.data_ptr(),
+                                          z.data_ptr(), out.data_ptr(), m,
+                                          keep, p, m * m, m, z_stride, stream)
+        cuda_lib.check(rc, "backtransform")
     _count(backtransform, p, m, f64, m > REACH_M[f64])
-    backtransform.half_launches += backtransform_routes(m, f64) == "half"
+    backtransform.strip_launches += strip
     return out
 
 
-backtransform.half_launches = 0  # complex128 past m = 4096: the half route
+backtransform.strip_launches = 0  # the strip route's launches
 for _fn in (tridiag, teig, backtransform):
     _fn.launches = 0
     _fn.batched_launches = 0

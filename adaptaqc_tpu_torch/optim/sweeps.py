@@ -35,6 +35,7 @@ overlap; the kinds and angles are read back once per `sweep` call.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -227,13 +228,17 @@ def sweep(engine: SweepEngine, block_len: int, rotoselect: bool,
 
 
 def default_block_len(padded_len: int, state_bytes: int = None,
-                      memory_budget: int = int(4e9)) -> int:
+                      memory_budget: int = None) -> int:
     """Block size of the right-state checkpointing: one block when the
-    whole tape's right-state buffer fits `memory_budget` bytes (the
-    checkpoint pass is then skipped: 2G applies per sweep instead of 3G),
-    else a sqrt-style block size."""
-    if state_bytes and padded_len * state_bytes <= memory_budget:
-        return padded_len
+    whole tape's right-state buffer fits `memory_budget` bytes (default
+    4e9, or the environment's ADAPTAQC_SWEEP_MEMORY_BUDGET; the checkpoint
+    pass is then skipped: 2G applies per sweep instead of 3G), else a
+    sqrt-style block size."""
+    if state_bytes:
+        budget = memory_budget or int(float(os.environ.get(
+            "ADAPTAQC_SWEEP_MEMORY_BUDGET", 4e9)))
+        if padded_len * state_bytes <= budget:
+            return padded_len
     for bl in (32, 16, 8, 4, 2, 1):
         if padded_len % bl == 0 and bl * bl <= 4 * padded_len:
             return bl

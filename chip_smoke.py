@@ -91,13 +91,15 @@ name; any failure exits non-zero:
             "lowrank" Grams to m = 1024 with a batch of 3, "rand" at 2048;
             at m = 8192 "rand"
             alone against the float64 yardstick, K2 by a probe residual,
-            K4 on the half route in complex128 against its plain version),
+            K4 on its strip route against its plain version),
             with times, bounds and library calls (K3 against
             torch.linalg.eigh(T), its card-wide route also at keep = m/2:
             the first columns of its keep = m launch, alone and in a batch
             of 3; K4 against torch.ormqr, its workspace and shared memory
-            equal to the mirrors in eigh_kernels), and K4 alone at
-            complex128 m = 4096, its single-buffered route; then at n=50
+            equal to the mirrors in eigh_kernels), and K4 alone on its
+            strip route at complex128 m = 4096 (strips of 16 columns) and
+            complex64 m = 3072 (its crossover), a rerun and a batch of 3
+            bit for bit; then at n=50
             the sweep phase's workload at chi=256, 512 and 1024 in
             complex64 and complex128, and the spin chain through
             workloads/spin_chain.py with SPIN_CHI_SCHEDULE=32,64,128,256
@@ -108,7 +110,7 @@ name; any failure exits non-zero:
             1024 (1 layer) at n=50 and at chi=4096, n=24 (CX on sites
             10-13, both dtypes), its native verifier beside it; one sweep
             at chi=4096, n=23 in both dtypes with its peak device memory
-            (K4's half route launched in complex128); a compile at working
+            (K4's strip route launched in both); a compile at working
             chi=512, n=21, whose verified stop re-simulates at chi=1024 on
             the native verifier
   optim     on the slice's target (n=50, chi=32): BOBYQA layers with the
@@ -161,9 +163,10 @@ at chi = 128 and m = 256; K1's also by chi with its cluster floor), per
 complex128 variant (the optim phase) and per
 variant whose code only sizes past the old caps run, `[reach]` and
 `[reach_f64]` (reach_rows: its launches on the reach phase's sweeps and
-spin chain, its times at chi = 256 and m = 1024), and K4's half route,
-`backtransform[half]` (its launches on the chi = 4096 sweep, its times at
-m = 8192), the line before the last the card's name and power limit from
+spin chain, its times at chi = 256 and m = 1024), and K4's strip route,
+`backtransform[strip]` and `backtransform[strip_f64]` (complex64 and
+complex128: its launches on the chi = 4096 sweep, its times at m = 8192),
+the line before the last the card's name and power limit from
 nvidia-smi, and the last line {"ok": true, "device": {...}}. Without a
 CUDA card, or without the package beside this script, it exits non-zero
 and prints no result.
@@ -313,6 +316,12 @@ def check(cond, what):
         raise SmokeFailure(what)
 
 
+# K4's counters (ops/eigh_kernels.py), the strip route's among them
+BT_COUNTERS = ("launches", "batched_launches", "wide_launches",
+               "f64_launches", "reach_launches", "reach_f64_launches",
+               "strip_launches")
+
+
 def reset_counts(ek, envk):
     """Every kernel's launch counters to 0."""
     for fn in (envk.env_chain, ek.tridiag, ek.teig, ek.backtransform):
@@ -320,7 +329,7 @@ def reset_counts(ek, envk):
         fn.reach_launches = fn.reach_f64_launches = 0
     for fn in (ek.tridiag, ek.teig, ek.backtransform):
         fn.batched_launches = 0
-    ek.backtransform.half_launches = 0
+    ek.backtransform.strip_launches = 0
 
 
 def variant_counts(ek, envk):
@@ -478,7 +487,7 @@ def record_eigh_inputs(torch, ek, fn):
             return kernels[name](*args)
         record.launches = 0  # a wrapper counts on its module-level name
         record.batched_launches = record.wide_launches = 0
-        record.f64_launches = record.half_launches = 0
+        record.f64_launches = record.strip_launches = 0
         record.reach_launches = record.reach_f64_launches = 0
         return record
     try:
@@ -2433,10 +2442,10 @@ REACH_N_TOP = 24
 REACH_Q_TOP = (0, 12, 23)
 REACH_M = (561, 1024, 2048, 8192)     # K2-K4 past 560, complex64
 REACH_M_F64 = (512, 1024, 2048, 8192)  # past 504 in complex128
-# (m = 8192: the cap, on the single-buffered K4 in complex64 and the half
-# route in complex128; it replaced 4096, the same K2 and K3 routes, and
-# its plain K2 and K3, Python loops of about 40 s each, give way to the
-# float64 yardstick and K2's probe residual: reach_eigh_top. For the run's
+# (m = 8192: the cap, K4 on its strip route in both dtypes; it replaced
+# 4096, the same K2 and K3 routes, and its plain K2 and K3, Python loops of
+# about 40 s each, give way to the float64 yardstick and K2's probe
+# residual: reach_eigh_top. For the run's
 # time, complex64 768 and 1536 and complex128 505 went: the routes of 1024
 # and 2048, and of 512, which the chi = 256 sweeps launch; and at 2048 the
 # "lowrank" class, which the batches of 3 below it hold)
@@ -2444,9 +2453,10 @@ REACH_M_F64 = (512, 1024, 2048, 8192)  # past 504 in complex128
 # the plain versions of three matrices took 14 s a dtype; the same routes
 # and plans run at 1024)
 REACH_BATCH_MAX_M = 1024
-# K4 alone at a size whose route no other reach m takes: complex128 m =
-# 4096, its single-buffered route (synthetic reflectors)
-REACH_BT_ONLY = ((4096, True),)
+# K4 alone at sizes whose plan no other reach m takes (synthetic
+# reflectors): complex128 m = 4096, the strip route in strips of 16
+# columns, and complex64 m = 3072, the strip route's crossover
+REACH_BT_ONLY = ((4096, True), (3072, False))
 REACH_VARIANTS = ("reach", "reach_f64")
 # (chi, complex128, timed sweeps): bench.py's sweep at each chi; past chi =
 # 256 one sweep, timed without a warm-up, to keep the run's time
@@ -2469,7 +2479,7 @@ REACH_HAZARD = ((256, 2, 256, False, 50, None),
 # the sweep whose peak device memory is printed: chi = 4096 at n = 23 (the
 # padded state is what a sweep at this chi holds; the true bonds of n = 23
 # stop at 2048), both dtypes, a short tape around the middle bond (its
-# K2-K4 at m = 8192, K4 on the half route in complex128)
+# K2-K4 at m = 8192, K4 on its strip route)
 REACH_PEAK = dict(n=23, chi=4096)
 # a compile whose verified stop re-simulates at chi = 1024: working chi 512,
 # n >= 21 (2 ** ((n + 1) // 2) >= 1024), at most 2 layers
@@ -2491,6 +2501,7 @@ def reach_rows(ek, envk):
 STREAM_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_stream.cu"
 ENV_WIDE_SOURCE = "adaptaqc_tpu_torch/csrc/env_chain_wide.cu"
 BT_WIDE_SOURCE = "adaptaqc_tpu_torch/csrc/backtransform_wide.cu"
+BT_STRIP_SOURCE = "adaptaqc_tpu_torch/csrc/backtransform_strip.cu"
 TRIDIAG_GRID_SOURCE = "adaptaqc_tpu_torch/csrc/tridiag_grid.cu"
 
 
@@ -2888,12 +2899,13 @@ def reach_peak_sweep(torch, mps_core, sweeps, Circuit, compile_tape, ek,
     """One Rotoselect sweep at bond dimension chi (the cap, 4096) and n
     qubits in complex64 and complex128, on the engine bench.py's sweep
     uses: a short tape around the middle bond (two RY probes, one CX,
-    whose applies run K2-K4 at m = 2 chi, K4 on its half route in
-    complex128; the probes run the streamed K1 at chi), prefix and
-    reference the same |0> state. Its peak torch.cuda.max_memory_allocated,
-    its wall and its launches are printed; every kernel must launch, the
-    half route in complex128. Returns {dtype: (peak bytes, launches by
-    kernel, half-route launches)}."""
+    whose applies run K2-K4 at m = 2 chi, K4 on its strip route; the
+    probes run the streamed K1 at chi), prefix and reference the same |0>
+    state. Its peak torch.cuda.max_memory_allocated, its wall, its
+    launches and K4's device time (CUDA events around each call) are
+    printed; every kernel must launch, every K4 launch on the strip route.
+    Returns {dtype: (peak bytes, launches by kernel, strip-route launches,
+    K4 ms)}."""
     dev = torch.device("cuda")
     mid = n // 2 - 1
     qc = Circuit(n)
@@ -2912,30 +2924,54 @@ def reach_peak_sweep(torch, mps_core, sweeps, Circuit, compile_tape, ek,
         engine = mps_core.sweep_engine(1e-16)
         bl = sweeps.default_block_len(tape.padded_length,
                                       sweeps.state_nbytes(zero))
-        kinds, _, cost, state, evals, _ = sweeps.sweep(
-            engine, bl, True, zero, zero, tape.kinds, tape.q0, tape.q1,
-            tape.angles, tape.trainable)
-        torch.cuda.synchronize()
+        # K4's device time in the sweep: CUDA events around each call (the
+        # wrapper counts on its module-level name, so the stand-in carries
+        # the counters and hands them back)
+        real, events = ek.backtransform, []
+
+        def timed(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out_ = real(*args, **kw)
+            ev[1].record()
+            events.append(ev)
+            return out_
+        for c in BT_COUNTERS:
+            setattr(timed, c, getattr(real, c))
+        ek.backtransform = timed
+        try:
+            kinds, _, cost, state, evals, _ = sweeps.sweep(
+                engine, bl, True, zero, zero, tape.kinds, tape.q0, tape.q1,
+                tape.angles, tape.trainable)
+            torch.cuda.synchronize()
+        finally:
+            ek.backtransform = real
+            for c in BT_COUNTERS:
+                setattr(real, c, getattr(timed, c))
         wall = time.perf_counter() - t0
+        k4_ms = sum(a.elapsed_time(b) for a, b in events)
         peak = torch.cuda.max_memory_allocated() - base
         launches = {fn.__name__: fn.launches for fn in (
             envk.env_chain, ek.tridiag, ek.teig, ek.backtransform)}
-        half = ek.backtransform.half_launches
+        strip = ek.backtransform.strip_launches
         state_gb = sweeps.state_nbytes(zero) / 1e9
         del zero, state
         print(f"reach: peak sweep n={n} chi={chi} {str(dt)[6:]}: peak "
               f"allocated {peak / 1e9:.3f} GB ({peak / state_gb / 1e9:.2f} "
               f"states of {state_gb:.3f} GB; card 80 GB), cost {cost:.6f}, "
               f"{evals} evaluations, kinds {kinds.tolist()[:3]}, {wall:.1f} "
-              f"s, launches {json.dumps(launches)}, K4 half route {half} on "
-              f"{card}", flush=True)
+              f"s, launches {json.dumps(launches)}, K4 strip route {strip} "
+              f"({k4_ms:.4f} ms of device time, {100 * k4_ms / 1e3 / wall:.2f}"
+              f"% of the sweep's wall) on {card}", flush=True)
         check(np.isfinite(cost) and -1e-6 <= cost <= 1.0 + 1e-6,
               f"peak sweep {dt}: cost {cost}")
         check(all(v > 0 for v in launches.values()),
               f"peak sweep {dt}: a kernel did not launch: {launches}")
-        check((half > 0) == (dt == torch.complex128),
-              f"peak sweep {dt}: K4's half route launched {half} times")
-        out[str(dt)[6:]] = (peak, launches, half)
+        check(strip == launches["backtransform"] > 0,
+              f"peak sweep {dt}: K4's strip route launched {strip} of "
+              f"{launches['backtransform']} times")
+        out[str(dt)[6:]] = (peak, launches, strip, k4_ms)
         torch.cuda.empty_cache()
     return out
 
@@ -2944,35 +2980,51 @@ def reach_bt_only(torch, ek, cuda_lib, rec, dev, m, f64, card):
     """K4 alone at m on synthetic unitary reflectors drawn on the card (v_k
     = e_{k+1} + 0.3 x below it, tau_k = 2 / |v_k|^2, a run of 20 inactive
     ones) and an orthonormal z, at keep = m / 2: against the plain version
-    (TOL_BT, or TOL_F64 in complex128), its workspace and apply shared
-    memory equal to the mirrors, a rerun the same bits; its time (3
-    launches), the plain version's (one run), the bound and torch.ormqr,
-    into rec["backtransform[...]"]["by_m"][m]. Returns the line to
-    print."""
+    (TOL_BT, or TOL_F64 in complex128), its plan mirrors equal to the
+    library's, a rerun the same bits, and on the strip route a batch of 3
+    (the next two from the next seeds) bit for bit against its P = 1
+    launches; its time (3 launches), the plain version's (one run), the
+    bound and torch.ormqr, into rec["backtransform[...]"]["by_m"][m].
+    Returns the line to print."""
     dt = torch.complex128 if f64 else torch.complex64
     rdt = torch.float64 if f64 else torch.float32
     keep = m // 2
-    g = torch.Generator(device=dev).manual_seed(m + 1)
-    v = torch.triu(0.3 * torch.randn((m, m), generator=g, dtype=dt,
-                                     device=dev), diagonal=2)
-    idx = torch.arange(m - 1, device=dev)
-    v[idx, idx + 1] = 1.0
-    tau = torch.zeros(m, dtype=dt, device=dev)
-    tau[:m - 1] = (2.0 / (v[:m - 1].abs() ** 2).sum(-1)).to(dt)
-    tau[m // 3:m // 3 + 20] = 0
-    z = torch.linalg.qr(torch.randn((m, m), generator=g, dtype=rdt,
-                                    device=dev))[0].contiguous()
+
+    def draw(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        v = torch.triu(0.3 * torch.randn((m, m), generator=g, dtype=dt,
+                                         device=dev), diagonal=2)
+        idx = torch.arange(m - 1, device=dev)
+        v[idx, idx + 1] = 1.0
+        tau = torch.zeros(m, dtype=dt, device=dev)
+        tau[:m - 1] = (2.0 / (v[:m - 1].abs() ** 2).sum(-1)).to(dt)
+        tau[m // 3:m // 3 + 20] = 0
+        z = torch.linalg.qr(torch.randn((m, m), generator=g, dtype=rdt,
+                                        device=dev))[0].contiguous()
+        return v, tau, z
+    v, tau, z = draw(m + 1)
     bt_mirror_check(ek, cuda_lib, m, keep, f64)
     o = ek.backtransform(v, tau, z, keep)
     check(torch.equal(o, ek.backtransform(v, tau, z, keep)),
           f"backtransform {dt} m={m}: a rerun gave other bits")
+    route = ek.backtransform_routes(m, f64)
+    batch = ""
+    if route == "strip":
+        more = [draw(m + 2), draw(m + 3)]
+        ob = ek.backtransform(*(torch.stack([a, *(x[i] for x in more)])
+                                for i, a in enumerate((v, tau, z))), keep)
+        singles = [o] + [ek.backtransform(*x, keep) for x in more]
+        check(all(torch.equal(ob[i], singles[i]) for i in range(3)),
+              f"backtransform {dt} m={m}: a batch of 3 differs from its "
+              "P = 1 launches")
+        batch = ", a batch of 3 bit for bit"
+        del more, ob, singles
     t0 = time.perf_counter()
     op = ek.backtransform_plain(v, tau, z, keep)
     torch.cuda.synchronize()
     pms = (time.perf_counter() - t0) * 1e3
     err = float((o - op).abs().max())
     tol = TOL_F64 if f64 else TOL_BT
-    route = ek.backtransform_routes(m, f64)
     check(err < tol, f"backtransform {dt} m={m} ({route} route) vs plain "
                      f"{err} (limit {tol})")
     oa, otau, _ = ormqr_inputs(torch, v, tau, z, keep)
@@ -2980,31 +3032,58 @@ def reach_bt_only(torch, ek, cuda_lib, rec, dev, m, f64, card):
     ms = cuda_ms(lambda: ek.backtransform(v, tau, z, keep), 3, torch)
     lms = cuda_ms(lambda: torch.ormqr(oa, otau, oz), 3, torch)
     bound = bound_fields("backtransform", m=m, keep=keep, f64=f64)
-    g_ = ek.backtransform_cluster_size(m, keep, f64)
+    plan = bt_plan_text(ek, m, keep, f64)
     rec[f"backtransform[{REACH_VARIANTS[f64]}]"].setdefault(
         "by_m", {})[m] = dict(ms=ms, plain_ms=pms, library_ms=lms,
-                              max_abs_err=err, cluster_ctas=g_, route=route,
+                              max_abs_err=err, route=route, plan=plan,
                               inputs="synthetic reflectors", **bound)
     return (f"reach: backtransform alone {str(dt)[6:]} m={m} keep={keep} "
-            f"({route} route, clusters of {g_} CTAs) on synthetic "
-            f"reflectors: vs plain {err:.2e} < {tol}, mirrors and rerun "
-            f"equal; kernel {ms:.4f} ms plain {pms:.4f} ms bound "
-            f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}) torch.ormqr "
-            f"{lms:.4f} ms on {card}")
+            f"({plan}) on synthetic reflectors: vs plain {err:.2e} < {tol}, "
+            f"mirrors and rerun equal{batch}; kernel {ms:.4f} ms plain "
+            f"{pms:.4f} ms bound {bound['bound_ms']:.5f} ms "
+            f"({bound['bound_by']}) torch.ormqr {lms:.4f} ms on {card}")
+
+
+def bt_plan_text(ek, m, keep, f64):
+    """K4's wide plan at m, as the reach lines print it."""
+    if ek.backtransform_routes(m, f64) == "strip":
+        pl = ek.backtransform_strip_plan(m, f64)
+        return (f"strip route: {-(-keep // pl['cols'])} strips of "
+                f"{pl['cols']} columns, panels of {pl['nb']}, chunks of "
+                f"{pl['rows']} rows")
+    return (f"double route: clusters of "
+            f"{ek.backtransform_cluster_size(m, keep, f64)} CTAs over 32 "
+            "columns' rows, panels of 16")
 
 
 def bt_mirror_check(ek, cuda_lib, m, keep, f64):
-    """K4's workspace and its apply's shared memory on the plan's cluster
-    as the mirrors in eigh_kernels size them, equal to the library's."""
+    """K4's plan at m as the mirrors in eigh_kernels make it, equal to the
+    library's: the route; on the double route the workspace and the
+    apply's shared memory on the plan's cluster, on the strip route the
+    workspace, the working columns at keep, both launches' shared
+    memory."""
     lib = cuda_lib.lib()
-    g = ek.backtransform_cluster_size(m, keep, f64)
-    got = (lib.backtransform_workspace(m, int(f64)),
-           lib.backtransform_apply_smem(m, g, int(f64)))
-    want = (ek.backtransform_workspace_bytes(m, f64),
-            ek.backtransform_apply_smem(m, g, f64))
-    check(got == want, f"backtransform m={m} f64={f64} G={g}: workspace "
-          f"and shared memory {got} from the library, {want} from the "
-          "mirror")
+    route = ek.backtransform_routes(m, f64)
+    check(lib.backtransform_route(m, int(f64)) == int(route == "strip"),
+          f"backtransform m={m} f64={f64}: the library's route differs "
+          f"from the mirror's {route}")
+    if route == "strip":
+        pl = ek.backtransform_strip_plan(m, f64)
+        got = (lib.backtransform_strip_workspace(m, int(f64)),
+               lib.backtransform_strip_zbuf(m, keep, int(f64)),
+               lib.backtransform_strip_smem(m, int(f64)),
+               lib.backtransform_strip_smem(0, int(f64)))
+        want = (pl["workspace"], ek.backtransform_strip_zbuf_bytes(
+            m, keep, f64), pl["smem"], pl["prep_smem"])
+    else:
+        g = ek.backtransform_cluster_size(m, keep, f64)
+        got = (lib.backtransform_workspace(m, int(f64)),
+               lib.backtransform_apply_smem(m, g, int(f64)))
+        want = (ek.backtransform_workspace_bytes(m, f64),
+                ek.backtransform_apply_smem(m, g, f64))
+    check(got == want, f"backtransform m={m} f64={f64} ({route} route): "
+          f"workspace and shared memory {got} from the library, {want} from "
+          "the mirror")
 
 
 def teig_keep_check(torch, ek, d, e, w, z, wp, keep, what):
@@ -3109,12 +3188,9 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
                 plan = (f" (clusters of {ek.teig_cluster_size(m, f64)} "
                         f"CTAs, iterate in {row['route']} memory)")
         if kname == "backtransform":
-            row["cluster_ctas"] = ek.backtransform_cluster_size(m, keep,
-                                                                f64)
             row["route"] = ek.backtransform_routes(m, f64)
-            nb, cols = ek.backtransform_panel(m, f64)
-            plan = (f" (clusters of {row['cluster_ctas']} CTAs over {cols} "
-                    f"columns' rows, panels of {nb}, {row['route']} route)")
+            row["plan"] = bt_plan_text(ek, m, keep, f64)
+            plan = f" ({row['plan']})"
         rec[kname + sfx].setdefault("by_m", {})[m] = row
         if m == 1024:  # the size the chi = 512 sweeps launch
             rec[kname + sfx].update(
@@ -3362,10 +3438,22 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                 launches[k][v] += c[v]
 
     sweep_args = (torch, mps_core, sweeps, Circuit, compile_tape, card)
+    strip_sweeps = {}
     for chi, f64, reps in REACH_SWEEPS:
         add(phase_sweep(*sweep_args, chi=chi, ek=ek, envk=envk,
                         dtype=torch.complex128 if f64 else torch.complex64,
                         reps=reps))
+        # K4's strip route launches on a sweep whose Grams reach it
+        strip = ek.backtransform.strip_launches
+        on_strip = ek.backtransform_routes(2 * chi, f64) == "strip"
+        check((strip > 0) == on_strip,
+              f"reach sweep chi={chi} f64={f64}: K4's strip route launched "
+              f"{strip} times, its route at m={2 * chi} is "
+              f"{ek.backtransform_routes(2 * chi, f64)}")
+        if on_strip:
+            strip_sweeps[f"chi={chi}" + (" c128" if f64 else "")] = strip
+    print(f"reach: K4's strip route on the sweeps whose m = 2 chi takes it "
+          f"{json.dumps(strip_sweeps)} on {card}", flush=True)
     part("sweeps")
     add(reach_spin(torch, ek, envk, card))
     part("spin")
@@ -4347,17 +4435,21 @@ def main():
             name=f"{name}[{v}]", route="cuda", source=kernel_source(name, v),
             replaces=replaces, launches=reach_launches[name][v],
             **reach_rec[f"{name}[{v}]"]))
-    # K4's half route (complex128 past m = 4096): its launches on the
-    # reach phase's chi = 4096 sweep, its times at the cap
-    top = reach_rec["backtransform[reach_f64]"]["by_m"][max(REACH_M_F64)]
-    kernels.append(dict(
-        name="backtransform[half]", route="cuda", source=BT_WIDE_SOURCE,
-        replaces=KERNELS["backtransform"][1], launches=peak["complex128"][2],
-        shape=f"m={max(REACH_M_F64)}, keep={max(REACH_M_F64) // 2}, "
-              "complex128",
-        library_call="torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
-        **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")}))
+    # K4's strip route (complex64 past m = 5888, complex128 past 2816): its
+    # launches on the reach phase's chi = 4096 sweep, its times at the cap
+    for f64, name in ((False, "backtransform[strip]"),
+                      (True, "backtransform[strip_f64]")):
+        cap = max(REACH_M_F64 if f64 else REACH_M)
+        top = reach_rec[f"backtransform[{REACH_VARIANTS[f64]}]"]["by_m"][cap]
+        kernels.append(dict(
+            name=name, route="cuda", source=BT_STRIP_SOURCE,
+            replaces=KERNELS["backtransform"][1],
+            launches=peak["complex128" if f64 else "complex64"][2],
+            shape=f"m={cap}, keep={cap // 2}"
+                  + (", complex128" if f64 else ""),
+            library_call="torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

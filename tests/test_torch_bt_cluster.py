@@ -21,11 +21,13 @@ own G. The preparation does not depend on G, so T is the same bits for
 every G; the apply's sums over the ranks do, so its bits are promised for
 reruns and batches at one G, not across G.
 
-The half route (complex128 past m = 4096: panels of 8, tiles of 16
-columns, the partial Y summed over the warps' row groups in a fixed tree)
-is emulated in its own order, forced at small m: 1e-12 against the plain
-version, and the same bits over column tiles of 16, 8 and 1. Its plan,
-shared memory and workspace mirrors at m = 4097, 6144 and 8192.
+From complex128 m = 1536 and complex64 m = 3072 (the measured crossover;
+the cluster route's shared memory holds to 2816 and 5888) K4 takes its
+strip route (csrc/backtransform_strip.cu), which
+tests/test_torch_bt_strip.py emulates in full; here its route, shared
+memory and workspace beside the cluster route's, its plan at m = 4097,
+6144 and 8192, and its order at small m in complex128 again beside the
+cluster route's.
 """
 
 import functools
@@ -204,235 +206,123 @@ SMEM_BUDGET = 232448 - 32  # a CTA's shared memory on an H100, less the
 
 
 @pytest.mark.parametrize("f64,m,route", [
-    (False, 2048, "double"), (False, 4096, "double"),
-    (False, 5888, "double"), (False, 5889, "single"),
-    (False, 8192, "single"),
-    (True, 2048, "double"), (True, 2816, "double"), (True, 2817, "single"),
-    (True, 4096, "single"), (True, 4097, "half"), (True, 8192, "half")])
+    (False, 2048, "double"), (False, 3071, "double"),
+    (False, 5888, "strip"), (False, 5889, "strip"),
+    (False, 8192, "strip"),
+    (True, 1535, "double"), (True, 2816, "strip"), (True, 2817, "strip"),
+    (True, 4096, "strip"), (True, 4097, "strip"), (True, 8192, "strip")])
 def test_apply_route_and_its_shared_memory(f64, m, route):
-    """The apply's route by m and the dtype alone (ek.backtransform_routes,
-    the mirror of bt_route): complex64 keeps two panel buffers to m =
-    5888 and one past it (221,440 bytes at m = 8192); complex128 past m =
-    2816, where two panel buffers beside a CTA's rows of z outgrow its
-    shared memory on the plan's cluster of 16, keeps one buffer and rows of
-    z at a stride of 33 (226,816 bytes at m = 4096), and past 4096 (257
-    rows a CTA fit neither) takes the half route, panels of 8 and tiles of
-    16 columns (230,528 bytes at m = 8192). The route is the largest that
-    fits: each shorter route fits only where the one before it does not.
-    The order of operations of the double and single routes is the same
-    (only the storage differs), so the emulation above holds both; the
-    half route's is emulated below."""
+    """The route by m and the dtype alone (ek.backtransform_routes, the
+    mirror of bt_strip_route): the cluster route below the measured
+    crossover (complex64 m = 3072, complex128 1536), the strip route from
+    it. The cluster route's two panel buffers beside its rows of z on a
+    cluster of 16 fit a CTA's shared memory to complex64 m = 5888 and
+    complex128 2816 and outgrow it past them; the strip route's shared
+    memory is fixed but for the panels' first rows (186,880 bytes at
+    complex64 m = 8192, 153,856 at complex128 4096 in strips of 16
+    columns, 170,496 at 8192)."""
     assert ek.backtransform_routes(m, f64) == route
-    g, r = bt_plan(m)
-    assert g == 16 and r == -(-m // 16)
-    assert ek.backtransform_apply_smem(m, g, f64) <= SMEM_BUDGET
-    order = ("double", "single", "half") if f64 else ("double", "single")
-    for earlier in order[:order.index(route)]:
-        assert ek.backtransform_apply_smem(m, g, f64, earlier) > SMEM_BUDGET
-    want = {(False, 8192): 221440, (True, 4096): 226816,
-            (True, 8192): 230528}.get((f64, m))
-    if want:
-        assert ek.backtransform_apply_smem(m, g, f64) == want
-    if (f64, m) == (True, 4096):
-        assert ek.backtransform_apply_smem(4097, 16, True,
-                                           "single") > SMEM_BUDGET
+    g = min(16, -(-m // (64 if m <= 512 else 128)))
+    assert ek.backtransform_routes(m - 1, f64) == (
+        "double" if m - 1 < ek.BT_STRIP_FROM[f64] else "strip")
+    fits = ek.backtransform_apply_smem(m, 16, f64) <= SMEM_BUDGET
+    assert fits == (m <= ek.BT_DOUBLE_MAX[f64])
+    if route == "double":
+        assert bt_plan(m)[0] == g and ek.backtransform_apply_smem(
+            m, g, f64) <= SMEM_BUDGET
+    if route == "strip":
+        smem = ek.backtransform_strip_plan(m, f64)["smem"]
+        assert smem <= SMEM_BUDGET
+        want = {(False, 8192): 186880, (True, 4096): 153856,
+                (True, 8192): 170496}.get((f64, m))
+        if want:
+            assert smem == want
 
 
 def test_workspace_mirror_at_the_cap():
-    """The workspace a matrix (bt_ws): the active count and the panels'
-    first reflectors, every panel's T and its reflector block of m + 15
-    rows of nb entries and 16 bytes; at complex128 m = 4096, 256 panels of
-    16; at m = 8192 (the half route), 1024 panels of 8."""
-    m, es = 4096, 16
-    npmax = 256
-    t_off = -(-4 * (1 + npmax) // 16) * 16
-    want = t_off + npmax * 256 * es + npmax * (m + 15) * (16 + 1) * es
-    assert ek.backtransform_workspace_bytes(m, True) == want == 287306768
+    """The workspaces a matrix: the cluster route's (bt_ws: the active
+    count and the panels' first reflectors, every panel's 16 x 16 T and its
+    reflector block of m + 15 rows of 16 entries and 16 bytes) at its last
+    m, and the strip route's at the cap m = 8192 (strip_ws: 128 panels of
+    64, panel p's T and its rows 64 p .. 8192 at a stride of 66 elements),
+    about half of a whole panel block a panel."""
     assert ek.backtransform_workspace_bytes(2048, False) == (
         -(-4 * 129 // 16) * 16 + 128 * 256 * 8 + 128 * 2063 * 18 * 8)
-    m, npmax = 8192, 1024
+    m, npmax = 2816, 176
+    assert ek.backtransform_workspace_bytes(m, True) == (
+        -(-4 * (1 + npmax) // 16) * 16 + npmax * 256 * 16
+        + npmax * (m + 15) * 17 * 16)
+    m, npmax = 8192, 128
     t_off = -(-4 * (1 + npmax) // 16) * 16
-    want = t_off + npmax * 64 * es + npmax * (m + 15) * (8 + 1) * es
-    assert ek.backtransform_workspace_bytes(m, True) == want == 1211224080
-    assert ek.backtransform_workspace_bytes(8192, False) == (
-        -(-4 * 513 // 16) * 16 + 512 * 256 * 8 + 512 * 8207 * 18 * 8)
+    rows = npmax * m - 64 * npmax * (npmax - 1) // 2
+    for f64, es in ((False, 8), (True, 16)):
+        want = t_off + npmax * 64 * 64 * es + rows * 66 * es
+        assert ek.backtransform_strip_plan(m, f64)["workspace"] == want
+    assert ek.backtransform_strip_plan(m, True)["workspace"] == 566362640
 
 
-@pytest.mark.parametrize("m,rows,smem,ws", [
-    (4097, 257, 128640, 303695888), (6144, 384, 176256, 681925648),
-    (8192, 512, 230528, 1211224080)])
-def test_half_route_plan_and_mirrors(m, rows, smem, ws):
-    """The half route's plan (complex128, m in (4096, 8192]): a cluster of
-    16 CTAs of ceil(m / 16) rows over each tile of 16 columns (keep = m /
-    2: m / 32 tiles), the apply's shared memory (rows of z at a stride of
-    17, one panel of 8 at a stride of 9, T, the rank partials, W, the four
-    warps' scratch) and the workspace, by m alone; m = 8193 fits no
-    route."""
-    assert ek.backtransform_routes(m, True) == "half"
-    assert ek.backtransform_panel(m, True) == (NB_HALF, COLS_HALF)
-    assert bt_plan(m) == (16, rows)
-    rp = -(-rows // 16) * 16
-    npmax = -(-(m - 1) // NB_HALF)
-    elems = (rp * 17 + rp * 9 + 64 + 16 * 8 + 8 + 8 * 16 + 4 * 8 * 16)
-    assert ek.backtransform_apply_smem(m, 16, True) == (
-        elems * 16 + -(-4 * npmax // 16) * 16) == smem
-    assert smem <= SMEM_BUDGET
-    assert ek.backtransform_workspace_bytes(m, True) == ws
-    assert -(-(m // 2) // COLS_HALF) == m // 32
-    assert ek.backtransform_apply_smem(8193, 16, True) > SMEM_BUDGET
-
-
-NB_HALF = 8     # kNbHalf: reflectors of a panel on the half route
-COLS_HALF = 16  # kColsHalf: output columns of a cluster there
-WARPS = 8       # the apply's warps, each a share of the partial Y's rows
-
-
-def _warp_tree(parts):
-    """The eight warps' partial Y summed as the kernel's scratch tree does:
-    warps 4-7 into 0-3, then 2-3 into 0-1, then 1 into 0 (each adds the
-    other's tile to its own)."""
-    parts = list(parts)
-    span = len(parts) // 2
-    while span >= 1:
-        for w in range(span):
-            parts[w] = parts[w] + parts[w + span]
-        span //= 2
-    return parts[0]
-
-
-def _cmul(a, b):
-    """a b of complex numbers held as (real, imaginary) pairs of float64
-    tensors: four products and two sums, each one rounding, so that an
-    entry's bits cannot depend on its neighbours (torch's complex kernels
-    may fuse differently across vector widths)."""
-    return (a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0])
-
-
-def _cadd(a, b):
-    return (a[0] + b[0], a[1] + b[1])
-
-
-def _pair(x):
-    return (x.real.clone(), x.imag.clone()) if x.is_complex() else (
-        x.clone(), torch.zeros_like(x))
-
-
-def _zeros(shape):
-    return (torch.zeros(shape, dtype=torch.float64),
-            torch.zeros(shape, dtype=torch.float64))
-
-
-def _warp_tree(parts):
-    """The eight warps' partial Y summed as the kernel's scratch tree does:
-    warps 4-7 into 0-3, then 2-3 into 0-1, then 1 into 0 (each adds the
-    other's tile to its own)."""
-    parts = list(parts)
-    span = len(parts) // 2
-    while span >= 1:
-        for w in range(span):
-            parts[w] = _cadd(parts[w], parts[w + span])
-        span //= 2
-    return parts[0]
-
-
-def apply_half(panels, z, keep, groups, cols=COLS_HALF):
-    """bt_apply_kernel on the half route (complex128) over `groups` ranks,
-    tiles of `cols` columns, in its order of operations, each column's
-    arithmetic elementwise in real pairs (so that the bits cannot depend on
-    the tile): per panel, last first, each rank's partial Y over its rows
-    below the panel's first reflector, warp w taking the groups of four
-    rows 4 (w + 8 j) from the first such row rounded down to four, each
-    group's four products summed in row order into the warp's sum; the
-    warps' sums in the scratch tree; the ranks' partials in rank order; W
-    = T Y, T's row summed over the reflectors in order; Z -= V W in two
-    steps of four reflectors."""
-    m = z.shape[0]
-    rows = [torch.arange(g, max(g, m), groups) for g in range(groups)]
-    out = torch.zeros((m, keep), dtype=torch.complex128)
-    nb = panels[0][1].shape[1]
-    for c0 in range(0, keep, cols):
-        cw = min(cols, keep - c0)
-        zs = [_pair(z[r, c0:c0 + cw]) for r in rows]
-        for k0, v, t in reversed(panels):
-            y = None
-            vgs = []
-            for g in range(groups):
-                rg = rows[g]
-                l0 = int((rg <= k0).sum())  # first row below k0
-                vg = _pair(v[rg].conj())
-                vgs.append((l0, vg))
-                warps = []
-                for w in range(WARPS):
-                    acc = _zeros((nb, cw))
-                    for l4 in range((l0 & ~3) + 4 * w, len(rg), 4 * WARPS):
-                        grp = _zeros((nb, cw))
-                        for l in range(max(l4, l0), min(l4 + 4, len(rg))):
-                            grp = _cadd(grp, _cmul(
-                                (vg[0][l][:, None], vg[1][l][:, None]),
-                                (zs[g][0][l][None, :], zs[g][1][l][None, :])))
-                        acc = _cadd(acc, grp)
-                    warps.append(acc)
-                part = _warp_tree(warps)
-                y = part if y is None else _cadd(y, part)
-            tp = _pair(t)
-            w_ = _zeros((nb, cw))
-            for j in range(nb):
-                w_ = _cadd(w_, _cmul((tp[0][:, j:j + 1], tp[1][:, j:j + 1]),
-                                     (y[0][j:j + 1], y[1][j:j + 1])))
-            for g in range(groups):
-                l0, vc = vgs[g]
-                vg = (vc[0], -vc[1])  # V again, from its conjugate
-                for ks in range(0, nb, 4):
-                    upd = _zeros(zs[g][0][l0:].shape)
-                    for i in range(ks, ks + 4):
-                        upd = _cadd(upd, _cmul(
-                            (vg[0][l0:, i:i + 1], vg[1][l0:, i:i + 1]),
-                            (w_[0][i:i + 1], w_[1][i:i + 1])))
-                    zs[g][0][l0:] -= upd[0]
-                    zs[g][1][l0:] -= upd[1]
-        for g in range(groups):
-            out[rows[g], c0:c0 + cw] = torch.complex(*zs[g])
-    return out
+@pytest.mark.parametrize("m,cols,tiles", [(4097, 16, 128), (6144, 32, 96),
+                                          (8192, 32, 128)])
+def test_strip_route_plan_and_mirrors(m, cols, tiles):
+    """The strip route's plan at the complex128 sizes the half route took
+    before it (m in (4096, 8192]): one CTA a strip of 32 columns, or 16 to
+    m = 4224 (keep = m / 2: at most one wave on 132 SMs), panels of 64,
+    chunks of 32 rows, the apply's and the preparation's shared memory, the
+    workspace and the working columns, by m alone."""
+    plan = ek.backtransform_strip_plan(m, True)
+    assert ek.backtransform_routes(m, True) == "strip"
+    assert (plan["nb"], plan["cols"], plan["rows"]) == (64, cols, 32)
+    assert -(-(m // 2) // plan["cols"]) == tiles
+    npmax = -(-(m - 1) // 64)
+    assert plan["panels"] == npmax
+    assert plan["smem"] == 2 * (2 * 32 * 66 + 32 * (cols + 2)) * 16 + (
+        -(-4 * npmax // 16) * 16) <= SMEM_BUDGET
+    assert plan["prep_smem"] == (64 * 65 + 64 * 64) * 16
+    mpad = -(-m // 64) * 64
+    assert ek.backtransform_strip_zbuf_bytes(m, m // 2, True) == (
+        tiles * mpad * cols * 16)
+    assert plan["workspace"] == (
+        -(-4 * (1 + npmax) // 16) * 16 + npmax * 64 * 64 * 16
+        + (npmax * mpad - 64 * npmax * (npmax - 1) // 2) * 66 * 16)
 
 
 @pytest.mark.parametrize("m,keep", [(24, 24), (40, 13), (70, 35)])
-def test_half_route_order_matches_plain(m, keep):
-    """The half route's order (panels of 8, tiles of 16 columns, the
-    warps' row groups and scratch tree, the rank partials in order),
-    forced at small m in complex128 on reflectors with a run of inactive
-    ones, against backtransform_plain to 1e-12 over 1, 4 and 16 ranks;
-    tiles of 16, 8 and 1 columns give the same bits."""
+def test_strip_route_order_matches_plain(m, keep):
+    """The strip route's order (test_torch_bt_strip.emulate), forced at
+    small m in complex128 on the reflectors and inactive runs the cluster
+    route's tests use, against backtransform_plain to 1e-12 and against
+    the cluster route's order over 1, 4 and 16 ranks to 1e-12; strips of
+    32, 8 and 1 columns give the same bits (the order of the plan's strips
+    of 16 at these m)."""
+    from test_torch_bt_strip import emulate as strip_emulate
     vrows, tau, z = _reflectors(m, torch.complex128, m)
     tau[m // 3:m // 3 + 3] = 0.0
     ref = ek.backtransform_plain(vrows, tau, z, keep)
-    panels = prepare(vrows, tau, NB_HALF)
-    assert all(v.shape[1] == NB_HALF for _, v, _ in panels)
+    out = strip_emulate(vrows, tau, z, keep)
+    assert float((out - ref).abs().max()) < TOL[torch.complex128]
     for groups in (1, 4, 16):
-        out = apply_half(panels, z, keep, groups)
-        assert float((out - ref).abs().max()) < TOL[torch.complex128], groups
-    at16 = apply_half(panels, z, keep, 4)
-    for cols in (8, 1):
-        assert torch.equal(apply_half(panels, z, keep, 4, cols), at16)
+        cl = emulate(vrows, tau, z, keep, groups)
+        assert float((out - cl).abs().max()) < TOL[torch.complex128]
+    for cols in (32, 8, 1):
+        assert torch.equal(strip_emulate(vrows, tau, z, keep, cols), out)
 
 
 def test_c128_cap_launches_with_a_stand_in_library(card):  # noqa: F811
     """On the card (library replaced by a recorder that sizes the
-    workspace by the mirror) complex128 K4 at m = 8192, the half route,
-    launches its double instantiation and counts as a reach launch of
-    complex128 and a launch of the half route; at m = 8193 the call raises
-    before any launch."""
-    card.backtransform_workspace = ek.backtransform_workspace_bytes
-    ek.backtransform.half_launches = 0
+    workspace by the mirrors) complex128 K4 at m = 8192 launches the
+    strip route and counts as a reach launch of complex128 and a launch of
+    the strip route; at m = 8193 the call raises before any launch."""
+    ek.backtransform.strip_launches = 0
     m, keep = 8192, 8
     vrows = torch.zeros((), dtype=torch.complex128).expand(m, m)
     tau = torch.zeros((), dtype=torch.complex128).expand(m)
     z = torch.zeros((), dtype=torch.float64).expand(m, m)
     out = ek.backtransform(vrows, tau, z, keep)
     assert out.shape == (m, keep)
-    assert card.calls == ["backtransform_f64_launch"]
-    assert card.args[0][5:8] == (m, keep, 1)
+    assert card.calls == ["backtransform_strip_launch"]
+    assert card.args[0][6:9] == (m, keep, 1)
     assert ek.backtransform.reach_f64_launches == 1
-    assert ek.backtransform.half_launches == 1
+    assert ek.backtransform.strip_launches == 1
     with pytest.raises(ValueError, match="size <= 8192"):
         big = torch.zeros((), dtype=torch.complex128).expand(m + 1, m + 1)
         ek.backtransform(big, tau, z, keep)

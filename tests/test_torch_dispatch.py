@@ -159,6 +159,12 @@ class _Recorder:
     def backtransform_workspace(self, m, f64):
         return 4096 * m
 
+    def backtransform_strip_workspace(self, m, f64):
+        return eigh_kernels.backtransform_strip_plan(m, f64)["workspace"]
+
+    def backtransform_strip_zbuf(self, m, keep, f64):
+        return eigh_kernels.backtransform_strip_zbuf_bytes(m, keep, f64)
+
     def tridiag_routes(self, m, f64):
         # K2's card-wide route past its cluster's shared memory (m = 640,
         # complex128 438), as the library answers on an H100
@@ -234,8 +240,8 @@ def test_counters_move_only_on_launches(card):
 def test_reach_edges_launch_and_raise(card, dtype):
     """At the caps the wrappers launch (the streamed env chain at chi =
     4096, the wide eigensolver at m = 8192 in both dtypes, K2 on its
-    card-wide route, K4 on its one-buffer route in complex64 and its half
-    route in complex128), each launch counted once, by the code it ran:
+    card-wide route, K4 on its strip route), each launch counted once, by
+    the code it ran:
     the streamed K1, K2 and K4 past REACH_M and K3 with its iterate in
     global memory as reach launches of their dtype. One past the caps (chi
     = 4097, m = 8193) the call raises before any launch and counts
@@ -249,7 +255,7 @@ def test_reach_edges_launch_and_raise(card, dtype):
     wide = "f64" if f64 else "wide"
     assert card.calls[1:] == [
         "tridiag_grid_f64_launch" if f64 else "tridiag_grid_launch",
-        f"teig_{wide}_launch", f"backtransform_{wide}_launch"]
+        f"teig_{wide}_launch", "backtransform_strip_launch"]
     for name in ("env_chain", "tridiag", "teig", "backtransform"):
         assert _counts()[name] == (1, 0, 0)
         assert _reach_counts()[name] == ((0, 1) if f64 else (1, 0))

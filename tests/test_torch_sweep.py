@@ -147,3 +147,29 @@ def test_sweep_until_converged_and_n_cycles():
     np.testing.assert_array_equal(k1, k2)
     np.testing.assert_allclose(a1, a2, atol=0)
     assert c1 == c2
+
+
+@pytest.mark.parametrize("budget", ["3e6", "1e6", "2500000"])
+@pytest.mark.parametrize("padded_len,state_bytes", [(64, 40_000),
+                                                     (48, 50_000)])
+def test_block_len_reads_the_memory_budget(monkeypatch, budget, padded_len,
+                                           state_bytes):
+    """default_block_len reads ADAPTAQC_SWEEP_MEMORY_BUDGET where and as
+    the JAX package does: budgets above and below padded_len * state_bytes
+    (2.56e6 and 2.4e6 bytes) pick one block or the sqrt-style block alike,
+    and an explicit memory_budget wins over the variable."""
+    monkeypatch.setenv("ADAPTAQC_SWEEP_MEMORY_BUDGET", budget)
+    got = sweeps.default_block_len(padded_len, state_bytes)
+    assert got == jsweeps.default_block_len(padded_len, state_bytes)
+    fits = padded_len * state_bytes <= int(float(budget))
+    assert (got == padded_len) == fits
+    over = 10 * padded_len * state_bytes
+    assert sweeps.default_block_len(padded_len, state_bytes, over) == (
+        padded_len) == jsweeps.default_block_len(padded_len, state_bytes,
+                                                 over)
+    under = padded_len * state_bytes - 1
+    assert sweeps.default_block_len(padded_len, state_bytes, under) == (
+        jsweeps.default_block_len(padded_len, state_bytes, under)) < (
+        padded_len)
+    assert sweeps.default_block_len(padded_len) == (
+        jsweeps.default_block_len(padded_len))
