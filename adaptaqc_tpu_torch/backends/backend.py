@@ -244,7 +244,16 @@ class MPSBackend(AQCBackend):
         if circuit.data and circuit.data[0].name == "set_statevector":
             return self._shard(mps_core.from_dense(circuit.data[0].payload,
                                                    chi, **kw))
-        return self._shard(mps_core.zero_mps(n, chi, **kw))
+        return self._zero(n, chi)
+
+    def _zero(self, n: int, chi: int):
+        """|0...0> as the backend holds it; under a mesh each rank makes
+        only its shard."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        if self.mesh is None:
+            return mps_core.zero_mps(n, chi, **kw)
+        from ..parallel import mps_sharded
+        return mps_sharded.zero_mps(self.mesh, n, chi, **kw)
 
     def run_tape(self, state, tape: Tape):
         out = self._engine.apply_tape(state, tape.kinds, tape.q0, tape.q1,
@@ -272,8 +281,7 @@ class MPSBackend(AQCBackend):
 
     def zero_ref(self, compiler):
         n = compiler.full_circuit.num_qubits
-        return self._shard(mps_core.zero_mps(n, self.chi_for(n), self.dtype,
-                                             self.device))
+        return self._zero(n, self.chi_for(n))
 
     # ----------------------------------------------------------- cost layer
     def evaluate_global_cost(self, compiler):

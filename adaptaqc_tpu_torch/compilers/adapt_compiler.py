@@ -24,6 +24,7 @@ BOBYQA over the whole solution before the final cleanup (optim/minimiser.py).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import pickle
@@ -186,9 +187,9 @@ class AdaptCompiler(ApproximateCompiler):
     # --------------------------------------------------------- chi schedule
     def _check_schedule_fits_kernels(self, chis):
         """On a CUDA device the eigensolver and env-chain kernels take a
-        bounded bond dimension (ops/dispatch.py REACH: chi <= 4096, the
+        bounded bond dimension (ops/dispatch.py REACH: chi <= 8192, the
         env chain's streamed kernel and the eigensolver at m = 2 chi <=
-        8192, in complex64 and complex128; their plain versions on the
+        16384, in complex64 and complex128; their plain versions on the
         CPU have no cap), and a call above it raises: refuse a schedule whose
         stages exceed it before its first stage, not hours into it."""
         if self.backend.device.type != "cuda":
@@ -907,27 +908,39 @@ class AdaptCompiler(ApproximateCompiler):
         n = qc.num_qubits
         verify_chi = min(2 * self.backend.chi_for(n), 2 ** ((n + 1) // 2))
         kw = dict(dtype=self.backend.dtype, device=self.backend.device)
-        with cplx.verification_eigh():
+        mesh = getattr(self.backend, "mesh", None)
+        engine, cap = mps_core, contextlib.nullcontext()
+        if mesh is not None:
+            # on the shards: the target padded and resharded a site at a
+            # time, no collective past one site at verify_chi
+            from ..parallel import mesh as pmesh
+            from ..parallel import mps_sharded
+            engine = pmesh.OnMesh(mps_sharded, mesh)
+            cap = pmesh.payload_cap(2 * verify_chi * verify_chi)
+        with cplx.verification_eigh(), cap:
             payload = qc.data[0].payload
-            if getattr(self.backend, "mesh", None) is not None:
-                # a target on the mesh: every rank re-simulates it whole
-                from ..parallel.mesh import unshard
-                payload = unshard(payload)
             if qc.data[0].name == "set_statevector":
+                # a dense vector, which the caller holds whole already
                 target = mps_core.from_dense(payload, verify_chi, **kw)
             elif isinstance(payload, mps_core.MPS):
-                target = mps_core.pad_chi(payload, verify_chi)
+                target = payload
             else:
                 target = mps_core.from_qiskit_mps(payload, verify_chi, **kw)
-            state = mps_core.zero_mps(n, verify_chi, **kw)
+            if mesh is None:
+                target = mps_core.pad_chi(target, verify_chi)
+                state = mps_core.zero_mps(n, verify_chi, **kw)
+            else:
+                target = mps_sharded.pad_chi(
+                    mesh, pmesh.shard_mps(mesh, target), verify_chi)
+                state = mps_sharded.zero_mps(mesh, n, verify_chi, **kw)
             if len(qc.data) > 1:
                 tape = compile_tape(qc, (1, len(qc.data)))
-                state = mps_core.apply_tape_adjoint(
+                state = engine.apply_tape_adjoint(
                     state, tape.kinds, tape.q0, tape.q1, tape.angles,
                     self.backend.truncation_threshold)
-            nrm2 = float(mps_core.mps_dot(state, state).real)
-            tnrm2 = float(mps_core.mps_dot(target, target).real)
-            ov = mps_core.mps_dot(state, target)
+            nrm2 = float(engine.mps_dot(state, state).real)
+            tnrm2 = float(engine.mps_dot(target, target).real)
+            ov = engine.mps_dot(state, target)
             ov2 = float(ov.real ** 2 + ov.imag ** 2)
             return 1.0 - ov2 / max(nrm2 * tnrm2, 1e-30)
 

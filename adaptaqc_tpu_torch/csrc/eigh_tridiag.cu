@@ -521,15 +521,18 @@ __device__ __forceinline__ double div_rn(double a, double b) {
 }
 
 // Sturm count: the number of negative pivots of T - x I (guarded as the
-// plain version guards them).
-template <typename T>
+// plain version guards them). kSquare: `e2` holds e itself, each e2[i]
+// formed as it is read, mul_rn(e[i], e[i]), the same bits as the stored e2
+// (tg_bisect_kernel's global-memory route reads d and e where they lie).
+template <typename T, bool kSquare = false>
 __device__ __forceinline__ int sturm_count(const T* d, const T* e2, int m,
                                            T x, T pivmin) {
   T q = sub_rn(d[0], x);
   if (abs_(q) < pivmin) q = -pivmin;
   int cnt = (q < T(0)) ? 1 : 0;
   for (int i = 1; i < m; ++i) {
-    q = sub_rn(sub_rn(d[i], x), div_rn(e2[i - 1], q));
+    const T ee = kSquare ? mul_rn(e2[i - 1], e2[i - 1]) : e2[i - 1];
+    q = sub_rn(sub_rn(d[i], x), div_rn(ee, q));
     if (abs_(q) < pivmin) q = -pivmin;
     cnt += (q < T(0)) ? 1 : 0;
   }
@@ -1728,9 +1731,11 @@ constexpr int kTgInWarps = kTgInThreads / 32;
 constexpr int kTgInRows = 128;       // rows a rank it aims at
 constexpr int kTgMaxCluster = 16;
 
-// d (and e, e2) of one matrix into shared memory, with the Gershgorin
-// bounds and their derived constants in sc: lo0, hi0, scale, pivmin
-// (teig_cluster_kernel's, from exact block-wide min and max).
+// d (and e, e2) of one matrix into shared memory (each where its pointer is
+// given: the global-memory kernels past the shared-memory fit take the
+// bounds alone), with the Gershgorin bounds and their derived constants in
+// sc: lo0, hi0, scale, pivmin (teig_cluster_kernel's, from exact
+// block-wide min and max).
 template <typename T, int kThreads>
 __device__ __forceinline__ void tg_load_bounds(const T* __restrict__ d_in,
                                                const T* __restrict__ e_in,
@@ -1744,7 +1749,7 @@ __device__ __forceinline__ void tg_load_bounds(const T* __restrict__ d_in,
     const T di = d_in[i];
     const T ei = i < m - 1 ? e_in[i] : zero;
     const T el = i > 0 ? e_in[i - 1] : zero;
-    d[i] = di;
+    if (d) d[i] = di;
     if (e) e[i] = ei;
     if (e2) e2[i] = mul_rn(ei, ei);
     const T rad = add_rn(abs_(ei), abs_(el));
@@ -1778,20 +1783,22 @@ __device__ __forceinline__ void tg_load_bounds(const T* __restrict__ d_in,
 }
 
 // Grid (ceil(keep / kTgBisectLanes), batch); dynamic shared memory 2 m
-// reals.
-template <typename T>
+// reals (d and e2), or none with kGlobal: past where those fit (double
+// past m = 14,518) every Sturm sweep reads d and e from global memory, where
+// they stay resident in L1 and L2, squaring e as it goes.
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(kTgThreads)
     tg_bisect_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
                      T* __restrict__ w_out, int m, int keep,
                      long long d_stride, long long e_stride) {
   const size_t b = blockIdx.y;
   extern __shared__ __align__(16) unsigned char tg_raw[];
-  T* d = reinterpret_cast<T*>(tg_raw);
-  T* e2 = d + m;
+  T* d = kGlobal ? nullptr : reinterpret_cast<T*>(tg_raw);
+  T* e2 = kGlobal ? nullptr : d + m;
   __shared__ T sc[4];
-  tg_load_bounds<T, kTgThreads>(d_in + b * (size_t)d_stride,
-                                e_in + b * (size_t)e_stride, m, d, nullptr,
-                                e2, sc);
+  const T* dg = d_in + b * (size_t)d_stride;
+  const T* eg = e_in + b * (size_t)e_stride;
+  tg_load_bounds<T, kTgThreads>(dg, eg, m, d, nullptr, e2, sc);
   const T pivmin = sc[3];
   constexpr int k = 5;  // log2(kTgLaneThreads): points a sweep 2^k - 1
   const int tid = threadIdx.x, lane = tid & 31;
@@ -1804,7 +1811,8 @@ __global__ void __launch_bounds__(kTgThreads)
     const int kk = min(k, Real<T>::kRounds - r);
     const T x = (sub >= 1 && sub < (1 << kk)) ? tree_point(lo, hi, sub)
                                               : mid_rn(lo, hi);
-    const int cnt = sturm_count(d, e2, m, x, pivmin);
+    const int cnt = kGlobal ? sturm_count<T, true>(dg, eg, m, x, pivmin)
+                            : sturm_count(d, e2, m, x, pivmin);
     int node = 1;
     for (int l = 0; l < kk; ++l) {
       const int cn = __shfl_sync(0xffffffffu, cnt, base + node);
@@ -1853,17 +1861,22 @@ __device__ __forceinline__ void cp_async_word(uint32_t* dst,
 
 // tg_invit_kernel's dynamic shared memory, in reals: d, e (m each), w
 // (keep), then its rings: three of reals and one of words, each two chunks
-// of kTgChunk steps x kTgInvThreads lanes.
-template <typename T>
+// of kTgChunk steps x kTgInvThreads lanes; with kGlobal (d, e and w read
+// where they lie) the rings alone.
+template <typename T, bool kGlobal = false>
 __host__ __device__ inline int tg_invit_smem_reals(int m, int keep) {
   constexpr int kRing = 2 * kTgChunk * kTgInvThreads;
-  return round4(2 * m + keep) + 3 * kRing +
+  return (kGlobal ? 0 : round4(2 * m + keep)) + 3 * kRing +
          (kRing * 4 + (int)sizeof(T) - 1) / (int)sizeof(T);
 }
 
 // Grid (ceil(keep / kTgInvThreads), batch); dynamic shared memory
-// tg_invit_smem_reals.
-template <typename T>
+// tg_invit_smem_reals<T, kGlobal>. kGlobal: past where d, e and w fit in
+// shared memory (double past m = 8,488 at keep = m), the lanes read them
+// from global memory, where they stay resident in L1 and L2 (every lane of
+// a warp reads the same d[i] and e[i] at a step: one broadcast load); the
+// arithmetic, and so every bit of z, is the shared-memory route's.
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(kTgInvThreads)
     tg_invit_kernel(const T* __restrict__ d_in, const T* __restrict__ e_in,
                     const T* b0, const T* __restrict__ w_in, T* z,
@@ -1873,19 +1886,28 @@ __global__ void __launch_bounds__(kTgInvThreads)
   constexpr int kRing = 2 * kTgChunk * kTgInvThreads;
   const size_t b = blockIdx.y;
   extern __shared__ __align__(16) unsigned char tg_raw[];
-  T* d = reinterpret_cast<T*>(tg_raw);
-  T* e = d + m;
-  T* w = e + m;
-  T* ra = d + round4(2 * m + keep);  // [2][kTgChunk][kTgInvThreads] each
+  T* sm = reinterpret_cast<T*>(tg_raw);
+  const T* dg = d_in + b * (size_t)d_stride;
+  const T* eg = e_in + b * (size_t)e_stride;
+  w_in += b * (size_t)m;
+  T* ds = kGlobal ? nullptr : sm;
+  T* es = kGlobal ? nullptr : sm + m;
+  T* ws = kGlobal ? nullptr : sm + 2 * m;
+  const T* d = kGlobal ? dg : ds;
+  const T* w = kGlobal ? w_in : ws;
+  T* ra = sm + (kGlobal ? 0 : round4(2 * m + keep));  // [2][kTgChunk][lanes]
   T* rb = ra + kRing;
   T* rc = rb + kRing;
   uint32_t* rs = reinterpret_cast<uint32_t*>(rc + kRing);
   __shared__ T sc[4];
-  w_in += b * (size_t)m;
-  for (int l = threadIdx.x; l < keep; l += kTgInvThreads) w[l] = w_in[l];
-  tg_load_bounds<T, kTgInvThreads>(d_in + b * (size_t)d_stride,
-                                   e_in + b * (size_t)e_stride, m, d, e,
-                                   nullptr, sc);
+  if (!kGlobal)
+    for (int l = threadIdx.x; l < keep; l += kTgInvThreads) ws[l] = w_in[l];
+  tg_load_bounds<T, kTgInvThreads>(dg, eg, m, ds, es, nullptr, sc);
+  // e[i], 0 at i = m - 1 (as tg_load_bounds stores it)
+  auto e = [&](int i) -> T {
+    if (kGlobal) return i < m - 1 ? eg[i] : T(0);
+    return es[i];
+  };
   const int lt = threadIdx.x;
   const int j = blockIdx.x * kTgInvThreads + lt;
   if (j >= keep) return;
@@ -1979,13 +2001,13 @@ __global__ void __launch_bounds__(kTgInvThreads)
         }
       }
     }
-    T a_i = sub_rn(d[0], lam), s1_i = e[0];
+    T a_i = sub_rn(d[0], lam), s1_i = e(0);
     uint32_t bits = 0;
     if (rep == 0) stream(src, 1, m - 1, [&](int r, T x) {
       const int i = r - 1;
       const T a_next = sub_rn(d[i + 1], lam);
-      const T s1_next = e[i + 1];
-      const T r2 = e[i];
+      const T s1_next = e(i + 1);
+      const T r2 = e(i);
       const bool swap = abs_(r2) > abs_(a_i);
       const T top0 = guard(swap ? r2 : a_i, pivmin);
       const T top1 = swap ? a_next : s1_i;
@@ -2045,7 +2067,7 @@ __global__ void __launch_bounds__(kTgInvThreads)
         const int i = i0 - k;
         if (i >= 0) {
           const int o = slot(buf, k);
-          const T u2 = ((rs[o] >> (i & 31)) & 1u) ? e[i + 1] : zero;
+          const T u2 = ((rs[o] >> (i & 31)) & 1u) ? e(i + 1) : zero;
           const T t = sub_rn(sub_rn(rc[o], mul_rn(rb[o], x1)),
                              mul_rn(u2, x2));
           const T xi = div_rn(t, ra[o]);
@@ -2271,10 +2293,15 @@ __host__ __device__ inline long long tg_in_smem_reals(int G, int R) {
 // thread's rows in order, over each warp by transpose_sum32, over the
 // CTA's warps in order, then over the ranks in order from the slots that
 // each rank posts into every rank (one block and one cluster barrier a
-// reduction).
-template <typename T, int kB>
+// reduction). kGlobal: past where a rank's rows fit in its shared memory
+// (double past m = 13,056 at 16 ranks), each rank keeps its rows in the
+// same layout in global memory (gblk + b gstride, row i at i kLd: its own
+// rows only, so no other CTA reads them), the slots stay in shared memory;
+// the arithmetic, and so every bit, is the shared-memory route's.
+template <typename T, int kB, bool kGlobal>
 __global__ void __launch_bounds__(kTgInThreads, 1)
-    tg_inblock_kernel(T* __restrict__ z, int m, int c0, int pw, int R) {
+    tg_inblock_kernel(T* __restrict__ z, int m, int c0, int pw, int R,
+                      T* gblk, long long gstride) {
   cg::cluster_group cluster = cg::this_cluster();
   const int G = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -2285,9 +2312,10 @@ __global__ void __launch_bounds__(kTgInThreads, 1)
   using Q4 = Quad<T>;
   extern __shared__ __align__(16) unsigned char tg_raw[];
   T* slot = reinterpret_cast<T*>(tg_raw);
-  T* blk = slot + round4(2 * G * kB);
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
   const int r0 = rank * R, nr = max(0, min(R, m - r0));
+  T* blk = kGlobal ? gblk + b * (size_t)gstride + (size_t)r0 * kLd
+                   : slot + round4(2 * G * kB);
   const T zero = 0;
   for (int idx = tid; idx < nr * kB; idx += kTgInThreads) {
     const int i = idx / kB, p = idx - i * kB;
@@ -2373,6 +2401,7 @@ __global__ void __launch_bounds__(kTgInThreads, 1)
     const T scl = rsqrt_rn(max_(tot, Real<T>::kFloor));
     for (int i = tid; i < nr; i += kTgInThreads) blk[i * kLd + p] *= scl;
   }
+  __syncthreads();  // the last column scaled by its rows' threads, read by all
   for (int idx = tid; idx < nr * pw; idx += kTgInThreads) {
     const int i = idx / pw, p = idx - i * pw;
     z[(size_t)(r0 + i) * m + c0 + p] = blk[i * kLd + p];
@@ -2857,21 +2886,38 @@ TeigPlan teig_plan(int m, cudaError_t* err) {
 
 // teig_grid's plan for m and real type T: its block width kB, the CTAs G of
 // the in-block kernel's cluster (the fewest whose shared memory holds the
-// block's m rows, at most kTgMaxCluster, checked to fit on the card past
-// 8), the rows a rank R = ceil(m / G), the W partials' slabs and the
-// in-block kernel's dynamic shared memory. Any m whose block fits in a
-// cluster of 16 (over 20,000 rows in double) has a plan. G = 0 (and *err
-// set) where none launches.
+// block's m rows, at least ceil(m / kTgInRows), at most kTgMaxCluster,
+// checked to fit on the card past 8), the rows a rank R = ceil(m / G), the
+// W partials' slabs and the in-block kernel's dynamic shared memory; and
+// `global`, the stages that read their operands from global memory because
+// they do not fit in one CTA's shared memory (each at keep = m, so the
+// route is m's alone): kTgGlobalBisect (d and e2, 2 m reals: double past
+// m = 14,518), kTgGlobalInvit (d, e and w with the rings: double past m =
+// 8,488), kTgGlobalInblock (no cluster of 16 holds the block's rows:
+// double past m = 13,056; G is then ceil(m / kTgInRows), at most 16, and
+// the rows lie in `scratch`). Those stages compute the same bits as where
+// they fit, and to m = 8,488 in double (every m the route takes in
+// float to 16384) nothing reads from global memory. G = 0 (and *err set)
+// where no cluster launches.
 constexpr int kTgBlock = 32;  // columns a block of the BCGS2
+constexpr int kTgGlobalBisect = 1, kTgGlobalInvit = 2, kTgGlobalInblock = 4;
 struct TgPlan {
-  int kB, G, R, slabs;
+  int kB, G, R, slabs, global;
   size_t smem_in;
 };
+
+// The static shared memory of a kernel, in bytes (what the opt-in size
+// leaves for its dynamic part is the rest); -1 on error.
+inline long long tg_static_smem(const void* fn) {
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, fn) != cudaSuccess) return -1;
+  return (long long)fa.sharedSizeBytes;
+}
 
 template <typename T, int kB>
 TgPlan tg_plan_for(int m, cudaError_t* err) {
   int dev = 0, optin = 0;
-  const void* fn = (const void*)tg_inblock_kernel<T, kB>;
+  const void* fn = (const void*)tg_inblock_kernel<T, kB, false>;
   cudaFuncAttributes fa;
   if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
       (*err = cudaDeviceGetAttribute(
@@ -2882,38 +2928,68 @@ TgPlan tg_plan_for(int m, cudaError_t* err) {
            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
           cudaSuccess)
     return TgPlan{};
-  // the bisection's and the inverse iteration's d, e and w, at keep = m
-  if ((size_t)tg_invit_smem_reals<T>(m, m) * sizeof(T) > (size_t)optin) {
-    *err = cudaErrorInvalidConfiguration;
+  const long long st_bisect =
+      tg_static_smem((const void*)tg_bisect_kernel<T, false>);
+  const long long st_invit =
+      tg_static_smem((const void*)tg_invit_kernel<T, false>);
+  if (st_bisect < 0 || st_invit < 0) {
+    *err = cudaErrorInvalidDeviceFunction;
     return TgPlan{};
   }
+  int global = 0;
+  if (2LL * m * (long long)sizeof(T) + st_bisect > optin)
+    global |= kTgGlobalBisect;
+  if ((long long)tg_invit_smem_reals<T>(m, m) * (long long)sizeof(T) +
+          st_invit > optin)
+    global |= kTgGlobalInvit;
   const size_t budget = (size_t)optin - fa.sharedSizeBytes;
+  auto fits = [&](const void* f, TgPlan& pl) {
+    if ((*err = cudaFuncSetAttribute(
+             f, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)pl.smem_in)) != cudaSuccess)
+      return false;
+    if (pl.G <= 8) return true;
+    cudaLaunchAttribute attr[1];
+    cudaLaunchConfig_t cfg =
+        cluster_config(attr, pl.G, pl.G, pl.smem_in, 0, kTgInThreads);
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, f, &cfg) == cudaSuccess &&
+        clusters >= 1)
+      return true;
+    cudaGetLastError();  // a refused query is not an error of the launch
+    *err = cudaSuccess;
+    return false;
+  };
   // at least ceil(m / kTgInRows) CTAs: the column loop's shared-memory
   // reads, and its rows a thread, spread over more SMs
-  for (int G = min((m + kTgInRows - 1) / kTgInRows, kTgMaxCluster);
-       G <= kTgMaxCluster; ++G) {
+  const int g0 = min((m + kTgInRows - 1) / kTgInRows, kTgMaxCluster);
+  for (int G = g0; G <= kTgMaxCluster; ++G) {
     TgPlan pl;
     pl.kB = kB;
     pl.G = G;
     pl.R = (m + G - 1) / G;
     pl.slabs = (m + kTgSlab - 1) / kTgSlab;
+    pl.global = global;
     pl.smem_in = (size_t)tg_in_smem_reals<T, kB>(G, pl.R) * sizeof(T);
     if (pl.smem_in > budget) continue;
-    if ((*err = cudaFuncSetAttribute(
-             fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)pl.smem_in)) != cudaSuccess)
-      return TgPlan{};
-    if (G <= 8) return pl;
-    cudaLaunchAttribute attr[1];
-    cudaLaunchConfig_t cfg =
-        cluster_config(attr, G, G, pl.smem_in, 0, kTgInThreads);
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess &&
-        clusters >= 1)
-      return pl;
-    cudaGetLastError();  // a refused query is not an error of the launch
+    if (fits(fn, pl)) return pl;
+    if (*err != cudaSuccess) return TgPlan{};
   }
-  *err = cudaErrorInvalidConfiguration;
+  // no cluster holds the rows: each rank keeps its rows in global memory
+  const void* fg = (const void*)tg_inblock_kernel<T, kB, true>;
+  if ((*err = cudaFuncSetAttribute(
+           fg, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+      cudaSuccess)
+    return TgPlan{};
+  TgPlan pl;
+  pl.kB = kB;
+  pl.G = g0;
+  pl.R = (m + g0 - 1) / g0;
+  pl.slabs = (m + kTgSlab - 1) / kTgSlab;
+  pl.global = global | kTgGlobalInblock;
+  pl.smem_in = (size_t)round4(2 * g0 * kB) * sizeof(T);
+  if (fits(fg, pl)) return pl;
+  if (*err == cudaSuccess) *err = cudaErrorInvalidConfiguration;
   return TgPlan{};
 }
 
@@ -2929,13 +3005,18 @@ TgPlan tg_plan(int m, cudaError_t* err) {
 
 // teig_grid's scratch a matrix, in reals of real_bytes: the LU factors
 // during the inverse iteration, then, over them, the W partials (slabs x
-// keep x kB) and W (keep x kB) from wofs.
+// keep x kB) and W (keep x kB) from wofs, then from tg_blk_ofs the
+// in-block kernel's rows where they lie in global memory (m rows of at most
+// kB + 4 reals: tg_in_ld).
 __host__ __device__ inline long long tg_wofs(int m, int keep, int kB) {
   return ((long long)((m + kTgSlab - 1) / kTgSlab) * keep * kB + 3) & ~3LL;
 }
+__host__ __device__ inline long long tg_blk_ofs(int m, int keep, int kB) {
+  return (tg_wofs(m, keep, kB) + (long long)keep * kB + 3) & ~3LL;
+}
 inline long long tg_scratch_reals(int m, int keep, int kB, int real_bytes) {
   const long long lu = tg_lu_reals(m, keep, real_bytes);
-  const long long prod = tg_wofs(m, keep, kB) + (long long)keep * kB;
+  const long long prod = tg_blk_ofs(m, keep, kB) + (long long)m * (kB + 4);
   return lu > prod ? lu : prod;
 }
 
@@ -2947,16 +3028,25 @@ int tg_run(const T* d, const T* e, const T* b0, T* w, T* z, T* scratch,
   constexpr int kQ = kB / 4;
   constexpr int kTC = kTgProdThreads / kQ * kTgWCols;
   constexpr int kTR = kTgUpdThreads / kQ;
-  const size_t sm_bisect = 2 * (size_t)m * sizeof(T);
-  const size_t sm_invit = (size_t)tg_invit_smem_reals<T>(m, keep) * sizeof(T);
+  const bool g_bisect = pl.global & kTgGlobalBisect;
+  const bool g_invit = pl.global & kTgGlobalInvit;
+  const bool g_in = pl.global & kTgGlobalInblock;
+  auto* bisect = g_bisect ? tg_bisect_kernel<T, true>
+                          : tg_bisect_kernel<T, false>;
+  auto* invit = g_invit ? tg_invit_kernel<T, true> : tg_invit_kernel<T, false>;
+  auto* inblock = g_in ? tg_inblock_kernel<T, kB, true>
+                       : tg_inblock_kernel<T, kB, false>;
+  const size_t sm_bisect = g_bisect ? 0 : 2 * (size_t)m * sizeof(T);
+  const size_t sm_invit =
+      (size_t)(g_invit ? tg_invit_smem_reals<T, true>(m, keep)
+                       : tg_invit_smem_reals<T>(m, keep)) *
+      sizeof(T);
   const size_t sm_update = tg_update_smem_bytes<T, kB>();
   const size_t sm_wpart = (size_t)kTgSlab * (kTC + kB) * sizeof(T);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      tg_bisect_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sm_bisect));
+      bisect, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_bisect));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      tg_invit_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sm_invit));
+      invit, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm_invit));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
       tg_wpart_kernel<T, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm_wpart));
@@ -2964,21 +3054,21 @@ int tg_run(const T* d, const T* e, const T* b0, T* w, T* z, T* scratch,
       tg_update_kernel<T, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)sm_update));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      tg_inblock_kernel<T, kB>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-      1));
+      inblock, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      tg_inblock_kernel<T, kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      inblock, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pl.smem_in));
-  tg_bisect_kernel<T>
-      <<<dim3((keep + kTgBisectLanes - 1) / kTgBisectLanes, batch),
-         kTgThreads, sm_bisect, st>>>(d, e, w, m, keep, d_stride, e_stride);
+  bisect<<<dim3((keep + kTgBisectLanes - 1) / kTgBisectLanes, batch),
+           kTgThreads, sm_bisect, st>>>(d, e, w, m, keep, d_stride,
+                                        e_stride);
   ADAPTAQC_RETURN_IF_ERR(cudaGetLastError());
-  tg_invit_kernel<T>
-      <<<dim3((keep + kTgInvThreads - 1) / kTgInvThreads, batch),
-         kTgInvThreads, sm_invit, st>>>(d, e, b0, w, z, scratch, m, keep,
-                                        d_stride, e_stride, scratch_stride);
+  invit<<<dim3((keep + kTgInvThreads - 1) / kTgInvThreads, batch),
+          kTgInvThreads, sm_invit, st>>>(d, e, b0, w, z, scratch, m, keep,
+                                         d_stride, e_stride, scratch_stride);
   ADAPTAQC_RETURN_IF_ERR(cudaGetLastError());
   const long long wofs = tg_wofs(m, keep, kB);
+  // the in-block kernel's rows where they lie in global memory: past W
+  T* gblk = scratch + tg_blk_ofs(m, keep, kB);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
       attr, batch * pl.G, pl.G, pl.smem_in, st, kTgInThreads);
@@ -2997,8 +3087,8 @@ int tg_run(const T* d, const T* e, const T* b0, T* w, T* z, T* scratch,
              st>>>(
               z, scratch, m, c0, pw, wofs, scratch_stride);
     }
-    ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, tg_inblock_kernel<T, kB>,
-                                              z, m, c0, pw, pl.R));
+    ADAPTAQC_RETURN_IF_ERR(cudaLaunchKernelEx(&cfg, inblock, z, m, c0, pw,
+                                              pl.R, gblk, scratch_stride));
   }
   return (int)cudaGetLastError();
 }
@@ -3230,7 +3320,9 @@ int teig_cluster_size(int m, int f64) {
 
 // teig_grid's plan at m (the same lower bounds): out[0] its block width,
 // out[1] the CTAs of its in-block cluster, out[2] the rows a rank of it,
-// out[3] the slabs of the W partials. Returns the CUDA error (0: planned).
+// out[3] the slabs of the W partials, out[4] the stages that read from
+// global memory (kTgGlobalBisect | kTgGlobalInvit | kTgGlobalInblock).
+// Returns the CUDA error (0: planned).
 int teig_grid_plan(int m, int f64, int* out) {
   if (m < (f64 ? 2 : kMaxM + 1)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
@@ -3241,6 +3333,7 @@ int teig_grid_plan(int m, int f64, int* out) {
   out[1] = pl.G;
   out[2] = pl.R;
   out[3] = pl.slabs;
+  out[4] = pl.global;
   return 0;
 }
 

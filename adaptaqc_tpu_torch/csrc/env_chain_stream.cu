@@ -1,4 +1,4 @@
-// Streamed environment-chain kernel for 128 < chi <= 4096, for sm_90a.
+// Streamed environment-chain kernel for 128 < chi <= 8192, for sm_90a.
 //
 // Replaces the JAX package's Pallas TPU kernel _env_kernel
 // (ops/pallas_env.py:46) where the TPU route itself leaves the kernel: past
@@ -80,7 +80,7 @@ using adaptaqc::dmma16;
 constexpr int kCombineThreads = 1024;
 constexpr int kReduceThreads = 256;
 constexpr int kMinChi = 129;   // below: env_chain.cu's cluster kernels
-constexpr int kMaxChi = 4096;  // any chi tiles: the cap is the port's reach
+constexpr int kMaxChi = 8192;  // any chi tiles: the cap is the port's reach
 constexpr int kMaxJobs = 4;
 constexpr int kWaveCtas = 132;  // one wave: the H100 SXM's SMs
 
@@ -779,7 +779,7 @@ extern "C" int env_chain_stream_step2(const void* a, const void* m,
 // The streamed chain, complex64 (f64 = 0) or complex128: br, bl (n, 2, chi,
 // chi), e0 the boundary environment (chi, chi), work
 // env_chain_stream_work(chi, f64) elements of scratch (`work_elems`), out
-// (2, 2); 128 < chi <= 4096, 0 <= q < n. Launches the products of max(q,
+// (2, 2); 128 < chi <= 8192, 0 <= q < n. Launches the products of max(q,
 // n-1-q) + 1 steps, their reductions where they split, and the combine on
 // `stream`; returns the first launch error.
 extern "C" int env_chain_stream_launch(const void* br, const void* bl,

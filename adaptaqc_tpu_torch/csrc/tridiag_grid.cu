@@ -70,6 +70,10 @@
 //     number of CTAs, and nothing is added by float atomics: a rerun, and
 //     each matrix of a batch (the matrices one after another in the same
 //     launch), equals its P = 1 launch bit for bit.
+// Past kColumnSmem bytes of a CTA's shared memory (complex128 past m =
+// 11,565: at m = 16384 the column alone is 256 KB), each CTA keeps its copy
+// of the column and v in the workspace instead (its own m elements, read
+// back by its own SM through L1), the rest as above: the same bits.
 // What bounds it: the pass of y, which reads the trailing block once a
 // column (m^3 / 3 complex elements in all, from L2 while the trailing
 // block fits, complex64 to m = 2048, else from HBM), measured at about
@@ -181,12 +185,45 @@ __device__ __forceinline__ void stcg(C* p, C v) {
   __stcg(p, v);
 }
 
+// The dynamic shared memory of a CTA, in bytes from its start: during the
+// column steps the column, then v (m complex; in the workspace where
+// gcol_global), and the slabs' partial sums of a and b in 8 groups (8 x 2
+// kNb complex); during a trailing update over the same bytes, the panel
+// planes (V and W of the tile's rows and columns, real and imaginary
+// parts, 64 x kLd each) and then the staged tile; after the larger of the
+// two, the panel's row flags (m bytes).
+struct GSmem {
+  size_t sl2, nz, total;
+};
+__host__ __device__ inline GSmem gsmem_of(int m, size_t cs, bool vglobal) {
+  GSmem g;
+  g.sl2 = vglobal ? 0 : ((size_t)m * cs + 15) & ~(size_t)15;
+  const size_t col = g.sl2 + (size_t)8 * 2 * kNb * cs;
+  const size_t planes = (size_t)8 * kTile * kLd * (cs / 2);
+  g.nz = ((planes > col ? planes : col) + 15) & ~(size_t)15;
+  g.total = g.nz + (((size_t)m + 15) & ~(size_t)15);
+  return g;
+}
+// the most dynamic shared memory that keeps the column in shared memory:
+// a rule of m and the dtype alone (so is the workspace), within what an
+// H100 CTA takes beside the kernel's static buffers
+constexpr size_t kColumnSmem = 200 * 1024;
+__host__ __device__ inline bool gcol_global(int m, size_t cs) {
+  return gsmem_of(m, cs, false).total > kColumnSmem;
+}
+template <typename T>
+__host__ __device__ inline GSmem gsmem(int m) {
+  const size_t cs = 2 * sizeof(T);
+  return gsmem_of(m, cs, gcol_global(m, cs));
+}
+
 // The workspace of one launch, in bytes from its start: the matrix, the
 // panel's V and W (m x kNb each), the column (m), y (m), the slabs' a / b
 // partials (slabs x 2 x kNb), two buffers of row flags (2 x m ints), the
-// barrier's counter and word (kMaxCtas words: one line each).
+// barrier's counter and word (kMaxCtas words: one line each); where
+// gcol_global, each CTA's column and v (kMaxCtas x m).
 struct GLayout {
-  size_t v, w, col, y, part, nz, bar, total;
+  size_t v, w, col, y, part, nz, bar, vc, total;
 };
 __host__ __device__ inline size_t galign(size_t x) {
   return (x + 255) & ~(size_t)255;
@@ -203,29 +240,11 @@ __host__ __device__ inline GLayout glayout(int m, int csize) {
   l.part = l.y + galign((size_t)m * csize);
   l.nz = l.part + galign((size_t)gslabs(m) * 2 * kNb * csize);
   l.bar = l.nz + galign((size_t)2 * m * sizeof(int));
-  l.total = l.bar + kMaxCtas * sizeof(unsigned);
+  l.vc = galign(l.bar + kMaxCtas * sizeof(unsigned));
+  l.total = gcol_global(m, csize)
+                ? l.vc + (size_t)kMaxCtas * m * csize
+                : l.bar + kMaxCtas * sizeof(unsigned);
   return l;
-}
-
-// The dynamic shared memory of a CTA, in bytes from its start: during the
-// column steps the column, then v (m complex), and the slabs' partial sums
-// of a and b in 8 groups (8 x 2 kNb complex); during a trailing update
-// over the same bytes, the panel planes (V and W of the tile's rows and
-// columns, real and imaginary parts, 64 x kLd each) and then the staged
-// tile; after the larger of the two, the panel's row flags (m bytes).
-struct GSmem {
-  size_t sl2, nz, total;
-};
-template <typename T>
-__host__ __device__ inline GSmem gsmem(int m) {
-  const size_t cs = 2 * sizeof(T);
-  GSmem g;
-  g.sl2 = ((size_t)m * cs + 15) & ~(size_t)15;
-  const size_t col = g.sl2 + (size_t)8 * 2 * kNb * cs;
-  const size_t planes = (size_t)8 * kTile * kLd * sizeof(T);
-  g.nz = ((planes > col ? planes : col) + 15) & ~(size_t)15;
-  g.total = g.nz + (((size_t)m + 15) & ~(size_t)15);
-  return g;
 }
 
 // Every CTA: a grid barrier. Each CTA's thread 0 adds one to the counter
@@ -516,8 +535,8 @@ __device__ void trailing_tile(T* sm, typename GReal<T>::C* A,
 // workspace (glayout). Row i belongs to warp i mod warps, the warps of
 // every CTA numbered in order: at m <= warps a row a warp, so that the y
 // pass streams every trailing row at once and the slab tasks go to warps
-// without a row.
-template <typename T>
+// without a row. kVG: the column and v in the workspace (gcol_global).
+template <typename T, bool kVG>
 __global__ void __launch_bounds__(kGThreads, 1)
     tridiag_grid_kernel(const typename GReal<T>::C* __restrict__ h,
                         long long h_stride, unsigned char* __restrict__ ws,
@@ -539,7 +558,9 @@ __global__ void __launch_bounds__(kGThreads, 1)
 
   extern __shared__ __align__(16) unsigned char gsm[];
   T* sm = reinterpret_cast<T*>(gsm);
-  C* vs = reinterpret_cast<C*>(gsm);            // the column, then v
+  // the column, then v
+  C* vs = kVG ? reinterpret_cast<C*>(ws + lay.vc) + (size_t)blockIdx.x * m
+              : reinterpret_cast<C*>(gsm);
   C* sl2 = reinterpret_cast<C*>(gsm + gs.sl2);  // [8][2 kNb]
   unsigned char* nzs = gsm + gs.nz;
   __shared__ T red[34];
@@ -893,9 +914,16 @@ __global__ void __launch_bounds__(kGThreads, 1)
 }
 
 template <typename T>
+const void* tridiag_grid_fn(int m) {
+  return gcol_global(m, 2 * sizeof(T))
+             ? (const void*)tridiag_grid_kernel<T, true>
+             : (const void*)tridiag_grid_kernel<T, false>;
+}
+
+template <typename T>
 int tridiag_grid_ctas_for(int m, cudaError_t* err) {
   int dev = 0, sms = 0, optin = 0, coop = 0, per_sm = 0;
-  const void* fn = (const void*)tridiag_grid_kernel<T>;
+  const void* fn = tridiag_grid_fn<T>(m);
   cudaFuncAttributes fa;
   if ((*err = cudaGetDevice(&dev)) != cudaSuccess ||
       (*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
@@ -950,9 +978,9 @@ int tridiag_grid_run(const void* h, void* ws, void* vrows, void* tau,
   const GLayout lay = glayout(m, (int)sizeof(C));
   cudaStream_t st = (cudaStream_t)stream;
   unsigned char* w = (unsigned char*)ws;
+  const void* fn = tridiag_grid_fn<T>(m);
   ADAPTAQC_RETURN_IF_ERR(cudaFuncSetAttribute(
-      (const void*)tridiag_grid_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)gsmem<T>(m).total));
   ADAPTAQC_RETURN_IF_ERR(
       cudaMemsetAsync(w + lay.bar, 0, kMaxCtas * sizeof(unsigned), st));
@@ -963,8 +991,7 @@ int tridiag_grid_run(const void* h, void* ws, void* vrows, void* tau,
                   (void*)&tp, (void*)&dp, (void*)&ep, (void*)&m,
                   (void*)&batch};
   ADAPTAQC_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
-      (const void*)tridiag_grid_kernel<T>, dim3(ctas), dim3(kGThreads), args,
-      gsmem<T>(m).total, st));
+      fn, dim3(ctas), dim3(kGThreads), args, gsmem<T>(m).total, st));
   return (int)cudaGetLastError();
 }
 
@@ -988,8 +1015,8 @@ int tridiag_grid_f64_launch(const void* h, void* ws, void* vrows, void* tau,
 }
 
 // The route's workspace in bytes at m: the matrix, the panel, the vectors,
-// the slabs' partials, the flags and the barrier's counter; m and the
-// dtype fix it.
+// the slabs' partials, the flags and the barrier's counter, and past the
+// column's shared-memory fit each CTA's column; m and the dtype fix it.
 long long tridiag_grid_workspace(int m, int f64) {
   if (m < 2) return 0;
   return (long long)glayout(m, f64 ? 16 : 8).total;

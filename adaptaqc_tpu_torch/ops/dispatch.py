@@ -28,23 +28,27 @@ import torch
 REACH = {
     # csrc/env_chain.cu to chi 128 (complex64 narrow to 64, wide to 128;
     # complex128 in its double instantiation), then the streamed kernel of
-    # csrc/env_chain_stream.cu to chi 4096, in both dtypes: it has no cap of
-    # its own, so this one is the size the card has been checked at (past
-    # it the eigensolver's m = 2 chi would pass its cap, and one padded
-    # state at n >= 25 outgrows the card: ROADMAP F5)
-    "env": {torch.complex64: (1, 4096), torch.complex128: (1, 4096)},
+    # csrc/env_chain_stream.cu to chi 8192, in both dtypes: it has no cap of
+    # its own (every offset 64-bit), so this one is the size the card has
+    # been checked at, at n = 4-6 sites (past it the eigensolver's m = 2 chi
+    # would pass its cap; a sweep at chi 8192 and n >= 25 takes the device
+    # mesh, whose sharded chains do not run K1: ROADMAP F5)
+    "env": {torch.complex64: (1, 8192), torch.complex128: (1, 8192)},
     # csrc/eigh_tridiag.cu: complex64 to m 128 in the register and
     # shared-memory designs, then the wide variants; complex128 in the wide
     # variants' double instantiation; past each kernel's shared-memory fit
     # K2 and K3 run their card-wide routes (csrc/tridiag_grid.cu and
     # teig_grid: the matrix and the iterate in global memory), K4 its strip
     # route (csrc/backtransform_strip.cu: a CTA a strip of columns kept in
-    # global memory; its plan and workspace are defined to m 16384). Both
-    # dtypes to m 8192, the size the card has been checked at; what sets
-    # the cap past it: K3's plan (m ~ 8,490 in double) and the state's
-    # bytes at chi 4096 (one padded complex128 state at n = 24 is 12.9 GB;
-    # a sweep keeps several)
-    "eigh": {torch.complex64: (2, 8192), torch.complex128: (2, 8192)},
+    # global memory). No kernel caps m in shared memory any more: past
+    # its fit each of K3's stages reads from global memory (teig_grid_plan
+    # "global"). Both dtypes to m 16384, the size the card has been checked
+    # at and the largest K4's strip plan and workspace are defined for; what
+    # sets the cap past it: K4's kMaxM, and the bytes (at m 16384 a
+    # complex128 Gram is 4.3 GB, K2's workspace as much again, K3's scratch
+    # 6.4 GB; a sweep at chi 8192 holds its states only over a mesh of at
+    # least four cards, and past it more)
+    "eigh": {torch.complex64: (2, 16384), torch.complex128: (2, 16384)},
 }
 
 

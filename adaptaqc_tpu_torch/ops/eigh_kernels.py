@@ -46,7 +46,7 @@ products in `scratch`, and K4 runs its strip route (`backtransform_routes`:
 "strip", complex64 from m = 3072, complex128 from 1536:
 csrc/backtransform_strip.cu, a CTA a strip of 32 output columns kept in
 global memory, panels of 64 reflectors). It raises for anything the
-kernels do not take (m above dispatch.REACH's 8192, another dtype, a
+kernels do not take (m above dispatch.REACH's 16384, another dtype, a
 non-contiguous tensor). There is no fallback from a kernel to the plain
 version. Each wrapper counts its launches in `<wrapper>.launches`, those of
 them that took a batch (P > 1 matrices in one launch) in
@@ -507,20 +507,31 @@ def teig_cluster_size(m: int, f64: bool = False) -> int:
     return g
 
 
+TEIG_GLOBAL_STAGES = ("bisect", "invit", "inblock")  # bits 1, 2, 4
+
+
 def teig_grid_plan(m: int, f64: bool = False) -> dict:
     """How K3's card-wide route (wide_routes "global") runs one matrix of
     size m: `block`, the columns a block of its BCGS2; `inblock_ctas`, the
     CTAs of the cluster whose shared memory holds a block's m rows for the
     CGS2 inside it (ceil(m / 128), at most 16, more where a CTA's rows would
     not fit); `rows`, the rows a CTA of it, ceil(m / inblock_ctas); `slabs`,
-    the row slabs of its W partial sums, ceil(m / 64)."""
-    out = (ctypes.c_int * 4)()
+    the row slabs of its W partial sums, ceil(m / 64); `global`, the stages
+    that read their operands from global memory because one CTA's shared
+    memory does not hold them at keep = m (of TEIG_GLOBAL_STAGES: in double
+    the inverse iteration's d, e and w past m = 8,488, the in-block rows
+    past 13,056 at 16 CTAs, the multisection's d and e2 past 14,518; none
+    in float to m = 16384). Those stages give the same bits as where they
+    fit. Every m has a plan: shared memory no longer caps the route."""
+    out = (ctypes.c_int * 5)()
     rc = cuda_lib.lib().teig_grid_plan(int(m), int(f64), out)
     if rc != 0:
         raise RuntimeError(f"teig: no card-wide plan launches m={m}"
                            + (" in complex128" if f64 else ""))
     return {"block": out[0], "inblock_ctas": out[1], "rows": out[2],
-            "slabs": out[3]}
+            "slabs": out[3],
+            "global": tuple(name for bit, name in enumerate(TEIG_GLOBAL_STAGES)
+                            if out[4] >> bit & 1)}
 
 
 def wide_routes(m: int, f64: bool = False) -> dict:
@@ -598,22 +609,46 @@ GRID_PANEL = 32  # tridiag_grid.cu kNb: the columns of a panel
 GRID_SLAB = 64   # kSlab: the rows of a slab's partial sums
 
 
+GRID_MAX_CTAS = 256          # kMaxCtas: the barrier's words
+GRID_COLUMN_SMEM = 200 * 1024  # kColumnSmem
+
+
+def tridiag_grid_column_global(m: int, f64: bool = False) -> bool:
+    """Whether the card-wide K2 keeps each CTA's column and v in its
+    workspace (gcol_global): where the column (m complex), the slabs'
+    partials (8 x 2 GRID_PANEL complex), or the trailing update's planes (8
+    x 64 x 36 reals) if larger, and the row flags (m bytes), each rounded
+    to 16 bytes, pass GRID_COLUMN_SMEM: complex128 past m = 11,565."""
+    cs = 16 if f64 else 8
+
+    def r16(x):
+        return (x + 15) // 16 * 16
+    col = r16(m * cs) + 8 * 2 * GRID_PANEL * cs
+    planes = 8 * 64 * 36 * (cs // 2)
+    return r16(max(planes, col)) + r16(m) > GRID_COLUMN_SMEM
+
+
 def tridiag_grid_workspace_bytes(m: int, f64: bool = False) -> int:
     """The card-wide K2's workspace as csrc/tridiag_grid.cu lays it out
     (glayout), each part from a 256-byte boundary: the matrix (m x m
     complex), the panel's V and W (m x GRID_PANEL each), the column and y
     (m each), the slabs' partials of a and b (ceil(m / GRID_SLAB) x 2 x
     GRID_PANEL), two buffers of row flags (2 m ints) and the grid barrier's
-    words (256 of 4 bytes). chip_smoke.py holds it equal to the
-    library's."""
+    words (GRID_MAX_CTAS of 4 bytes); where tridiag_grid_column_global,
+    then each CTA's column (GRID_MAX_CTAS x m complex). Every offset is
+    64-bit (the matrix alone is 2^32 bytes at complex128 m = 16384).
+    chip_smoke.py holds it equal to the library's."""
     cs = 16 if f64 else 8
 
     def align(x):
         return (x + 255) // 256 * 256
     slabs = -(-m // GRID_SLAB)
-    return (align(m * m * cs) + 2 * align(m * GRID_PANEL * cs)
-            + 2 * align(m * cs) + align(slabs * 2 * GRID_PANEL * cs)
-            + align(2 * m * 4) + 256 * 4)
+    total = (align(m * m * cs) + 2 * align(m * GRID_PANEL * cs)
+             + 2 * align(m * cs) + align(slabs * 2 * GRID_PANEL * cs)
+             + align(2 * m * 4) + GRID_MAX_CTAS * 4)
+    if tridiag_grid_column_global(m, f64):
+        total = align(total) + GRID_MAX_CTAS * m * cs
+    return total
 
 
 @functools.lru_cache(maxsize=64)
@@ -644,7 +679,7 @@ BT_STRIP_ALIGN = 64    # kAlign: the padded m, panel p's first row 64 p
 BT_STRIP_ROWS = {False: 64, True: 32}  # Cplx<T>::kRows: rows of a chunk
 BT_STRIP_PREP_CHUNK = 64  # kPrepChunk
 BT_STRIP_MAX_M = 16384    # kMaxM: the plan and the workspace are defined
-                          # to it (dispatch.REACH caps the wrapper at 8192)
+                          # to it (dispatch.REACH's cap)
 
 
 def backtransform_routes(m: int, f64: bool = False) -> str:

@@ -15,7 +15,7 @@ from the B-form site tensors of the bra R and the ket L (n, 2, chi, chi):
 with A = R's and B = L's tensors and both chains starting from |0><0| on the
 (padded) boundary bond. The wrapper runs the plain version for tensors on the
 CPU and launches the CUDA kernels for tensors on a CUDA device
-(ops/dispatch.py), raising for anything they do not take (chi > 4096, another
+(ops/dispatch.py), raising for anything they do not take (chi > 8192, another
 dtype, a non-contiguous or misaligned tensor). To chi = 128 each chain runs
 on a thread-block cluster and the two combine in whichever cluster finishes
 last, chosen through a counter that the wrapper keeps per device and

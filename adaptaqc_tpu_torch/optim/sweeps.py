@@ -246,14 +246,17 @@ def default_block_len(padded_len: int, state_bytes: int = None,
 
 
 def state_nbytes(state) -> int:
-    """Total bytes of one engine state: a statevector tensor, or the
-    tensors of a tuple (an MPS; a center-gauge state also carries its
-    center, an int). Iterating a tensor would walk its elements one by
-    one."""
+    """Total bytes this process holds of one engine state: a statevector
+    tensor, or the tensors of a tuple (an MPS; a center-gauge state also
+    carries its center, an int); of a state sharded over a device mesh,
+    the rank's shard (the memory budgets are a rank's). Iterating a tensor
+    would walk its elements one by one."""
+    def held(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.numel() * t.element_size()
     if isinstance(state, torch.Tensor):
-        return state.numel() * state.element_size()
-    return sum(t.numel() * t.element_size() for t in state
-               if isinstance(t, torch.Tensor))
+        return held(state)
+    return sum(held(t) for t in state if isinstance(t, torch.Tensor))
 
 
 def _stopped_improving(hist3, rel_tol) -> bool:

@@ -31,6 +31,7 @@ each rank has its own card the default is NCCL.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import functools
 import os
@@ -50,9 +51,13 @@ DP, TP = "dp", "tp"
 AXES = (DP, TP)
 
 # collectives this package issued in this process: their count and the
-# largest payload one carried (elements), read by the tests to show that a
-# sharded step never moves a whole statevector
+# largest payload one carried (elements of the tensors it sums, a complex
+# element one), read by the tests to show that a sharded step never moves a
+# whole statevector, and that the gradient and verifier contractions move
+# at most one site of an MPS at a time
 STATS = {"collectives": 0, "max_numel": 0}
+# the most elements one all_sum_many may carry (None: no limit); payload_cap
+_CAP = [None]
 
 _RANK = {"device": None}  # the device this rank runs on (set by launch)
 TIMEOUT_S = 900  # a collective that waits longer fails its rank
@@ -237,20 +242,37 @@ def axis_size(mesh, axis: str) -> int:
 
 # ----------------------------------------------------------- collectives
 
-def _record(x):
+def _record(numel: int):
     STATS["collectives"] += 1
-    STATS["max_numel"] = max(STATS["max_numel"], x.numel())
+    STATS["max_numel"] = max(STATS["max_numel"], numel)
 
 
 def _real(x):
     return torch.view_as_real(x) if x.is_complex() else x
 
 
-def _all_reduce(buf: torch.Tensor, group) -> torch.Tensor:
-    """buf summed over `group` in place (complex as its real pairs)."""
-    _record(buf)
+def _all_reduce(buf: torch.Tensor, group, numel=None) -> torch.Tensor:
+    """buf summed over `group` in place (complex as its real pairs);
+    `numel`: the elements it carries, where buf holds complex ones as real
+    pairs."""
+    _record(buf.numel() if numel is None else numel)
     dist.all_reduce(_real(buf), group=group)
     return buf
+
+
+@contextlib.contextmanager
+def payload_cap(numel: int):
+    """Within: all_sum_many carries at most `numel` elements an
+    all-reduce, packing its terms first fit in their order (a term larger
+    than that goes alone). The gradient and verifier contractions of
+    parallel/mps_sharded.py run under one MPS site (2 chi^2): where their
+    steps need more, they run several all-reduces."""
+    before = _CAP[0]
+    _CAP[0] = int(numel)
+    try:
+        yield
+    finally:
+        _CAP[0] = before
 
 
 def all_sum(x: torch.Tensor, group, size: int) -> torch.Tensor:
@@ -263,7 +285,7 @@ def all_sum(x: torch.Tensor, group, size: int) -> torch.Tensor:
 
 def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
     """x from global rank src to every rank of `group`, in place."""
-    _record(x)
+    _record(x.numel())
     dist.broadcast(_real(x), src=src, group=group)
     return x
 
@@ -271,16 +293,31 @@ def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
 def all_sum_many(xs, group, size: int):
     """The sums over `group` of several tensors of one real type (complex
     ones as their real pairs) through one all-reduce of their values laid
-    end to end: [sum of xs[0], sum of xs[1], ...]."""
+    end to end (several under payload_cap): [sum of xs[0], sum of xs[1],
+    ...]."""
     if size == 1 or not xs:
         return list(xs)
-    flat = [_real(x.contiguous()).reshape(-1) for x in xs]
-    buf = _all_reduce(torch.cat(flat), group)
-    out, at = [], 0
-    for x, f in zip(xs, flat):
-        part = buf[at:at + f.numel()].view(_real(x).shape)
-        out.append(torch.view_as_complex(part) if x.is_complex() else part)
-        at += f.numel()
+    cap = _CAP[0]
+    bins, loads = [], []
+    for i, x in enumerate(xs):
+        for b, load in enumerate(loads):
+            if cap is None or load + x.numel() <= cap:
+                bins[b].append(i)
+                loads[b] += x.numel()
+                break
+        else:
+            bins.append([i])
+            loads.append(x.numel())
+    out = [None] * len(xs)
+    for idx, load in zip(bins, loads):
+        flat = [_real(xs[i].contiguous()).reshape(-1) for i in idx]
+        buf = _all_reduce(torch.cat(flat), group, load)
+        at = 0
+        for i, f in zip(idx, flat):
+            part = buf[at:at + f.numel()].view(_real(xs[i]).shape)
+            out[i] = (torch.view_as_complex(part) if xs[i].is_complex()
+                      else part)
+            at += f.numel()
     return out
 
 
@@ -374,6 +411,32 @@ def shard_pairs(mesh, pairs):
     return _distribute(mesh, t, DP, 0), n_pairs
 
 
+def place(y: torch.Tensor, mesh, split: bool):
+    """y, a local shard, as a DTensor on `mesh`: on the tp axis Shard of
+    y's last dimension where `split`, else replicated (its global shape
+    follows from y's)."""
+    from torch.distributed.tensor import DTensor
+    tp = axis_size(mesh, TP) if split else 1
+    shape = (*y.shape[:-1], y.shape[-1] * tp) if y.dim() else ()
+    stride, acc = [], 1
+    for extent in reversed(shape):
+        stride.append(acc)
+        acc *= extent
+    return DTensor.from_local(
+        y, mesh, _placements(mesh, TP if split else None, max(y.dim() - 1, 0)),
+        run_check=False, shape=torch.Size(shape), stride=tuple(stride[::-1]))
+
+
+def wrap_as(y: torch.Tensor, ref):
+    """y, a local shard, as a DTensor placed as ref is (place: split on tp
+    where ref is), so a batch of states, or a state at another chi, keeps
+    its layout; y itself where ref is not a DTensor."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return y
+    return place(y, ref.device_mesh, split_of(ref) > 1)
+
+
 def local(x):
     """The local shard of a DTensor (x itself otherwise)."""
     from torch.distributed.tensor import DTensor
@@ -394,8 +457,7 @@ def split_of(x) -> int:
 def unshard(x):
     """A plain tensor (or MPS) of the whole of a sharded one, gathered
     explicitly over its sharded mesh dimensions; anything else as it is.
-    For the paths that need every amplitude on every rank (the verifier's
-    re-simulation, checkpoints, the gradient heuristic's contraction)."""
+    For a checkpoint, which stores every amplitude."""
     from torch.distributed.tensor import DTensor, Shard
     if isinstance(x, mps_core.MPS):
         return mps_core.MPS(*(unshard(t) for t in x))
@@ -440,13 +502,12 @@ def make_mps_training_step(mesh, n: int, chi: int, padded_len: int,
     DTensors), rhos (n, n, 4, 4), evaluations)."""
     from . import mps_sharded
     engine = mps_sharded.sweep_engine(mesh, threshold)
-    bl = sweeps.default_block_len(
-        padded_len, sweeps.state_nbytes(mps_core.zero_mps(n, chi)))
+    bl = sweeps.default_block_len(  # (a rank's shard: its memory budget)
+        padded_len, sweeps.state_nbytes(mps_sharded.zero_mps(mesh, n, chi)))
 
     def run(prefix, tape, select):
         prefix = shard_mps(mesh, prefix)
-        ref = shard_mps(mesh, mps_core.zero_mps(n, chi, prefix.dtype,
-                                                rank_device()))
+        ref = mps_sharded.zero_mps(mesh, n, chi, prefix.dtype, rank_device())
         nk, na, cost, l_state, evals, _ = sweeps.sweep(
             engine, bl, rotoselect, prefix, ref, tape.kinds, tape.q0,
             tape.q1, tape.angles, select)

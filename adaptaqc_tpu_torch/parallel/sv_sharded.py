@@ -17,6 +17,9 @@ acts on unchanged.
  - Overlaps, the probe's 2 x 2 matrix, <Z> and the 2-site RDMs are partial
    sums over the local shard (cross terms of a global qubit through the
    same exchange) reduced over the tp ranks.
+ - The gate applies, overlaps, <Z> and full_cost_terms also take a batch
+   of states (P, 2^n), sharded on their last axis, and a one-qubit entry a
+   batch of gates (P, 4, 4): the full-cost sweep's probe states.
 
 A state replicated over tp (2^n not divisible by T) runs sv_core as it is.
 """
@@ -56,12 +59,8 @@ def _layout(mesh, state) -> _Layout:
 
 
 def _wrap(y, like):
-    from torch.distributed.tensor import DTensor
-    if not isinstance(like, DTensor):
-        return y
-    return DTensor.from_local(y, like.device_mesh, like.placements,
-                              run_check=False, shape=like.shape,
-                              stride=like.stride())
+    """The local y laid out as `like` (a batch keeps its shape)."""
+    return pm.wrap_as(y, like)
 
 
 def _exchange(x, lay: _Layout, bits):
@@ -107,7 +106,9 @@ def zero_state(mesh, n: int, dtype=None, device="cpu"):
 
 
 def apply_gate(mesh, state, kind: int, q0: int, q1: int, u4):
-    """sv_core.apply_gate on a sharded state."""
+    """sv_core.apply_gate on a sharded state or batch of states (a
+    one-qubit entry also takes u4 (P, 4, 4), gate p on state p or on P
+    copies of one state)."""
     if kind == G.NOP:
         return state
     lay = _layout(mesh, state)
@@ -122,7 +123,7 @@ def apply_gate(mesh, state, kind: int, q0: int, q1: int, u4):
         j = q0 - nl
         mine = _bit(lay.t, j)
         for tm, buf in _exchange(x, lay, (j,)):
-            y = y + u4[mine, _bit(tm, j)] * buf
+            y = y + u4[..., mine, _bit(tm, j), None] * buf
         return _wrap(y, state)
     u = u4.reshape(2, 2, 2, 2)  # [b(q1)', b(q0)', b(q1), b(q0)]
     if q0 >= nl and q1 >= nl:  # both global: one amplitude factor a pair
@@ -164,9 +165,10 @@ def apply_tape_adjoint(mesh, state, kinds, q0s, q1s, angles):
 
 
 def overlap(mesh, a, b):
-    """<a|b>: the local shards' products summed over tp (0-dim)."""
+    """<a|b>: the local shards' products summed over tp (0-dim, or (P,)
+    where either is a batch)."""
     lay = _layout(mesh, b)
-    return pm.all_sum(torch.vdot(pm.local(a), pm.local(b)), lay.group,
+    return pm.all_sum(sv_core.overlap(pm.local(a), pm.local(b)), lay.group,
                       lay.size)
 
 
@@ -205,27 +207,29 @@ def z_expectations(mesh, state, n: int = None):
     lay = _layout(mesh, state)
     x = pm.local(state)
     zl = sv_core.z_expectations(x, lay.nloc)
-    tot = (x.real * x.real + x.imag * x.imag).sum()
+    tot = (x.real * x.real + x.imag * x.imag).sum(-1)
     zg = [tot * (1 - 2 * _bit(lay.t, j)) for j in range(lay.k)]
-    z = torch.cat([zl, torch.stack(zg)]) if zg else zl
+    z = torch.cat([zl, torch.stack(zg, dim=-1)], dim=-1) if zg else zl
     return pm.all_sum(z, lay.group, lay.size)
 
 
 def full_cost_terms(mesh, state, ref):
     """(global cost against ref, local cost, Hamming-1 overlap sum) of one
-    sharded state, as sv_core.full_cost_terms: |e_i> for a local qubit i
-    is amplitude 2^i of tp rank 0, for global qubit j amplitude 0 of tp
-    rank 2^j."""
+    sharded state or of every state of a batch, as sv_core.full_cost_terms:
+    |e_i> for a local qubit i is amplitude 2^i of tp rank 0, for global
+    qubit j amplitude 0 of tp rank 2^j."""
     lay = _layout(mesh, state)
     ov = overlap(mesh, ref, state)
     g = 1.0 - (ov.real * ov.real + ov.imag * ov.imag)
-    loc = 0.5 * (1.0 - z_expectations(mesh, state).mean())
+    loc = 0.5 * (1.0 - z_expectations(mesh, state).mean(-1))
     x = pm.local(state)
     p = x.real * x.real + x.imag * x.imag
     if lay.t == 0:
-        h = p[torch.as_tensor(2 ** np.arange(lay.nloc), device=x.device)].sum()
+        ones = torch.as_tensor(2 ** np.arange(lay.nloc), device=x.device)
+        h = p[..., ones].sum(-1)
     else:
-        h = p[0] if lay.t & (lay.t - 1) == 0 else torch.zeros_like(p[0])
+        h = (p[..., 0] if lay.t & (lay.t - 1) == 0
+             else torch.zeros_like(p[..., 0]))
     return g, loc, pm.all_sum(h, lay.group, lay.size)
 
 
@@ -281,12 +285,13 @@ def all_pair_rdms(mesh, state, pairs):
 
 def sweep_engine(mesh):
     """The SweepEngine (optim/sweeps.py) of the sharded statevector: gate
-    applier, probe matrix and <a|b> over the mesh. The full-cost sweep's
-    batched probe states are not sharded (no cost_terms): under a mesh the
-    local and softened costs take the minimiser's host probe loop."""
+    applier (also on a batch of probe states), probe matrix, <a|b> and the
+    full-cost sweep's probe costs over the mesh, so the local and softened
+    costs run the device sweep as on one device."""
     from ..optim.sweeps import SweepEngine
     return SweepEngine(
         "sv[mesh]",
         lambda s, kind, q0, q1, u4: apply_gate(mesh, s, kind, q0, q1, u4),
         lambda r, l, q: local_overlap_matrix(mesh, r, l, q),
-        lambda a, b: overlap(mesh, a, b))
+        lambda a, b: overlap(mesh, a, b),
+        lambda s, ref: full_cost_terms(mesh, s, ref))

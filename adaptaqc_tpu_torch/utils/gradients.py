@@ -11,7 +11,9 @@ circuit per (pair, generator) and re-simulates it (gradients.py:81-122).
 Here each generator and U^dag(0) is a fixed 4x4 operator, operator-Schmidt
 decomposed on the host into <=4 Kronecker terms, and every (pair, generator,
 term) overlap comes from one batched MPS transfer contraction
-(mps_core.pair_op_overlaps) on the engine's device.
+(mps_core.pair_op_overlaps, or over a device mesh
+parallel/mps_sharded.pair_op_overlaps on the shards) on the engine's
+device.
 """
 
 from __future__ import annotations
@@ -149,10 +151,13 @@ def general_grad_of_pairs_device(psi, starting_circuit, gradient_ops,
     s_state = backend.initial_state(Circuit(n), n)
     if starting_circuit is not None:
         s_state = backend.run_tape(s_state, compile_tape(starting_circuit))
+    # under a mesh the contraction runs on the shards
+    # (parallel/mps_sharded.py), else on the whole states
+    engine = mps_core
     if getattr(backend, "mesh", None) is not None:
-        # the pair contraction takes whole states: gathered on every rank
-        from ..parallel.mesh import unshard
-        psi, s_state = unshard(psi), unshard(s_state)
+        from ..parallel import mesh as pmesh
+        from ..parallel import mps_sharded
+        engine = pmesh.OnMesh(mps_sharded, backend.mesh)
 
     pairs = np.asarray(coupling_map, dtype=np.int64)
     a_ops = torch.as_tensor(a_np, dtype=psi.dtype, device=psi.device)
@@ -160,10 +165,10 @@ def general_grad_of_pairs_device(psi, starting_circuit, gradient_ops,
     max_dist = int(np.max(np.abs(pairs[:, 1] - pairs[:, 0])))
 
     # z[k, p]: k = 0 -> <psi|U^dag(0)|s>; k >= 1 -> <s|G_k|psi>
-    z0 = mps_core.pair_op_overlaps(psi, s_state, a_ops[0:1], b_ops[0:1],
-                                   pairs, max_dist)
-    zk = mps_core.pair_op_overlaps(s_state, psi, a_ops[1:], b_ops[1:],
-                                   pairs, max_dist)
+    z0 = engine.pair_op_overlaps(psi, s_state, a_ops[0:1], b_ops[0:1],
+                                 pairs, max_dist)
+    zk = engine.pair_op_overlaps(s_state, psi, a_ops[1:], b_ops[1:],
+                                 pairs, max_dist)
     z0 = z0.cpu().numpy()[0]
     zk = zk.cpu().numpy()
 

@@ -82,16 +82,18 @@ name; any failure exits non-zero:
             to the straight run's pair history
   reach     past the sizes whose operands fit on chip: the streamed K1
             (chi 129/192/256/512/768/1024 in complex64, 192/256/512/1024 in
-            complex128, q 0/1/25/48/49 at n=50, and chi 4096 at n=24, q
-            0/12/23, in both; its plan as the library's, a rerun the same
+            complex128, q 0/1/25/48/49 at n=50, and chi 8192 at n=4, q
+            0/2/3, in both; its plan as the library's, a rerun the same
             bits at chi 256 and 1024, its cuBLAS chain and one step-2
             product against torch.matmul timed beside it) and K2-K4 at m =
-            561/1024/2048/8192 (complex64) and 512/1024/2048/8192
+            561/1024/2048/16384 (complex64) and 512/1024/2048/16384
             (complex128) against their plain versions ("rand" and
             "lowrank" Grams to m = 1024 with a batch of 3, "rand" at 2048;
-            at m = 8192 "rand"
+            at m = 16384 "rand"
             alone against the float64 yardstick, K2 by a probe residual,
-            K4 on its strip route against its plain version),
+            K4 on its strip route against its plain version; K3 also alone
+            in complex128 at m = 8448 and 8576, either side of its inverse
+            iteration's shared-memory fit, against scipy in float64),
             with times, bounds and library calls (K3 against
             torch.linalg.eigh(T), its card-wide route also at keep = m/2:
             the first columns of its keep = m launch, alone and in a batch
@@ -153,7 +155,12 @@ name; any failure exits non-zero:
             card (complex64, cost and RDMs within 1e-6); the same 4 ranks
             without backend="gloo" refused before any rank starts. On a
             machine with 4 cards the ranks take one each over NCCL
-            (`--only mesh`)
+            (`--only mesh`), and then one Rotoselect sweep at chi 8192
+            (n=26, complex64; complex128 at the largest chi whose peak
+            fits a rank) over tp = 4: each rank's peak memory, its K2-K4
+            launches at m = 2 chi, the walls, and the swept circuit
+            re-simulated on the kernels against the verifier on shards
+            (native eigensolver) within 1e-3
 
 The third-to-last line is one JSON object with a record per kernel (its
 launches on the slice, its times at the slice's shapes, bound and library
@@ -165,7 +172,7 @@ variant whose code only sizes past the old caps run, `[reach]` and
 `[reach_f64]` (reach_rows: its launches on the reach phase's sweeps and
 spin chain, its times at chi = 256 and m = 1024), and K4's strip route,
 `backtransform[strip]` and `backtransform[strip_f64]` (complex64 and
-complex128: its launches on the chi = 4096 sweep, its times at m = 8192),
+complex128: its launches on the chi = 4096 sweep, its times at m = 16384),
 the line before the last the card's name and power limit from
 nvidia-smi, and the last line {"ok": true, "device": {...}}. Without a
 CUDA card, or without the package beside this script, it exits non-zero
@@ -360,9 +367,11 @@ def gpu_line():
     return lines[0]
 
 
-def cuda_ms(fn, reps, torch):
-    """Mean milliseconds per call over `reps` calls, CUDA events."""
-    fn()
+def cuda_ms(fn, reps, torch, warm=True):
+    """Mean milliseconds per call over `reps` calls, CUDA events, after one
+    call that is not timed (`warm`)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1490,6 +1499,22 @@ def phase_kernels(torch, ek, envk, cplx, card, probe_sites,
 
 
 # ---------------------------------------------------------------- phase 3
+def hazard_circuit(Circuit, n, layers, cx_sites=None):
+    """The deep re-simulation's chain C: `layers` brickwork layers of
+    random RY and RZ on every site, each CX on the sites of `cx_sites`
+    alone where given (numpy seed 7)."""
+    rng = np.random.default_rng(7)
+    qc = Circuit(n)
+    for layer in range(layers):
+        for q in range(n):
+            qc.ry(float(rng.uniform(-0.6, 0.6)), q)
+            qc.rz(float(rng.uniform(-0.6, 0.6)), q)
+        for q in range(layer % 2, n - 1, 2):
+            if cx_sites is None or q in cx_sites:
+                qc.cx(q, q + 1)
+    return qc
+
+
 def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
                  layers=8, native_chi=None, dtype=None, n=50, cx_sites=None):
     """(C^dag C)|0> at n (50 unless given) for a random two-qubit chain C of
@@ -1500,16 +1525,7 @@ def phase_hazard(torch, mps_core, Circuit, compile_tape, card, chi=64,
     unless given)."""
     dtype = dtype or torch.complex64
     native_chi = native_chi or chi
-    rng = np.random.default_rng(7)
-    qc = Circuit(n)
-    for layer in range(layers):
-        for q in range(n):
-            qc.ry(float(rng.uniform(-0.6, 0.6)), q)
-            qc.rz(float(rng.uniform(-0.6, 0.6)), q)
-        for q in range(layer % 2, n - 1, 2):
-            if cx_sites is None or q in cx_sites:
-                qc.cx(q, q + 1)
-    tape = compile_tape(qc)
+    tape = compile_tape(hazard_circuit(Circuit, n, layers, cx_sites))
     n2q = int(np.sum(tape.kinds == 4))
     dev = torch.device("cuda")
     out = {}
@@ -2433,22 +2449,31 @@ def phase_ladder(torch, port, card, max_layers=2, dev="cuda", n=50):
 
 # --------------------------------------------------------------- phase 11
 REACH_Q = (0, 1, 25, 48, 49)
-REACH_CHI = (129, 192, 256, 512, 768, 1024, 4096)  # the streamed K1, c64
-REACH_CHI_F64 = (192, 256, 512, 1024, 4096)        # and in complex128
-# the largest chi at n = 24 (two complex128 chains at n = 50 are 54 GB),
-# its q (its plain chain is about a second a call); chi = 4096 replaced
-# 2048, the same streamed route
-REACH_N_TOP = 24
-REACH_Q_TOP = (0, 12, 23)
-REACH_M = (561, 1024, 2048, 8192)     # K2-K4 past 560, complex64
-REACH_M_F64 = (512, 1024, 2048, 8192)  # past 504 in complex128
-# (m = 8192: the cap, K4 on its strip route in both dtypes; it replaced
-# 4096, the same K2 and K3 routes, and its plain K2 and K3, Python loops of
-# about 40 s each, give way to the float64 yardstick and K2's probe
-# residual: reach_eigh_top. For the run's
-# time, complex64 768 and 1536 and complex128 505 went: the routes of 1024
-# and 2048, and of 512, which the chi = 256 sweeps launch; and at 2048 the
-# "lowrank" class, which the batches of 3 below it hold)
+REACH_CHI = (129, 192, 256, 512, 768, 1024, 8192)  # the streamed K1, c64
+REACH_CHI_F64 = (192, 256, 512, 1024, 8192)        # and in complex128
+# the largest chi at n = 4 (a complex128 site stack at chi 8192 is 2.1 GB a
+# site), its q in the middle and at both ends; chi = 8192, the cap,
+# replaced 4096 (n = 24), the same streamed route
+REACH_N_TOP = 4
+REACH_Q_TOP = (0, 2, 3)
+REACH_M = (561, 1024, 2048, 16384)     # K2-K4 past 560, complex64
+REACH_M_F64 = (512, 1024, 2048, 16384)  # past 504 in complex128
+# (m = 16384: the cap, K4 on its strip route in both dtypes, K2 in
+# complex128 with each CTA's column in its workspace, K3 in complex128 on
+# every stage's global-memory route; it replaced 8192 (and 8192 4096), the
+# same K2 and K3 routes in complex64, and its plain K2 and K3, Python
+# loops, give way to the float64 yardstick and K2's probe residual:
+# reach_eigh_top. For the run's time, complex64 768 and 1536 and
+# complex128 505 went: the routes of 1024 and 2048, and of 512, which the
+# chi = 256 sweeps launch; and at 2048 the "lowrank" class, which the
+# batches of 3 below it hold)
+# K3 alone in complex128 on both sides of where its inverse iteration's d,
+# e and w leave one CTA's shared memory (m = 8,488): (m, the stages read
+# from global memory); at 16384 every stage reads from global memory
+REACH_TEIG_FIT = ((8448, ()), (8576, ("invit",)))
+# at the top m, K4 against its plain version on this many columns of z
+# (its plain time there is for these columns)
+REACH_BT_PLAIN_COLS = 64
 # the sizes whose batch of 3 is held against its P = 1 launches (at 2048
 # the plain versions of three matrices took 14 s a dtype; the same routes
 # and plans run at 1024)
@@ -2820,26 +2845,41 @@ def reach_eigh_check(torch, ek, card, dev, rec):
             print(line, flush=True)
 
 
+def _events(torch, fn):
+    """(fn(), its milliseconds by CUDA events around the one call)."""
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1])
+
+
 def reach_eigh_top(torch, ek, dev, dt, m, keep):
-    """K2-K4 at the cap, m = 8192, on a "rand" Gram drawn on the card,
-    where the plain K2 and K3 (Python loops of about 40 s each) give way
-    to the float64 yardstick: K2's factors by a probe residual (Q x and Q
-    T x for 8 random real x through the plain K4: |H Q x - Q T x| / (max|H|
-    max|x|), and |Q x| against |x|); K3 on K2's (d, e) at keep = m: w
-    against torch.linalg.eigvalsh(H) in complex128 on the card, z
-    orthonormal and its residual |T z - z w| / scale in float64 (no plain
-    z, no cluster projector: scipy's vectors of T would take the host
-    minutes), its keep = m / 2 launch the first columns of its keep = m
-    one; K4 on K2's reflectors and K3's z against the plain version (one
-    run, timed); the chain against the yardstick. Returns (errors by
-    name, the factors and plain times for reach_eigh_times)."""
+    """K2-K4 at the cap, m = 16384, on a "rand" Gram drawn on the card,
+    where the plain K2 and K3 (Python loops) give way to the float64
+    yardstick: K2's factors by a probe residual (Q x and Q T x for 8
+    random real x through the plain K4: |H Q x - Q T x| / (max|H| max|x|),
+    and |Q x| against |x|); K3 on K2's (d, e) at keep = m: w against
+    torch.linalg.eigvalsh(H) in complex128 on the card, z orthonormal and
+    its residual |T z - z w| / scale in float64 (no plain z, no cluster
+    projector: scipy's vectors of T would take the host minutes), its keep
+    = m / 2 launch the first columns of its keep = m one; K4 on K2's
+    reflectors and K3's z against the plain version (one run, timed); the
+    chain against the yardstick, assembled from these launches (the ones
+    eigh_top_kernels makes). Each kernel's one launch here is its time
+    (CUDA events; the chain's the sum of its three): at this m a K2 launch
+    takes seconds.
+    Returns (errors by name, the factors, the plain K4's output and times
+    for reach_eigh_times)."""
     f64 = dt == torch.complex128
     g = torch.Generator(device=dev).manual_seed(m)
     t = torch.randn((m, m), generator=g, dtype=torch.complex128, device=dev)
     t = (t / torch.linalg.matrix_norm(t)).to(dt)
     hh = ((t.mH @ t + (t.mH @ t).mH) * 0.5).contiguous()
     del t
-    v, tau, d, e = ek.tridiag(hh)
+    (v, tau, d, e), tridiag_ms = _events(torch, lambda: ek.tridiag(hh))
     rdt = torch.float64 if f64 else torch.float32
     x = torch.randn((m, 8), generator=g, dtype=torch.float64, device=dev)
     v64, tau64 = v.to(torch.complex128), tau.to(torch.complex128)
@@ -2859,7 +2899,7 @@ def reach_eigh_top(torch, ek, dev, dt, m, keep):
     wx = torch.linalg.eigvalsh(h64).flip(0)
     del h64
     scale = max(float(wx.abs().max()), 1e-300)
-    w, z = ek.teig(d, e)
+    (w, z), teig_ms = _events(torch, lambda: ek.teig(d, e))
     err["teig"] = float((w.double() - wx).abs().max()) / scale
     z64 = z.double()
     eye = torch.eye(m, dtype=torch.float64, device=dev)
@@ -2872,14 +2912,23 @@ def reach_eigh_top(torch, ek, dev, dt, m, keep):
         tz - z64 * w.double(), dim=0).max()) / scale
     del tz, z64
     teig_keep_check(torch, ek, d, e, w, z, None, keep, f"teig {dt} m={m}")
-    o = ek.backtransform(v, tau, z, keep)
+    _, half_ms = _events(torch, lambda: ek.teig(d, e, keep))
+    o, bt_ms = _events(torch, lambda: ek.backtransform(v, tau, z, keep))
+    # the plain K4 on the first REACH_BT_PLAIN_COLS columns alone (a column
+    # of K4 depends on its own column of z alone; all 8192 took the plain
+    # loop 30-58 s)
+    cols = min(keep, REACH_BT_PLAIN_COLS)
     t0 = time.perf_counter()
-    op = ek.backtransform_plain(v, tau, z, keep)
+    op = ek.backtransform_plain(v, tau, z[:, :cols], cols)
     torch.cuda.synchronize()
     t_bt = time.perf_counter() - t0
-    err["bt"] = float((o - op).abs().max())
-    del o, op
-    wk, vk = ek.eigh_top_kernels(hh, keep)
+    err["bt"] = float((o[:, :cols] - op).abs().max())
+    # the chain eigh_top_kernels(hh, keep) launches K2 on hh (exactly
+    # Hermitian: its symmetrised copy has the same bits), K3 at keep and K4:
+    # these launches, K3 at keep the first columns of keep = m bit for bit
+    # (teig_keep_check); its time is theirs (one K2 launch is seconds here)
+    wk, vk = w[:keep], o
+    chain_ms = tridiag_ms + half_ms + bt_ms
     vk64 = vk.to(torch.complex128)
     ek_ = torch.eye(keep, dtype=torch.complex128, device=dev)
     resid = torch.linalg.vector_norm(
@@ -2888,10 +2937,83 @@ def reach_eigh_top(torch, ek, dev, dt, m, keep):
     err.update(chain_w=float((wk.double() - wx[:keep]).abs().max()) / scale,
                chain_ortho=float((vk64.mH @ vk64 - ek_).abs().max()),
                chain_resid=float(resid.max()) / scale)
-    del wk, vk, vk64, ek_
-    return err, dict(hh=hh, factors=(v, tau, d, e, z),
+    del o, wk, vk, vk64, ek_
+    return err, dict(hh=hh, factors=(v, tau, d, e, z), bt_plain=op,
                      ms=dict(tridiag=None, teig=None,
-                             backtransform=t_bt * 1e3))
+                             backtransform=t_bt * 1e3),
+                     kernel_ms=dict(tridiag=tridiag_ms, teig=teig_ms,
+                                    teig_half=half_ms, backtransform=bt_ms,
+                                    chain=chain_ms))
+
+
+def reach_teig_fit(torch, ek, dev, card, rec):
+    """K3 alone in complex128 at REACH_TEIG_FIT, either side of where its
+    inverse iteration's operands leave one CTA's shared memory: a random
+    tridiagonal (d, e) drawn on the card; the plan's global-memory stages
+    as expected; w against scipy's eigvalsh_tridiagonal in float64 (/
+    scale), z orthonormal and its residual |T z - z w| / scale, keep = m / 2
+    the first columns of keep = m bit for bit, a rerun the same bits, all
+    to TOL_F64; its times at keep = m and m / 2 (CUDA events, one launch
+    each after the checks' launches), the bound and torch.linalg.eigh of
+    the dense float64 T, into rec["teig[reach_f64]"]["by_m"]."""
+    from scipy.linalg import eigvalsh_tridiagonal
+    lines = []
+    for m, stages in REACH_TEIG_FIT:
+        t0 = time.perf_counter()
+        plan = ek.teig_grid_plan(m, True)
+        check(plan["global"] == stages,
+              f"teig c128 m={m}: global-memory stages {plan['global']}, "
+              f"expected {stages}")
+        g = torch.Generator(device=dev).manual_seed(m)
+        d = torch.randn(m, generator=g, dtype=torch.float64, device=dev)
+        e = torch.randn(m, generator=g, dtype=torch.float64, device=dev)
+        e[-1] = 0.0
+        dn, en = d.cpu().numpy(), e[:-1].cpu().numpy()
+        wx = torch.tensor(eigvalsh_tridiagonal(dn, en)[::-1].copy(),
+                          device=dev)
+        scale = float(wx.abs().max())
+        w, z = ek.teig(d, e)
+        w2, z2 = ek.teig(d, e)
+        check(torch.equal(w, w2) and torch.equal(z, z2),
+              f"teig c128 m={m}: a rerun gave other bits")
+        del w2, z2
+        teig_keep_check(torch, ek, d, e, w, z, None, m // 2,
+                        f"teig c128 m={m}")
+        eye = torch.eye(m, dtype=torch.float64, device=dev)
+        tz = d[:, None] * z
+        tz[:-1] += e[:-1, None] * z[1:]
+        tz[1:] += e[:-1, None] * z[:-1]
+        err = dict(w=float((w - wx).abs().max()) / scale,
+                   ortho=float((z.T @ z - eye).abs().max()),
+                   resid=float(torch.linalg.vector_norm(
+                       tz - z * w, dim=0).max()) / scale)
+        del eye, tz
+        bad = {k: v for k, v in err.items() if not v < TOL_F64}
+        check(not bad, f"teig c128 m={m} against float64: {bad} "
+                       f"(limit {TOL_F64})")
+        ms = cuda_ms(lambda: ek.teig(d, e), 1, torch, warm=False)
+        hms = cuda_ms(lambda: ek.teig(d, e, m // 2), 1, torch, warm=False)
+        tdense = (torch.diag(d) + torch.diag(e[:-1], 1)
+                  + torch.diag(e[:-1], -1))
+        lms = cuda_ms(lambda: torch.linalg.eigh(tdense), 1, torch)
+        bound = bound_fields("teig", m=m, keep=m, f64=True)
+        hb = bound_fields("teig", m=m, keep=m // 2, f64=True)
+        rec["teig[reach_f64]"].setdefault("by_m", {})[m] = dict(
+            ms=ms, keep_half_ms=hms, library_ms=lms, plain_ms=None,
+            keep_half_bound_ms=hb["bound_ms"], plan=plan, **bound)
+        del z, tdense
+        torch.cuda.empty_cache()
+        lines.append(
+            f"m={m} (global-memory stages {plan['global'] or 'none'}) "
+            f"keep=m {ms:.4f} ms, keep=m/2 {hms:.4f} ms, bound "
+            f"{bound['bound_ms']:.5f} / {hb['bound_ms']:.5f} ms "
+            f"({bound['bound_by']}), torch.linalg.eigh(T) f64 {lms:.4f} ms;"
+            f" w {err['w']:.2e}, ortho {err['ortho']:.2e}, resid "
+            f"{err['resid']:.2e} ({time.perf_counter() - t0:.1f} s)")
+    print(f"reach: K3 complex128 either side of its inverse iteration's "
+          f"shared-memory fit (m = 8,488), against float64 (< {TOL_F64}), "
+          f"reruns bit for bit: " + "; ".join(lines) + f" on {card}",
+          flush=True)
 
 
 def reach_peak_sweep(torch, mps_core, sweeps, Circuit, compile_tape, ek,
@@ -3141,9 +3263,16 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
               + torch.diag(ep[:-1], -1)).contiguous()
     oa, otau, _ = ormqr_inputs(torch, vp, taup, zp, keep)
     oz = zp[1:, :keep].to(dt).contiguous()
-    check(float((torch.ormqr(oa, otau, oz) - ek.backtransform_plain(
-        vp, taup, zp, keep)[1:]).abs().max()) < (TOL_F64 if f64 else TOL_BT),
+    bt_plain = plain.get("bt_plain")  # (its first columns, at the top m)
+    if bt_plain is None:
+        bt_plain = ek.backtransform_plain(vp, taup, zp, keep)
+    cols = bt_plain.shape[-1]
+    check(float((torch.ormqr(oa, otau, oz)[:, :cols] - bt_plain[1:])
+                .abs().max()) < (TOL_F64 if f64 else TOL_BT),
           f"torch.ormqr does not compute backtransform at m={m} {dt}")
+    del bt_plain
+    bt_cols = "" if cols == keep else f" ({cols} of {keep} columns)"
+    timed = plain.get("kernel_ms", {})  # the top m's one launch, measured
     rdt = "float64" if f64 else "float32"
     calls = {
         "tridiag": (lambda: ek.tridiag(hh), None, None),
@@ -3155,12 +3284,14 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             "torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
             lambda: torch.ormqr(oa, otau, oz))}
     parts = []
-    # launches a mean: fewer past m = 1024, one at m = 4096
+    # launches a mean: fewer past m = 1024, one past 2048; at the top m
+    # the library calls once, untimed calls left out (seconds each)
     reps = 20 if m <= 1024 else 3 if m <= 2048 else 1
+    warm = not timed
     for kname, (kfn, lname, lfn) in calls.items():
-        ms = cuda_ms(kfn, reps, torch)
+        ms = timed[kname] if kname in timed else cuda_ms(kfn, reps, torch)
         pms = plain["ms"][kname]
-        lms = cuda_ms(lfn, reps, torch) if lfn else None
+        lms = cuda_ms(lfn, reps, torch, warm) if lfn else None
         bound = bound_fields(
             kname, m=m, keep=m if kname == "teig" else keep, f64=f64)
         row = dict(ms=ms, plain_ms=pms, library_ms=lms, **bound)
@@ -3174,7 +3305,8 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
                 # the card-wide route: also its time at keep = m / 2, what
                 # the sweeps launch, with that call's bound
                 gp = ek.teig_grid_plan(m, f64)
-                hms = cuda_ms(lambda: ek.teig(dp, ep, keep), reps, torch)
+                hms = timed.get("teig_half") or cuda_ms(
+                    lambda: ek.teig(dp, ep, keep), reps, torch)
                 hb = bound_fields("teig", m=m, keep=keep, f64=f64)
                 row.update(design="card-wide (teig_grid)", keep_half_ms=hms,
                            keep_half_bound_ms=hb["bound_ms"],
@@ -3190,6 +3322,7 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
         if kname == "backtransform":
             row["route"] = ek.backtransform_routes(m, f64)
             row["plan"] = bt_plan_text(ek, m, keep, f64)
+            row["plain_cols"] = cols
             plan = f" ({row['plan']})"
         rec[kname + sfx].setdefault("by_m", {})[m] = row
         if m == 1024:  # the size the chi = 512 sweeps launch
@@ -3199,13 +3332,15 @@ def reach_eigh_times(torch, ek, rec, sfx, m, f64, plain):
             rec[kname + sfx].update({k: row[k] for k in (
                 "design", "keep_half_ms", "keep_half_bound_ms",
                 "keep_half_bound_by") if k in row})
-        ptxt = (f"{pms:.4f} ms" if pms is not None
+        ptxt = (f"{pms:.4f} ms" + (bt_cols if kname == "backtransform"
+                                   else "") if pms is not None
                 else "not measured (a Python loop past the run's time)")
         parts.append(f"{kname}{plan} kernel {ms:.4f} ms plain {ptxt} "
                      f"bound {bound['bound_ms']:.5f} ms ({bound['bound_by']}) "
                      + (f"{lname} {lms:.4f} ms" if lfn else "no library call"))
-    chain_ms = cuda_ms(lambda: ek.eigh_top_kernels(hh, keep), reps, torch)
-    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(hh), reps, torch)
+    chain_ms = timed.get("chain") or cuda_ms(
+        lambda: ek.eigh_top_kernels(hh, keep), reps, torch)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(hh), reps, torch, warm)
     rec["tridiag" + sfx]["by_m"][m].update(chain_ms=chain_ms,
                                            eigh_h_ms=eigh_ms)
     return (f"reach: m={m} {str(dt)[6:]} " + "; ".join(parts) + f"; the "
@@ -3396,8 +3531,9 @@ def reach_sweep_grams(torch, ek, mps_core, sweeps, compile_tape, card, rec):
 def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
                 card, port, cplx):
     """Past the sizes whose operands fit on chip: the streamed K1 to chi =
-    4096 and K2-K4 to m = 8192 against their plain versions (K4 also alone
-    at complex128 m = 4096), then the paths at full width (n = 50) that
+    8192 and K2-K4 to m = 16384 against their plain versions (K3 also alone
+    either side of its inverse iteration's fit, K4 also alone at complex128
+    m = 4096), then the paths at full width (n = 50) that
     launch them, each counted on its own: bench.py's sweep at chi = 256,
     512 and 1024 in complex64 and complex128 (REACH_SWEEPS), and the spin
     chain's chi schedule to 256; K2 on the chi = 1024 sweeps' own Grams
@@ -3425,10 +3561,18 @@ def phase_reach(torch, mps_core, sweeps, Circuit, compile_tape, ek, envk,
     reach_env_check(torch, envk, cuda_lib, card, dev, rec)
     part("env")
     reach_eigh_check(torch, ek, card, dev, rec)
+    reach_teig_fit(torch, ek, dev, card, rec)
     for m, f64 in REACH_BT_ONLY:
         print(reach_bt_only(torch, ek, cuda_lib, rec, dev, m, f64, card),
               flush=True)
         torch.cuda.empty_cache()
+    # the sizes checked so far do not launch again: their cached K3 iterates
+    # (b0, m x m reals a size: 2.1 GB at complex128 m = 16384) and chi =
+    # 8192 boundary environments go, so that the chi = 4096 sweep below
+    # finds the memory it peaks at (67 GB in complex128)
+    ek._B0_CACHE.clear()
+    envk._BOUNDARY.clear()
+    torch.cuda.empty_cache()
     part("eigh")
     launches = {k: dict.fromkeys(REACH_VARIANTS, 0) for k in KERNELS}
 
@@ -4099,6 +4243,21 @@ TOL_MESH_C64 = 1e-6    # the complex64 MPS steps (the dry run's chi = 256
                         # over tp = 4, the 1 x 1 NCCL mesh's) against the
                         # unsharded sweep: cost and every RDM entry
 MESH_STEP = dict(n=6, chi=16)  # the 1 x 1 NCCL mesh's MPS step
+# on four cards (a card a rank, NCCL, tp = 4): one Rotoselect sweep at chi
+# 8192, past one card, on a target built as REACH_HAZARD builds its own
+# (one layer, its CX on the middle sites; the padded state is what the
+# sweep holds), in complex64 at n = 26, the least n whose middle bond
+# reaches 8192 (so the verifier's chi is 8192 too); then in complex128 at
+# the largest chi of MESH_REACH_CHI_F64 whose sweep's peak, scaled from
+# the complex64 sweep's as chi^2 and twice the bytes, stays within
+# MESH_REACH_BUDGET (at chi 8192 one complex128 state is 14 GB a rank,
+# and a sweep holds five or six: past a card)
+MESH_REACH = dict(n=26, chi=8192)
+MESH_REACH_CHI_F64 = (8192, 7168, 6144, 5120, 4096)
+MESH_REACH_BUDGET = 68e9  # bytes a rank of the card's 80 GB
+MESH_REACH_CX = (12,)  # the target's CX sites (n // 2 - 1 at n = 26)
+TOL_MESH_REACH = 1e-3  # the verifier on shards (native eigh) against the
+                       # sweep's kernel path, as TOL_HAZARD
 
 
 def mesh_target(Circuit, n=4, seed=5):
@@ -4187,6 +4346,213 @@ def mesh_nccl_rank(n, chi):
                 shards=tuple(pm.local(state.b).shape))
 
 
+def mesh_reach_rank(n, chi, f64):
+    """One rank of the four-card sweep at chi (MESH_REACH): the (1, 4) mesh;
+    the target (hazard_circuit's one layer, CX on MESH_REACH_CX) applied to
+    |0> on the shards with K2-K4; one Rotoselect sweep of a short tape
+    around the middle bond (reach_peak_sweep's: two RY probes, one CX) from
+    the target against |0>; then the swept circuit re-simulated as the
+    verifier does, gates^dag |0> against the target, on the sweep's kernel
+    path and, in complex64, on the verifier on shards (AdaptCompiler.
+    _true_cost_of_gate_circuit: the native eigensolver at its own chi, no
+    collective past one site), in complex128 on the native eigensolver on
+    the shards at the working chi (the deep re-simulation's way; the
+    verifier's chi 8192 does not fit a rank in complex128). Returns this
+    rank's peak allocation, its K2-K4 launches and those at m = 2 chi, the
+    walls, the costs and the largest collective of the native side,
+    gathered over the ranks where they differ."""
+    import torch
+    import torch.distributed as dist
+    from adaptaqc_tpu_torch.backends.backend import MPSBackend
+    from adaptaqc_tpu_torch.circuits import gates as G
+    from adaptaqc_tpu_torch.circuits.circuit import Circuit
+    from adaptaqc_tpu_torch.circuits.tape import compile_tape
+    from adaptaqc_tpu_torch.compilers.adapt_compiler import AdaptCompiler
+    from adaptaqc_tpu_torch.ops import cplx
+    from adaptaqc_tpu_torch.ops import eigh_kernels as ek
+    from adaptaqc_tpu_torch.ops import env_kernel as envk
+    from adaptaqc_tpu_torch.optim import sweeps
+    from adaptaqc_tpu_torch.parallel import mesh as pm
+    from adaptaqc_tpu_torch.parallel import mps_sharded
+    import types
+    mesh = pm.make_mesh()
+    dev = pm.rank_device()
+    dt = torch.complex128 if f64 else torch.complex64
+    reset_counts(ek, envk)
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    t0 = time.perf_counter()
+    tt = compile_tape(hazard_circuit(Circuit, n, 1, MESH_REACH_CX))
+    zero = mps_sharded.zero_mps(mesh, n, chi, dt, dev)
+    target = mps_sharded.apply_tape(mesh, zero, tt.kinds, tt.q0, tt.q1,
+                                    tt.angles, 1e-16)
+    torch.cuda.synchronize()
+    walls["target"] = time.perf_counter() - t0
+    mid = n // 2 - 1
+    qc = Circuit(n)
+    qc.ry(0.3, mid)
+    qc.cx(mid, mid + 1)
+    qc.ry(0.2, mid + 1)
+    tape = compile_tape(qc)
+    t1 = time.perf_counter()
+    engine = mps_sharded.sweep_engine(mesh, 1e-16)
+    bl = sweeps.default_block_len(tape.padded_length,
+                                  sweeps.state_nbytes(zero))
+    kinds, angles, cost, state, evals, _ = sweeps.sweep(
+        engine, bl, True, target, zero, tape.kinds, tape.q0, tape.q1,
+        tape.angles, tape.trainable)
+    torch.cuda.synchronize()
+    walls["sweep"] = time.perf_counter() - t1
+    sweep_peak = torch.cuda.max_memory_allocated()
+    del state
+    # the swept circuit, re-simulated: kernels, then the verifier
+    swept = compile_tape(qc)
+    swept.kinds[:] = kinds
+    swept.angles[:] = angles
+    t1 = time.perf_counter()
+    st = mps_sharded.apply_tape_adjoint(mesh, zero, swept.kinds,
+                                        swept.q0, swept.q1, swept.angles,
+                                        1e-16)
+    ov = mps_sharded.mps_dot(mesh, st, target)
+    nrm = (float(mps_sharded.mps_dot(mesh, st, st).real)
+           * float(mps_sharded.mps_dot(mesh, target, target).real))
+    cost_kernels = 1.0 - float(ov.real ** 2 + ov.imag ** 2) / max(nrm,
+                                                                 1e-30)
+    state_bytes = sweeps.state_nbytes(zero)
+    del st
+    torch.cuda.synchronize()
+    walls["kernels"] = time.perf_counter() - t1
+    # every Gram of a sharded two-qubit apply is 2 chi x 2 chi: each of
+    # these launches is at m = 2 chi
+    launches = {k: fn.launches for k, fn in (
+        ("env_chain", envk.env_chain), ("tridiag", ek.tridiag),
+        ("teig", ek.teig), ("backtransform", ek.backtransform))}
+    t1 = time.perf_counter()
+    pm.STATS["max_numel"] = 0
+    if f64:
+        # the native eigensolver on the shards at the working chi, as the
+        # deep re-simulation runs it: the verifier's own chi (8192 at n =
+        # 26) in complex128, its Gram's eigh workspace 16 GiB beside two
+        # 14 GB states, passes a rank
+        vchi = chi
+        with cplx.verification_eigh(), pm.payload_cap(2 * chi * chi):
+            st = mps_sharded.apply_tape_adjoint(
+                mesh, zero, swept.kinds, swept.q0, swept.q1, swept.angles,
+                1e-16)
+            ov = mps_sharded.mps_dot(mesh, st, target)
+            nrm = (float(mps_sharded.mps_dot(mesh, st, st).real)
+                   * float(mps_sharded.mps_dot(mesh, target, target).real))
+        cost_native = 1.0 - float(ov.real ** 2 + ov.imag ** 2) / max(
+            nrm, 1e-30)
+        del st, zero, target
+    else:
+        # the verifier on shards, its target at the verifier's chi on the
+        # shards beforehand (the verifier's own pad is then none), the
+        # working-chi copy freed
+        del zero
+        backend = MPSBackend(1e-16, max_chi=chi, device=dev, dtype=dt,
+                             mesh=mesh)
+        vchi = min(2 * backend.chi_for(n), 2 ** ((n + 1) // 2))
+        target = mps_sharded.pad_chi(mesh, target, vchi)
+        vqc = Circuit(n)  # set_mps(target), then the swept gates
+        vqc.set_mps(target)
+        del target
+        for k, a, b, ang in zip(swept.kinds.tolist(), swept.q0.tolist(),
+                                swept.q1.tolist(), swept.angles.tolist()):
+            if k == G.CX:
+                vqc.cx(a, b)
+            elif k in G.ROTATION_KINDS:
+                getattr(vqc, G.KIND_NAMES[k])(ang, a)
+        cost_native = AdaptCompiler._true_cost_of_gate_circuit(
+            types.SimpleNamespace(backend=backend), vqc)
+    torch.cuda.synchronize()
+    walls["verifier" if not f64 else "native"] = time.perf_counter() - t1
+    walls["total"] = time.perf_counter() - t0
+    mine = torch.tensor([[torch.cuda.max_memory_allocated(), sweep_peak,
+                          launches["tridiag"], launches["teig"],
+                          launches["backtransform"], launches["tridiag"],
+                          launches["env_chain"], walls["total"]]],
+                        dtype=torch.float64, device=dev)
+    ranks = pm.gather_dim(mine, 0, None, dist.get_world_size(),
+                          dist.get_rank())
+    return dict(mesh=tuple(mesh.shape), backend=dist.get_backend(), n=n,
+                chi=chi, f64=f64, ranks=ranks, walls=walls, cost=cost,
+                evals=evals, kinds=np.asarray(kinds).tolist(),
+                cost_kernels=cost_kernels, cost_native=cost_native,
+                verify_max_numel=pm.STATS["max_numel"], verify_chi=vchi,
+                state_bytes=state_bytes)
+
+
+def mesh_reach(dev, card):
+    """MESH_REACH on four cards, complex64 then complex128, one launch each
+    (a rank's memory freed between them): each rank's peak allocation (the
+    whole run's, and the sweep's), its K2-K4 launches (every one at m = 2
+    chi), the wall, the sweep's cost and the re-simulation on the kernels
+    against the verifier on shards (TOL_MESH_REACH). Returns a record a
+    run."""
+    from adaptaqc_tpu_torch.parallel import mesh as pm
+    out = []
+    n = MESH_REACH["n"]
+    runs = [(MESH_REACH["chi"], False)]
+    while runs:
+        chi, f64 = runs.pop(0)
+        t0 = time.perf_counter()
+        r = pm.launch(mesh_reach_rank, MESH_RANKS, n, chi, f64, device=dev)
+        wall = time.perf_counter() - t0
+        ranks = np.asarray(r["ranks"])
+        peaks = [round(float(p) / 1e9, 3) for p in ranks[:, 0]]
+        sweep_peaks = [round(float(p) / 1e9, 3) for p in ranks[:, 1]]
+        diff = abs(r["cost_kernels"] - r["cost_native"])
+        dname = "complex128" if f64 else "complex64"
+        native = ("native eigensolver on shards" if f64
+                  else "verifier on shards (native)")
+        print(f"mesh: chi={chi} sweep n={n} {dname} over {r['mesh']} "
+              f"({r['backend']}, a card a rank): peak allocated a rank "
+              f"{peaks} GB (the sweep's {sweep_peaks} GB; a state "
+              f"{r['state_bytes'] / 1e9:.3f} GB a rank), K2/K3/K4 launches "
+              f"a rank {ranks[:, 2:5].astype(int).tolist()}, K2 at m="
+              f"{2 * chi} {ranks[:, 5].astype(int).tolist()}, K1 "
+              f"{ranks[:, 6].astype(int).tolist()}; sweep cost "
+              f"{r['cost']:.8f} ({r['evals']} evaluations, kinds "
+              f"{r['kinds']}); re-simulation kernels {r['cost_kernels']:.8f}"
+              f" {native} {r['cost_native']:.8f} |diff| "
+              f"{diff:.2e} < {TOL_MESH_REACH} (at chi "
+              f"{r['verify_chi']}), its largest collective "
+              f"{r['verify_max_numel']} elements (a site "
+              f"{2 * r['verify_chi'] ** 2}); "
+              f"walls {json.dumps({k: round(v, 1) for k, v in r['walls'].items()})}"
+              f" s on rank 0, {wall:.1f} s with the launch on {card}",
+              flush=True)
+        check(r["mesh"] == (1, MESH_RANKS) and r["backend"] == "nccl",
+              f"mesh reach: mesh {r['mesh']} on {r['backend']}")
+        check(np.isfinite(r["cost"]) and -1e-6 <= r["cost"] <= 1 + 1e-6,
+              f"mesh reach chi={chi}: sweep cost {r['cost']}")
+        check(diff < TOL_MESH_REACH,
+              f"mesh reach chi={chi} {dname}: kernels {r['cost_kernels']} vs "
+              f"{native} {r['cost_native']}")
+        check(bool((ranks[:, 5] > 0).all()) and bool((ranks[:, 6] == 0).all()),
+              f"mesh reach chi={chi}: K2 at m={2 * chi} "
+              f"{ranks[:, 5].tolist()}, K1 {ranks[:, 6].tolist()} a rank")
+        check(0 < r["verify_max_numel"] <= 2 * r["verify_chi"] ** 2,
+              f"mesh reach: the verifier's largest collective "
+              f"{r['verify_max_numel']} past one site")
+        out.append(dict(n=n, chi=chi, f64=f64, peaks_gb=peaks,
+                        sweep_peaks_gb=sweep_peaks, walls=r["walls"],
+                        wall=wall, launches=ranks[:, 2:6].tolist()))
+        if not f64:
+            peak = float(ranks[:, 1].max())  # the sweep's
+            fits = [c for c in MESH_REACH_CHI_F64
+                    if 2 * peak * (c / chi) ** 2 <= MESH_REACH_BUDGET]
+            print(f"mesh: complex128 at n={n}: the largest chi of "
+                  f"{MESH_REACH_CHI_F64} whose sweep's peak scaled from "
+                  f"complex64's (2 x {peak / 1e9:.3f} GB x (chi / {chi})^2) "
+                  f"fits {MESH_REACH_BUDGET / 1e9:.0f} GB a rank: "
+                  f"{fits[0] if fits else None}", flush=True)
+            check(bool(fits), "mesh reach: no complex128 chi fits a rank")
+            runs.append((fits[0], True))
+    return out
+
+
 def phase_mesh(torch, port, card, dev="cuda"):
     """M7 on the card(s), all at once: MESH_RANKS ranks running the sharded
     MPS compile, one NCCL rank running the MPS step on a 1 x 1 mesh,
@@ -4199,7 +4565,8 @@ def phase_mesh(torch, port, card, dev="cuda"):
     overlap is within TOL_MESH_C128; every rank launches K2-K4 and no K1
     (the env-chain kernel does not run under a mesh); the dry run's chi =
     256 step (tp = 4) and the 1 x 1 step agree with the unsharded sweep of
-    their tapes on the card to TOL_MESH_C64 in cost and RDMs."""
+    their tapes on the card to TOL_MESH_C64 in cost and RDMs. With a card a
+    rank, then the sweep at chi 8192 (mesh_reach)."""
     from adaptaqc_tpu_torch.circuits.circuit import Circuit
     from adaptaqc_tpu_torch.ops import eigh_kernels as ek
     from adaptaqc_tpu_torch.ops import env_kernel as envk
@@ -4295,6 +4662,8 @@ def phase_mesh(torch, port, card, dev="cuda"):
     check(abs(nccl["cost"] - nccl["cost0"]) < TOL_MESH_C64
           and nccl["rdm_err"] < TOL_MESH_C64,
           f"mesh: the 1 x 1 step differs from the unsharded sweep: {nccl}")
+    if not shared and dev == "cuda":  # a card a rank: past one card's reach
+        mesh_reach(dev, card)
     return launches
 
 
@@ -4448,6 +4817,7 @@ def main():
             shape=f"m={cap}, keep={cap // 2}"
                   + (", complex128" if f64 else ""),
             library_call="torch.ormqr(v in geqrf layout, tau, z[1:, :keep])",
+            plain_cols=top.get("plain_cols", cap // 2),
             **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}))
     print(json.dumps({"kernels": kernels}))

@@ -309,11 +309,12 @@ def test_strip_route_order_matches_plain(m, keep):
 
 def test_c128_cap_launches_with_a_stand_in_library(card):  # noqa: F811
     """On the card (library replaced by a recorder that sizes the
-    workspace by the mirrors) complex128 K4 at m = 8192 launches the
-    strip route and counts as a reach launch of complex128 and a launch of
-    the strip route; at m = 8193 the call raises before any launch."""
+    workspace by the mirrors) complex128 K4 at the cap, m = 16384 (the
+    strip route's kMaxM), launches the strip route and counts as a reach
+    launch of complex128 and a launch of the strip route; at m = 16385 the
+    call raises before any launch."""
     ek.backtransform.strip_launches = 0
-    m, keep = 8192, 8
+    m, keep = ek.BT_STRIP_MAX_M, 8
     vrows = torch.zeros((), dtype=torch.complex128).expand(m, m)
     tau = torch.zeros((), dtype=torch.complex128).expand(m)
     z = torch.zeros((), dtype=torch.float64).expand(m, m)
@@ -323,7 +324,7 @@ def test_c128_cap_launches_with_a_stand_in_library(card):  # noqa: F811
     assert card.args[0][6:9] == (m, keep, 1)
     assert ek.backtransform.reach_f64_launches == 1
     assert ek.backtransform.strip_launches == 1
-    with pytest.raises(ValueError, match="size <= 8192"):
+    with pytest.raises(ValueError, match="size <= 16384"):
         big = torch.zeros((), dtype=torch.complex128).expand(m + 1, m + 1)
         ek.backtransform(big, tau, z, keep)
     assert len(card.calls) == 1

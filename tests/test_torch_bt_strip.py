@@ -295,13 +295,13 @@ def test_strip_plan_mirrors(f64, m):
 def test_cap_launches_the_strip_route_with_a_stand_in_library(  # noqa: F811
         card, dtype):
     """On the card (library replaced by a recorder that sizes by the
-    mirrors) K4 at m = 8192 launches the strip route once, with the
-    workspace and working columns the mirrors size, counts as a reach
-    launch of its dtype and a strip launch; at m = 8193 it raises before
-    any launch."""
+    mirrors) K4 at the cap, m = 16384 (the strip plan's kMaxM), launches
+    the strip route once, with the workspace and working columns the
+    mirrors size, counts as a reach launch of its dtype and a strip launch;
+    at m = 16385 it raises before any launch."""
     f64 = dtype == torch.complex128
     ek.backtransform.strip_launches = 0
-    m, keep = 8192, 40
+    m, keep = ek.BT_STRIP_MAX_M, 40
     rdt = torch.float64 if f64 else torch.float32
     vrows = torch.zeros((), dtype=dtype).expand(m, m)
     tau = torch.zeros((), dtype=dtype).expand(m)
@@ -314,7 +314,7 @@ def test_cap_launches_the_strip_route_with_a_stand_in_library(  # noqa: F811
     assert ek.backtransform.strip_launches == 1
     assert (ek.backtransform.reach_f64_launches if f64
             else ek.backtransform.reach_launches) == 1
-    with pytest.raises(ValueError, match="size <= 8192"):
+    with pytest.raises(ValueError, match="size <= 16384"):
         big = torch.zeros((), dtype=dtype).expand(m + 1, m + 1)
         ek.backtransform(big, tau, z, keep)
     assert len(card.calls) == 1

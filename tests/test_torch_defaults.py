@@ -190,13 +190,13 @@ def _schedule_compiler(n=14):
 
 def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
         monkeypatch):
-    """On a CUDA device the kernels take chi <= 4096 (env_chain) and m = 2
-    chi <= 8192 (the eigensolver), in complex64 and complex128 alike, and
+    """On a CUDA device the kernels take chi <= 8192 (env_chain) and m = 2
+    chi <= 16384 (the eigensolver), in complex64 and complex128 alike, and
     a call above a cap raises (ops/dispatch.py). A stage whose working chi
     exceeds the cap stops the schedule before its first stage, with a
-    message that names the cap (at n = 26, where (32, 8192) works at chi
-    8192, in either dtype); the README's (32, 64, 128) schedule, (32, 64,
-    128, 256) and the cap, (32, 4096), are let through (stage 1 is reached
+    message that names the cap (at n = 28, where (32, 16384) works at chi
+    16384, in either dtype); the README's (32, 64, 128) schedule, (32, 64,
+    128, 256) and the cap, (32, 8192), are let through (stage 1 is reached
     on the recorder, and nothing launches on the CPU), as is any schedule
     at n = 14, where the working chi stops at 2**7 = 128."""
     compiled = []
@@ -208,12 +208,12 @@ def test_chi_schedule_past_the_kernel_caps_fails_before_stage_one(
         with pytest.raises(ZeroDivisionError):  # stage 1 is reached
             compiler.compile_with_chi_schedule(chis=chis)
     assert len(compiled) == 3
-    for dt, cap in ((torch.complex64, 4096), (C128, 4096)):
-        wide = _schedule_compiler(n=26)
+    for dt, cap in ((torch.complex64, 8192), (C128, 8192)):
+        wide = _schedule_compiler(n=28)
         wide.backend.device = torch.device("cuda")
         wide.backend.dtype = dt
         with pytest.raises(ValueError, match=rf"chi <= {cap}.*env_chain chi "
-                                             rf"<= 4096, eigensolver m = 2 "
+                                             rf"<= 8192, eigensolver m = 2 "
                                              rf"chi <= {2 * cap}"):
             wide.compile_with_chi_schedule(chis=(32, 2 * cap))
         with pytest.raises(ZeroDivisionError):

@@ -26,8 +26,8 @@ KERNELS = (env_kernel.env_chain, eigh_kernels.tridiag, eigh_kernels.teig,
 
 def test_caps_are_the_kernels_reach():
     assert dispatch.REACH == {
-        "env": {C64: (1, 4096), C128: (1, 4096)},
-        "eigh": {C64: (2, 8192), C128: (2, 8192)}}
+        "env": {C64: (1, 8192), C128: (1, 8192)},
+        "eigh": {C64: (2, 16384), C128: (2, 16384)}}
     assert env_kernel.NARROW_MAX_CHI == 64
     assert env_kernel.CLUSTER_MAX_CHI == 128
     assert eigh_kernels.NARROW_MAX_M == 128
@@ -84,7 +84,7 @@ def test_other_dtypes_and_devices_raise_on_the_card(op):
             dispatch.use_kernel(op, "cuda", dtype, 8)
     assert dispatch.use_kernel(op, "meta", C64, 8)
     with pytest.raises(ValueError):
-        dispatch.use_kernel(op, "meta", C64, 16384)
+        dispatch.use_kernel(op, "meta", C64, dispatch.REACH[op][C64][1] + 1)
 
 
 def _reset():
@@ -239,19 +239,27 @@ def test_counters_move_only_on_launches(card):
 @pytest.mark.parametrize("dtype", [C64, C128])
 def test_reach_edges_launch_and_raise(card, dtype):
     """At the caps the wrappers launch (the streamed env chain at chi =
-    4096, the wide eigensolver at m = 8192 in both dtypes, K2 on its
+    8192, the wide eigensolver at m = 16384 in both dtypes, K2 on its
     card-wide route, K4 on its strip route), each launch counted once, by
     the code it ran:
     the streamed K1, K2 and K4 past REACH_M and K3 with its iterate in
     global memory as reach launches of their dtype. One past the caps (chi
-    = 4097, m = 8193) the call raises before any launch and counts
-    nothing."""
+    = 8193, m = 16385) the call raises before any launch and counts
+    nothing. The inputs are one zero broadcast to their shapes, and K2-K4
+    are called as eigh_top_kernels chains them (the recorder reads shapes
+    only; a dense Gram at m = 16384 would be 4.3 GB in complex128)."""
     f64 = dtype == C128
     cap = EIGH_CAP_64 if f64 else EIGH_CAP
-    br = torch.zeros(3, 2, ENV_CAP, ENV_CAP, dtype=dtype)
+
+    def zeros(*shape):
+        return torch.zeros((), dtype=dtype).expand(*shape)
+    br = zeros(3, 2, ENV_CAP, ENV_CAP)
     env_kernel.env_chain(br, br, 1)
+    env_kernel._BOUNDARY.clear()  # its chi x chi boundary, 1 GB at the cap
     assert card.calls == ["env_chain_stream_launch"]
-    cplx.eigh_top(_gram(cap, dtype), 8)
+    vrows, tau, d, e = eigh_kernels.tridiag(zeros(cap, cap))
+    _, z = eigh_kernels.teig(d, e, 8)
+    eigh_kernels.backtransform(vrows, tau, z, 8)
     wide = "f64" if f64 else "wide"
     assert card.calls[1:] == [
         "tridiag_grid_f64_launch" if f64 else "tridiag_grid_launch",
@@ -260,10 +268,10 @@ def test_reach_edges_launch_and_raise(card, dtype):
         assert _counts()[name] == (1, 0, 0)
         assert _reach_counts()[name] == ((0, 1) if f64 else (1, 0))
     with pytest.raises(ValueError, match=f"size <= {ENV_CAP}"):
-        br = torch.zeros(2, 2, ENV_CAP + 1, ENV_CAP + 1, dtype=dtype)
+        br = zeros(2, 2, ENV_CAP + 1, ENV_CAP + 1)
         env_kernel.env_chain(br, br, 0)
     with pytest.raises(ValueError, match=f"size <= {cap}"):
-        cplx.eigh_top(_gram(cap + 1, dtype), 8)
+        eigh_kernels.tridiag(zeros(cap + 1, cap + 1))
     assert len(card.calls) == 4
     assert _counts()["env_chain"] == (1, 0, 0)
 

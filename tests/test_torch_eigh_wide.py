@@ -58,15 +58,15 @@ def test_plain_chain_batch_at_256_equals_single_calls():
 def test_the_wide_range_is_the_kernels_route_on_the_card():
     """m in (128, 560] launches the kernels (their wide variants), as far
     as the JAX kernels reach (pallas_eigh.supported: 10 m^2 4 B <= 12 MiB),
-    and so does m in (560, 8192], where the reference runs XLA's eigh and
+    and so does m in (560, 16384], where the reference runs XLA's eigh and
     the wide variants keep what no longer fits on chip in global memory;
-    past 8192 the call raises. complex128 has the same range."""
+    past 16384 the call raises. complex128 has the same range."""
     for dt in (torch.complex64, torch.complex128):
         for m in (130, 192, 256, 512, 560, 568, 768, 1024, 1025, 1536, 2048,
-                  2049, 4096, 4097, 8192):
+                  2049, 4096, 4097, 8192, 8193, 8576, 16384):
             assert m > ek.NARROW_MAX_M
             assert dispatch.use_kernel("eigh", "cuda", dt, m)
         with pytest.raises(ValueError):
-            dispatch.use_kernel("eigh", "cuda", dt, 8193)
+            dispatch.use_kernel("eigh", "cuda", dt, 16385)
     assert 10 * 560 ** 2 * 4 <= 12 * 2 ** 20 < 10 * 568 ** 2 * 4
     assert ek.REACH_M[False] == 560

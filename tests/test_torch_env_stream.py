@@ -17,9 +17,9 @@ from test_torch_reach import _sites, _views, product_order
 
 torch.set_num_threads(1)
 
-# chip_smoke.REACH_CHI and REACH_CHI_F64, and 2048, the cap before
-REACH_CHI = (129, 192, 256, 512, 768, 1024, 2048, 4096)
-REACH_CHI_F64 = (192, 256, 512, 1024, 2048, 4096)
+# chip_smoke.REACH_CHI and REACH_CHI_F64, and 2048 and 4096, the caps before
+REACH_CHI = (129, 192, 256, 512, 768, 1024, 2048, 4096, 8192)
+REACH_CHI_F64 = (192, 256, 512, 1024, 2048, 4096, 8192)
 WAVE = 132  # the H100 SXM's SMs
 
 

@@ -13,14 +13,23 @@ as tests/test_mesh.py allows); compiles: pair histories equal, overlaps
 1e-6 (the MPS compile cut to 3 layers: every collective is a gloo round
 trip of about 1.5 ms here); layouts, shard shapes and collective counts
 exact; the dry run's complex64 MPS step against the unsharded sweep
-1e-6 (chip_smoke.TOL_MESH_C64, the bound the card is held to).
+1e-6 (chip_smoke.TOL_MESH_C64, the bound the card is held to). R1 and R2
+on the shards (the pair contraction, the gradient heuristic's norms, the
+verifier's cost, the full-cost terms) 1e-10 against both, with no
+collective of the first three past one site; the full-cost device sweep
+under the mesh 1e-10 against the unsharded one and within
+tests/test_torch_full_cost_sweep.py's bounds (1e-7 SV, 1e-6 MPS) of the
+host probe loop.
 """
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
 import jax  # noqa: F401  (the conftest's 8-device CPU mesh, x64)
+import jax.numpy as jnp
 from adaptaqc_tpu.backends import mps_core as jmps
 from adaptaqc_tpu.backends import sv_core as jsv
 from adaptaqc_tpu.backends.backend import MPSBackend as JMPSBackend
@@ -33,6 +42,8 @@ from adaptaqc_tpu.compilers.adapt_compiler import AdaptCompiler as JCompiler
 from adaptaqc_tpu.compilers.adapt_config import AdaptConfig as JAdaptConfig
 from adaptaqc_tpu.ops import cplx as jcplx
 from adaptaqc_tpu.parallel import mesh as jpmesh
+from adaptaqc_tpu.utils import gradients as jgr
+from adaptaqc_tpu.utils.ansatzes import identity_resolvable as j_ir
 
 import chip_smoke
 import torch_mesh_cases as cases
@@ -45,6 +56,7 @@ from adaptaqc_tpu_torch.compilers.adapt_config import AdaptConfig
 from adaptaqc_tpu_torch.ops import cplx
 from adaptaqc_tpu_torch.optim import sweeps
 from adaptaqc_tpu_torch.parallel import mesh as pm
+from adaptaqc_tpu_torch.utils import gradients
 from adaptaqc_tpu_torch.utils.constants import CMAP_FULL, generate_coupling_map
 from adaptaqc_tpu_torch.workloads import entry
 
@@ -76,6 +88,71 @@ def _jmps_target(n=4, seed=5):
         for q in range(n - 1):
             qc.cx(q, q + 1)
     return qc
+
+
+def _jmps(state):
+    """A port MPS (complex128, CPU) as the JAX package's."""
+    return jmps.MPS(jcplx.from_np(state.b.numpy(), jnp.float64),
+                    jnp.asarray(state.lam.numpy()),
+                    jnp.asarray(state.trunc.numpy()))
+
+
+def _jcircuit(qc, target):
+    """The port's verifier circuit in the JAX package: set_mps(target)
+    and the same gates."""
+    out = JCircuit(qc.num_qubits)
+    out.set_mps(target)
+    for ins in qc.data[1:]:
+        getattr(out, ins.name)(*ins.params, *ins.qubits)
+    return out
+
+
+def _r1_parent():
+    """R1 and R2's unsharded and JAX references (the inputs rebuilt from
+    the cases' seeds: the same bits)."""
+    out = {}
+    ops_a, ops_b = cases.r1_ops()
+    jops = (jcplx.from_np(ops_a.numpy(), jnp.float64),
+            jcplx.from_np(ops_b.numpy(), jnp.float64))
+    out["pair_ops"] = []
+    for n, chi, pairs in cases.PAIR_CASES:
+        bra, ket = (cases.r1_state(n, chi, s) for s in (3, 4))
+        pairs = np.asarray(pairs)
+        out["pair_ops"].append(dict(
+            port=mps_core.pair_op_overlaps(bra, ket, ops_a, ops_b, pairs,
+                                           n - 1).numpy(),
+            jax=jcplx.to_np(jmps.pair_op_overlaps(
+                _jmps(bra), _jmps(ket), *jops,
+                jnp.asarray(pairs, jnp.int32), n - 1))))
+    n, chi = cases.GRAD_SIZE
+    ops, degs, cmap, start = cases.grad_inputs(n)
+    psi = cases.r1_state(n, chi, 5)
+    port = gradients.general_grad_of_pairs_device(
+        psi, start, ops, degs, cmap,
+        MPSBackend(max_chi=chi, device="cpu", dtype=C128), n)
+    layer = j_ir()
+    jgens, jdegs = jgr.get_generators_and_degeneracies(layer, True,
+                                                       inverse=True)
+    jstart = JCircuit(n)
+    for q in range(n):
+        jstart.ry(0.3 + 0.1 * q, q)
+    jax_grads = jgr.general_grad_of_pairs_device(
+        _jmps(psi), jstart,
+        jgr.prepare_gradient_ops(jgr.zero_ansatz_inverse(layer), jgens),
+        jdegs, cmap, JMPSBackend(max_chi=chi), n)
+    out["grad"] = dict(port=np.asarray(port), jax=np.asarray(jax_grads))
+    n, chi = cases.VERIFY_SIZE
+    target = cases.r1_state(n, chi, 6)
+    qc = cases.verify_circuit(target, n)
+    out["verify"] = dict(
+        port=cases.verify_cost(MPSBackend(max_chi=chi, device="cpu",
+                                          dtype=C128), qc),
+        jax=JCompiler._true_cost_of_gate_circuit(
+            types.SimpleNamespace(backend=JMPSBackend(max_chi=chi)),
+            _jcircuit(qc, _jmps(target))))
+    out["full_sweep"] = {engine: cases.full_sweep(engine, seed)
+                         for engine, seed, _ in cases.FULL_CASES}
+    return out
 
 
 def _port_sv_step(n, tape, pairs):
@@ -157,6 +234,7 @@ def _parent_side():
             adapt_config=AdaptConfig(max_layers=2),
         ).compile_with_chi_schedule(chis=(2, 4))
     out["schedule"] = (res.qubit_pair_history, res.overlap)
+    out.update(_r1_parent())
     return out
 
 
@@ -381,3 +459,99 @@ def test_shared_card_without_gloo_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pm.resolve_backend(2, "cuda", None)
+
+
+@pytest.mark.parametrize("case", range(len(cases.PAIR_CASES)))
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_pair_op_overlaps_on_shards(run, against, case):
+    """mps_sharded.pair_op_overlaps on chi-sharded states (n = 7, chi = 8
+    linear pairs; n = 6, chi = 16 pairs of span up to 5, some descending;
+    3 operators of 2 Schmidt terms) against mps_core.pair_op_overlaps on
+    the whole states and the JAX package's, 1e-10; no collective carries
+    more than one site (2 chi^2 elements)."""
+    ranks, parent = run
+    got = ranks["pair_ops"][case]
+    assert np.abs(got["z"] - parent["pair_ops"][case][against]).max() < TOL
+    assert 0 < got["max_numel"] <= got["site"]
+
+
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_gradient_norms_on_shards(run, against):
+    """The general_gradient heuristic's pair norms on MPSBackend(mesh=...)
+    (n = 6, chi = 8, a linear map, identity_resolvable's generators, a
+    rotation start) through the sharded contraction, against the
+    unsharded port's and the JAX package's, 1e-10; no collective past one
+    site."""
+    ranks, parent = run
+    got = ranks["grad"]
+    assert np.abs(got["grads"] - parent["grad"][against]).max() < TOL
+    assert max(got["grads"]) > 1e-3
+    assert 0 < got["max_numel"] <= got["site"]
+
+
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_verifier_cost_on_shards(run, against):
+    """The verifier (_true_cost_of_gate_circuit) on MPSBackend(mesh=...):
+    the sharded target (n = 8, chi = 8) padded and resharded to chi 16, the
+    adjoint re-simulation and the norms on the shards, against the
+    unsharded port's and the JAX package's cost, 1e-10; no collective past
+    one site at chi 16."""
+    ranks, parent = run
+    got = ranks["verify"]
+    assert abs(got["cost"] - parent["verify"][against]) < TOL
+    assert 0 < got["max_numel"] <= got["site"]
+
+
+@pytest.mark.parametrize("name", ["mps", "mps_batch", "sv", "sv_batch"])
+@pytest.mark.parametrize("against", ["port", "jax"])
+def test_full_cost_terms_on_shards(run, against, name):
+    """full_cost_terms of a sharded state and of a batch of 3 (rx, ry, rz
+    probes of one gate: on MPS site 2, on statevector qubit 5, a global
+    qubit at tp = 4), n = 6, against the unsharded engine and the JAX
+    package's on each state, 1e-10."""
+    ranks, _ = run
+    got = ranks["cost_terms"][name]
+    states = got["state"]
+    mps = name.startswith("mps")
+    if mps:
+        states = mps_core.MPS(*(torch.as_tensor(t) for t in states))
+    ref = (mps_core.zero_mps(6, 8, C128) if mps
+           else sv_core.zero_state(6, C128))
+    one = not name.endswith("batch")
+    for p in range(1 if one else 3):
+        st = (states if one else
+              mps_core.MPS(states.b[p], states.lam[p], states.trunc[p]) if mps
+              else torch.as_tensor(states[p]))
+        if against == "port":
+            want = (mps_core if mps else sv_core).full_cost_terms(
+                st if mps else torch.as_tensor(st), ref)
+        elif mps:
+            want = jmps.full_cost_terms(_jmps(st), _jmps(ref))
+        else:
+            want = jsv.full_cost_terms(
+                jcplx.from_np(np.asarray(st), jnp.float64),
+                jcplx.from_np(ref.numpy(), jnp.float64))
+        for g, w in zip(got["terms"], want):
+            g = np.asarray(g) if one else np.asarray(g)[p]
+            assert abs(float(g) - float(np.asarray(w))) < TOL
+
+
+@pytest.mark.parametrize("engine", [c[0] for c in cases.FULL_CASES])
+def test_full_cost_sweep_on_the_mesh(run, engine):
+    """The local-cost full-cost sweep (one Rotoselect cycle over a new
+    layer, n = 4) on the mesh's engines, which now carry cost_terms: the
+    device path against the unsharded device path (cost and angles 1e-10,
+    gates equal) and against the host probe loop under the mesh within
+    1e-7 (SV) / 1e-6 (MPS)."""
+    ranks, parent = run
+    tol = dict((e, t) for e, _, t in cases.FULL_CASES)[engine]
+    dev_cost, dev_ang, dev_names = ranks["full_sweep"][engine]["device"]
+    host_cost, host_ang, host_names = ranks["full_sweep"][engine]["host"]
+    cost0, ang0, names0 = parent["full_sweep"][engine]
+    assert dev_names == names0
+    assert abs(dev_cost - cost0) < TOL
+    np.testing.assert_allclose(dev_ang, ang0, atol=TOL)
+    assert abs(dev_cost - host_cost) < tol
+    if host_cost > 1e-10:
+        assert dev_names == host_names
+        np.testing.assert_allclose(dev_ang, host_ang, atol=tol)

@@ -274,7 +274,8 @@ def test_teig_global_plan_and_order_at_1024(dtype):
     column CGS2 at the tolerances of test_torch_teig_cluster.py."""
     m = 1024
     assert grid_plan(m, dtype == torch.float64) == {
-        "block": 32, "inblock_ctas": 8, "rows": 128, "slabs": 16}
+        "block": 32, "inblock_ctas": 8, "rows": 128, "slabs": 16,
+        "global": ()}
     d, e = tridiagonal(m, "separated", dtype)
     w, _ = ek.teig_plain_iterates(d, e, keep=m // 2)
     assert torch.equal(multisection(d, e, 5)[:m // 2], w)
@@ -326,7 +327,7 @@ def test_k2_and_k3_plans_and_k3_order_at_2048(monkeypatch):
     monkeypatch.undo()
     for f64 in (False, True):
         assert grid_plan(m, f64) == {"block": 32, "inblock_ctas": 16,
-                                     "rows": 128, "slabs": 32}
+                                     "rows": 128, "slabs": 32, "global": ()}
         assert grid_plan(m + 1, f64)["rows"] == 129
     check_grid_order(m, torch.float32, 128, [(32, 16)])
 

@@ -18,9 +18,10 @@ columns, on the CPU.
                 over the ranks in order. The same bits for every tiling;
                 against cgs2_plain of the same iterate at the tolerances of
                 test_torch_teig_cluster.py;
-  plan          the launch plan's rule at m = 2048, 4096 and 8192 (the
-                route has no cap of its own; dispatch's REACH keeps m <=
-                8192), and the wrapper's query of it.
+  plan          the launch plan's rule at m = 2048 to 16384 (the route
+                has no cap of its own: past one CTA's shared memory a
+                stage reads its operands from global memory; dispatch's
+                REACH keeps m <= 16384), and the wrapper's query of it.
 
 (The kernel's FMAs round once where torch's products round twice, so the
 emulation follows the order of the sums, not their last bits.)
@@ -96,22 +97,31 @@ def grid_plan(m, f64, smem=SMEM):
     """teig_grid's plan rule (tg_plan_for): the fewest in-block ranks, at
     least ceil(m / IN_ROWS) and at most MAX_RANKS, whose rows (BLOCK + 16
     bytes a row), double-buffered slots and static reduction buffer fit one
-    CTA's shared memory; None where no count does, or where the inverse
-    iteration's d, e, w and rings (at keep = m) do not fit."""
+    CTA's shared memory; where no count does, ceil(m / IN_ROWS) ranks (at
+    most MAX_RANKS) with their rows in global memory. `global`: the stages
+    that read their operands from global memory, each where they and its
+    static shared memory pass one CTA's at keep = m: the multisection's d
+    and e2 (static sc[4] and red[2][8]: 20 reals), the inverse iteration's
+    d, e, w and rings (sc[4], red[2][1]: 6 reals), the in-block rows."""
     real = 8 if f64 else 4
     ld = BLOCK + 16 // real
     ring = 2 * 16 * 32  # two chunks of 16 steps x 32 lanes
-    invit = (((3 * m + 3) // 4 * 4 + 3 * ring) * real + ring * 4)
+    stages = []
+    if (2 * m + 20) * real > smem:
+        stages.append("bisect")
+    invit = (((3 * m + 3) // 4 * 4 + 3 * ring + 6) * real + ring * 4)
     if invit > smem:
-        return None
+        stages.append("invit")
     static = 2 * 4 * BLOCK * real  # red[2][4 warps][BLOCK]
-    for g in range(min(-(-m // IN_ROWS), MAX_RANKS), MAX_RANKS + 1):
+    g0 = min(-(-m // IN_ROWS), MAX_RANKS)
+    for g in range(g0, MAX_RANKS + 1):
         rows = -(-m // g)
         need = ((2 * g * BLOCK + 3) // 4 * 4 + rows * ld) * real + static
         if need <= smem:
             return {"block": BLOCK, "inblock_ctas": g, "rows": rows,
-                    "slabs": -(-m // SLAB)}
-    return None
+                    "slabs": -(-m // SLAB), "global": tuple(stages)}
+    return {"block": BLOCK, "inblock_ctas": g0, "rows": -(-m // g0),
+            "slabs": -(-m // SLAB), "global": tuple(stages + ["inblock"])}
 
 
 def grid_bcgs2(it, g, tile_c, tile_r):
@@ -201,36 +211,57 @@ def test_grid_order_matches_column_cgs2(dtype, m):
 
 
 def test_grid_plan_at_2048_and_4096(monkeypatch):
-    """The plan at m = 2048, 4096 and 8192 in both dtypes: 16 ranks of 128,
-    256 and 512 rows, slabs of 64 rows; the route has no cap of its own, only
-    shared memory stops it (float: 800 rows a rank at m = 12800, 120 KB;
-    double: the inverse iteration's d, e and w past m = 8490). The
-    wrapper's query returns the library's plan (a stand-in library
-    answering with grid_plan)."""
+    """The plan at m = 2048, 4096, 8192 and 16384 in both dtypes: 16 ranks
+    of 128, 256, 512 and 1024 rows, slabs of 64 rows; the route has no cap
+    of its own: below where each stage's operands fit one CTA's shared
+    memory every stage reads them there (float: 800 rows a rank at m =
+    12800, 120 KB, and every stage to m = 16384), past it the stage reads
+    them from global memory (double: the inverse iteration's d, e and w
+    past m = 8488, the in-block rows past 13056, the multisection's d and
+    e2 past 14518). The wrapper's query returns the library's plan with
+    those stages by name (a stand-in library answering with grid_plan),
+    and raises where the library has none."""
     for f64 in (False, True):
         assert grid_plan(2048, f64) == {"block": 32, "inblock_ctas": 16,
-                                        "rows": 128, "slabs": 32}
+                                        "rows": 128, "slabs": 32,
+                                        "global": ()}
         assert grid_plan(4096, f64) == {"block": 32, "inblock_ctas": 16,
-                                        "rows": 256, "slabs": 64}
-    assert grid_plan(12800, False)["rows"] == 800
-    for f64 in (False, True):  # the cap, m = 8192: 512 rows a rank
+                                        "rows": 256, "slabs": 64,
+                                        "global": ()}
         assert grid_plan(8192, f64) == {"block": 32, "inblock_ctas": 16,
-                                        "rows": 512, "slabs": 128}
-    assert grid_plan(8490, True) is not None
-    assert grid_plan(8491, True) is None
-    assert grid_plan(4096, True, smem=80000) is None  # 16 ranks too few
+                                        "rows": 512, "slabs": 128,
+                                        "global": ()}
+    assert grid_plan(12800, False)["rows"] == 800
+    assert grid_plan(16384, False) == {"block": 32, "inblock_ctas": 16,
+                                       "rows": 1024, "slabs": 256,
+                                       "global": ()}
+    assert grid_plan(16384, True) == {
+        "block": 32, "inblock_ctas": 16, "rows": 1024, "slabs": 256,
+        "global": ("bisect", "invit", "inblock")}
+    edges = {8488: (), 8489: ("invit",), 13056: ("invit",),
+             13057: ("invit", "inblock"), 14518: ("invit", "inblock"),
+             14519: ("bisect", "invit", "inblock")}
+    for m, stages in edges.items():
+        assert grid_plan(m, True)["global"] == stages
+    # too little shared memory for 16 ranks' rows (and the inverse
+    # iteration's operands): those go global
+    assert grid_plan(4096, True, smem=70000)["global"] == ("invit",
+                                                           "inblock")
 
     class Lib:
         def teig_grid_plan(self, m, f64, out):
-            plan = grid_plan(m, bool(f64))
-            if plan is None:
+            if m > 10 ** 5:
                 return 9  # cudaErrorInvalidConfiguration
+            plan = grid_plan(m, bool(f64))
             out[0], out[1] = plan["block"], plan["inblock_ctas"]
             out[2], out[3] = plan["rows"], plan["slabs"]
+            out[4] = sum(1 << i for i, name in enumerate(
+                ek.TEIG_GLOBAL_STAGES) if name in plan["global"])
             return 0
 
     monkeypatch.setattr(cuda_lib, "lib", lambda: Lib())
-    assert ek.teig_grid_plan(4096, True) == grid_plan(4096, True)
+    for m in (4096, 8576, 16384):
+        assert ek.teig_grid_plan(m, True) == grid_plan(m, True)
     with pytest.raises(RuntimeError, match="no card-wide plan"):
         ek.teig_grid_plan(10 ** 6, True)
 

@@ -290,8 +290,13 @@ class _GridLib:
         return int(self.tridiag_cluster_size(m, f64) == 0)
 
     def tridiag_grid_plan(self, m, f64, out):
+        # gsmem: the column (m complex) and the slabs' partials, or the
+        # trailing update's planes if larger, then the flags; the column in
+        # the workspace where it does not fit (tridiag_grid_column_global)
+        cs = 16 if f64 else 8
+        col = 0 if ek.tridiag_grid_column_global(m, f64) else m * cs
         out[0], out[1], out[2] = 32, 132, SLAB
-        out[3] = max(8 * 64 * 36 * (8 if f64 else 4), m * (16 if f64 else 8)) \
+        out[3] = max(8 * 64 * 36 * cs // 2, col + 8 * 2 * 32 * cs) \
             + (m + 15) // 16 * 16
         return 0
 
@@ -299,15 +304,17 @@ class _GridLib:
         return ek.tridiag_grid_workspace_bytes(m, f64)
 
 
-@pytest.mark.parametrize("m", [4096, 8192])
+@pytest.mark.parametrize("m", [4096, 8192, 16384])
 @pytest.mark.parametrize("f64", [False, True])
 def test_plan_and_workspace_at_4096(monkeypatch, f64, m):
-    """At m = 4096 and 8192, F5's cap: the card-wide route, 132 CTAs,
-    panels of 32, slabs of 64; the workspace is the matrix (m^2 complex,
-    256 MiB in complex128 at m = 4096, 1 GiB at 8192) with the panel's V
-    and W, the vectors, the slabs' partials, the flags and the barrier's
-    words, each from a 256-byte boundary, as the library lays it out; the
-    route's shared memory fits a CTA's 227 KB."""
+    """At m = 4096, 8192 and 16384, F5's cap: the card-wide route, 132
+    CTAs, panels of 32, slabs of 64; the workspace is the matrix (m^2
+    complex, 256 MiB in complex128 at m = 4096, 1 GiB at 8192, 2^32 bytes
+    at 16384) with the panel's V and W, the vectors, the slabs' partials,
+    the flags and the barrier's words, each from a 256-byte boundary, as
+    the library lays it out; past the column's fit (complex128 from m =
+    11,566) each CTA's column and v too (256 x m complex); the route's
+    shared memory fits a CTA's 227 KB."""
     monkeypatch.setattr(cuda_lib, "lib", lambda: _GridLib())
     assert ek.tridiag_routes(m, f64) == "grid"
     assert ek.tridiag_routes(640 if not f64 else 438, f64) == "smem"
@@ -317,6 +324,13 @@ def test_plan_and_workspace_at_4096(monkeypatch, f64, m):
     cs = 16 if f64 else 8
     want = (m * m * cs + 2 * m * 32 * cs + 2 * m * cs
             + (m // SLAB) * 2 * 32 * cs + 2 * m * 4 + 1024)
+    column = f64 and m > 11565
+    assert ek.tridiag_grid_column_global(m, f64) == column
+    assert not ek.tridiag_grid_column_global(11565, True)
+    if column:  # from the next 256-byte boundary
+        want = (want + 255) // 256 * 256 + 256 * m * cs
+    if (m, f64) == (16384, True):
+        assert m * m * cs == 2 ** 32 and want > 2 ** 32
     assert ek.tridiag_grid_workspace_bytes(m, f64) == want
     assert ek._tridiag_grid_bytes.__wrapped__(m, f64) == want
     with pytest.raises(RuntimeError, match="no cluster size"):
